@@ -1,0 +1,197 @@
+"""Job configuration loader (port of ``repro/core/jobs.py``).
+
+A job mirrors the paper's Fig. 2 sections. ``load_job`` validates every
+section against the same known keys as the JAX package (a typo like
+``cleint_lr`` fails with a near-miss hint) and resolves the model, strategy,
+topology, dataset and fault model. A setting whose code is not yet ported
+fails here, at load time, with ``NotImplementedError`` naming the ROADMAP
+item; nothing unported is silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import difflib
+import pathlib
+from typing import Any
+
+from repro_torch.configs.base import FLConfig, get_config
+from repro_torch.core.strategies import get_strategy
+from repro_torch.core.topology import get_topology
+from repro_torch.data.pipeline import SyntheticVision
+from repro_torch.models import model_zoo
+from repro_torch.runtime.faults import FaultModel
+
+
+@dataclasses.dataclass
+class Job:
+    """A validated FL job: raw config dict plus resolved typed sections."""
+    name: str
+    fl: FLConfig
+    arch: str
+    model: Any
+    strategy: Any
+    topology: Any
+    dataset: Any
+    fault: FaultModel
+    raw: dict
+
+
+_FL_KEYS = {f.name for f in dataclasses.fields(FLConfig)}
+# the runtime section also takes the async client-system and link knobs of
+# the JAX package's ClientSystemModel (read only by the async clock and the
+# comms plane, neither ported yet; the sync path ignores them there too)
+_CSM_KEYS = {f.name for f in dataclasses.fields(FaultModel)} | {
+    "mean_duration", "duration_sigma", "rate_spread", "availability",
+    "up_mbps", "down_mbps", "link_tiers", "link_tier_factor", "latency_s"}
+_DATASET_KEYS = {"dataset", "n_items", "distribution", "items_per_client"}
+_MODEL_KEYS = {"arch", "reduced"}
+_STRATEGY_KEYS = {"strategy", "train_params", "aggregator_params"}
+_TOP_KEYS = {"name", "model", "dataset", "consensus", "strategy", "runtime",
+             "sweep", "clusters", "node_defaults", "node_configs",
+             "telemetry", "probes", "comms"}
+# top-level sections the port does not run yet -> ROADMAP item
+_UNPORTED_SECTIONS = {"sweep": "A12", "telemetry": "A11", "probes": "A11",
+                      "comms": "A11"}
+
+
+def _check_keys(section_name: str, section, allowed) -> None:
+    """Fail on unknown keys with a did-you-mean hint (no silent drops)."""
+    if section is not None and not isinstance(section, dict):
+        raise TypeError(f"job {section_name!r} section must be a mapping, "
+                        f"got {type(section).__name__}: {section!r}")
+    for k in section or {}:
+        if k not in allowed:
+            hint = difflib.get_close_matches(k, sorted(allowed), n=1)
+            suffix = (f" — did you mean {hint[0]!r}?" if hint
+                      else f"; known keys: {sorted(allowed)}")
+            raise KeyError(
+                f"unknown key {k!r} in job {section_name!r} section{suffix}")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not yet ported, see ROADMAP {item}")
+
+
+def check_ported(raw: dict, fl: FLConfig) -> None:
+    """Raise ``NotImplementedError`` for any setting the port cannot run yet."""
+    for section, item in _UNPORTED_SECTIONS.items():
+        if raw.get(section):
+            raise _not_ported(f"the {section!r} section", item)
+    if fl.mode not in ("sync", "async"):
+        raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
+    if fl.mode == "async":
+        raise _not_ported("mode 'async'", "A10")
+    if fl.placement not in ("auto", "spatial", "temporal"):
+        raise ValueError(f"unknown placement {fl.placement!r} "
+                         "(want 'auto', 'spatial' or 'temporal')")
+    if fl.placement == "temporal":
+        raise _not_ported("placement 'temporal'", "A9")
+    if fl.max_cohort > 0 or fl.streaming:
+        raise _not_ported("the ragged/streaming client plane "
+                          "(max_cohort > 0, streaming)", "A13")
+    if fl.blockchain != "none":
+        raise _not_ported(f"blockchain {fl.blockchain!r}", "A14")
+    if fl.n_workers > 1 or fl.byzantine_workers > 0:
+        raise _not_ported("multi-worker consensus (n_workers > 1)", "A14")
+    if fl.compression not in ("none", "int8"):
+        raise _not_ported(f"compression {fl.compression!r}", "A5")
+
+
+def make_dataset(raw: dict, fl: FLConfig, cfg=None):
+    """Dataset factory, seeded by ``fl.seed``."""
+    ds = raw.get("dataset", {}) or {}
+    kind = ds.get("dataset", "synthetic_vision")
+    if kind == "synthetic_vision":
+        kw = {}
+        if cfg is not None and cfg.family == "small":
+            # flsim-logreg is MNIST-shaped; cnn/mlp keep the CIFAR default
+            from repro_torch.models.small import input_shape
+            kw["shape"] = input_shape(cfg)
+        return SyntheticVision(n_items=ds.get("n_items", 1024), seed=fl.seed,
+                               **kw)
+    if kind in ("synthetic_lm", "synthetic_population"):
+        raise _not_ported(f"dataset {kind!r}",
+                          "A15" if kind == "synthetic_lm" else "A13")
+    raise KeyError(f"unknown dataset {kind!r}")
+
+
+def validate_cohort(fl: FLConfig) -> None:
+    """Reject cohort settings that would silently misbehave."""
+    if fl.cohort < 0 or fl.max_cohort < 0:
+        raise ValueError(f"cohort={fl.cohort} / max_cohort={fl.max_cohort} "
+                         "must be >= 0")
+    if fl.cohort > fl.n_clients:
+        raise ValueError(
+            f"cohort={fl.cohort} exceeds n_clients={fl.n_clients}; an "
+            "oversized cohort would silently clamp to the population — "
+            "lower cohort or raise n_clients")
+    target = fl.cohort or fl.n_clients
+    if fl.max_cohort and fl.max_cohort < target:
+        raise ValueError(
+            f"max_cohort={fl.max_cohort} is smaller than the per-round "
+            f"cohort ({target}); every sampled client needs a slab slot — "
+            "raise max_cohort or lower cohort (cohort=0 samples all "
+            "n_clients)")
+    if fl.streaming and not fl.max_cohort:
+        raise ValueError(
+            "streaming: true requires ragged cohorts (max_cohort > 0) — "
+            "resident staging has no per-chunk working set to stream")
+
+
+def make_fault(raw: dict, fl: FLConfig) -> FaultModel:
+    """The sync path's fault fields from the runtime section, seeded by
+    ``fl.seed``."""
+    rt = raw.get("runtime", {}) or {}
+    return FaultModel(drop_prob=rt.get("drop_prob", 0.0),
+                      straggler_prob=rt.get("straggler_prob", 0.0),
+                      straggler_slowdown=rt.get("straggler_slowdown", 4.0),
+                      seed=fl.seed)
+
+
+def load_job(path_or_dict) -> Job:
+    """Load and validate a job from a YAML path or config dict."""
+    if isinstance(path_or_dict, (str, pathlib.Path)):
+        import yaml
+        raw = yaml.safe_load(pathlib.Path(path_or_dict).read_text())
+    else:
+        raw = dict(path_or_dict)
+
+    strat = raw.get("strategy", {}) or {}
+    ds = raw.get("dataset", {}) or {}
+    cons = raw.get("consensus", {}) or {}
+    rt = raw.get("runtime", {}) or {}
+    _check_keys("top-level", raw, _TOP_KEYS)
+    _check_keys("strategy", strat, _STRATEGY_KEYS)
+    _check_keys("strategy.train_params", strat.get("train_params"), _FL_KEYS)
+    _check_keys("strategy.aggregator_params", strat.get("aggregator_params"),
+                _FL_KEYS)
+    _check_keys("consensus", cons, _FL_KEYS)
+    _check_keys("dataset", ds, _DATASET_KEYS)
+    _check_keys("dataset.distribution", ds.get("distribution"), _FL_KEYS)
+    _check_keys("model", raw.get("model"), _MODEL_KEYS)
+    _check_keys("runtime", rt, _FL_KEYS | _CSM_KEYS)
+
+    flkw = {}
+    for section in (strat.get("train_params", {}),
+                    strat.get("aggregator_params", {}),
+                    cons, ds.get("distribution", {}), rt):
+        for k, v in (section or {}).items():
+            if k in _FL_KEYS:
+                flkw[k] = v
+    if "strategy" in strat:
+        flkw["strategy"] = strat["strategy"]
+    fl = FLConfig(**flkw)
+    validate_cohort(fl)
+    check_ported(raw, fl)
+
+    arch = (raw.get("model") or {}).get("arch", "flsim-cnn")
+    cfg = get_config(arch)     # small models: ``reduced`` leaves them as-is
+    return Job(
+        name=raw.get("name", "job"),
+        fl=fl, arch=arch, model=model_zoo.build(cfg),
+        strategy=get_strategy(fl),
+        topology=get_topology(fl.topology, fl.gossip_steps),
+        dataset=make_dataset(raw, fl, cfg),
+        fault=make_fault(raw, fl),
+        raw=raw,
+    )

@@ -1,0 +1,96 @@
+"""Deterministic synthetic data + device-resident staging (port of the
+resident subset of ``repro/data/pipeline.py``).
+
+``SyntheticVision`` is the same numpy ``RandomState`` generator as the JAX
+package's, so root data are bitwise equal. Staging puts the whole root set
+and the padded partition index matrix on the device once; every round then
+gathers its batches there with no host round-trip.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import determinism
+from repro_torch.data import partition as part_mod
+
+
+def _pad_idx(parts, lmax: int) -> np.ndarray:
+    """Ragged per-client index lists -> dense (C, lmax) int32 by cyclic
+    repetition. Gather positions are drawn in [0, true len), so pad columns
+    past a client's length are never read."""
+    idx = np.zeros((len(parts), lmax), np.int32)
+    for c, p in enumerate(parts):
+        if len(p):
+            reps = int(np.ceil(lmax / len(p)))
+            idx[c] = np.concatenate([p] * reps)[:lmax]
+    return idx
+
+
+def stage_partitions(x, y, parts, device) -> dict:
+    """One-time device staging of the root dataset + client partitions.
+
+    Returns tensors on ``device``:
+
+      x    (N, ...) f32 root features    y    (N,) int64 root labels
+      idx  (C, Lmax) int64 item indices  len  (C,) int64 true partition sizes
+
+    ``len`` doubles as the FedAvg base weight, so zero-item clients get zero
+    weight automatically.
+    """
+    lmax = max(max((len(p) for p in parts), default=1), 1)
+    lens = np.asarray([len(p) for p in parts], np.int64)
+    return {"x": torch.as_tensor(np.asarray(x, np.float32), device=device),
+            "y": torch.as_tensor(np.asarray(y, np.int64), device=device),
+            "idx": torch.as_tensor(_pad_idx(parts, lmax).astype(np.int64),
+                                   device=device),
+            "len": torch.as_tensor(lens, device=device)}
+
+
+def gather_client_batches(staged, round_key: int, batch_size: int,
+                          n_steps: int) -> dict:
+    """Per-round batch gather for every client, on the staged device.
+
+    One uniform draw ``(C, n_steps, B)`` per round from
+    ``generator(batch_key(round_key))``; position = ``floor(u * len[c])``
+    clamped to ``len[c] - 1`` (an f32 product can round up to ``len``).
+    Keyed only by the round key, so chunking cannot change the stream.
+    Returns {"x": (C, n_steps, B, ...), "y": (C, n_steps, B)}.
+    """
+    idx, lens = staged["idx"], staged["len"]
+    dev = idx.device
+    g = determinism.generator(determinism.batch_key(round_key), dev)
+    u = torch.rand((idx.shape[0], n_steps, batch_size), generator=g,
+                   device=dev)
+    maxv = lens.clamp(min=1).to(torch.float32)[:, None, None]
+    pos = torch.minimum(torch.floor(u * maxv), maxv - 1).to(torch.int64)
+    sel = torch.gather(idx, 1, pos.reshape(idx.shape[0], -1)).reshape(pos.shape)
+    return {"x": staged["x"][sel], "y": staged["y"][sel]}
+
+
+@dataclasses.dataclass
+class SyntheticVision:
+    """Deterministic synthetic image classification dataset family."""
+    n_items: int = 2048
+    shape: tuple = (32, 32, 3)
+    n_classes: int = 10
+    seed: int = 0
+    noise: float = 0.8
+
+    def prepare_root_dataset(self):
+        """Generate the root ``(x, y)`` arrays for the configured size."""
+        rng = np.random.RandomState(self.seed)
+        y = rng.randint(0, self.n_classes, self.n_items)
+        protos = rng.randn(self.n_classes, *self.shape).astype(np.float32)
+        x = protos[y] + self.noise * rng.randn(
+            self.n_items, *self.shape).astype(np.float32)
+        return x, y
+
+    def distribute_into_chunks(self, kind: str, n_clients: int,
+                               alpha: float = 0.5):
+        """Partition the root set; returns ``(x, y, per-client index lists)``."""
+        x, y = self.prepare_root_dataset()
+        parts = part_mod.partition(kind, y, n_clients, alpha, self.seed)
+        return x, y, parts

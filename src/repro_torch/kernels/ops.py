@@ -1,0 +1,85 @@
+"""Kernel dispatch for the quantized aggregation (port of the quant half of
+``repro/kernels/ops.py``).
+
+Dispatch is by device only: CUDA tensors launch the hand-written kernel,
+CPU tensors take its plain version (``kernels/quant_aggregate``). There is
+no environment switch. ``calls`` counts real calls (the port has no trace),
+so a run of R int8 rounds counts R.
+
+Counters are scoped: ``quant_agg_scope()`` pushes a fresh frame, increments
+land on every active frame, and ``quant_agg_stats()`` snapshots the innermost
+one, so two runs in one process never bleed counts into each other.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.kernels import quant_aggregate as _qa
+from repro_torch.kernels import ref as _ref
+
+# The fused path is the kernel's plain version: one accumulation pass in
+# client order with no (C, N) f32 intermediate.
+_quant_agg_fused = _qa.plain
+
+
+def _quant_agg_frame() -> dict:
+    return {"calls": 0, "last_impl": None}
+
+
+_QUANT_AGG_FRAMES = [_quant_agg_frame()]
+
+
+def quant_agg_stats() -> dict:
+    """Snapshot of the innermost active scope's dispatch counters (the
+    process-wide frame when no ``quant_agg_scope`` is open)."""
+    return dict(_QUANT_AGG_FRAMES[-1])
+
+
+def reset_quant_agg_stats() -> None:
+    """Zero the innermost active scope's counters."""
+    _QUANT_AGG_FRAMES[-1].update(_quant_agg_frame())
+
+
+@contextlib.contextmanager
+def quant_agg_scope():
+    """A fresh counter frame for one run. Yields the live frame dict;
+    increments inside the scope also reach every enclosing frame."""
+    frame = _quant_agg_frame()
+    _QUANT_AGG_FRAMES.append(frame)
+    try:
+        yield frame
+    finally:
+        _QUANT_AGG_FRAMES.remove(frame)
+
+
+def _quant_agg_dequant_first(qdeltas, scales, weights):
+    """Reference path: materialize the whole (C, N) f32 dequant, then run
+    the same client-ordered weighted accumulation over it. Per-client
+    arithmetic is (q * scale) * weight in the same order, so the result is
+    bit for bit the fused path's; only the memory traffic differs."""
+    C, N = qdeltas.shape
+    nblocks = scales.shape[-1]
+    d = qdeltas.to(torch.float32).reshape(C, nblocks, N // nblocks)
+    d = d * scales[..., None]
+    out = torch.zeros((nblocks, N // nblocks), dtype=torch.float32,
+                      device=qdeltas.device)
+    for c in range(C):
+        out = out + d[c] * weights[c]
+    return out.reshape(N)
+
+
+def quant_aggregate(qdeltas, scales, weights):
+    """-> (N,) f32: ``sum_c weights[c] * dequant(qdeltas[c])``: the kernel
+    for CUDA tensors, its plain version for CPU tensors."""
+    impl = "cuda" if qdeltas.is_cuda else "plain"
+    for frame in _QUANT_AGG_FRAMES:
+        frame["calls"] += 1
+        frame["last_impl"] = impl
+    return _qa.quant_aggregate(qdeltas, scales, weights)
+
+
+def quantize_blockwise(x, block: int = 256):
+    """Symmetric int8 block quantization (see ``ref.quantize_blockwise_ref``)."""
+    return _ref.quantize_blockwise_ref(x, block=block)

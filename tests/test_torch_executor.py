@@ -1,0 +1,211 @@
+"""The port's job loading, data plane and executor (``repro_torch``) against
+the JAX package and its own contracts, on the CPU.
+
+Bitwise: partitions and ``SyntheticVision`` data (the same numpy
+``RandomState`` code), and chunked == unchunked runs within the port (every
+draw is keyed by (seed, absolute round), so chunking changes nothing).
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.data import partition as jpartition
+from repro.data.pipeline import SyntheticVision as JSyntheticVision
+from repro_torch.core import determinism
+from repro_torch.core.jobs import load_job
+from repro_torch.data import partition
+from repro_torch.data.pipeline import (SyntheticVision, gather_client_batches,
+                                       stage_partitions)
+from repro_torch.kernels import ops
+from repro_torch.models.small import SmallModel
+from repro_torch.runtime.executor import Executor
+from repro_torch.runtime.faults import FaultModel, cohort_mask, select_cohort
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _job(strategy="fedavg", compression="none", rounds=4, rounds_per_launch=2,
+         **train):
+    """The quickstart's job at test size: CNN d_model 8 / d_ff 16, 4
+    clients, batch 4, 2 local steps, 128 items."""
+    tp = {"n_clients": 4, "local_steps": 2, "batch_size": 4, "client_lr": 0.05,
+          "rounds": rounds, "rounds_per_launch": rounds_per_launch, "seed": 0,
+          "compression": compression, "placement": "spatial"}
+    tp.update(train)
+    job = load_job({
+        "name": "quickstart_torch",
+        "model": {"arch": "flsim-cnn"},
+        "dataset": {"dataset": "synthetic_vision", "n_items": 128,
+                    "distribution": {"partition": "dirichlet",
+                                     "dirichlet_alpha": 0.5}},
+        "strategy": {"strategy": strategy, "train_params": tp},
+        "runtime": {"straggler_prob": 0.1, "straggler_overprovision": 1.25},
+    })
+    job.model = SmallModel(job.model.cfg.replace(d_model=8, d_ff=16), "cnn")
+    return job
+
+
+@pytest.mark.parametrize("kind", ["dirichlet", "iid", "shards"])
+def test_partitions_equal_jax_bitwise(kind):
+    labels = np.random.RandomState(0).randint(0, 10, 500)
+    want = jpartition.partition(kind, labels, 7, 0.5, seed=3)
+    got = partition.partition(kind, labels, 7, 0.5, seed=3)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_synthetic_vision_equals_jax_bitwise():
+    want = JSyntheticVision(n_items=64, seed=5).distribute_into_chunks(
+        "dirichlet", 4, 0.5)
+    got = SyntheticVision(n_items=64, seed=5).distribute_into_chunks(
+        "dirichlet", 4, 0.5)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_gather_draws_inside_each_partition():
+    x, y, parts = SyntheticVision(n_items=64, seed=1).distribute_into_chunks(
+        "dirichlet", 4, 0.5)
+    staged = stage_partitions(x, y, parts, "cpu")
+    b1 = gather_client_batches(staged, determinism.round_key(7, 3), 5, 2)
+    b2 = gather_client_batches(staged, determinism.round_key(7, 3), 5, 2)
+    assert b1["x"].shape == (4, 2, 5, 32, 32, 3) and b1["y"].shape == (4, 2, 5)
+    assert torch.equal(b1["x"], b2["x"])          # keyed by the round alone
+    for c, p in enumerate(parts):
+        rows = b1["x"][c].reshape(-1, 32 * 32 * 3).numpy()
+        assert all((x.reshape(len(x), -1)[p] == r).all(1).any() for r in rows)
+
+
+def test_keys_are_pure_and_distinct_per_coordinate():
+    root = determinism.root_key(0)
+    assert root == determinism.root_key(0) != determinism.root_key(1)
+    rk = determinism.round_key(root, 5)
+    keys = {rk, determinism.round_key(root, 6), determinism.client_key(rk, 0),
+            determinism.client_key(rk, 1), determinism.step_key(rk, 0),
+            determinism.batch_key(rk), determinism.cohort_key(0, 5),
+            determinism.cohort_key(1, 5)}
+    assert len(keys) == 8 and all(0 <= k < 2**64 for k in keys)
+    a = torch.rand(4, generator=determinism.generator(rk))
+    assert torch.equal(a, torch.rand(4, generator=determinism.generator(rk)))
+
+
+def test_cohort_mask_semantics_and_host_view():
+    fault = FaultModel(straggler_prob=0.3, drop_prob=0.2, seed=4)
+    for r in range(5):
+        m = cohort_mask(fault, r, 20, 6, overprovision=1.5)
+        assert m.dtype == np.float32 and m.shape == (20,)
+        assert 0 < m.sum() <= 6
+        np.testing.assert_array_equal(m, cohort_mask(fault, r, 20, 6, 1.5))
+        np.testing.assert_array_equal(
+            select_cohort(fault, r, np.arange(20), 6, 1.5), np.flatnonzero(m))
+
+
+def test_quickstart_job_lowers_loss_on_cpu():
+    ex = Executor(_job(rounds=6, rounds_per_launch=3), device="cpu").scaffold()
+
+    def eval_fn(params):
+        x, y, _ = ex.data
+        return {"accuracy": ex.job.model.accuracy(
+            params, {"x": torch.from_numpy(x[:64]), "y": torch.from_numpy(y[:64])})}
+
+    ex.eval_fn = eval_fn
+    _, logger = ex.run()
+    losses = logger.series("loss")
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    assert "accuracy" in logger.rows[2] and "accuracy" in logger.rows[5]
+    assert all(r["round_s"] > 0 for r in logger.rows)
+
+
+@pytest.mark.parametrize("strategy,compression", [("fedavg", "none"),
+                                                  ("compressed", "int8")])
+def test_chunked_equals_unchunked_bitwise(strategy, compression):
+    runs = []
+    for chunk in (2, 1):
+        st, lg = Executor(_job(strategy, compression, rounds_per_launch=chunk),
+                          device="cpu").scaffold().run()
+        runs.append((st, lg.series("loss")))
+    (s2, l2), (s1, l1) = runs
+    assert l2 == l1
+    assert all(torch.equal(s2["params"][k], s1["params"][k]) for k in s2["params"])
+    if compression == "int8":
+        r2, r1 = s2["clients"]["residual"], s1["clients"]["residual"]
+        assert all(torch.equal(r2[k], r1[k]) for k in r2)
+
+
+def test_int8_job_routes_through_quant_aggregate_once_per_round():
+    with ops.quant_agg_scope() as frame:
+        Executor(_job("compressed", "int8", rounds=3), device="cpu").scaffold().run()
+    assert frame["calls"] == 3 and frame["last_impl"] == "plain"
+    with ops.quant_agg_scope() as frame:
+        Executor(_job("fedavg", "none", rounds=3), device="cpu").scaffold().run()
+    assert frame["calls"] == 0
+
+
+def test_executor_raises_without_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Executor(_job())
+    Executor(_job(), device="cpu")
+
+
+def test_load_job_rejects_typos_with_a_hint():
+    with pytest.raises(KeyError, match="did you mean 'client_lr'"):
+        _job(cleint_lr=0.1)
+    with pytest.raises(KeyError, match="did you mean 'runtime'"):
+        load_job({"runtim": {}})
+    for bad in ({"mode": "asinc"}, {"placement": "spatiall"}):
+        with pytest.raises(ValueError, match="unknown"):
+            _job(**bad)
+
+
+@pytest.mark.parametrize("patch,item", [
+    ({"sweep": {"seed": [0, 1]}}, "A12"),
+    ({"telemetry": {"enabled": True}}, "A11"),
+    ({"probes": {"enabled": True}}, "A11"),
+    ({"comms": {"enabled": True}}, "A11"),
+    ({"train": {"mode": "async"}}, "A10"),
+    ({"train": {"placement": "temporal"}}, "A9"),
+    ({"train": {"topology": "decentralized"}}, "A6"),
+    ({"train": {"max_cohort": 16}}, "A13"),
+    ({"train": {"max_cohort": 16, "streaming": True}}, "A13"),
+    ({"train": {"blockchain": "hashchain"}}, "A14"),
+    ({"train": {"n_workers": 3}}, "A14"),
+    ({"strategy": "fedprox"}, "A5"),
+    ({"strategy": "compressed", "train": {"compression": "topk"}}, "A5"),
+    ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
+])
+def test_load_job_refuses_what_is_not_yet_ported(patch, item):
+    raw = {"model": {"arch": "flsim-cnn"},
+           "strategy": {"strategy": patch.get("strategy", "fedavg"),
+                        "train_params": dict(patch.get("train", {}))}}
+    for k in ("sweep", "telemetry", "probes", "comms", "model"):
+        if k in patch:
+            raw[k] = patch[k]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        load_job(raw)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) > 15, mods\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.')]\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1,0 +1,117 @@
+"""The port's int8 aggregation (``repro_torch/kernels``) against the JAX
+package's, on the same numpy inputs.
+
+Tolerances:
+- bitwise against the JAX fused path run op by op (not jitted): both
+  accumulate ``(q * scale) * w`` in client order, one rounding per op;
+- rtol 1e-5 / atol 1e-6 against ``ref.quant_aggregate_ref`` and the Pallas
+  kernel in interpret mode, which sum the clients in another order (the
+  tolerance ``tests/test_kernels.py`` holds those two to);
+- bitwise within the port: fused == dequant-first (the CUDA kernel against
+  its plain version is in ``test_torch_gpu.py``, on the card).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.quant_aggregate import quant_aggregate as pallas_quant_agg
+from repro_torch.kernels import ops
+from repro_torch.kernels import quant_aggregate as qa
+from repro_torch.kernels import ref
+
+SHAPES = [(4, 8192, 256), (10, 4096, 128), (32, 16384, 512),
+          # N not a multiple of the Pallas tile (4096)
+          (5, 1280, 256), (5, 4096 + 128, 128), (5, 512, 512)]
+
+
+def _inputs(C, N, qblock, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-127, 128, (C, N)).astype(np.int8)
+    s = rng.uniform(1e-4, 1e-2, (C, N // qblock)).astype(np.float32)
+    w = rng.uniform(0, 1, (C,)).astype(np.float32)
+    return q, s, (w / w.sum()).astype(np.float32)
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("C,N,qblock", SHAPES)
+def test_plain_equals_jax_fused_bitwise(C, N, qblock):
+    q, s, w = _inputs(C, N, qblock)
+    want = np.asarray(jops._quant_agg_fused(jnp.asarray(q), jnp.asarray(s),
+                                            jnp.asarray(w)))
+    got = qa.plain(*_torch(q, s, w)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("C,N,qblock", SHAPES)
+def test_plain_close_to_jax_ref_and_pallas_interpret(C, N, qblock):
+    q, s, w = _inputs(C, N, qblock, seed=1)
+    got = qa.plain(*_torch(q, s, w)).numpy()
+    jq, js, jw = jnp.asarray(q), jnp.asarray(s), jnp.asarray(w)
+    np.testing.assert_allclose(got, np.asarray(jref.quant_aggregate_ref(jq, js, jw)),
+                               rtol=1e-5, atol=1e-6)
+    # the Pallas wrapper wants N % block_n == 0: the largest multiple of
+    # qblock dividing N, at most 4096
+    block_n = max(b for b in range(qblock, min(N, 4096) + 1, qblock) if N % b == 0)
+    pallas = pallas_quant_agg(jq, js, jw, block_n=block_n, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, ref.quant_aggregate_ref(*_torch(q, s, w)).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("C,N,qblock", [(4, 8192, 256), (7, 4096, 128),
+                                        (1, 2048, 256)])
+def test_fused_equals_dequant_first_bitwise(C, N, qblock):
+    q, s, w = _torch(*_inputs(C, N, qblock, seed=2))
+    assert torch.equal(ops._quant_agg_fused(q, s, w),
+                       ops._quant_agg_dequant_first(q, s, w))
+
+
+@pytest.mark.parametrize("n,block", [(8192, 256), (4096, 128)])
+def test_quantize_blockwise_equals_jax_bitwise(n, block):
+    rng = np.random.RandomState(3)
+    x = (rng.randn(n) * np.repeat(rng.uniform(1e-4, 10, n // block), block))
+    x = x.astype(np.float32)
+    x[:block] = 0.0                                 # an all-zero block: scale 1
+    x[block:2 * block] = np.round(x[block:2 * block])  # exact values, ties
+    jq, js = jref.quantize_blockwise_ref(jnp.asarray(x), block=block)
+    q, s = ops.quantize_blockwise(torch.from_numpy(x), block=block)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    # a leading client dim quantizes each row on its own
+    qb, sb = ops.quantize_blockwise(torch.from_numpy(np.stack([x, -x])), block=block)
+    assert torch.equal(qb[0], q) and torch.equal(qb[1], -q) and torch.equal(sb[1], s)
+
+
+def test_dispatcher_counts_calls_and_takes_plain_on_cpu():
+    q, s, w = _torch(*_inputs(3, 1024, 256))
+    launches = qa.quant_aggregate.launches
+    with ops.quant_agg_scope() as frame:
+        for _ in range(3):
+            out = ops.quant_aggregate(q, s, w)
+    assert frame["calls"] == 3 and frame["last_impl"] == "plain"
+    assert qa.quant_aggregate.launches == launches    # no kernel on the CPU
+    assert torch.equal(out, qa.plain(q, s, w))
+    ops.reset_quant_agg_stats()
+    ops.quant_aggregate(q, s, w)
+    assert ops.quant_agg_stats()["calls"] == 1
+
+
+@pytest.mark.parametrize("bad", ["dtype", "qblock", "rank", "clients"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, s, w = _torch(*_inputs(2, 1024, 256))
+    if bad == "dtype":
+        q = q.to(torch.int16)
+    elif bad == "qblock":
+        s = torch.ones((2, 1024 // 8))          # qblock 8, not a multiple of 16
+    elif bad == "rank":
+        q = q[None]
+    else:
+        w = w[:1]
+    with pytest.raises((TypeError, ValueError)):
+        qa.quant_aggregate(q, s, w)
