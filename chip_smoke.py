@@ -10,22 +10,38 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build   — compiles every kernel under ``src/repro_torch/csrc/`` with nvcc
    (all at once) into ``build/repro_torch/``; prints the build seconds and
    the compiler's register/spill report.
-3. kernels — each kernel against its plain PyTorch version on the card,
-   bitwise, at the shapes the main path and the aggregation benchmark use,
-   plus a ragged tail and a single client; times both with CUDA events
-   (L2 flushed before every launch) beside the memory-traffic bound: device
-   time with the host queued ahead, and the kernel's time per call with
-   the host's launch overhead in it.
-4. main path — the FL round loop at the full width of flsim-cnn through
-   ``load_job`` -> ``Executor(...).scaffold().run()``, once with fedavg and
-   once with int8 compression; losses finite and falling, the int8 kernel
-   launched once per round on the int8 job and never on the fedavg job.
-   Then one int8 round on the card against the same round on the CPU.
+3. kernels — each kernel against its plain PyTorch version on the card:
+   quant_aggregate bitwise at the shapes the FL path and the aggregation
+   benchmark use, plus a ragged tail and a single client; rmsnorm, flash
+   attention and decode attention within ``tests/test_kernels.py``'s
+   tolerances at its shapes (f32 and bf16: MHA, GQA, MQA with Sq != Sk and
+   q_offset, Dk != Dv, full attention, a decode row of length 0, ragged
+   lengths) and at the serve path's shapes in bf16. Times with CUDA events
+   (L2 flushed before every launch) beside the bound: device time with the
+   host queued ahead, the kernel's time per call with the host's launch
+   overhead in it, the plain version's time, and the one PyTorch call that
+   computes the same function (a yardstick the port never calls).
+4. FL path (slice 1) — the FL round loop at the full width of flsim-cnn
+   through ``load_job`` -> ``Executor(...).scaffold().run()``, once with
+   fedavg and once with int8 compression; losses finite and falling, the
+   int8 kernel launched once per round on the int8 job and never on the
+   fedavg job. Then one int8 round on the card against the same round on
+   the CPU.
 5. determinism — the int8 job again with one round per launch: bitwise the
    losses and params of the 3+3 chunking. Then one warm int8 round under
    ``torch.profiler``: device time by kernel and the device's idle share.
-6. summary — a ``kernels`` JSON line, a ``slice`` line, the card's
-   ``name, power.limit`` line, and last the ``ok`` JSON line.
+6. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+   at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
+   64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
+   card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
+   whole number of 512-key blocks). Launch counts rmsnorm 17 x 65, flash 8,
+   decode 8 x 64; a second run gives bitwise the same tokens, prefill and
+   decode logits; prefill seconds, decode ms per token, tokens/s and peak
+   memory. Then reduced yi-34b in f32 from the same weights on the card and
+   on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
+   tokens equal.
+7. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+   card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -43,10 +59,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 dense tensor cores
 KERNEL_SHAPES = [(100, 189_952, 256),     # main path: C=100 clients, flsim-cnn packed
                  (16, 1_048_576, 256),    # BENCH_agg shape
                  (7, 4_224, 128),         # ragged tail
                  (1, 189_952, 256)]       # single client
+# serve path (slice 2): yi-34b at full width, depth cut to fit one card's
+# time budget; batch 8 x prompt 2048 + 64 new tokens -> a cache of 2112
+SERVE = {"arch": "yi-34b", "n_layers": 8, "batch": 8, "prompt_len": 2048,
+         "max_new": 64, "seed": 0}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py
+# the PyTorch yardsticks (F.rms_norm, SDPA) round to bf16 at other points
+# than the kernels (SDPA rounds p before its p.v product); this only shows
+# they compute the same function, so that their times compare
+YARDSTICK_TOL = 5e-2
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv  (tests/test_kernels.py:34-39, then ragged)
+    (2, 128, 128, 4, 4, 64, 64), (1, 256, 256, 8, 2, 64, 64),
+    (2, 128, 256, 4, 1, 32, 32), (1, 128, 128, 4, 2, 96, 64),
+    (2, 70, 200, 4, 1, 64, 64), (1, 300, 300, 56, 8, 128, 128),
+    (1, 50, 50, 4, 2, 20, 20)]     # rows not 16-byte aligned: the scalar loads
+DECODE_CHECKS = [  # B, S, H, KV, D  (tests/test_kernels.py:91, then ragged, G = 7)
+    (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 128, 8, 1, 32), (4, 600, 14, 2, 16),
+    (2, 90, 6, 3, 12)]
+RMS_CHECKS = [(64, 128), (3, 40, 256), (130, 512), (5, 100)]
 MAIN_JOB = {
     "name": "chip_smoke",
     "model": {"arch": "flsim-cnn"},              # config width: d_model 64, d_ff 128
@@ -246,21 +282,19 @@ def phase_card_vs_cpu(torch):
     return {"dloss": dl, "dparam": dp}
 
 
-def phase_profile(torch, load_job, Executor):
-    """One warm int8 round of the main path under ``torch.profiler``: device
-    time by kernel name, the streams the kernels ran on, and the device's
-    idle share of the round's wall time (the profiler's own host cost
-    inflates the wall, so the idle share is an upper bound)."""
+def profile_device(torch, fn, label, top=12):
+    """Run ``fn`` once under ``torch.profiler``: device time by kernel name,
+    the streams the kernels ran on, and the device's idle share of the wall
+    time (the profiler's own host cost inflates the wall, so the idle share
+    is an upper bound). Logs the top kernels; returns the summary and the
+    {name: (ms, launches)} map."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    raw = job_dict("compressed", "int8", 1)
-    raw["strategy"]["train_params"]["rounds"] = 2
-    ex = Executor(load_job(raw)).scaffold()
-    ex.run(1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.run(2)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # busy time is the union of the kernel intervals: kernels on several
     # streams can overlap, so it can be less than the sum of kernel times
@@ -281,18 +315,375 @@ def phase_profile(torch, load_job, Executor):
            "device_idle_share": 1 - busy_ms / wall_ms if by_name else None,
            "kernel_launches": len(spans),
            "streams": sorted({str(sp[3]) for sp in spans})}
-    log("profile one int8 round", json.dumps(out))
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+    log(f"profile {label}", json.dumps(out))
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms {100 * ms / max(kernel_sum_ms, 1e-9):5.1f}% of kernel time"
             f"  x{n:<5d} {name[:90]}")
+    if not by_name:
+        log("  the profiler saw no device time")
+    return out, by_name
+
+
+def phase_profile(torch, load_job, Executor):
+    """One warm int8 round of the FL path under ``torch.profiler``."""
+    raw = job_dict("compressed", "int8", 1)
+    raw["strategy"]["train_params"]["rounds"] = 2
+    ex = Executor(load_job(raw)).scaffold()
+    ex.run(1)
+    out, by_name = profile_device(torch, lambda: ex.run(2), "one int8 round")
     qa_ms, qa_n = by_name.get(next((k for k in by_name if "quant_aggregate" in k), ""),
                               (0.0, 0))
     log(f"  quant_aggregate in this round: {qa_ms:.4f} ms x{qa_n}")
-    if not by_name:
-        log("  the profiler saw no device time")
     del ex
     torch.cuda.empty_cache()
     return out
+
+
+def _randn(torch, shape, dtype, seed, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+def close(torch, name, got, want, tol) -> float:
+    """max |got - want|; raises unless the output is finite and every entry
+    is within atol = rtol = tol of ``want``."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (got - want).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{name}: max |diff| {err} beyond tolerance {tol}")
+    return err
+
+
+def bound(nbytes, flops, flops_per_s):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate for their type."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _dt(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def check_lm_kernels(torch):
+    """rmsnorm, flash and decode attention against their plain versions on
+    the card at tests/test_kernels.py's shapes, in f32 and bf16."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    dev = torch.device("cuda")
+    worst = {"rmsnorm": 0.0, "flash_attention": 0.0, "decode_attention": 0.0}
+    for i, shape in enumerate(RMS_CHECKS):
+        for dt in (torch.float32, torch.bfloat16):
+            x = _randn(torch, shape, dt, i, dev)
+            w = _randn(torch, shape[-1:], torch.float32, i + 100, dev)
+            err = close(torch, f"rmsnorm {shape} {dt}", rms.rmsnorm(x, w), rms.plain(x, w),
+                        RMS_TOL[_dt(x)])
+            worst["rmsnorm"] = max(worst["rmsnorm"], err)
+    for i, (B, Sq, Sk, H, KV, Dk, Dv) in enumerate(FLASH_CHECKS):
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(torch, (B, Sq, H, Dk), dt, 3 * i, dev)
+            k = _randn(torch, (B, Sk, KV, Dk), dt, 3 * i + 1, dev)
+            v = _randn(torch, (B, Sk, KV, Dv), dt, 3 * i + 2, dev)
+            for causal in (True, False):
+                name = f"flash {(B, Sq, Sk, H, KV, Dk, Dv)} {_dt(q)} causal={causal}"
+                out, lse = fa.flash_attention_fwd(q, k, v, Sk - Sq, causal)
+                want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
+                err = close(torch, name, out, want, ATTN_TOL[_dt(q)])
+                close(torch, name + " lse", lse, want_lse, ATTN_TOL[_dt(q)])
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+    for i, (B, S, H, KV, D) in enumerate(DECODE_CHECKS):
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(torch, (B, H, D), dt, 3 * i, dev)
+            k = _randn(torch, (B, S, KV, D), dt, 3 * i + 1, dev)
+            v = _randn(torch, (B, S, KV, D), dt, 3 * i + 2, dev)
+            g = torch.Generator(device=dev)
+            g.manual_seed(i)
+            length = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                                   dtype=torch.int32)
+            if B > 1:
+                length[0] = 0
+            name = f"decode {(B, S, H, KV, D)} {_dt(q)}"
+            o, m, l = da.decode_attention_fwd(q, k, v, length)
+            po, pm, pl = da.plain(q, k, v, length)
+            empty = length == 0
+            if not ((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                    and (o[empty] == 0).all()):
+                raise AssertionError(f"{name}: a length-0 row is not m=-1e30, l=0, o=0")
+            tol = ATTN_TOL[_dt(q)]
+            err = close(torch, name, o[~empty] / l[~empty][..., None],
+                        po[~empty] / pl[~empty][..., None], tol)
+            close(torch, name + " m", m, pm, tol)
+            close(torch, name + " l", l, pl, tol)
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+    torch.cuda.synchronize()
+    log("check lm kernels at tests/test_kernels.py shapes (f32 + bf16), worst max |diff|:",
+        json.dumps(worst))
+    return worst
+
+
+def time_lm_kernels(torch, flush):
+    """B2-B4 at the serve path's shapes in bf16: kernel vs plain version,
+    then device ms, call ms, plain ms, the PyTorch yardstick's ms, bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, S, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new"]
+    D, H, KV, HD = 7168, 56, 8, 128
+    rows = {}
+
+    torch_version = tuple(int(p) for p in torch.__version__.split("+")[0].split(".")[:2])
+    # the yardsticks need F.rms_norm (torch 2.4) and SDPA's enable_gqa (2.5);
+    # before 2.5 SDPA gets k and v with their heads repeated up front
+    gqa = {"enable_gqa": True} if torch_version >= (2, 5) else {}
+
+    def kv_heads(t):
+        return t if gqa else t.repeat_interleave(H // KV, dim=1)
+
+    def row(name, shape, err, fn, args, plain_fn, lib_fn, nbytes, flops, peak,
+            iters, plain_iters, lib_err=None):
+        kernel_ms = time_device(fn, args, iters, flush, batch=min(iters, 20))
+        call_ms = time_call(fn, args, iters, flush)
+        plain_ms = time_device(plain_fn, args, plain_iters, flush, batch=plain_iters)
+        library_ms = (None if lib_fn is None else
+                      time_device(lib_fn, args, iters, flush, batch=min(iters, 20)))
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        r = {"shape": shape, "dtype": "bfloat16", "max_abs_err": err, "kernel_ms": kernel_ms,
+             "kernel_call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+             "bytes": nbytes, "flops": flops}
+        log(f"kernel {name}", json.dumps(r))
+        return r
+
+    # B2 rmsnorm: every prefill norm (B*S rows) and every decode norm (B rows)
+    for tag, rows_shape in (("prefill", (B, S, D)), ("decode", (B, 1, D))):
+        x = _randn(torch, rows_shape, bf16, 7, dev)
+        w = _randn(torch, (D,), bf16, 8, dev)
+        got = rms.rmsnorm(x, w)
+        err = close(torch, f"rmsnorm {tag}", got, rms.plain(x, w), RMS_TOL["bfloat16"])
+        lib = (lambda x, w: F.rms_norm(x, (D,), w, 1e-6)) if hasattr(F, "rms_norm") else None
+        lib_err = None if lib is None else close(torch, "F.rms_norm", lib(x, w), got,
+                                                 YARDSTICK_TOL)
+        R = x.numel() // D
+        rows[f"rmsnorm_{tag}"] = row(
+            f"rmsnorm {tag}", list(rows_shape), err, rms.rmsnorm, (x, w), rms.plain,
+            lib, 2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S, 200, 20, lib_err)
+        del x, w, got
+
+    # B3 flash attention: one prefill layer, causal, q_offset 0
+    q = _randn(torch, (B, S, H, HD), bf16, 9, dev)
+    k = _randn(torch, (B, S, KV, HD), bf16, 10, dev)
+    v = _randn(torch, (B, S, KV, HD), bf16, 11, dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+    want, want_lse = fa.plain(q, k, v, 0, True)
+    err = close(torch, "flash prefill", out, want, ATTN_TOL["bfloat16"])
+    close(torch, "flash prefill lse", lse, want_lse, ATTN_TOL["bfloat16"])
+
+    kt, vt = kv_heads(k.transpose(1, 2)), kv_heads(v.transpose(1, 2))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt, is_causal=True,
+                                              **gqa)
+    lib_err = close(torch, "sdpa prefill", sdpa(q, k, v).transpose(1, 2), out,
+                    YARDSTICK_TOL)
+    pairs = S * (S + 1) // 2
+    rows["flash_attention"] = row(
+        "flash_attention prefill", [B, S, S, H, KV, HD, HD], err,
+        lambda q, k, v: fa.flash_attention_fwd(q, k, v, 0, True), (q, k, v),
+        lambda q, k, v: fa.plain(q, k, v, 0, True), sdpa,
+        (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4,
+        2 * B * H * pairs * (HD + HD), BF16_FLOPS_PER_S, 10, 5, lib_err)
+    del q, k, v, kt, vt, out, lse, want, want_lse
+
+    # B4 decode attention: one decode layer at the last step (full 2112 cache)
+    Sc = S + new
+    q = _randn(torch, (B, H, HD), bf16, 12, dev)
+    k = _randn(torch, (B, Sc, KV, HD), bf16, 13, dev)
+    v = _randn(torch, (B, Sc, KV, HD), bf16, 14, dev)
+    length = torch.full((B,), Sc, dtype=torch.int32, device=dev)
+    o, m, l = da.decode_attention_fwd(q, k, v, length)
+    po, pm, pl = da.plain(q, k, v, length)
+    err = close(torch, "decode serve", o / l[..., None], po / pl[..., None],
+                ATTN_TOL["bfloat16"])
+    close(torch, "decode serve m", m, pm, ATTN_TOL["bfloat16"])
+    mask = (torch.arange(Sc, device=dev)[None] < length[:, None])[:, None, None, :]
+
+    kt, vt = kv_heads(k.transpose(1, 2)), kv_heads(v.transpose(1, 2))
+
+    def sdpa_decode(q, k, v, length):
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask, **gqa)
+    lib_err = close(torch, "sdpa decode", sdpa_decode(q, k, v, length)[:, :, 0],
+                    o / l[..., None], YARDSTICK_TOL)
+    keys = int(torch.clamp(length, max=Sc).sum().item())
+    rows["decode_attention"] = row(
+        "decode_attention step", [B, Sc, H, KV, HD], err, da.decode_attention_fwd,
+        (q, k, v, length), da.plain, sdpa_decode,
+        keys * KV * (HD + HD) * 2 + q.numel() * 2 + (o.numel() + 2 * m.numel() + B) * 4,
+        2 * keys * H * (HD + HD), BF16_FLOPS_PER_S, 200, 20, lib_err)
+    del q, k, v, kt, vt, o, m, l, po, pm, pl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve(torch, kernels):
+    """The serve path at yi-34b's full width: one counted run of
+    ``generate``, a second for determinism and its wall time, then prefill
+    and decode steps on their own for their times and bitwise logits."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import pad_caches
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE["arch"]).replace(n_layers=SERVE["n_layers"])
+    model = model_zoo.build(cfg)
+    B, S, new, L = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new"], cfg.n_layers
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(g, dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff {cfg.d_ff} vocab {cfg.padded_vocab}, {L} of 60 layers, bf16: "
+        f"{n_params} params ({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.2f}s")
+
+    # the serve path; counts zeroed just before it and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new),
+            "flash_attention": L, "decode_attention": L * new}
+    log(f"serve launches {json.dumps(launches)} (want {json.dumps(want)})")
+    if launches != want:
+        raise AssertionError(f"serve path launches {launches}, want {want}")
+    if toks.shape != (B, new) or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"serve: bad tokens {tuple(toks.shape)}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(toks, toks2):
+        raise AssertionError("serve: a second generate gave other tokens")
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, logits, _ = model.prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches2, logits2, _ = model.prefill(params, {"tokens": prompts})
+        if not torch.equal(logits, logits2) or not torch.equal(caches.k, caches2.k):
+            raise AssertionError("serve: two prefills gave other logits or caches")
+        if not torch.isfinite(logits).all() or \
+                not torch.equal(model.greedy_token(logits), toks[:, 0]):
+            raise AssertionError("serve: prefill logits do not give generate's token 0")
+        caches, caches2 = pad_caches(caches, new), pad_caches(caches2, new)
+        length = torch.full((B,), S, dtype=torch.int32, device=dev)
+        step_ms = []
+        n_steps = min(8, new - 1)
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dl, caches = model.decode_step(params, toks[:, i], caches, length + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                dl2, caches2 = model.decode_step(params, toks[:, 0], caches2, length)
+                if not torch.equal(dl, dl2):
+                    raise AssertionError("serve: two decode steps gave other logits")
+            if not torch.equal(model.greedy_token(dl), toks[:, i + 1]):
+                raise AssertionError(f"serve: decode step {i} does not give generate's "
+                                     f"token {i + 1}")
+        # where the time goes: one prefill and one decode step, profiled
+        prof_prefill, _ = profile_device(
+            torch, lambda: model.prefill(params, {"tokens": prompts}), "serve prefill")
+        prof_decode, _ = profile_device(
+            torch, lambda: model.decode_step(params, toks[:, n_steps], caches,
+                                             length + n_steps), "serve decode step")
+    out = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S, "max_new": new,
+           "cache_len": S + new, "params": n_params, "init_s": init_s,
+           "first_generate_s": first_s, "generate_s": gen_s, "prefill_s": prefill_s,
+           "decode_ms_per_token": (gen_s - prefill_s) / new * 1e3,
+           "decode_step_ms": sorted(step_ms)[len(step_ms) // 2],
+           "generated_tokens_per_s": B * new / gen_s,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "bitwise_repeat": True, "tokens_head": toks[0, :8].tolist(),
+           "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}
+    log("serve", json.dumps(out))
+    del params, caches, caches2, logits, logits2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_card_vs_cpu(torch):
+    """Reduced yi-34b in f32 from the same weights: one prefill and 4
+    greedy decode steps on the card (kernels) and on the CPU (plain)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.reduce import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import pad_caches
+    model = model_zoo.build(reduced_config(get_config(SERVE["arch"])))
+    params = model.init(torch.Generator().manual_seed(1))
+    prompts = torch.randint(0, model.cfg.vocab_size, (2, 64),
+                            generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _tree_to(params, dev)
+        with torch.inference_mode():
+            caches, logits, _ = model.prefill(p, {"tokens": prompts.to(dev)})
+            caches = pad_caches(caches, 4)
+            length = torch.full((2,), 64, dtype=torch.int32, device=dev)
+            all_logits, toks = [logits], []
+            tok = model.greedy_token(logits)
+            for _ in range(4):
+                toks.append(tok)
+                logits, caches = model.decode_step(p, tok, caches, length)
+                all_logits.append(logits)
+                tok = model.greedy_token(logits)
+                length = length + 1
+            toks.append(tok)
+        out[dev] = (torch.stack(toks).cpu(), torch.stack(all_logits).cpu())
+    if not torch.equal(out["cuda"][0], out["cpu"][0]):
+        raise AssertionError("serve card vs cpu: tokens differ")
+    # tolerance: f32 matmuls sum in another order on the card (TF32 off)
+    err = close(torch, "serve card vs cpu logits", out["cuda"][1], out["cpu"][1], 1e-4)
+    res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4}
+    log("serve card vs cpu (reduced yi-34b, f32, prefill + 4 decode steps)", json.dumps(res))
+    return res
 
 
 def main() -> int:
@@ -303,7 +694,10 @@ def main() -> int:
         return 1
     from repro_torch.core.jobs import load_job
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_aggregate as qa
+    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.runtime.device import resolve_device
     from repro_torch.runtime.executor import Executor
 
@@ -330,8 +724,12 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     rows = phase_kernels(torch, qa)
+    lm_worst = check_lm_kernels(torch)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    lm_rows = time_lm_kernels(torch, flush)
+    del flush
 
-    # 4. main path; counts zeroed just before it, read just after
+    # 4. FL path; counts zeroed just before it, read just after
     qa.quant_aggregate.launches = 0
     job_a, _ = run_job(torch, qa, load_job, Executor, "fedavg", "none", 3)
     job_b, params_b = run_job(torch, qa, load_job, Executor, "compressed", "int8", 3)
@@ -352,9 +750,16 @@ def main() -> int:
     log("determinism: rounds_per_launch 1 == 3, bitwise (losses and params)")
     phase_profile(torch, load_job, Executor)
 
-    # 6. summary
+    # 6. serve path; counts zeroed just before it, read just after
+    kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
+               "flash_attention": fa.flash_attention_fwd,
+               "decode_attention": da.decode_attention_fwd}
+    serve = phase_serve(torch, kernels)
+    serve_cpu = phase_serve_card_vs_cpu(torch)
+
+    # 7. summary
     main = rows[0]
-    log(json.dumps({"kernels": [{
+    entries = [{
         "name": "quant_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/quant_aggregate.cu",
         "replaces": "src/repro/kernels/quant_aggregate.py:22",
@@ -363,10 +768,35 @@ def main() -> int:
         "call_ms": main["kernel_call_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "bitwise": True,
-        "shape": [main["C"], main["N"], main["qblock"]]}]}))
+        "shape": [main["C"], main["N"], main["qblock"]]}]
+    for name, key, source, replaces in (
+            ("rmsnorm", "rmsnorm_prefill", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:11"),
+            ("flash_attention", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:30"),
+            ("decode_attention", "decode_attention",
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:29")):
+        r = lm_rows[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serve["launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "call_ms": r["kernel_call_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False,
+            "worst_max_abs_err_test_shapes": lm_worst[name], "shape": r["shape"]})
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
                     "card_vs_cpu": card_cpu}))
+    log(json.dumps({"slice": "2: LM serving (prefill + greedy decode) of yi-34b at full "
+                    "width, 8 of 60 layers, bf16; rmsnorm, flash attention and decode "
+                    "attention on CUDA",
+                    "serve": {k: serve[k] for k in (
+                        "prefill_s", "decode_ms_per_token", "decode_step_ms",
+                        "generated_tokens_per_s", "generate_s", "peak_mem_gb")},
+                    "rmsnorm_decode": lm_rows["rmsnorm_decode"],
+                    "card_vs_cpu": serve_cpu}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

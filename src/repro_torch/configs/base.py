@@ -1,15 +1,64 @@
 """Configuration dataclasses for models and FL jobs (port of
 ``repro/configs/base.py``).
 
-A copy, not an import: the port imports nothing of ``repro``. Only the
-paper's small models (``flsim-*``) resolve here; the LM architectures come
-with the LM slice (ROADMAP A15).
+A copy, not an import: the port imports nothing of ``repro``. Every
+architecture's config is described here as data, but ``get_config``
+resolves only those the port can run: the paper's small models
+(``flsim-*``) and the dense GQA LM ``yi-34b``. The rest wait for their
+part of the LM slice (ROADMAP A15).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+import importlib
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek/MiniCPM3 style)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (the JAX package's fields)."""
+    n_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    moe_every: int = 1
+    moe_offset: int = 0
+    dense_residual_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+    ep_mode: str = "model"
+    f_sub: int = 1
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba / xLSTM settings (the JAX package's fields)."""
+    kind: str = "mamba"           # "mamba" | "xlstm"
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0              # 0 -> d_model // 16
+    chunk: int = 256
+    slstm_every: int = 4
+    proj_factor: float = 2.0
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Jamba-style periodic layout."""
+    period: int = 8
+    attn_index: int = 4
 
 
 @dataclass(frozen=True)
@@ -27,10 +76,10 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     attn_type: str = "gqa"        # gqa | mla
-    mla: Optional[Any] = None
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
-    hybrid: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -39,6 +88,16 @@ class ModelConfig:
     input_kind: str = "token"
     notes: str = ""
     source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (the JAX package shards it)."""
+        v, m = self.vocab_size, 256
+        return (v + m - 1) // m * m
 
     def replace(self, **kw) -> "ModelConfig":
         """A copy with the given fields changed."""
@@ -102,14 +161,37 @@ class FLConfig:
     rounds: int = 10
 
 
+ARCHS = (
+    "minicpm3-4b",
+    "qwen2.5-32b",
+    "yi-34b",
+    "qwen1.5-32b",
+    "whisper-base",
+    "qwen3-moe-30b-a3b",
+    "arctic-480b",
+    "chameleon-34b",
+    "xlstm-125m",
+    "jamba-1.5-large-398b",
+)
+
 _SMALL = ("flsim-cnn", "flsim-mlp", "flsim-logreg")
+# LM architectures the port runs; the others are named in ARCHS for the
+# registry and refused by ``get_config`` until their part of ROADMAP A15.
+_PORTED_LM = ("yi-34b",)
 
 
 def get_config(name: str) -> ModelConfig:
     """Resolve a ported architecture's config by name."""
-    if name not in _SMALL:
+    if name in _SMALL:
+        from repro_torch.configs import flsim_small
+        return getattr(flsim_small, name.replace("-", "_").upper())
+    if name in _PORTED_LM:
+        mod = importlib.import_module(
+            f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+        return mod.CONFIG
+    if name in ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not yet ported (the port covers {list(_SMALL)}; "
-            "the LM architectures wait for the LM slice, see ROADMAP A15)")
-    from repro_torch.configs import flsim_small
-    return getattr(flsim_small, name.replace("-", "_").upper())
+            f"arch {name!r} is not yet ported (the port runs "
+            f"{list(_SMALL + _PORTED_LM)}; its attention or family waits for "
+            "its part of the LM slice, see ROADMAP A15)")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS + _SMALL)}")

@@ -1,8 +1,9 @@
-"""Weights carried between the JAX package and the port, as numpy.
+"""Weights and caches carried between the JAX package and the port, as numpy.
 
-The port keeps the JAX package's param names and layouts, so carrying a
-state across is a dtype-preserving copy of each leaf. Tests use this to
-start both packages from the same weights.
+The port keeps the JAX package's param names and layouts (LM blocks too:
+nested dicts with the stacked leading layer dim), so carrying a state across
+is a dtype-preserving copy of each leaf. Tests use this to start both
+packages from the same weights, and to compare KV caches.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch
 def _from_numpy(tree, device):
     if isinstance(tree, dict):
         return {k: _from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_from_numpy(v, device) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_from_numpy(v, device) for v in tree)
     return torch.tensor(np.asarray(tree), device=device)
@@ -31,11 +34,20 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
             for k in ("params", "server", "clients")}
 
 
+def kv_cache_from_numpy(cache, device="cpu"):
+    """A JAX ``KVCache`` (or any ``(k, v)`` pair) of numpy arrays -> the
+    port's ``KVCache``, same layout."""
+    from repro_torch.models.attention import KVCache
+    k, v = cache
+    return KVCache(*_from_numpy((k, v), device))
+
+
 def to_numpy(tree):
-    """The port's params or state -> the same structure of numpy arrays."""
+    """The port's params, state or KV cache -> the same structure of numpy
+    arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta, KVCache
         return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)

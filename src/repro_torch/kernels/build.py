@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers:
 a build takes seconds, not minutes). Libraries land in ``build/repro_torch/``
-at the repository root, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.
+at the repository root, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a card may have no ``nvcc``.
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's build key
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / digest[:16] / f"lib{name}.so"
 

@@ -1,0 +1,143 @@
+"""Decode attention: one query token over a KV cache (port of
+``repro/kernels/decode_attention.py``).
+
+``decode_attention_fwd`` launches the hand-written Hopper kernel
+``csrc/decode_attention.cu`` for CUDA tensors and takes ``plain``, a port of
+the JAX package's blockwise decode (``ops._decode_blockwise``), for CPU
+tensors. Both return the unnormalised ``(o (B,H,Dv), m (B,H), l (B,H))``,
+all f32, with ``softmax output = o / l``, so shards of a cache can be
+log-sum-exp combined; a row with ``length == 0`` gives m = -1e30, l = 0,
+o = 0. Both take any cache length S (the JAX path needs S to be a whole
+number of 512-key blocks).
+
+They differ in rounding only: the kernel keeps scores and probabilities in
+f32, the plain version rounds the products of bf16 inputs to bf16, as the
+JAX path does. Tolerances: 2e-5 in f32, 2e-2 in bf16.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+MAX_SMEM_BYTES = 227 * 1024    # dynamic shared memory one block may use on Hopper
+
+
+def plain(q, k, v, length, scale=None, block_k: int = 512):
+    """Blockwise online-softmax decode in PyTorch -> (o, m, l).
+
+    The JAX package's ``_decode_blockwise``, with a short last block where S
+    is ragged, and with the blocks at or past a row's ``length`` left out of
+    that row's update, as the kernels (Pallas and CUDA) skip them. That
+    changes nothing for length >= 1 (such a block rescales by exp(0) = 1 and
+    adds 0) and gives the kernels' m = -1e30, l = 0 for length 0."""
+    B, H, Dk = q.shape
+    _, S, KVH, Dv = v.shape
+    G = H // KVH
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    block_k = max(1, min(block_k, S))
+    dev = q.device
+    qg = q.reshape(B, KVH, G, Dk)
+    o = torch.zeros((B, KVH, G, Dv), dtype=torch.float32, device=dev)
+    m = torch.full((B, KVH, G), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KVH, G), dtype=torch.float32, device=dev)
+    for ks in range(0, S, block_k):
+        kb = k[:, ks:ks + block_k]
+        vb = v[:, ks:ks + block_k]
+        s = torch.einsum("bkgd,btkd->bkgt", qg, kb).to(torch.float32) * scale
+        kpos = ks + torch.arange(kb.shape[1], device=dev)
+        s = torch.where(kpos[None, None, None] < length[:, None, None, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1)
+        o_new = o * alpha[..., None] + torch.einsum(
+            "bkgt,btkd->bkgd", p.to(vb.dtype), vb).to(torch.float32)
+        live = (length > ks)[:, None, None]
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        o = torch.where(live[..., None], o_new, o)
+    return o.reshape(B, H, Dv), m.reshape(B, H), l.reshape(B, H)
+
+
+def _check(q, k, v, length):
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or length.dim() != 1:
+        raise ValueError(f"decode_attention wants q (B,H,Dk), k (B,S,KV,Dk), "
+                         f"v (B,S,KV,Dv), length (B,); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(length.shape)}")
+    B, H, Dk = q.shape
+    _, S, KV, Dv = v.shape
+    if k.shape != (B, S, KV, Dk) or v.shape[0] != B or length.shape[0] != B \
+            or KV == 0 or H % KV:
+        raise ValueError(f"decode_attention shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"length {tuple(length.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
+        raise TypeError(f"decode_attention takes one of f32/bf16 for q, k, v; got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if length.dtype != torch.int32:
+        raise TypeError(f"decode_attention wants int32 lengths, got {length.dtype}")
+    if len({q.device, k.device, v.device, length.device}) != 1:
+        raise ValueError("decode_attention inputs on several devices")
+
+
+def decode_attention_fwd(q, k, v, length, scale=None):
+    """q (B,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv), length (B,) int32 ->
+    unnormalised (o, m, l), all f32.
+
+    CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
+    stream (no synchronisation) or raise. Each launch adds one to
+    ``decode_attention_fwd.launches``."""
+    _check(q, k, v, length)
+    dev = q.device
+    if dev.type == "cpu":
+        return plain(q, k, v, length, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {dev}")
+    B, H, Dk = q.shape
+    _, S, KV, Dv = v.shape
+    if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the decode-attention kernel takes head dims up to {MAX_HEAD_DIM}, got "
+            f"Dk={Dk}, Dv={Dv}; larger ones (MLA) come with ROADMAP A15")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and length.is_contiguous()):
+        raise ValueError("decode_attention wants contiguous inputs")
+    lib = _lib()
+    smem = lib.decode_attention_smem_bytes(H // KV, Dk, Dv)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"decode_attention: a GQA group of {H // KV} needs {smem} B of "
+                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    o = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, S, H, KV, Dk, Dv, scale,
+            DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
+    decode_attention_fwd.launches += 1
+    return o, m, l
+
+
+decode_attention_fwd.launches = 0
+
+
+def _lib():
+    from repro_torch.kernels import build
+    lib = build.load("decode_attention")
+    fn = lib.decode_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sm = lib.decode_attention_smem_bytes
+    sm.argtypes = [ctypes.c_int] * 3
+    sm.restype = ctypes.c_int64
+    return lib

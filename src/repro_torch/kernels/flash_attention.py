@@ -1,0 +1,143 @@
+"""Flash-attention forward (port of ``repro/kernels/flash_attention.py``).
+
+``flash_attention_fwd`` launches the hand-written Hopper kernel
+``csrc/flash_attention.cu`` for CUDA tensors and takes ``plain``, a port of
+the JAX package's blockwise forward (``ops._blockwise_fwd``), for CPU
+tensors. Both return ``(out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) f32)``
+for causal or full GQA attention with a runtime ``q_offset``.
+
+They differ in rounding only: the kernel reads q, k, v as f32 and keeps
+scores and probabilities in f32 (the Pallas kernel's arithmetic), while the
+plain version, like ``_blockwise_fwd``, rounds the products of bf16 inputs
+to bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128     # larger head dims (MLA absorbed, 288/256) come with ROADMAP A15
+
+
+def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
+          block_q: int = 512, block_k: int = 512):
+    """Blockwise online-softmax attention in PyTorch -> (out, lse).
+
+    The JAX package's ``_blockwise_fwd`` with two changes that leave its
+    values as they are: ragged Sq and Sk are taken as a short last block
+    (the reference needs whole blocks), and under a causal mask the kv
+    blocks past a q block's diagonal are skipped (there every score is
+    -1e30, so they rescale by exp(0) = 1 and add 0)."""
+    B, Sq, H, Dk = q.shape
+    _, Sk, KVH, Dv = v.shape
+    G = H // KVH
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    block_q = min(block_q, Sq)
+    block_k = min(block_k, Sk)
+    dev = q.device
+    outs, lses = [], []
+    for q_lo in range(0, Sq, block_q):
+        qblk = q[:, q_lo:q_lo + block_q]
+        bq = qblk.shape[1]
+        qg = qblk.reshape(B, bq, KVH, G, Dk)
+        q_start = q_offset + q_lo
+        qpos = q_start + torch.arange(bq, device=dev)
+        o = torch.zeros((B, KVH, G, bq, Dv), dtype=torch.float32, device=dev)
+        m = torch.full((B, KVH, G, bq), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KVH, G, bq), dtype=torch.float32, device=dev)
+        for ks in range(0, Sk, block_k):
+            if causal and ks > q_start + bq - 1:
+                break
+            kb = k[:, ks:ks + block_k]
+            vb = v[:, ks:ks + block_k]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qg, kb).to(torch.float32) * scale
+            if causal:
+                kpos = ks + torch.arange(kb.shape[1], device=dev)
+                s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None],
+                                s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(vb.dtype), vb)
+            o = o * alpha[..., None] + pv.to(torch.float32)
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, H, Dv).to(q.dtype))
+        lses.append(lse.reshape(B, H, bq))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def _check(q, k, v, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention wants q (B,Sq,H,Dk), k (B,Sk,KV,Dk), "
+                         f"v (B,Sk,KV,Dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, Dk = q.shape
+    _, Sk, KV, Dv = v.shape
+    if k.shape != (B, Sk, KV, Dk) or v.shape[0] != B or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention takes one of f32/bf16 for q, k, v; got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention inputs on several devices")
+    if int(q_offset) < 0:
+        raise ValueError(f"flash_attention wants q_offset >= 0, got {q_offset}")
+
+
+def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
+                        scale=None):
+    """q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv) -> (out, lse).
+
+    ``q_offset`` is the global position of q row 0 (a Python int). CPU
+    tensors take ``plain``; CUDA tensors launch the kernel on the current
+    stream (no synchronisation) or raise. Each launch adds one to
+    ``flash_attention_fwd.launches``."""
+    _check(q, k, v, q_offset)
+    dev = q.device
+    if dev.type == "cpu":
+        return plain(q, k, v, int(q_offset), causal, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    B, Sq, H, Dk = q.shape
+    _, Sk, KV, Dv = v.shape
+    if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the flash-attention kernel takes head dims up to {MAX_HEAD_DIM}, got "
+            f"Dk={Dk}, Dv={Dv}; larger ones (MLA) come with ROADMAP A15")
+    if B >= 65536 or H >= 65536:
+        raise ValueError(f"flash_attention takes B, H < 65536, got {B}, {H}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention wants contiguous q, k, v")
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(bool(causal)), scale,
+            DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def _lib():
+    from repro_torch.kernels import build
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,9 +1,9 @@
-"""Kernel dispatch for the quantized aggregation (port of the quant half of
-``repro/kernels/ops.py``).
+"""Public kernel API (port of ``repro/kernels/ops.py``): the quantized
+aggregation, RMSNorm, flash attention (forward) and decode attention.
 
 Dispatch is by device only: CUDA tensors launch the hand-written kernel,
-CPU tensors take its plain version (``kernels/quant_aggregate``). There is
-no environment switch. ``calls`` counts real calls (the port has no trace),
+CPU tensors take its plain version (``kernels/{quant_aggregate,rmsnorm,
+flash_attention,decode_attention}``). There is no environment switch. ``calls`` counts real calls (the port has no trace),
 so a run of R int8 rounds counts R.
 
 Counters are scoped: ``quant_agg_scope()`` pushes a fresh frame, increments
@@ -16,8 +16,11 @@ import contextlib
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_aggregate as _qa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rms
 
 # The fused path is the kernel's plain version: one accumulation pass in
 # client order with no (C, N) f32 intermediate.
@@ -83,3 +86,28 @@ def quant_aggregate(qdeltas, scales, weights):
 def quantize_blockwise(x, block: int = 256):
     """Symmetric int8 block quantization (see ``ref.quantize_blockwise_ref``)."""
     return _ref.quantize_blockwise_ref(x, block=block)
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    """RMSNorm over the last dim in f32, output in x's dtype."""
+    return _rms.rmsnorm(x, w, eps)
+
+
+def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True,
+                    scale: float | None = None):
+    """Flash attention, forward only. q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
+    v (B,Sk,KV,Dv) -> (B,Sq,H,Dv) in q's dtype. ``q_offset`` is the global
+    position of q row 0. (The autograd backward comes with the training
+    slice, ROADMAP A15.)"""
+    out, _ = _fa.flash_attention_fwd(q, k, v, q_offset, causal, scale)
+    return out
+
+
+def decode_attention(q, k, v, length, *, scale: float | None = None,
+                     combine: bool = True):
+    """One-token attention over a KV cache. ``combine=True`` -> (B,H,Dv) in
+    q's dtype; ``combine=False`` -> the unnormalised f32 (o, m, l)."""
+    o, m, l = _da.decode_attention_fwd(q, k, v, length, scale)
+    if combine:
+        return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return o, m, l

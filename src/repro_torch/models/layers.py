@@ -1,9 +1,41 @@
-"""Initializers (port of ``repro/models/layers.dense_init``)."""
+"""Shared layers: RMSNorm, rotary embeddings, initializers (port of
+``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import ops
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    """RMSNorm over the last dim (the hand-written kernel on the card)."""
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+def rope_freqs(head_dim: int, theta: float):
+    """Inverse frequencies of the rotary embedding, in float64 numpy (as the
+    JAX package computes them before casting to f32)."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (B, S, H, D) with D even; positions: (S,) or (B, S). Angles and
+    rotation in f32, cast back to x's dtype."""
+    D = x.shape[-1]
+    freqs = torch.tensor(rope_freqs(D, theta), dtype=torch.float32, device=x.device)
+    if positions.dim() == 1:
+        ang = positions[:, None].to(torch.float32) * freqs[None, :]   # (S, D/2)
+        ang = ang[None, :, None, :]
+    else:
+        ang = positions[..., None].to(torch.float32) * freqs
+        ang = ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def dense_init(generator: torch.Generator, shape, in_dim: int,
@@ -13,4 +45,11 @@ def dense_init(generator: torch.Generator, shape, in_dim: int,
     std = scale / math.sqrt(in_dim)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32):
+    """Normal(0, 0.02) embeddings drawn from ``generator``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return w.mul_(0.02).to(dtype)

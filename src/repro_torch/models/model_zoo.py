@@ -1,16 +1,50 @@
-"""Model registry (port of the small-family half of
-``repro/models/model_zoo.build``)."""
+"""Model registry and parameter accounting (port of
+``repro/models/model_zoo.py`` for the families the port runs)."""
 from __future__ import annotations
+
+import math
 
 from repro_torch.configs.base import ModelConfig, get_config
 
 
+def _check_dense_gqa(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} with {cfg.attn_type!r} attention is not "
+            "yet ported (the port runs the small models and dense GQA), see "
+            "ROADMAP A15")
+    missing = [f for f in ("qkv_bias", "qk_norm", "tie_embeddings") if getattr(cfg, f)]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not yet ported, see ROADMAP A15")
+
+
 def build(name_or_cfg):
-    """The model for an arch name or a ``ModelConfig`` (small family only)."""
+    """The model for an arch name or a ``ModelConfig``: ``SmallModel`` for
+    the paper's models, the dense ``transformer.Model`` for dense GQA LMs
+    (yi-34b); anything else raises ``NotImplementedError``."""
     cfg = (name_or_cfg if isinstance(name_or_cfg, ModelConfig)
            else get_config(name_or_cfg))
-    if cfg.family != "small":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not yet ported, see ROADMAP A15")
-    from repro_torch.models import small
-    return small.build_small(cfg)
+    if cfg.family == "small":
+        from repro_torch.models import small
+        return small.build_small(cfg)
+    _check_dense_gqa(cfg)
+    from repro_torch.models import transformer
+    return transformer.Model(cfg)
+
+
+def _tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    return math.prod(tree)
+
+
+def count_params(cfg: ModelConfig, padded: bool = False) -> int:
+    """Parameter count of a dense GQA LM from its shape tree; ``padded=False``
+    leaves out the vocab padding of embed and lm_head (the paper-faithful N)."""
+    _check_dense_gqa(cfg)
+    from repro_torch.models import transformer
+    total = _tree_numel(transformer.param_shapes(cfg))
+    if not padded:
+        total -= 2 * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    return int(total)

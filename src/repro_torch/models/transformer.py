@@ -1,0 +1,172 @@
+"""Dense decoder-only LM for serving: prefill and greedy decode (port of the
+dense-family half of ``repro/models/transformer.py``).
+
+Params are a plain nested ``dict[str, Tensor]`` with the JAX package's
+names and layouts, blocks stacked on a leading layer dim
+(``blocks/attn/wq`` is ``(L, D, H*HD)``), so ``interop.params_from_numpy``
+is a copy of each leaf. The JAX ``lax.scan`` over layers is a Python loop
+over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the vocab
+sharding of the JAX package drop out (identities with ``AxisCtx()``).
+
+Only the serving phases are here; the training phase (``Model.loss``, the
+flash backward) and the other families come with the rest of ROADMAP A15.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import dense_init, embed_init, rms_norm
+
+
+def mlp_param_shapes(cfg: ModelConfig) -> dict:
+    """SwiGLU MLP: gate ``w1``, up ``w3``, down ``w2``."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {"w1": (D, F_), "w3": (D, F_), "w2": (F_, D)}
+
+
+def mlp_forward(w: dict, x, cfg: ModelConfig):
+    """silu(x @ w1) * (x @ w3) @ w2."""
+    return (F.silu(x @ w["w1"]) * (x @ w["w3"])) @ w["w2"]
+
+
+def embed_lookup(embed, tokens):
+    """Rows of the (untied) embedding for ``tokens``."""
+    return embed[tokens]
+
+
+def dense_block_shapes(cfg: ModelConfig) -> dict:
+    """One block: two RMSNorms, GQA attention and the MLP."""
+    return {"ln1": {"w": (cfg.d_model,)}, "ln2": {"w": (cfg.d_model,)},
+            "attn": attn.gqa_param_shapes(cfg), "mlp": mlp_param_shapes(cfg)}
+
+
+def _map_shapes(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_shapes(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Full logical shapes, as the JAX package's ``param_shapes`` gives them
+    for the dense family: a nested dict of tuples, blocks stacked."""
+    Vp, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
+    return {"embed": (Vp, D), "final_norm": {"w": (D,)},
+            "blocks": _map_shapes(lambda sh: (L,) + sh, dense_block_shapes(cfg)),
+            "lm_head": (D, Vp)}
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                dtype=torch.float32) -> dict:
+    """Random params on the generator's device, with the JAX package's
+    initializers: norms 1, embed N(0, 0.02), matrices N(0, 1/fan_in).
+    (``torch.Generator`` and ``jax.random`` draw different numbers; tests
+    carry JAX's params across with ``interop`` instead.)"""
+    out: dict = {}
+    for path, shape in _leaves(param_shapes(cfg)):
+        name = path[-2] if path[-1] == "w" else path[-1]
+        if name.startswith("ln") or name.endswith("norm"):
+            leaf = torch.ones(shape, dtype=dtype, device=generator.device)
+        elif name == "embed":
+            leaf = embed_init(generator, shape, dtype)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+            leaf = dense_init(generator, shape, in_dim=fan_in, dtype=dtype)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, cache=None,
+                 length=None):
+    """One block; phase 'prefill' -> (x, KVCache of the rows), 'decode' ->
+    (x, the cache written in place)."""
+    h = rms_norm(x, w["ln1"]["w"], cfg.norm_eps)
+    if phase == "prefill":
+        o, new_cache = attn.gqa_seqsharded(w["attn"], h, cfg, return_cache=True)
+    else:
+        o, new_cache = attn.gqa_decode(w["attn"], h, cache, length, cfg)
+    x = x + o
+    h = rms_norm(x, w["ln2"]["w"], cfg.norm_eps)
+    return x + mlp_forward(w["mlp"], h, cfg), new_cache
+
+
+def _take(tree, i):
+    return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "prefill"):
+    """Forward through the stacked blocks, layer by layer. Only the prefill
+    phase is ported: returns (x, aux 0.0, KVCache stacked (L, B, S, KV, HD))."""
+    if phase != "prefill":
+        raise NotImplementedError(
+            f"stack_train phase {phase!r} is not yet ported (the LM training "
+            "path comes with ROADMAP A15)")
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, cache = _dense_block(cfg, _take(blocks, i), x, phase="prefill")
+        ks.append(cache.k)
+        vs.append(cache.v)
+    return x, 0.0, attn.KVCache(torch.stack(ks), torch.stack(vs))
+
+
+def stack_decode(cfg: ModelConfig, blocks: dict, x, caches: attn.KVCache, length):
+    """One decode token through the stacked blocks; each layer writes its
+    slot of ``caches`` (L, B, S, KV, HD) in place. Returns (x, caches)."""
+    for i in range(cfg.n_layers):
+        layer_cache = attn.KVCache(caches.k[i], caches.v[i])
+        x, _ = _dense_block(cfg, _take(blocks, i), x, phase="decode",
+                            cache=layer_cache, length=length)
+    return x, caches
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """A dense GQA decoder over a param dict: prefill and greedy decode."""
+    cfg: ModelConfig
+
+    def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
+        return init_params(generator, self.cfg, dtype)
+
+    def prefill(self, params: dict, batch: dict):
+        """batch["tokens"]: (B, S) -> (caches, last-position logits (B, Vp)
+        f32, None)."""
+        x = embed_lookup(params["embed"], batch["tokens"])
+        x, _, caches = stack_train(self.cfg, params["blocks"], x, phase="prefill")
+        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        last = x[:, -1:]
+        logits = (last @ params["lm_head"].to(last.dtype)).to(torch.float32)
+        return caches, logits[:, 0], None
+
+    def decode_step(self, params: dict, tokens, caches: attn.KVCache, length):
+        """tokens: (B,) previous token ids; length: (B,) int32 context
+        length. Returns (logits (B, Vp) f32, caches written in place)."""
+        x = embed_lookup(params["embed"], tokens[:, None])
+        x, caches = stack_decode(self.cfg, params["blocks"], x, caches, length)
+        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        logits = (x @ params["lm_head"].to(x.dtype)).to(torch.float32)
+        return logits[:, 0], caches
+
+    def greedy_token(self, logits):
+        """(B, Vp) -> (B,) the first index of each row's maximum, as
+        ``jnp.argmax`` takes it (``torch.argmax`` documents the same rule)."""
+        return torch.argmax(logits, dim=-1)
+
+
+def pad_caches(caches: attn.KVCache, extra: int) -> attn.KVCache:
+    """Grow stacked caches (L, B, S, KV, HD) by ``extra`` zero slots."""
+    return attn.KVCache(*[F.pad(t, (0, 0, 0, 0, 0, extra)) for t in caches])

@@ -1,0 +1,113 @@
+"""The port's flash-attention forward (``repro_torch/kernels/flash_attention``)
+against the JAX package's, on the same numpy inputs.
+
+On the CPU the port's wrapper takes the kernel's plain version (a port of
+``ops._blockwise_fwd``); the CUDA kernel against it is in
+``test_torch_gpu.py``, on the card.
+
+Tolerances (``tests/test_kernels.py``): 2e-5 in f32; 2e-2 in bf16, where
+the Pallas kernel keeps scores and probabilities in f32 and the plain
+version rounds the bf16 products to bf16, as ``_blockwise_fwd`` does.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_fwd as pallas_flash
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+KERNEL_SHAPES = [
+    (2, 128, 128, 4, 4, 64, 64),      # MHA
+    (1, 256, 256, 8, 2, 64, 64),      # GQA
+    (2, 128, 256, 4, 1, 32, 32),      # MQA, Sq != Sk
+    (1, 128, 128, 4, 2, 96, 64),      # MLA dims (Dk != Dv)
+]
+
+
+def _inputs(B, Sq, Sk, H, KV, Dk, Dv, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, Sq, H, Dk).astype(np.float32),
+            rng.randn(B, Sk, KV, Dk).astype(np.float32),
+            rng.randn(B, Sk, KV, Dv).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv", KERNEL_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_pallas_interpret(B, Sq, Sk, H, KV, Dk, Dv, dtype, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KV, Dk, Dv), dtype)
+    offset = Sk - Sq
+    want = pallas_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                        q_offset=offset, interpret=True)
+    before = fa.flash_attention_fwd.launches
+    got = ops.flash_attention(tq, tk, tv, offset, causal)
+    assert fa.flash_attention_fwd.launches == before    # CPU tensors never launch
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, Sq, H, Dv)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv", KERNEL_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [64, 512])
+def test_flash_out_and_lse_match_blockwise_fwd(B, Sq, Sk, H, KV, Dk, Dv, causal, block):
+    """(out, lse) against the JAX package's ``_blockwise_fwd`` (blocks of 64),
+    with the port's plain version in blocks of 64 and of 512 (one block)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KV, Dk, Dv, seed=1), "f32")
+    offset = Sk - Sq
+    scale = 1.0 / np.sqrt(Dk)
+    want_o, want_lse = jops._blockwise_fwd(jq, jk, jv, causal, offset, scale, 64, 64)
+    got_o, got_lse = fa.plain(tq, tk, tv, offset, causal, None, block, block)
+    assert tuple(got_lse.shape) == (B, H, Sq) and got_lse.dtype == torch.float32
+    _close(got_o, want_o, 2e-5)
+    _close(got_lse, want_lse, 2e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal", [
+    (1, 100, 100, 4, 2, 32, True),     # Sq, Sk not a whole number of blocks
+    (2, 70, 200, 4, 1, 64, True),      # q_offset 130, ragged both
+    (2, 70, 200, 4, 1, 64, False),
+    (1, 33, 33, 7, 1, 16, True),       # G = 7, not a power of two
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_ragged_matches_ref(B, Sq, Sk, H, KV, D, causal, dtype):
+    """Ragged lengths (the JAX kernels need whole blocks): the port's plain
+    version in blocks of 32 against the JAX package's unblocked oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KV, D, D, seed=2), dtype)
+    offset = Sk - Sq
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, q_offset=offset)
+    got, lse = fa.plain(tq, tk, tv, offset, causal, None, 32, 32)
+    tol = DTYPES[dtype][2]
+    _close(got, want, tol)
+    _close(ref.flash_attention_ref(tq, tk, tv, causal=causal, q_offset=offset), want, tol)
+    assert torch.isfinite(lse).all()
+
+
+def test_flash_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention_fwd(q, k, k)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_fwd(q, q, q, -1)
+    m = torch.zeros(1, 8, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention_fwd(m, m, m)

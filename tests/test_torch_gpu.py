@@ -1,21 +1,32 @@
 """Card-only tests of the port: the hand-written kernels against their plain
-versions, and the main path through them, on a CUDA device.
+versions, and the main paths through them (the FL round loop, LM serving),
+on a CUDA device.
 
 Imports neither ``jax`` nor ``repro`` so it also runs on a machine with the
 card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Without a card every test skips with its reason. The kernel is held to its
-plain version bitwise (same client order, no FMA contraction).
+Without a card every test skips with its reason. ``quant_aggregate`` is held
+to its plain version bitwise (same client order, no FMA contraction); the
+RMSNorm and attention kernels within the tolerances of
+``tests/test_kernels.py`` (rmsnorm 1e-5, attention 2e-5 in f32; 2e-2 in
+bf16), since they sum in another order than their plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
+from repro_torch.configs.reduce import reduced_config
 from repro_torch.core.jobs import load_job
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_aggregate as qa
+from repro_torch.kernels import rmsnorm as rms
+from repro_torch.launch import serve
+from repro_torch.models import model_zoo
 from repro_torch.models.small import SmallModel
 from repro_torch.runtime.executor import Executor
 
@@ -86,3 +97,125 @@ def test_executor_on_card_is_chunking_invariant_and_launches_per_round(
     (s2, l2), (s1, l1) = runs
     assert l2 == l1 and all(np.isfinite(l2))
     assert all(torch.equal(s2["params"][k], s1["params"][k]) for k in s2["params"])
+
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype).to(device)
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (3, 40, 256), (130, 512), (8, 7168),
+                                   (2048, 7168), (5, 100), (7, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, w_dtype):
+    x = _randn(shape, dtype, cuda, 0)
+    w = _randn(shape[-1:], w_dtype, cuda, 1)
+    launches = rms.rmsnorm.launches
+    got = rms.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, rms.plain(x, w), 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_rmsnorm_kernel_takes_a_misaligned_row(cuda):
+    """A row that starts off a 16-byte boundary takes the scalar path."""
+    flat = _randn((3 * 64 + 1,), torch.bfloat16, cuda, 2)
+    x = flat[1:].view(3, 64)
+    w = _randn((64,), torch.bfloat16, cuda, 3)
+    _close(rms.rmsnorm(x, w), rms.plain(x, w), 2e-2)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,causal", [
+    (2, 128, 128, 4, 4, 64, 64, True),       # MHA
+    (1, 256, 256, 8, 2, 64, 64, True),       # GQA
+    (2, 128, 256, 4, 1, 32, 32, True),       # MQA, Sq != Sk (q_offset 128)
+    (1, 128, 128, 4, 2, 96, 64, True),       # Dk != Dv
+    (2, 128, 256, 4, 1, 32, 32, False),      # full attention
+    (1, 300, 300, 56, 8, 128, 128, True),    # yi-34b heads (G = 7), ragged S
+    (2, 70, 200, 4, 1, 64, 64, True),        # ragged Sq and Sk, q_offset 130
+    (2, 64, 64, 4, 2, 16, 16, True),         # reduced yi-34b head dim
+    (1, 50, 50, 4, 2, 20, 20, True),         # rows not 16-byte aligned: scalar loads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtype):
+    q = _randn((B, Sq, H, Dk), dtype, cuda, 0)
+    k = _randn((B, Sk, KV, Dk), dtype, cuda, 1)
+    v = _randn((B, Sk, KV, Dv), dtype, cuda, 2)
+    launches = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, Sk - Sq, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == launches + 1
+    want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
+    assert out.dtype == dtype and out.shape == (B, Sq, H, Dv)
+    _close(out, want, TOL[dtype])
+    _close(lse, want_lse, TOL[dtype])
+
+
+def test_flash_kernel_refuses_head_dims_above_128(cuda):
+    q = torch.zeros(1, 8, 2, 192, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        fa.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128),
+                                        (3, 128, 8, 1, 32), (8, 2112, 56, 8, 128),
+                                        (4, 77, 4, 2, 16),
+                                        (2, 90, 6, 3, 12)])   # rows not 16-byte aligned
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
+    q = _randn((B, H, D), dtype, cuda, 0)
+    k = _randn((B, S, KV, D), dtype, cuda, 1)
+    v = _randn((B, S, KV, D), dtype, cuda, 2)
+    length = torch.randint(1, S + 1, (B,), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    length[-1] = S
+    if B > 1:
+        length[0] = 0                        # an empty row keeps m = -1e30, l = 0
+    length = length.to(cuda)
+    launches = da.decode_attention_fwd.launches
+    o, m, l = da.decode_attention_fwd(q, k, v, length)
+    torch.cuda.synchronize()
+    assert da.decode_attention_fwd.launches == launches + 1
+    po, pm, pl = da.plain(q, k, v, length)
+    empty = length == 0
+    assert (m[empty] == -1e30).all() and (l[empty] == 0).all() and (o[empty] == 0).all()
+    _close(o[~empty] / l[~empty][..., None], po[~empty] / pl[~empty][..., None], TOL[dtype])
+    _close(m, pm, TOL[dtype])
+    _close(l, pl, TOL[dtype])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_serve_on_card_matches_cpu_and_launches_each_kernel(cuda):
+    """Reduced yi-34b in f32 from the same weights: the card (kernels) and
+    the CPU (plain versions) give the same tokens, logits within 1e-4."""
+    model = model_zoo.build(reduced_config(get_config("yi-34b")))
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, 512, (2, 40), generator=torch.Generator().manual_seed(1))
+    counts = (rms.rmsnorm.launches, fa.flash_attention_fwd.launches,
+              da.decode_attention_fwd.launches)
+    toks_cpu = serve.generate(model, params, prompts, 5)
+    assert counts == (rms.rmsnorm.launches, fa.flash_attention_fwd.launches,
+                      da.decode_attention_fwd.launches)
+    card = _to(params, cuda)
+    toks_card = serve.generate(model, card, prompts.to(cuda), 5)
+    L = model.cfg.n_layers
+    assert (rms.rmsnorm.launches - counts[0], fa.flash_attention_fwd.launches - counts[1],
+            da.decode_attention_fwd.launches - counts[2]) == ((2 * L + 1) * 6, L, 5 * L)
+    assert torch.equal(toks_card.cpu(), toks_cpu)
+    _, lc, _ = model.prefill(params, {"tokens": prompts})
+    _, lg, _ = model.prefill(card, {"tokens": prompts.to(cuda)})
+    _close(lg.cpu(), lc, 1e-4)

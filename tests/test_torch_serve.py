@@ -1,0 +1,172 @@
+"""The port's LM serving path (``repro_torch.launch.serve`` over the dense
+``transformer.Model``) against the JAX package's, on reduced yi-34b in f32
+with the same numpy weights (carried across with ``interop``).
+
+The JAX side runs its CPU path (``REPRO_KERNEL_IMPL=jnp``); the port takes
+its kernels' plain versions on the CPU.
+
+Tolerances: logits 1e-4 and caches 1e-5 (f32; the two frameworks sum the
+matmuls in another order and their sin/cos differ in the last bits);
+greedy tokens equal.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jget_config
+from repro.configs.reduce import reduced_config as jreduced
+from repro.launch.serve import generate as jgenerate
+from repro.models import model_zoo as jzoo
+from repro.models import transformer as jtf
+from repro.sharding.axes import AxisCtx
+from repro_torch import interop
+from repro_torch.configs.base import get_config
+from repro_torch.configs.reduce import reduced_config
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rms
+from repro_torch.launch import serve
+from repro_torch.models import model_zoo, transformer
+
+
+@pytest.fixture
+def jnp_kernels(monkeypatch):
+    monkeypatch.setenv("REPRO_KERNEL_IMPL", "jnp")
+
+
+@pytest.fixture(scope="module")
+def both():
+    """Reduced yi-34b in both packages from the JAX package's weights."""
+    jcfg = jreduced(jget_config("yi-34b"))
+    jmodel = jzoo.build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    model = model_zoo.build(reduced_config(get_config("yi-34b")))
+    return jmodel, jparams, model, interop.params_from_numpy(np_params)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol, rtol=tol)
+
+
+def test_config_and_param_tree_match_the_jax_package():
+    cfg, jcfg = get_config("yi-34b"), jget_config("yi-34b")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(reduced_config(cfg)) == dataclasses.asdict(jreduced(jcfg))
+    assert transformer.param_shapes(cfg) == jtf.param_shapes(jcfg)
+    assert model_zoo.count_params(cfg) == jzoo.count_params(jcfg)
+    assert model_zoo.count_params(cfg, padded=True) == jzoo.count_params(jcfg, padded=True)
+
+
+def test_init_params_has_the_jax_tree_and_initializers():
+    cfg = reduced_config(get_config("yi-34b"))
+    p = model_zoo.build(cfg).init(torch.Generator().manual_seed(0))
+    want = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(
+        jtf.param_shapes(jreduced(jget_config("yi-34b"))),
+        is_leaf=lambda x: isinstance(x, tuple))[0]}
+    mine = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+            jax.tree_util.tree_flatten_with_path(p)[0]}
+    assert mine == want
+    assert torch.equal(p["blocks"]["ln1"]["w"], torch.ones(2, 64))
+    assert torch.equal(p["final_norm"]["w"], torch.ones(64))
+    assert abs(p["embed"].std().item() - 0.02) < 2e-3
+    assert abs(p["blocks"]["mlp"]["w2"].std().item() - 128 ** -0.5) < 0.01
+
+
+def test_prefill_and_teacher_forced_decode_match_the_jax_package(both, jnp_kernels):
+    jmodel, jparams, model, params = both
+    B, S, steps = 2, 64, 4
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(0, 512, (B, S)).astype(np.int32)
+    forced = rng.randint(0, 512, (steps, B)).astype(np.int32)
+    ctx = AxisCtx()
+
+    jcaches, jlogits, _ = jmodel.prefill(ctx, jparams, {"tokens": jnp.asarray(prompts)})
+    before = (rms.rmsnorm.launches, fa.flash_attention_fwd.launches,
+              da.decode_attention_fwd.launches)
+    caches, logits, _ = model.prefill(params, {"tokens": torch.from_numpy(prompts).long()})
+    assert logits.shape == (B, 512) and logits.dtype == torch.float32
+    _close(logits, jlogits, 1e-4)
+    _close(caches.k, jcaches.k, 1e-5)
+    _close(caches.v, jcaches.v, 1e-5)
+
+    jcaches = jtf.pad_caches(jcaches, steps)
+    caches = transformer.pad_caches(caches, steps)
+    assert caches.k.shape == (2, B, S + steps, 2, 16)
+    length = np.full((B,), S, np.int32)
+    for i in range(steps):
+        jlogits, jcaches = jmodel.decode_step(ctx, jparams, jnp.asarray(forced[i]), jcaches,
+                                              jnp.asarray(length), tp=False)
+        logits, caches = model.decode_step(params, torch.from_numpy(forced[i]).long(),
+                                           caches, torch.from_numpy(length))
+        _close(logits, jlogits, 1e-4)
+        length = length + 1
+    got = interop.to_numpy(caches)
+    _close(got.k, jcaches.k, 1e-5)
+    _close(got.v, jcaches.v, 1e-5)
+    # the CPU path takes the plain versions: no kernel launched
+    assert before == (rms.rmsnorm.launches, fa.flash_attention_fwd.launches,
+                      da.decode_attention_fwd.launches)
+
+
+def test_decode_from_a_jax_cache_matches(both, jnp_kernels):
+    """A JAX cache carried into the port decodes to the same logits."""
+    jmodel, jparams, model, params = both
+    B, S = 2, 16
+    prompts = np.random.RandomState(1).randint(0, 512, (B, S)).astype(np.int32)
+    ctx = AxisCtx()
+    jcaches, jlogits, _ = jmodel.prefill(ctx, jparams, {"tokens": jnp.asarray(prompts)})
+    jcaches = jtf.pad_caches(jcaches, 1)
+    caches = interop.kv_cache_from_numpy(jax.tree.map(np.asarray, jcaches))
+    tok = np.array(jmodel.greedy_token(ctx, jlogits))
+    length = np.full((B,), S, np.int32)
+    jl, _ = jmodel.decode_step(ctx, jparams, jnp.asarray(tok), jcaches, jnp.asarray(length),
+                               tp=False)
+    tl, _ = model.decode_step(params, torch.from_numpy(tok).long(), caches,
+                              torch.from_numpy(length))
+    _close(tl, jl, 1e-4)
+
+
+def test_generate_gives_the_jax_packages_tokens(both, jnp_kernels):
+    jmodel, jparams, model, params = both
+    prompts = np.random.RandomState(2).randint(0, 512, (2, 64)).astype(np.int32)
+    want = np.asarray(jgenerate(jmodel, jparams, jnp.asarray(prompts), 8))
+    got = serve.generate(model, params, torch.from_numpy(prompts).long(), 8)
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        serve.generate(model, params, torch.from_numpy(prompts).long(), 8).numpy(), want)
+
+
+def test_decode_past_the_cache_writes_nothing(both):
+    """As in the JAX package, a position past the cache's end is not written."""
+    _, _, model, params = both
+    cfg = model.cfg
+    from repro_torch.models import attention as attn
+    cache = attn.init_cache(cfg, 2, 4, dtype=torch.float32)
+    h = torch.randn(2, 1, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    w = {k: v[0] for k, v in params["blocks"]["attn"].items()}
+    _, cache = attn.gqa_decode(w, h, cache, torch.tensor([1, 4], dtype=torch.int32), cfg)
+    assert cache.k[0, 1].abs().sum() > 0 and cache.k[0, [0, 2, 3]].abs().sum() == 0
+    assert cache.k[1].abs().sum() == 0 and cache.v[1].abs().sum() == 0
+
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    toks = serve.main(["--arch", "yi-34b", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--max-new", "3"])
+    assert toks.shape == (2, 3) and toks.device.type == "cpu"
+    assert "arch=yi-34b-reduced device=cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("qwen2.5-32b", None), ("minicpm3-4b", None), ("qwen3-moe-30b-a3b", None),
+    ("yi-34b", {"qkv_bias": True}), ("yi-34b", {"qk_norm": True}),
+    ("yi-34b", {"tie_embeddings": True}), ("yi-34b", {"attn_type": "mla"}),
+])
+def test_build_refuses_what_is_not_yet_ported(arch, change):
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        model_zoo.build(arch if change is None else get_config(arch).replace(**change))

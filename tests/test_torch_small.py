@@ -85,5 +85,6 @@ def test_init_names_shapes_and_seeding(kind):
 def test_model_zoo_builds_paper_models_only():
     assert model_zoo.build("flsim-cnn").kind == "cnn"
     assert input_shape(get_config("flsim-logreg")) == (28, 28, 1)
+    assert type(model_zoo.build("yi-34b")).__name__ == "Model"   # dense GQA LM
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        model_zoo.build("yi-34b")
+        model_zoo.build("qwen2.5-32b")
