@@ -8,15 +8,22 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device  — a CUDA card must be present; prints its name, count and power
    limit, and the TF32 flags the entry points set.
 2. build   — compiles every kernel under ``src/repro_torch/csrc/`` with nvcc
-   (all at once) into ``build/repro_torch/``; prints the build seconds and
-   the compiler's register/spill report.
+   (all at once) into ``build/repro_torch/``; prints the build seconds, the
+   compiler's register/spill report, and the count of wgmma (``HGMMA``)
+   instructions in the tensor-core flash kernel's machine code.
 3. kernels — each kernel against its plain PyTorch version on the card:
    quant_aggregate bitwise at the shapes the FL path and the aggregation
    benchmark use, plus a ragged tail and a single client; rmsnorm, flash
    attention and decode attention within ``tests/test_kernels.py``'s
    tolerances at its shapes (f32 and bf16: MHA, GQA, MQA with Sq != Sk and
    q_offset, Dk != Dv, full attention, a decode row of length 0, ragged
-   lengths) and at the serve path's shapes in bf16. Times with CUDA events
+   lengths, decode lengths at the split boundaries) and at the serve path's
+   shapes in bf16. Flash attention in bf16 with head dims 64/128 runs the
+   tensor-core (wgmma) kernel, the rest the SIMT kernel; the SIMT kernel is
+   also run and timed in bf16 at the serve shape, beside the new one, through
+   its own C entry point. Decode attention splits the cache over CTAs and
+   combines the splits in the same call; it is also held to ``plain_split``,
+   the PyTorch mirror of that split. Times with CUDA events
    (L2 flushed before every launch) beside the bound: device time with the
    host queued ahead, the kernel's time per call with the host's launch
    overhead in it, the plain version's time, and the one PyTorch call that
@@ -34,8 +41,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
-   whole number of 512-key blocks). Launch counts rmsnorm 17 x 65, flash 8,
-   decode 8 x 64; a second run gives bitwise the same tokens, prefill and
+   whole number of 512-key blocks). Launch counts rmsnorm 17 x 65, flash 8
+   (all wgmma, no SIMT), decode 8 x 64; a second run gives bitwise the same
+   tokens, prefill and
    decode logits; prefill seconds, decode ms per token, tokens/s and peak
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
@@ -50,6 +58,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -78,10 +87,15 @@ FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv  (tests/test_kernels.py:34-39, then
     (2, 128, 128, 4, 4, 64, 64), (1, 256, 256, 8, 2, 64, 64),
     (2, 128, 256, 4, 1, 32, 32), (1, 128, 128, 4, 2, 96, 64),
     (2, 70, 200, 4, 1, 64, 64), (1, 300, 300, 56, 8, 128, 128),
-    (1, 50, 50, 4, 2, 20, 20)]     # rows not 16-byte aligned: the scalar loads
+    (1, 50, 50, 4, 2, 20, 20),     # rows not 16-byte aligned: the scalar loads
+    (2, 70, 200, 4, 1, 128, 128),  # wgmma: ragged Sq and Sk, q_offset 130
+    (1, 192, 192, 8, 2, 128, 64), (1, 192, 192, 8, 2, 64, 128),   # wgmma, Dk != Dv
+    (1, 1, 333, 8, 2, 128, 128)]   # one query row, q_offset 332
 DECODE_CHECKS = [  # B, S, H, KV, D  (tests/test_kernels.py:91, then ragged, G = 7)
     (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 128, 8, 1, 32), (4, 600, 14, 2, 16),
     (2, 90, 6, 3, 12)]
+# the split kernel's boundaries: lengths 0, 1, chunk-1, chunk, chunk+1, S
+DECODE_SPLIT_CHECKS = [(600, 14, 2, 128), (2112, 56, 8, 128)]   # S, H, KV, D
 RMS_CHECKS = [(64, 128), (3, 40, 256), (130, 512), (5, 100)]
 MAIN_JOB = {
     "name": "chip_smoke",
@@ -378,7 +392,8 @@ def check_lm_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     dev = torch.device("cuda")
-    worst = {"rmsnorm": 0.0, "flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {"rmsnorm": 0.0, "flash_attention_wgmma": 0.0, "flash_attention_simt_f32": 0.0,
+             "flash_attention_simt_bf16": 0.0, "decode_attention": 0.0}
     for i, shape in enumerate(RMS_CHECKS):
         for dt in (torch.float32, torch.bfloat16):
             x = _randn(torch, shape, dt, i, dev)
@@ -397,7 +412,15 @@ def check_lm_kernels(torch):
                 want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
                 err = close(torch, name, out, want, ATTN_TOL[_dt(q)])
                 close(torch, name + " lse", lse, want_lse, ATTN_TOL[_dt(q)])
-                worst["flash_attention"] = max(worst["flash_attention"], err)
+                key = ("flash_attention_wgmma" if fa.uses_wgmma(dt, Dk, Dv)
+                       else f"flash_attention_simt_{'f32' if dt == torch.float32 else 'bf16'}")
+                worst[key] = max(worst[key], err)
+                if key == "flash_attention_wgmma":   # the SIMT kernel on the same bf16 inputs
+                    out, lse = fa._launch("simt", q, k, v, Sk - Sq, causal, None)
+                    err = close(torch, name + " simt", out, want, ATTN_TOL[_dt(q)])
+                    close(torch, name + " simt lse", lse, want_lse, ATTN_TOL[_dt(q)])
+                    worst["flash_attention_simt_bf16"] = max(
+                        worst["flash_attention_simt_bf16"], err)
     for i, (B, S, H, KV, D) in enumerate(DECODE_CHECKS):
         for dt in (torch.float32, torch.bfloat16):
             q = _randn(torch, (B, H, D), dt, 3 * i, dev)
@@ -422,6 +445,26 @@ def check_lm_kernels(torch):
             close(torch, name + " m", m, pm, tol)
             close(torch, name + " l", l, pl, tol)
             worst["decode_attention"] = max(worst["decode_attention"], err)
+    c = da.CHUNK
+    for i, (S, H, KV, D) in enumerate(DECODE_SPLIT_CHECKS):
+        for dt in (torch.float32, torch.bfloat16):
+            length = torch.tensor([0, 1, c - 1, c, c + 1, S], dtype=torch.int32, device=dev)
+            B = length.numel()
+            q = _randn(torch, (B, H, D), dt, 50 + 3 * i, dev)
+            k = _randn(torch, (B, S, KV, D), dt, 51 + 3 * i, dev)
+            v = _randn(torch, (B, S, KV, D), dt, 52 + 3 * i, dev)
+            name = f"decode split {(B, S, H, KV, D)} {_dt(q)}"
+            o, m, l = da.decode_attention_fwd(q, k, v, length)
+            if not ((m[0] == -1e30).all() and (l[0] == 0).all() and (o[0] == 0).all()):
+                raise AssertionError(f"{name}: the length-0 row is not m=-1e30, l=0, o=0")
+            tol = ATTN_TOL[_dt(q)]
+            for tag, (po, pm, pl) in (("plain", da.plain(q, k, v, length)),
+                                      ("plain_split", da.plain_split(q, k, v, length))):
+                err = close(torch, f"{name} vs {tag}", o[1:] / l[1:, :, None],
+                            po[1:] / pl[1:, :, None], tol)
+                close(torch, f"{name} m vs {tag}", m, pm, tol)
+                close(torch, f"{name} l vs {tag}", l, pl, tol)
+                worst["decode_attention"] = max(worst["decode_attention"], err)
     torch.cuda.synchronize()
     log("check lm kernels at tests/test_kernels.py shapes (f32 + bf16), worst max |diff|:",
         json.dumps(worst))
@@ -495,13 +538,28 @@ def time_lm_kernels(torch, flush):
     lib_err = close(torch, "sdpa prefill", sdpa(q, k, v).transpose(1, 2), out,
                     YARDSTICK_TOL)
     pairs = S * (S + 1) // 2
+    if not fa.uses_wgmma(q.dtype, HD, HD):
+        raise AssertionError("the serve shape does not take the wgmma flash kernel")
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+    flops = 2 * B * H * pairs * (HD + HD)
     rows["flash_attention"] = row(
-        "flash_attention prefill", [B, S, S, H, KV, HD, HD], err,
+        "flash_attention prefill (wgmma)", [B, S, S, H, KV, HD, HD], err,
         lambda q, k, v: fa.flash_attention_fwd(q, k, v, 0, True), (q, k, v),
-        lambda q, k, v: fa.plain(q, k, v, 0, True), sdpa,
-        (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4,
-        2 * B * H * pairs * (HD + HD), BF16_FLOPS_PER_S, 10, 5, lib_err)
-    del q, k, v, kt, vt, out, lse, want, want_lse
+        lambda q, k, v: fa.plain(q, k, v, 0, True), sdpa, nbytes, flops,
+        BF16_FLOPS_PER_S, 50, 5, lib_err)
+    # the SIMT kernel (the f32 path) in bf16 on the same inputs, for old vs new
+    def simt(q, k, v):
+        return fa._launch("simt", q, k, v, 0, True, None)
+    s_out, s_lse = simt(q, k, v)
+    s_err = close(torch, "flash prefill simt", s_out, want, ATTN_TOL["bfloat16"])
+    close(torch, "flash prefill simt lse", s_lse, want_lse, ATTN_TOL["bfloat16"])
+    # same function and inputs: the bound, plain and SDPA times carry over
+    r = dict(rows["flash_attention"], max_abs_err=s_err,
+             kernel_ms=time_device(simt, (q, k, v), 10, flush, batch=10),
+             kernel_call_ms=time_call(simt, (q, k, v), 10, flush))
+    log("kernel flash_attention prefill (simt, bf16)", json.dumps(r))
+    rows["flash_attention_simt"] = r
+    del q, k, v, kt, vt, out, lse, want, want_lse, s_out, s_lse
 
     # B4 decode attention: one decode layer at the last step (full 2112 cache)
     Sc = S + new
@@ -576,18 +634,25 @@ def phase_serve(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    flash = kernels["flash_attention"]
+    flash.launches_by_kernel = {key: 0 for key in flash.launches_by_kernel}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = generate(model, params, prompts, new)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_by_kernel = dict(flash.launches_by_kernel)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new),
             "flash_attention": L, "decode_attention": L * new}
-    log(f"serve launches {json.dumps(launches)} (want {json.dumps(want)})")
+    log(f"serve launches {json.dumps(launches)} (want {json.dumps(want)}); flash by "
+        f"kernel {json.dumps(flash_by_kernel)}")
     if launches != want:
         raise AssertionError(f"serve path launches {launches}, want {want}")
+    if flash_by_kernel != {"wgmma": L, "simt": 0}:
+        raise AssertionError(f"serve path flash launches {flash_by_kernel}, want all "
+                             f"{L} on the wgmma kernel")
     if toks.shape != (B, new) or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
         raise AssertionError(f"serve: bad tokens {tuple(toks.shape)}")
 
@@ -629,18 +694,26 @@ def phase_serve(torch, kernels):
                 raise AssertionError(f"serve: decode step {i} does not give generate's "
                                      f"token {i + 1}")
         # where the time goes: one prefill and one decode step, profiled
-        prof_prefill, _ = profile_device(
+        prof_prefill, by_prefill = profile_device(
             torch, lambda: model.prefill(params, {"tokens": prompts}), "serve prefill")
-        prof_decode, _ = profile_device(
+        prof_decode, by_decode = profile_device(
             torch, lambda: model.decode_step(params, toks[:, n_steps], caches,
                                              length + n_steps), "serve decode step")
+        for label, prof, by_name in (("prefill", prof_prefill, by_prefill),
+                                     ("decode step", prof_decode, by_decode)):
+            for tag in ("flash_wgmma", "decode_mma", "decode_combine", "rmsnorm"):
+                hits = [v for k, v in by_name.items() if tag in k]
+                ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+                prof[f"{tag}_ms"] = ms
+                log(f"  {label}: {tag} {ms:.4f} ms x{n} "
+                    f"({100 * ms / max(prof['kernel_sum_ms'], 1e-9):.1f}% of kernel time)")
     out = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S, "max_new": new,
            "cache_len": S + new, "params": n_params, "init_s": init_s,
            "first_generate_s": first_s, "generate_s": gen_s, "prefill_s": prefill_s,
            "decode_ms_per_token": (gen_s - prefill_s) / new * 1e3,
            "decode_step_ms": sorted(step_ms)[len(step_ms) // 2],
            "generated_tokens_per_s": B * new / gen_s,
-           "peak_mem_gb": peak_gb, "launches": launches,
+           "peak_mem_gb": peak_gb, "launches": launches, "flash_by_kernel": flash_by_kernel,
            "bitwise_repeat": True, "tokens_head": toks[0, :8].tolist(),
            "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}
     log("serve", json.dumps(out))
@@ -654,6 +727,7 @@ def phase_serve_card_vs_cpu(torch):
     greedy decode steps on the card (kernels) and on the CPU (plain)."""
     from repro_torch.configs.base import get_config
     from repro_torch.configs.reduce import reduced_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model_zoo
     from repro_torch.models.transformer import pad_caches
     model = model_zoo.build(reduced_config(get_config(SERVE["arch"])))
@@ -661,6 +735,9 @@ def phase_serve_card_vs_cpu(torch):
     prompts = torch.randint(0, model.cfg.vocab_size, (2, 64),
                             generator=torch.Generator().manual_seed(2))
     out = {}
+    # the f32 serve path (head dim 16) runs the SIMT flash kernel; its counts
+    # are zeroed just before the card's run and read just after
+    fa.flash_attention_fwd.launches_by_kernel = {"wgmma": 0, "simt": 0}
     for dev in ("cuda", "cpu"):
         p = _tree_to(params, dev)
         with torch.inference_mode():
@@ -677,11 +754,15 @@ def phase_serve_card_vs_cpu(torch):
                 length = length + 1
             toks.append(tok)
         out[dev] = (torch.stack(toks).cpu(), torch.stack(all_logits).cpu())
+    flash_by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    if flash_by_kernel != {"wgmma": 0, "simt": model.cfg.n_layers}:
+        raise AssertionError(f"f32 serve path flash launches {flash_by_kernel}")
     if not torch.equal(out["cuda"][0], out["cpu"][0]):
         raise AssertionError("serve card vs cpu: tokens differ")
     # tolerance: f32 matmuls sum in another order on the card (TF32 off)
     err = close(torch, "serve card vs cpu logits", out["cuda"][1], out["cpu"][1], 1e-4)
-    res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4}
+    res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4,
+           "flash_by_kernel": flash_by_kernel}
     log("serve card vs cpu (reduced yi-34b, f32, prefill + 4 decode steps)", json.dumps(res))
     return res
 
@@ -719,8 +800,17 @@ def main() -> int:
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     for name in sorted(libs):
         for line in build.PTXAS.get(name, "cached build\n").splitlines():
+            if "entry function" in line:
+                log(f"ptxas {name}: {line.split('entry function')[1].strip()[:110]}")
             if "registers" in line or "spill" in line or "cached" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(libs["flash_attention_wgmma"])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"cuobjdump flash_attention_wgmma: {hgmma} HGMMA (wgmma) instructions")
+    if hgmma == 0:
+        raise AssertionError("the tensor-core flash kernel holds no wgmma instruction")
 
     # 3. kernels vs plain versions
     rows = phase_kernels(torch, qa)
@@ -769,22 +859,32 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "bitwise": True,
         "shape": [main["C"], main["N"], main["qblock"]]}]
-    for name, key, source, replaces in (
+    flash_src = "src/repro/kernels/flash_attention.py:30"
+    for name, key, source, replaces, launches, worst in (
             ("rmsnorm", "rmsnorm_prefill", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:11"),
-            ("flash_attention", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:30"),
+             "src/repro/kernels/rmsnorm.py:11", serve["launches"]["rmsnorm"],
+             lm_worst["rmsnorm"]),
+            ("flash_attention_wgmma", "flash_attention",
+             "src/repro_torch/csrc/flash_attention_wgmma.cu", flash_src,
+             serve["flash_by_kernel"]["wgmma"], lm_worst["flash_attention_wgmma"]),
+            # the f32 path: launches on the f32 serve path (reduced yi-34b,
+            # head dim 16); times in bf16 at the serve shape, beside wgmma
+            ("flash_attention_simt", "flash_attention_simt",
+             "src/repro_torch/csrc/flash_attention.cu", flash_src,
+             serve_cpu["flash_by_kernel"]["simt"],
+             max(lm_worst["flash_attention_simt_f32"], lm_worst["flash_attention_simt_bf16"])),
             ("decode_attention", "decode_attention",
              "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:29")):
+             "src/repro/kernels/decode_attention.py:29", serve["launches"]["decode_attention"],
+             lm_worst["decode_attention"])):
         r = lm_rows[key]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][name], "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "call_ms": r["kernel_call_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False,
-            "worst_max_abs_err_test_shapes": lm_worst[name], "shape": r["shape"]})
+            "worst_max_abs_err_test_shapes": worst, "shape": r["shape"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -797,6 +897,15 @@ def main() -> int:
                         "generated_tokens_per_s", "generate_s", "peak_mem_gb")},
                     "rmsnorm_decode": lm_rows["rmsnorm_decode"],
                     "card_vs_cpu": serve_cpu}))
+    log(json.dumps({"slice": "3: B3 flash attention on the tensor cores (wgmma, TMA) and "
+                    "B4 decode attention split over the cache",
+                    "flash_wgmma_ms": lm_rows["flash_attention"]["kernel_ms"],
+                    "flash_simt_bf16_ms": lm_rows["flash_attention_simt"]["kernel_ms"],
+                    "decode_ms": lm_rows["decode_attention"]["kernel_ms"],
+                    "prefill_device_busy_ms": serve["profile_prefill"]["device_busy_ms"],
+                    "decode_step_device_busy_ms":
+                        serve["profile_decode_step"]["device_busy_ms"],
+                    "flash_by_kernel": serve["flash_by_kernel"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

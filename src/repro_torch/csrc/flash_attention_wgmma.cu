@@ -1,0 +1,522 @@
+// Flash-attention forward on Hopper's tensor cores (sm_90a, wgmma).
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py:30 (_fwd_kernel) for bf16 inputs
+// with head dims Dk, Dv in {64, 128}; f32 and other head dims take the SIMT
+// kernel in flash_attention.cu. For q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
+// v (B,Sk,KV,Dv), head h reading kv head h / (H/KV) (GQA by index, any
+// group size), it computes per row
+//
+//     s = (q . k) * scale, masked to -1e30 where causal and q_offset+i < j
+//     online softmax over kv blocks: m, l, acc = acc * alpha + p . v
+//     out = acc / max(l, 1e-30)   (bf16)
+//     lse = m + log(max(l, 1e-30))   (f32, (B,H,Sq), for the backward)
+//
+// Bound: operations. At the serve shape (B 8, S 2048 causal, 56/8 heads of
+// 128) the two products are 481 GFLOP against 540 MB of q, k, v, out and
+// lse: 0.487 ms at the 989 TFLOP/s bf16 tensor-core peak of an H100 SXM,
+// 0.161 ms of memory traffic at 3.35 TB/s. So both products run on the
+// tensor cores:
+//
+// - S = Q K^T is a wgmma with both operands in shared memory, K-major, in
+//   the 128-byte-swizzle layout that wgmma's descriptors name: 64-column
+//   panels of rows of 128 bytes, the 16-byte chunk c of row r stored at
+//   chunk c ^ (r % 8). A 128-wide head is two panels.
+// - O += P V is a wgmma with A = P from registers: the S accumulator
+//   fragment, scaled, exponentiated and rounded to bf16 in place (a thread's
+//   accumulator pairs for columns 16kk .. 16kk+15 are exactly its A fragment
+//   for k-step kk). V stays [key][d] in shared memory, which is MN-major
+//   for this product; wgmma takes it transposed (16-bit types only).
+// - The online softmax runs on the accumulator fragment: a row lives in the
+//   four threads of a quad, so its max and sum take two shuffles. No score
+//   tile goes through shared memory. exp is exp2 with log2(e) folded into
+//   the scale.
+// - K and V tiles of 128 keys arrive by TMA (cp.async.bulk.tensor with a
+//   4-d tensor map per operand, encoded on the host; rows past Sk read as
+//   zeros), each 64-column panel one box that the TMA unit writes in the
+//   128-byte swizzle, into rings of two stages with an mbarrier per stage.
+//   One thread starts every copy; no other thread spends an instruction on
+//   them. Tiles stay bf16 in shared memory; Q is loaded once per CTA.
+// - Block j's P V runs on the tensor cores while the CUDA cores do the
+//   softmax of block j+1, whose Q K^T was started just before it; K_{j+2}
+//   and V_{j+1} are in flight meanwhile.
+//
+// Numerics: P is rounded to bf16 before P V, as the plain version does
+// (p.to(v.dtype)) and as SDPA does; the Pallas kernel keeps P in f32. Every
+// product sums in f32. Tolerance 2e-2 in bf16 (tests/test_kernels.py).
+//
+// Layout: one CTA of two warpgroups per (128 q rows, head, batch), each
+// warpgroup 64 rows; both read every K/V tile. Under a causal mask the CTA
+// stops at the block holding its last row's position, and the mask is
+// applied only on blocks that cross the diagonal or the Sk tail. CTAs are
+// launched heaviest first (last q block first). q_offset is a runtime
+// argument; the Sq and Sk tails are masked here (the TPU kernel asserts
+// divisibility).
+//
+// Measured at the serve shape on an H100 SXM (700 W), in the order the
+// design was reached: two warpgroups in lockstep, blocks of 64 keys through
+// a cp.async ring, 2.09 ms; one warpgroup per CTA, 1.90 ms; two warpgroups
+// again, each with the softmax of j+1 under P_j V_j, blocks of 128 keys,
+// 1.63 ms; TMA in place of cp.async (whose address arithmetic and launch
+// cost every thread some 16 instructions per block), 1.09 ms. Left for
+// later: warp specialisation (a producer warp, so the two warpgroups need
+// not meet at a barrier every block), pingpong between the warpgroups,
+// persistent CTAs, head dims other than 64 and 128.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWG = 2;         // consumer warpgroups per CTA, 64 q rows each
+constexpr int kBQ = 64 * kWG;  // q rows per CTA
+constexpr int kBK = 128;       // keys per kv block
+constexpr int kThreads = 128 * kWG;
+constexpr int kStages = 2;     // K ring and V ring
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers and TMA (cp.async.bulk.tensor), started by one thread
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a 4-d tensor map (d, head, row, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+// rows [row, row + R) of one head as D/64 panels of R rows x 128 bytes,
+// swizzled by the TMA unit (128B); rows past the tensor's end read as zeros
+template <int R, int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int head, int row, int batch) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) tma_load(dst + p * R * 128, map, bar, 64 * p, head, row, batch);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma window
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. lbo: byte offset
+// between 64-element panels along MN (MN-major operands; unused for
+// K-major), sbo: byte offset between groups of 8 rows (K-major) or 8 k
+// indices (MN-major). The swizzle pattern repeats every 1024 bytes, so
+// every tile base is 1024-byte aligned.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both from shared memory,
+// both K-major; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128), both from shared memory,
+// both K-major; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64) from
+// shared memory, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128) from
+// shared memory, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+template <int DK, int DV>
+constexpr int smem_bytes() {
+  // + 1024 for alignment; Q, the K ring, the V ring, 5 mbarriers
+  return 1024 + 2 * (kBQ * DK + kStages * kBK * DK + kStages * kBK * DV) + 64;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fold a block of raw scores into the running max m2 (log2 units) and sum l
+// of this thread's two rows; s becomes exp2(s * scale_log2 - m2), the scale
+// folded into one fma. MASK: the block crosses the diagonal or the Sk tail.
+// Returns the rescale of each row's earlier accumulator in alpha.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], float (&m2)[2],
+                                               float (&l)[2], float (&alpha)[2], int k0,
+                                               int q0, int r0, int cq, int Sk, int q_offset,
+                                               int causal, float scale_log2) {
+  if constexpr (MASK) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + cq + (i % 2);
+      const int row = q0 + r0 + 8 * ((i / 2) % 2);
+      if (key >= Sk || (causal && q_offset + row < key)) s[i] = kNegInf;
+    }
+  }
+  // a row's four owners are one quad
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j8 = 0; j8 < kBK / 8; ++j8)
+      mx = fmaxf(mx, fmaxf(s[4 * j8 + 2 * hr], s[4 * j8 + 2 * hr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m2[hr], mx * scale_log2);
+    alpha[hr] = ex2(m2[hr] - m_new);
+    m2[hr] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j8 = 0; j8 < kBK / 8; ++j8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[4 * j8 + 2 * hr + e], scale_log2, -m_new));
+        s[4 * j8 + 2 * hr + e] = p;
+        sum += p;
+      }
+    l[hr] = l[hr] * alpha[hr] + sum;
+  }
+}
+
+__device__ __forceinline__ void softmax_block(float (&s)[kBK / 2], float (&m2)[2],
+                                              float (&l)[2], float (&alpha)[2], int k0, int q0,
+                                              int r0, int cq, int Sk, int q_offset, int causal,
+                                              float scale_log2) {
+  if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > q_offset + q0))
+    online_softmax<true>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
+  else
+    online_softmax<false>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
+}
+
+// P in bf16: the accumulator pairs of columns 16kk .. 16kk+15 are the A
+// fragment of k-step kk
+__device__ __forceinline__ void to_a_fragments(const float (&s)[kBK / 2],
+                                               uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p2 = __floats2bfloat162_rn(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      pa[kk][i] = *reinterpret_cast<const uint32_t*>(&p2);
+    }
+}
+
+// S = Q K^T for one kv block, started and committed (not waited for)
+template <int DK>
+__device__ __forceinline__ void start_qk(float (&s)[kBK / 2], uint32_t Qs, uint32_t kt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;   // 16 elements = 32 bytes into the panel
+    wgmma_ss<kBK>(s, desc_sw128(Qs + (kk / 4) * (kBQ * 128) + col, 16, 1024),
+                 desc_sw128(kt + (kk / 4) * (kBK * 128) + col, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  fence_regs(s);
+}
+
+// O += P V for one kv block, started and committed (not waited for)
+template <int DV>
+__device__ __forceinline__ void start_pv(float (&o)[DV / 2], const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t vt) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_rs<DV>(o, pa[kk], desc_sw128(vt + kk * 16 * 128, kBK * 128, 1024));
+  wgmma_commit();
+  fence_regs(o);
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                   int q_offset, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;   // [DK/64][kBQ][128 B]
+  const uint32_t Ks = Qs + kBQ * DK * 2;                        // kStages x [DK/64][kBK][128 B]
+  const uint32_t Vs = Ks + kStages * kBK * DK * 2;             // kStages x [DV/64][kBK][128 B]
+  const uint32_t bars = Vs + kStages * kBK * DV * 2;           // Q, K stages, V stages
+  const uint32_t qbar = bars, kbar = bars + 8, vbar = kbar + 8 * kStages;
+  constexpr int kTileK = kBK * DK * 2, kTileV = kBK * DV * 2;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+
+  // kv blocks to visit: under a causal mask, up to the block holding the
+  // position of this CTA's last row
+  int nkb = (Sk + kBK - 1) / kBK;
+  if (causal) {
+    const int last = q_offset + min(q0 + kBQ, Sq) - 1;
+    nkb = min(nkb, last < 0 ? 0 : last / kBK + 1);
+  }
+
+  // accumulator fragment: thread holds rows r0 and r0 + 8 of the 64,
+  // columns 8j + cq and 8j + cq + 1 (the wgmma D layout)
+  const int r0 = 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  const int qw0 = q0 + 64 * wg;                  // first row of this warpgroup
+  const uint32_t Qw = Qs + 64 * 128 * wg;        // its rows of the Q panels
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+  float m2[2] = {kNegInf, kNegInf};   // running max, in log2 units
+  float l[2] = {0.0f, 0.0f};          // this thread's share of the running sum
+  float alpha[2];
+
+  // thread 0 starts every copy: Q, then K_j into stage j % 2 and V_j into
+  // stage j % 2, each stage with its mbarrier (its n-th fill has parity n & 1)
+  const bool copier = tid == 0;
+  if (copier) {
+    mbar_init(qbar);
+    for (int i = 0; i < kStages; ++i) mbar_init(kbar + 8 * i);
+    for (int i = 0; i < kStages; ++i) mbar_init(vbar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_k = [&](int j) {
+    const uint32_t bar = kbar + 8 * (j % kStages);
+    mbar_expect_tx(bar, kTileK);
+    tma_tile<kBK, DK>(Ks + (j % kStages) * kTileK, &tk, bar, kvh, j * kBK, b);
+  };
+  auto load_v = [&](int j) {
+    const uint32_t bar = vbar + 8 * (j % kStages);
+    mbar_expect_tx(bar, kTileV);
+    tma_tile<kBK, DV>(Vs + (j % kStages) * kTileV, &tv, bar, kvh, j * kBK, b);
+  };
+  if (copier) {
+    mbar_expect_tx(qbar, kBQ * DK * 2);
+    tma_tile<kBQ, DK>(Qs, &tq, qbar, h, q0, b);
+    if (nkb > 0) load_k(0);
+    if (nkb > 1) load_k(1);
+    if (nkb > 0) load_v(0);
+  }
+
+  uint32_t pa[kBK / 16][4];
+  if (nkb > 0) {   // block 0's scores and softmax before the loop
+    mbar_wait(qbar, 0);
+    mbar_wait(kbar, 0);
+    float s[kBK / 2];
+    start_qk<DK>(s, Qw, Ks);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_block(s, m2, l, alpha, 0, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
+    to_a_fragments(s, pa);
+    __syncthreads();   // K_0's stage is refilled next
+  }
+
+  // step j: O += P_j V_j on the tensor cores while the softmax of block j+1
+  // runs on the CUDA cores. No wgmma or wait sits under a branch (ptxas
+  // serialises the wgmma pipeline otherwise): the last step is peeled.
+  for (int j = 0; j + 1 < nkb; ++j) {
+    if (copier) {   // the stages of K_j and V_{j-1} are free (barrier below)
+      if (j + 2 < nkb) load_k(j + 2);
+      load_v(j + 1);
+    }
+    const int k1 = (j + 1) * kBK;
+    mbar_wait(kbar + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
+    mbar_wait(vbar + 8 * (j % kStages), (j / kStages) & 1);
+
+    float s[kBK / 2];
+    start_qk<DK>(s, Qw, Ks + ((j + 1) % kStages) * kTileK);
+    start_pv<DV>(o, pa, Vs + (j % kStages) * kTileV);
+    wgmma_wait<1>();   // S_{j+1} is done; P_j V_j may still run
+    fence_regs(s);
+    softmax_block(s, m2, l, alpha, k1, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int jd = 0; jd < DV / 8; ++jd) {
+      o[4 * jd] *= alpha[0];
+      o[4 * jd + 1] *= alpha[0];
+      o[4 * jd + 2] *= alpha[1];
+      o[4 * jd + 3] *= alpha[1];
+    }
+    to_a_fragments(s, pa);
+    __syncthreads();   // both warpgroups are done with K_j's and V_j's stages
+  }
+  if (nkb > 0) {   // the last step: P V only
+    mbar_wait(vbar + 8 * ((nkb - 1) % kStages), ((nkb - 1) / kStages) & 1);
+    start_pv<DV>(o, pa, Vs + ((nkb - 1) % kStages) * kTileV);
+    wgmma_wait<0>();
+    fence_regs(o);
+  } else {
+    mbar_wait(qbar, 0);   // no copy may be in flight when the CTA exits
+  }
+
+  // epilogue: a row's sum is spread over its quad
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float lr = l[hr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int qi = qw0 + r0 + 8 * hr;
+    if (qi >= Sq) continue;
+    const float inv = 1.0f / fmaxf(lr, 1e-30f);
+    bf16* orow = out + (((int64_t)b * Sq + qi) * H + h) * DV;
+#pragma unroll
+    for (int jd = 0; jd < DV / 8; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd + cq) =
+          __floats2bfloat162_rn(o[4 * jd + 2 * hr] * inv, o[4 * jd + 2 * hr + 1] * inv);
+    if (lane % 4 == 0) {
+      const float m = m2[hr] == kNegInf ? kNegInf : m2[hr] * kLn2;
+      lse[((int64_t)b * H + h) * Sq + qi] = m + logf(fmaxf(lr, 1e-30f));
+    }
+  }
+}
+
+// A 4-d tensor map (d, head, row, batch) of a contiguous bf16 (B, S, heads, D)
+// tensor, read in boxes of 64 d x 1 head x `rows` rows with the 128-byte
+// swizzle; rows past S read as zeros. Returns 0 or the driver's error.
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                     dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DK, int DV>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
+           int Sk, int H, int KV, int q_offset, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode(&tq, q, B, Sq, H, DK, kBQ);
+  // with no keys, K and V are never read: their maps only need to be valid
+  if (!rc) rc = Sk ? encode(&tk, k, B, Sk, KV, DK, kBK) : encode(&tk, q, B, Sq, H, DK, kBK);
+  if (!rc) rc = Sk ? encode(&tv, v, B, Sk, KV, DV, kBK) : encode(&tv, q, B, Sq, H, DK, kBK);
+  if (rc) return rc;
+  constexpr int smem = smem_bytes<DK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_wgmma_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk, H, KV, q_offset,
+      causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes), with the signature of
+// flash_attention.cu's. Device pointers to contiguous bf16 (dtype 1)
+// q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv), out (B,Sq,H,Dv), all
+// 16-byte aligned, and f32 lse (B,H,Sq). Dk and Dv each 64 or 128. The
+// caller has checked shapes, H % KV == 0, q_offset >= 0 and B, H < 65536.
+// Returns the driver's error from encoding a tensor map, or the first CUDA
+// error of the set-up or the launch, else 0.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                            void* out, void* lse, int B, int Sq, int Sk,
+                                            int H, int KV, int Dk, int Dv, int q_offset,
+                                            int causal, float scale, int dtype,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (Dk == 128 && Dv == 128)
+    return launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  if (Dk == 64 && Dv == 64)
+    return launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  if (Dk == 128 && Dv == 64)
+    return launch<128, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  if (Dk == 64 && Dv == 128)
+    return launch<64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -22,8 +22,9 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -lcuda: the driver API's cuTensorMapEncodeTiled (TMA descriptors)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

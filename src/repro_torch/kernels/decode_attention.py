@@ -4,11 +4,14 @@
 ``decode_attention_fwd`` launches the hand-written Hopper kernel
 ``csrc/decode_attention.cu`` for CUDA tensors and takes ``plain``, a port of
 the JAX package's blockwise decode (``ops._decode_blockwise``), for CPU
-tensors. Both return the unnormalised ``(o (B,H,Dv), m (B,H), l (B,H))``,
-all f32, with ``softmax output = o / l``, so shards of a cache can be
-log-sum-exp combined; a row with ``length == 0`` gives m = -1e30, l = 0,
-o = 0. Both take any cache length S (the JAX path needs S to be a whole
-number of 512-key blocks).
+tensors. The kernel splits the cache into chunks of ``CHUNK`` keys, one CTA
+each, and log-sum-exp combines the chunks' partial results in the same
+call; ``plain_split`` is that split-and-combine in PyTorch. All return the
+unnormalised ``(o (B,H,Dv), m (B,H), l (B,H))``, all f32, with
+``softmax output = o / l``, so shards of a cache can be log-sum-exp
+combined; a row with ``length == 0`` gives m = -1e30, l = 0, o = 0. All
+take any cache length S (the JAX path needs S to be a whole number of
+512-key blocks).
 
 They differ in rounding only: the kernel keeps scores and probabilities in
 f32, the plain version rounds the products of bf16 inputs to bf16, as the
@@ -24,6 +27,8 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 227 * 1024    # dynamic shared memory one block may use on Hopper
+MAX_GROUP = 32                 # query heads per kv head the kernel takes
+CHUNK = 256                    # keys per CTA: 9 splits, 576 CTAs at the serve shape
 
 
 def plain(q, k, v, length, scale=None, block_k: int = 512):
@@ -63,6 +68,33 @@ def plain(q, k, v, length, scale=None, block_k: int = 512):
     return o.reshape(B, H, Dv), m.reshape(B, H), l.reshape(B, H)
 
 
+def combine(parts):
+    """Log-sum-exp combine of partial ``(o, m, l)`` over disjoint key ranges
+    -> ``(o, m, l)``. A part that saw no key (m = -1e30, l = 0, o = 0) is
+    weighed by exp(-1e30 - m) = 0; if every part is empty the result is
+    m = -1e30, l = 0, o = 0."""
+    m = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+    l = sum(pl * torch.exp(pm - m) for _, pm, pl in parts)
+    o = sum(po * torch.exp(pm - m)[..., None] for po, pm, _ in parts)
+    return o, m, l
+
+
+def plain_split(q, k, v, length, chunk: int = CHUNK, scale=None, block_k: int = 64):
+    """The kernel's split-and-combine in PyTorch -> (o, m, l): ``plain`` over
+    each chunk of ``chunk`` keys (with ``length`` clipped to the chunk, so a
+    chunk at or past ``length`` sees no key) in blocks of ``block_k``, then
+    ``combine``."""
+    S = k.shape[1]
+    parts = []
+    for start in range(0, S, chunk):
+        stop = min(start + chunk, S)
+        local = torch.clamp(length - start, 0, stop - start).to(torch.int32)
+        parts.append(plain(q, k[:, start:stop], v[:, start:stop], local, scale, block_k))
+    if not parts:
+        return plain(q, k, v, length, scale, block_k)
+    return combine(parts)
+
+
 def _check(q, k, v, length):
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or length.dim() != 1:
         raise ValueError(f"decode_attention wants q (B,H,Dk), k (B,S,KV,Dk), "
@@ -89,8 +121,8 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     unnormalised (o, m, l), all f32.
 
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
-    stream (no synchronisation) or raise. Each launch adds one to
-    ``decode_attention_fwd.launches``."""
+    stream (no synchronisation) or raise. Each call on the card (the split
+    kernel and its combine) adds one to ``decode_attention_fwd.launches``."""
     _check(q, k, v, length)
     dev = q.device
     if dev.type == "cpu":
@@ -106,8 +138,10 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and length.is_contiguous()):
         raise ValueError("decode_attention wants contiguous inputs")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"decode_attention takes GQA groups up to {MAX_GROUP}, got {H // KV}")
     lib = _lib()
-    smem = lib.decode_attention_smem_bytes(H // KV, Dk, Dv)
+    smem = lib.decode_attention_smem_bytes(H // KV, Dk, Dv, DTYPE_CODES[q.dtype])
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: a GQA group of {H // KV} needs {smem} B of "
                          f"shared memory, more than {MAX_SMEM_BYTES}")
@@ -115,12 +149,14 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     o = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
+    n_split = -(-S // CHUNK)
+    part = torch.empty((B * H * n_split * (Dv + 2),), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), B, S, H, KV, Dk, Dv, scale,
-            DTYPE_CODES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), part.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, H, KV, Dk, Dv, CHUNK, n_split,
+            scale, DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
     decode_attention_fwd.launches += 1
@@ -134,10 +170,10 @@ def _lib():
     from repro_torch.kernels import build
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     sm = lib.decode_attention_smem_bytes
-    sm.argtypes = [ctypes.c_int] * 3
+    sm.argtypes = [ctypes.c_int] * 4
     sm.restype = ctypes.c_int64
     return lib

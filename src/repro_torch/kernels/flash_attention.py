@@ -1,15 +1,24 @@
 """Flash-attention forward (port of ``repro/kernels/flash_attention.py``).
 
-``flash_attention_fwd`` launches the hand-written Hopper kernel
-``csrc/flash_attention.cu`` for CUDA tensors and takes ``plain``, a port of
-the JAX package's blockwise forward (``ops._blockwise_fwd``), for CPU
-tensors. Both return ``(out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) f32)``
-for causal or full GQA attention with a runtime ``q_offset``.
+``flash_attention_fwd`` takes ``plain``, a port of the JAX package's
+blockwise forward (``ops._blockwise_fwd``), for CPU tensors, and for CUDA
+tensors launches one of two hand-written Hopper kernels, chosen by dtype
+and head dims alone (``uses_wgmma``):
 
-They differ in rounding only: the kernel reads q, k, v as f32 and keeps
-scores and probabilities in f32 (the Pallas kernel's arithmetic), while the
-plain version, like ``_blockwise_fwd``, rounds the products of bf16 inputs
-to bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``): bf16 with Dk and Dv
+  both in ``WGMMA_HEAD_DIMS`` = (64, 128). Both products on the tensor
+  cores, K/V tiles through a cp.async ring.
+- ``csrc/flash_attention.cu`` (``"simt"``): everything else (f32, and head
+  dims such as 20, 32 or 96), on the CUDA cores in f32. TF32 tensor cores
+  would not hold f32 to its 2e-5 tolerance.
+
+All return ``(out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) f32)`` for causal
+or full GQA attention with a runtime ``q_offset``. They differ in rounding
+only: the SIMT kernel reads q, k, v as f32 and keeps scores and
+probabilities in f32 (the Pallas kernel's arithmetic); the wgmma kernel
+keeps scores in f32 and rounds P to bf16 before P V; the plain version, like
+``_blockwise_fwd``, rounds the products of bf16 inputs to bf16 and P to
+bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +29,14 @@ import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128     # larger head dims (MLA absorbed, 288/256) come with ROADMAP A15
+WGMMA_HEAD_DIMS = (64, 128)
+SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
+
+
+def uses_wgmma(dtype, Dk: int, Dv: int) -> bool:
+    """Whether a CUDA call with this dtype and these head dims launches the
+    tensor-core kernel (else the SIMT kernel)."""
+    return dtype == torch.bfloat16 and Dk in WGMMA_HEAD_DIMS and Dv in WGMMA_HEAD_DIMS
 
 
 def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
@@ -96,15 +113,32 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
     """q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv) -> (out, lse).
 
     ``q_offset`` is the global position of q row 0 (a Python int). CPU
-    tensors take ``plain``; CUDA tensors launch the kernel on the current
-    stream (no synchronisation) or raise. Each launch adds one to
-    ``flash_attention_fwd.launches``."""
+    tensors take ``plain``; CUDA tensors launch the kernel that
+    ``uses_wgmma`` names on the current stream (no synchronisation) or
+    raise. Each launch adds one to ``flash_attention_fwd.launches`` and to
+    its kernel's entry in ``flash_attention_fwd.launches_by_kernel``."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k, v, int(q_offset), causal, scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    Dk, Dv = q.shape[-1], v.shape[-1]
+    kernel = "wgmma" if uses_wgmma(q.dtype, Dk, Dv) else "simt"
+    out, lse = _launch(kernel, q, k, v, q_offset, causal, scale)
+    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_kernel[kernel] += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_kernel = {"wgmma": 0, "simt": 0}
+
+
+def _launch(kernel, q, k, v, q_offset, causal, scale):
+    """Launch ``kernel`` ("wgmma" or "simt") on checked CUDA tensors; counts
+    nothing (the public wrapper does)."""
+    dev = q.device
     B, Sq, H, Dk = q.shape
     _, Sk, KV, Dv = v.shape
     if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
@@ -120,24 +154,28 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().flash_attention_launch(
+        if kernel == "wgmma":
+            if not uses_wgmma(q.dtype, Dk, Dv):
+                raise ValueError(f"the wgmma kernel takes bf16 with head dims in "
+                                 f"{WGMMA_HEAD_DIMS}, got {q.dtype}, Dk={Dk}, Dv={Dv}")
+            if any(t.data_ptr() % 16 for t in (q, k, v)):
+                raise ValueError("the wgmma flash-attention kernel wants 16-byte aligned "
+                                 "q, k, v")
+        rc = _entry(SOURCES[kernel])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(bool(causal)), scale,
             DTYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    flash_attention_fwd.launches += 1
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: CUDA error {rc}")
     return out, lse
 
 
-flash_attention_fwd.launches = 0
-
-
-def _lib():
+def _entry(name):
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu`` (both
+    sources share its signature)."""
     from repro_torch.kernels import build
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
+    fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn

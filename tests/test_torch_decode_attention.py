@@ -136,3 +136,37 @@ def test_decode_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="cpu or cuda"):
         da.decode_attention_fwd(mq, mk, mk, torch.zeros(2, dtype=torch.int32,
                                                         device="meta"))
+
+
+@pytest.mark.parametrize("chunk,S", [(64, 256), (da.CHUNK, 2 * da.CHUNK)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_split_and_combine_matches_plain_and_pallas(chunk, S, dtype):
+    """The kernel's split over chunks of keys and its log-sum-exp combine
+    (``plain_split``) against one pass (``plain``) and the Pallas kernel,
+    at the chunk's boundary lengths, G = 7."""
+    lengths = np.array([0, 1, chunk - 1, chunk, chunk + 1, S], np.int32)
+    B, H, KV, D = len(lengths), 14, 2, 16
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, H, KV, D, D, seed=7), dtype)
+    tlen = torch.from_numpy(lengths)
+    so, sm, sl = da.plain_split(tq, tk, tv, tlen, chunk)
+    po, pm, pl = da.plain(tq, tk, tv, tlen)
+    assert (sm[0] == -1e30).all() and (sl[0] == 0).all() and (so[0] == 0).all()
+    tol = DTYPES[dtype][2]
+    _close(sm, pm, tol)
+    _close(sl, pl, tol)
+    _close((so / sl[..., None])[1:], (po / pl[..., None])[1:], tol)
+    o, m, l = pallas_decode(jq, jk, jv, jnp.asarray(lengths), block_k=64, interpret=True)
+    want = np.asarray(o)[1:] / np.asarray(l)[1:, :, None]
+    _close((so / sl[..., None])[1:], want, tol)
+    np.testing.assert_array_equal(sm[0].numpy(), np.asarray(m)[0])
+    np.testing.assert_array_equal(sl[0].numpy(), np.asarray(l)[0])
+    if dtype == "f32":
+        _close(sm, m, 2e-5)
+        _close(sl, l, 2e-5)
+
+
+def test_decode_combine_of_empty_parts_is_the_empty_row():
+    """Every part empty (a length-0 row) -> exactly m = -1e30, l = 0, o = 0."""
+    empty = (torch.zeros(2, 3, 8), torch.full((2, 3), -1e30), torch.zeros(2, 3))
+    o, m, l = da.combine([empty, empty, empty])
+    assert (m == -1e30).all() and (l == 0).all() and (o == 0).all()

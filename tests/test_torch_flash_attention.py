@@ -99,6 +99,23 @@ def test_flash_ragged_matches_ref(B, Sq, Sk, H, KV, D, causal, dtype):
     assert torch.isfinite(lse).all()
 
 
+@pytest.mark.parametrize("dtype,Dk,Dv,kernel", [
+    (torch.bfloat16, 128, 128, "wgmma"),     # yi-34b, the serve path
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 128, 64, "wgmma"),      # Dk != Dv
+    (torch.bfloat16, 64, 128, "wgmma"),
+    (torch.bfloat16, 96, 64, "simt"),        # head dims outside (64, 128)
+    (torch.bfloat16, 32, 32, "simt"),
+    (torch.bfloat16, 20, 20, "simt"),
+    (torch.bfloat16, 16, 16, "simt"),        # reduced yi-34b
+    (torch.float32, 128, 128, "simt"),       # f32 stays on the CUDA cores
+    (torch.float32, 64, 64, "simt"),
+])
+def test_flash_dispatch_by_dtype_and_head_dims(dtype, Dk, Dv, kernel):
+    """Which kernel a CUDA call launches depends on dtype and head dims only."""
+    assert fa.uses_wgmma(dtype, Dk, Dv) == (kernel == "wgmma")
+
+
 def test_flash_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 3, 16)

@@ -160,6 +160,49 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtyp
     _close(lse, want_lse, TOL[dtype])
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,causal", [
+    (2, 128, 128, 4, 4, 128, 128, True),     # MHA
+    (2, 128, 128, 4, 4, 128, 128, False),    # full attention
+    (2, 128, 256, 4, 1, 64, 64, True),       # q_offset 128
+    (2, 128, 256, 4, 1, 64, 64, False),
+    (2, 70, 200, 4, 1, 128, 128, True),      # ragged Sq and Sk, q_offset 130
+    (2, 70, 200, 4, 1, 128, 128, False),
+    (1, 300, 300, 56, 8, 128, 128, True),    # yi-34b heads (G = 7), ragged S
+    (1, 300, 300, 56, 8, 128, 128, False),
+    (1, 192, 192, 8, 2, 128, 64, True),      # Dk != Dv
+    (1, 192, 192, 8, 2, 64, 128, True),
+    (1, 1, 333, 8, 2, 128, 128, True),       # one query row at q_offset 332
+])
+def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal):
+    """The tensor-core kernel (bf16, head dims in (64, 128)) against the
+    plain version."""
+    q = _randn((B, Sq, H, Dk), torch.bfloat16, cuda, 4)
+    k = _randn((B, Sk, KV, Dk), torch.bfloat16, cuda, 5)
+    v = _randn((B, Sk, KV, Dv), torch.bfloat16, cuda, 6)
+    assert fa.uses_wgmma(q.dtype, Dk, Dv)
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    out, lse = fa.flash_attention_fwd(q, k, v, Sk - Sq, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"] + 1, "simt": by_kernel["simt"]}
+    want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, Sq, H, Dv)
+    _close(out, want, 2e-2)
+    _close(lse, want_lse, 2e-2)
+
+
+def test_flash_simt_kernel_in_bf16_matches_plain(cuda):
+    """The SIMT kernel still takes bf16 at a wgmma shape when asked directly
+    (chip_smoke.py times the two against each other)."""
+    q = _randn((1, 300, 56, 128), torch.bfloat16, cuda, 7)
+    k = _randn((1, 300, 8, 128), torch.bfloat16, cuda, 8)
+    v = _randn((1, 300, 8, 128), torch.bfloat16, cuda, 9)
+    out, lse = fa._launch("simt", q, k, v, 0, True, None)
+    want, want_lse = fa.plain(q, k, v, 0, True)
+    _close(out, want, 2e-2)
+    _close(lse, want_lse, 2e-2)
+
+
 def test_flash_kernel_refuses_head_dims_above_128(cuda):
     q = torch.zeros(1, 8, 2, 192, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
@@ -193,6 +236,27 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
     _close(l, pl, TOL[dtype])
 
 
+@pytest.mark.parametrize("S", [600, 2 * da.CHUNK])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernel_at_chunk_boundaries(cuda, S, dtype):
+    """Lengths 0, 1, chunk-1, chunk, chunk+1 and S, G = 7: the split kernel
+    and its combine against the plain version and its split mirror."""
+    c = da.CHUNK
+    length = torch.tensor([0, 1, c - 1, c, c + 1, S], dtype=torch.int32)
+    B, H, KV, D = len(length), 14, 2, 128
+    q = _randn((B, H, D), dtype, cuda, 10)
+    k = _randn((B, S, KV, D), dtype, cuda, 11)
+    v = _randn((B, S, KV, D), dtype, cuda, 12)
+    length = length.to(cuda)
+    o, m, l = da.decode_attention_fwd(q, k, v, length)
+    torch.cuda.synchronize()
+    assert (m[0] == -1e30).all() and (l[0] == 0).all() and (o[0] == 0).all()
+    for po, pm, pl in (da.plain(q, k, v, length), da.plain_split(q, k, v, length)):
+        _close(o[1:] / l[1:, :, None], po[1:] / pl[1:, :, None], TOL[dtype])
+        _close(m, pm, TOL[dtype])
+        _close(l, pl, TOL[dtype])
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -219,3 +283,20 @@ def test_serve_on_card_matches_cpu_and_launches_each_kernel(cuda):
     _, lc, _ = model.prefill(params, {"tokens": prompts})
     _, lg, _ = model.prefill(card, {"tokens": prompts.to(cuda)})
     _close(lg.cpu(), lc, 1e-4)
+
+
+def test_serve_in_bf16_at_head_dim_128_launches_only_the_wgmma_kernel(cuda):
+    """yi-34b's head dim (128) in bf16: every prefill attention goes to the
+    tensor-core kernel, and a second generate repeats the tokens bitwise."""
+    cfg = reduced_config(get_config("yi-34b")).replace(
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=128)
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), dtype=torch.bfloat16)
+    prompts = torch.randint(0, 512, (2, 96), generator=torch.Generator().manual_seed(1))
+    prompts = prompts.to(cuda)
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    toks = serve.generate(model, params, prompts, 4)
+    L = cfg.n_layers
+    assert fa.flash_attention_fwd.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"] + L, "simt": by_kernel["simt"]}
+    assert torch.equal(serve.generate(model, params, prompts, 4), toks)
