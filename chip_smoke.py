@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
+
+``--baseline DIR``: DIR is the ``csrc`` directory of an earlier version of
+the port whose rmsnorm and quant_aggregate have PR 13's C entry points (for
+instance ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR
+--strip-components=3``); those two kernels are built from it and timed
+beside this tree's, in turns (old, new, new, old).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — a CUDA card must be present; prints its name, count and power
    limit, and the TF32 flags the entry points set.
 2. build   — compiles every kernel under ``src/repro_torch/csrc/`` with nvcc
-   (all at once) into ``build/repro_torch/``; prints the build seconds, the
+   (all at once, with an empty kernel for the launch floor and the baseline's
+   two kernels) into ``build/repro_torch/``; prints the build seconds, the
    compiler's register/spill report, and the count of wgmma (``HGMMA``)
    instructions in the tensor-core flash kernel's machine code.
 3. kernels — each kernel against its plain PyTorch version on the card:
    quant_aggregate bitwise at the shapes the FL path and the aggregation
-   benchmark use, plus a ragged tail and a single client; rmsnorm, flash
+   benchmark use, plus a ragged tail and a single client, with its launch
+   plan and other tiles timed at the main shape; rmsnorm, flash
    attention and decode attention within ``tests/test_kernels.py``'s
    tolerances at its shapes (f32 and bf16: MHA, GQA, MQA with Sq != Sk and
    q_offset, Dk != Dv, full attention, a decode row of length 0, ragged
@@ -27,7 +35,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    (L2 flushed before every launch) beside the bound: device time with the
    host queued ahead, the kernel's time per call with the host's launch
    overhead in it, the plain version's time, and the one PyTorch call that
-   computes the same function (a yardstick the port never calls).
+   computes the same function (a yardstick the port never calls). rmsnorm
+   is timed at prefill's and decode's row counts (each with its launch
+   plan), at decode also with x warm in L2 and with the other layouts forced,
+   beside an empty kernel's time in the same harness (the launch floor).
 4. FL path (slice 1) — the FL round loop at the full width of flsim-cnn
    through ``load_job`` -> ``Executor(...).scaffold().run()``, once with
    fedavg and once with int8 compression; losses finite and falling, the
@@ -41,8 +52,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
-   whole number of 512-key blocks). Launch counts rmsnorm 17 x 65, flash 8
-   (all wgmma, no SIMT), decode 8 x 64; a second run gives bitwise the same
+   whole number of 512-key blocks). Launch counts rmsnorm 17 x 65 (17 in
+   the narrow row layout at prefill, 17 x 64 in the wide one at decode),
+   flash 8 (all wgmma, no SIMT), decode 8 x 64; a second run gives bitwise the same
    tokens, prefill and
    decode logits; prefill seconds, decode ms per token, tokens/s and peak
    memory. Then reduced yi-34b in f32 from the same weights on the card and
@@ -55,6 +67,8 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import pathlib
@@ -62,6 +76,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -161,7 +176,8 @@ def time_call(fn, args, iters: int, flush) -> float:
         fn(*args)
     pairs = _events(iters)
     for t0, t1 in pairs:
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         t0.record()
         fn(*args)
         t1.record()
@@ -171,7 +187,8 @@ def time_call(fn, args, iters: int, flush) -> float:
 def time_device(fn, args, iters: int, flush, batch: int = 20) -> float:
     """Median device ms per call: as ``time_call``, but each batch of calls
     is queued behind a device-side sleep long enough for the host to
-    enqueue the whole batch, so the events bracket device work only."""
+    enqueue the whole batch, so the events bracket device work only.
+    ``flush`` None: no flush, the inputs stay warm in L2."""
     import torch
     for _ in range(5):
         fn(*args)
@@ -190,7 +207,8 @@ def time_device(fn, args, iters: int, flush, batch: int = 20) -> float:
     for _ in range(0, iters, batch):
         torch.cuda._sleep(int(cycles_per_ms * (2 * batch * host_ms + 1)))
         for t0, t1 in _events(batch):
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
             t0.record()
             fn(*args)
             t1.record()
@@ -198,10 +216,91 @@ def time_device(fn, args, iters: int, flush, batch: int = 20) -> float:
     return _median(pairs)
 
 
-def phase_kernels(torch, qa):
-    """Kernel vs plain version, bitwise, and both timed, at every shape."""
+def in_turns(fa, fb, args, iters, flush, batch=20):
+    """Median device ms of two functions of the same inputs, timed in turns
+    a, b, b, a; each the mean of its two medians."""
+    a1 = time_device(fa, args, iters, flush, batch)
+    b1 = time_device(fb, args, iters, flush, batch)
+    b2 = time_device(fb, args, iters, flush, batch)
+    a2 = time_device(fa, args, iters, flush, batch)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+EMPTY_CU = r"""// an empty kernel: the launch floor of the timing harness
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_extras(build, baseline):
+    """The empty kernel (its source written under build/) and, with
+    ``--baseline``, the earlier rmsnorm and quant_aggregate, all built
+    together; returns {name: library path}."""
+    extra = build.BUILD_DIR.parent / "chip_smoke"
+    extra.mkdir(parents=True, exist_ok=True)
+    (extra / "empty.cu").write_text(EMPTY_CU)
+    libs = {}
+    todo = [(["empty"], extra)] + ([(["rmsnorm", "quant_aggregate"], baseline)]
+                                   if baseline else [])
+    for names, csrc in todo:
+        for name, path in build.build(names, csrc).items():
+            libs[name if csrc == extra else f"{name} (baseline)"] = path
+    return libs
+
+
+def bind_extras(torch, libs):
+    """Python callables for the extra libraries: ``empty()`` and, where the
+    baseline was built, ``rmsnorm(x, w)`` and ``quant_aggregate(q, s, w)``
+    through PR 13's C entry points."""
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def checked(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+    empty = ctypes.CDLL(str(libs["empty"])).empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    out = {"empty": lambda: checked(empty(stream()), "empty kernel")}
+    if "rmsnorm (baseline)" not in libs:
+        return out
+    rms = ctypes.CDLL(str(libs["rmsnorm (baseline)"])).rmsnorm_launch
+    rms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    rms.restype = ctypes.c_int
+    agg = ctypes.CDLL(str(libs["quant_aggregate (baseline)"])).quant_aggregate_launch
+    agg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_void_p]
+    agg.restype = ctypes.c_int
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def old_rmsnorm(x, w):
+        o = torch.empty_like(x)
+        D = x.shape[-1]
+        checked(rms(x.data_ptr(), w.data_ptr(), o.data_ptr(), x.numel() // D, D, 1e-6,
+                    codes[x.dtype], codes[w.dtype], stream()), "baseline rmsnorm")
+        return o
+
+    def old_quant_aggregate(q, s, w):
+        o = torch.empty((q.shape[1],), dtype=torch.float32, device=q.device)
+        checked(agg(q.data_ptr(), s.data_ptr(), w.data_ptr(), o.data_ptr(), q.shape[0],
+                    q.shape[1], q.shape[1] // s.shape[1], stream()), "baseline quant_aggregate")
+        return o
+    out.update(rmsnorm=old_rmsnorm, quant_aggregate=old_quant_aggregate)
+    return out
+
+
+def phase_kernels(torch, qa, extras):
+    """Kernel vs plain version, bitwise, and both timed, at every shape;
+    the baseline kernel beside it where there is one, and other tiles at
+    the main shape."""
     dev = torch.device("cuda")
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for i, (C, N, qblock) in enumerate(KERNEL_SHAPES):
         q, s, w = agg_inputs(C, N, qblock, seed=i, device=dev)
@@ -216,17 +315,30 @@ def phase_kernels(torch, qa):
                                  f"equal to its plain version (max |diff| {err})")
         nbytes = C * N + 4 * C * (N // qblock) + 4 * C + 4 * N
         flops = 3 * C * N
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-                    else "operations")
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        plan = qa.launch_plan(C, N, qblock, sm)
         kernel_ms = time_device(qa.quant_aggregate, (q, s, w), 200, flush)
         plain_ms = time_device(qa.plain, (q, s, w), 100, flush, batch=5)
         call_ms = time_call(qa.quant_aggregate, (q, s, w), 200, flush)
-        row = {"C": C, "N": N, "qblock": qblock, "bitwise": True,
+        row = {"C": C, "N": N, "qblock": qblock, "plan": plan._asdict(), "bitwise": True,
                "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "kernel_call_ms": call_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "library_ms": None}
+        if "quant_aggregate" in extras:
+            old = extras["quant_aggregate"]
+            if not torch.equal(old(q, s, w), want):
+                raise AssertionError(f"baseline quant_aggregate {C}x{N}: not bitwise plain")
+            row["baseline_ms"], row["new_ms_in_turns"] = in_turns(
+                old, qa.quant_aggregate, (q, s, w), 200, flush)
+        if i == 0:
+            tiles = {}
+            for tile in qa.TILES:
+                p = qa.launch_plan(C, N, qblock, sm, tile=tile)
+                if not torch.equal(qa._launch(q, s, w, qblock, p), want):
+                    raise AssertionError(f"quant_aggregate tile {tile}: not bitwise plain")
+                tiles[tile] = time_device(qa._launch, (q, s, w, qblock, p), 200, flush)
+            row["ms_by_tile"] = tiles
         log("kernel quant_aggregate", json.dumps(row))
         rows.append(row)
     return rows
@@ -471,9 +583,11 @@ def check_lm_kernels(torch):
     return worst
 
 
-def time_lm_kernels(torch, flush):
+def time_lm_kernels(torch, flush, extras):
     """B2-B4 at the serve path's shapes in bf16: kernel vs plain version,
-    then device ms, call ms, plain ms, the PyTorch yardstick's ms, bound."""
+    then device ms, call ms, plain ms, the PyTorch yardstick's ms, bound.
+    B2 also beside the baseline kernel, its other layouts and the launch
+    floor."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -506,6 +620,13 @@ def time_lm_kernels(torch, flush):
         log(f"kernel {name}", json.dumps(r))
         return r
 
+    # the launch floor: an empty kernel in the same harness
+    floor_ms = time_device(extras["empty"], (), 200, None)
+    floor_flushed_ms = time_device(extras["empty"], (), 200, flush)
+    log("launch floor (empty kernel)", json.dumps({"warm_ms": floor_ms,
+                                                   "after_flush_ms": floor_flushed_ms}))
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
     # B2 rmsnorm: every prefill norm (B*S rows) and every decode norm (B rows)
     for tag, rows_shape in (("prefill", (B, S, D)), ("decode", (B, 1, D))):
         x = _randn(torch, rows_shape, bf16, 7, dev)
@@ -516,9 +637,43 @@ def time_lm_kernels(torch, flush):
         lib_err = None if lib is None else close(torch, "F.rms_norm", lib(x, w), got,
                                                  YARDSTICK_TOL)
         R = x.numel() // D
-        rows[f"rmsnorm_{tag}"] = row(
-            f"rmsnorm {tag}", list(rows_shape), err, rms.rmsnorm, (x, w), rms.plain,
-            lib, 2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S, 200, 20, lib_err)
+        plan = rms.launch_plan(R, D, bf16, sm)
+        log(f"rmsnorm {tag}: {R} rows on {sm} SMs -> {plan.layout} layout, {plan}")
+        r = row(f"rmsnorm {tag}", list(rows_shape), err, rms.rmsnorm, (x, w), rms.plain,
+                lib, 2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S, 200, 20, lib_err)
+        r["plan"] = plan._asdict()
+        r["layout"] = plan.layout
+        r["launch_floor_ms"] = floor_ms
+        log(f"rmsnorm {tag}: launch floor {floor_ms:.6f} ms (empty kernel, same harness) "
+            f"beside the bound {r['bound_ms']:.6f} ms")
+        if "rmsnorm" in extras:
+            old = extras["rmsnorm"]
+            close(torch, f"baseline rmsnorm {tag}", old(x, w), rms.plain(x, w),
+                  RMS_TOL["bfloat16"])
+            r["baseline_ms"], r["new_ms_in_turns"] = in_turns(old, rms.rmsnorm, (x, w),
+                                                              200, flush)
+        if tag == "decode":
+            # x warm in L2, as the decode step finds it (written by the op before)
+            r["kernel_warm_ms"] = time_device(rms.rmsnorm, (x, w), 200, None)
+            if "rmsnorm" in extras:
+                r["baseline_warm_ms"], r["new_warm_ms_in_turns"] = in_turns(
+                    extras["rmsnorm"], rms.rmsnorm, (x, w), 200, None)
+            # the other layouts, forced: the row split over clusters of 8
+            # and 16 CTAs, one CTA per row of 896 threads of one vector
+            alts = {f"cluster K={k}": rms.launch_plan(R, D, bf16, sm, K=k) for k in (8, 16)}
+            alts["wide_row 896x1"] = plan._replace(threads=896, vpt=1)
+            out = torch.empty_like(x)
+            timed = {}
+            for name, p in alts.items():
+                close(torch, f"rmsnorm decode {name}", rms._launch(x, w, out, 1e-6, p),
+                      rms.plain(x, w), RMS_TOL["bfloat16"])
+                args = (x, w, out, 1e-6, p)
+                timed[name] = {"plan": p._asdict(),
+                               "flushed_ms": time_device(rms._launch, args, 200, flush),
+                               "warm_ms": time_device(rms._launch, args, 200, None)}
+            r["alternatives"] = timed
+        log(f"kernel rmsnorm {tag} (detail)", json.dumps(r))
+        rows[f"rmsnorm_{tag}"] = r
         del x, w, got
 
     # B3 flash attention: one prefill layer, causal, q_offset 0
@@ -636,6 +791,8 @@ def phase_serve(torch, kernels):
         fn.launches = 0
     flash = kernels["flash_attention"]
     flash.launches_by_kernel = {key: 0 for key in flash.launches_by_kernel}
+    norm = kernels["rmsnorm"]
+    norm.launches_by_layout = {key: 0 for key in norm.launches_by_layout}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = generate(model, params, prompts, new)
@@ -643,13 +800,20 @@ def phase_serve(torch, kernels):
     first_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     flash_by_kernel = dict(flash.launches_by_kernel)
+    norm_by_layout = dict(norm.launches_by_layout)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new),
             "flash_attention": L, "decode_attention": L * new}
     log(f"serve launches {json.dumps(launches)} (want {json.dumps(want)}); flash by "
-        f"kernel {json.dumps(flash_by_kernel)}")
+        f"kernel {json.dumps(flash_by_kernel)}; rmsnorm by layout "
+        f"{json.dumps(norm_by_layout)}")
     if launches != want:
         raise AssertionError(f"serve path launches {launches}, want {want}")
+    # prefill's B*S rows take the narrow CTA per row, decode's B rows the wide one
+    want_layout = {"row": 2 * L + 1, "wide_row": (2 * L + 1) * new, "cluster": 0}
+    if norm_by_layout != want_layout:
+        raise AssertionError(f"serve path rmsnorm launches by layout {norm_by_layout}, "
+                             f"want {want_layout}")
     if flash_by_kernel != {"wgmma": L, "simt": 0}:
         raise AssertionError(f"serve path flash launches {flash_by_kernel}, want all "
                              f"{L} on the wgmma kernel")
@@ -714,6 +878,7 @@ def phase_serve(torch, kernels):
            "decode_step_ms": sorted(step_ms)[len(step_ms) // 2],
            "generated_tokens_per_s": B * new / gen_s,
            "peak_mem_gb": peak_gb, "launches": launches, "flash_by_kernel": flash_by_kernel,
+           "rmsnorm_by_layout": norm_by_layout,
            "bitwise_repeat": True, "tokens_head": toks[0, :8].tolist(),
            "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}
     log("serve", json.dumps(out))
@@ -769,6 +934,11 @@ def phase_serve_card_vs_cpu(torch):
 
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=pathlib.Path, default=None,
+                    help="csrc directory of an earlier version: its rmsnorm and "
+                         "quant_aggregate are timed beside this tree's")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -796,13 +966,17 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build(build.sources())
-    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    for name in sorted(libs):
-        for line in build.PTXAS.get(name, "cached build\n").splitlines():
+    with ThreadPoolExecutor(1) as pool:   # the extras' nvcc runs beside the package's
+        extra_build = pool.submit(build_extras, build, args.baseline)
+        libs = build.build(build.sources())
+        extra_libs = extra_build.result()
+    log(f"build: {sorted(libs)} + {sorted(extra_libs)} in {time.perf_counter() - t0:.1f}s")
+    extras = bind_extras(torch, extra_libs)
+    for name, path in sorted({**libs, **extra_libs}.items()):
+        for line in build.ptxas(path).splitlines():
             if "entry function" in line:
                 log(f"ptxas {name}: {line.split('entry function')[1].strip()[:110]}")
-            if "registers" in line or "spill" in line or "cached" in line:
+            if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
                            "-sass", str(libs["flash_attention_wgmma"])],
@@ -813,10 +987,10 @@ def main() -> int:
         raise AssertionError("the tensor-core flash kernel holds no wgmma instruction")
 
     # 3. kernels vs plain versions
-    rows = phase_kernels(torch, qa)
+    rows = phase_kernels(torch, qa, extras)
     lm_worst = check_lm_kernels(torch)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    lm_rows = time_lm_kernels(torch, flush)
+    lm_rows = time_lm_kernels(torch, flush, extras)
     del flush
 
     # 4. FL path; counts zeroed just before it, read just after
@@ -859,10 +1033,17 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "bitwise": True,
         "shape": [main["C"], main["N"], main["qblock"]]}]
+    if "baseline_ms" in main:
+        entries[0]["baseline_ms"] = main["baseline_ms"]
     flash_src = "src/repro/kernels/flash_attention.py:30"
     for name, key, source, replaces, launches, worst in (
-            ("rmsnorm", "rmsnorm_prefill", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:11", serve["launches"]["rmsnorm"],
+            # one TPU kernel, two launch layouts: a narrow CTA per row for
+            # prefill's rows, a wide one for decode's
+            ("rmsnorm_prefill", "rmsnorm_prefill", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:11", serve["rmsnorm_by_layout"]["row"],
+             lm_worst["rmsnorm"]),
+            ("rmsnorm_decode", "rmsnorm_decode", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:11", serve["rmsnorm_by_layout"]["wide_row"],
              lm_worst["rmsnorm"]),
             ("flash_attention_wgmma", "flash_attention",
              "src/repro_torch/csrc/flash_attention_wgmma.cu", flash_src,
@@ -885,6 +1066,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False,
             "worst_max_abs_err_test_shapes": worst, "shape": r["shape"]})
+        if "baseline_ms" in r:
+            entries[-1]["baseline_ms"] = r["baseline_ms"]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -895,7 +1078,7 @@ def main() -> int:
                     "serve": {k: serve[k] for k in (
                         "prefill_s", "decode_ms_per_token", "decode_step_ms",
                         "generated_tokens_per_s", "generate_s", "peak_mem_gb")},
-                    "rmsnorm_decode": lm_rows["rmsnorm_decode"],
+                    "rmsnorm_decode_ms": lm_rows["rmsnorm_decode"]["kernel_ms"],
                     "card_vs_cpu": serve_cpu}))
     log(json.dumps({"slice": "3: B3 flash attention on the tensor cores (wgmma, TMA) and "
                     "B4 decode attention split over the cache",
@@ -906,6 +1089,19 @@ def main() -> int:
                     "decode_step_device_busy_ms":
                         serve["profile_decode_step"]["device_busy_ms"],
                     "flash_by_kernel": serve["flash_by_kernel"]}))
+    dec = lm_rows["rmsnorm_decode"]
+    log(json.dumps({"slice": "4: B2 rmsnorm with each row in registers (a wide CTA per "
+                    "row at decode, a narrow one at prefill, clusters for long rows), B1 "
+                    "quant_aggregate through a TMA-fed ring in shared memory",
+                    "quant_aggregate_ms": main["kernel_ms"],
+                    "quant_aggregate_baseline_ms": main.get("baseline_ms"),
+                    "rmsnorm_prefill_ms": lm_rows["rmsnorm_prefill"]["kernel_ms"],
+                    "rmsnorm_prefill_baseline_ms": lm_rows["rmsnorm_prefill"].get("baseline_ms"),
+                    "rmsnorm_decode_ms": dec["kernel_ms"],
+                    "rmsnorm_decode_warm_ms": dec["kernel_warm_ms"],
+                    "rmsnorm_decode_baseline_ms": dec.get("baseline_ms"),
+                    "launch_floor_ms": dec["launch_floor_ms"],
+                    "rmsnorm_by_layout": serve["rmsnorm_by_layout"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

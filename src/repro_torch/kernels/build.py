@@ -28,8 +28,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-# name -> the compiler's resource report (-Xptxas -v) of its last build
-PTXAS: dict = {}
 
 
 def _nvcc() -> str:
@@ -40,48 +38,56 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> pathlib.Path:
+def _target(name: str, csrc: pathlib.Path) -> pathlib.Path:
     # the shared headers are part of every source's build key
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    src = b"".join(p.read_bytes() for p in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / digest[:16] / f"lib{name}.so"
 
 
-def build(names) -> dict:
-    """Compile the named sources, all ``nvcc`` processes started together;
-    returns {name: library path}. Raises with the compiler's output if any
-    build fails."""
+def build(names, csrc: pathlib.Path = CSRC) -> dict:
+    """Compile the named sources of ``csrc`` (the package's own by default;
+    another directory builds, for instance, an earlier version to time
+    beside this one), all ``nvcc`` processes started together; returns
+    {name: library path}. Raises with the compiler's output if any build
+    fails."""
     names = list(names)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, csrc)
         if out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        PTXAS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".ptxas").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: _target(name) for name in names}
+    return {name: _target(name, csrc) for name in names}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def ptxas(library: pathlib.Path) -> str:
+    """The compiler's resource report (-Xptxas -v) of a built library."""
+    return library.with_suffix(".ptxas").read_text()
+
+
+def load(name: str, csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu``, built on first use."""
+    key = (name, str(csrc))   # every launch comes here: no file system access
     with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
-        return _LIBS[name]
+        if key not in _LIBS:
+            _LIBS[key] = ctypes.CDLL(str(build([name], pathlib.Path(csrc))[name]))
+        return _LIBS[key]
 
 
 def sources() -> list:

@@ -8,16 +8,80 @@ client order, ``acc = acc + (float(q[c, n]) * scale[c, n // qblock]) * w[c]``
 from ``acc = 0``, so they agree bit for bit.
 
 The kernel is bound by memory traffic: it reads each int8 byte once and
-writes only the (N,) f32 result (see the note in the CUDA source).
+writes only the (N,) f32 result (see the note in the CUDA source). Each CTA
+streams its tiles of the clients' rows through a ring in shared memory, one
+TMA copy per stage; ``launch_plan`` gives that geometry.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
-VEC = 16                      # outputs per kernel thread (one int8 vector load)
-MAX_CLIENTS = 48 * 1024 // 4  # w fills at most 48 KB of shared memory
+VEC = 16                 # qblock is a multiple of this (16-byte copies of q rows)
+OUT_PER_THREAD = 8       # outputs per consumer thread of the kernel
+TILES = (256, 512, 768, 1024)   # outputs per CTA the kernel takes
+STAGE_CLIENTS = 8        # clients per ring stage (the kernel's most)
+STAGES = 4               # ring stages: 32 KB of q in flight per CTA
+SCALE_BYTES = 16 * 1024  # shared memory for one chunk of clients' scales and w (of two)
+CTAS_PER_SM = 4          # CTAs at most, per SM; each takes tiles in turn
+# Shared memory holds one ring of stages and two chunks of scales whatever
+# the client count, so the clients are bounded only by the C entry point's
+# 32-bit client count.
+MAX_CLIENTS = 2**31 - 1
+
+
+class Plan(NamedTuple):
+    """Launch geometry of ``csrc/quant_aggregate.cu``: tiles of ``tile``
+    outputs (8 per consumer thread; ``threads`` counts the producer warp
+    too), taken in turn by ``grid`` CTAs, each streaming ``stage_clients``
+    clients per stage through a ring of ``stages`` stages, with the scales
+    and w of ``chunk`` clients at a time in shared memory, the next chunk's
+    arriving while one is used (``smem`` bytes in all)."""
+    tile: int
+    stage_clients: int
+    stages: int
+    chunk: int
+    threads: int
+    grid: int
+    smem: int
+
+    def launch_args(self):
+        """The geometry as the C entry point takes it."""
+        return self.tile, self.stage_clients, self.stages, self.chunk, self.grid
+
+
+def launch_plan(C: int, N: int, qblock: int, sm_count: int = 132,
+                tile: int | None = None) -> Plan:
+    """The kernel's geometry for C clients of N int8 values in scale blocks
+    of ``qblock`` on a card of ``sm_count`` SMs. The tile (a multiple of 256
+    outputs up to 1024: a TMA box row is at most 256 int32) is the largest
+    that puts the fewest outputs on the busiest SM, whose consumers' int8
+    arithmetic sets the pace; ``tile`` forces one, to time the others.
+    Raises for more than ``MAX_CLIENTS`` clients."""
+    if not 0 <= C <= MAX_CLIENTS:
+        raise ValueError(f"quant_aggregate takes 0..{MAX_CLIENTS} clients, got {C}")
+    if N < 1 or qblock < VEC or qblock % VEC or N % qblock:
+        raise ValueError(f"quant_aggregate wants N a whole number of scale blocks, "
+                         f"qblock a multiple of {VEC}; got N={N}, qblock={qblock}")
+    if tile is None:
+        tile = min(TILES, key=lambda t: (math.ceil(math.ceil(N / t) / sm_count) * t, -t))
+    if tile not in TILES:
+        raise ValueError(f"quant_aggregate tiles are {TILES} outputs, got {tile}")
+    stage_clients = max(1, min(STAGE_CLIENTS, C))
+    stages = max(1, min(STAGES, math.ceil(C / stage_clients)))
+    # a chunk: whole stages of clients whose scales (at most tile // qblock
+    # + 2 blocks a tile can touch) and w fit SCALE_BYTES, at most all of them
+    per_client = 4 * (tile // qblock + 3)
+    chunk = min(math.ceil(C / stage_clients),
+                max(1, SCALE_BYTES // per_client // stage_clients)) * stage_clients
+    chunk = max(chunk, stage_clients)
+    smem = stages * (stage_clients * tile + 16) + 2 * chunk * per_client
+    grid = min(math.ceil(N / tile), CTAS_PER_SM * sm_count)
+    return Plan(tile, stage_clients, stages, chunk, tile // OUT_PER_THREAD + 32, grid, smem)
 
 
 def plain(qdeltas, scales, weights):
@@ -76,17 +140,9 @@ def quant_aggregate(qdeltas, scales, weights):
         raise ValueError("quant_aggregate wants contiguous inputs")
     if qdeltas.data_ptr() % 16:
         raise ValueError("quant_aggregate wants q aligned to 16 bytes")
-    if C > MAX_CLIENTS:
-        raise ValueError(f"quant_aggregate takes at most {MAX_CLIENTS} "
-                         f"clients, got {C}")
-    out = torch.empty((N,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().quant_aggregate_launch(
-            qdeltas.data_ptr(), scales.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), C, N, qblock, stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_aggregate kernel launch failed: CUDA error {rc}")
+    plan = launch_plan(C, N, qblock, _sm_count(dev.index if dev.index is not None
+                                              else torch.cuda.current_device()))
+    out = _launch(qdeltas, scales, weights, qblock, plan)
     quant_aggregate.launches += 1
     return out
 
@@ -94,11 +150,33 @@ def quant_aggregate(qdeltas, scales, weights):
 quant_aggregate.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(qdeltas, scales, weights, qblock: int, plan: Plan):
+    """One launch of the kernel with ``plan``'s geometry into a new (N,)
+    output; raises if the card refuses it. Counts nothing:
+    ``quant_aggregate`` counts the main path's launches."""
+    C, N = qdeltas.shape
+    dev = qdeltas.device
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().quant_aggregate_launch(
+            qdeltas.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            C, N, qblock, *plan.launch_args(), stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_aggregate kernel launch failed ({plan}): CUDA error {rc}")
+    return out
+
+
 def _lib():
     from repro_torch.kernels import build
     lib = build.load("quant_aggregate")
     fn = lib.quant_aggregate_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64] + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -60,6 +60,39 @@ def test_kernel_equals_plain_bitwise(cuda, C, N, qblock):
     assert got.shape == (N,) and torch.equal(got, qa.plain(q, s, w))
 
 
+@pytest.mark.parametrize("N,qblock", [(4224, 128),      # 33 blocks, a 128-output tail tile
+                                      (99_344, 16)])    # 6,209 blocks, a 16-output tail tile
+@pytest.mark.parametrize("C", [1, 7, 100, 1000])
+def test_kernel_equals_plain_bitwise_at_odd_blocks_and_ragged_tiles(cuda, C, N, qblock):
+    """An odd number of scale blocks (scale rows not 16-byte aligned), a last
+    tile shorter than the others, and client counts below, at and far above
+    one ring stage."""
+    q, s, w = _inputs(C, N, qblock, cuda, seed=C)
+    plan = qa.launch_plan(C, N, qblock)
+    assert (N // qblock) % 2 == 1 and N % plan.tile
+    got = qa.quant_aggregate(q, s, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
+@pytest.mark.parametrize("tile", qa.TILES)
+@pytest.mark.parametrize("stages", [1, 2, 4])
+@pytest.mark.parametrize("chunk", [8, 16])
+@pytest.mark.parametrize("grid", [1, 3, None])
+def test_kernel_equals_plain_bitwise_at_other_tiles_rings_chunks_and_grids(
+        cuda, tile, stages, chunk, grid):
+    """Other geometries than the plan's: smaller tiles, shorter rings, the
+    scales of 29 clients staged 8 or 16 at a time, and one or three CTAs
+    taking every tile in turn (None: one tile per CTA)."""
+    C, N, qblock = 29, 33 * 256, 256
+    q, s, w = _inputs(C, N, qblock, cuda, seed=tile)
+    plan = qa.launch_plan(C, N, qblock, tile=tile)
+    plan = plan._replace(stages=stages, chunk=chunk, grid=grid or -(-N // tile))
+    got = qa._launch(q, s, w, qblock, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
 def test_kernel_rejects_misaligned_input(cuda):
     q, s, w = _inputs(2, 4096 + 16, 16, cuda)
     with pytest.raises(ValueError, match="aligned"):
@@ -132,6 +165,86 @@ def test_rmsnorm_kernel_takes_a_misaligned_row(cuda):
     x = flat[1:].view(3, 64)
     w = _randn((64,), torch.bfloat16, cuda, 3)
     _close(rms.rmsnorm(x, w), rms.plain(x, w), 2e-2)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+MIXES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows", ["1", "8", "sm-1", "sm", "sm+1", "16384"])
+@pytest.mark.parametrize("dtype,w_dtype", MIXES)
+def test_rmsnorm_kernel_in_both_row_layouts(cuda, rows, dtype, w_dtype):
+    """Rows of 7168 (yi-34b's width) from one row to prefill's 16,384: a
+    wide CTA per row below the SM count, a narrow one from it on."""
+    sm = _sm_count(cuda)
+    R = {"sm-1": sm - 1, "sm": sm, "sm+1": sm + 1}.get(rows) or int(rows)
+    x = _randn((R, 7168), dtype, cuda, R)
+    w = _randn((7168,), w_dtype, cuda, 1)
+    by_layout = dict(rms.rmsnorm.launches_by_layout)
+    got = rms.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    layout = "wide_row" if R < sm else "row"
+    assert rms.rmsnorm.launches_by_layout[layout] == by_layout[layout] + 1
+    assert rms.launch_plan(R, 7168, dtype, sm).layout == layout
+    _close(got, rms.plain(x, w), 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("R", [8, 300])
+@pytest.mark.parametrize("D", [64, 7168, 7169])
+@pytest.mark.parametrize("dtype,w_dtype", MIXES)
+def test_rmsnorm_kernel_takes_misaligned_rows_in_both_layouts(cuda, R, D, dtype, w_dtype):
+    """Rows that start off a 16-byte boundary, or a D that is no whole number
+    of 16-byte vectors, take the scalar path in either layout."""
+    flat = _randn((R * D + 1,), dtype, cuda, D)
+    x = flat[1:].view(R, D)
+    w = _randn((D,), w_dtype, cuda, 3)
+    _close(rms.rmsnorm(x, w), rms.plain(x, w), 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_at_every_cluster_size(cuda, K, dtype):
+    """The decode shape (8 x 7168) with each cluster size forced: the kernel
+    against the plain version and the cluster's summation mirror."""
+    x = _randn((8, 7168), dtype, cuda, K)
+    w = _randn((7168,), torch.bfloat16, cuda, 5)
+    plan = rms.launch_plan(8, 7168, dtype, _sm_count(cuda), K=K)
+    got = rms._launch(x, w, torch.empty_like(x), 1e-6, plan)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(got, rms.plain(x, w), tol)
+    _close(got, rms.plain_cluster(x, w, 1e-6, K), tol)
+
+
+@pytest.mark.parametrize("R", [8, 300])
+@pytest.mark.parametrize("D,dtype", [(32_768, torch.bfloat16), (16_384, torch.float32),
+                                     (8_193, torch.float32)])
+def test_rmsnorm_kernel_splits_long_rows_over_a_cluster(cuda, R, D, dtype):
+    """Rows too long for one CTA's registers take the cluster layout by
+    themselves: the kernel against the plain version and the cluster's
+    summation mirror."""
+    x = _randn((R, D), dtype, cuda, 8)
+    w = _randn((D,), torch.float32, cuda, 9)
+    by_layout = dict(rms.rmsnorm.launches_by_layout)
+    got = rms.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm.launches_by_layout["cluster"] == by_layout["cluster"] + 1
+    K = rms.launch_plan(R, D, dtype, _sm_count(cuda)).K
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(got, rms.plain(x, w), tol)
+    _close(got, rms.plain_cluster(x, w, 1e-6, K), tol)
+
+
+def test_rmsnorm_kernel_refuses_a_plan_that_misses_the_row(cuda):
+    x = _randn((8, 7168), torch.bfloat16, cuda, 6)
+    w = _randn((7168,), torch.bfloat16, cuda, 7)
+    plan = rms.launch_plan(8, 7168, torch.bfloat16, _sm_count(cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rms._launch(x, w, torch.empty_like(x), 1e-6, plan._replace(per_cta=plan.per_cta - 8))
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,causal", [

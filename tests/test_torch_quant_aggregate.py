@@ -115,3 +115,68 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         w = w[:1]
     with pytest.raises((TypeError, ValueError)):
         qa.quant_aggregate(q, s, w)
+
+
+# -- the kernel's launch geometry (kernels/quant_aggregate.launch_plan) -----
+# chip_smoke.py's KERNEL_SHAPES: the FL path, BENCH_agg, a ragged tail, one client
+KERNEL_SHAPES = [(100, 189_952, 256), (16, 1_048_576, 256), (7, 4_224, 128),
+                 (1, 189_952, 256)]
+
+
+@pytest.mark.parametrize("C,N,qblock", KERNEL_SHAPES + [(1, N, qb) for _, N, qb in
+                                                        KERNEL_SHAPES[:3]]
+                         + [(1000, 99_344, 16), (9, 4_224, 128)])
+@pytest.mark.parametrize("tile", qa.TILES)
+def test_launch_plan_covers_every_output_and_client_once(C, N, qblock, tile):
+    """CTA b takes tiles b, b + grid, ...; in tile ti its consumer thread t
+    owns outputs [ti * tile + 8t, +8) where that lies below N; stage k
+    streams clients [k * stage_clients, +stage_clients) where below C, and
+    the scales come in chunks of whole stages."""
+    plan = qa.launch_plan(C, N, qblock, tile=tile)
+    consumers = plan.threads - 32
+    assert consumers * qa.OUT_PER_THREAD == plan.tile == tile and consumers % 32 == 0
+    assert plan.threads <= 1024 and plan.smem <= 227 * 1024
+    n_tiles = -(-N // tile)
+    assert 1 <= plan.grid <= n_tiles and plan.grid <= qa.CTAS_PER_SM * 132
+    seen = np.zeros(n_tiles * plan.tile, dtype=np.int64)
+    for b in range(plan.grid):
+        for ti in range(b, n_tiles, plan.grid):
+            n0 = ti * plan.tile + qa.OUT_PER_THREAD * np.arange(consumers)
+            for i in range(qa.OUT_PER_THREAD):
+                np.add.at(seen, (n0 + i)[n0 < N], 1)
+    assert (seen[:N] == 1).all() and (seen[N:] == 0).all()
+    # the outputs of a thread share one scale block; a tile's q slice is
+    # whole 16-byte rows of a TMA box
+    assert qblock % qa.OUT_PER_THREAD == 0 and N % 16 == 0
+    clients = np.zeros(C, dtype=np.int64)
+    for k in range(-(-C // plan.stage_clients)):
+        clients[k * plan.stage_clients:(k + 1) * plan.stage_clients] += 1
+    assert (clients == 1).all()
+    assert 1 <= plan.stage_clients <= qa.STAGE_CLIENTS and 1 <= plan.stages <= qa.STAGES
+    assert plan.chunk % plan.stage_clients == 0 and plan.chunk >= plan.stage_clients
+    assert plan.chunk >= C or plan.chunk * 4 * (tile // qblock + 3) <= qa.SCALE_BYTES
+
+
+@pytest.mark.parametrize("N,sm_count,tile", [
+    (189_952, 132, 768),     # the FL path on an H100: 248 CTAs, 2 on the busiest SM
+    (1_048_576, 132, 1024),  # BENCH_agg: 1,024 CTAs
+    (4_224, 132, 256),       # few outputs: the smallest tile
+    (189_952, 114, 256)])    # 114 SMs: 742 CTAs of 256 put 1,792 on the busiest
+def test_launch_plan_takes_the_tile_that_least_loads_the_busiest_sm(N, sm_count, tile):
+    plan = qa.launch_plan(100, N, 128, sm_count)
+    assert plan.tile == tile
+    per_sm = {t: -(-(-(-N // t)) // sm_count) * t for t in qa.TILES}
+    assert per_sm[tile] == min(per_sm.values())
+
+
+def test_max_clients_is_taken_at_the_limit_and_refused_above():
+    plan = qa.launch_plan(qa.MAX_CLIENTS, 4096, 256)
+    assert plan.stage_clients == qa.STAGE_CLIENTS and plan.stages == qa.STAGES
+    # the ring and one chunk of scales: shared memory stops growing with C
+    assert plan.smem == qa.launch_plan(10 * qa.SCALE_BYTES, 4096, 256).smem
+    assert plan.smem <= qa.STAGES * (qa.STAGE_CLIENTS * max(qa.TILES) + 16) + 2 * qa.SCALE_BYTES
+    with pytest.raises(ValueError, match="clients"):
+        qa.launch_plan(qa.MAX_CLIENTS + 1, 4096, 256)
+    for tile in (1000, 2048, 1280):
+        with pytest.raises(ValueError):
+            qa.launch_plan(4, 4096, 256, tile=tile)

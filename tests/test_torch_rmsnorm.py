@@ -79,3 +79,113 @@ def test_rmsnorm_eps_is_passed_through():
 def test_rmsnorm_rejects_what_the_kernel_does_not_take(x, w, exc):
     with pytest.raises(exc):
         rms.rmsnorm(x, w)
+
+
+# -- the kernel's launch geometry (kernels/rmsnorm.launch_plan) -------------
+# Pure Python: the CUDA kernel takes this plan as it is, so a plan that
+# covers every element of the row exactly once is a kernel that reads and
+# writes every element exactly once.
+
+def _covered(plan, D):
+    """How often the kernel's index arithmetic touches each element of a
+    row: CTA r of the cluster holds [r * per_cta, min(D, (r + 1) * per_cta)),
+    its thread t the vectors t + i * threads (i < vpt) of vec elements."""
+    seen = np.zeros(D + plan.vec * plan.threads * plan.vpt, dtype=np.int64)
+    for c0, c1 in rms.cta_slices(plan, D):
+        for i in range(plan.vpt):
+            e = c0 + (np.arange(plan.threads) + i * plan.threads) * plan.vec
+            for j in range(plan.vec):
+                np.add.at(seen, (e + j)[e < c1], 1)
+    return seen
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 78])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_launch_plan_takes_a_wide_cta_below_the_sm_count_and_a_narrow_one_from_it(
+        sm_count, tdt):
+    for R in (1, 8, sm_count - 1):
+        plan = rms.launch_plan(R, 7168, tdt, sm_count)
+        assert plan.layout == "wide_row" and plan.K == 1
+        assert plan.threads <= rms.WIDE_ROW_THREADS
+    for R in (sm_count, sm_count + 1, 16_384):
+        plan = rms.launch_plan(R, 7168, tdt, sm_count)
+        assert plan.layout == "row" and plan.K == 1
+    # yi-34b's serve shapes on an H100: 448 threads per decode row, 128 per prefill row
+    if sm_count == 132 and tdt == torch.bfloat16:
+        assert rms.launch_plan(8, 7168, tdt, 132) == rms.Plan(1, 448, 2, 8, 7168, "wide_row")
+        assert rms.launch_plan(16_384, 7168, tdt, 132) == rms.Plan(1, 128, 8, 8, 7168, "row")
+
+
+@pytest.mark.parametrize("R", [8, 16_384])
+@pytest.mark.parametrize("D,tdt,aligned,K", [
+    (32_768, torch.bfloat16, True, 2),      # 4,096 vectors: two CTAs of 2,048
+    (16_384, torch.float32, True, 2),
+    (8_193, torch.float32, True, 2),        # scalar: 8,192 per CTA at most
+    (16 * 8192, torch.float32, False, 16)])
+def test_launch_plan_splits_a_row_too_long_for_one_cta_over_a_cluster(R, D, tdt, aligned, K):
+    plan = rms.launch_plan(R, D, tdt, 132, aligned)
+    assert plan.layout == "cluster" and plan.K == K
+    seen = _covered(plan, D)
+    assert (seen[:D] == 1).all() and (seen[D:] == 0).all()
+
+
+@pytest.mark.parametrize("D", [7168, 7169, 4096, 128, 1])
+@pytest.mark.parametrize("R", [8, 131, 132, 16_384])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_launch_plan_covers_the_row_exactly_once(D, R, tdt, aligned):
+    plan = rms.launch_plan(R, D, tdt, 132, aligned)
+    seen = _covered(plan, D)
+    assert (seen[:D] == 1).all() and (seen[D:] == 0).all()
+    assert plan.vec == (rms.vector_width(D, tdt) if aligned else 1)
+    assert plan.threads % 32 == 0 and plan.threads <= rms.thread_bound(plan.vec, plan.vpt)
+    assert plan.vpt in rms.VPTS and plan.per_cta % plan.vec == 0
+    assert all(c1 > c0 for c0, c1 in rms.cta_slices(plan, D))   # no idle CTA
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("D", [7168, 7169, 4096])
+def test_forced_cluster_sizes_cover_the_row_exactly_once(K, D):
+    plan = rms.launch_plan(8, D, torch.bfloat16, 132, K=K)
+    assert plan.K == K
+    seen = _covered(plan, D)
+    assert (seen[:D] == 1).all() and (seen[D:] == 0).all()
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        rms.launch_plan(8, 7168, torch.bfloat16, 132, K=32)     # past the cluster limit
+    with pytest.raises(ValueError):
+        rms.launch_plan(8, 64, torch.bfloat16, 132, K=16)       # idle CTAs
+    with pytest.raises(ValueError):
+        rms.launch_plan(8, 16 * 8192 + 1, torch.float32, 132, aligned=False)  # no 16 CTAs hold it
+    # the longest rows a cluster of 16 holds: 2,048 vectors per CTA, or 8,192 scalars
+    assert rms.launch_plan(8, 16 * 2048 * 8, torch.bfloat16, 132).K == 16
+    with pytest.raises(ValueError):
+        rms.launch_plan(8, 16 * 2048 * 8 + 8, torch.bfloat16, 132)
+
+
+@pytest.mark.parametrize("shape", [(8, 7168), (3, 4096), (5, 7169)])
+@pytest.mark.parametrize("K", [2, 8, 16])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_cluster_matches_plain(shape, K, dtype):
+    """The cluster's summation order (per-CTA partials, added in rank order)
+    against the whole-row sum, on the CPU."""
+    _, tdt, tol = DTYPES[dtype]
+    x, w = _inputs(shape, seed=K)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w)
+    got = rms.plain_cluster(xt, wt, 1e-6, K)
+    assert got.dtype == tdt and got.shape == xt.shape
+    _close(got, rms.plain(xt, wt).to(torch.float32).numpy(), tol)
+
+
+@pytest.mark.parametrize("shape", [(8, 7168), (16, 4096)])
+@pytest.mark.parametrize("K", [8, 16])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_cluster_matches_pallas_interpret(shape, K, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w = _inputs(shape, seed=3)
+    want = pallas_rmsnorm(jnp.asarray(x).astype(jdt), jnp.asarray(w), block_rows=8,
+                          interpret=True)
+    _close(rms.plain_cluster(torch.from_numpy(x).to(tdt), torch.from_numpy(w), 1e-6, K),
+           want, tol)
