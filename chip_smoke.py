@@ -48,7 +48,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. determinism — the int8 job again with one round per launch: bitwise the
    losses and params of the 3+3 chunking. Then one warm int8 round under
    ``torch.profiler``: device time by kernel and the device's idle share.
-6. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+6. slice 5 — B1 at the shapes of its new call sites, bitwise against its
+   plain version and timed beside the empty kernel: a FedBuff flush (10 x
+   189,952), the same with zero rows and zero coefficients, packed FedAsync
+   (1 x 189,952). The counter-based hash gives the same bits on the card as
+   on the CPU. Then, at MAIN_JOB's width through ``load_job`` ->
+   ``Executor``: every strategy and topology for 3 rounds (losses finite,
+   falling where the JAX package's fall at test size; chunks of 1 bitwise
+   chunks of 3 for scaffold, decentralized gossip and DP), temporal
+   placement (fedavg and int8, B1 once per int8 round), FedBuff (buffer 10)
+   and FedAsync on int8 under heterogeneity (B1 once per flush and once per
+   event; chunks of 1 bitwise chunks of 2; events per second; one FedBuff
+   round under ``torch.profiler``), the FedBuff
+   identity with sync temporal FedAvg (20 clients, bitwise), and a run
+   resumed from a checkpoint at round 2 of 4 (bitwise the uninterrupted one).
+7. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -60,7 +74,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-7. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+8. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -126,20 +140,61 @@ MAIN_JOB = {
     "runtime": {"straggler_prob": 0.1, "straggler_overprovision": 1.25},
 }
 
+# slice 5: every strategy and topology on MAIN_JOB, 3 rounds each
+SLICE5_STRATEGIES = {   # name: (strategy, train_params over MAIN_JOB's)
+    "fedavgm": ("fedavgm", {}),
+    "fedadam": ("fedadam", {"server_lr": 0.01}),
+    "fedyogi": ("fedyogi", {"server_lr": 0.01}),
+    "fedprox": ("fedprox", {"prox_mu": 0.01}),
+    "scaffold": ("scaffold", {}),
+    "moon": ("moon", {"moon_mu": 0.1}),
+    "dp_fedavg": ("dp_fedavg", {"dp_clip": 1.0, "dp_noise": 0.001}),
+    "topk": ("compressed", {"compression": "topk", "topk_ratio": 0.1}),
+    "clustered": ("clustered", {"topology": "hierarchical"}),
+    "gossip_1": ("gossip", {"topology": "decentralized", "gossip_steps": 1}),
+    "gossip_2": ("gossip", {"topology": "decentralized", "gossip_steps": 2}),
+    "int8_gossip": ("compressed", {"compression": "int8", "topology": "decentralized"}),
+}
+# the jobs whose JAX counterpart's loss falls at test size (src/repro at
+# flsim-cnn d_model 8 / d_ff 16, 512 items, 10 clients, cohort 4, on the CPU):
+# their loss must fall here too
+SLICE5_MUST_FALL = ("fedavgm", "fedadam", "fedyogi", "fedprox", "dp_fedavg", "topk",
+                    "clustered", "gossip_1", "gossip_2", "int8_gossip")
+SLICE5_CHUNKED = ("scaffold", "gossip_2", "dp_fedavg")
+# async under heterogeneity (runtime) with a staleness discount
+ASYNC_RUNTIME = {"straggler_prob": 0.1, "duration_sigma": 0.25, "rate_spread": 0.5}
+ASYNC_JOBS = {"fedbuff_int8": {"async_buffer": 10}, "fedasync_int8": {"async_buffer": 0}}
+EQUAL_SPEEDS = {"straggler_prob": 0.0, "duration_sigma": 0.0, "rate_spread": 0.0,
+                "availability": 1.0}
+
 
 def log(*a):
     """Print and flush, so a cut run keeps what it printed."""
     print(*a, flush=True)
 
 
-def job_dict(strategy: str, compression: str, rounds_per_launch: int) -> dict:
-    """The main-path job with one strategy, compression and chunking."""
+def job_dict(strategy: str, compression: str, rounds_per_launch: int, runtime=None,
+             **train) -> dict:
+    """The main-path job with one strategy, compression and chunking, and
+    other train_params and runtime settings where given."""
     raw = json.loads(json.dumps(MAIN_JOB))
     raw["strategy"]["strategy"] = strategy
     tp = raw["strategy"]["train_params"]
     tp["compression"] = compression
     tp["rounds_per_launch"] = rounds_per_launch
+    tp.update(train)
+    if runtime is not None:
+        raw["runtime"] = dict(runtime)
     return raw
+
+
+def slice5_job(name: str, rounds_per_launch: int = 3) -> dict:
+    """One of the slice-5 strategy jobs: MAIN_JOB with its strategy and
+    settings, 3 rounds."""
+    strategy, train = SLICE5_STRATEGIES[name]
+    train = dict(train)
+    return job_dict(strategy, train.pop("compression", "none"), rounds_per_launch,
+                    rounds=3, **train)
 
 
 def agg_inputs(C, N, qblock, seed, device):
@@ -463,6 +518,257 @@ def phase_profile(torch, load_job, Executor):
     del ex
     torch.cuda.empty_cache()
     return out
+
+
+def check_hash(torch):
+    """The counter-based draws (``core/determinism.py``) give the same bits
+    on the card as on the CPU: keys, uniform bits and batch positions."""
+    from repro_torch.core import determinism as det
+    key = det.round_key(det.root_key(0), 7)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctr = torch.arange(1 << 20, dtype=torch.int64, device=dev)
+        keys = det.client_keys(key, 100, dev)
+        out[dev] = [keys, det.draw_bits(keys[:, None], ctr[None, :4096]),
+                    det.uniform_index(keys[:, None], ctr[None, :160],
+                                      torch.arange(1, 101, device=dev)[:, None]),
+                    det.draw_bits(key, ctr)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError("the hash gives other bits on the card than on the CPU")
+    log("hash: keys, bits and batch positions equal on the card and the CPU")
+
+
+def phase_b1_slice5(torch, qa, extras):
+    """B1 at slice 5's shapes, bitwise against its plain version and timed
+    beside the empty kernel in the same harness: the FedBuff flush (K = 10
+    rows of 189,952), the same buffer with zero rows and zero coefficients
+    (slots of accepted zero-weight clients, an unfilled slot), and packed
+    FedAsync's C = 1."""
+    dev = torch.device("cuda")
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    N, qblock = 189_952, 256
+    floor = {"warm_ms": time_device(extras["empty"], (), 200, None),
+             "after_flush_ms": time_device(extras["empty"], (), 200, flush)}
+    rows = {}
+    for name, C, seed in (("fedbuff_flush", 10, 21), ("fedbuff_zero_rows", 10, 22),
+                          ("fedasync_event", 1, 23)):
+        q, s, w = agg_inputs(C, N, qblock, seed, dev)
+        if name == "fedbuff_zero_rows":
+            q[2].zero_()
+            s[2].zero_()
+            w[[2, 5, 8]] = 0.0
+        got, want = qa.quant_aggregate(q, s, w), qa.plain(q, s, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"quant_aggregate {name}: not bitwise its plain version")
+        nbytes = C * N + 4 * C * (N // qblock) + 4 * C + 4 * N
+        bound_ms, bound_by = bound(nbytes, 3 * C * N, F32_FLOPS_PER_S)
+        rows[name] = {"C": C, "N": N, "qblock": qblock, "bitwise": True, "max_abs_err": 0.0,
+                      "plan": qa.launch_plan(C, N, qblock)._asdict(),
+                      "kernel_ms": time_device(qa.quant_aggregate, (q, s, w), 200, flush),
+                      "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 200, flush),
+                      "plain_ms": time_device(qa.plain, (q, s, w), 50, flush, batch=10),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                      "launch_floor_ms": floor["after_flush_ms"], "library_ms": None}
+        log(f"kernel quant_aggregate {name}", json.dumps(rows[name]))
+    log("launch floor (empty kernel) beside B1", json.dumps(floor))
+    del flush
+    return rows, floor
+
+
+_DATA = {}
+
+
+class _SharedData:
+    """A job's dataset whose partitioned root set is made once per
+    partition setting and shared by the phase's jobs (all draw MAIN_JOB's
+    50,000 items from seed 0), so the host's data generation is paid once."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def distribute_into_chunks(self, kind, n_clients, alpha=0.5):
+        key = (self.dataset.n_items, self.dataset.seed, kind, n_clients, alpha)
+        if key not in _DATA:
+            _DATA[key] = self.dataset.distribute_into_chunks(kind, n_clients, alpha)
+        return _DATA[key]
+
+
+def _flat(tree):
+    """Every tensor of a state, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _flat(v)]
+    return [tree]
+
+
+def _same(torch, a, b) -> bool:
+    a, b = _flat(a), _flat(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_slice5(torch, qa, load_job, Executor, label, raw, ckpt_dir=None, rounds=None):
+    """One slice-5 job through the entry points, scaffolded from the newest
+    checkpoint in ``ckpt_dir`` if there is one; returns its summary and the
+    executor. Losses must be finite."""
+    job = load_job(raw)
+    job.dataset = _SharedData(job.dataset)
+    torch.cuda.reset_peak_memory_stats()
+    before = qa.quant_aggregate.launches
+    t0 = time.perf_counter()
+    ex = Executor(job, ckpt_dir=ckpt_dir).scaffold()
+    scaffold_s = time.perf_counter() - t0
+    state, logger = ex.run(rounds)
+    rows = logger.rows
+    out = {"job": label, "strategy": job.fl.strategy, "mode": job.fl.mode,
+           "placement": ex.placement, "losses": [r["loss"] for r in rows],
+           "round_s": [r["round_s"] for r in rows], "scaffold_s": scaffold_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "agg_launches": qa.quant_aggregate.launches - before}
+    if job.fl.mode == "async":
+        out.update({k: [r[k] for r in rows] for k in ("events_per_s", "staleness",
+                                                       "applied", "vtime")})
+    log("job", json.dumps(out))
+    if not out["losses"] or not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"{label}: non-finite loss {out['losses']}")
+    return out, ex
+
+
+def _profile_b1(torch, fn, label):
+    """``fn`` under ``torch.profiler``: the device summary plus B1's ms and
+    launches in it."""
+    prof, by_name = profile_device(torch, fn, label, top=6)
+    hits = [v for k, v in by_name.items() if "quant_aggregate" in k]
+    prof["b1_ms"], prof["b1_launches"] = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    log(f"  quant_aggregate: {prof['b1_ms']:.4f} ms x{prof['b1_launches']}")
+    return prof
+
+
+def phase_slice5(torch, qa, load_job, Executor):
+    """Every strategy, topology, placement and async server of the JAX
+    package at MAIN_JOB's width (flsim-cnn, 189,952 packed params, 50,000
+    items, 100 clients, 5 local steps of batch 32), through ``load_job`` ->
+    ``Executor``:
+
+    - strategies: the jobs of SLICE5_STRATEGIES, 3 rounds each; losses
+      finite, and falling for the jobs in SLICE5_MUST_FALL (those whose JAX
+      counterpart's loss falls at test size: all but scaffold and moon);
+      none launches B1 (the int8 gossip job takes the unpacked round trip);
+      chunks of 1 bitwise chunks of 3 for SLICE5_CHUNKED;
+    - temporal placement: fedavg and int8, 2 rounds, losses falling, B1
+      launched once per int8 round and never on fedavg;
+    - async, under stragglers, jitter, rate spread and a staleness discount:
+      FedBuff (buffer 10) and FedAsync on int8, 2 rounds each; B1 launched
+      once per flush (FedBuff) and once per event (FedAsync); chunks of 1
+      bitwise chunks of 2; FedAsync's loss falls (FedBuff's JAX counterpart's
+      does not at test size); then FedBuff's third round under the profiler;
+    - the FedBuff identity: buffer == cohort (20 clients), equal speeds, no
+      discount: bitwise sync temporal FedAvg;
+    - checkpoint: the int8 job resumed at round 2 of 4 from a checkpoint,
+      bitwise the uninterrupted run.
+
+    B1's counts are set to 0 just before each counted path and read just
+    after. Returns the phase's summary."""
+    jobs, by_path = {}, {}
+    for name in SLICE5_STRATEGIES:
+        out, ex = run_slice5(torch, qa, load_job, Executor, name, slice5_job(name))
+        if name in SLICE5_MUST_FALL and not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"{name}: loss did not fall {out['losses']}")
+        if out["agg_launches"]:   # no server reduce through B1 (gossip: unpacked)
+            raise AssertionError(f"{name}: {out['agg_launches']} B1 launches")
+        if name in SLICE5_CHUNKED:
+            one, ex1 = run_slice5(torch, qa, load_job, Executor, f"{name} (chunks of 1)",
+                                  slice5_job(name, rounds_per_launch=1))
+            if one["losses"] != out["losses"] or not _same(torch, ex.state, ex1.state):
+                raise AssertionError(f"{name}: chunks of 1 != chunks of 3")
+            out["chunked_bitwise"] = True
+            del ex1
+        jobs[name] = out
+        del ex
+        torch.cuda.empty_cache()
+    log("slice 5 strategies: losses finite, falling where the JAX package's fall; "
+        f"chunks of 1 == 3 bitwise for {list(SLICE5_CHUNKED)}")
+
+    for comp in ("none", "int8"):
+        name = f"temporal_{comp}"
+        raw = job_dict("compressed" if comp == "int8" else "fedavg", comp, 1, rounds=2,
+                       placement="temporal")
+        qa.quant_aggregate.launches = 0
+        out, ex = run_slice5(torch, qa, load_job, Executor, name, raw)
+        by_path[name] = qa.quant_aggregate.launches
+        if by_path[name] != (2 if comp == "int8" else 0):
+            raise AssertionError(f"{name}: {by_path[name]} B1 launches in 2 rounds")
+        if not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"{name}: loss did not fall {out['losses']}")
+        jobs[name] = out
+        del ex
+
+    for name, tp in ASYNC_JOBS.items():
+        runs = []
+        for rpl in (2, 1):
+            # scaffolded for 3 rounds (the third is profiled), counted over 2
+            raw = job_dict("compressed", "int8", rpl, runtime=ASYNC_RUNTIME, rounds=3,
+                           mode="async", staleness_exponent=0.5, **tp)
+            qa.quant_aggregate.launches = 0
+            out, ex = run_slice5(torch, qa, load_job, Executor,
+                                 f"{name} (chunks of {rpl})", raw, rounds=2)
+            launches = qa.quant_aggregate.launches
+            n_ev = 2 * ex.events_per_round
+            want = int(ex.schedule.apply[:n_ev].sum()) if tp["async_buffer"] > 1 else n_ev
+            if launches != want:
+                raise AssertionError(f"{name}: {launches} B1 launches, want {want}")
+            runs.append((out, ex, launches))
+        (out, ex, launches), (one, ex1, _) = runs
+        if one["losses"] != out["losses"] or not _same(torch, ex.state, ex1.state):
+            raise AssertionError(f"{name}: chunks of 1 != chunks of 2")
+        if name == "fedasync_int8" and not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"{name}: loss did not fall {out['losses']}")
+        out["chunked_bitwise"] = True
+        by_path[name] = launches
+        log(f"{name}: events_per_s {out['events_per_s']}, B1 launches {launches}")
+        if name == "fedbuff_int8":
+            # where the time goes: a third round's 10 events, profiled (the
+            # temporal and FedAsync loops train one client per step the same
+            # way; their 60-70 thousand launches a round take the profiler
+            # tens of seconds)
+            out["profile"] = _profile_b1(torch, lambda: ex.run(3), f"one {name} round "
+                                         f"({ex.events_per_round} events)")
+        jobs[name] = out
+        del ex, ex1
+
+    ident = {}
+    for mode in ("sync", "async"):
+        tp = ({"placement": "temporal"} if mode == "sync" else
+              {"mode": "async", "async_buffer": 20, "staleness_exponent": 0.0})
+        raw = job_dict("fedavg", "none", 2, runtime=EQUAL_SPEEDS, rounds=2, n_clients=20,
+                       cohort=0, **tp)
+        out, ex = run_slice5(torch, qa, load_job, Executor, f"identity {mode}", raw)
+        ident[mode] = ex.state["params"]
+        jobs[f"identity_{mode}"] = out
+        del ex
+    if not _same(torch, ident["sync"], ident["async"]):
+        raise AssertionError("FedBuff (buffer == cohort, equal speeds) != sync temporal FedAvg")
+    log("FedBuff identity: bitwise sync temporal FedAvg (20 clients, 2 rounds)")
+    del ident
+
+    ckpt_dir = ROOT / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    raw = job_dict("compressed", "int8", 2, rounds=4, checkpoint_every=2)
+    ref, ex_ref = run_slice5(torch, qa, load_job, Executor, "checkpoint reference", raw)
+    _, ex = run_slice5(torch, qa, load_job, Executor, "checkpoint first half", raw,
+                       ckpt_dir=str(ckpt_dir), rounds=2)
+    out, ex2 = run_slice5(torch, qa, load_job, Executor, "checkpoint resumed", raw,
+                          ckpt_dir=str(ckpt_dir))
+    if ex2.round_idx != 4 or out["losses"] != ref["losses"][2:] or \
+            not _same(torch, ex2.state, ex_ref.state):
+        raise AssertionError("resumed at round 2 != the uninterrupted run")
+    log("checkpoint: resumed at round 2 of 4, bitwise the uninterrupted run")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del ex_ref, ex, ex2
+    torch.cuda.empty_cache()
+    return {"jobs": jobs, "b1_launches_by_path": by_path}
 
 
 def _randn(torch, shape, dtype, seed, device):
@@ -1014,14 +1320,24 @@ def main() -> int:
     log("determinism: rounds_per_launch 1 == 3, bitwise (losses and params)")
     phase_profile(torch, load_job, Executor)
 
-    # 6. serve path; counts zeroed just before it, read just after
+    # 6. slice 5: B1 at its new shapes, the hash card vs CPU, then every
+    # strategy, topology, placement and async server; B1's counts zeroed just
+    # before each counted path, read just after
+    b1_rows, b1_floor = phase_b1_slice5(torch, qa, extras)
+    check_hash(torch)
+    t0 = time.perf_counter()
+    slice5 = phase_slice5(torch, qa, load_job, Executor)
+    slice5_s = time.perf_counter() - t0
+    log(f"slice 5 phase: {slice5_s:.1f}s")
+
+    # 7. serve path; counts zeroed just before it, read just after
     kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
                "flash_attention": fa.flash_attention_fwd,
                "decode_attention": da.decode_attention_fwd}
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 7. summary
+    # 8. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -1032,7 +1348,12 @@ def main() -> int:
         "call_ms": main["kernel_call_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "bitwise": True,
-        "shape": [main["C"], main["N"], main["qblock"]]}]
+        "shape": [main["C"], main["N"], main["qblock"]],
+        "launches_by_path": {"sync_int8": main_launches, **slice5["b1_launches_by_path"]},
+        "slice5_shapes": {name: {k: r[k] for k in ("C", "kernel_ms", "kernel_call_ms",
+                                                   "plain_ms", "bound_ms", "bound_by")}
+                          for name, r in b1_rows.items()},
+        "launch_floor_ms": b1_floor["after_flush_ms"]}]
     if "baseline_ms" in main:
         entries[0]["baseline_ms"] = main["baseline_ms"]
     flash_src = "src/repro/kernels/flash_attention.py:30"
@@ -1102,6 +1423,16 @@ def main() -> int:
                     "rmsnorm_decode_baseline_ms": dec.get("baseline_ms"),
                     "launch_floor_ms": dec["launch_floor_ms"],
                     "rmsnorm_by_layout": serve["rmsnorm_by_layout"]}))
+    log(json.dumps({"slice": "5: every FL strategy, gossip topology, temporal placement, "
+                    "checkpoints and the async FedAsync/FedBuff driver on flsim-cnn at full "
+                    "width, B1 on their int8 paths",
+                    "phase_s": slice5_s,
+                    "jobs": {name: {k: j.get(k) for k in ("round_s", "events_per_s",
+                                                          "peak_mem_gb", "losses")}
+                             for name, j in slice5["jobs"].items()},
+                    "b1_launches_by_path": slice5["b1_launches_by_path"],
+                    "b1_ms": {name: r["kernel_ms"] for name, r in b1_rows.items()},
+                    "launch_floor_ms": b1_floor["after_flush_ms"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

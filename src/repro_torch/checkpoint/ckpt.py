@@ -1,0 +1,111 @@
+"""Round-granular checkpoints (port of ``repro/checkpoint/ckpt.py``), in the
+JAX package's on-disk layout, so a checkpoint written by either package
+restores into the other:
+
+  <dir>/round_<n:08d>/shard_0.npz   leaf_0 ... leaf_{L-1}, numpy arrays
+  <dir>/round_<n:08d>/manifest.json {"round", "n_leaves", "treedef", "extra"}
+
+The leaves are numbered in JAX's flatten order: dict keys sorted, at every
+level; tuples and lists in order; an empty tuple holds no leaf. The port's
+state has the JAX package's names and layouts, so the same state gives the
+same leaves. ``restore`` reads the leaves into the structure of a state of
+the same run and puts them on that state's devices.
+
+A save copies the leaves to host memory and writes them into a temporary
+directory that is renamed into place, so a reader never sees half a
+checkpoint. The newest ``KEEP_LAST`` rounds are kept.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+from typing import Optional
+
+import numpy as np
+import torch
+
+KEEP_LAST = 3   # rounds kept on disk; older ones are deleted
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) pairs of ``tree`` in JAX's flatten order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def _rebuild(tree, it):
+    """``tree``'s structure with its leaves taken in order from ``it``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    if tree is None:
+        return None
+    return next(it)
+
+
+def save(ckpt_dir, round_idx: int, state, extra: Optional[dict] = None):
+    """Write ``state`` as round ``round_idx``; returns its directory."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    path = ckpt_dir / f"round_{round_idx:08d}"
+    tmp = ckpt_dir / f".tmp_round_{round_idx:08d}"
+    leaves = list(_leaves(state))
+    host = [t.detach().cpu().numpy() for _, t in leaves]
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    np.savez(tmp / "shard_0.npz", **{f"leaf_{i}": h for i, h in enumerate(host)})
+    manifest = {"round": round_idx, "n_leaves": len(host),
+                "treedef": "repro_torch: " + " ".join(p for p, _ in leaves),
+                "extra": extra or {}}
+    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    if path.exists():
+        shutil.rmtree(path)
+    tmp.rename(path)                                           # atomic publish
+    _gc(ckpt_dir)
+    return path
+
+
+def _gc(ckpt_dir: pathlib.Path):
+    rounds = sorted(p for p in ckpt_dir.glob("round_*") if p.is_dir())
+    for p in rounds[:-KEEP_LAST]:
+        shutil.rmtree(p, ignore_errors=True)
+
+
+def latest_round(ckpt_dir) -> Optional[int]:
+    """The newest saved round in ``ckpt_dir``, or None."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    rounds = sorted(ckpt_dir.glob("round_*"))
+    if not rounds:
+        return None
+    return int(rounds[-1].name.split("_")[1])
+
+
+def restore(ckpt_dir, round_idx: int, like_state):
+    """Load round ``round_idx`` into the structure of ``like_state``, each
+    leaf on the device of the leaf it replaces. Returns (state, extra).
+    Raises if the leaves' count, shapes or dtypes differ from the state's."""
+    path = pathlib.Path(ckpt_dir) / f"round_{round_idx:08d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    with np.load(path / "shard_0.npz") as z:
+        host = [z[f"leaf_{i}"] for i in range(manifest["n_leaves"])]
+    like = list(_leaves(like_state))
+    if len(like) != len(host):
+        raise ValueError(f"checkpoint has {len(host)} leaves, the state needs {len(like)}")
+    out = []
+    for (name, t), h in zip(like, host):
+        got = torch.from_numpy(np.array(h, order="C"))
+        if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
+            raise ValueError(f"checkpoint leaf {name}: {tuple(got.shape)} {got.dtype}, "
+                             f"the state has {tuple(t.shape)} {t.dtype}")
+        out.append(got.to(t.device))
+    return _rebuild(like_state, iter(out)), manifest["extra"]

@@ -19,6 +19,7 @@ from repro_torch.core.strategies import get_strategy
 from repro_torch.core.topology import get_topology
 from repro_torch.data.pipeline import SyntheticVision
 from repro_torch.models import model_zoo
+from repro_torch.runtime.clock import ClientSystemModel
 from repro_torch.runtime.faults import FaultModel
 
 
@@ -37,12 +38,9 @@ class Job:
 
 
 _FL_KEYS = {f.name for f in dataclasses.fields(FLConfig)}
-# the runtime section also takes the async client-system and link knobs of
-# the JAX package's ClientSystemModel (read only by the async clock and the
-# comms plane, neither ported yet; the sync path ignores them there too)
-_CSM_KEYS = {f.name for f in dataclasses.fields(FaultModel)} | {
-    "mean_duration", "duration_sigma", "rate_spread", "availability",
-    "up_mbps", "down_mbps", "link_tiers", "link_tier_factor", "latency_s"}
+# the runtime section also takes the client-system and link knobs (the link
+# knobs are read only by the comms plane, not yet ported: ROADMAP A11)
+_CSM_KEYS = {f.name for f in dataclasses.fields(ClientSystemModel)}
 _DATASET_KEYS = {"dataset", "n_items", "distribution", "items_per_client"}
 _MODEL_KEYS = {"arch", "reduced"}
 _STRATEGY_KEYS = {"strategy", "train_params", "aggregator_params"}
@@ -79,13 +77,9 @@ def check_ported(raw: dict, fl: FLConfig) -> None:
             raise _not_ported(f"the {section!r} section", item)
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
-    if fl.mode == "async":
-        raise _not_ported("mode 'async'", "A10")
     if fl.placement not in ("auto", "spatial", "temporal"):
         raise ValueError(f"unknown placement {fl.placement!r} "
                          "(want 'auto', 'spatial' or 'temporal')")
-    if fl.placement == "temporal":
-        raise _not_ported("placement 'temporal'", "A9")
     if fl.max_cohort > 0 or fl.streaming:
         raise _not_ported("the ragged/streaming client plane "
                           "(max_cohort > 0, streaming)", "A13")
@@ -93,8 +87,23 @@ def check_ported(raw: dict, fl: FLConfig) -> None:
         raise _not_ported(f"blockchain {fl.blockchain!r}", "A14")
     if fl.n_workers > 1 or fl.byzantine_workers > 0:
         raise _not_ported("multi-worker consensus (n_workers > 1)", "A14")
-    if fl.compression not in ("none", "int8"):
-        raise _not_ported(f"compression {fl.compression!r}", "A5")
+    if fl.compression not in ("none", "int8", "topk"):
+        raise ValueError(f"unknown compression {fl.compression!r} "
+                         "(want 'none', 'int8' or 'topk')")
+
+
+def check_client_state(fl: FLConfig, strategy) -> None:
+    """Raise ``ValueError`` where the strategy's hooks index a per-client
+    state that the driver does not carry: the temporal round and the async
+    event loop pass none (the JAX package fails there with a TypeError).
+    Strategies that only keep optional state (error feedback) run there
+    without it, as in the JAX package."""
+    where = ("mode 'async'" if fl.mode == "async"
+             else "placement 'temporal'" if fl.placement == "temporal" else None)
+    if where and strategy.reads_client_state:
+        raise ValueError(
+            f"strategy {fl.strategy!r} reads per-client state, which {where} "
+            "does not carry; run it with mode 'sync' and placement 'spatial'")
 
 
 def make_dataset(raw: dict, fl: FLConfig, cfg=None):
@@ -138,14 +147,16 @@ def validate_cohort(fl: FLConfig) -> None:
             "resident staging has no per-chunk working set to stream")
 
 
-def make_fault(raw: dict, fl: FLConfig) -> FaultModel:
-    """The sync path's fault fields from the runtime section, seeded by
+def make_fault(raw: dict, fl: FLConfig) -> ClientSystemModel:
+    """ClientSystemModel is a FaultModel: the sync path reads only the fault
+    fields, the async virtual clock also reads the system ones. Seeded by
     ``fl.seed``."""
     rt = raw.get("runtime", {}) or {}
-    return FaultModel(drop_prob=rt.get("drop_prob", 0.0),
-                      straggler_prob=rt.get("straggler_prob", 0.0),
-                      straggler_slowdown=rt.get("straggler_slowdown", 4.0),
-                      seed=fl.seed)
+    defaults = ClientSystemModel()
+    return ClientSystemModel(seed=fl.seed, **{
+        f.name: rt.get(f.name, getattr(defaults, f.name))
+        for f in dataclasses.fields(ClientSystemModel)
+        if f.name not in ("seed", "worker_fail_prob")})
 
 
 def load_job(path_or_dict) -> Job:
@@ -184,12 +195,15 @@ def load_job(path_or_dict) -> Job:
     validate_cohort(fl)
     check_ported(raw, fl)
 
+    strategy = get_strategy(fl)
+    check_client_state(fl, strategy)
+
     arch = (raw.get("model") or {}).get("arch", "flsim-cnn")
     cfg = get_config(arch)     # small models: ``reduced`` leaves them as-is
     return Job(
         name=raw.get("name", "job"),
         fl=fl, arch=arch, model=model_zoo.build(cfg),
-        strategy=get_strategy(fl),
+        strategy=strategy,
         topology=get_topology(fl.topology, fl.gossip_steps),
         dataset=make_dataset(raw, fl, cfg),
         fault=make_fault(raw, fl),

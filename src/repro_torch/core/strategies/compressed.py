@@ -1,10 +1,11 @@
-"""Communication-efficient FL: int8 delta compression with error feedback
-(port of the int8 half of ``repro/core/strategies/compressed.py``; top-k
-waits for ROADMAP A5). Deltas carry a leading client dim."""
+"""Communication-efficient FL: int8 / top-k delta compression with error
+feedback (port of ``repro/core/strategies/compressed.py``). Deltas carry a
+leading client dim."""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.core import packing
@@ -23,9 +24,20 @@ def _roundtrip_int8(x, block=256):
     return deq.reshape(x.shape[0], -1)[:, :n].reshape(x.shape).to(x.dtype)
 
 
+def _topk_mask(x, ratio):
+    """Exactly-k mask of each client's (C, ...) leaf: the k largest
+    magnitudes, ties to the lowest flat index (a stable descending sort;
+    ``torch.topk`` promises no order among ties), k = max(1, int(n * ratio))."""
+    flat = torch.abs(x.to(torch.float32)).reshape(x.shape[0], -1)
+    k = max(1, int(flat.shape[1] * ratio))
+    idx = torch.sort(flat, dim=1, descending=True, stable=True).indices[:, :k]
+    mask = torch.zeros_like(flat).scatter_(1, idx, 1.0)
+    return mask.reshape(x.shape).to(x.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompressedFedAvg(Strategy):
-    """FedAvg over a lossy int8 compressor with error feedback."""
+    """FedAvg over a lossy compressor with error feedback (int8/topk)."""
     name: str = "compressed"
 
     def client_state_init(self, params):
@@ -46,12 +58,11 @@ class CompressedFedAvg(Strategy):
         delta, ef = self._with_residual(delta, client_state)
         if self.fl.compression == "int8":
             sent = {k: _roundtrip_int8(d) for k, d in delta.items()}
-        elif self.fl.compression == "none":
-            sent = delta
+        elif self.fl.compression == "topk":
+            sent = {k: d * _topk_mask(d, self.fl.topk_ratio)
+                    for k, d in delta.items()}
         else:
-            raise NotImplementedError(
-                f"compression {self.fl.compression!r} is not yet ported, "
-                "see ROADMAP A5")
+            sent = delta
         if ef:
             return sent, {"residual": {k: delta[k] - sent[k] for k in delta}}
         return sent, client_state

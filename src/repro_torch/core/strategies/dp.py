@@ -1,0 +1,39 @@
+"""Client-level differential privacy (Geyer et al.): clip + Gaussian noise
+(port of ``repro/core/strategies/dp.py``).
+
+The noise of a client's leaf is keyed by ``fold_in(client key, leaf index)``
+(leaves in sorted-key order) and drawn counter-based on the device
+(``determinism.normal``), so it depends on (seed, absolute round, client,
+leaf) alone: chunked and unchunked runs draw the same noise."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import determinism
+from repro_torch.core.strategy import Strategy, global_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class DPFedAvg(Strategy):
+    """FedAvg with per-client delta clipping and Gaussian noise (DP-FedAvg)."""
+    name: str = "dp_fedavg"
+
+    def postprocess(self, delta, client_state, rng):
+        """Clip each client's (C, ...) delta to ``dp_clip``, then add noise
+        of std ``dp_noise * dp_clip``; ``rng`` is the (C,) client keys."""
+        clip, sigma = self.fl.dp_clip, self.fl.dp_noise
+        nrm = global_norm(delta, lead=1)
+        scale = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
+        out = {}
+        for j, k in enumerate(sorted(delta)):
+            d = delta[k]
+            n = d[0].numel()
+            ctr = torch.arange(n, dtype=torch.int64, device=d.device)
+            z = determinism.normal(
+                determinism.fold_in_tensor(rng, torch.full_like(rng, j))[:, None], ctr)
+            bshape = (-1,) + (1,) * (d.dim() - 1)
+            out[k] = d * scale.reshape(bshape) + \
+                (sigma * clip * z.reshape(d.shape)).to(d.dtype)
+        return out, client_state

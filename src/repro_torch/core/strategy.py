@@ -2,8 +2,9 @@
 
 A Strategy is a set of hooks over param dicts. In the port the client dim is
 written out: ``delta``, ``client_state`` and gradients carry a leading
-``(C, ...)`` client dim, except inside ``local_loss``, which runs per client
-under ``torch.func.vmap``.
+``(C, ...)`` client dim and ``rng`` is a ``(C,)`` int64 tensor of client keys
+(``determinism.client_key``), except inside ``local_loss``, which runs per
+client under ``torch.func.vmap`` and sees one client's key.
 
   local_loss       — decorate the base loss (FedProx proximal term, MOON ...)
   grad_transform   — adjust the local gradient (SCAFFOLD control variates)
@@ -43,11 +44,23 @@ def tree_scale(a: dict, s) -> dict:
     return {k: v * s for k, v in a.items()}
 
 
+def global_norm(t: dict, lead: int = 0):
+    """L2 norm over a dict's leaves, in f32, reducing every dim past the
+    first ``lead`` (``lead=1``: one norm per client). The 1e-24, as in the
+    JAX package, keeps the sqrt differentiable at an all-zero tree."""
+    total = sum(torch.square(t[k].to(torch.float32)).sum(
+        dim=tuple(range(lead, t[k].dim()))) for k in sorted(t))
+    return torch.sqrt(1e-24 + total)
+
+
 @dataclasses.dataclass(frozen=True)
 class Strategy:
     """FedAvg — weighted parameter averaging (McMahan et al.). Base class."""
     fl: FLConfig
     name: str = "fedavg"
+    # hooks that index the per-client state: such a strategy cannot run
+    # where the round passes none (temporal placement, async)
+    reads_client_state = False
 
     # -- state ---------------------------------------------------------
     def server_state_init(self, params) -> PyTree:

@@ -4,7 +4,8 @@ meshless half of ``repro/core/topology.py``).
 - client-server: one weighted mean over the clients.
 - hierarchical: edge then cloud tier; with one device (no pod axis) both
   tiers collapse to the same weighted mean.
-- decentralized: gossip mixing, not yet ported (ROADMAP A6).
+- decentralized: no global reduction; ``gossip_steps`` rounds of ring
+  gossip over the client dim (doubly stochastic mixing), Fedstellar-style.
 """
 from __future__ import annotations
 
@@ -38,6 +39,36 @@ class Hierarchical(ClientServer):
     name: str = "hierarchical"
 
 
+@dataclasses.dataclass(frozen=True)
+class Decentralized:
+    """k steps of ring gossip; returns per-client mixed states (no global)."""
+    name: str = "decentralized"
+    gossip_steps: int = 1
+
+    def mix(self, state: dict) -> dict:
+        """state: per-client dict with a leading (C, ...) dim. One gossip
+        step averages each client with its two ring neighbours, in f32
+        (the accumulator, not the raw leaf, is rolled), cast back after."""
+        def step(t):
+            mixed = t.to(torch.float32)
+            n = 1
+            if t.shape[0] > 1:
+                mixed = mixed + torch.roll(mixed, 1, 0) + torch.roll(mixed, -1, 0)
+                n += 2
+            return (mixed / n).to(t.dtype)
+
+        for _ in range(self.gossip_steps):
+            state = {k: step(v) for k, v in state.items()}
+        return state
+
+    def aggregate(self, deltas, weights):
+        """Gossip-average deltas over the ring for ``gossip_steps``."""
+        return self.mix(deltas)
+
+
+# neighbours each client exchanges with per gossip step (the ring rolls ±1)
+GOSSIP_NEIGHBORS = 2
+
 _TOPOLOGIES = ("client_server", "hierarchical", "decentralized")
 
 
@@ -48,8 +79,7 @@ def get_topology(name: str, gossip_steps: int = 1):
     if name == "hierarchical":
         return Hierarchical()
     if name == "decentralized":
-        raise NotImplementedError(
-            "topology 'decentralized' is not yet ported, see ROADMAP A6")
+        return Decentralized(gossip_steps=gossip_steps)
     hint = difflib.get_close_matches(name, _TOPOLOGIES, n=1)
     suffix = (f" — did you mean {hint[0]!r}?" if hint
               else f"; known topologies: {list(_TOPOLOGIES)}")

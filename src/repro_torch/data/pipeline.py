@@ -49,24 +49,43 @@ def stage_partitions(x, y, parts, device) -> dict:
             "len": torch.as_tensor(lens, device=device)}
 
 
+def _positions(keys, lens, n_steps: int, batch_size: int):
+    """(..., n_steps, B) int64 positions in ``[0, lens)``, one counter-based
+    draw per ``(batch key, step, slot)``; ``keys`` and ``lens`` broadcast."""
+    ctr = torch.arange(n_steps * batch_size, dtype=torch.int64,
+                       device=lens.device)
+    pos = determinism.uniform_index(keys, ctr, lens.clamp(min=1))
+    return pos.reshape(*pos.shape[:-1], n_steps, batch_size)
+
+
+def gather_one_client_batch(staged, round_key: int, client: int,
+                            batch_size: int, n_steps: int) -> dict:
+    """Batch gather for one client, on the staged device.
+
+    Positions are drawn uniformly (with replacement) from the client's true
+    partition, keyed by ``determinism.batch_key(round_key, client)``, so the
+    batch stream of a (seed, round, client) is the same however rounds or
+    async events are chunked. Bitwise lane ``client`` of
+    ``gather_client_batches``: the draw is counter-based, one value per
+    (key, step, slot). Returns {"x": (n_steps, B, ...), "y": (n_steps, B)}.
+    """
+    key = determinism.batch_key(round_key, client)
+    pos = _positions(key, staged["len"][client], n_steps, batch_size)
+    sel = staged["idx"][client][pos]
+    return {"x": staged["x"][sel], "y": staged["y"][sel]}
+
+
 def gather_client_batches(staged, round_key: int, batch_size: int,
                           n_steps: int) -> dict:
-    """Per-round batch gather for every client, on the staged device.
-
-    One uniform draw ``(C, n_steps, B)`` per round from
-    ``generator(batch_key(round_key))``; position = ``floor(u * len[c])``
-    clamped to ``len[c] - 1`` (an f32 product can round up to ``len``).
-    Keyed only by the round key, so chunking cannot change the stream.
+    """Per-round batch gather for every client, on the staged device: the
+    lanes of ``gather_one_client_batch``, drawn in one vectorised pass.
     Returns {"x": (C, n_steps, B, ...), "y": (C, n_steps, B)}.
     """
     idx, lens = staged["idx"], staged["len"]
-    dev = idx.device
-    g = determinism.generator(determinism.batch_key(round_key), dev)
-    u = torch.rand((idx.shape[0], n_steps, batch_size), generator=g,
-                   device=dev)
-    maxv = lens.clamp(min=1).to(torch.float32)[:, None, None]
-    pos = torch.minimum(torch.floor(u * maxv), maxv - 1).to(torch.int64)
-    sel = torch.gather(idx, 1, pos.reshape(idx.shape[0], -1)).reshape(pos.shape)
+    C = idx.shape[0]
+    keys = determinism.batch_keys(round_key, C, idx.device)
+    pos = _positions(keys[:, None], lens[:, None], n_steps, batch_size)
+    sel = torch.gather(idx, 1, pos.reshape(C, -1)).reshape(pos.shape)
     return {"x": staged["x"][sel], "y": staged["y"][sel]}
 
 

@@ -90,7 +90,7 @@ def test_keys_are_pure_and_distinct_per_coordinate():
     rk = determinism.round_key(root, 5)
     keys = {rk, determinism.round_key(root, 6), determinism.client_key(rk, 0),
             determinism.client_key(rk, 1), determinism.step_key(rk, 0),
-            determinism.batch_key(rk), determinism.cohort_key(0, 5),
+            determinism.batch_key(rk, 0), determinism.cohort_key(0, 5),
             determinism.cohort_key(1, 5)}
     assert len(keys) == 8 and all(0 <= k < 2**64 for k in keys)
     a = torch.rand(4, generator=determinism.generator(rk))
@@ -172,26 +172,48 @@ def test_load_job_rejects_typos_with_a_hint():
     ({"telemetry": {"enabled": True}}, "A11"),
     ({"probes": {"enabled": True}}, "A11"),
     ({"comms": {"enabled": True}}, "A11"),
-    ({"train": {"mode": "async"}}, "A10"),
-    ({"train": {"placement": "temporal"}}, "A9"),
-    ({"train": {"topology": "decentralized"}}, "A6"),
+    ({"dataset": {"dataset": "synthetic_population"}}, "A13"),
+    ({"dataset": {"dataset": "synthetic_lm"}}, "A15"),
+    ({"train": {"max_cohort": 16, "mode": "async"}}, "A13"),
     ({"train": {"max_cohort": 16}}, "A13"),
     ({"train": {"max_cohort": 16, "streaming": True}}, "A13"),
     ({"train": {"blockchain": "hashchain"}}, "A14"),
     ({"train": {"n_workers": 3}}, "A14"),
-    ({"strategy": "fedprox"}, "A5"),
-    ({"strategy": "compressed", "train": {"compression": "topk"}}, "A5"),
+    ({"train": {"byzantine_workers": 1}}, "A14"),
+    ({"model": {"arch": "minicpm3-4b"}}, "A15"),
     ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
 ])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     raw = {"model": {"arch": "flsim-cnn"},
            "strategy": {"strategy": patch.get("strategy", "fedavg"),
                         "train_params": dict(patch.get("train", {}))}}
-    for k in ("sweep", "telemetry", "probes", "comms", "model"):
+    for k in ("sweep", "telemetry", "probes", "comms", "model", "dataset"):
         if k in patch:
             raw[k] = patch[k]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         load_job(raw)
+
+
+@pytest.mark.parametrize("train", [
+    {"mode": "async"},                                      # A10: FedAsync
+    {"placement": "temporal"},                              # A9
+    {"topology": "decentralized"},                          # A6
+    {"strategy": "fedprox", "prox_mu": 0.1},                # A5
+    {"strategy": "compressed", "compression": "topk"},      # A5
+])
+def test_load_job_runs_what_slice_5_ported(train):
+    train = dict(train)
+    job = _job(train.pop("strategy", "fedavg"), rounds=1, **train)
+    _, logger = Executor(job, device="cpu").scaffold().run()
+    assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
+
+
+@pytest.mark.parametrize("strategy", ["scaffold", "moon"])
+@pytest.mark.parametrize("train", [{"mode": "async"}, {"mode": "async", "async_buffer": 2},
+                                   {"placement": "temporal"}])
+def test_load_job_refuses_client_state_where_the_driver_carries_none(strategy, train):
+    with pytest.raises(ValueError, match=f"strategy '{strategy}' reads per-client state"):
+        _job(strategy, **train)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -209,3 +231,12 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_quickstart_runs_on_the_cpu(capsys):
+    from repro_torch.launch import quickstart
+    logger = quickstart.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "== FL dashboard: quickstart (5 rounds) ==" in out
+    assert out.rstrip().endswith("quickstart OK")
+    assert logger.rows[-1]["loss"] < logger.rows[0]["loss"] and "accuracy" in logger.rows[-1]

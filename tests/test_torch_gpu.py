@@ -132,6 +132,59 @@ def test_executor_on_card_is_chunking_invariant_and_launches_per_round(
     assert all(torch.equal(s2["params"][k], s1["params"][k]) for k in s2["params"])
 
 
+def test_hash_gives_the_same_bits_on_the_card(cuda):
+    from repro_torch.core import determinism as det
+    key = det.round_key(det.root_key(0), 7)
+    assert torch.equal(det.client_keys(key, 100, cuda).cpu(), det.client_keys(key, 100, "cpu"))
+    ctr = torch.arange(1 << 16, dtype=torch.int64)
+    assert torch.equal(det.draw_bits(key, ctr.to(cuda)).cpu(), det.draw_bits(key, ctr))
+    lens = torch.arange(1, 65)[:, None]
+    assert torch.equal(det.uniform_index(key, ctr[None, :256].to(cuda), lens.to(cuda)).cpu(),
+                       det.uniform_index(key, ctr[None, :256], lens))
+
+
+@pytest.mark.parametrize("C,zero_rows", [(10, False), (10, True), (1, False)])
+def test_kernel_equals_plain_bitwise_at_the_async_and_temporal_shapes(cuda, C, zero_rows):
+    """A FedBuff flush of K = 10 rows (with zero rows and zero coefficients:
+    an unfilled slot, accepted zero-weight clients) and packed FedAsync's
+    C = 1, at flsim-cnn's N."""
+    q, s, w = _inputs(C, 189_952, 256, cuda, seed=C + zero_rows)
+    if zero_rows:
+        q[2].zero_()
+        s[2].zero_()
+        w[[2, 5, 8]] = 0.0
+    got = qa.quant_aggregate(q, s, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
+def _async_job(**train):
+    tp = {"n_clients": 4, "local_steps": 2, "batch_size": 8, "client_lr": 0.05,
+          "rounds": 3, "rounds_per_launch": 3, "seed": 11}
+    tp.update(train)
+    job = load_job({"model": {"arch": "flsim-cnn"},
+                    "dataset": {"dataset": "synthetic_vision", "n_items": 256},
+                    "strategy": {"strategy": tp.pop("strategy", "fedavg"), "train_params": tp},
+                    "runtime": {"straggler_prob": 0.0, "duration_sigma": 0.0,
+                                "rate_spread": 0.0}})
+    job.model = SmallModel(job.model.cfg.replace(d_model=8, d_ff=16), "cnn")
+    return job
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_fedbuff_identity_with_sync_temporal_fedavg_on_card(cuda, compression):
+    strategy = "compressed" if compression == "int8" else "fedavg"
+    with ops.quant_agg_scope() as frame:
+        sync, _ = Executor(_async_job(placement="temporal", strategy=strategy,
+                                      compression=compression)).scaffold().run()
+    assert frame["calls"] == (3 if compression == "int8" else 0)
+    assert frame["last_impl"] in (None, "cuda")
+    asy, _ = Executor(_async_job(mode="async", async_buffer=4, strategy=strategy,
+                                 compression=compression)).scaffold().run()
+    assert sync["params"]["c1"].is_cuda
+    assert all(torch.equal(sync["params"][k], asy["params"][k]) for k in sync["params"])
+
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
