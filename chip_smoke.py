@@ -62,7 +62,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    round under ``torch.profiler``), the FedBuff
    identity with sync temporal FedAvg (20 clients, bitwise), and a run
    resumed from a checkpoint at round 2 of 4 (bitwise the uninterrupted one).
-7. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+7. control plane (slice 6) — the draws consensus makes (normals, a digest
+   projection, a poisoned flsim-cnn) equal on the card and the CPU; then at
+   MAIN_JOB's width: int8 with majority_digest at W = 3 (one byzantine
+   worker) and a hash-chain ledger, chunks of 3 and of 1; fedavg with median
+   and with trimmed_mean at W = 4; temporal int8 with majority_digest at
+   W = 3 (2 rounds): each bitwise its W = 1 twin, B1 once per int8 round, a
+   verified chain with one block per chunk and the same final digest for
+   both chunkings; a W = 2 tie that takes the poisoned aggregate; FedBuff
+   int8 with a digest every 5 events, chunks of 1 and of 2: the same digest
+   marks; the comms plane on == off bitwise for a spatial, a temporal and
+   the FedBuff job (last comms rows printed); round_s beside the W = 1
+   twins', the ledger's ms per chunk, one W = 3 round profiled; then
+   ``repro_torch.launch.byzantine`` and ``repro_torch.launch.gossip``.
+8. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -74,7 +87,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-8. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+9. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -771,6 +784,236 @@ def phase_slice5(torch, qa, load_job, Executor):
     return {"jobs": jobs, "b1_launches_by_path": by_path}
 
 
+# phase 7 (slice 6): multi-worker consensus, the ledger and the comms plane on
+# MAIN_JOB; honest majority: one byzantine worker out of W
+CONSENSUS_JOBS = {   # name: (strategy, compression, W, consensus, placement)
+    "int8_majority": ("compressed", "int8", 3, "majority_digest", "spatial"),
+    "fedavg_median": ("fedavg", "none", 4, "median", "spatial"),
+    "fedavg_trimmed_mean": ("fedavg", "none", 4, "trimmed_mean", "spatial"),
+    "temporal_int8_majority": ("compressed", "int8", 3, "majority_digest", "temporal"),
+}
+TEMPORAL_ROUNDS = 2    # a temporal round at MAIN_JOB's width takes 2-3 s
+COMMS_ON = {"enabled": True}
+
+
+def control_job(strategy, compression, rpl, W=1, consensus="majority_digest",
+                placement="spatial", comms=False, **train) -> dict:
+    """MAIN_JOB for the control-plane phase: 3 rounds (temporal: 2), with W
+    workers (one byzantine when W > 1) and the comms plane where asked."""
+    rounds = train.pop("rounds", TEMPORAL_ROUNDS if placement == "temporal" else 3)
+    if W > 1:
+        train.update(n_workers=W, byzantine_workers=1, consensus=consensus)
+    raw = job_dict(strategy, compression, rpl, rounds=rounds, placement=placement,
+                   **train)
+    if comms:
+        raw["comms"] = dict(COMMS_ON)
+    return raw
+
+
+def check_control_plane_bits(torch):
+    """The draws consensus makes give the same bits on the card as on the
+    CPU: 4,194,304 normals (Box-Muller in f64, rounded once), a digest
+    projection, and a poisoned copy of flsim-cnn's params."""
+    from repro_torch.core import consensus
+    from repro_torch.core import determinism as det
+    from repro_torch.models.small import SmallModel
+    from repro_torch.configs.base import get_config
+    ctr = torch.arange(1 << 22, dtype=torch.int64)
+    key = det.fold_in(det.round_key(det.root_key(0), 3), 1)
+    if not torch.equal(det.normal(key, ctr.cuda()).cpu(), det.normal(key, ctr)):
+        raise AssertionError("determinism.normal gives other bits on the card")
+
+    def normal_f32(ctr):          # the same Box-Muller in f32 throughout
+        bits = det.draw_bits(key, ctr)
+        u1 = (det._srl(bits, 40) + 1).to(torch.float32) * 2.0 ** -24
+        u2 = ((bits >> 16) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+    f32_differ = int((normal_f32(ctr.cuda()).cpu() != normal_f32(ctr)).sum())
+    cpu = torch.device("cpu")
+    if not torch.equal(consensus._projection(5, 128, 4, torch.device("cuda")).cpu(),
+                       consensus._projection(5, 128, 4, cpu)):
+        raise AssertionError("a digest projection differs on the card")
+    params = SmallModel(get_config("flsim-cnn"), "cnn").init(torch.Generator())
+    got = consensus.poison({k: v.cuda() for k, v in params.items()}, 3.0, key)
+    want = consensus.poison(params, 3.0, key)
+    if not all(torch.equal(got[k].cpu(), want[k]) for k in params):
+        raise AssertionError("the poisoned aggregate differs on the card")
+    log(f"control plane: {ctr.numel()} normals, a projection and a poisoned flsim-cnn "
+        f"(188,810 params) equal on the card and the CPU; in f32 throughout "
+        f"{f32_differ} of the normals would differ")
+    return f32_differ
+
+
+def _global_digests(ex):
+    return [b.payload["digest"] for b in ex.job.ledger.blocks() if b.kind == "global"]
+
+
+def _async_digests(ex):
+    return [(b.payload["event"], b.payload["vtime"], b.payload["digest"])
+            for b in ex.job.ledger.blocks() if b.kind == "async_digest"]
+
+
+def phase_control_plane(torch, qa, load_job, Executor):
+    """Multi-worker consensus, the hash-chain ledger, the control-plane
+    store and the comms plane at MAIN_JOB's width (flsim-cnn, 189,952 packed
+    params, 50,000 items, Dirichlet 0.5 over 100 clients, cohort 20 over-
+    provisioned 1.25x, straggler_prob 0.1, 5 local steps of batch 32), 3
+    rounds (temporal: 2), through ``load_job`` -> ``Executor``:
+
+    - int8 with majority_digest at W = 3 and a hashchain ledger, chunks of 3
+      and of 1: params and losses bitwise the W = 1 job's, B1 once per
+      round, a verified chain, one global block per chunk, the same final
+      digest for both chunkings (and the W = 1 job's);
+    - fedavg with median and with trimmed_mean at W = 4: bitwise W = 1;
+    - temporal int8 with majority_digest at W = 3: bitwise W = 1, B1 once
+      per round;
+    - a W = 2 tie, 1 round: the poisoned worker 0 wins (finite params, moved
+      from W = 1's by the poison), then one more round's loss is logged;
+    - FedBuff int8 (buffer 10) with a ledger and a digest every 5 events,
+      chunks of 1 and of 2: the same marks, vtimes and final digest;
+    - the comms plane on vs off for the spatial fedavg job, the temporal
+      int8 job and the FedBuff job: params bitwise equal; each job's last
+      comms row;
+    - ``repro_torch.launch.byzantine`` and ``repro_torch.launch.gossip``.
+
+    Prints each consensus job's round_s beside its W = 1 twin's, the
+    ledger's host time per chunk, and one warm W = 3 int8 round under the
+    profiler. B1's counts are set to 0 just before each counted path and
+    read just after. Returns the phase's summary."""
+    from repro_torch.core.blockchain import HashChainLedger, param_digest
+    jobs, by_path, comms_rows = {}, {}, {}
+
+    def run(label, raw, rounds=None):
+        qa.quant_aggregate.launches = 0
+        out, ex = run_slice5(torch, qa, load_job, Executor, label, raw, rounds=rounds)
+        out["agg_launches"] = qa.quant_aggregate.launches
+        jobs[label] = out
+        return out, ex
+
+    twins = {}
+    for name, (strategy, comp, W, cons, placement) in CONSENSUS_JOBS.items():
+        base = (strategy, comp, placement)
+        if base not in twins:
+            twins[base] = run(f"{strategy}_{comp}_{placement} W=1",
+                              control_job(strategy, comp, 3, placement=placement))
+        one, ex1 = twins[base]
+        extra = {"blockchain": "hashchain"} if name == "int8_majority" else {}
+        out, ex = run(name, control_job(strategy, comp, 3, W, cons, placement, **extra))
+        if out["losses"] != one["losses"] or not _same(torch, ex.state["params"],
+                                                       ex1.state["params"]):
+            raise AssertionError(f"{name}: honest majority != W = 1")
+        n_rounds = len(out["losses"])
+        if comp == "int8":
+            by_path[name] = out["agg_launches"]
+            if out["agg_launches"] != n_rounds:
+                raise AssertionError(f"{name}: {out['agg_launches']} B1 launches in "
+                                     f"{n_rounds} rounds")
+        out["round_s_w1"] = one["round_s"]
+        log(f"{name}: bitwise W = 1; round_s {out['round_s']} vs W = 1 {one['round_s']}")
+        if name == "int8_majority":
+            chain = ex.job.ledger
+            if not chain.verify() or len(_global_digests(ex)) != 1:
+                raise AssertionError(f"{name}: ledger {len(chain.blocks())} blocks")
+            one_by_one, ex_c1 = run(f"{name} (chunks of 1)",
+                                    control_job(strategy, comp, 1, W, cons, **extra))
+            d3, d1 = _global_digests(ex), _global_digests(ex_c1)
+            if not ex_c1.job.ledger.verify() or len(d1) != 3 or d1[-1] != d3[-1] or \
+                    d3[-1] != param_digest(ex1.state["params"]) or \
+                    one_by_one["losses"] != one["losses"]:
+                raise AssertionError(f"{name}: chunks of 1 != chunks of 3 on the ledger")
+            if ex_c1.kv.get("global_digest/2") != d3[-1]:
+                raise AssertionError(f"{name}: global_digest/2 not published")
+            by_path[f"{name} (chunks of 1)"] = one_by_one["agg_launches"]
+            # the ledger's host time per chunk: a device-to-host copy of the
+            # params plus SHA-256, then the block (on a scratch chain)
+            ex.job.ledger = HashChainLedger()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in range(20):
+                ex._ledger_record(r)
+            out["ledger_ms_per_chunk"] = (time.perf_counter() - t0) / 20 * 1e3
+            log(f"{name}: ledger verified, one block per chunk, final digest "
+                f"{d3[-1][:16]} for chunks of 3 and of 1; ledger "
+                f"{out['ledger_ms_per_chunk']:.3f} ms per chunk")
+            ex.run(4)                      # one more round, warm, then profiled
+            out["profile"] = profile_device(torch, lambda: ex.run(5),
+                                            "one W = 3 int8 majority_digest round",
+                                            top=8)[0]
+            del ex_c1
+        del ex
+
+    # the tie: worker 0, the poisoned one, wins. One round: the loss is W = 1's
+    # (the clients train from the same weights), every param moved by the
+    # poison (N(0, 9)); then one more round from the poisoned params, logged
+    one1, ex1 = run("fedavg W=1 (1 round)", control_job("fedavg", "none", 1, rounds=1))
+    tie, ex = run("fedavg_majority W=2 tie", control_job("fedavg", "none", 1, 2, rounds=1))
+    p1, pt = ex1.state["params"], ex.state["params"]
+    moved = max((pt[k] - p1[k]).abs().max().item() for k in p1)
+    if tie["losses"] != one1["losses"] or moved < 1.0 or \
+            not all(bool(torch.isfinite(t).all()) for t in pt.values()):
+        raise AssertionError(f"W = 2 tie: losses {tie['losses']} vs {one1['losses']}, "
+                             f"max |param - W = 1's| {moved}")
+    ex.run(2)
+    tie["next_loss"] = ex.logger.rows[-1]["loss"]
+    log(f"W = 2 tie: the poisoned aggregate won (max |param - W = 1's| {moved:.3f}, "
+        f"finite); the next round's loss from it: {tie['next_loss']}")
+    del ex, ex1
+
+    fedbuff = {"mode": "async", "async_buffer": 10, "staleness_exponent": 0.5,
+               "blockchain": "hashchain", "digest_every_events": 5}
+    blocks = {}
+    for rpl in (2, 1):
+        raw = job_dict("compressed", "int8", rpl, runtime=ASYNC_RUNTIME, rounds=2, **fedbuff)
+        out, ex = run(f"fedbuff_int8_ledger (chunks of {rpl})", raw)
+        blocks[rpl] = _async_digests(ex)
+        if not ex.job.ledger.verify():
+            raise AssertionError("FedBuff ledger does not verify")
+        if rpl == 2:
+            want = int(ex.schedule.apply[:2 * ex.events_per_round].sum())
+            by_path["fedbuff_int8_ledger"] = out["agg_launches"]
+            if out["agg_launches"] != want:
+                raise AssertionError(f"FedBuff: {out['agg_launches']} B1 launches, want {want}")
+            fedbuff_state = ex.state
+        del ex
+    # a block digests the state at the end of its chunk: the marks, their
+    # vtimes and the last chunk's digests are the same for every chunking
+    marks = {rpl: [(e, v) for e, v, _ in b] for rpl, b in blocks.items()}
+    if marks[1] != marks[2] or [e for e, _ in marks[2]] != [5, 10, 15, 20] or \
+            blocks[1][-1][2] != blocks[2][-1][2]:
+        raise AssertionError(f"FedBuff digest blocks: {blocks}")
+    log(f"FedBuff: async digest blocks (event, vtime) {marks[2]} and the final digest "
+        "the same for chunks of 1 and of 2")
+
+    for label, raw, off in (
+            ("spatial fedavg", control_job("fedavg", "none", 3, comms=True),
+             twins[("fedavg", "none", "spatial")][1].state),
+            ("temporal int8", control_job("compressed", "int8", 3, placement="temporal",
+                                          comms=True),
+             twins[("compressed", "int8", "temporal")][1].state),
+            ("fedbuff int8", job_dict("compressed", "int8", 2, runtime=ASYNC_RUNTIME,
+                                      rounds=2, **fedbuff), fedbuff_state)):
+        raw["comms"] = dict(COMMS_ON)
+        out, ex = run(f"{label} comms on", raw)
+        if not _same(torch, ex.state["params"], off["params"]):
+            raise AssertionError(f"{label}: comms on != off")
+        comms_rows[label] = ex.comms_rows[-1]
+        log(f"{label}: comms on == off bitwise; last comms row {json.dumps(ex.comms_rows[-1])}")
+        del ex
+    twins.clear()
+    del fedbuff_state
+
+    from repro_torch.launch import byzantine, gossip
+    losses, ledger = byzantine.main([])
+    if not ledger.verify() or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"launch.byzantine: {losses}")
+    g_losses, divs = gossip.main([])
+    if not g_losses[-1] < g_losses[0]:
+        raise AssertionError(f"launch.gossip: loss did not fall {g_losses}")
+    torch.cuda.empty_cache()
+    return {"jobs": jobs, "b1_launches_by_path": by_path, "comms_rows": comms_rows,
+            "byzantine_losses": losses, "gossip_losses": g_losses}
+
+
 def _randn(torch, shape, dtype, seed, device):
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -1330,14 +1573,22 @@ def main() -> int:
     slice5_s = time.perf_counter() - t0
     log(f"slice 5 phase: {slice5_s:.1f}s")
 
-    # 7. serve path; counts zeroed just before it, read just after
+    # 7. control plane (slice 6): consensus, the ledger, the comms plane; B1's
+    # counts zeroed just before each counted path, read just after
+    t0 = time.perf_counter()
+    f32_differ = check_control_plane_bits(torch)
+    control = phase_control_plane(torch, qa, load_job, Executor)
+    control_s = time.perf_counter() - t0
+    log(f"control plane phase: {control_s:.1f}s")
+
+    # 8. serve path; counts zeroed just before it, read just after
     kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
                "flash_attention": fa.flash_attention_fwd,
                "decode_attention": da.decode_attention_fwd}
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 8. summary
+    # 9. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -1349,7 +1600,8 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "bitwise": True,
         "shape": [main["C"], main["N"], main["qblock"]],
-        "launches_by_path": {"sync_int8": main_launches, **slice5["b1_launches_by_path"]},
+        "launches_by_path": {"sync_int8": main_launches, **slice5["b1_launches_by_path"],
+                             **control["b1_launches_by_path"]},
         "slice5_shapes": {name: {k: r[k] for k in ("C", "kernel_ms", "kernel_call_ms",
                                                    "plain_ms", "bound_ms", "bound_by")}
                           for name, r in b1_rows.items()},
@@ -1433,6 +1685,19 @@ def main() -> int:
                     "b1_launches_by_path": slice5["b1_launches_by_path"],
                     "b1_ms": {name: r["kernel_ms"] for name, r in b1_rows.items()},
                     "launch_floor_ms": b1_floor["after_flush_ms"]}))
+    log(json.dumps({"slice": "6: multi-worker consensus (majority_digest, median, "
+                    "trimmed_mean), the hash-chain ledger, the control-plane store and the "
+                    "comms plane on flsim-cnn at full width, B1 on the consensus int8 path",
+                    "phase_s": control_s, "f32_normals_differing": f32_differ,
+                    "jobs": {name: {k: j.get(k) for k in (
+                        "round_s", "round_s_w1", "ledger_ms_per_chunk", "agg_launches",
+                        "losses", "next_loss")} for name, j in control["jobs"].items()},
+                    "consensus_round_profile":
+                        control["jobs"]["int8_majority"]["profile"],
+                    "b1_launches_by_path": control["b1_launches_by_path"],
+                    "last_comms_rows": control["comms_rows"],
+                    "byzantine_losses": control["byzantine_losses"],
+                    "gossip_losses": control["gossip_losses"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

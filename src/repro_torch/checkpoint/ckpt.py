@@ -40,6 +40,11 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's flatten order (``jax.tree.leaves``)."""
+    return [t for _, t in _leaves(tree)]
+
+
 def _rebuild(tree, it):
     """``tree``'s structure with its leaves taken in order from ``it``."""
     if isinstance(tree, dict):
@@ -56,14 +61,14 @@ def save(ckpt_dir, round_idx: int, state, extra: Optional[dict] = None):
     ckpt_dir = pathlib.Path(ckpt_dir)
     path = ckpt_dir / f"round_{round_idx:08d}"
     tmp = ckpt_dir / f".tmp_round_{round_idx:08d}"
-    leaves = list(_leaves(state))
-    host = [t.detach().cpu().numpy() for _, t in leaves]
+    named = list(_leaves(state))
+    host = [t.detach().cpu().numpy() for _, t in named]
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     np.savez(tmp / "shard_0.npz", **{f"leaf_{i}": h for i, h in enumerate(host)})
     manifest = {"round": round_idx, "n_leaves": len(host),
-                "treedef": "repro_torch: " + " ".join(p for p, _ in leaves),
+                "treedef": "repro_torch: " + " ".join(p for p, _ in named),
                 "extra": extra or {}}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if path.exists():

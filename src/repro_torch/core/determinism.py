@@ -14,7 +14,8 @@ at ``(key, i)`` is the i-th output of the splitmix64 stream seeded with
 ``key`` (``draw_bits``), computed with int64 tensor ops, so it is the same
 on the CPU and on the card, and a draw for one client is by construction
 lane ``c`` of the draw for all clients. ``uniform_index`` turns those bits
-into batch positions and ``normal`` into Gaussians (Box-Muller).
+into batch positions and ``normal`` into Gaussians (Box-Muller, the same
+bits on the CPU and the card too).
 
 This does NOT reproduce ``jax.random``'s bits: the two packages draw
 different batches, noise and cohorts from the same seed. Parity tests feed
@@ -144,8 +145,12 @@ def uniform_index(keys, counters, n):
 
 def normal(keys, counters):
     """Standard normals (f32) by Box-Muller from one draw each: 24 bits give
-    ``u1`` in (0, 1], 24 more ``u2`` in [0, 1)."""
+    ``u1`` in (0, 1], 24 more ``u2`` in [0, 1). The transform runs in f64
+    and is rounded to f32 once: the f32 ``log``, ``cos`` and ``sqrt`` of the
+    CPU and of the card differ in the last place, their f64 results round
+    to the same f32, so a draw has the same bits on both."""
     bits = draw_bits(keys, counters)
-    u1 = (_srl(bits, 40) + 1).to(torch.float32) * 2.0 ** -24
-    u2 = ((bits >> 16) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+    u1 = (_srl(bits, 40) + 1).to(torch.float64) * 2.0 ** -24
+    u2 = ((bits >> 16) & 0xFFFFFF).to(torch.float64) * 2.0 ** -24
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+    return z.to(torch.float32)

@@ -3,7 +3,8 @@
 A job mirrors the paper's Fig. 2 sections. ``load_job`` validates every
 section against the same known keys as the JAX package (a typo like
 ``cleint_lr`` fails with a near-miss hint) and resolves the model, strategy,
-topology, dataset and fault model. A setting whose code is not yet ported
+topology, dataset, ledger (``fl.blockchain``) and fault model, and checks
+the consensus name. A setting whose code is not yet ported
 fails here, at load time, with ``NotImplementedError`` naming the ROADMAP
 item; nothing unported is silently ignored.
 """
@@ -15,6 +16,8 @@ import pathlib
 from typing import Any
 
 from repro_torch.configs.base import FLConfig, get_config
+from repro_torch.core.blockchain import get_ledger
+from repro_torch.core.consensus import CONSENSUS_REGISTRY
 from repro_torch.core.strategies import get_strategy
 from repro_torch.core.topology import get_topology
 from repro_torch.data.pipeline import SyntheticVision
@@ -33,13 +36,14 @@ class Job:
     strategy: Any
     topology: Any
     dataset: Any
+    ledger: Any                # core.blockchain.HashChainLedger, or None
     fault: FaultModel
     raw: dict
 
 
 _FL_KEYS = {f.name for f in dataclasses.fields(FLConfig)}
 # the runtime section also takes the client-system and link knobs (the link
-# knobs are read only by the comms plane, not yet ported: ROADMAP A11)
+# knobs are read only by the comms plane, core/netmodel.py)
 _CSM_KEYS = {f.name for f in dataclasses.fields(ClientSystemModel)}
 _DATASET_KEYS = {"dataset", "n_items", "distribution", "items_per_client"}
 _MODEL_KEYS = {"arch", "reduced"}
@@ -47,9 +51,11 @@ _STRATEGY_KEYS = {"strategy", "train_params", "aggregator_params"}
 _TOP_KEYS = {"name", "model", "dataset", "consensus", "strategy", "runtime",
              "sweep", "clusters", "node_defaults", "node_configs",
              "telemetry", "probes", "comms"}
+# comms-observatory knobs (telemetry/comms.py): host-side wire-traffic
+# accounting; the LinkModel knobs themselves are runtime: section fields
+_COMMS_KEYS = {"enabled", "out_dir", "pods"}
 # top-level sections the port does not run yet -> ROADMAP item
-_UNPORTED_SECTIONS = {"sweep": "A12", "telemetry": "A11", "probes": "A11",
-                      "comms": "A11"}
+_UNPORTED_SECTIONS = {"sweep": "A12", "telemetry": "A11", "probes": "A11"}
 
 
 def _check_keys(section_name: str, section, allowed) -> None:
@@ -83,10 +89,11 @@ def check_ported(raw: dict, fl: FLConfig) -> None:
     if fl.max_cohort > 0 or fl.streaming:
         raise _not_ported("the ragged/streaming client plane "
                           "(max_cohort > 0, streaming)", "A13")
-    if fl.blockchain != "none":
-        raise _not_ported(f"blockchain {fl.blockchain!r}", "A14")
-    if fl.n_workers > 1 or fl.byzantine_workers > 0:
-        raise _not_ported("multi-worker consensus (n_workers > 1)", "A14")
+    if fl.consensus not in CONSENSUS_REGISTRY:
+        hint = difflib.get_close_matches(fl.consensus, sorted(CONSENSUS_REGISTRY), n=1)
+        suffix = (f" — did you mean {hint[0]!r}?" if hint
+                  else f"; known: {sorted(CONSENSUS_REGISTRY)}")
+        raise ValueError(f"unknown consensus {fl.consensus!r}{suffix}")
     if fl.compression not in ("none", "int8", "topk"):
         raise ValueError(f"unknown compression {fl.compression!r} "
                          "(want 'none', 'int8' or 'topk')")
@@ -181,6 +188,14 @@ def load_job(path_or_dict) -> Job:
     _check_keys("dataset.distribution", ds.get("distribution"), _FL_KEYS)
     _check_keys("model", raw.get("model"), _MODEL_KEYS)
     _check_keys("runtime", rt, _FL_KEYS | _CSM_KEYS)
+    _check_keys("comms", raw.get("comms"), _COMMS_KEYS)
+    if raw.get("comms"):
+        # value validation (pods >= 1) lives in CommsSpec; running it here
+        # fails at load time
+        from repro_torch.telemetry.comms import CommsSpec
+        c = raw["comms"]
+        CommsSpec(enabled=bool(c.get("enabled", True)),
+                  out_dir=c.get("out_dir"), pods=int(c.get("pods", 1)))
 
     flkw = {}
     for section in (strat.get("train_params", {}),
@@ -206,6 +221,7 @@ def load_job(path_or_dict) -> Job:
         strategy=strategy,
         topology=get_topology(fl.topology, fl.gossip_steps),
         dataset=make_dataset(raw, fl, cfg),
+        ledger=get_ledger(fl.blockchain),
         fault=make_fault(raw, fl),
         raw=raw,
     )

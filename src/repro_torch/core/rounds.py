@@ -15,6 +15,12 @@ Two client placements:
   accumulated in f32 in client order; on the int8 path the clients' sends
   are stacked into one ``(C, N)`` matrix and reduced by ONE kernel launch.
 
+With ``n_workers > 1`` or ``byzantine_workers > 0`` both rounds pass the
+aggregate through ``consensus.MultiWorkerAggregator`` before the server
+update (spatial: before the cast to the params' dtype), keyed by the round
+key, as the JAX package does. The decentralized branch and the async event
+loop run no consensus, as in the JAX package.
+
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
 noise is drawn from it); the JAX package hands ``local_loss`` a per-step
@@ -30,6 +36,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import determinism, packing
+from repro_torch.core.consensus import build_aggregator
 from repro_torch.core.strategy import Strategy, client_sgd_step, tree_add, \
     tree_scale, tree_sub, tree_zeros_like
 from repro_torch.core.topology import Decentralized, get_topology
@@ -109,6 +116,7 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig):
     cohort mask); rng: the round key."""
     topo = get_topology(fl.topology, fl.gossip_steps)
     decentralized = isinstance(topo, Decentralized)
+    mw = build_aggregator(fl)
     # gossip has no server-side reduce to fuse into: int8 sends take the
     # unpacked round trip there
     packed = strategy.packs_deltas and not decentralized
@@ -129,6 +137,8 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig):
                     packed_aggregate(topo, deltas, weights), params)
             else:
                 agg = topo.aggregate(deltas, weights)
+            if mw is not None:
+                agg = mw.run(agg, rng)
             agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
             new_params, new_server = strategy.server_update(params, agg,
                                                             server_state)
@@ -155,6 +165,7 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
     reduced by ONE ``ops.quant_aggregate`` launch with the normalised
     weights (C_t == 1: weight 1)."""
     packed = strategy.packs_deltas
+    mw = build_aggregator(fl)
 
     def round_fn(state, batch, weights, rng):
         params, server_state = state["params"], state["server"]
@@ -195,6 +206,8 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
                 agg = tree_add(agg, tree_scale({k: d[0] for k, d in delta.items()},
                                                weights[i] / wsum))
                 loss = loss + closs / C_t
+        if mw is not None:
+            agg = mw.run(agg, rng)
         new_params, new_server = strategy.server_update(params, agg,
                                                         server_state)
         return ({"params": new_params, "server": new_server,

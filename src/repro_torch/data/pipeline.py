@@ -113,3 +113,18 @@ class SyntheticVision:
         x, y = self.prepare_root_dataset()
         parts = part_mod.partition(kind, y, n_clients, alpha, self.seed)
         return x, y, parts
+
+    @staticmethod
+    def client_batches(x, y, idx, batch_size: int, n_steps: int, seed: int,
+                       cursor: int = 0):
+        """Deterministic host batches for one client (numpy, the JAX
+        package's draw): a seeded permutation of ``idx`` repeated as a
+        stream, ``n_steps`` batches read from ``cursor``. Returns
+        ``({"x": (n_steps, B, ...), "y": (n_steps, B)}, new cursor)``."""
+        rng = np.random.RandomState(seed)
+        order = idx[rng.permutation(len(idx))]
+        reps = int(np.ceil((cursor + n_steps * batch_size) / max(len(order), 1)))
+        stream = np.concatenate([order] * max(reps, 1))
+        sel = stream[cursor:cursor + n_steps * batch_size]
+        sel = sel.reshape(n_steps, batch_size)
+        return {"x": x[sel], "y": y[sel]}, cursor + n_steps * batch_size

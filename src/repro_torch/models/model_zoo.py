@@ -40,8 +40,12 @@ def _tree_numel(tree) -> int:
 
 
 def count_params(cfg: ModelConfig, padded: bool = False) -> int:
-    """Parameter count of a dense GQA LM from its shape tree; ``padded=False``
-    leaves out the vocab padding of embed and lm_head (the paper-faithful N)."""
+    """Parameter count: a paper model's init leaves, or a dense GQA LM's
+    shape tree, where ``padded=False`` leaves out the vocab padding of embed
+    and lm_head (the paper-faithful N)."""
+    if cfg.family == "small":
+        from repro_torch.models import small
+        return small.count_small_params(cfg)
     _check_dense_gqa(cfg)
     from repro_torch.models import transformer
     total = _tree_numel(transformer.param_shapes(cfg))

@@ -105,6 +105,13 @@ def build_small(cfg: ModelConfig) -> SmallModel:
     return SmallModel(cfg, kind)
 
 
+def count_small_params(cfg: ModelConfig) -> int:
+    """Parameter count of a ``flsim-*`` model: the elements of its
+    ``SmallModel.init`` leaves."""
+    params = build_small(cfg).init(torch.Generator())
+    return sum(t.numel() for t in params.values())
+
+
 def input_shape(cfg: ModelConfig):
     """NHWC input shape of one example: MNIST for logreg, else CIFAR."""
     return MNIST_SHAPE if cfg.name == "flsim-logreg" else CIFAR_SHAPE

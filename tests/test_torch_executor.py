@@ -167,22 +167,23 @@ def test_load_job_rejects_typos_with_a_hint():
             _job(**bad)
 
 
+# the ids keep the cases' first numbering: cases 3 and 9-11 (comms,
+# blockchain, n_workers, byzantine_workers) went with their refusals, and
+# run in test_load_job_runs_what_slice_6_ported
 @pytest.mark.parametrize("patch,item", [
     ({"sweep": {"seed": [0, 1]}}, "A12"),
     ({"telemetry": {"enabled": True}}, "A11"),
     ({"probes": {"enabled": True}}, "A11"),
-    ({"comms": {"enabled": True}}, "A11"),
     ({"dataset": {"dataset": "synthetic_population"}}, "A13"),
     ({"dataset": {"dataset": "synthetic_lm"}}, "A15"),
     ({"train": {"max_cohort": 16, "mode": "async"}}, "A13"),
     ({"train": {"max_cohort": 16}}, "A13"),
     ({"train": {"max_cohort": 16, "streaming": True}}, "A13"),
-    ({"train": {"blockchain": "hashchain"}}, "A14"),
-    ({"train": {"n_workers": 3}}, "A14"),
-    ({"train": {"byzantine_workers": 1}}, "A14"),
     ({"model": {"arch": "minicpm3-4b"}}, "A15"),
     ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
-])
+], ids=[f"patch{i}-{item}" for i, item in zip(
+    (0, 1, 2, 4, 5, 6, 7, 8, 12, 13),
+    ("A12", "A11", "A11", "A13", "A15", "A13", "A13", "A13", "A15", "A15"))])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     raw = {"model": {"arch": "flsim-cnn"},
            "strategy": {"strategy": patch.get("strategy", "fedavg"),
@@ -206,6 +207,34 @@ def test_load_job_runs_what_slice_5_ported(train):
     job = _job(train.pop("strategy", "fedavg"), rounds=1, **train)
     _, logger = Executor(job, device="cpu").scaffold().run()
     assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
+
+
+@pytest.mark.parametrize("train,section", [
+    ({"n_workers": 3, "byzantine_workers": 1, "consensus": "majority_digest"}, None),
+    ({"n_workers": 4, "byzantine_workers": 1, "consensus": "median",
+      "placement": "temporal"}, None),
+    ({"blockchain": "hashchain", "mode": "async", "digest_every_events": 2}, None),
+    ({}, {"comms": {"enabled": True, "pods": 2}}),
+])
+def test_load_job_runs_what_slice_6_ported(train, section):
+    raw = {"model": {"arch": "flsim-logreg"},
+           "strategy": {"strategy": "fedavg",
+                        "train_params": dict(n_clients=4, rounds=1, **train)}}
+    raw.update(section or {})
+    ex = Executor(load_job(raw), device="cpu").scaffold()
+    _, logger = ex.run()
+    assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
+    if "blockchain" in train:
+        assert ex.job.ledger.verify() and len(ex.job.ledger.blocks()) > 1
+    if section:
+        assert len(ex.comms_rows) == 1
+
+
+def test_load_job_refuses_an_unknown_consensus_with_a_hint():
+    with pytest.raises(ValueError, match="did you mean 'median'"):
+        _job(n_workers=3, consensus="medain")
+    with pytest.raises(KeyError, match="LedgerBackend"):
+        _job(blockchain="ethereum")
 
 
 @pytest.mark.parametrize("strategy", ["scaffold", "moon"])

@@ -100,7 +100,7 @@ def test_kernel_rejects_misaligned_input(cuda):
                            s[:, :256].contiguous(), w)
 
 
-def _job(compression, rounds_per_launch):
+def _job(compression, rounds_per_launch, **train):
     job = load_job({
         "model": {"arch": "flsim-cnn"},
         "dataset": {"dataset": "synthetic_vision", "n_items": 256},
@@ -108,7 +108,7 @@ def _job(compression, rounds_per_launch):
                      "train_params": {"n_clients": 6, "cohort": 4, "local_steps": 2,
                                       "batch_size": 8, "client_lr": 0.05,
                                       "rounds": 4, "compression": compression,
-                                      "rounds_per_launch": rounds_per_launch}},
+                                      "rounds_per_launch": rounds_per_launch, **train}},
         "runtime": {"straggler_prob": 0.1, "straggler_overprovision": 1.25}})
     job.model = SmallModel(job.model.cfg.replace(d_model=8, d_ff=16), "cnn")
     return job
@@ -130,6 +130,37 @@ def test_executor_on_card_is_chunking_invariant_and_launches_per_round(
     (s2, l2), (s1, l1) = runs
     assert l2 == l1 and all(np.isfinite(l2))
     assert all(torch.equal(s2["params"][k], s1["params"][k]) for k in s2["params"])
+
+
+def test_normals_projections_and_poison_give_the_same_bits_on_the_card(cuda):
+    from repro_torch.core import consensus, determinism as det
+    ctr = torch.arange(1 << 20, dtype=torch.int64)
+    assert torch.equal(det.normal(12345, ctr.to(cuda)).cpu(), det.normal(12345, ctr))
+    assert torch.equal(consensus._projection(3, 128, 4, cuda).cpu(),
+                       consensus._projection(3, 128, 4, torch.device("cpu")))
+    tree = {"a": torch.linspace(-1, 1, 5000), "b": torch.ones(3, 7)}
+    got = consensus.poison({k: v.to(cuda) for k, v in tree.items()}, 3.0, 77)
+    want = consensus.poison(tree, 3.0, 77)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in tree)
+
+
+@pytest.mark.parametrize("name,W", [("majority_digest", 3), ("median", 4),
+                                    ("trimmed_mean", 4)])
+@pytest.mark.parametrize("placement", ["spatial", "temporal"])
+def test_honest_majority_consensus_on_card_is_bitwise_one_worker(cuda, name, W, placement):
+    """int8 sends, one B1 launch per round; a ledger block per chunk."""
+    runs = []
+    for extra in ({}, {"n_workers": W, "byzantine_workers": 1, "consensus": name,
+                       "blockchain": "hashchain"}):
+        job = _job("int8", 2, placement=placement, **extra)
+        launches = qa.quant_aggregate.launches
+        ex = Executor(job).scaffold()
+        st, lg = ex.run()
+        assert qa.quant_aggregate.launches - launches == 4
+        runs.append((st, lg.series("loss"), ex))
+    (s1, l1, _), (sw, lw, ex) = runs
+    assert l1 == lw and all(torch.equal(s1["params"][k], sw["params"][k]) for k in s1["params"])
+    assert ex.job.ledger.verify() and len(ex.job.ledger.blocks()) == 3   # genesis + 2 chunks
 
 
 def test_hash_gives_the_same_bits_on_the_card(cuda):

@@ -88,3 +88,13 @@ def test_model_zoo_builds_paper_models_only():
     assert type(model_zoo.build("yi-34b")).__name__ == "Model"   # dense GQA LM
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         model_zoo.build("qwen2.5-32b")
+
+
+@pytest.mark.parametrize("arch", ["flsim-cnn", "flsim-mlp", "flsim-logreg"])
+def test_count_params_of_the_paper_models_equals_jax(arch):
+    from repro.configs.base import get_config as j_get_config
+    from repro.models import model_zoo as j_model_zoo
+    want = j_model_zoo.count_params(j_get_config(arch))
+    assert model_zoo.count_params(get_config(arch)) == want
+    if arch == "flsim-cnn":
+        assert want == 188_810
