@@ -75,7 +75,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    the FedBuff job (last comms rows printed); round_s beside the W = 1
    twins', the ledger's ms per chunk, one W = 3 round profiled; then
    ``repro_torch.launch.byzantine`` and ``repro_torch.launch.gossip``.
-8. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+8. campaigns and observability (slice 7) — B1 over 4 lanes of 100 x
+   189,952 in one launch, bitwise its plain version and four single
+   launches, timed beside them and its bound; an int8 sweep {seed: [0, 1],
+   client_lr: [0.05, 0.1]} through ``CampaignExecutor`` (3 rounds, chunks of
+   3 and of 1 bitwise, one B1 launch per round for all lanes, each lane
+   against its single run); a ``PlanExecutor`` over strategy x mode x seed
+   (fedavg/fedprox, sync/FedBuff) with successive halving at round 2, and
+   the same plan resumed from its checkpoint and decision journal; the
+   flight recorder and the probes on == off bitwise for spatial, temporal
+   and FedBuff int8, a ``torch.profiler`` trace of one launch holding B1,
+   and the telemetry report.
+9. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -87,7 +98,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-9. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+10. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -1481,6 +1492,333 @@ def phase_serve_card_vs_cpu(torch):
     return res
 
 
+# phase 8 (slice 7): campaigns (sweeps, the planner, successive halving), the
+# flight recorder and the round probes, on MAIN_JOB
+LANE_SHAPE = (4, 100, 189_952, 256)    # S lanes of the FL path's C x N, qblock
+SWEEP = {"seed": [0, 1], "client_lr": [0.05, 0.1]}
+PLAN_SWEEP = {"strategy": ["fedavg", "fedprox"], "mode": ["sync", "async"], "seed": [0, 1]}
+PLAN_TRAIN = {"prox_mu": 0.01, "async_buffer": 10, "staleness_exponent": 0.5}
+# a campaign lane's losses against its single run's on the card, where the
+# lanes' convs take other algorithms (ROADMAP C): 3 rounds at client_lr up
+# to 0.1 from a first loss up to 20 stayed within 6e-3 (this script, on an H100)
+LANE_LOSS_RTOL = 3e-2
+
+
+def losses_close(got, want, rtol) -> bool:
+    return len(got) == len(want) and all(
+        abs(a - b) <= rtol * abs(b) for a, b in zip(got, want))
+
+
+def lane_op_check(torch):
+    """Which ops of a campaign round give other bits for a lane than for
+    the single run of it on the card: each op at the FL path's shapes (a
+    client batch of 32 CIFAR images, flsim-cnn's widths), run for 4 lanes
+    under ``torch.func.vmap`` and for each lane alone; logs bitwise or the
+    max |diff|."""
+    import torch.nn.functional as F
+    from torch.func import grad, vmap
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    S, C, B = 4, 8, 32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = rnd(S, C, B, 32, 32, 32)
+    w = rnd(S, 64, 32, 3, 3) * 0.1
+    wc = rnd(S, C, 64, 32, 3, 3) * 0.1
+    h, fc = rnd(S, C, B, 1024), rnd(S, 1024, 128) * 0.03
+    d = rnd(S, C, 189_952)
+    cw = torch.rand((S, C), generator=g, device=dev)
+
+    def conv(w, x):
+        return F.conv2d(x, w, padding=1)
+
+    def conv_wgrad(w, x):
+        return grad(lambda w: (F.conv2d(x, w, padding=1) ** 2).sum())(w)
+
+    checks = {
+        "conv forward, weights shared by the clients": (
+            lambda w, x: vmap(conv, in_dims=(None, 0))(w, x), (w, x)),
+        "conv forward, a weight per client": (
+            lambda w, x: vmap(conv)(w, x), (wc, x)),
+        "conv weight gradient, a weight per client": (
+            lambda w, x: vmap(conv_wgrad)(w, x), (wc, x)),
+        "dense matmul, weights shared by the clients": (
+            lambda w, h: vmap(lambda hh: hh @ w)(h), (fc, h)),
+        "client-weighted sum over the clients": (
+            lambda cw, d: (cw[:, None] * d).sum(0), (cw, d)),
+    }
+    out = {}
+    for name, (fn, args) in checks.items():
+        lanes = vmap(fn)(*args)
+        single = torch.stack([fn(*(a[s] for a in args)) for s in range(S)])
+        diff = (lanes - single).abs().max().item()
+        out[name] = {"bitwise": torch.equal(lanes, single), "max_abs_diff": diff}
+    log("lane ops vs single run on the card", json.dumps(out))
+    return out
+
+
+def phase_b1_lanes(torch, qa):
+    """B1 over S = 4 lanes of C = 100 x N = 189,952 in one launch: bitwise
+    its plain version (lane by lane) and four single (C, N) launches, timed
+    beside them and its bound."""
+    dev = torch.device("cuda")
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    S, C, N, qblock = LANE_SHAPE
+    lanes = [agg_inputs(C, N, qblock, seed=40 + s, device=dev) for s in range(S)]
+    q, s, w = (torch.stack([ln[i] for ln in lanes]).contiguous() for i in range(3))
+    got = qa.quant_aggregate(q, s, w)
+    want = qa.plain(q, s, w)
+    singles = torch.stack([qa.quant_aggregate(*ln) for ln in lanes])
+    torch.cuda.synchronize()
+    if got.shape != (S, N) or not torch.isfinite(got).all():
+        raise AssertionError("quant_aggregate lanes: bad output")
+    if not (torch.equal(got, want) and torch.equal(got, singles)):
+        raise AssertionError("quant_aggregate lanes: not bitwise its plain version and "
+                             f"its single launches (max |diff| {(got - want).abs().max()})")
+    nbytes = S * (C * N + 4 * C * (N // qblock) + 4 * C + 4 * N)
+    bound_ms, bound_by = bound(nbytes, 3 * S * C * N, F32_FLOPS_PER_S)
+
+    def four_singles(q, s, w):
+        for i in range(S):
+            qa.quant_aggregate(q[i], s[i], w[i])
+
+    row = {"S": S, "C": C, "N": N, "qblock": qblock, "bitwise": True, "max_abs_err": 0.0,
+           "plan": qa.launch_plan(C, N, qblock, S=S)._asdict(),
+           "kernel_ms": time_device(qa.quant_aggregate, (q, s, w), 200, flush),
+           "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 200, flush),
+           "four_single_launches_ms": time_device(four_singles, (q, s, w), 100, flush),
+           "plain_ms": time_device(qa.plain, (q, s, w), 20, flush, batch=2),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
+    tiles = {}
+    for tile in qa.TILES:
+        p = qa.launch_plan(C, N, qblock, S=S, tile=tile)
+        if not torch.equal(qa._launch(q, s, w, qblock, p), want):
+            raise AssertionError(f"quant_aggregate lanes, tile {tile}: not bitwise plain")
+        tiles[tile] = time_device(qa._launch, (q, s, w, qblock, p), 200, flush)
+    row["ms_by_tile"] = tiles
+    log("kernel quant_aggregate lanes", json.dumps(row))
+    del flush
+    return row
+
+
+class _CachedDatasets:
+    """Campaign staging draws each lane's dataset through
+    ``core.jobs.make_dataset``; this wraps it so the phase's jobs share one
+    partitioned root set per (items, seed, partition) through ``_DATA``, as
+    ``_SharedData`` does for single runs."""
+
+    def __init__(self, module):
+        self.module, self.orig = module, module.make_dataset
+
+    def __enter__(self):
+        self.module.make_dataset = lambda raw, fl, cfg=None: _SharedData(
+            self.orig(raw, fl, cfg))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_dataset = self.orig
+        return False
+
+
+def _lane_diff(torch, single_state, campaign, s) -> float:
+    """Max |diff| between a single run's state and lane ``s`` of a campaign."""
+    from repro_torch.runtime.campaign import lane_of
+    a, b = _flat(single_state), _flat(lane_of(campaign.state, s))
+    if len(a) != len(b):
+        raise AssertionError("lane and single run differ in their leaves")
+    return max(((x.double() - y.double()).abs().max().item() if x.numel() else 0.0)
+               for x, y in zip(a, b))
+
+
+def run_campaign(torch, qa, load_job, label, raw, **kw):
+    """One campaign through ``load_job`` -> ``CampaignExecutor``; B1's
+    count set to 0 just before the run and read just after."""
+    from repro_torch.runtime.campaign import CampaignExecutor
+    job = load_job(raw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = CampaignExecutor(job, **kw).scaffold()
+    scaffold_s = time.perf_counter() - t0
+    qa.quant_aggregate.launches = 0
+    _, logger = ex.run()
+    launches = qa.quant_aggregate.launches
+    rows = logger.rows
+    out = {"campaign": label, "S": ex.S, "round_s": [r["round_s"] for r in rows],
+           "traj_round_s": [r["round_s"] / ex.S for r in rows], "scaffold_s": scaffold_s,
+           "lane_losses": [[r["loss"] for r in ex.results if r["traj"] == s]
+                           for s in range(ex.S)],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "agg_launches": launches}
+    log("campaign", json.dumps(out))
+    if not all(math.isfinite(v) for ls in out["lane_losses"] for v in ls):
+        raise AssertionError(f"{label}: non-finite loss")
+    return out, ex
+
+
+def phase_campaigns(torch, qa, load_job, Executor):
+    """Slice 7 at MAIN_JOB's width:
+
+    - an int8 sweep ``{seed: [0, 1], client_lr: [0.05, 0.1]}`` (S = 4), 3
+      rounds in chunks of 3 and of 1: one B1 launch per round for all four
+      lanes, chunks of 1 bitwise chunks of 3, and each lane against the
+      single run of its config (max |diff| and losses printed, bitwise
+      expected); seconds per trajectory-round beside the single runs'
+      ``round_s``;
+    - a ``PlanExecutor`` over strategy [fedavg, fedprox] x mode [sync,
+      async (FedBuff, K = 10)] x seed [0, 1] with successive halving (eta 2
+      at round 2), 3 rounds in chunks of 1 with a checkpoint every round;
+      the same plan stopped at round 2 and resumed from its checkpoint and
+      ``decisions.jsonl``: the same drops, bitwise the same lanes.
+
+    Returns the phase's summary."""
+    from repro_torch.runtime import campaign as campaign_mod
+    from repro_torch.runtime.scheduler import PlanExecutor, SuccessiveHalving
+    out = {}
+    with _CachedDatasets(campaign_mod):
+        raws = {}
+        for rpl in (3, 1):
+            raws[rpl] = dict(job_dict("compressed", "int8", rpl, rounds=3), sweep=SWEEP)
+        # chunks of 1 first: its first round pays the lanes' first-use costs
+        # (cuDNN's choices for the new conv shapes), so the chunks-of-3 run
+        # after it gives the warm seconds per round
+        c1, ex1 = run_campaign(torch, qa, load_job, "int8 sweep (chunks of 1)", raws[1])
+        c3, ex3 = run_campaign(torch, qa, load_job, "int8 sweep (chunks of 3)", raws[3])
+        if c3["agg_launches"] != 3 or c1["agg_launches"] != 3:
+            raise AssertionError(f"int8 sweep: {c3['agg_launches']} / {c1['agg_launches']} "
+                                 "B1 launches in 3 rounds, want one per round")
+        if c1["lane_losses"] != c3["lane_losses"] or not _same(torch, ex1.state, ex3.state):
+            raise AssertionError("int8 sweep: chunks of 1 != chunks of 3")
+        log("int8 sweep: one B1 launch per round for 4 lanes; chunks of 1 == 3 bitwise")
+        singles, diffs = [], []
+        for s, fl_s in enumerate(ex3.fls):
+            raw = job_dict("compressed", "int8", 3, rounds=3, seed=fl_s.seed,
+                           client_lr=fl_s.client_lr)
+            one, ex = run_slice5(torch, qa, load_job, Executor, f"single lane {s}", raw)
+            diffs.append(_lane_diff(torch, ex.state, ex3, s))
+            singles.append(one)
+            del ex
+        lanes = {"max_abs_diff": diffs, "bitwise": all(d == 0.0 for d in diffs),
+                 "single_losses": [o["losses"] for o in singles],
+                 "lane_losses": c3["lane_losses"],
+                 "single_round_s": [o["round_s"] for o in singles],
+                 "campaign_traj_round_s": c3["traj_round_s"]}
+        log("lane vs single run", json.dumps(lanes))
+        # on the card the lanes' convs run at other shapes than a single
+        # run's (lane_op_check names the ops): the losses must still agree
+        for got, want in zip(lanes["lane_losses"], lanes["single_losses"]):
+            if not losses_close(got, want, LANE_LOSS_RTOL):
+                raise AssertionError(f"lane losses {got} vs single run {want}")
+        lanes["ops"] = lane_op_check(torch)
+        out.update(sweep=c3, sweep_chunks_1=c1, lanes=lanes,
+                   b1_launches_by_path={"campaign_int8": c3["agg_launches"]})
+        del ex1, ex3
+        torch.cuda.empty_cache()
+
+        def plan_raw():
+            raw = job_dict("fedavg", "none", 1, rounds=3, checkpoint_every=1,
+                           runtime=ASYNC_RUNTIME, **PLAN_TRAIN)
+            raw["sweep"] = PLAN_SWEEP
+            return raw
+
+        sched = SuccessiveHalving(metric="loss", rung_every=2, eta=2.0)
+        base = ROOT / "build" / "chip_smoke" / "plan"
+        shutil.rmtree(base, ignore_errors=True)
+
+        def plan(name, rounds):
+            t0 = time.perf_counter()
+            pe = PlanExecutor(load_job(plan_raw()), scheduler=sched,
+                              out_dir=str(base / name / "out"),
+                              ckpt_dir=str(base / name / "ckpt")).scaffold()
+            pe.run(rounds)
+            return pe, time.perf_counter() - t0
+
+        full, full_s = plan("full", 3)
+        _, half_s = plan("resumed", 2)
+        resumed, resumed_s = plan("resumed", 3)
+        if len(full.plan.buckets) != 4 or sorted(full.dropped) != sorted(resumed.dropped) \
+                or len(full.dropped) != 4:
+            raise AssertionError(f"plan: buckets {len(full.plan.buckets)}, drops "
+                                 f"{full.dropped} vs resumed {resumed.dropped}")
+        for lane in range(full.S):
+            if not _same(torch, full.lane_params(lane), resumed.lane_params(lane)):
+                raise AssertionError(f"plan: lane {lane} resumed != uninterrupted")
+        rows = full.rows()
+        plan_out = {"buckets": len(full.plan.buckets), "lanes": full.S,
+                    "dropped": {str(k): v for k, v in sorted(full.dropped.items())},
+                    "final_losses": {str(r["lane"]): r["loss"] for r in rows
+                                     if r["round"] == 2},
+                    "launch_keys": full.compiled_programs(),
+                    "full_s": full_s, "half_s": half_s, "resumed_s": resumed_s}
+        log("plan", json.dumps(plan_out))
+        out["plan"] = plan_out
+        shutil.rmtree(base, ignore_errors=True)
+        del full, resumed
+        torch.cuda.empty_cache()
+    return out
+
+
+TELEMETRY_JOBS = {   # name: (compression kwargs over MAIN_JOB, rounds)
+    "spatial_int8": ({}, 3),
+    "temporal_int8": ({"placement": "temporal"}, 1),
+    "fedbuff_int8": ({"mode": "async", "async_buffer": 10, "staleness_exponent": 0.5}, 2),
+}
+
+
+def phase_telemetry(torch, qa, load_job, Executor):
+    """The flight recorder and the round probes on == off, bitwise, for the
+    spatial, temporal and FedBuff int8 jobs; ``round_s`` of both; a
+    ``torch.profiler`` trace of the spatial job's first launch, which must
+    hold B1's kernel; the trace report."""
+    from repro_torch.telemetry import trace
+    jobs = {}
+    base = ROOT / "build" / "chip_smoke" / "telemetry"
+    shutil.rmtree(base, ignore_errors=True)
+    for name, (tp, rounds) in TELEMETRY_JOBS.items():
+        runtime = ASYNC_RUNTIME if tp.get("mode") == "async" else None
+        off = job_dict("compressed", "int8", 1, runtime=runtime, rounds=rounds, **tp)
+        on = dict(off, telemetry={"out_dir": str(base / name),
+                                  "profile_chunks": [0] if name == "spatial_int8" else []},
+                  probes={"out_dir": str(base / name)})
+        o_off, ex_off = run_slice5(torch, qa, load_job, Executor, f"{name} telemetry off", off)
+        o_on, ex_on = run_slice5(torch, qa, load_job, Executor, f"{name} telemetry on", on)
+        if o_on["losses"] != o_off["losses"] or not _same(torch, ex_on.state, ex_off.state):
+            raise AssertionError(f"{name}: telemetry and probes on != off")
+        if len(ex_on.probe_rows) != rounds or not all(
+                r["nonfinite"] == 0.0 for r in ex_on.probe_rows):
+            raise AssertionError(f"{name}: probes {ex_on.probe_rows}")
+        jobs[name] = {"round_s_off": o_off["round_s"], "round_s_on": o_on["round_s"],
+                      "last_probes": ex_on.probe_rows[-1]}
+        if name == "spatial_int8":
+            # where a warm round's time goes with and without them
+            for label, ex in (("off", ex_off), ("on", ex_on)):
+                prof, _ = profile_device(torch, lambda: ex.run(rounds + 1),
+                                         f"one warm {name} round, telemetry {label}", top=4)
+                jobs[name][f"profile_{label}"] = prof
+        if name == "spatial_int8":
+            path = ex_on.recorder.profile_paths[0]
+            events = json.loads(path.read_text())
+            events = events.get("traceEvents", events)
+            b1 = [e for e in events if "quant_aggregate" in str(e.get("name", ""))
+                  and e.get("cat") == "kernel"]
+            if not b1:
+                raise AssertionError(f"torch profile {path}: no quant_aggregate kernel")
+            jobs[name]["profile_b1_kernels"] = len(b1)
+            log(f"torch profile of launch 0: {len(b1)} quant_aggregate kernel events")
+        ex_on.recorder.close()
+        report = trace.report(base / name)
+        log(report)
+        jobs[name]["report_lines"] = len(report.splitlines())
+        del ex_on, ex_off
+        torch.cuda.empty_cache()
+    log("telemetry and probes on == off bitwise for spatial, temporal and FedBuff int8",
+        json.dumps({k: {"off": v["round_s_off"], "on": v["round_s_on"]}
+                    for k, v in jobs.items()}))
+    shutil.rmtree(base, ignore_errors=True)
+    return jobs
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1581,14 +1919,24 @@ def main() -> int:
     control_s = time.perf_counter() - t0
     log(f"control plane phase: {control_s:.1f}s")
 
-    # 8. serve path; counts zeroed just before it, read just after
+    # 8. campaigns, the flight recorder and the probes (slice 7): B1 over
+    # lanes, then the paths; B1's counts zeroed just before each counted
+    # path, read just after
+    t0 = time.perf_counter()
+    lane_row = phase_b1_lanes(torch, qa)
+    campaigns = phase_campaigns(torch, qa, load_job, Executor)
+    telemetry = phase_telemetry(torch, qa, load_job, Executor)
+    slice7_s = time.perf_counter() - t0
+    log(f"slice 7 phase: {slice7_s:.1f}s")
+
+    # 9. serve path; counts zeroed just before it, read just after
     kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
                "flash_attention": fa.flash_attention_fwd,
                "decode_attention": da.decode_attention_fwd}
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 9. summary
+    # 10. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -1608,6 +1956,18 @@ def main() -> int:
         "launch_floor_ms": b1_floor["after_flush_ms"]}]
     if "baseline_ms" in main:
         entries[0]["baseline_ms"] = main["baseline_ms"]
+    # the lane launch: every lane of an int8 campaign round in one launch
+    entries.append({
+        "name": "quant_aggregate_lanes", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_aggregate.cu",
+        "replaces": "src/repro/kernels/quant_aggregate.py:22",
+        "launches": campaigns["b1_launches_by_path"]["campaign_int8"],
+        "max_abs_err": lane_row["max_abs_err"], "ms": lane_row["kernel_ms"],
+        "plain_ms": lane_row["plain_ms"], "call_ms": lane_row["kernel_call_ms"],
+        "bound_ms": lane_row["bound_ms"], "bound_by": lane_row["bound_by"],
+        "library_ms": None, "bitwise": True,
+        "four_single_launches_ms": lane_row["four_single_launches_ms"],
+        "shape": [lane_row["S"], lane_row["C"], lane_row["N"], lane_row["qblock"]]})
     flash_src = "src/repro/kernels/flash_attention.py:30"
     for name, key, source, replaces, launches, worst in (
             # one TPU kernel, two launch layouts: a narrow CTA per row for
@@ -1698,6 +2058,15 @@ def main() -> int:
                     "last_comms_rows": control["comms_rows"],
                     "byzantine_losses": control["byzantine_losses"],
                     "gossip_losses": control["gossip_losses"]}))
+    log(json.dumps({"slice": "7: campaigns (sweeps, the planner, successive halving), the "
+                    "flight recorder and the round probes on flsim-cnn at full width, B1 "
+                    "reducing every lane in one launch",
+                    "phase_s": slice7_s, "b1_lanes": lane_row,
+                    "sweep_traj_round_s": campaigns["sweep"]["traj_round_s"],
+                    "lanes_vs_single": campaigns["lanes"], "plan": campaigns["plan"],
+                    "telemetry": {k: {"round_s_off": v["round_s_off"],
+                                      "round_s_on": v["round_s_on"]}
+                                  for k, v in telemetry.items()}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

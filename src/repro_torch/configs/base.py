@@ -161,6 +161,19 @@ class FLConfig:
     rounds: int = 10
 
 
+# FLConfig fields a campaign sweeps as per-lane runtime values (the scalar
+# plane, ``core/sweeps.scalar_plane``); the single-run executor threads the
+# same names as device tensors, so a lane computes what a single run does.
+SWEEPABLE_SCALARS = ("seed", "client_lr", "server_lr", "server_momentum",
+                     "prox_mu", "moon_mu", "moon_tau", "dp_clip", "dp_noise")
+
+# FLConfig fields a campaign may sweep categorically: each value changes the
+# round program itself, so the planner (``core/plan.py``) buckets lanes by
+# program signature instead.
+SWEEPABLE_CATEGORICAL = ("strategy", "topology", "placement", "mode",
+                         "async_buffer", "compression")
+
+
 ARCHS = (
     "minicpm3-4b",
     "qwen2.5-32b",

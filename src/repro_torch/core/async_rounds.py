@@ -34,16 +34,29 @@ event's send by one launch with C = 1.
 Determinism contract: every event's randomness is keyed by (root, client,
 absolute task index) and the schedule is a function of the seed, so a run
 chunked into launches of any number of events is bitwise the unchunked run.
+
+``probes=True`` adds a per-event probe plane (``core/probes.py``), which
+the executor reduces to rounds; ``on_divergence="freeze"`` holds the state
+at an event whose update is not finite. ``build_async_lanes`` runs a
+campaign's S lanes together, each with its own schedule, ring and buffer:
+every event trains all lanes in one vmapped pass, and at an event where
+some lane applies, all lanes compute the flush (ONE ``(S, K, N)`` B1 launch
+on the int8 FedBuff path) and each keeps it only if its schedule applies.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import determinism, packing
-from repro_torch.core.rounds import local_train
-from repro_torch.core.strategy import Strategy, tree_add, tree_zeros_like
-from repro_torch.data.pipeline import gather_one_client_batch
+from repro_torch.core import probes as probelib
+from repro_torch.core.rounds import bind_hyper, freeze_unless, \
+    local_train, pop_alive
+from repro_torch.core.strategy import Strategy, tree_add, tree_sub, \
+    tree_zeros_like
+from repro_torch.data.pipeline import DEDUP_STAGED_AXES, gather_one_client_batch
 from repro_torch.kernels import ops
 
 
@@ -88,23 +101,43 @@ def _open_group(sched, event: int) -> int:
     return n
 
 
+def _event_probes(new_params, params, stale, accept, delta, packed: bool, dev):
+    """The probes of one event (``core/probes.py``, the async forms)."""
+    upd = probelib.tree_norm(tree_sub(new_params, params))
+    return {"update_norm": upd,
+            "drift_norm": probelib.tree_norm(tree_sub(stale, params)),
+            "participation": accept, "masked_frac": 1.0 - accept,
+            "sat_frac": (probelib.sat_frac(delta.q) if packed
+                         else torch.zeros((), dtype=torch.float32, device=dev)),
+            "ef_residual_norm": torch.zeros((), dtype=torch.float32, device=dev),
+            "nonfinite": probelib.norm_nonfinite(upd)}
+
+
 def build_async_multi(model, strategy: Strategy, fl: FLConfig,
-                      batch_size=None):
+                      batch_size=None, probes: bool = False,
+                      on_divergence: str = "report"):
     """Returns ``multi_fn(state, staged, sched, sched_dev, root,
-    start_event, n_events)`` -> ``(state, metrics)``, the events
-    ``[start_event, start_event + n_events)`` of ``sched`` (an
+    start_event, n_events, hyper=None)`` -> ``(state, metrics)``, the
+    events ``[start_event, start_event + n_events)`` of ``sched`` (an
     ``EventSchedule``; ``sched_dev`` its ``device_arrays``, of which the
     loop reads ``coeff``). ``state`` needs the carries of
-    ``async_init_state``. Metrics per event: ``loss`` (on the device),
-    ``staleness``, ``applied`` and ``client`` (from the schedule)."""
+    ``async_init_state``; ``hyper`` the sweepable scalars
+    (``rounds.bind_hyper``). Metrics per event: ``loss`` (on the device),
+    ``staleness``, ``applied`` and ``client`` (from the schedule), and with
+    ``probes`` the (n_events, P) ``probes`` plane. ``on_divergence=
+    "freeze"`` keeps the state an event held before a nonfinite update (the
+    buffer's fill count follows the schedule)."""
     batch_size = batch_size or fl.batch_size
     steps = max(fl.local_steps, 1)
     fedbuff = max(fl.async_buffer, 1) > 1
     packed = strategy.packs_deltas
     packed_fedbuff = _packed_fedbuff(fl, strategy)
+    freeze_div = probes and on_divergence == "freeze"
 
     def multi_fn(state, staged, sched, sched_dev, root: int,
-                 start_event: int, n_events: int):
+                 start_event: int, n_events: int, hyper=None):
+        _, hyper = pop_alive(hyper)
+        fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         st = dict(state)
         params, server, acc = st["params"], st["server"], st["acc"]
         # the ring and the int8 buffers are updated in place: copy them so
@@ -114,7 +147,7 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
             qbuf, sbuf, cbuf = (st[k].clone() for k in ("qbuf", "sbuf", "cbuf"))
             bufn = _open_group(sched, start_event)
         dev = staged["x"].device
-        losses = []
+        losses, plane = [], []
         events = range(start_event, start_event + n_events)
         for e in events:
             c = int(sched.client[e])
@@ -123,11 +156,13 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
             cbatch = {k: v[None] for k, v in gather_one_client_batch(
                 staged, rkey, c, batch_size, steps).items()}
             key = determinism.key_tensor(determinism.client_key(rkey, c), dev)
-            delta, _, loss = local_train(model, strategy, fl, stale, server,
+            delta, _, loss = local_train(model, strategy_h, fl_h, stale, server,
                                          (), cbatch, key, pack_deltas=packed)
             losses.append(loss[0])
             coeff = sched_dev["coeff"][e]
             apply = bool(sched.apply[e])
+            old = (params, server, acc) + ((qbuf.clone(), sbuf.clone(), cbuf.clone())
+                                           if packed_fedbuff and freeze_div else ())
             if packed_fedbuff:
                 # the open group is buffered quantized; a rejected arrival
                 # leaves its slot alone (accept, not coeff, which is 0 for
@@ -161,12 +196,10 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
                 acc = tree_add(acc, contrib)
                 if apply:
                     agg = acc
+            new_params, keep = params, None
             if apply:
                 agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
-                params, server = strategy.server_update(params, agg, server)
-                w = int(sched.write_slot[e])
-                for k, h in hist.items():
-                    h[w].copy_(params[k])
+                new_params, server = strategy_h.server_update(params, agg, server)
                 if packed_fedbuff:
                     qbuf.zero_()
                     sbuf.zero_()
@@ -174,14 +207,201 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
                     bufn = 0
                 else:
                     acc = tree_zeros_like(acc)
+            if probes:
+                pr = _event_probes(new_params, old[0], stale,
+                                   sched_dev["accept"][e].to(torch.float32),
+                                   delta, packed, dev)
+                plane.append(probelib.stack_probes(pr))
+                if freeze_div:
+                    keep = 1.0 - pr["nonfinite"]
+                    new_params, server, acc = freeze_unless(
+                        keep, (new_params, server, acc), old[:3])
+                    if packed_fedbuff:
+                        for buf, prev in zip((qbuf, sbuf, cbuf), old[3:]):
+                            buf.copy_(torch.where(keep > 0, buf, prev))
+            if apply:
+                # a frozen event leaves the ring as it was
+                w = int(sched.write_slot[e])
+                for k, h in hist.items():
+                    h[w].copy_(new_params[k] if keep is None
+                               else torch.where(keep > 0, new_params[k], h[w]))
+            params = new_params
         st.update(params=params, server=server, hist=hist, acc=acc)
         if packed_fedbuff:
             st.update(qbuf=qbuf, sbuf=sbuf, cbuf=cbuf,
                       bufn=torch.full((), bufn, dtype=torch.int32, device=dev))
         sl = slice(start_event, start_event + n_events)
-        return st, {"loss": torch.stack(losses),
-                    "staleness": sched.staleness[sl].astype("float32"),
-                    "applied": sched.apply[sl].astype("float32"),
-                    "client": sched.client[sl].astype("float32")}
+        metrics = {"loss": torch.stack(losses),
+                   "staleness": sched.staleness[sl].astype("float32"),
+                   "applied": sched.apply[sl].astype("float32"),
+                   "client": sched.client[sl].astype("float32")}
+        if probes:
+            metrics["probes"] = torch.stack(plane)
+        return st, metrics
 
     return multi_fn
+
+
+def _lane_events(scheds, lane_sched, e0: int, n: int, packed_fedbuff: bool,
+                 device) -> dict:
+    """The per-lane event fields of events [e0, e0 + n) as (S, n) device
+    tensors, in one transfer, and ``any_apply`` (n,) on the host. ``row``:
+    the FedBuff buffer row an accepted arrival writes (-1: none), from the
+    schedule alone, as the single run's host count."""
+    lanes = [scheds[u] for u in lane_sched]
+    sl = slice(e0, e0 + n)
+    f = {k: np.stack([getattr(sc, k)[sl] for sc in lanes])
+         for k in ("client", "task", "read_slot", "write_slot", "accept",
+                   "apply", "coeff")}
+    if packed_fedbuff:
+        rows = np.full((len(lanes), n), -1, np.int64)
+        for s, sc in enumerate(lanes):
+            bufn = _open_group(sc, e0)
+            for i in range(n):
+                if sc.accept[e0 + i]:
+                    rows[s, i] = bufn
+                    bufn += 1
+                if sc.apply[e0 + i]:
+                    bufn = 0
+        f["row"] = rows
+    any_apply = f["apply"].any(0)
+    dev = {k: torch.as_tensor(v if k == "coeff" else v.astype(
+        bool if k in ("accept", "apply") else np.int64), device=device)
+        for k, v in f.items()}
+    return dev, any_apply
+
+
+def build_async_lanes(model, strategy: Strategy, fl: FLConfig,
+                      batch_size=None, probes: bool = False,
+                      on_divergence: str = "report"):
+    """The campaign's async loop over S lanes. Returns ``lanes_fn(state,
+    staged, scheds, lane_sched, roots, start_event, n_events, hyper)`` ->
+    ``(state, metrics)``: ``state`` carries a leading S (the
+    ``async_init_state`` carries too), ``staged`` per-lane ``idx``/``len``,
+    ``scheds`` the unique ``EventSchedule``s and ``lane_sched`` each lane's
+    index into them, ``roots`` (S,) int64, ``hyper`` (S,) scalars and
+    optionally ``alive``. Metrics per event gain a leading S.
+
+    Per event, one vmapped pass trains every lane's arriving client against
+    its stale snapshot and folds the send in; at an event where any lane's
+    schedule applies, a second pass computes every lane's flush and server
+    update (int8 FedBuff: ONE ``ops.quant_aggregate`` launch over (S, K, N))
+    and each lane keeps it where its own schedule applies. Lane s is bitwise
+    the single run of its config (``build_async_multi``)."""
+    batch_size = batch_size or fl.batch_size
+    steps = max(fl.local_steps, 1)
+    fedbuff = max(fl.async_buffer, 1) > 1
+    packed = strategy.packs_deltas
+    packed_fedbuff = _packed_fedbuff(fl, strategy)
+    freeze_div = probes and on_divergence == "freeze"
+
+    def arrive(st, staged, root, ev, hyper):
+        """One lane: train the arrival, fold its send into the open group."""
+        fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
+        params = st["params"]
+        dev = staged["x"].device
+        rkey = determinism.round_key(root, ev["task"])
+        stale = {k: h[ev["read_slot"]] for k, h in st["hist"].items()}
+        cbatch = {k: v[None] for k, v in gather_one_client_batch(
+            staged, rkey, ev["client"], batch_size, steps).items()}
+        key = determinism.key_tensor(determinism.client_key(rkey, ev["client"]), dev)
+        delta, _, loss = local_train(model, strategy_h, fl_h, stale, st["server"],
+                                     (), cbatch, key, pack_deltas=packed)
+        coeff = ev["coeff"]
+        out = dict(st)
+        if packed_fedbuff:
+            sel = torch.arange(fl.async_buffer, device=dev) == ev["row"]
+            out["qbuf"] = torch.where(sel[:, None], delta.q, st["qbuf"])
+            out["sbuf"] = torch.where(sel[:, None], delta.scale, st["sbuf"])
+            out["cbuf"] = torch.where(sel, coeff, st["cbuf"])
+        else:
+            if packed:
+                deq = packing.unpack_tree(ops.quant_aggregate(
+                    delta.q, delta.scale, coeff.reshape(1)), params)
+                contrib = {k: coeff * (stale[k].to(torch.float32)
+                                       - p.to(torch.float32)) + deq[k]
+                           for k, p in params.items()}
+            elif fedbuff:
+                contrib = {k: d[0] * coeff for k, d in delta.items()}
+            else:
+                contrib = {k: coeff * ((stale[k].to(torch.float32)
+                                        - p.to(torch.float32)) + delta[k][0])
+                           for k, p in params.items()}
+            out["acc"] = tree_add(st["acc"], contrib)
+        return out, loss[0], stale, delta
+
+    def flush(st, ev, hyper):
+        """One lane: the flush and server update, kept where it applies."""
+        _, strategy_h = bind_hyper(fl, strategy, hyper)
+        params = st["params"]
+        if packed_fedbuff:
+            agg = packing.unpack_tree(ops.quant_aggregate(
+                st["qbuf"], st["sbuf"], st["cbuf"]), params)
+        else:
+            agg = st["acc"]
+        agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
+        new_p, new_s = strategy_h.server_update(params, agg, st["server"])
+        ring = next(iter(st["hist"].values())).shape[0]
+        at = torch.arange(ring, device=ev["write_slot"].device) == ev["write_slot"]
+        hist = {k: torch.where(at.reshape(-1, *([1] * new_p[k].dim())),
+                               new_p[k][None], h) for k, h in st["hist"].items()}
+        new = dict(st, params=new_p, server=new_s, hist=hist)
+        if packed_fedbuff:
+            new.update({k: torch.zeros_like(st[k]) for k in ("qbuf", "sbuf", "cbuf")})
+        else:
+            new["acc"] = tree_zeros_like(st["acc"])
+        return freeze_unless(ev["apply"].to(torch.float32), new, st)
+
+    def finish(prev, st, stale, delta, ev, alive):
+        """One lane: probes, the divergence freeze and the alive mask."""
+        pr = None
+        if probes:
+            pr = _event_probes(st["params"], prev["params"], stale,
+                               ev["accept"].to(torch.float32), delta, packed,
+                               ev["coeff"].device)
+            if freeze_div:
+                st = freeze_unless(1.0 - pr["nonfinite"], st, prev)
+        if alive is not None:
+            st = freeze_unless(alive, st, prev)
+            if probes:
+                pr = probelib.mask_probes(alive, pr)
+        return st, (probelib.stack_probes(pr) if probes else ())
+
+    arrive_v = vmap(arrive, in_dims=(0, DEDUP_STAGED_AXES, 0, 0, 0))
+    flush_v = vmap(flush)
+
+    def lanes_fn(state, staged, scheds, lane_sched, roots, start_event: int,
+                 n_events: int, hyper):
+        alive, hyper = pop_alive(hyper)
+        dev = staged["x"].device
+        evs, any_apply = _lane_events(scheds, lane_sched, start_event, n_events,
+                                      packed_fedbuff, dev)
+        finish_v = vmap(finish, in_dims=(0, 0, 0, 0, 0, None if alive is None else 0))
+        st = state
+        losses, plane = [], []
+        for i in range(n_events):
+            ev = {k: v[:, i] for k, v in evs.items()}
+            prev = st
+            st, loss, stale, delta = arrive_v(st, staged, roots, ev, hyper)
+            if any_apply[i]:
+                st = flush_v(st, ev, hyper)
+            if probes or alive is not None:
+                st, pr = finish_v(prev, st, stale, delta, ev, alive)
+                plane.append(pr)
+            losses.append(loss)
+        sl = slice(start_event, start_event + n_events)
+        lanes = [scheds[u] for u in lane_sched]
+        metrics = {"loss": torch.stack(losses, 1)}
+        metrics.update({k: np.stack([getattr(sc, k)[sl] for sc in lanes]).astype("float32")
+                        for k in ("staleness", "client")})
+        metrics["applied"] = np.stack([sc.apply[sl] for sc in lanes]).astype("float32")
+        if probes:
+            metrics["probes"] = torch.stack(plane, 1)
+        if packed_fedbuff:
+            # the open group's size, as the single run stores it
+            st = dict(st, bufn=torch.tensor(
+                [_open_group(sc, start_event + n_events) for sc in lanes],
+                dtype=torch.int32, device=dev))
+        return st, metrics
+
+    return lanes_fn

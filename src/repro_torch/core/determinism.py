@@ -9,7 +9,9 @@ cohort) are the JAX package's, so each draw is keyed by the same
 into launches draws exactly what an unchunked run draws.
 
 Keys are Python ints on the host and int64 tensors on a device (the same 64
-bits, read as signed). The draws on the device are counter-based: the value
+bits, read as signed); ``fold_in`` and the keys derived with it take either,
+so a campaign's per-lane keys are device tensors that a vmap over the lanes
+carries. The draws on the device are counter-based: the value
 at ``(key, i)`` is the i-th output of the splitmix64 stream seeded with
 ``key`` (``draw_bits``), computed with int64 tensor ops, so it is the same
 on the CPU and on the card, and a draw for one client is by construction
@@ -47,9 +49,22 @@ def signed(z: int) -> int:
     return z - (1 << 64) if z >> 63 else z
 
 
-def fold_in(key: int, data: int) -> int:
-    """A child key of ``key`` for the integer ``data``."""
+def fold_in(key, data):
+    """A child key of ``key`` for the integer ``data``. Either may be an
+    int64 tensor (a campaign's per-lane keys, an async lane's client): the
+    same bits as on Python ints."""
+    if isinstance(data, torch.Tensor):
+        return fold_in_tensor(key, data)
+    if isinstance(key, torch.Tensor):
+        return fold_in_tensor(key, torch.as_tensor(
+            signed(int(data)), dtype=torch.int64, device=key.device))
     return _mix(key ^ _mix(int(data) & _MASK))
+
+
+def root_keys(seeds, device) -> torch.Tensor:
+    """(S,) int64: ``root_key(seed)`` of every seed, on ``device``."""
+    return torch.tensor([signed(root_key(s)) for s in seeds],
+                        dtype=torch.int64, device=device)
 
 
 def root_key(seed: int) -> int:
@@ -124,8 +139,11 @@ def batch_keys(round_key_: int, n_clients: int, device) -> torch.Tensor:
     return fold_in_tensor(fold_in(round_key_, 0xBA7C), ids)
 
 
-def key_tensor(key: int, device) -> torch.Tensor:
-    """(1,) int64 holding ``key``, filled on the device (no host copy)."""
+def key_tensor(key, device) -> torch.Tensor:
+    """(1,) int64 holding ``key`` (a Python int, filled on the device with no
+    host copy, or a 0-d int64 tensor)."""
+    if isinstance(key, torch.Tensor):
+        return key.reshape(1)
     return torch.full((1,), signed(key), dtype=torch.int64, device=device)
 
 

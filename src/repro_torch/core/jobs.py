@@ -3,9 +3,11 @@
 A job mirrors the paper's Fig. 2 sections. ``load_job`` validates every
 section against the same known keys as the JAX package (a typo like
 ``cleint_lr`` fails with a near-miss hint) and resolves the model, strategy,
-topology, dataset, ledger (``fl.blockchain``) and fault model, and checks
-the consensus name. A setting whose code is not yet ported
-fails here, at load time, with ``NotImplementedError`` naming the ROADMAP
+topology, dataset, ledger (``fl.blockchain``), fault model and sweep, and
+checks the consensus name. A ``sweep:`` section expands the job into a
+campaign (``core/sweeps.py``, ``runtime/campaign.py``); ``telemetry:`` and
+``probes:`` turn on the flight recorder and the round probes. A setting
+whose code is not yet ported fails here, at load time, naming the ROADMAP
 item; nothing unported is silently ignored.
 """
 from __future__ import annotations
@@ -13,9 +15,10 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import pathlib
-from typing import Any
+from typing import Any, Optional
 
 from repro_torch.configs.base import FLConfig, get_config
+from repro_torch.core import sweeps
 from repro_torch.core.blockchain import get_ledger
 from repro_torch.core.consensus import CONSENSUS_REGISTRY
 from repro_torch.core.strategies import get_strategy
@@ -39,6 +42,7 @@ class Job:
     ledger: Any                # core.blockchain.HashChainLedger, or None
     fault: FaultModel
     raw: dict
+    sweep: Optional[sweeps.SweepSpec] = None
 
 
 _FL_KEYS = {f.name for f in dataclasses.fields(FLConfig)}
@@ -51,11 +55,14 @@ _STRATEGY_KEYS = {"strategy", "train_params", "aggregator_params"}
 _TOP_KEYS = {"name", "model", "dataset", "consensus", "strategy", "runtime",
              "sweep", "clusters", "node_defaults", "node_configs",
              "telemetry", "probes", "comms"}
+# flight-recorder knobs (telemetry/recorder.py): presence of the section
+# turns the recorder on (enabled: false keeps a section but switches it off)
+_TELEMETRY_KEYS = {"enabled", "out_dir", "profile_chunks", "cost_analysis"}
+# round-probe knobs (core/probes.py)
+_PROBES_KEYS = {"enabled", "out_dir", "on_divergence"}
 # comms-observatory knobs (telemetry/comms.py): host-side wire-traffic
 # accounting; the LinkModel knobs themselves are runtime: section fields
 _COMMS_KEYS = {"enabled", "out_dir", "pods"}
-# top-level sections the port does not run yet -> ROADMAP item
-_UNPORTED_SECTIONS = {"sweep": "A12", "telemetry": "A11", "probes": "A11"}
 
 
 def _check_keys(section_name: str, section, allowed) -> None:
@@ -77,10 +84,14 @@ def _not_ported(what: str, item: str):
 
 
 def check_ported(raw: dict, fl: FLConfig) -> None:
-    """Raise ``NotImplementedError`` for any setting the port cannot run yet."""
-    for section, item in _UNPORTED_SECTIONS.items():
-        if raw.get(section):
-            raise _not_ported(f"the {section!r} section", item)
+    """Raise for any setting the port cannot run yet: ``NotImplementedError``
+    naming the ROADMAP item, or a ``ValueError`` for a campaign over the
+    ragged client plane."""
+    if raw.get("sweep") and (fl.max_cohort > 0 or fl.streaming):
+        raise ValueError("a campaign over ragged cohorts (max_cohort > 0, "
+                         "streaming) needs the streaming client plane, which is "
+                         "not yet ported (ROADMAP A13); sweep it with "
+                         "max_cohort: 0")
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
     if fl.placement not in ("auto", "spatial", "temporal"):
@@ -166,6 +177,18 @@ def make_fault(raw: dict, fl: FLConfig) -> ClientSystemModel:
         if f.name not in ("seed", "worker_fail_prob")})
 
 
+def rebind(job: Job, fl: FLConfig) -> Job:
+    """A copy of ``job`` re-resolved around another FLConfig (a planner
+    bucket's): strategy, topology, dataset and fault model are rebuilt; the
+    model and the ledger (one chain per campaign) are shared."""
+    check_client_state(fl, get_strategy(fl))
+    return dataclasses.replace(
+        job, fl=fl, strategy=get_strategy(fl),
+        topology=get_topology(fl.topology, fl.gossip_steps),
+        dataset=make_dataset(job.raw, fl, getattr(job.model, "cfg", None)),
+        fault=make_fault(job.raw, fl))
+
+
 def load_job(path_or_dict) -> Job:
     """Load and validate a job from a YAML path or config dict."""
     if isinstance(path_or_dict, (str, pathlib.Path)):
@@ -188,7 +211,16 @@ def load_job(path_or_dict) -> Job:
     _check_keys("dataset.distribution", ds.get("distribution"), _FL_KEYS)
     _check_keys("model", raw.get("model"), _MODEL_KEYS)
     _check_keys("runtime", rt, _FL_KEYS | _CSM_KEYS)
+    _check_keys("telemetry", raw.get("telemetry"), _TELEMETRY_KEYS)
+    _check_keys("probes", raw.get("probes"), _PROBES_KEYS)
     _check_keys("comms", raw.get("comms"), _COMMS_KEYS)
+    if raw.get("probes"):
+        # value validation (on_divergence, freeze needs enabled) lives in
+        # ProbeSpec; running it here fails at load time
+        from repro_torch.core.probes import ProbeSpec
+        pr = raw["probes"]
+        ProbeSpec(enabled=bool(pr.get("enabled", True)), out_dir=pr.get("out_dir"),
+                  on_divergence=pr.get("on_divergence", "report"))
     if raw.get("comms"):
         # value validation (pods >= 1) lives in CommsSpec; running it here
         # fails at load time
@@ -209,6 +241,13 @@ def load_job(path_or_dict) -> Job:
     fl = FLConfig(**flkw)
     validate_cohort(fl)
     check_ported(raw, fl)
+    spec = sweeps.parse_sweep(raw.get("sweep"))
+    if spec is not None:
+        # every lane must be a job the port runs
+        for fl_s in sweeps.expand(fl, spec):
+            validate_cohort(fl_s)
+            check_ported(raw, fl_s)
+            check_client_state(fl_s, get_strategy(fl_s))
 
     strategy = get_strategy(fl)
     check_client_state(fl, strategy)
@@ -224,4 +263,5 @@ def load_job(path_or_dict) -> Job:
         ledger=get_ledger(fl.blockchain),
         fault=make_fault(raw, fl),
         raw=raw,
+        sweep=spec,
     )

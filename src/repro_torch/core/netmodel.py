@@ -399,6 +399,16 @@ class LaneComms:
             self._advance(out, i, up, down, 0, dense_up, t)
         return out
 
+    def frozen(self, n: int) -> dict:
+        """A dead campaign lane's columns: zero per-round traffic,
+        cumulative counters held at their freeze values."""
+        out = {k: np.zeros(n, np.float64) for k in COMMS_COLUMNS}
+        out["cum_up_bytes"][:] = self.cum_up
+        out["cum_down_bytes"][:] = self.cum_down
+        out["cum_bytes"][:] = self.cum_up + self.cum_down + self.cum_overlay
+        out["sim_time_s"][:] = self.sim_time
+        return out
+
     def _advance(self, out: dict, i: int, up: int, down: int, overlay: int,
                  dense_up: int, sim_time: float):
         self.cum_up += int(up)

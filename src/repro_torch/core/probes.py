@@ -1,21 +1,214 @@
-"""Round-probe tables (port of the host half of ``repro/core/probes.py``):
-``ProbeTable``, the append-only csv writer, and ``read_probes``, its reader.
-The executor writes ``comms.csv`` with them.
+"""Round probes (port of ``repro/core/probes.py``): read-only per-round
+diagnostics computed inside the round loops, and the append-only tables
+they and the comms plane land in.
 
-The probe catalogue itself (the seven in-round diagnostics, their ``(R, P)``
-stacking and the rounds' ``metrics["probes"]``) arrives with the rest of
-ROADMAP A11; ``core/jobs.load_job`` refuses a ``probes:`` section until then.
+The catalogue (every probe is one f32 scalar per round, per campaign lane):
+
+==================  ========================================================
+``update_norm``     L2 norm of the server parameter change this round
+                    (async: this event, 0 for a buffered non-apply event).
+``drift_norm``      sync: weighted std of the client deltas around their
+                    aggregate, sqrt(E_w||d_c||^2 - ||E_w d_c||^2)
+                    (decentralized: the spread of the client models);
+                    async: ||stale snapshot - server params||.
+``participation``   sync: cohort clients with nonzero weight this round;
+                    async: 1 if the arrival was accepted.
+``masked_frac``     fraction of the client weight mass excluded this round
+                    (async: 1 - accept).
+``sat_frac``        int8 path: fraction of the sends saturated at +-127.
+``ef_residual_norm``  int8 spatial path: RMS over the cohort of the
+                    error-feedback residual norm; 0 without residuals.
+``nonfinite``       1.0 when any parameter is NaN/Inf after the update.
+==================  ========================================================
+
+Probes only add consumers of values the round already computes, so a run
+with them is bitwise the run without (``tests/test_torch_probes.py``); a
+dead campaign lane emits zeros. ``on_divergence: freeze`` holds a lane at
+its last finite state through ``rounds.freeze_unless``.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import pathlib
 from typing import Optional
 
+import numpy as np
+import torch
+
+# the fixed catalogue: the P axis of a launch's (R, P) / (S, R, P) probe
+# plane; probes.csv columns and counter names follow this order
+PROBE_NAMES = ("update_norm", "drift_norm", "participation", "masked_frac",
+               "sat_frac", "ef_residual_norm", "nonfinite")
+
+# async per-event -> per-round reduction (rounds are fixed event windows,
+# so the stream is the same for every chunking); unlisted probes: mean
+ASYNC_REDUCE = {"update_norm": "max", "participation": "sum",
+                "nonfinite": "max"}
+
+_ON_DIVERGENCE = ("report", "freeze")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeSpec:
+    """Parsed ``probes:`` job section (validated by ``core/jobs.load_job``).
+
+    ``enabled`` adds the probe outputs to the round loops; ``out_dir``
+    receives ``probes.csv`` (else the telemetry out_dir, then the
+    executor's); ``on_divergence``: ``report`` only emits the sentinel,
+    ``freeze`` holds a lane at its last finite state."""
+    enabled: bool = False
+    out_dir: Optional[str] = None
+    on_divergence: str = "report"
+
+    def __post_init__(self):
+        if self.on_divergence not in _ON_DIVERGENCE:
+            raise ValueError(
+                f"probes.on_divergence must be one of {_ON_DIVERGENCE}, "
+                f"got {self.on_divergence!r}")
+        if self.on_divergence == "freeze" and not self.enabled:
+            raise ValueError(
+                "probes.on_divergence: freeze needs probes.enabled: true "
+                "(the sentinel that drives the freeze is a probe)")
+
+    @property
+    def freeze(self) -> bool:
+        """True when a diverged lane is held at its last finite state."""
+        return self.enabled and self.on_divergence == "freeze"
+
+    @classmethod
+    def from_job(cls, job) -> "ProbeSpec":
+        """Build from a job's ``probes:`` section (absent -> disabled)."""
+        p = (getattr(job, "raw", None) or {}).get("probes") or {}
+        return cls(enabled=bool(p) and bool(p.get("enabled", True)),
+                   out_dir=p.get("out_dir"),
+                   on_divergence=p.get("on_divergence", "report"))
+
+
+# -- in-round arithmetic: each helper only reads what the round computed ----
+
+def _leaves(tree):
+    """Tensor leaves in the JAX package's flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def tree_sq_norm(tree):
+    """Sum of squares over every leaf, accumulated in f32."""
+    total = None
+    for leaf in _leaves(tree):
+        sq = torch.square(leaf.to(torch.float32)).sum()
+        total = sq if total is None else total + sq
+    return torch.zeros((), dtype=torch.float32) if total is None else total
+
+
+def tree_norm(tree):
+    """Global L2 norm over a tree's leaves."""
+    return torch.sqrt(tree_sq_norm(tree))
+
+
+def tree_nonfinite(tree):
+    """1.0 when any leaf holds a NaN/Inf, else 0.0."""
+    bad = [(~torch.isfinite(leaf.to(torch.float32))).any()
+           for leaf in _leaves(tree)]
+    if not bad:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(bad).any().to(torch.float32)
+
+
+def stack_probes(pr: dict):
+    """Probe dict -> one ``(P,)`` f32 vector in ``PROBE_NAMES`` order."""
+    return torch.stack([torch.as_tensor(pr[name]).to(torch.float32)
+                        for name in PROBE_NAMES])
+
+
+def norm_nonfinite(norm):
+    """The sentinel read off the update norm: a NaN/Inf in the new params
+    makes the (new - old) delta, and so its norm, nonfinite."""
+    return (~torch.isfinite(norm)).to(torch.float32)
+
+
+def per_client_sq_norms(deltas):
+    """(C,) sum of squares per client of a tree stacked on a leading C."""
+    total = None
+    for leaf in _leaves(deltas):
+        sq = torch.square(leaf.to(torch.float32)).reshape(leaf.shape[0], -1).sum(-1)
+        total = sq if total is None else total + sq
+    return total
+
+
+def packed_sq_norms(q, scale):
+    """(C,) sum of squares of dequantized ``(C, N) int8`` sends, blockwise
+    from the scales (no (C, N) f32 dequant)."""
+    c, n = q.shape
+    nb = scale.shape[-1]
+    qsq = torch.square(q.to(torch.float32)).reshape(c, nb, n // nb).sum(-1)
+    return (qsq * torch.square(scale)).sum(-1)
+
+
+def packed_sq_norm(q, scale):
+    """Sum of squares of one dequantized ``(N,) int8`` send."""
+    nb = scale.shape[-1]
+    qsq = torch.square(q.to(torch.float32)).reshape(nb, -1).sum(-1)
+    return (qsq * torch.square(scale)).sum()
+
+
+def sat_frac(q):
+    """Fraction of int8 values saturated at the +-127 clip points."""
+    return (torch.abs(q.to(torch.int32)) >= 127).to(torch.float32).mean()
+
+
+def drift_from_moments(weights, per_client_sq, agg_sq):
+    """sqrt(E_w ||d_c||^2 - ||agg||^2), clipped at 0: the weighted std of
+    the client deltas around their aggregate (variance identity)."""
+    wsum = weights.sum()
+    mean_sq = (weights * per_client_sq).sum() / torch.clamp(wsum, min=1e-12)
+    return torch.sqrt(torch.clamp(mean_sq - agg_sq, min=0.0))
+
+
+def mask_probes(alive, pr: dict) -> dict:
+    """A dead lane's probes read 0 (``alive``: the lane's 0/1 mask)."""
+    keep = alive > 0
+    return {k: torch.where(keep, v, torch.zeros_like(v)) for k, v in pr.items()}
+
+
+# -- host-side async extras (functions of the schedule alone) --------------
+
+def buffer_occupancy(accept, apply) -> np.ndarray:
+    """(E,) accepted-not-yet-applied arrivals after each event (an apply
+    event's occupancy reads 0: the arrival is written, then flushed)."""
+    accept = np.asarray(accept).astype(np.int64)
+    apply = np.asarray(apply).astype(bool)
+    occ = np.empty(len(accept), np.int64)
+    run = 0
+    for i in range(len(accept)):
+        run += accept[i]
+        if apply[i]:
+            run = 0
+        occ[i] = run
+    return occ
+
+
+def staleness_hist(staleness, max_staleness: int) -> dict:
+    """Counter values ``{"s0": n0, ...}`` of a window's staleness (the last
+    bucket takes everything >= max_staleness)."""
+    s = np.clip(np.asarray(staleness).astype(np.int64).ravel(), 0,
+                max_staleness)
+    counts = np.bincount(s, minlength=max_staleness + 1)
+    return {f"s{i}": int(c) for i, c in enumerate(counts)}
+
+
+# -- probes.csv / comms.csv --------------------------------------------------
 
 class ProbeTable:
-    """Append-only csv writer (one row per round): ``probes.csv`` in the
-    JAX package, ``comms.csv`` here.
+    """Append-only csv writer (one row per (lane,) round): ``probes.csv``
+    and ``comms.csv``.
 
     The column set is fixed, so columns never grow: the file truncates on
     the first flush of a process (one file per run) and every later flush

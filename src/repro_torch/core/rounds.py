@@ -21,6 +21,18 @@ update (spatial: before the cast to the params' dtype), keyed by the round
 key, as the JAX package does. The decentralized branch and the async event
 loop run no consensus, as in the JAX package.
 
+Scalars: the round takes the job's sweepable scalars (``client_lr``,
+``server_lr``, ...) as runtime values, a ``hyper`` dict of 0-d device
+tensors bound by ``bind_hyper``, as a campaign lane does; ``probes=True``
+adds the read-only ``metrics["probes"]`` (``core/probes.py``).
+
+Campaign lanes (``build_multi_round(..., lanes=True)``): the same round runs
+under ``torch.func.vmap`` over a leading lane dim S of the state, the
+per-lane staged ``idx``/``len`` planes, round keys, weights, scalars and
+alive mask; the clients' vmap nests inside it, and the int8 aggregate of
+all lanes is ONE ``ops.quant_aggregate`` launch over ``(S, C, N)`` (its
+vmap rule).
+
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
 noise is drawn from it); the JAX package hands ``local_loss`` a per-step
@@ -28,20 +40,73 @@ key, which no strategy reads, so the port hands it the client's key.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.configs.base import FLConfig
+from repro_torch.configs.base import SWEEPABLE_SCALARS, FLConfig
 from repro_torch.core import determinism, packing
+from repro_torch.core import probes as probelib
 from repro_torch.core.consensus import build_aggregator
 from repro_torch.core.strategy import Strategy, client_sgd_step, tree_add, \
     tree_scale, tree_sub, tree_zeros_like
 from repro_torch.core.topology import Decentralized, get_topology
+from repro_torch.data.pipeline import DEDUP_STAGED_AXES
 from repro_torch.kernels import ops
 from repro_torch.runtime.device import resolve_device
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of same-shaped trees (dicts, tuples,
+    lists, ``PackedDelta``s), keeping the structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, packing.PackedDelta):
+        return packing.PackedDelta(*(tree_map(fn, *leaves)
+                                     for leaves in zip(*trees)))
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def bind_hyper(fl: FLConfig, strategy: Strategy, hyper):
+    """Rebind the sweepable scalars of ``hyper`` (0-d tensors: the single
+    run's, or one lane's under the campaign's vmap) onto (fl, strategy).
+    An empty or None ``hyper`` is the identity."""
+    if not hyper:
+        return fl, strategy
+    unknown = set(hyper) - set(SWEEPABLE_SCALARS)
+    if unknown:
+        raise KeyError(f"non-sweepable hyper keys {sorted(unknown)}; "
+                       f"sweepable scalars: {SWEEPABLE_SCALARS}")
+    fl_h = dataclasses.replace(fl, **hyper)
+    return fl_h, dataclasses.replace(strategy, fl=fl_h)
+
+
+def pop_alive(hyper):
+    """Split the lane scheduler's ``alive`` mask (a per-lane 0/1 f32, the
+    one hyper entry that is no sweepable scalar) off a hyper dict. Returns
+    ``(alive, rest)``; ``alive`` is None where absent (every single run)."""
+    if not hyper or "alive" not in hyper:
+        return None, hyper
+    rest = dict(hyper)
+    return rest.pop("alive"), rest
+
+
+def freeze_unless(alive, new_state, old_state):
+    """``new_state`` where ``alive`` > 0, else ``old_state``: a dropped or
+    diverged lane holds its state. The select takes whole computed tensors,
+    so for a live lane it is bitwise the identity."""
+    keep = alive > 0
+    return tree_map(lambda n, o: torch.where(keep, n, o), new_state, old_state)
+
+
+def _zero(dev):
+    return torch.zeros((), dtype=torch.float32, device=dev)
 
 
 def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
@@ -107,13 +172,18 @@ def packed_aggregate(topo, pd: packing.PackedDelta, weights):
     return num / torch.clamp(weights.sum(), min=1e-12)
 
 
-def build_spatial_round(model, strategy: Strategy, fl: FLConfig):
-    """Returns round_fn(state, batch, weights, rng) -> (state, {"loss"}).
+def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
+                        probes: bool = False):
+    """Returns round_fn(state, batch, weights, rng, hyper=None) ->
+    (state, {"loss"[, "probes"]}).
 
     state: {"params", "server", "clients"}, with a leading client dim on
     ``params`` for the decentralized topology (one model per client);
     batch: (C, steps, B, ...); weights: (C,) f32 (partition size times the
-    cohort mask); rng: the round key."""
+    cohort mask); rng: the round key (an int, or a 0-d int64 tensor);
+    hyper: the sweepable scalars (``bind_hyper``). ``probes`` adds the
+    round's probe dict (``core/probes.py``), read off values the round
+    computes anyway."""
     topo = get_topology(fl.topology, fl.gossip_steps)
     decentralized = isinstance(topo, Decentralized)
     mw = build_aggregator(fl)
@@ -121,17 +191,40 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig):
     # unpacked round trip there
     packed = strategy.packs_deltas and not decentralized
 
-    def round_fn(state, batch, weights, rng):
+    def round_fn(state, batch, weights, rng, hyper=None):
+        fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         params, server_state = state["params"], state["server"]
-        keys = determinism.client_keys(rng, batch["x"].shape[0],
-                                       batch["x"].device)
+        dev = batch["x"].device
+        C = batch["x"].shape[0]
+        keys = determinism.client_keys(rng, C, dev)
         deltas, cstates, losses = local_train(
-            model, strategy, fl, params, server_state, state["clients"],
+            model, strategy_h, fl_h, params, server_state, state["clients"],
             batch, keys, pack_deltas=packed, per_client_params=decentralized)
+        pr = {}
         if decentralized:
             new_params = topo.mix(tree_add(params, deltas))
             new_server = server_state
+            if probes:
+                # drift for gossip: the spread of the client models
+                spread = probelib.per_client_sq_norms(
+                    {k: t - t.mean(0)[None] for k, t in new_params.items()})
+                pr.update(drift_norm=torch.sqrt(spread.mean()),
+                          sat_frac=_zero(dev), ef_residual_norm=_zero(dev))
         else:
+            if probes:
+                # per-client moments of the sends, read before the reduce
+                if packed:
+                    sq = probelib.packed_sq_norms(deltas.q, deltas.scale)
+                    pr["sat_frac"] = (torch.abs(deltas.q.to(torch.int32)) >= 127) \
+                        .to(torch.float32).mean(-1).mean()
+                else:
+                    sq = probelib.per_client_sq_norms(deltas)
+                    pr["sat_frac"] = _zero(dev)
+                if isinstance(cstates, dict) and "residual" in cstates:
+                    rsq = probelib.per_client_sq_norms(cstates["residual"])
+                    pr["ef_residual_norm"] = torch.sqrt(rsq.sum() / max(C, 1))
+                else:
+                    pr["ef_residual_norm"] = _zero(dev)
             if packed:
                 agg = packing.unpack_tree(
                     packed_aggregate(topo, deltas, weights), params)
@@ -140,22 +233,32 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig):
             if mw is not None:
                 agg = mw.run(agg, rng)
             agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
-            new_params, new_server = strategy.server_update(params, agg,
-                                                            server_state)
+            new_params, new_server = strategy_h.server_update(params, agg,
+                                                              server_state)
             # SCAFFOLD: the server control variate is the cohort-weighted
             # mean of the client variates
             if isinstance(new_server, dict) and "c" in new_server \
                     and isinstance(cstates, dict) and "c_i" in cstates:
                 new_server = dict(new_server,
                                   c=topo.aggregate(cstates["c_i"], weights))
+            if probes:
+                pr["drift_norm"] = probelib.drift_from_moments(
+                    weights, sq, probelib.tree_sq_norm(agg))
+        metrics = {"loss": losses.mean()}
+        if probes:
+            pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params))
+            pr["nonfinite"] = probelib.norm_nonfinite(pr["update_norm"])
+            metrics["probes"] = pr
         return ({"params": new_params, "server": new_server,
-                 "clients": cstates}, {"loss": losses.mean()})
+                 "clients": cstates}, metrics)
 
     return round_fn
 
 
-def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
-    """Returns round_fn(state, batch, weights, rng) -> (state, {"loss"}).
+def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
+                         probes: bool = False):
+    """Returns round_fn(state, batch, weights, rng, hyper=None) ->
+    (state, {"loss"[, "probes"]}).
 
     batch: (C_t, steps, B, ...): the cohort trained one client at a time
     against the round's params, with no client state (as in the JAX
@@ -163,11 +266,13 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
     by its normalised weight; with C_t == 1 the raw delta is applied. On the
     int8 path the C_t sends are stacked into one (C_t, N) matrix and
     reduced by ONE ``ops.quant_aggregate`` launch with the normalised
-    weights (C_t == 1: weight 1)."""
+    weights (C_t == 1: weight 1). ``probes`` as in ``build_spatial_round``
+    (the drift moments accumulate client by client)."""
     packed = strategy.packs_deltas
     mw = build_aggregator(fl)
 
-    def round_fn(state, batch, weights, rng):
+    def round_fn(state, batch, weights, rng, hyper=None):
+        fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         params, server_state = state["params"], state["server"]
         C_t = batch["x"].shape[0]
         dev = batch["x"].device
@@ -175,11 +280,13 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
         def client(i, pack: bool):
             cbatch = {k: v[i:i + 1] for k, v in batch.items()}
             key = determinism.key_tensor(determinism.client_key(rng, i), dev)
-            delta, _, loss = local_train(model, strategy, fl, params,
+            delta, _, loss = local_train(model, strategy_h, fl_h, params,
                                          server_state, (), cbatch, key,
                                          pack_deltas=pack)
             return delta, loss[0]
 
+        pr = {"sat_frac": _zero(dev), "ef_residual_norm": _zero(dev),
+              "drift_norm": _zero(dev)} if probes else {}
         if packed:
             sends = [client(i, True) for i in range(C_t)]
             q = torch.cat([pd.q for pd, _ in sends])
@@ -193,6 +300,11 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
             agg_flat = ops.quant_aggregate(q, scale, w)
             agg = {k: a.to(params[k].dtype) for k, a in
                    packing.unpack_tree(agg_flat, params).items()}
+            if probes:
+                pr["sat_frac"] = probelib.sat_frac(q)
+                pr["drift_norm"] = probelib.drift_from_moments(
+                    w, probelib.packed_sq_norms(q, scale),
+                    torch.square(agg_flat).sum())
         elif C_t == 1:
             delta, loss = client(0, False)
             agg = {k: d[0] for k, d in delta.items()}
@@ -200,73 +312,145 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig):
             agg = {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()}
             loss = 0.0
+            msq = 0.0
             wsum = torch.clamp(weights.sum(), min=1e-12)
             for i in range(C_t):
                 delta, closs = client(i, False)
-                agg = tree_add(agg, tree_scale({k: d[0] for k, d in delta.items()},
-                                               weights[i] / wsum))
+                d_i = {k: d[0] for k, d in delta.items()}
+                agg = tree_add(agg, tree_scale(d_i, weights[i] / wsum))
                 loss = loss + closs / C_t
+                if probes:
+                    # the weighted second moment of the deltas, for drift
+                    msq = msq + weights[i] / wsum * probelib.tree_sq_norm(d_i)
+            if probes:
+                pr["drift_norm"] = torch.sqrt(torch.clamp(
+                    msq - probelib.tree_sq_norm(agg), min=0.0))
         if mw is not None:
             agg = mw.run(agg, rng)
-        new_params, new_server = strategy.server_update(params, agg,
-                                                        server_state)
+        new_params, new_server = strategy_h.server_update(params, agg,
+                                                          server_state)
+        metrics = {"loss": loss}
+        if probes:
+            pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params))
+            pr["nonfinite"] = probelib.norm_nonfinite(pr["update_norm"])
+            metrics["probes"] = pr
         return ({"params": new_params, "server": new_server,
-                 "clients": state.get("clients", ())}, {"loss": loss})
+                 "clients": state.get("clients", ())}, metrics)
 
     return round_fn
 
 
 def build_multi_round(model, strategy: Strategy, fl: FLConfig,
                       placement: str = "spatial", fault=None,
-                      batch_size: Optional[int] = None, device=None):
+                      batch_size: Optional[int] = None, device=None,
+                      probes: bool = False, on_divergence: str = "report",
+                      lanes: bool = False):
     """Run ``n_rounds`` FL rounds back to back on ``device`` (CUDA unless
     the caller passes ``device="cpu"``), with the spatial or the temporal
     round.
 
-    Returns ``multi_fn(state, staged, root, start_round, n_rounds)`` ->
-    ``(state, {"loss": (n_rounds,) tensor})``. Per round, on the device:
-    the batch gather from the staged partitions, keyed by
-    ``determinism.round_key(root, r)``, and the cohort/straggler weight mask
-    (``runtime.faults.cohort_mask``). The chunk's masks are drawn on the
-    host and copied in one transfer before the first round, and the losses
-    stay on the device, so nothing inside a chunk waits for the host.
+    Returns ``multi_fn(state, staged, root, start_round, n_rounds,
+    hyper=None)`` -> ``(state, {"loss": (n_rounds,)[, "probes": (n_rounds,
+    P)]})``. Per round, on the device: the batch gather from the staged
+    partitions, keyed by ``determinism.round_key(root, r)``, and the
+    cohort/straggler weight mask (``runtime.faults.cohort_mask``). The
+    chunk's masks are drawn on the host and copied in one transfer before
+    the first round, and the losses stay on the device, so nothing inside a
+    chunk waits for the host. ``probes`` adds the (n_rounds, P) probe plane
+    (``on_divergence="freeze"`` holds a diverged state).
+
+    ``lanes=True``: the campaign's form, ``multi_fn(state, staged, roots,
+    start_round, n_rounds, hyper, faults)``, with a leading lane dim S on
+    the state, ``staged["idx"]``/``["len"]``, ``roots`` ((S,) int64) and
+    every ``hyper`` entry (its ``alive`` mask too), one fault model per
+    lane; every metric gains a leading S. One round of all S lanes is one
+    pass of ``torch.func.vmap`` over the single round.
 
     Determinism contract: each round's randomness is keyed only by
     ``(seed, absolute round)``, so a run chunked as 3+3 rounds is bitwise
-    the run of 6 launches of 1 round.
+    the run of 6 launches of 1 round, and lane s of a campaign is bitwise
+    the single run of its config.
     """
     from repro_torch.data.pipeline import gather_client_batches
     from repro_torch.runtime.faults import FaultModel, cohort_mask
 
     if placement == "temporal":
-        single = build_temporal_round(model, strategy, fl)
+        single = build_temporal_round(model, strategy, fl, probes=probes)
     elif placement == "spatial":
-        single = build_spatial_round(model, strategy, fl)
+        single = build_spatial_round(model, strategy, fl, probes=probes)
     else:
         raise ValueError(f"unknown placement {placement!r} "
                          "(want 'spatial' or 'temporal')")
+    freeze_div = probes and on_divergence == "freeze"
     device = resolve_device(device)
     fault = fault if fault is not None else FaultModel(seed=fl.seed)
     batch_size = batch_size or fl.batch_size
     steps = max(fl.local_steps, 1)
     target = int(fl.cohort or fl.n_clients)
 
-    def multi_fn(state, staged, root: int, start_round: int, n_rounds: int):
-        rounds = range(start_round, start_round + n_rounds)
-        masks = torch.as_tensor(np.stack(
-            [cohort_mask(fault, r, fl.n_clients, target,
-                         fl.straggler_overprovision) for r in rounds]),
-            device=device)
-        base_w = staged["len"].to(torch.float32)
-        losses = []
-        for i, r in enumerate(rounds):
-            rkey = determinism.round_key(root, r)
-            batch = gather_client_batches(staged, rkey, batch_size, steps)
-            state, metrics = single(state, batch, base_w * masks[i], rkey)
-            losses.append(metrics["loss"])
-        return state, {"loss": torch.stack(losses)}
+    def one_round(st, staged, rkey, eff_w, hyper, alive):
+        batch = gather_client_batches(staged, rkey, batch_size, steps)
+        new_st, metrics = single(st, batch, eff_w, rkey, hyper)
+        if probes:
+            # engine probes: the cohort mask and the staged weight mass
+            pr = metrics.pop("probes")
+            base = staged["len"].to(torch.float32)
+            pr["participation"] = (eff_w > 0).sum().to(torch.float32)
+            pr["masked_frac"] = 1.0 - eff_w.sum() / torch.clamp(base.sum(), min=1e-12)
+            if freeze_div:
+                new_st = freeze_unless(1.0 - pr["nonfinite"], new_st, st)
+        if alive is not None:
+            new_st = freeze_unless(alive, new_st, st)
+        if probes:
+            if alive is not None:
+                pr = probelib.mask_probes(alive, pr)
+            metrics["probes"] = probelib.stack_probes(pr)
+        return new_st, metrics
 
-    return multi_fn
+    def masks_for(faults, rounds):
+        return torch.as_tensor(np.stack([
+            np.stack([cohort_mask(f, r, fl.n_clients, target,
+                                  fl.straggler_overprovision) for r in rounds])
+            for f in faults]), device=device)
+
+    def stacked(per_round, dim):
+        return {k: torch.stack([m[k] for m in per_round], dim)
+                for k in per_round[0]}
+
+    def multi_fn(state, staged, root: int, start_round: int, n_rounds: int,
+                 hyper=None):
+        alive, hyper = pop_alive(hyper)
+        rounds = range(start_round, start_round + n_rounds)
+        masks = masks_for([fault], rounds)[0]
+        base_w = staged["len"].to(torch.float32)
+        out = []
+        for i, r in enumerate(rounds):
+            state, metrics = one_round(state, staged, determinism.round_key(root, r),
+                                       base_w * masks[i], hyper, alive)
+            out.append(metrics)
+        return state, stacked(out, 0)
+
+    def lanes_fn(state, staged, roots, start_round: int, n_rounds: int,
+                 hyper, faults):
+        alive, hyper = pop_alive(hyper)
+        rounds = range(start_round, start_round + n_rounds)
+        masks = masks_for(faults, rounds)                  # (S, n, C)
+        base_w = staged["len"].to(torch.float32)           # (S, C)
+        if alive is None:
+            lane = vmap(lambda st, sg, rk, w, hp: one_round(st, sg, rk, w, hp, None),
+                        in_dims=(0, DEDUP_STAGED_AXES, 0, 0, 0))
+        else:
+            lane = vmap(lambda st, sg, rk, w, hp, al: one_round(st, sg, rk, w, hp, al),
+                        in_dims=(0, DEDUP_STAGED_AXES, 0, 0, 0, 0))
+        out = []
+        for i, r in enumerate(rounds):
+            args = (state, staged, determinism.round_key(roots, r),
+                    base_w * masks[:, i], hyper) + (() if alive is None else (alive,))
+            state, metrics = lane(*args)
+            out.append(metrics)
+        return state, stacked(out, 1)
+
+    return lanes_fn if lanes else multi_fn
 
 
 def _stack_clients(tree, n: int):

@@ -16,10 +16,12 @@ import torch
 
 
 def _wmean(deltas: dict, weights) -> dict:
-    """deltas: (C, ...) leading client dim; weights: (C,)."""
+    """deltas: (C, ...) leading client dim; weights: (C,). A product and a
+    sum over the client dim, not a matrix-vector product, whose summation
+    order would change with a campaign's extra lane dim."""
     den = torch.clamp(weights.sum(), min=1e-12)
-    return {k: torch.tensordot(weights, d.to(torch.float32), dims=1) / den
-            for k, d in deltas.items()}
+    return {k: (weights.reshape(-1, *([1] * (d.dim() - 1))) * d.to(torch.float32)).sum(0)
+            / den for k, d in deltas.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,13 @@
 // Fused int8 dequantize + weighted client reduction for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/quant_aggregate.py::_agg_kernel.
-// Computes, for every n in [0, N):
+// Computes, for every lane s in [0, S) and every n in [0, N):
 //
-//     acc = 0;  for c in 0..C-1:  acc = acc + (float(q[c, n]) * scale[c, n / qblock]) * w[c]
-//     out[n] = acc
+//     acc = 0;  for c in 0..C-1:  acc = acc + (float(q[s, c, n]) * scale[s, c, n / qblock]) * w[s, c]
+//     out[s, n] = acc
 //
+// (S = 1 is the single (C, N) reduction; S > 1 reduces a campaign's lanes
+// in one launch.)
 // in exactly that order, with every multiply and add rounded on its own
 // (__fmul_rn / __fadd_rn: no FMA contraction), so the result equals the
 // plain PyTorch version (repro_torch/kernels/quant_aggregate.py::plain)
@@ -13,21 +15,26 @@
 //
 // Bound: memory traffic. The work is 3 flops per int8 byte read, far below
 // the card's ~20 flops/byte balance point for f32, so the least time is
-//     bytes = C*N (q) + 4*C*N/qblock (scales) + 4*C (w) + 4*N (out)
+//     bytes = S*(C*N (q) + 4*C*N/qblock (scales) + 4*C (w) + 4*N (out))
 // over the device memory rate. Reaching that rate takes bytes in flight:
 // by Little's law about 3.35 TB/s x ~0.7 us, 2-3 MB across the card. A
 // thread that walks the clients with one load each keeps only a few hundred
 // KB in flight, so the design hands the loads to the copy engine instead.
 //
-// Layout: the outputs are cut into tiles of `tile` (8 per consumer thread),
-// and each of `grid` CTAs takes tiles b, b + grid, ... in turn. A CTA
+// Layout: each lane's outputs are cut into tiles of `tile` (8 per consumer
+// thread); the tiles of all lanes form one index space (tile i is tile
+// i % n_tiles of lane i / n_tiles), and each of `grid` CTAs takes tiles
+// b, b + grid, ... in turn. A CTA
 // streams its tiles' q rows, client after client, through a ring of
 // `stages` stages in shared memory, each holding the tile slices of
 // `stage_clients` clients. One thread of an extra producer warp fills a
-// stage with a single TMA copy: a 2-d tensor map views q as (C rows, N / 4
-// int32 columns), so one box of stage_clients rows x tile bytes is one
-// instruction, completing on the stage's "full" mbarrier (expect_tx of the
-// box's bytes; rows past C and columns past N arrive as zeros). Each
+// stage with a single TMA copy: a 2-d tensor map views q as (S*C rows,
+// N / 4 int32 columns), a lane's rows starting at row s*C, so one box of
+// stage_clients rows x tile bytes is one instruction, completing on the
+// stage's "full" mbarrier (expect_tx of the box's bytes; rows past S*C and
+// columns past N arrive as zeros). A lane's last stage may read the next
+// lane's first rows: their scales and w are staged as zeros, so they add
+// (x * 0) * 0 = +-0, which leaves any sum as it was. Each
 // consumer warp arrives on the stage's "empty" mbarrier once it has read
 // the stage, which frees it for the producer; the producer runs on into the
 // next tile, so a CTA pays the first copy's latency once. Every consumer
@@ -42,8 +49,9 @@
 // waits on their latency (the FL path's 100 clients are one chunk per tile).
 //
 // A thread adds its clients in order; the rows past C of the last stage add
-// (0 * 0) * 0 = +0, which leaves any sum bitwise as it was (a sum that
-// starts at +0 is never -0). Each int8 value becomes a float by a byte
+// (x * 0) * 0 = +-0, which leaves any sum bitwise as it was (a sum that
+// starts at +0 is never -0). Each lane's outputs are thus bitwise those of
+// a launch over that lane alone. Each int8 value becomes a float by a byte
 // permute and an add (int8_to_f), exactly as a conversion would. No atomics
 // and no cross-CTA reduction: the output is deterministic. The ragged last
 // tile masks its stores. The geometry (tile, stage_clients, stages, chunk,
@@ -164,11 +172,12 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ w,
                                        float* __restrict__ out,
-                                       int C, int64_t N, int qblock, int tile,
+                                       int S, int C, int64_t N, int qblock, int tile,
                                        int stage_clients, int stages, int chunk) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int consumers = blockDim.x - 32;          // the last warp is the producer
-  const int64_t n_tiles = (N + tile - 1) / tile;
+  const int64_t n_tiles = (N + tile - 1) / tile;     // per lane
+  const int64_t all_tiles = n_tiles * S;              // over every lane
   const int n_stages = (C + stage_clients - 1) / stage_clients;
   const uint32_t ring = smem_u32(smem);
   const uint32_t full = ring + (uint32_t)(stages * stage_clients * tile);
@@ -195,12 +204,14 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t box = (uint32_t)(stage_clients * tile);
     int slot = 0, phase = 0;
     bool wrapped = false;
-    for (int64_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+    for (int64_t gi = blockIdx.x; gi < all_tiles; gi += gridDim.x) {
+      const int64_t ti = gi % n_tiles;
+      const int row0 = (int)(gi / n_tiles) * C;      // the lane's first row
       for (int k = 0; k < n_stages; ++k) {
         if (wrapped) mbar_wait(empty + 8 * slot, phase ^ 1);
         mbar_expect_tx(full + 8 * slot, box);
         tma_load_2d(ring + (uint32_t)slot * box, &tq, full + 8 * slot, (int)(ti * tile / 4),
-                    k * stage_clients);
+                    row0 + k * stage_clients);
         if (++slot == stages) slot = 0, phase ^= 1, wrapped = true;
       }
     }
@@ -217,10 +228,13 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t hi;
   asm("mov.b32 %0, 0x4B00;\n" : "=r"(hi));   // a register, not an immediate
 
-  // Chunk `ci` of tile `ti` (clients [ci * chunk, +chunk)) into buffer
-  // `buf`: this thread's share of the scales and w by cp.async, in one
-  // commit group, and zeros past C.
-  auto fetch = [&](int64_t ti, int ci, int buf) {
+  // Chunk `ci` of global tile `gi` (clients [ci * chunk, +chunk) of its
+  // lane) into buffer `buf`: this thread's share of the scales and w by
+  // cp.async, in one commit group, and zeros past C.
+  auto fetch = [&](int64_t gi, int ci, int buf) {
+    const int64_t ti = gi % n_tiles, lane = gi / n_tiles;
+    const float* const l_scale = scale + lane * C * nblocks;
+    const float* const l_w = w + lane * C;
     const TileBlocks tb = tile_blocks(ti * tile, tile, N, qblock);
     float* const s_buf = chunks + buf * chunk_floats;
     float* const w_buf = s_buf + (size_t)chunk * bpt;
@@ -231,16 +245,18 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
       if (c0 + j >= C)
         *dst = 0.0f;
       else if (bb < tb.nblk)
-        cp_async4(smem_u32(dst), scale + (int64_t)(c0 + j) * nblocks + tb.blk0 + bb);
+        cp_async4(smem_u32(dst), l_scale + (int64_t)(c0 + j) * nblocks + tb.blk0 + bb);
       else
-        cp_async4(smem_u32(dst), w + c0 + j);
+        cp_async4(smem_u32(dst), l_w + c0 + j);
     }
     cp_async_commit();
   };
 
   int slot = 0, phase = 0, buf = 0;
-  if (blockIdx.x < n_tiles && n_stages > 0) fetch(blockIdx.x, 0, 0);
-  for (int64_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+  if (blockIdx.x < all_tiles && n_stages > 0) fetch(blockIdx.x, 0, 0);
+  for (int64_t gi = blockIdx.x; gi < all_tiles; gi += gridDim.x) {
+    const int64_t ti = gi % n_tiles;
+    float* const l_out = out + (gi / n_tiles) * N;
     const int64_t tile0 = ti * tile;
     const int64_t n0 = tile0 + (int64_t)kOut * t;
     const int b = (int)((n0 < N ? n0 : N - 1) / qblock - tile0 / qblock);   // its block
@@ -257,9 +273,9 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
         cp_async_wait_all();
         consumers_sync(consumers);
         if (ci + 1 < tile_chunks)
-          fetch(ti, ci + 1, buf ^ 1);
-        else if (ti + gridDim.x < n_tiles)
-          fetch(ti + gridDim.x, 0, buf ^ 1);
+          fetch(gi, ci + 1, buf ^ 1);
+        else if (gi + gridDim.x < all_tiles)
+          fetch(gi + gridDim.x, 0, buf ^ 1);
         s_ch = chunks + buf * chunk_floats;
         w_ch = s_ch + (size_t)chunk * bpt;
         buf ^= 1;
@@ -279,7 +295,7 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
       if (++kc == chunk_stages) kc = 0;
     }
     if (n0 < N) {
-      float4* o = reinterpret_cast<float4*>(out + n0);
+      float4* o = reinterpret_cast<float4*>(l_out + n0);
       o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
       o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
     }
@@ -288,34 +304,37 @@ __global__ void quant_aggregate_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Pointers are device pointers; the
-// caller has checked dtypes, contiguity, 16-byte alignment of q and out,
-// N % qblock == 0 and qblock % 16 == 0. The geometry comes from
+// Plain C entry point (bound with ctypes). Pointers are device pointers to
+// S lanes of (C, N) q, (C, N / qblock) scales, (C,) w and (N,) out, each
+// lane's right after the last; the caller has checked dtypes, contiguity,
+// 16-byte alignment of q and out, N % qblock == 0 and qblock % 16 == 0. The geometry comes from
 // kernels/quant_aggregate.py::launch_plan: tiles of `tile` outputs (8 per
 // consumer thread, plus one producer warp), `stages` ring stages of
 // `stage_clients` clients, scales and w staged `chunk` clients at a time (a
 // multiple of stage_clients), `grid` CTAs that take the tiles in turn
-// (CTA b: tiles b, b + grid, ...). A geometry the kernel does not take returns
+// (CTA b: tiles b, b + grid, ... of the S * ceil(N / tile) tiles of every
+// lane). A geometry the kernel does not take returns
 // cudaErrorInvalidValue, a tensor map the driver refuses its error;
 // otherwise returns cudaGetLastError() after the launch.
 extern "C" int quant_aggregate_launch(const void* q, const void* scale, const void* w,
-                                      void* out, int C, int64_t N, int qblock, int tile,
+                                      void* out, int S, int C, int64_t N, int qblock, int tile,
                                       int stage_clients, int stages, int chunk, int grid,
                                       void* stream) {
   if (tile < 256 || tile % 256 || tile > 1024 || stage_clients < 1 ||
       stage_clients > kMaxStageClients || stages < 1 || stages > kMaxStages || C < 0 ||
-      N < 1 || qblock < 16 || qblock % 16 || N % qblock || N % 16 || chunk < stage_clients ||
-      chunk % stage_clients || grid < 1 || grid > (N + tile - 1) / tile)
+      S < 1 || (int64_t)S * C > 0x7fffffff || N < 1 || qblock < 16 || qblock % 16 ||
+      N % qblock || N % 16 || chunk < stage_clients || chunk % stage_clients || grid < 1 ||
+      grid > (int64_t)S * ((N + tile - 1) / tile))
     return (int)cudaErrorInvalidValue;
   const int threads = tile / kOut + 32;
   const size_t smem = (size_t)stages * stage_clients * tile + 16 * (size_t)stages +
                       2 * 4 * (size_t)chunk * (tile / qblock + 3);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  // q as (C rows, N / 4 int32 columns), read in boxes of tile bytes x
+  // q as (S*C rows, N / 4 int32 columns), read in boxes of tile bytes x
   // stage_clients rows; with no clients the kernel reads no box
   CUtensorMap tq{};
   if (C > 0) {
-    const cuuint64_t dims[2] = {(cuuint64_t)(N / 4), (cuuint64_t)C};
+    const cuuint64_t dims[2] = {(cuuint64_t)(N / 4), (cuuint64_t)S * C};
     const cuuint64_t strides[1] = {(cuuint64_t)N};
     const cuuint32_t box[2] = {(cuuint32_t)(tile / 4), (cuuint32_t)stage_clients};
     const cuuint32_t elem[2] = {1, 1};
@@ -340,6 +359,6 @@ extern "C" int quant_aggregate_launch(const void* q, const void* scale, const vo
   }
   quant_aggregate_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       tq, static_cast<const float*>(scale), static_cast<const float*>(w),
-      static_cast<float*>(out), C, N, qblock, tile, stage_clients, stages, chunk);
+      static_cast<float*>(out), S, C, N, qblock, tile, stage_clients, stages, chunk);
   return (int)cudaGetLastError();
 }

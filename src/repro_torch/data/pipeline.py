@@ -1,5 +1,6 @@
 """Deterministic synthetic data + device-resident staging (port of the
-resident subset of ``repro/data/pipeline.py``).
+resident subset of ``repro/data/pipeline.py``, campaigns' deduplicated
+staging included).
 
 ``SyntheticVision`` is the same numpy ``RandomState`` generator as the JAX
 package's, so root data are bitwise equal. Staging puts the whole root set
@@ -49,6 +50,52 @@ def stage_partitions(x, y, parts, device) -> dict:
             "len": torch.as_tensor(lens, device=device)}
 
 
+# a campaign's staged planes: the concatenated roots are shared by every
+# lane, the partition index and sizes carry the lane dim (the vmap dims of
+# ``core/rounds.DEDUP_STAGED_DIMS``)
+DEDUP_STAGED_AXES = {"x": None, "y": None, "idx": 0, "len": 0}
+
+
+def stage_partitions_dedup(trajectories, keys, device):
+    """Stage S trajectories' ``(x, y, parts)`` with the root datasets
+    deduplicated: lanes with equal ``keys`` (the campaign's (seed,
+    partition, alpha)) share ONE device copy. The unique roots are
+    concatenated along the item axis and each lane's padded index matrix
+    is offset into the concatenation, so a lane's gather reads the bytes
+    its single run reads. Returns ``(staged, lane_ds)``:
+
+      x ((sum_u N_u), ...) f32   y ((sum_u N_u),) int64   shared roots
+      idx (S, C, Lmax) int64     len (S, C) int64         per lane
+
+    and ``lane_ds`` (S,) int, each lane's unique root."""
+    keys = list(keys)
+    if len(keys) != len(trajectories):
+        raise ValueError(f"{len(keys)} dedup keys for {len(trajectories)} trajectories")
+    if len({len(parts) for _, _, parts in trajectories}) != 1:
+        raise ValueError("trajectories disagree on n_clients")
+    uniq, roots = {}, []
+    for k, t in zip(keys, trajectories):
+        if k not in uniq:
+            uniq[k] = len(roots)
+            roots.append(t)
+    lane_ds = np.asarray([uniq[k] for k in keys], np.int64)
+    lmax = max(max((max((len(p) for p in parts), default=1), 1)
+                   for _, _, parts in roots))
+    offsets = np.concatenate([[0], np.cumsum([np.asarray(x).shape[0]
+                                              for x, _, _ in roots])])
+    pads = [_pad_idx(parts, lmax).astype(np.int64) + int(offsets[u])
+            for u, (_, _, parts) in enumerate(roots)]
+    lens = [np.asarray([len(p) for p in parts], np.int64) for _, _, parts in roots]
+    staged = {
+        "x": torch.as_tensor(np.concatenate([np.asarray(x, np.float32)
+                                             for x, _, _ in roots]), device=device),
+        "y": torch.as_tensor(np.concatenate([np.asarray(y, np.int64)
+                                             for _, y, _ in roots]), device=device),
+        "idx": torch.as_tensor(np.stack([pads[u] for u in lane_ds]), device=device),
+        "len": torch.as_tensor(np.stack([lens[u] for u in lane_ds]), device=device)}
+    return staged, lane_ds
+
+
 def _positions(keys, lens, n_steps: int, batch_size: int):
     """(..., n_steps, B) int64 positions in ``[0, lens)``, one counter-based
     draw per ``(batch key, step, slot)``; ``keys`` and ``lens`` broadcast."""
@@ -71,6 +118,8 @@ def gather_one_client_batch(staged, round_key: int, client: int,
     """
     key = determinism.batch_key(round_key, client)
     pos = _positions(key, staged["len"][client], n_steps, batch_size)
+    # (``round_key`` and ``client`` may be 0-d int64 tensors: an async
+    # campaign lane's, under the vmap over lanes)
     sel = staged["idx"][client][pos]
     return {"x": staged["x"][sel], "y": staged["y"][sel]}
 

@@ -30,6 +30,12 @@ _LOCK = threading.Lock()
 _LIBS: dict = {}
 
 
+def loaded() -> int:
+    """Kernel libraries this process has built or loaded: the port's only
+    first-use compilation (the flight recorder's ``compile_delta``)."""
+    return len(_LIBS)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):

@@ -6,6 +6,10 @@ CPU tensors take its plain version (``kernels/{quant_aggregate,rmsnorm,
 flash_attention,decode_attention}``). There is no environment switch. ``calls`` counts real calls (the port has no trace),
 so a run of R int8 rounds counts R.
 
+``quant_aggregate`` goes through the custom op ``repro_torch::quant_aggregate``,
+whose vmap rule turns a campaign's vmapped call (``torch.func.vmap`` over
+the lanes) into ONE ``(S, C, N)`` launch of the kernel.
+
 Counters are scoped: ``quant_agg_scope()`` pushes a fresh frame, increments
 land on every active frame, and ``quant_agg_stats()`` snapshots the innermost
 one, so two runs in one process never bleed counts into each other.
@@ -28,7 +32,9 @@ _quant_agg_fused = _qa.plain
 
 
 def _quant_agg_frame() -> dict:
-    return {"calls": 0, "last_impl": None}
+    # batched_fallbacks: the JAX package's count of vmapped calls that left
+    # the kernel; the port's vmap rule launches it, so this stays 0
+    return {"calls": 0, "batched_fallbacks": 0, "last_impl": None}
 
 
 _QUANT_AGG_FRAMES = [_quant_agg_frame()]
@@ -73,14 +79,44 @@ def _quant_agg_dequant_first(qdeltas, scales, weights):
     return out.reshape(N)
 
 
+@torch.library.custom_op("repro_torch::quant_aggregate", mutates_args=())
+def _quant_agg_op(qdeltas: torch.Tensor, scales: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    return _qa.quant_aggregate(qdeltas, scales, weights)
+
+
+@_quant_agg_op.register_fake
+def _(qdeltas, scales, weights):
+    return qdeltas.new_empty(qdeltas.shape[:-2] + qdeltas.shape[-1:],
+                             dtype=torch.float32)
+
+
+def _quant_agg_vmap(info, in_dims, qdeltas, scales, weights):
+    """vmap rule: the mapped dim leads, an unmapped input is broadcast to
+    it, and lanes already there fold in, so the whole batch is one (S, C, N)
+    launch (lane s bitwise its (C, N) launch)."""
+    def lead(t, d):
+        t = t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape)
+        return t.contiguous()
+    q, s, w = (lead(t, d) for t, d in zip((qdeltas, scales, weights), in_dims))
+    outer = q.shape[:-2]
+    out = _quant_agg_op(q.reshape(-1, *q.shape[-2:]), s.reshape(-1, *s.shape[-2:]),
+                        w.reshape(-1, w.shape[-1]))
+    return out.reshape(*outer, out.shape[-1]), 0
+
+
+_quant_agg_op.register_vmap(_quant_agg_vmap)
+
+
 def quant_aggregate(qdeltas, scales, weights):
     """-> (N,) f32: ``sum_c weights[c] * dequant(qdeltas[c])``: the kernel
-    for CUDA tensors, its plain version for CPU tensors."""
+    for CUDA tensors, its plain version for CPU tensors; under a vmap over
+    lanes, one launch for all of them."""
     impl = "cuda" if qdeltas.is_cuda else "plain"
     for frame in _QUANT_AGG_FRAMES:
         frame["calls"] += 1
         frame["last_impl"] = impl
-    return _qa.quant_aggregate(qdeltas, scales, weights)
+    return _quant_agg_op(qdeltas, scales, weights)
 
 
 def quantize_blockwise(x, block: int = 256):

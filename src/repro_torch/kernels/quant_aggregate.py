@@ -5,7 +5,9 @@
 ``csrc/quant_aggregate.cu`` for CUDA tensors and takes ``plain``, the same
 arithmetic in PyTorch, for CPU tensors. Both compute, per output n and in
 client order, ``acc = acc + (float(q[c, n]) * scale[c, n // qblock]) * w[c]``
-from ``acc = 0``, so they agree bit for bit.
+from ``acc = 0``, so they agree bit for bit. A campaign's lanes come as a
+leading dim S, ``(S, C, N)`` in one launch, each lane's result bitwise the
+``(C, N)`` launch on that lane.
 
 The kernel is bound by memory traffic: it reads each int8 byte once and
 writes only the (N,) f32 result (see the note in the CUDA source). Each CTA
@@ -55,20 +57,26 @@ class Plan(NamedTuple):
 
 
 def launch_plan(C: int, N: int, qblock: int, sm_count: int = 132,
-                tile: int | None = None) -> Plan:
-    """The kernel's geometry for C clients of N int8 values in scale blocks
-    of ``qblock`` on a card of ``sm_count`` SMs. The tile (a multiple of 256
-    outputs up to 1024: a TMA box row is at most 256 int32) is the largest
-    that puts the fewest outputs on the busiest SM, whose consumers' int8
-    arithmetic sets the pace; ``tile`` forces one, to time the others.
-    Raises for more than ``MAX_CLIENTS`` clients."""
-    if not 0 <= C <= MAX_CLIENTS:
-        raise ValueError(f"quant_aggregate takes 0..{MAX_CLIENTS} clients, got {C}")
+                tile: int | None = None, S: int = 1) -> Plan:
+    """The kernel's geometry for S lanes of C clients of N int8 values in
+    scale blocks of ``qblock`` on a card of ``sm_count`` SMs. The tile (a
+    multiple of 256 outputs up to 1024: a TMA box row is at most 256 int32)
+    is the largest that puts within 10 % of the fewest outputs on the
+    busiest SM, whose consumers' int8 arithmetic sets the pace, over the
+    S * ceil(N / tile) tiles of every lane; ``tile`` forces one, to time
+    the others. Raises
+    for more than ``MAX_CLIENTS`` clients in all."""
+    if S < 1 or not 0 <= S * C <= MAX_CLIENTS:
+        raise ValueError(f"quant_aggregate takes 0..{MAX_CLIENTS} clients over "
+                         f"S >= 1 lanes, got S={S}, C={C}")
     if N < 1 or qblock < VEC or qblock % VEC or N % qblock:
         raise ValueError(f"quant_aggregate wants N a whole number of scale blocks, "
                          f"qblock a multiple of {VEC}; got N={N}, qblock={qblock}")
     if tile is None:
-        tile = min(TILES, key=lambda t: (math.ceil(math.ceil(N / t) / sm_count) * t, -t))
+        # the largest tile within 10 % of the fewest outputs on the busiest
+        # SM: a small tile leaves each CTA few consumer threads
+        busiest = {t: math.ceil(S * math.ceil(N / t) / sm_count) * t for t in TILES}
+        tile = max(t for t in TILES if busiest[t] <= 1.1 * min(busiest.values()))
     if tile not in TILES:
         raise ValueError(f"quant_aggregate tiles are {TILES} outputs, got {tile}")
     stage_clients = max(1, min(STAGE_CLIENTS, C))
@@ -80,13 +88,17 @@ def launch_plan(C: int, N: int, qblock: int, sm_count: int = 132,
                 max(1, SCALE_BYTES // per_client // stage_clients)) * stage_clients
     chunk = max(chunk, stage_clients)
     smem = stages * (stage_clients * tile + 16) + 2 * chunk * per_client
-    grid = min(math.ceil(N / tile), CTAS_PER_SM * sm_count)
+    grid = min(S * math.ceil(N / tile), CTAS_PER_SM * sm_count)
     return Plan(tile, stage_clients, stages, chunk, tile // OUT_PER_THREAD + 32, grid, smem)
 
 
 def plain(qdeltas, scales, weights):
     """The kernel's plain PyTorch version: client-ordered accumulation of
-    ``(q * scale) * w`` over (nblocks, qblock) views; no (C, N) f32 buffer."""
+    ``(q * scale) * w`` over (nblocks, qblock) views; no (C, N) f32 buffer.
+    ``(S, C, N)`` lanes run lane by lane into ``(S, N)``."""
+    if qdeltas.dim() == 3:
+        return torch.stack([plain(q, s, w) for q, s, w in
+                            zip(qdeltas, scales, weights)])
     C, N = qdeltas.shape
     nblocks = scales.shape[-1]
     out = torch.zeros((nblocks, N // nblocks), dtype=torch.float32,
@@ -99,34 +111,42 @@ def plain(qdeltas, scales, weights):
 
 
 def _check(qdeltas, scales, weights):
-    if qdeltas.dim() != 2 or scales.dim() != 2 or weights.dim() != 1:
+    """-> (S, C, N, qblock), S = 1 for ``(C, N)`` inputs; raises on shapes
+    or dtypes the kernel does not take."""
+    lanes = qdeltas.dim() == 3
+    if qdeltas.dim() not in (2, 3) or scales.dim() != qdeltas.dim() \
+            or weights.dim() != qdeltas.dim() - 1 \
+            or (lanes and not scales.shape[0] == weights.shape[0] == qdeltas.shape[0]):
         raise ValueError(
-            f"quant_aggregate wants q (C, N), scale (C, N/qblock), w (C,); got "
-            f"{tuple(qdeltas.shape)}, {tuple(scales.shape)}, {tuple(weights.shape)}")
+            f"quant_aggregate wants q ([S,] C, N), scale ([S,] C, N/qblock), "
+            f"w ([S,] C); got {tuple(qdeltas.shape)}, {tuple(scales.shape)}, "
+            f"{tuple(weights.shape)}")
     if (qdeltas.dtype, scales.dtype, weights.dtype) != \
             (torch.int8, torch.float32, torch.float32):
         raise TypeError(f"quant_aggregate wants int8/f32/f32, got "
                         f"{qdeltas.dtype}/{scales.dtype}/{weights.dtype}")
-    C, N = qdeltas.shape
-    if scales.shape[0] != C or weights.shape[0] != C or scales.shape[1] == 0:
+    S = qdeltas.shape[0] if lanes else 1
+    C, N = qdeltas.shape[-2:]
+    if scales.shape[-2] != C or weights.shape[-1] != C or scales.shape[-1] == 0:
         raise ValueError(f"client dims disagree: q {tuple(qdeltas.shape)}, "
                          f"scale {tuple(scales.shape)}, w {tuple(weights.shape)}")
-    if N % scales.shape[1]:
+    if N % scales.shape[-1]:
         raise ValueError(f"N={N} is not a whole number of scale blocks "
-                         f"({scales.shape[1]})")
-    qblock = N // scales.shape[1]
+                         f"({scales.shape[-1]})")
+    qblock = N // scales.shape[-1]
     if qblock % VEC:
         raise ValueError(f"qblock={qblock} must be a multiple of {VEC}")
-    return C, N, qblock
+    return S, C, N, qblock
 
 
 def quant_aggregate(qdeltas, scales, weights):
-    """-> (N,) f32: ``sum_c weights[c] * dequant(qdeltas[c])``.
+    """-> (N,) f32: ``sum_c weights[c] * dequant(qdeltas[c])``; with a lane
+    dim, ``(S, C, N)`` -> ``(S, N)``, every lane in one launch.
 
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
     stream (no synchronisation) or raise. Each launch adds one to
     ``quant_aggregate.launches``."""
-    C, N, qblock = _check(qdeltas, scales, weights)
+    S, C, N, qblock = _check(qdeltas, scales, weights)
     devices = {t.device for t in (qdeltas, scales, weights)}
     if len(devices) != 1:
         raise ValueError(f"quant_aggregate inputs on several devices: {devices}")
@@ -141,7 +161,7 @@ def quant_aggregate(qdeltas, scales, weights):
     if qdeltas.data_ptr() % 16:
         raise ValueError("quant_aggregate wants q aligned to 16 bytes")
     plan = launch_plan(C, N, qblock, _sm_count(dev.index if dev.index is not None
-                                              else torch.cuda.current_device()))
+                                              else torch.cuda.current_device()), S=S)
     out = _launch(qdeltas, scales, weights, qblock, plan)
     quant_aggregate.launches += 1
     return out
@@ -157,16 +177,18 @@ def _sm_count(index: int) -> int:
 
 def _launch(qdeltas, scales, weights, qblock: int, plan: Plan):
     """One launch of the kernel with ``plan``'s geometry into a new (N,)
-    output; raises if the card refuses it. Counts nothing:
-    ``quant_aggregate`` counts the main path's launches."""
-    C, N = qdeltas.shape
+    (or, for (S, C, N) lanes, (S, N)) output; raises if the card refuses
+    it. Counts nothing: ``quant_aggregate`` counts the main path's
+    launches."""
+    C, N = qdeltas.shape[-2:]
+    S = qdeltas.shape[0] if qdeltas.dim() == 3 else 1
     dev = qdeltas.device
-    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    out = torch.empty(qdeltas.shape[:-2] + (N,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().quant_aggregate_launch(
             qdeltas.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            C, N, qblock, *plan.launch_args(), stream)
+            S, C, N, qblock, *plan.launch_args(), stream)
     if rc != 0:
         raise RuntimeError(f"quant_aggregate kernel launch failed ({plan}): CUDA error {rc}")
     return out
@@ -176,7 +198,7 @@ def _lib():
     from repro_torch.kernels import build
     lib = build.load("quant_aggregate")
     fn = lib.quant_aggregate_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64] + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int64] + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

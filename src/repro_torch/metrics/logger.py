@@ -24,7 +24,8 @@ def _rss_mb(ru_maxrss: int) -> float:
 
 def host_usage() -> dict:
     """Host resource snapshot (CPU seconds + peak RSS, platform-normalized)
-    for the per-round logger rows."""
+    — shared by the per-round logger rows and the flight recorder's
+    per-launch host counters so the two can never disagree on units."""
     usage = resource.getrusage(resource.RUSAGE_SELF)
     return {"cpu_s": round(usage.ru_utime + usage.ru_stime, 3),
             "max_rss_mb": round(_rss_mb(usage.ru_maxrss), 1)}

@@ -23,8 +23,12 @@ MNIST_SHAPE = (28, 28, 1)
 
 
 def _conv(h, w, b):
-    """NCHW activations, HWIO kernel: a 3x3 'SAME' cross-correlation."""
-    return F.conv2d(h, w.permute(3, 2, 0, 1), b, padding=1)
+    """NCHW activations, HWIO kernel: a 3x3 'SAME' cross-correlation. The
+    bias is added after the convolution, not fused into it: under a
+    campaign's vmap over lanes (per-lane biases) the convolution runs
+    without its bias, so the single run must too for the lanes to be
+    bitwise its trajectory."""
+    return F.conv2d(h, w.permute(3, 2, 0, 1), padding=1) + b[:, None, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +75,9 @@ class SmallModel:
     def logits(self, params: dict, x):
         """x: (B, H, W, C) NHWC -> (B, n_classes)."""
         if self.kind == "cnn":
-            h = x.permute(0, 3, 1, 2)
+            # a contiguous NCHW copy: the convs then take the same path at
+            # any batch, whatever strides a vmap gives the input
+            h = x.permute(0, 3, 1, 2).contiguous()
             for i, name in enumerate(["c1", "c2", "c3"]):
                 h = F.relu(_conv(h, params[name], params[f"b{i + 1}"]))
                 h = F.max_pool2d(h, 2)

@@ -1,0 +1,587 @@
+"""Campaign executor (port of ``repro/runtime/campaign.py``): S sweep
+trajectories advanced together, one vmapped pass of device work per round.
+
+``core/sweeps.py`` expands the job's ``sweep:`` section into S per-lane
+configs, split into a data plane (unique root datasets staged once and
+indexed per lane, ``data/pipeline.stage_partitions_dedup``), a schedule
+plane (async schedules deduplicated and indexed per lane) and a scalar
+plane (``(S,)`` device tensors bound per lane by ``rounds.bind_hyper``).
+``CampaignExecutor`` runs the single run's round (``rounds.build_multi_round
+(..., lanes=True)``) or event loop (``async_rounds.build_async_lanes``)
+under ``torch.func.vmap`` over a leading lane dim of the state: every
+per-lane value — root and round keys, scalars, the alive mask, the schedule
+index — is a device tensor, and an int8 round reduces all lanes' sends in
+ONE ``(S, C, N)`` launch of B1. The chunk loop, checkpoint, ledger, eval
+and telemetry seams are the single-run ``Executor``'s.
+
+One executor serves one *program signature* (``core/plan.py``);
+heterogeneous sweeps go through the planner
+(``runtime/scheduler.PlanExecutor``), which builds one executor per bucket
+with the ``lanes`` override. The lane scheduler's ``alive`` mask reaches
+the round as a runtime value: a dropped lane's state freezes
+(``rounds.freeze_unless``), its rows stop landing in the results table and
+its ledger blocks stop.
+
+Not here yet: ragged lanes (``max_cohort > 0``) wait for the streaming
+client plane (ROADMAP A13), a lane mesh (``lane_devices > 0``) for the
+multi-device port (A16); both raise a ``ValueError`` naming the item.
+
+Determinism contract (``tests/test_torch_sweeps.py``,
+``tests/test_torch_plan.py``): lane ``s`` is bitwise an independent single
+run of the s-th config — keys are splitmix64 of the same coordinates, the
+offset gather reads the same bytes, the scalars are equal-valued tensors,
+B1's lane s is bitwise its ``(C, N)`` launch, and the alive select is the
+identity for live lanes. Chunked == unchunked holds under the lane dim, so
+campaigns checkpoint and resume like single runs.
+
+Results land in a tidy table keyed by sweep coordinates (one row per
+trajectory per round): ``campaign.csv`` always (appended per chunk),
+``campaign.parquet`` where pandas and pyarrow import.
+"""
+from __future__ import annotations
+
+import csv
+import dataclasses
+import hashlib
+import pathlib
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import ckpt as ckpt_mod
+from repro_torch.core import determinism, sweeps
+from repro_torch.core.blockchain import param_digest
+from repro_torch.core.jobs import make_dataset, make_fault, validate_cohort
+from repro_torch.core.plan import program_signature
+from repro_torch.core.probes import PROBE_NAMES, buffer_occupancy, staleness_hist
+from repro_torch.core.rounds import build_multi_round, init_state, tree_map
+from repro_torch.data.pipeline import stage_partitions_dedup
+from repro_torch.runtime.executor import Executor, tree_nbytes
+from repro_torch.telemetry import comms as comms_mod
+
+_INT_COLS = ("seed", "traj", "round", "bucket", "lane", "async_buffer")
+
+
+def _parse_cell(k: str, v: str):
+    if k in _INT_COLS:
+        return int(float(v))
+    try:
+        return float(v)
+    except ValueError:
+        return v                        # categorical coords stay strings
+
+
+def read_results(csv_path) -> list:
+    """Read a campaign.csv back into tidy rows (numbers where numeric,
+    categorical coordinates as strings; blank cells dropped)."""
+    with open(csv_path, newline="") as f:
+        return [{k: _parse_cell(k, v) for k, v in row.items() if v != ""}
+                for row in csv.DictReader(f)]
+
+
+def table_columns(rows, lead) -> list:
+    """The tidy table's column order: lead columns, then the rest sorted."""
+    return list(lead) + sorted({k for r in rows for k in r} - set(lead))
+
+
+def write_parquet(rows, lead, out_dir) -> Optional[pathlib.Path]:
+    """``campaign.parquet`` next to the CSV where pandas and pyarrow import
+    (the CSV is the portable artifact); returns its path, or None."""
+    try:
+        import pandas as pd
+        import pyarrow  # noqa: F401
+    except ImportError:
+        return None
+    path = pathlib.Path(out_dir) / "campaign.parquet"
+    pd.DataFrame(rows, columns=table_columns(rows, lead)).to_parquet(path)
+    return path
+
+
+class AppendTable:
+    """Append-only tidy CSV writer: a chunk appends only its new rows; a
+    full rewrite happens only when the column set changes (the first flush,
+    a resume re-adopting a prior table). ``appends``/``rewrites`` count
+    both."""
+
+    def __init__(self, path):
+        self.path = pathlib.Path(path)
+        self.appends = 0
+        self.rewrites = 0
+        self._fieldnames = None
+        self._written = 0
+
+    def reset(self):
+        """Forget on-disk state (the next flush rewrites): the resume path."""
+        self._fieldnames = None
+        self._written = 0
+
+    def flush(self, rows, lead):
+        """Bring the CSV up to date with ``rows`` (lead columns first)."""
+        new = rows[self._written:]
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        if self._fieldnames is not None and self.path.exists() and self._written:
+            if not {k for r in new for k in r} - set(self._fieldnames):
+                if new:
+                    with open(self.path, "a", newline="") as f:
+                        csv.DictWriter(f, fieldnames=self._fieldnames).writerows(new)
+                    self.appends += 1
+                self._written = len(rows)
+                return self.path
+        keys = table_columns(rows, lead)
+        with open(self.path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=keys)
+            w.writeheader()
+            w.writerows(rows)
+        self.rewrites += 1
+        self._fieldnames = keys
+        self._written = len(rows)
+        return self.path
+
+
+def lane_of(tree, s: int):
+    """Lane ``s`` of a tree with a leading lane dim."""
+    return tree_map(lambda t: t[s], tree)
+
+
+def stack_lanes(trees):
+    """The lanes' trees stacked on a new leading dim."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+@dataclasses.dataclass
+class CampaignExecutor(Executor):
+    """The Executor over the sweep axis: the same round, vmapped over lanes.
+
+    ``job`` must carry a ``sweep:`` section, or the planner passes
+    ``lanes=(coords, fls)`` (one signature bucket). ``eval_fn`` keeps the
+    single-run signature ``params -> dict`` and is applied per lane.
+    ``out_dir`` (if set) receives ``campaign.csv`` at every chunk boundary.
+    ``lane_scheduling`` threads the alive mask into the rounds (the planner
+    sets it when a lane scheduler is attached)."""
+    out_dir: Optional[str] = None
+    lanes: Optional[tuple] = None     # (coords, fls) bucket override
+    parquet: bool = True              # planner buckets defer to the merge
+    lane_scheduling: bool = False
+    lane_devices: int = 0
+
+    def __post_init__(self):
+        if self.job.sweep is None:
+            raise ValueError("CampaignExecutor needs a job with a sweep: "
+                             "section (see core/sweeps.py for the axes)")
+        if self.lane_devices:
+            raise ValueError("lane_devices > 0 shards the lanes over a device mesh, "
+                             "which the port does not run yet (ROADMAP A16); "
+                             "use lane_devices=0")
+        self.spec = self.job.sweep
+        if self.lanes is not None:
+            self.coords, self.fls = list(self.lanes[0]), list(self.lanes[1])
+        else:
+            self.coords = self.spec.coords()
+            self.fls = sweeps.expand(self.job.fl, self.spec)
+        sigs = {program_signature(f, self.job.arch) for f in self.fls}
+        sigs.add(program_signature(self.job.fl, self.job.arch))
+        if len(sigs) > 1:
+            raise ValueError(
+                "CampaignExecutor lanes span multiple program signatures "
+                f"({len(sigs)}); heterogeneous sweeps (categorical axes "
+                f"{self.spec.categorical_names}) must go through the "
+                "planner: runtime.scheduler.PlanExecutor")
+        for fl_s in self.fls:
+            validate_cohort(fl_s)
+            if fl_s.max_cohort > 0 or fl_s.streaming:
+                raise ValueError("a campaign over ragged cohorts needs the "
+                                 "streaming client plane (ROADMAP A13)")
+        self.S = len(self.fls)
+        self.alive = np.ones(self.S, np.float32)
+        self._alive_dev = None         # the mask on the device, per drop
+        self.results = []              # tidy rows: coords + traj/round/metrics
+        self._tail_rows = []           # (lane, row) of each lane's last round
+        self._table = (AppendTable(pathlib.Path(self.out_dir) / "campaign.csv")
+                       if self.out_dir else None)
+        super().__post_init__()
+
+    def _build_sync(self, spec):
+        return build_multi_round(
+            self.job.model, self.job.strategy, self.job.fl,
+            placement=self.placement, fault=self.job.fault, device=self.device,
+            probes=spec.enabled, on_divergence=spec.on_divergence, lanes=True)
+
+    def _build_async(self, spec):
+        from repro_torch.core.async_rounds import build_async_lanes
+        return build_async_lanes(self.job.model, self.job.strategy, self.job.fl,
+                                 probes=spec.enabled,
+                                 on_divergence=spec.on_divergence)
+
+    # -- the lane scheduler's interface -----------------------------------
+    def drop_lane(self, s: int):
+        """Freeze lane ``s`` from the next launch on: the alive mask is a
+        runtime input, so its state holds and it stops producing rows and
+        ledger blocks."""
+        if not self.lane_scheduling:
+            raise RuntimeError("drop_lane needs lane_scheduling=True at "
+                               "construction (the alive mask must reach the "
+                               "round from the first launch)")
+        self.alive[s] = 0.0
+        self._alive_dev = None
+
+    def alive_lanes(self):
+        return [s for s in range(self.S) if self.alive[s] > 0]
+
+    def _launch_hyper(self):
+        """The scalar plane, plus the (S,) alive mask under a scheduler."""
+        if not self.lane_scheduling:
+            return self.hyper
+        if self._alive_dev is None:
+            self._alive_dev = torch.as_tensor(self.alive, device=self.device)
+        return dict(self.hyper, alive=self._alive_dev)
+
+    # -- scaffold hooks ------------------------------------------------------
+    def _stage_data(self):
+        """Data plane: one dataset per distinct (seed, partition, alpha),
+        staged once and shared; the scalar plane and the per-lane root keys
+        and fault models (the host cohort draws)."""
+        cfg = getattr(self.job.model, "cfg", None)
+        cache, trajs, keys = {}, [], []
+        for fl_s in self.fls:
+            k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha)
+            if k not in cache:
+                cache[k] = make_dataset(self.job.raw, fl_s, cfg).distribute_into_chunks(
+                    fl_s.partition, fl_s.n_clients, fl_s.dirichlet_alpha)
+            trajs.append(cache[k])
+            keys.append(k)
+        self.data = trajs                # per-lane host views (eval_fn)
+        self.staged, self.lane_ds = stage_partitions_dedup(trajs, keys, self.device)
+        self.roots = sweeps.root_keys(self.fls, self.device)
+        self.hyper = sweeps.scalar_plane(self.fls, self.device)
+        self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self.fls]
+
+    def _init_state(self):
+        """Each lane's initial state is its single run's, stacked."""
+        fl = self.job.fl
+        self.decentralized = (self.mode == "sync" and self.placement == "spatial"
+                              and fl.topology == "decentralized")
+        self.state = stack_lanes([
+            init_state(self.job.model, self.job.strategy, fl,
+                       determinism.root_key(fl_s.seed), n_clients_local=fl.n_clients,
+                       device=self.device, decentralized=self.decentralized)
+            for fl_s in self.fls])
+
+    def _build_schedule(self, n_rounds: int):
+        """Per-lane virtual-clock schedules, deduplicated on (seed,
+        partition, alpha, staleness_exponent); ``lane_sched`` maps each
+        lane to its unique schedule."""
+        from repro_torch.core.async_rounds import async_init_state
+        from repro_torch.runtime.clock import build_schedule
+
+        fl = self.job.fl
+        lens = self.staged["len"].cpu().numpy().astype(np.float32)   # (S, C)
+        cache, uniq, lane_u = {}, [], []
+        for s, fl_s in enumerate(self.fls):
+            k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha,
+                 fl_s.staleness_exponent)
+            if k not in cache:
+                cache[k] = len(uniq)
+                uniq.append(build_schedule(
+                    make_fault(self.job.raw, fl_s), fl.n_clients,
+                    n_rounds * self.events_per_round, lens[s],
+                    buffer_size=fl.async_buffer,
+                    staleness_exponent=fl_s.staleness_exponent,
+                    max_staleness=fl.max_staleness,
+                    concurrency=fl.async_concurrency))
+            lane_u.append(cache[k])
+        self.uniq_schedules = uniq
+        self.schedules = [uniq[u] for u in lane_u]   # per-lane host views
+        self.schedule = self.schedules[0]            # horizon checks read len()
+        self.lane_sched = lane_u
+        occ = [buffer_occupancy(sc.accept, sc.apply) for sc in uniq]
+        self._occupancy_lane = np.stack([occ[u] for u in lane_u])
+        if "hist" not in self.state:
+            ring = uniq[0].ring
+            self.state = stack_lanes([
+                async_init_state(lane_of(self.state, s), ring, fl, self.job.strategy)
+                for s in range(self.S)])
+
+    def _maybe_restore(self):
+        """Resume from the newest checkpoint of the same grid (its lane
+        count and coordinates digest ride in the manifest)."""
+        if not self.ckpt_dir:
+            return
+        last = ckpt_mod.latest_round(self.ckpt_dir)
+        if last is None:
+            return
+        restored, extra = ckpt_mod.restore(self.ckpt_dir, last, self.state)
+        if extra.get("campaign_lanes") != self.S or \
+                extra.get("campaign_grid") != self._coords_digest():
+            raise ValueError(
+                f"checkpoint was written by another sweep grid "
+                f"({extra.get('campaign_lanes')} lanes, digest "
+                f"{extra.get('campaign_grid')}) than this one ({self.S} lanes, "
+                f"digest {self._coords_digest()}); point ckpt_dir elsewhere "
+                "to start the new grid fresh")
+        self.state = restored
+        self.round_idx = extra["next_round"]
+
+    def _coords_digest(self) -> str:
+        """Digest of the expanded sweep coordinates: the grid's identity."""
+        canon = repr([sorted(c.items()) for c in self.coords])
+        return hashlib.sha256(canon.encode()).hexdigest()[:16]
+
+    def _ckpt_extra(self) -> dict:
+        return dict(super()._ckpt_extra(), campaign_lanes=self.S,
+                    campaign_grid=self._coords_digest())
+
+    def _post_restore(self):
+        """Resume: re-adopt the rows of the rounds before the resume, so the
+        table the resumed run writes is whole."""
+        if self.round_idx > 0 and self.out_dir:
+            prior = pathlib.Path(self.out_dir) / "campaign.csv"
+            if prior.exists():
+                self.results = [r for r in read_results(prior)
+                                if r["round"] < self.round_idx]
+        if self._table is not None:
+            self._table.reset()
+
+    def _record_plane_bytes(self):
+        if not self.recorder.enabled:
+            return
+        self.recorder.counter("staged_bytes", track=self.telemetry_track,
+                              data_plane=tree_nbytes(self.staged),
+                              scalar_plane=tree_nbytes(self.hyper))
+
+    # -- launches ------------------------------------------------------------
+    def _skip_dead_bucket(self, n: int):
+        """Every lane dropped: nothing to run."""
+        self._tail_rows = []
+        return [{"n_alive": 0, "round_s": 0.0} for _ in range(n)]
+
+    def _launch_sync(self, start: int, n: int):
+        if not self.alive_lanes():
+            return self._skip_dead_bucket(n)
+        t0 = time.perf_counter()
+        self.state, metrics = self._multi(self.state, self.staged, self.roots, start,
+                                          n, self._launch_hyper(), self.faults)
+        self._sync()
+        dt = time.perf_counter() - t0
+        probes = metrics.pop("probes", None)
+        self._capture_probes(start, n, None if probes is None else probes.cpu().numpy())
+        cols = self._account_comms(start, n)
+        stacked = {k: v.cpu().numpy() for k, v in metrics.items()}      # (S, n)
+        self._merge_comms_stacked(stacked, cols)
+        return self._table_rows(stacked, start, n, dt)
+
+    def _launch_async(self, start: int, n: int):
+        if not self.alive_lanes():
+            return self._skip_dead_bucket(n)
+        epr = self.events_per_round
+        n_ev = n * epr
+        t0 = time.perf_counter()
+        self.state, metrics = self._multi(
+            self.state, self.staged, self.uniq_schedules, self.lane_sched, self.roots,
+            start * epr, n_ev, self._launch_hyper())
+        self._sync()
+        dt = time.perf_counter() - t0
+        probes = self._reduce_async_probes(metrics.pop("probes", None), n)
+        ev = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+              .reshape(self.S, n, epr) for k, v in metrics.items()}
+        if probes is not None:
+            self._capture_probes(
+                start, n, probes, extra=self._async_probe_extras(start, n),
+                hists={f"probe:staleness_hist:lane{s}": staleness_hist(
+                    ev["staleness"][s], self.job.fl.max_staleness)
+                    for s in self.alive_lanes()})
+        cols = self._account_comms(start, n)
+        idx = (start + np.arange(1, n + 1)) * epr - 1
+        stacked = {"loss": ev["loss"].mean(-1),
+                   "staleness": ev["staleness"].mean(-1),
+                   "applied": ev["applied"].sum(-1),
+                   "vtime": np.stack([np.asarray(sc.vtime, np.float64)[idx]
+                                      for sc in self.schedules])}
+        self._merge_comms_stacked(stacked, cols)
+        rows = self._table_rows(stacked, start, n, dt)
+        for r in rows:
+            r["events_per_s"] = n_ev / max(dt, 1e-9)
+        return rows
+
+    def _async_probe_extras(self, start: int, n: int):
+        epr = self.events_per_round
+        occ = self._occupancy_lane[:, start * epr:(start + n) * epr]
+        return {"buffer_occ": occ.reshape(self.S, n, epr).mean(-1)}
+
+    def _table_rows(self, stacked, start: int, n: int, dt: float):
+        """Per-(lane, round) rows into the results table (alive lanes
+        only); per-round rows of alive-lane means for the logger."""
+        self._tail_rows = []
+        live = self.alive_lanes()
+        for s in live:
+            for i in range(n):
+                row = {**self.coords[s], "traj": s, "round": start + i,
+                       **{k: float(v[s, i]) for k, v in stacked.items()},
+                       "round_s": dt / n}
+                self.results.append(row)
+                if i == n - 1:
+                    self._tail_rows.append((s, row))
+        idx = np.asarray(live, np.int64)
+        return [dict({k: float(v[idx, i].mean()) for k, v in stacked.items()},
+                     round_s=dt / n, n_alive=len(live)) for i in range(n)]
+
+    # -- boundary hooks, per lane --------------------------------------------
+    def _ledger_record(self, last: int):
+        """One ``global`` block per alive lane: lane s's digest is its
+        single run's, so the chain certifies params a run produced."""
+        for s in self.alive_lanes():
+            dig = param_digest(lane_of(self.state["params"], s))
+            self.job.ledger.append(last, "global", {"digest": dig})
+            self.kv.publish(f"global_digest/{last}/traj{s}", dig)
+
+    def _merge_eval(self, rows):
+        """Per-lane eval into each alive lane's tail row; means into the
+        logger's row."""
+        agg = {}
+        for s, row in self._tail_rows:
+            ev = {k: float(v) for k, v in
+                  self.eval_fn(lane_of(self.state["params"], s)).items()}
+            row.update(ev)
+            for k, v in ev.items():
+                agg.setdefault(k, []).append(v)
+        rows[-1].update({k: float(np.mean(v)) for k, v in agg.items()})
+
+    def _digest_record(self, marks, last: int):
+        """The async digest cadence per alive lane, each block at its lane's
+        virtual time."""
+        for s in self.alive_lanes():
+            dig = param_digest(lane_of(self.state["params"], s))
+            for m in marks:
+                self._digest_blocks += 1
+                self.job.ledger.append(
+                    last, "async_digest",
+                    {"event": int(m), "traj": s,
+                     "vtime": float(self.schedules[s].vtime[m - 1]), "digest": dig})
+
+    # -- probes, per lane -----------------------------------------------------
+    def _capture_probes(self, start, n, probes, extra=None, hists=None):
+        """(S, n, P) probes -> rows keyed like campaign.csv, alive lanes
+        only (dead lanes emit zeros in the round and no rows here)."""
+        if probes is None:
+            return
+        a = np.asarray(probes)
+        cols = {name: a[..., j].tolist() for j, name in enumerate(PROBE_NAMES)}
+        if extra:
+            cols.update({k: np.asarray(v).tolist() for k, v in extra.items()})
+        items = sorted(cols.items())
+        alive = self.alive_lanes()
+        self._probe_lanes = [(s, f"lane{s}") for s in alive]
+        for s in alive:
+            coords = dict(self.coords[s], traj=s)
+            for i in range(n):
+                row = dict(coords, round=start + i)
+                row.update((k, col[s][i]) for k, col in items)
+                self.probe_rows.append(row)
+        self._pending_probes = (start, n, cols, hists or {})
+
+    def _probe_series(self, m, i: int) -> dict:
+        return {label: m[s][i] for s, label in self._probe_lanes}
+
+    def _probe_lead_columns(self):
+        return [*self.spec.names, "traj", "round"]
+
+    # -- comms, per lane -------------------------------------------------------
+    def _comms_setup(self):
+        """One ``LaneComms`` per lane, from the lane's config and fault
+        model; the shape template drops the lane dim (and a decentralized
+        state's client dim)."""
+        if not self.comms_spec.enabled:
+            return
+        from repro_torch.core.netmodel import shape_template
+        tpl = shape_template(self.state["params"], strip_leading=True)
+        if self.decentralized:
+            tpl = shape_template(tpl, strip_leading=True)
+        self._comms = [comms_mod.LaneComms(
+            fl=fl_s, csm=make_fault(self.job.raw, fl_s), template=tpl,
+            pods=self.comms_spec.pods) for fl_s in self.fls]
+
+    def _account_comms(self, start: int, n: int):
+        """Alive lanes account their rounds, dropped lanes hold their
+        cumulative columns; rows keyed like campaign.csv, alive lanes."""
+        if self._comms is None:
+            return None
+        per = []
+        for s, lane in enumerate(self._comms):
+            if self.alive[s] > 0:
+                per.append(lane.async_rounds(start, n, self.schedules[s],
+                                             self.events_per_round)
+                           if self.mode == "async" else lane.sync_rounds(start, n))
+            else:
+                per.append(lane.frozen(n))
+        cols = {k: np.stack([p[k] for p in per]) for k in per[0]}
+        items = sorted(cols.items())
+        alive = self.alive_lanes()
+        self._comms_lanes = [(s, f"lane{s}") for s in alive]
+        for s in alive:
+            coords = dict(self.coords[s], traj=s)
+            for i in range(n):
+                row = dict(coords, round=start + i)
+                row.update((k, float(col[s][i])) for k, col in items)
+                self.comms_rows.append(row)
+        self._pending_comms = (start, n, cols)
+        return cols
+
+    def _merge_comms_stacked(self, stacked: dict, cols):
+        if cols:
+            stacked.update({k: cols[k] for k in comms_mod.RESULT_COLUMNS})
+
+    def _comms_series(self, m, i: int) -> dict:
+        return {label: float(m[s][i]) for s, label in self._comms_lanes}
+
+    def _comms_summaries(self) -> list:
+        if self._comms is None:
+            return []
+        return [dict(lane.summary(), lane=s) for s, lane in enumerate(self._comms)]
+
+    def _comms_lead_columns(self):
+        return [*self.spec.names, "traj", "round"]
+
+    # -- flight-recorder hooks ---------------------------------------------
+    def _telemetry_attrs(self) -> dict:
+        return {"n_alive": len(self.alive_lanes()), "S": self.S}
+
+    def _record_lane_telemetry(self):
+        """``lane_occupancy`` when it changed (first launch, each drop)."""
+        values = {"alive": len(self.alive_lanes()), "total": self.S}
+        if values != getattr(self, "_last_occupancy", None):
+            self._last_occupancy = values
+            self.recorder.counter("lane_occupancy", track=self.telemetry_track,
+                                  **values)
+
+    # -- results table ---------------------------------------------------------
+    def _lead_columns(self):
+        return [*self.spec.names, "traj", "round"]
+
+    def _finish_chunk(self, start: int, n: int, rows):
+        super()._finish_chunk(start, n, rows)
+        if self._table is not None:
+            with self.recorder.span("table_flush", track=self.telemetry_track):
+                self._table.flush(self.results, self._lead_columns())
+
+    def run(self, rounds: Optional[int] = None):
+        state, logger = super().run(rounds)
+        if self.out_dir:
+            self._table.flush(self.results, self._lead_columns())
+            if self.parquet:
+                write_parquet(self.results, self._lead_columns(), self.out_dir)
+        return state, logger
+
+    def trajectory_params(self, s: int):
+        """Lane ``s``'s params (bitwise its single run's; frozen at the drop
+        round for a dropped lane)."""
+        return lane_of(self.state["params"], s)
+
+    def write_results(self, out_dir=None):
+        """Write the whole results table: ``campaign.csv`` (and
+        ``campaign.parquet`` where it can)."""
+        out = pathlib.Path(out_dir or self.out_dir or ".")
+        out.mkdir(parents=True, exist_ok=True)
+        path = AppendTable(out / "campaign.csv").flush(self.results, self._lead_columns())
+        write_parquet(self.results, self._lead_columns(), out)
+        return path

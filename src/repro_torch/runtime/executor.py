@@ -9,32 +9,37 @@ and builds the comms accountant; ``run()`` is the chunk loop:
 synchronisation per chunk, then the chunk-boundary host work: the ledger's
 ``global`` block (``job.ledger``, one per chunk, its digest published in the
 control-plane store as ``global_digest/<last round>``), ``eval_fn`` merged
-into the chunk's last row, per-round log rows, ``comms.csv`` rows, the
-async ``digest_every_events`` blocks, and a checkpoint whenever the chunk
-crossed a multiple of ``checkpoint_every``. By the round loops' determinism
-contract every chunking, and a run resumed from a checkpoint, gives bitwise
-the same params for the same seed.
+into the chunk's last row, per-round log rows, ``probes.csv`` and
+``comms.csv`` rows, the async ``digest_every_events`` blocks, and a
+checkpoint whenever the chunk crossed a multiple of ``checkpoint_every``.
+By the round loops' determinism contract every chunking, and a run resumed
+from a checkpoint, gives bitwise the same params for the same seed.
+
+The round programs take the job's sweepable scalars as device tensors
+(``self.hyper``: f32, the seed int64), as a campaign lane takes its own, so
+that lane s of a campaign computes what the single run of its config does.
 
 Alg. 1's Logic Controller state lives in ``self.kv`` (``core/kvstore.py``):
 ProcessPhase 0=init 1=local-learning 2=aggregation; NodeStage 0=not-ready
 1=ready-for-job 2=ready-with-dataset 3=busy 4=waiting/complete, one key per
 client node.
 
-The comms plane (``telemetry/comms.py``, a ``comms:`` job section) is pure
-host bookkeeping: per-round byte totals and a simulated wall-clock, joined
-onto the result rows (``sim_time_s``, ``cum_bytes``) and written to
-``comms.csv`` in ``comms.out_dir`` (else ``ckpt_dir``; else the rows stay
-in ``comms_rows``). Params are bitwise those of a run without it.
+Observability, all host-side (trajectories are bitwise the same with it on
+or off): the flight recorder (a ``telemetry:`` section,
+``telemetry/recorder.py``) spans the scaffold hooks, every chunk, launch
+and boundary step, and records per-launch counters: ``staged_bytes``,
+``host``, ``program_cost`` (FlopCounterMode's flops of each launch key's
+first launch), the ``probe:*`` and ``comms:*`` tracks, and at the end
+``quant_agg`` (B1 calls), ``programs`` (distinct launch keys) and
+``comms_total``. The round probes (a ``probes:`` section,
+``core/probes.py``) land in ``probes.csv``; the comms plane (a ``comms:``
+section, ``telemetry/comms.py``) in ``comms.csv`` and the result rows.
 
 ``fl.placement`` selects the sync round: "spatial" (every client at once;
 "auto" resolves to it) or "temporal" (one client at a time). ``fl.mode``
 "async" runs FedAsync/FedBuff over the virtual clock
 (``core/async_rounds.py``): a "round" is ``events_per_round`` server events
 (one FedBuff flush, or for FedAsync one arrival per client on average).
-
-The flight recorder (spans, Perfetto counter tracks, and with it the comms
-counter drain) and the round probes are not yet ported (ROADMAP A11);
-``core/jobs.load_job`` refuses their sections.
 """
 from __future__ import annotations
 
@@ -47,16 +52,44 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_mod
+from repro_torch.configs.base import SWEEPABLE_SCALARS
 from repro_torch.core import determinism
 from repro_torch.core.blockchain import param_digest
 from repro_torch.core.jobs import validate_cohort
 from repro_torch.core.kvstore import KVStore
-from repro_torch.core.probes import ProbeTable
+from repro_torch.core.plan import resolve_placement
+from repro_torch.core.probes import (ASYNC_REDUCE, PROBE_NAMES, ProbeSpec,
+                                     ProbeTable, buffer_occupancy,
+                                     staleness_hist)
 from repro_torch.core.rounds import build_multi_round, init_state
 from repro_torch.data.pipeline import stage_partitions
-from repro_torch.metrics.logger import PerformanceLogger
+from repro_torch.kernels import build as kernel_build
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.metrics.logger import PerformanceLogger, host_usage
 from repro_torch.runtime.device import resolve_device
 from repro_torch.telemetry import comms as comms_mod
+from repro_torch.telemetry.recorder import FlightRecorder
+
+
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, bias, stride, padding,
+                        dilation, transposed, output_padding, groups, output_mask,
+                        out_shape, **kw) -> int:
+    """torch's flop formula for a convolution's backward, with the weight
+    gradient of a grouped convolution divided by its groups (torch counts
+    it as if ungrouped; the clients' vmapped convs are grouped)."""
+    from torch.utils import flop_counter
+    args = (grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation,
+            transposed, output_padding, groups)
+    grad_in = flop_counter.conv_backward_flop(*args, [output_mask[0], False, False],
+                                              out_val=out_shape)
+    grad_w = flop_counter.conv_backward_flop(*args, [False, output_mask[1], False],
+                                             out_val=out_shape)
+    return grad_in + grad_w // groups
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of a tree's tensors (shapes and dtypes only)."""
+    return int(sum(t.numel() * t.element_size() for t in ckpt_mod.leaves(tree)))
 
 
 @dataclasses.dataclass
@@ -67,47 +100,112 @@ class Executor:
     ckpt_dir: Optional[str] = None
     eval_fn: Optional[Callable] = None    # (params) -> dict of metrics
     logger: Optional[PerformanceLogger] = None
+    # None -> built from the job's ``telemetry:`` section (a no-op recorder
+    # without one); the planner passes one shared recorder, one track per
+    # bucket
+    recorder: Optional[FlightRecorder] = None
+    telemetry_track: str = "run"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.kv = KVStore()
         self.logger = self.logger or PerformanceLogger(run_name=self.job.name)
+        if self.recorder is None:
+            self.recorder = FlightRecorder.from_job(
+                self.job, fallback_dir=getattr(self, "out_dir", None))
+        self._launches = 0                # launch ordinal (profile_chunks)
+        self.probes_spec = ProbeSpec.from_job(self.job)
+        self.probe_rows = []              # tidy per-round probe rows
+        self._probe_flushed = 0
+        self._probe_table = None
+        self._pending_probes = None       # launch stash for the drain
         self.comms_spec = comms_mod.CommsSpec.from_job(self.job)
         self.comms_rows = []              # tidy per-round comms rows
         self._comms = None                # the LaneComms accountant (scaffold)
         self._comms_flushed = 0
         self._comms_table = None
+        self._pending_comms = None
+        self._digest_blocks = 0
+        t = (getattr(self.job, "raw", None) or {}).get("telemetry") or {}
+        self._cost_enabled = bool(t.get("cost_analysis", True))
+        self._cost_seen = set()
+        self._keys_seen = set()           # launch keys (mode, n): "programs"
         fl = self.job.fl
         validate_cohort(fl)
-        self.placement = fl.placement if fl.placement != "auto" else "spatial"
+        self.placement = resolve_placement(fl)
         self.mode = fl.mode
+        spec = self.probes_spec
         if self.mode == "async":
-            from repro_torch.core.async_rounds import build_async_multi
             self.events_per_round = (fl.async_buffer if fl.async_buffer > 1
                                      else fl.n_clients)
-            self._multi = build_async_multi(self.job.model, self.job.strategy, fl)
+            self._multi = self._build_async(spec)
         elif self.mode == "sync":
-            self._multi = build_multi_round(
-                self.job.model, self.job.strategy, fl, placement=self.placement,
-                fault=self.job.fault, device=self.device)
+            self._multi = self._build_sync(spec)
         else:
             raise ValueError(f"unknown mode {self.mode!r} (want 'sync' or 'async')")
+        # the sweepable scalars as runtime values, as a campaign lane's
+        self.hyper = {"seed": torch.tensor(fl.seed, dtype=torch.int64,
+                                           device=self.device)}
+        self.hyper.update({k: torch.tensor(float(getattr(fl, k)), dtype=torch.float32,
+                                           device=self.device)
+                           for k in SWEEPABLE_SCALARS if k != "seed"})
 
+    def _build_sync(self, spec):
+        return build_multi_round(
+            self.job.model, self.job.strategy, self.job.fl,
+            placement=self.placement, fault=self.job.fault, device=self.device,
+            probes=spec.enabled, on_divergence=spec.on_divergence)
+
+    def _build_async(self, spec):
+        from repro_torch.core.async_rounds import build_async_multi
+        return build_async_multi(self.job.model, self.job.strategy, self.job.fl,
+                                 probes=spec.enabled,
+                                 on_divergence=spec.on_divergence)
+
+    def compiled_programs(self) -> int:
+        """Distinct launch keys ``(mode, n)`` this executor has run: the
+        port's count of round programs (it compiles none)."""
+        return len(self._keys_seen)
+
+    # -- Alg. 1 lines 1-15: scaffold --------------------------------------
     def scaffold(self):
-        """Alg. 1 lines 1-15: stage the dataset on the device, initialize
-        the state, build the async schedule, resume from the newest
-        checkpoint if any, then build the comms accountant."""
+        """Stage the dataset on the device, initialize the state, build the
+        async schedule, resume from the newest checkpoint if any, then
+        build the comms accountant; each hook under a recorder span."""
         fl = self.job.fl
-        self.kv.set_process_phase(0)
-        self.nodes = [f"client_{i}" for i in range(fl.n_clients)]
-        for n in self.nodes:             # "DownloadJobConfig <- True"
-            self.kv.set_node_stage(n, 1)
+        rec, track = self.recorder, self.telemetry_track
+        with rec.span("scaffold", track=track):
+            self.kv.set_process_phase(0)
+            self.nodes = [f"client_{i}" for i in range(fl.n_clients)]
+            for n in self.nodes:             # "DownloadJobConfig <- True"
+                self.kv.set_node_stage(n, 1)
+            with rec.span("stage_data", track=track):
+                self._stage_data()
+            for n in self.nodes:
+                self.kv.set_node_stage(n, 2)
+            with rec.span("init_state", track=track):
+                self._init_state()
+            if self.mode == "async":
+                with rec.span("build_schedule", track=track):
+                    self._build_schedule(fl.rounds)
+            self.round_idx = 0
+            with rec.span("restore", track=track):
+                self._maybe_restore()
+            self._post_restore()
+            self._comms_setup()
+            self._record_plane_bytes()
+        return self
+
+    def _stage_data(self):
+        """"DownloadDataset": the one-time device staging of the partition."""
+        fl = self.job.fl
         x, y, parts = self.job.dataset.distribute_into_chunks(
             fl.partition, fl.n_clients, fl.dirichlet_alpha)
         self.data = (x, y, parts)   # host view, kept for eval_fn consumers
         self.staged = stage_partitions(x, y, parts, self.device)
-        for n in self.nodes:
-            self.kv.set_node_stage(n, 2)
+
+    def _init_state(self):
+        fl = self.job.fl
         self.root = determinism.root_key(fl.seed)
         # one model per client only where the round gossips them: the
         # temporal and async drivers ignore the topology
@@ -116,12 +214,6 @@ class Executor:
         self.state = init_state(self.job.model, self.job.strategy, fl,
                                 self.root, n_clients_local=fl.n_clients,
                                 device=self.device, decentralized=self.decentralized)
-        if self.mode == "async":
-            self._build_schedule(fl.rounds)
-        self.round_idx = 0
-        self._maybe_restore()
-        self._comms_setup()
-        return self
 
     def _comms_setup(self):
         """Build the comms accountant from the scaffolded params (shapes
@@ -135,6 +227,17 @@ class Executor:
         tpl = shape_template(self.state["params"], strip_leading=self.decentralized)
         self._comms = comms_mod.LaneComms(fl=self.job.fl, csm=self.job.fault,
                                           template=tpl, pods=self.comms_spec.pods)
+
+    def _record_plane_bytes(self):
+        """Counter: device bytes staged per plane (data, async schedules,
+        scalars), from shapes and dtypes."""
+        if not self.recorder.enabled:
+            return
+        values = {"data_plane": tree_nbytes(self.staged),
+                  "scalar_plane": tree_nbytes(self.hyper)}
+        if getattr(self, "sched_dev", None) is not None:
+            values["schedule_plane"] = tree_nbytes(self.sched_dev)
+        self.recorder.counter("staged_bytes", track=self.telemetry_track, **values)
 
     def _build_schedule(self, n_rounds: int):
         """Precompute the virtual-clock event schedule (async) on the host
@@ -154,6 +257,9 @@ class Executor:
             max_staleness=fl.max_staleness,
             concurrency=fl.async_concurrency)
         self.sched_dev = self.schedule.device_arrays(self.device)
+        # the buffer-occupancy probe: a function of the schedule alone
+        self._occupancy = buffer_occupancy(self.schedule.accept,
+                                           self.schedule.apply)
         if "hist" not in self.state:
             self.state = async_init_state(self.state, self.schedule.ring, fl,
                                           self.job.strategy)
@@ -166,6 +272,10 @@ class Executor:
                 self.state, extra = ckpt_mod.restore(self.ckpt_dir, last, self.state)
                 self.round_idx = extra["next_round"]
 
+    def _post_restore(self):
+        """Hook after a restore (campaigns re-adopt their results table)."""
+
+    # -- Alg. 1 lines 16-57: the chunk loop ---------------------------------
     def run(self, rounds: Optional[int] = None):
         """Run (or continue) the chunked round loop up to ``rounds``."""
         rounds = rounds or self.job.fl.rounds
@@ -173,7 +283,24 @@ class Executor:
         if self.mode == "async":
             self._check_async_horizon(rounds)
             launch = self._launch_async
+        rec = self.recorder
+        if not rec.enabled:
+            return self._chunk_loop(rounds, launch)
+        with kernel_ops.quant_agg_scope() as qframe:
+            out = self._chunk_loop(rounds, launch)
+        rec.counter("quant_agg", track=self.telemetry_track,
+                    calls=qframe["calls"],
+                    batched_fallbacks=qframe["batched_fallbacks"])
+        rec.counter("programs", track=self.telemetry_track,
+                    compiled=self.compiled_programs())
+        for values in self._comms_summaries():
+            rec.counter("comms_total", track=self.telemetry_track, **values)
+        rec.flush()
+        return out
+
+    def _chunk_loop(self, rounds: int, launch):
         chunk = max(self.job.fl.rounds_per_launch, 1)
+        rec, track = self.recorder, self.telemetry_track
         while self.round_idx < rounds:
             start = self.round_idx
             n = min(chunk, rounds - start)
@@ -183,10 +310,67 @@ class Executor:
             for node in self.nodes:
                 self.kv.set_node_stage(node, 3)
             self.kv.set_process_phase(2)
-            self._finish_chunk(start, n, launch(start, n))
+            with rec.span("chunk", track=track, start=start, n=n):
+                rows = self._recorded_launch(launch, start, n)
+                with rec.span("finish_chunk", track=track):
+                    self._finish_chunk(start, n, rows)
         if self._comms_table is not None:
             self._comms_table.close()
         return self.state, self.logger
+
+    def _launch_key(self, n: int):
+        return (self.mode, n * (self.events_per_round if self.mode == "async" else 1))
+
+    def _recorded_launch(self, launch, start: int, n: int):
+        """One launch under a ``launch`` span (closed after the launch's
+        ``torch.cuda.synchronize()``) carrying ``compile_delta`` (kernel
+        libraries built or loaded during it), ``quant_agg_traces`` (its B1
+        calls) and the executor's own attrs; then the ``host``, lane,
+        ``program_cost``, probe and comms counters."""
+        key = self._launch_key(n)
+        rec = self.recorder
+        if not rec.enabled:
+            self._keys_seen.add(key)
+            return launch(start, n)
+        ordinal = self._launches
+        self._launches += 1
+        libs0 = kernel_build.loaded()
+        calls0 = kernel_ops.quant_agg_stats()["calls"]
+        first = key not in self._keys_seen
+        self._keys_seen.add(key)
+        counting = first and self._cost_enabled and key not in self._cost_seen
+        with rec.profile(ordinal), \
+                rec.span("launch", track=self.telemetry_track, mode=self.mode,
+                         start=start, n=n, ordinal=ordinal) as sp:
+            if counting:
+                from torch.utils.flop_counter import FlopCounterMode
+                with FlopCounterMode(display=False, custom_mapping={
+                        torch.ops.aten.convolution_backward: _conv_backward_flop}) as fc:
+                    rows = launch(start, n)
+            else:
+                rows = launch(start, n)
+            sp.attrs.update(
+                compile_delta=kernel_build.loaded() - libs0,
+                quant_agg_traces=kernel_ops.quant_agg_stats()["calls"] - calls0,
+                **self._telemetry_attrs())
+        rec.counter("host", track=self.telemetry_track, **host_usage())
+        self._record_lane_telemetry()
+        if counting:
+            self._cost_seen.add(key)
+            # no bytes_accessed: nothing in torch counts a launch's bytes
+            # (the JAX package's report reads the absent key as 0)
+            rec.counter("program_cost", track=self.telemetry_track,
+                        program=str(key), flops=float(fc.get_total_flops()))
+        self._drain_probe_counters(sp._t0, rec._now_us())
+        self._drain_comms_counters(sp._t0, rec._now_us())
+        return rows
+
+    def _telemetry_attrs(self) -> dict:
+        """Executor-specific launch-span attrs (campaigns: lane occupancy)."""
+        return {}
+
+    def _record_lane_telemetry(self):
+        """Post-launch counters hook (campaigns: lanes alive)."""
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -195,9 +379,10 @@ class Executor:
     def _launch_sync(self, start: int, n: int):
         t0 = time.perf_counter()
         self.state, metrics = self._multi(self.state, self.staged, self.root,
-                                          start, n)
+                                          start, n, self.hyper)
         self._sync()
         dt = time.perf_counter() - t0
+        self._capture_probes(start, n, metrics.pop("probes", None))
         return self._merge_comms([{"loss": v, "round_s": dt / n}
                                   for v in metrics["loss"].tolist()],
                                  self._account_comms(start, n))
@@ -208,12 +393,19 @@ class Executor:
         n_ev = n * epr
         t0 = time.perf_counter()
         self.state, metrics = self._multi(self.state, self.staged, self.schedule,
-                                          self.sched_dev, self.root, start * epr, n_ev)
+                                          self.sched_dev, self.root, start * epr,
+                                          n_ev, self.hyper)
         self._sync()
         dt = time.perf_counter() - t0
+        probes = self._reduce_async_probes(metrics.pop("probes", None), n)
         loss = metrics["loss"].cpu().numpy().reshape(n, epr)
         stale = metrics["staleness"].reshape(n, epr)
         applied = metrics["applied"].reshape(n, epr)
+        if probes is not None:
+            self._capture_probes(
+                start, n, probes, extra=self._async_probe_extras(start, n),
+                hists={"probe:staleness_hist": staleness_hist(
+                    stale, self.job.fl.max_staleness)})
         vt = self.schedule.vtime
         return self._merge_comms(
             [{"loss": float(loss[i].mean()),
@@ -223,55 +415,6 @@ class Executor:
               "round_s": dt / n,
               "events_per_s": n_ev / max(dt, 1e-9)} for i in range(n)],
             self._account_comms(start, n))
-
-    # -- comms (telemetry/comms.py) ----------------------------------------
-    def _account_comms(self, start: int, n: int):
-        """Advance the comms accountant over this launch's rounds and buffer
-        their tidy rows (flushed to comms.csv at the chunk boundary).
-        Returns the per-round column dict, or None with comms off."""
-        if self._comms is None:
-            return None
-        if self.mode == "async":
-            cols = self._comms.async_rounds(start, n, self.schedule,
-                                            self.events_per_round)
-        else:
-            cols = self._comms.sync_rounds(start, n)
-        items = sorted(cols.items())
-        for i in range(n):
-            row = {"round": start + i}
-            row.update((k, float(col[i])) for k, col in items)
-            self.comms_rows.append(row)
-        return cols
-
-    def _merge_comms(self, rows, cols):
-        """Join the simulated-time / cumulative-byte columns onto the
-        launch's result rows (time-to-accuracy / bytes-to-accuracy axes)."""
-        if cols:
-            for i, row in enumerate(rows):
-                row.update({k: float(cols[k][i]) for k in comms_mod.RESULT_COLUMNS})
-        return rows
-
-    def _comms_summaries(self) -> list:
-        """Run-level comms totals (one entry: this run's accountant)."""
-        return [] if self._comms is None else [self._comms.summary()]
-
-    def _comms_path(self) -> Optional[pathlib.Path]:
-        """Where comms.csv lands: ``comms.out_dir``, else ``ckpt_dir``;
-        None (rows in memory only) when neither is set."""
-        out = self.comms_spec.out_dir or self.ckpt_dir
-        return None if out is None else pathlib.Path(out) / "comms.csv"
-
-    def _flush_comms(self):
-        """Append the rows buffered since the last boundary to comms.csv;
-        ``self.comms_rows`` keeps the full in-memory view either way."""
-        new = self.comms_rows[self._comms_flushed:]
-        self._comms_flushed = len(self.comms_rows)
-        if self._comms_table is None:
-            path = self._comms_path()
-            if path is None:
-                return
-            self._comms_table = ProbeTable(path, ["round"])
-        self._comms_table.flush(new)
 
     def _check_async_horizon(self, rounds: int):
         """The horizon grew past the scaffolded schedule? Regenerating is
@@ -289,32 +432,202 @@ class Executor:
                     "checkpoint) instead of growing a FedBuff run in place")
             self._build_schedule(rounds)
 
+    # -- probes (core/probes.py) --------------------------------------------
+    def _capture_probes(self, start: int, n: int, probes, extra=None, hists=None):
+        """Stash a launch's (n, P) probe plane: tidy rows now (flushed to
+        probes.csv at the boundary), counter samples at the drain."""
+        if probes is None:
+            return
+        a = np.asarray(probes.cpu() if isinstance(probes, torch.Tensor) else probes)
+        cols = {name: a[..., j].tolist() for j, name in enumerate(PROBE_NAMES)}
+        if extra:
+            cols.update({k: np.asarray(v).tolist() for k, v in extra.items()})
+        items = sorted(cols.items())
+        for i in range(n):
+            row = {"round": start + i}
+            row.update((k, col[i]) for k, col in items)
+            self.probe_rows.append(row)
+        self._pending_probes = (start, n, cols, hists or {})
+
+    def _drain_probe_counters(self, t0_us: int, t1_us: int):
+        """``probe:<name>`` counter tracks, per-round samples spread across
+        the launch span they were computed in; histograms at its end."""
+        pend, self._pending_probes = self._pending_probes, None
+        if pend is None or not self.recorder.enabled:
+            return
+        start, n, mats, hists = pend
+        rec, track = self.recorder, self.telemetry_track
+        for i in range(n):
+            t = int(t0_us + (t1_us - t0_us) * (i + 1) / n)
+            for name, m in mats.items():
+                rec.counter(f"probe:{name}", track=track, t_us=t,
+                            **self._probe_series(m, i))
+        for name, values in hists.items():
+            rec.counter(name, track=track, t_us=t1_us, **values)
+
+    def _probe_series(self, m, i: int) -> dict:
+        """Counter series for round ``i`` (campaigns: one per alive lane)."""
+        return {"value": m[i]}
+
+    def _reduce_async_probes(self, probes, n: int):
+        """(..., n_events, P) per-event probes -> (..., n, P) per round, by
+        ``ASYNC_REDUCE`` over fixed event windows (chunking-invariant)."""
+        if probes is None:
+            return None
+        epr = self.events_per_round
+        a = probes.cpu().numpy()
+        a = a.reshape(a.shape[:-2] + (n, epr, a.shape[-1]))
+        out = np.empty(a.shape[:-3] + (n, a.shape[-1]), np.float32)
+        for j, name in enumerate(PROBE_NAMES):
+            out[..., j] = getattr(a[..., j], ASYNC_REDUCE.get(name, "mean"))(axis=-1)
+        return out
+
+    def _async_probe_extras(self, start: int, n: int):
+        """Per-round mean buffer occupancy, from the schedule."""
+        epr = self.events_per_round
+        occ = self._occupancy[start * epr:(start + n) * epr]
+        return {"buffer_occ": occ.reshape(n, epr).mean(-1)}
+
+    def _probe_lead_columns(self):
+        return ["round"]
+
+    def _out_path(self, knob, stem: str) -> Optional[pathlib.Path]:
+        """``<stem>.csv`` in the section's ``out_dir``, else the telemetry
+        out_dir, else the executor's out_dir or ckpt_dir (rows stay in
+        memory when none is set); planner buckets suffix their track."""
+        out = knob or (self.recorder.out_dir if self.recorder.enabled else None) \
+            or getattr(self, "out_dir", None) or self.ckpt_dir
+        if out is None:
+            return None
+        name = (f"{stem}.csv" if self.telemetry_track == "run"
+                else f"{stem}_{self.telemetry_track}.csv")
+        return pathlib.Path(out) / name
+
+    def _probe_path(self) -> Optional[pathlib.Path]:
+        return self._out_path(self.probes_spec.out_dir, "probes")
+
+    def _flush_probes(self):
+        """Append the rows buffered since the last boundary to probes.csv;
+        ``self.probe_rows`` keeps the full in-memory view either way."""
+        new = self.probe_rows[self._probe_flushed:]
+        self._probe_flushed = len(self.probe_rows)
+        if self._probe_table is None:
+            path = self._probe_path()
+            if path is None:
+                return
+            self._probe_table = ProbeTable(path, self._probe_lead_columns())
+        self._probe_table.flush(new)
+
+    # -- comms (telemetry/comms.py) -----------------------------------------
+    def _account_comms(self, start: int, n: int):
+        """Advance the comms accountant over this launch's rounds and buffer
+        their tidy rows (flushed to comms.csv at the chunk boundary).
+        Returns the per-round column dict, or None with comms off."""
+        if self._comms is None:
+            return None
+        lane = self._comms
+        if self.mode == "async":
+            cols = lane.async_rounds(start, n, self.schedule, self.events_per_round)
+        else:
+            cols = lane.sync_rounds(start, n)
+        items = sorted(cols.items())
+        for i in range(n):
+            row = {"round": start + i}
+            row.update((k, float(col[i])) for k, col in items)
+            self.comms_rows.append(row)
+        self._pending_comms = (start, n, cols)
+        return cols
+
+    def _merge_comms(self, rows, cols):
+        """Join the simulated-time / cumulative-byte columns onto the
+        launch's result rows (time-to-accuracy / bytes-to-accuracy axes)."""
+        if cols:
+            for i, row in enumerate(rows):
+                row.update({k: float(cols[k][i]) for k in comms_mod.RESULT_COLUMNS})
+        return rows
+
+    def _drain_comms_counters(self, t0_us: int, t1_us: int):
+        """``comms:*`` counter tracks: cumulative bytes per direction and
+        the simulated clock, spread across the launch span."""
+        pend, self._pending_comms = self._pending_comms, None
+        if pend is None or not self.recorder.enabled:
+            return
+        start, n, cols = pend
+        rec, track = self.recorder, self.telemetry_track
+        for i in range(n):
+            t = int(t0_us + (t1_us - t0_us) * (i + 1) / n)
+            for name in comms_mod.COUNTER_COLUMNS:
+                rec.counter(f"comms:{name}", track=track, t_us=t,
+                            **self._comms_series(cols[name], i))
+
+    def _comms_series(self, m, i: int) -> dict:
+        return {"value": float(m[i])}
+
+    def _comms_summaries(self) -> list:
+        """Run-level comms totals (campaigns: one per lane)."""
+        return [] if self._comms is None else [self._comms.summary()]
+
+    def _comms_lead_columns(self):
+        return ["round"]
+
+    def _comms_path(self) -> Optional[pathlib.Path]:
+        return self._out_path(self.comms_spec.out_dir, "comms")
+
+    def _flush_comms(self):
+        """Append the rows buffered since the last boundary to comms.csv;
+        ``self.comms_rows`` keeps the full in-memory view either way."""
+        new = self.comms_rows[self._comms_flushed:]
+        self._comms_flushed = len(self.comms_rows)
+        if self._comms_table is None:
+            path = self._comms_path()
+            if path is None:
+                return
+            self._comms_table = ProbeTable(path, self._comms_lead_columns())
+        self._comms_table.flush(new)
+
+    # -- the chunk boundary ---------------------------------------------------
     def _finish_chunk(self, start: int, n: int, rows):
         """Chunk-boundary host work: ledger record, eval (merged into the
-        last round's row), logging, comms.csv, the async digest cadence,
-        round-index advance, checkpoint when the chunk crossed a
+        last round's row), logging, probes.csv, comms.csv, the async digest
+        cadence, round-index advance, checkpoint when the chunk crossed a
         ``checkpoint_every`` multiple."""
         fl = self.job.fl
+        rec, track = self.recorder, self.telemetry_track
         for node in self.nodes:
             self.kv.set_node_stage(node, 4)
         last = start + n - 1
         if self.job.ledger is not None:
-            self._ledger_record(last)
+            with rec.span("ledger", track=track):
+                self._ledger_record(last)
         if self.eval_fn is not None:
-            rows[-1].update({k: float(v) for k, v in
-                             self.eval_fn(self.state["params"]).items()})
+            with rec.span("eval", track=track):
+                self._merge_eval(rows)
         for i in range(n):
             self.logger.log_round(start + i, **rows[i])
+        if len(self.probe_rows) > self._probe_flushed:
+            with rec.span("probe_flush", track=track):
+                self._flush_probes()
         if len(self.comms_rows) > self._comms_flushed:
-            self._flush_comms()
+            with rec.span("comms_flush", track=track):
+                self._flush_comms()
         if self.mode == "async" and fl.digest_every_events > 0 and \
                 self.job.ledger is not None:
             self._digest_cadence(start, n, last)
         self.round_idx += n
         if self.ckpt_dir and fl.checkpoint_every and \
                 start // fl.checkpoint_every != self.round_idx // fl.checkpoint_every:
-            ckpt_mod.save(self.ckpt_dir, self.round_idx, self.state,
-                          extra={"next_round": self.round_idx})
+            with rec.span("checkpoint_save", track=track, round=self.round_idx):
+                ckpt_mod.save(self.ckpt_dir, self.round_idx, self.state,
+                              extra=self._ckpt_extra())
+
+    def _ckpt_extra(self) -> dict:
+        """Checkpoint manifest extras (campaigns add their grid)."""
+        return {"next_round": self.round_idx}
+
+    def _merge_eval(self, rows):
+        """Eval at the chunk boundary (campaigns: per lane)."""
+        rows[-1].update({k: float(v) for k, v in
+                         self.eval_fn(self.state["params"]).items()})
 
     # -- the ledger (core/blockchain.py) -----------------------------------
     def _ledger_record(self, last: int):
@@ -328,17 +641,25 @@ class Executor:
     def _digest_cadence(self, start: int, n: int, last: int):
         """One ``async_digest`` block per ``digest_every_events`` mark the
         finished chunk crossed, each digesting the boundary state and
-        carrying the virtual arrival time of its mark (ledger rows line up
-        with the async virtual-time axis): the block count, their marks and
-        vtimes are the same for every chunking."""
+        carrying the virtual arrival time of its mark: the block count,
+        their marks and vtimes are the same for every chunking."""
+        rec, track = self.recorder, self.telemetry_track
         epr = self.events_per_round
         d = self.job.fl.digest_every_events
         e0, e1 = start * epr, (start + n) * epr
         marks = range((e0 // d + 1) * d, e1 + 1, d)
         if not marks:
             return
+        with rec.span("digest", track=track, events=e1, blocks=len(marks)):
+            self._digest_record(marks, last)
+        rec.counter("digest", track=track, blocks=self._digest_blocks)
+
+    def _digest_record(self, marks, last: int):
+        """The blocks of ``marks``, from one digest of the boundary state
+        (campaigns: per alive lane)."""
         dig = param_digest(self.state["params"])
         for m in marks:
+            self._digest_blocks += 1
             self.job.ledger.append(
                 last, "async_digest",
                 {"event": int(m), "vtime": float(self.schedule.vtime[m - 1]),

@@ -17,8 +17,8 @@ Outputs:
   bytes-to-accuracy curves;
 - ``Executor._comms_summaries()``: the run-level totals.
 
-The ``comms:*`` Perfetto counter tracks (``COUNTER_COLUMNS``) wait for the
-flight recorder (ROADMAP A11).
+- the ``comms:*`` Perfetto counter tracks (``COUNTER_COLUMNS``) and the
+  run-level ``comms_total`` counters of the flight recorder.
 
 Job section::
 
@@ -42,7 +42,7 @@ from typing import Optional
 from repro_torch.core.netmodel import COMMS_COLUMNS, LaneComms  # noqa: F401
 
 # the cumulative columns the flight recorder streams as Perfetto counter
-# tracks per launch (the recorder is not yet ported: ROADMAP A11)
+# tracks per launch
 COUNTER_COLUMNS = ("cum_up_bytes", "cum_down_bytes", "sim_time_s")
 # the columns joined onto the executor's result rows (the
 # time-to-accuracy / bytes-to-accuracy x-axes)

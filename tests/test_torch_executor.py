@@ -169,11 +169,9 @@ def test_load_job_rejects_typos_with_a_hint():
 
 # the ids keep the cases' first numbering: cases 3 and 9-11 (comms,
 # blockchain, n_workers, byzantine_workers) went with their refusals, and
-# run in test_load_job_runs_what_slice_6_ported
+# run in test_load_job_runs_what_slice_6_ported; cases 0-2 (sweep,
+# telemetry, probes) likewise, in test_load_job_runs_what_slice_7_ported
 @pytest.mark.parametrize("patch,item", [
-    ({"sweep": {"seed": [0, 1]}}, "A12"),
-    ({"telemetry": {"enabled": True}}, "A11"),
-    ({"probes": {"enabled": True}}, "A11"),
     ({"dataset": {"dataset": "synthetic_population"}}, "A13"),
     ({"dataset": {"dataset": "synthetic_lm"}}, "A15"),
     ({"train": {"max_cohort": 16, "mode": "async"}}, "A13"),
@@ -182,8 +180,8 @@ def test_load_job_rejects_typos_with_a_hint():
     ({"model": {"arch": "minicpm3-4b"}}, "A15"),
     ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
 ], ids=[f"patch{i}-{item}" for i, item in zip(
-    (0, 1, 2, 4, 5, 6, 7, 8, 12, 13),
-    ("A12", "A11", "A11", "A13", "A15", "A13", "A13", "A13", "A15", "A15"))])
+    (4, 5, 6, 7, 8, 12, 13),
+    ("A13", "A15", "A13", "A13", "A13", "A15", "A15"))])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     raw = {"model": {"arch": "flsim-cnn"},
            "strategy": {"strategy": patch.get("strategy", "fedavg"),
@@ -192,6 +190,31 @@ def test_load_job_refuses_what_is_not_yet_ported(patch, item):
         if k in patch:
             raw[k] = patch[k]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        load_job(raw)
+
+
+@pytest.mark.parametrize("section", [
+    {"sweep": {"seed": [0, 1]}},                            # A12
+    {"telemetry": {"enabled": True}},                       # A11
+    {"probes": {"enabled": True}},                          # A11
+])
+def test_load_job_runs_what_slice_7_ported(section):
+    raw = {"model": {"arch": "flsim-cnn"},
+           "strategy": {"strategy": "fedavg", "train_params": {"rounds": 1}}}
+    job = load_job(dict(raw, **section))
+    if "sweep" in section:
+        assert job.sweep.size == 2
+        return
+    _, logger = Executor(job, device="cpu").scaffold().run()
+    assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
+
+
+@pytest.mark.parametrize("train", [
+    {"max_cohort": 16}, {"max_cohort": 16, "streaming": True}])
+def test_load_job_refuses_a_ragged_campaign(train):
+    raw = {"model": {"arch": "flsim-cnn"}, "sweep": {"seed": [0, 1]},
+           "strategy": {"strategy": "fedavg", "train_params": train}}
+    with pytest.raises(ValueError, match="A13"):
         load_job(raw)
 
 

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.configs.reduce import reduced_config
+from repro_torch.core import sweeps
 from repro_torch.core.jobs import load_job
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -28,6 +29,7 @@ from repro_torch.kernels import rmsnorm as rms
 from repro_torch.launch import serve
 from repro_torch.models import model_zoo
 from repro_torch.models.small import SmallModel
+from repro_torch.runtime.campaign import CampaignExecutor
 from repro_torch.runtime.executor import Executor
 
 pytestmark = pytest.mark.gpu
@@ -93,6 +95,54 @@ def test_kernel_equals_plain_bitwise_at_other_tiles_rings_chunks_and_grids(
     assert torch.equal(got, qa.plain(q, s, w))
 
 
+def _lane_inputs(S, C, N, qblock, device):
+    lanes = [_inputs(C, N, qblock, device, seed=100 + s) for s in range(S)]
+    return [torch.stack([ln[i] for ln in lanes]).contiguous() for i in range(3)], lanes
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("C,N,qblock", [(100, 189_952, 256),   # the FL path's lanes
+                                        (7, 4224, 128),        # odd blocks, a tail tile
+                                        (3, 99_344, 16),       # 6,209 blocks, tail 16
+                                        (13, 768 * 5, 256)])   # an odd tile count
+def test_kernel_lanes_equal_plain_and_single_launches_bitwise(cuda, S, C, N, qblock):
+    """(S, C, N) in one launch: each lane bitwise its plain version and its
+    own (C, N) launch, including ragged N, odd block and tile counts, and a
+    lane's last stage reading the next lane's rows."""
+    (q, s, w), lanes = _lane_inputs(S, C, N, qblock, cuda)
+    launches = qa.quant_aggregate.launches
+    got = qa.quant_aggregate(q, s, w)
+    torch.cuda.synchronize()
+    assert qa.quant_aggregate.launches == launches + 1
+    assert got.shape == (S, N)
+    assert torch.equal(got, qa.plain(q, s, w))
+    assert torch.equal(got, torch.stack([qa.quant_aggregate(*ln) for ln in lanes]))
+
+
+@pytest.mark.parametrize("grid", [1, 5, None])
+def test_kernel_lanes_at_other_grids(cuda, grid):
+    """CTAs taking tiles of several lanes in turn (grid 1 and 5), and one
+    tile per CTA."""
+    S, C, N, qblock = 3, 29, 33 * 256, 256
+    (q, s, w), _ = _lane_inputs(S, C, N, qblock, cuda)
+    plan = qa.launch_plan(C, N, qblock, S=S, tile=256)
+    plan = plan._replace(grid=grid or S * -(-N // 256))
+    got = qa._launch(q, s, w, qblock, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
+def test_vmapped_call_is_one_lane_launch(cuda):
+    """``ops.quant_aggregate`` under ``torch.func.vmap`` over lanes launches
+    the kernel once for all of them."""
+    (q, s, w), _ = _lane_inputs(4, 10, 4096, 256, cuda)
+    launches = qa.quant_aggregate.launches
+    got = torch.func.vmap(ops.quant_aggregate)(q, s, w)
+    torch.cuda.synchronize()
+    assert qa.quant_aggregate.launches == launches + 1
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
 def test_kernel_rejects_misaligned_input(cuda):
     q, s, w = _inputs(2, 4096 + 16, 16, cuda)
     with pytest.raises(ValueError, match="aligned"):
@@ -112,6 +162,29 @@ def _job(compression, rounds_per_launch, **train):
         "runtime": {"straggler_prob": 0.1, "straggler_overprovision": 1.25}})
     job.model = SmallModel(job.model.cfg.replace(d_model=8, d_ff=16), "cnn")
     return job
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_int8_campaign_on_card_launches_once_per_flush_for_every_lane(cuda, mode):
+    """An int8 campaign of 4 lanes: one B1 launch per round (sync) or per
+    event where some lane flushes (FedBuff); chunks of 1 == chunks of 2."""
+    runs = []
+    for chunk in (2, 1):
+        job = _job("int8", chunk, **({"mode": "async", "async_buffer": 3} if mode == "async"
+                                     else {}))
+        job.sweep = sweeps.parse_sweep({"seed": [0, 1], "client_lr": [0.05, 0.1]})
+        launches = qa.quant_aggregate.launches
+        ex = CampaignExecutor(job).scaffold()
+        ex.run()
+        n = qa.quant_aggregate.launches - launches
+        if mode == "sync":
+            assert n == 4
+        else:
+            flushes = {e for sc in ex.schedules for e in np.nonzero(sc.apply[:12])[0]}
+            assert n == len(flushes)
+        runs.append(ex)
+    a, b = runs
+    assert all(torch.equal(a.state["params"][k], b.state["params"][k]) for k in a.state["params"])
 
 
 @pytest.mark.parametrize("compression", ["none", "int8"])

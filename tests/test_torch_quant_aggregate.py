@@ -180,3 +180,66 @@ def test_max_clients_is_taken_at_the_limit_and_refused_above():
     for tile in (1000, 2048, 1280):
         with pytest.raises(ValueError):
             qa.launch_plan(4, 4096, 256, tile=tile)
+
+
+# -- lanes: (S, C, N) in one launch (a campaign's int8 round) -----------------
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("C,N,qblock", SHAPES[:3] + [(5, 4096 + 128, 128)])
+def test_lane_plain_is_each_lanes_plain_and_close_to_jax_ref(S, C, N, qblock):
+    """The lane plain version runs lane by lane: bitwise each lane's (C, N)
+    plain version, and within ``ref.quant_aggregate_ref``'s tolerance of
+    the JAX oracle lane by lane (rtol 1e-5 / atol 1e-6, another client
+    order)."""
+    lanes = [_inputs(C, N, qblock, seed=10 + s) for s in range(S)]
+    q, s, w = (np.stack([ln[i] for ln in lanes]) for i in range(3))
+    got = qa.plain(*_torch(q, s, w))
+    assert got.shape == (S, N)
+    for i, ln in enumerate(lanes):
+        assert torch.equal(got[i], qa.plain(*_torch(*ln)))
+        want = np.asarray(jref.quant_aggregate_ref(*(jnp.asarray(a) for a in ln)))
+        np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-5, atol=1e-6)
+    # the custom op's vmap rule: one (S, C, N) call, the same values
+    with ops.quant_agg_scope() as frame:
+        vm = torch.func.vmap(ops.quant_aggregate)(*_torch(q, s, w))
+    assert frame["calls"] == 1 and frame["batched_fallbacks"] == 0
+    assert torch.equal(vm, got)
+
+
+@pytest.mark.parametrize("S", [2, 4, 7])
+@pytest.mark.parametrize("C,N,qblock", KERNEL_SHAPES + [(13, 768 * 5, 256)])
+def test_launch_plan_covers_every_lane_output_once(S, C, N, qblock):
+    """The persistent CTAs walk S * ceil(N / tile) tiles: tile gi is tile
+    gi % n_tiles of lane gi // n_tiles, so every (lane, output) is owned
+    once and no CTA is left without a tile."""
+    plan = qa.launch_plan(C, N, qblock, S=S)
+    n_tiles = -(-N // plan.tile)
+    assert 1 <= plan.grid <= S * n_tiles and plan.grid <= qa.CTAS_PER_SM * 132
+    seen = np.zeros((S, n_tiles * plan.tile), dtype=np.int64)
+    consumers = plan.threads - 32
+    for b in range(plan.grid):
+        for gi in range(b, S * n_tiles, plan.grid):
+            lane, ti = divmod(gi, n_tiles)
+            n0 = ti * plan.tile + qa.OUT_PER_THREAD * np.arange(consumers)
+            for i in range(qa.OUT_PER_THREAD):
+                np.add.at(seen[lane], (n0 + i)[n0 < N], 1)
+    assert (seen[:, :N] == 1).all() and (seen[:, N:] == 0).all()
+
+
+def test_launch_plan_at_the_campaign_lane_shape():
+    """S = 4 lanes of the FL path: 256-output tiles would put 4 % fewer
+    outputs on the busiest SM than 1,024, but give each CTA a quarter of
+    the consumer threads; the plan takes the largest tile within 10 %."""
+    plan = qa.launch_plan(100, 189_952, 256, S=4)
+    assert plan.tile == 1024 and plan.grid == qa.CTAS_PER_SM * 132
+    assert qa.launch_plan(100, 189_952, 256, S=1) == qa.launch_plan(100, 189_952, 256)
+    with pytest.raises(ValueError, match="lanes"):
+        qa.launch_plan(100, 4096, 256, S=0)
+
+
+def test_wrapper_checks_lane_shapes():
+    q, s, w = _torch(*_inputs(4, 1024, 256))
+    with pytest.raises(ValueError, match=r"\[S,\]"):
+        qa.quant_aggregate(q[None], s, w)
+    with pytest.raises(ValueError, match=r"\[S,\]"):
+        qa.quant_aggregate(torch.stack([q, q]), torch.stack([s, s, s]), torch.stack([w, w]))
