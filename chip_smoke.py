@@ -86,7 +86,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    flight recorder and the probes on == off bitwise for spatial, temporal
    and FedBuff int8, a ``torch.profiler`` trace of one launch holding B1,
    and the telemetry report.
-9. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+9. streaming client plane (slice 8) — B1 at the ragged plane's shapes (C =
+   25 and 128 slots of 189,952, lanes (4, 25, 189,952); pads at weight 0),
+   bitwise its plain version and timed beside its bound; then at MAIN_JOB's
+   width with ``max_cohort: 25`` and int8 without error feedback, resident
+   and streaming, chunks of 3 and of 1 (6 rounds): all four bitwise, B1
+   once a round; the stager's host plan and assembly seconds and the side
+   stream's copy ms per chunk, the peak slab against full residency, and two
+   warm streaming chunks under ``torch.profiler`` (do the slab copies run
+   under the kernels?); a ``synthetic_population`` of 1,000,000
+   CIFAR-shaped clients (98 GB if staged) streamed at cohort 100 of 128
+   slots (4 rounds in chunks of 2; peak slab under 1 % of residency, losses
+   falling); FedBuff and FedAsync int8 on the ragged plane, resident and
+   streaming, each bitwise the dense run; a ragged sweep cohort [10, 20] x
+   seed [0, 1] (one launch key, one (4, 25, N) B1 launch a round,
+   streaming lanes == resident lanes, lanes near their single runs).
+10. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -98,7 +113,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-10. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+11. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -638,7 +653,8 @@ def run_slice5(torch, qa, load_job, Executor, label, raw, ckpt_dir=None, rounds=
     checkpoint in ``ckpt_dir`` if there is one; returns its summary and the
     executor. Losses must be finite."""
     job = load_job(raw)
-    job.dataset = _SharedData(job.dataset)
+    if not hasattr(job.dataset, "shard"):      # a population makes its shards itself
+        job.dataset = _SharedData(job.dataset)
     torch.cuda.reset_peak_memory_stats()
     before = qa.quant_aggregate.launches
     t0 = time.perf_counter()
@@ -1819,6 +1835,280 @@ def phase_telemetry(torch, qa, load_job, Executor):
     return jobs
 
 
+# phase 9 (slice 8): the streaming client plane. MAIN_JOB's int8 job on the
+# ragged plane (error feedback off: the plane carries no per-client state),
+# a population that does not fit on the card, ragged async and a ragged
+# campaign; B1 at the plane's shapes
+RAGGED_TRAIN = {"max_cohort": 25, "error_feedback": False}
+POPULATION_JOB = {
+    "name": "chip_smoke_population",
+    "model": {"arch": "flsim-cnn"},              # CIFAR-shaped shards, config width
+    "dataset": {"dataset": "synthetic_population", "items_per_client": 8},
+    "strategy": {"strategy": "compressed",
+                 "train_params": {"n_clients": 1_000_000, "cohort": 100, "max_cohort": 128,
+                                  "streaming": True, "compression": "int8",
+                                  "error_feedback": False, "local_steps": 5,
+                                  "batch_size": 8, "client_lr": 0.05, "rounds": 4,
+                                  "rounds_per_launch": 2, "seed": 0}},
+    "runtime": {"straggler_prob": 0.1, "straggler_overprovision": 1.25},
+}
+RAGGED_SWEEP = {"cohort": [10, 20], "seed": [0, 1]}
+B1_RAGGED_SHAPES = {   # name: (S, C, N, qblock, real slots per lane)
+    "ragged_c25": (1, 25, 189_952, 256, (20,)),
+    "ragged_c128": (1, 128, 189_952, 256, (100,)),
+    "ragged_lanes": (4, 25, 189_952, 256, (10, 20, 10, 20)),
+}
+
+
+def phase_b1_ragged(torch, qa):
+    """B1 at the ragged plane's shapes, the pad slots at weight 0: bitwise
+    its plain version, timed as phase 3 times it, beside its bound."""
+    dev = torch.device("cuda")
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    rows = {}
+    for i, (name, (S, C, N, qblock, real)) in enumerate(B1_RAGGED_SHAPES.items()):
+        lanes = [agg_inputs(C, N, qblock, seed=60 + 4 * i + s, device=dev) for s in range(S)]
+        for (_, _, w), k in zip(lanes, real):
+            w[k:] = 0.0
+        q, s, w = (torch.stack([ln[j] for ln in lanes]).contiguous() for j in range(3))
+        if S == 1:
+            q, s, w = q[0], s[0], w[0]
+        got, want = qa.quant_aggregate(q, s, w), qa.plain(q, s, w)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError(f"quant_aggregate {name}: not bitwise its plain version")
+        nbytes = S * (C * N + 4 * C * (N // qblock) + 4 * C + 4 * N)
+        bound_ms, bound_by = bound(nbytes, 3 * S * C * N, F32_FLOPS_PER_S)
+        rows[name] = {"S": S, "C": C, "N": N, "qblock": qblock, "real_slots": list(real),
+                      "bitwise": True, "max_abs_err": 0.0,
+                      "plan": qa.launch_plan(C, N, qblock, S=S)._asdict(),
+                      "kernel_ms": time_device(qa.quant_aggregate, (q, s, w), 200, flush),
+                      "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 200, flush),
+                      "plain_ms": time_device(qa.plain, (q, s, w), 20, flush, batch=2),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                      "library_ms": None}
+        log(f"kernel quant_aggregate {name}", json.dumps(rows[name]))
+    del flush
+    return rows
+
+
+def profile_copies(torch, fn, label):
+    """``fn`` under ``torch.profiler``: the slab copies (pinned host to
+    device) against the kernels: their streams, their device ms, and the ms
+    of them that ran while a kernel ran on another stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {(e.name, e.time_range.start, e.time_range.end, e.device_resource_id)
+             for e in prof.events() if e.device_type == DeviceType.CUDA}
+    copies = [sp for sp in spans if "Memcpy HtoD" in sp[0] and "Pinned" in sp[0]]
+    kernels = [sp for sp in spans if "Memcpy" not in sp[0] and "Memset" not in sp[0]]
+
+    def union(ivs):
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    overlap_us = 0.0
+    for _, a, b, stream in copies:
+        for ka, kb in union([(x, y) for _, x, y, st in kernels if st != stream]):
+            overlap_us += max(0.0, min(b, kb) - max(a, ka))
+    copy_ms = sum(b - a for _, a, b, _ in copies) / 1e3
+    out = {"wall_ms": wall_ms, "slab_copies": len(copies), "copy_ms": copy_ms,
+           "copy_ms_under_kernels": overlap_us / 1e3,
+           "copy_streams": sorted({str(sp[3]) for sp in copies}),
+           "kernel_streams": sorted({str(sp[3]) for sp in kernels}),
+           "kernels": len(kernels),
+           "kernel_busy_ms": sum(b - a for a, b in union([(x, y) for _, x, y, _ in kernels]))
+           / 1e3}
+    log(f"profile {label}", json.dumps(out))
+    return out
+
+
+def _chunk_stats(stager) -> list:
+    rows = stager.chunk_stats()
+    return [{k: (list(v) if isinstance(v, tuple) else v) for k, v in r.items()} for r in rows]
+
+
+def run_ragged(torch, qa, load_job, Executor, label, raw, rounds=None):
+    """One ragged job through the entry points (``run_slice5``), with its
+    stager's per-chunk host and copy times and slab bytes."""
+    out, ex = run_slice5(torch, qa, load_job, Executor, label, raw, rounds=rounds)
+    st = ex.stager
+    out.update(peak_slab=st.peak_slab_bytes, resident_equiv=st.resident_bytes,
+               data_plane=st.device_bytes, chunks=_chunk_stats(st))
+    log(f"{label} stager", json.dumps({k: out[k] for k in (
+        "peak_slab", "resident_equiv", "data_plane", "chunks")}))
+    return out, ex
+
+
+def phase_streaming(torch, qa, load_job, Executor):
+    """Slice 8 at full width, through ``load_job`` -> ``Executor``:
+
+    - MAIN_JOB's int8 job on the ragged plane (max_cohort 25), resident and
+      streaming, 6 rounds in chunks of 3 and of 1: streaming == resident and
+      chunks of 1 == chunks of 3, bitwise; B1 once a round at C = 25;
+      ``round_s``, the host's plan and assembly seconds, the side stream's
+      copy ms per chunk, ``peak_slab`` against ``resident_equiv``; then two
+      warm streaming chunks under ``torch.profiler``, the second prefetched
+      while the first runs: does the copy overlap the kernels?
+    - a population of 1,000,000 CIFAR-shaped clients (98 GB if staged),
+      cohort 100 of 128 slots, streaming, 4 rounds in chunks of 2: losses
+      finite and falling, ``peak_slab < 0.01 resident_equiv``, B1 once a
+      round at C = 128; the host's plan and shard seconds per chunk, and
+      a further chunk under ``torch.profiler`` (the device's busy share);
+    - ragged async: FedBuff (K = 10) and FedAsync on int8, 2 rounds, dense,
+      resident and streaming: all three bitwise; B1 once per flush / event;
+    - a ragged campaign, sweep cohort [10, 20] x seed [0, 1] (S = 4), 3
+      rounds in chunks of 1, resident and streaming: one launch key, one B1
+      launch of (4, 25, N) a round, streaming lanes == resident lanes
+      bitwise, each lane's losses within LANE_LOSS_RTOL of its single run.
+
+    B1's count is set to 0 just before each counted path and read just
+    after. Returns the phase's summary."""
+    from repro_torch.runtime import campaign as campaign_mod
+    out, by_path = {}, {}
+
+    # resident against streaming on MAIN_JOB's ragged int8 job
+    runs = {}
+    qa.quant_aggregate.launches = 0
+    for rpl in (3, 1):
+        for streaming in (False, True):
+            raw = job_dict("compressed", "int8", rpl, streaming=streaming, **RAGGED_TRAIN)
+            label = f"ragged int8 {'streaming' if streaming else 'resident'} (chunks of {rpl})"
+            runs[(rpl, streaming)] = run_ragged(torch, qa, load_job, Executor, label, raw)
+    by_path["ragged_int8_c25"] = qa.quant_aggregate.launches
+    if by_path["ragged_int8_c25"] != 4 * 6 or any(
+            o["agg_launches"] != 6 for o, _ in runs.values()):
+        raise AssertionError(f"ragged int8: {by_path['ragged_int8_c25']} B1 launches in "
+                             "4 runs of 6 rounds, want one a round")
+    (ref, ex_ref) = runs[(3, False)]
+    for key, (o, ex) in runs.items():
+        if o["losses"] != ref["losses"] or not _same(torch, ex.state, ex_ref.state):
+            raise AssertionError(f"ragged int8 {key} != resident chunks of 3")
+    log("ragged int8: streaming == resident, chunks of 1 == chunks of 3, bitwise; "
+        "B1 once a round at C = 25")
+    ex_str = runs[(3, True)][1]
+    out["main"] = {f"{'streaming' if s else 'resident'}_chunks_{r}": o
+                   for (r, s), (o, _) in runs.items()}
+    # two warm chunks: [6, 9) is taken synchronously, [9, 12) is prefetched
+    # while [6, 9) runs
+    prof = profile_copies(torch, lambda: ex_str.run(12), "two warm streaming chunks of 3")
+    prof["chunks"] = _chunk_stats(ex_str.stager)[-2:]
+    log("profiled chunks", json.dumps(prof["chunks"]))
+    out["profile"] = prof
+    del runs, ex_ref, ex_str
+    torch.cuda.empty_cache()
+
+    # a population that does not fit on the card
+    qa.quant_aggregate.launches = 0
+    t0 = time.perf_counter()
+    pop, ex = run_ragged(torch, qa, load_job, Executor, "population 1e6 (streaming)",
+                         POPULATION_JOB)
+    pop["wall_s"] = time.perf_counter() - t0
+    by_path["population_c128"] = qa.quant_aggregate.launches
+    if by_path["population_c128"] != 4:
+        raise AssertionError(f"population: {by_path['population_c128']} B1 launches in "
+                             "4 rounds")
+    if not pop["losses"][-1] < pop["losses"][0]:
+        raise AssertionError(f"population: loss did not fall {pop['losses']}")
+    if not pop["peak_slab"] < 0.01 * pop["resident_equiv"]:
+        raise AssertionError(f"population: peak slab {pop['peak_slab']} against "
+                             f"{pop['resident_equiv']} resident")
+    log(f"population: peak slab {pop['peak_slab']} B = "
+        f"{pop['peak_slab'] / pop['resident_equiv']:.2e} of {pop['resident_equiv']} B resident")
+    # two more rounds, one chunk assembled in line: the device's busy share
+    # of a chunk whose host plans and generates its shards first
+    pop["profile"], _ = profile_device(torch, lambda: ex.run(6), "one population chunk "
+                                       "(2 rounds, assembled in line)", top=4)
+    pop["profile"]["chunk"] = _chunk_stats(ex.stager)[-1]
+    log("profiled population chunk", json.dumps(pop["profile"]["chunk"]))
+    out["population"] = pop
+    del ex
+    torch.cuda.empty_cache()
+
+    # ragged async: dense, resident and streaming, bitwise
+    for name, tp in ASYNC_JOBS.items():
+        res = {}
+        for plane, extra in (("dense", {}), ("resident", {"max_cohort": 100}),
+                             ("streaming", {"max_cohort": 100, "streaming": True})):
+            raw = job_dict("compressed", "int8", 1, runtime=ASYNC_RUNTIME, rounds=2,
+                           mode="async", staleness_exponent=0.5, cohort=0,
+                           error_feedback=False, **tp, **extra)
+            qa.quant_aggregate.launches = 0
+            run = run_ragged if extra else run_slice5
+            o, ex = run(torch, qa, load_job, Executor, f"{name} {plane}", raw)
+            n_ev = 2 * ex.events_per_round
+            want = int(ex.schedule.apply[:n_ev].sum()) if tp["async_buffer"] > 1 else n_ev
+            if qa.quant_aggregate.launches != want:
+                raise AssertionError(f"{name} {plane}: {qa.quant_aggregate.launches} B1 "
+                                     f"launches, want {want}")
+            res[plane] = (o, ex)
+        (dense, ex_d) = res["dense"]
+        for plane in ("resident", "streaming"):
+            o, ex = res[plane]
+            if o["losses"] != dense["losses"] or not _same(torch, ex.state, ex_d.state):
+                raise AssertionError(f"{name}: {plane} ragged != dense async")
+        by_path[f"ragged_{name}"] = want
+        out[f"async_{name}"] = {p: {k: o[k] for k in ("losses", "round_s", "events_per_s")
+                                    if k in o} | {"chunks": o.get("chunks")}
+                                for p, (o, _) in res.items()}
+        log(f"ragged {name}: resident and streaming bitwise the dense run; "
+            f"B1 launches {want}")
+        del res, ex_d, ex
+        torch.cuda.empty_cache()
+
+    # a ragged campaign, resident and streaming
+    with _CachedDatasets(campaign_mod):
+        camps = {}
+        for streaming in (False, True):
+            raw = dict(job_dict("compressed", "int8", 1, rounds=3, streaming=streaming,
+                                **RAGGED_TRAIN), sweep=RAGGED_SWEEP)
+            c, ex = run_campaign(torch, qa, load_job, f"ragged int8 sweep "
+                                 f"({'streaming' if streaming else 'resident'})", raw)
+            c["launch_keys"] = ex.compiled_programs()
+            c["peak_slab"] = ex.stager.peak_slab_bytes
+            c["chunks"] = _chunk_stats(ex.stager)
+            if c["agg_launches"] != 3 or c["launch_keys"] != 1:
+                raise AssertionError(f"ragged sweep: {c['agg_launches']} B1 launches in 3 "
+                                     f"rounds, {c['launch_keys']} launch keys")
+            camps[streaming] = (c, ex)
+        (c_res, ex_res), (c_str, ex_str) = camps[False], camps[True]
+        if c_res["lane_losses"] != c_str["lane_losses"] or \
+                not _same(torch, ex_res.state, ex_str.state):
+            raise AssertionError("ragged sweep: streaming lanes != resident lanes")
+        by_path["ragged_campaign_lanes"] = c_res["agg_launches"] + c_str["agg_launches"]
+        singles, diffs = [], []
+        for s, fl_s in enumerate(ex_res.fls):
+            raw = job_dict("compressed", "int8", 1, rounds=3, seed=fl_s.seed,
+                           cohort=fl_s.cohort, **RAGGED_TRAIN)
+            one, ex = run_slice5(torch, qa, load_job, Executor, f"ragged single lane {s}", raw)
+            diffs.append(_lane_diff(torch, ex.state, ex_res, s))
+            singles.append(one["losses"])
+            del ex
+        for got, want in zip(c_res["lane_losses"], singles):
+            if not losses_close(got, want, LANE_LOSS_RTOL):
+                raise AssertionError(f"ragged lane losses {got} vs single run {want}")
+        out["campaign"] = {"resident": c_res, "streaming": c_str, "single_losses": singles,
+                           "lane_max_abs_diff": diffs}
+        log("ragged sweep: one launch key, one B1 launch of (4, 25, N) a round, streaming "
+            "lanes == resident lanes bitwise, lanes within LANE_LOSS_RTOL of single runs",
+            json.dumps({"lane_max_abs_diff": diffs}))
+        del camps, ex_res, ex_str
+        torch.cuda.empty_cache()
+    out["b1_launches_by_path"] = by_path
+    return out
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1929,14 +2219,22 @@ def main() -> int:
     slice7_s = time.perf_counter() - t0
     log(f"slice 7 phase: {slice7_s:.1f}s")
 
-    # 9. serve path; counts zeroed just before it, read just after
+    # 9. the streaming client plane (slice 8): B1 at its shapes, then the
+    # paths; B1's counts zeroed just before each counted path, read just after
+    t0 = time.perf_counter()
+    ragged_rows = phase_b1_ragged(torch, qa)
+    streaming = phase_streaming(torch, qa, load_job, Executor)
+    slice8_s = time.perf_counter() - t0
+    log(f"slice 8 phase: {slice8_s:.1f}s")
+
+    # 10. serve path; counts zeroed just before it, read just after
     kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
                "flash_attention": fa.flash_attention_fwd,
                "decode_attention": da.decode_attention_fwd}
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 10. summary
+    # 11. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -1949,7 +2247,8 @@ def main() -> int:
         "library_ms": None, "bitwise": True,
         "shape": [main["C"], main["N"], main["qblock"]],
         "launches_by_path": {"sync_int8": main_launches, **slice5["b1_launches_by_path"],
-                             **control["b1_launches_by_path"]},
+                             **control["b1_launches_by_path"],
+                             **streaming["b1_launches_by_path"]},
         "slice5_shapes": {name: {k: r[k] for k in ("C", "kernel_ms", "kernel_call_ms",
                                                    "plain_ms", "bound_ms", "bound_by")}
                           for name, r in b1_rows.items()},
@@ -1968,6 +2267,20 @@ def main() -> int:
         "library_ms": None, "bitwise": True,
         "four_single_launches_ms": lane_row["four_single_launches_ms"],
         "shape": [lane_row["S"], lane_row["C"], lane_row["N"], lane_row["qblock"]]})
+    # the ragged plane's launches: C = max_cohort slots, pads at weight 0
+    for name, path in (("ragged_c25", "ragged_int8_c25"),
+                       ("ragged_c128", "population_c128"),
+                       ("ragged_lanes", "ragged_campaign_lanes")):
+        r = ragged_rows[name]
+        entries.append({
+            "name": f"quant_aggregate_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_aggregate.cu",
+            "replaces": "src/repro/kernels/quant_aggregate.py:22",
+            "launches": streaming["b1_launches_by_path"][path],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "call_ms": r["kernel_call_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bitwise": True, "shape": [r["S"], r["C"], r["N"], r["qblock"]]})
     flash_src = "src/repro/kernels/flash_attention.py:30"
     for name, key, source, replaces, launches, worst in (
             # one TPU kernel, two launch layouts: a narrow CTA per row for
@@ -2067,6 +2380,27 @@ def main() -> int:
                     "telemetry": {k: {"round_s_off": v["round_s_off"],
                                       "round_s_on": v["round_s_on"]}
                                   for k, v in telemetry.items()}}))
+    log(json.dumps({"slice": "8: the streaming client plane (ragged cohorts, resident and "
+                    "streaming slab stagers on pinned memory and a side stream, a "
+                    "1,000,000-client population, ragged async and ragged campaigns) on "
+                    "flsim-cnn at full width, B1 at C = max_cohort",
+                    "phase_s": slice8_s, "b1_ragged": ragged_rows,
+                    "round_s": {k: v["round_s"] for k, v in streaming["main"].items()},
+                    "chunks": {k: v["chunks"] for k, v in streaming["main"].items()},
+                    "peak_slab": streaming["main"]["streaming_chunks_3"]["peak_slab"],
+                    "resident_equiv":
+                        streaming["main"]["streaming_chunks_3"]["resident_equiv"],
+                    "copy_profile": streaming["profile"],
+                    "population": {k: streaming["population"][k] for k in (
+                        "losses", "round_s", "scaffold_s", "wall_s", "peak_slab",
+                        "resident_equiv", "chunks", "profile")},
+                    "async": {k: streaming[k] for k in ("async_fedbuff_int8",
+                                                        "async_fedasync_int8")},
+                    "campaign": {p: {k: streaming["campaign"][p][k] for k in (
+                        "round_s", "traj_round_s", "lane_losses", "chunks", "peak_slab")}
+                                 for p in ("resident", "streaming")},
+                    "campaign_single_losses": streaming["campaign"]["single_losses"],
+                    "b1_launches_by_path": streaming["b1_launches_by_path"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

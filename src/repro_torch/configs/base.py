@@ -121,8 +121,8 @@ class FLConfig:
     async_concurrency: int = 0
     n_clients: int = 16               # virtual clients (cohort per round)
     cohort: int = 0                   # 0 -> all clients each round
-    max_cohort: int = 0               # ragged client plane (not yet ported)
-    streaming: bool = False           # streaming data plane (not yet ported)
+    max_cohort: int = 0               # ragged client plane: K cohort slots (0: off)
+    streaming: bool = False           # stream the sampled shards from the host
     local_epochs: int = 1
     local_steps: int = 1              # local optimizer steps per epoch
     batch_size: int = 32              # per-client local batch (device gather)

@@ -8,7 +8,9 @@ ring slot) is a host ``if`` and no event waits for the device. Per event:
 
 1. the arriving client's batch is gathered from the partitions staged on the
    device (``data/pipeline.gather_one_client_batch``: bitwise lane ``c`` of
-   the sync driver's gather, keyed by (root, task index, client));
+   the sync round's gather, keyed by (root, task index, client)), or on
+   the ragged client plane from the event's row of the launch's event slab
+   with the same draw (``gather_event_batch``);
 2. the client trains against the **stale snapshot** it was dispatched with,
    a ring of the last ``max_staleness + 1`` server versions indexed by the
    schedule's ring slot;
@@ -56,7 +58,8 @@ from repro_torch.core.rounds import bind_hyper, freeze_unless, \
     local_train, pop_alive
 from repro_torch.core.strategy import Strategy, tree_add, tree_sub, \
     tree_zeros_like
-from repro_torch.data.pipeline import DEDUP_STAGED_AXES, gather_one_client_batch
+from repro_torch.data.pipeline import (DEDUP_STAGED_AXES, gather_event_batch,
+                                       gather_one_client_batch)
 from repro_torch.kernels import ops
 
 
@@ -115,7 +118,7 @@ def _event_probes(new_params, params, stale, accept, delta, packed: bool, dev):
 
 def build_async_multi(model, strategy: Strategy, fl: FLConfig,
                       batch_size=None, probes: bool = False,
-                      on_divergence: str = "report"):
+                      on_divergence: str = "report", ragged: bool = False):
     """Returns ``multi_fn(state, staged, sched, sched_dev, root,
     start_event, n_events, hyper=None)`` -> ``(state, metrics)``, the
     events ``[start_event, start_event + n_events)`` of ``sched`` (an
@@ -126,13 +129,27 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
     ``staleness``, ``applied`` and ``client`` (from the schedule), and with
     ``probes`` the (n_events, P) ``probes`` plane. ``on_divergence=
     "freeze"`` keeps the state an event held before a nonfinite update (the
-    buffer's fill count follows the schedule)."""
+    buffer's fill count follows the schedule).
+
+    ``ragged`` (the streaming client plane): ``staged`` is the launch's
+    event slab, one row per event of the window ({"x": (E, Lmax, ...),
+    "y", "len"}, ``data/pipeline.SlabStager.event_slab``), read by
+    ``gather_event_batch`` with the dense draw keyed by the schedule's
+    client, so a ragged run is bitwise the dense one."""
     batch_size = batch_size or fl.batch_size
     steps = max(fl.local_steps, 1)
     fedbuff = max(fl.async_buffer, 1) > 1
     packed = strategy.packs_deltas
     packed_fedbuff = _packed_fedbuff(fl, strategy)
     freeze_div = probes and on_divergence == "freeze"
+
+    def batch_of(staged, i: int, rkey: int, c: int):
+        if ragged:
+            row = {k: v[i] for k, v in staged.items()}
+            b = gather_event_batch(row, rkey, c, batch_size, steps)
+        else:
+            b = gather_one_client_batch(staged, rkey, c, batch_size, steps)
+        return {k: v[None] for k, v in b.items()}
 
     def multi_fn(state, staged, sched, sched_dev, root: int,
                  start_event: int, n_events: int, hyper=None):
@@ -149,12 +166,11 @@ def build_async_multi(model, strategy: Strategy, fl: FLConfig,
         dev = staged["x"].device
         losses, plane = [], []
         events = range(start_event, start_event + n_events)
-        for e in events:
+        for i, e in enumerate(events):
             c = int(sched.client[e])
             rkey = determinism.round_key(root, int(sched.task[e]))
             stale = {k: h[int(sched.read_slot[e])] for k, h in hist.items()}
-            cbatch = {k: v[None] for k, v in gather_one_client_batch(
-                staged, rkey, c, batch_size, steps).items()}
+            cbatch = batch_of(staged, i, rkey, c)
             key = determinism.key_tensor(determinism.client_key(rkey, c), dev)
             delta, _, loss = local_train(model, strategy_h, fl_h, stale, server,
                                          (), cbatch, key, pack_deltas=packed)

@@ -6,9 +6,15 @@ section against the same known keys as the JAX package (a typo like
 topology, dataset, ledger (``fl.blockchain``), fault model and sweep, and
 checks the consensus name. A ``sweep:`` section expands the job into a
 campaign (``core/sweeps.py``, ``runtime/campaign.py``); ``telemetry:`` and
-``probes:`` turn on the flight recorder and the round probes. A setting
-whose code is not yet ported fails here, at load time, naming the ROADMAP
-item; nothing unported is silently ignored.
+``probes:`` turn on the flight recorder and the round probes;
+``max_cohort > 0`` selects the ragged client plane (``streaming: true`` to
+stream the sampled shards from the host, the ``synthetic_population``
+dataset to generate them on demand). A setting whose code is not yet
+ported fails here, at load time, naming the ROADMAP item; nothing unported
+is silently ignored. What the ragged plane cannot run (per-client state,
+the decentralized topology, temporal placement, async campaigns) fails here
+too, with the JAX package's errors, which it raises when the executor is
+built.
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ from repro_torch.configs.base import FLConfig, get_config
 from repro_torch.core import sweeps
 from repro_torch.core.blockchain import get_ledger
 from repro_torch.core.consensus import CONSENSUS_REGISTRY
+from repro_torch.core.plan import resolve_placement
+from repro_torch.core.rounds import check_ragged_support
 from repro_torch.core.strategies import get_strategy
 from repro_torch.core.topology import get_topology
-from repro_torch.data.pipeline import SyntheticVision
+from repro_torch.data.pipeline import SyntheticPopulation, SyntheticVision
 from repro_torch.models import model_zoo
 from repro_torch.runtime.clock import ClientSystemModel
 from repro_torch.runtime.faults import FaultModel
@@ -84,22 +92,14 @@ def _not_ported(what: str, item: str):
 
 
 def check_ported(raw: dict, fl: FLConfig) -> None:
-    """Raise for any setting the port cannot run yet: ``NotImplementedError``
-    naming the ROADMAP item, or a ``ValueError`` for a campaign over the
-    ragged client plane."""
-    if raw.get("sweep") and (fl.max_cohort > 0 or fl.streaming):
-        raise ValueError("a campaign over ragged cohorts (max_cohort > 0, "
-                         "streaming) needs the streaming client plane, which is "
-                         "not yet ported (ROADMAP A13); sweep it with "
-                         "max_cohort: 0")
+    """Raise for any setting the port cannot run: ``NotImplementedError``
+    naming the ROADMAP item where its code is not yet ported, else a
+    ``ValueError``."""
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
     if fl.placement not in ("auto", "spatial", "temporal"):
         raise ValueError(f"unknown placement {fl.placement!r} "
                          "(want 'auto', 'spatial' or 'temporal')")
-    if fl.max_cohort > 0 or fl.streaming:
-        raise _not_ported("the ragged/streaming client plane "
-                          "(max_cohort > 0, streaming)", "A13")
     if fl.consensus not in CONSENSUS_REGISTRY:
         hint = difflib.get_close_matches(fl.consensus, sorted(CONSENSUS_REGISTRY), n=1)
         suffix = (f" — did you mean {hint[0]!r}?" if hint
@@ -108,6 +108,23 @@ def check_ported(raw: dict, fl: FLConfig) -> None:
     if fl.compression not in ("none", "int8", "topk"):
         raise ValueError(f"unknown compression {fl.compression!r} "
                          "(want 'none', 'int8' or 'topk')")
+
+
+def check_ragged(raw: dict, fl: FLConfig, strategy) -> None:
+    """Raise ``ValueError`` for what the ragged client plane (``max_cohort
+    > 0``) cannot run, as the JAX package does: a sync job it cannot honour
+    (``rounds.check_ragged_support``), and a campaign of async lanes (the
+    event schedule sizes by n_clients, a per-lane host value there)."""
+    if fl.max_cohort <= 0:
+        return
+    if raw.get("sweep") and fl.mode == "async":
+        raise ValueError(
+            "ragged campaigns (max_cohort > 0) support sync mode only: the "
+            "async event schedule sizes by n_clients, which the ragged plane "
+            "makes a per-lane host value; run async ragged lanes as single "
+            "Executors")
+    if fl.mode == "sync":
+        check_ragged_support(fl, strategy, resolve_placement(fl))
 
 
 def check_client_state(fl: FLConfig, strategy) -> None:
@@ -136,9 +153,18 @@ def make_dataset(raw: dict, fl: FLConfig, cfg=None):
             kw["shape"] = input_shape(cfg)
         return SyntheticVision(n_items=ds.get("n_items", 1024), seed=fl.seed,
                                **kw)
-    if kind in ("synthetic_lm", "synthetic_population"):
-        raise _not_ported(f"dataset {kind!r}",
-                          "A15" if kind == "synthetic_lm" else "A13")
+    if kind == "synthetic_population":
+        # shards generated on demand for the streaming client plane, sized
+        # by fl.n_clients and never materialized (needs streaming: true)
+        kw = {}
+        if cfg is not None and cfg.family == "small":
+            from repro_torch.models.small import input_shape
+            kw["shape"] = input_shape(cfg)
+        return SyntheticPopulation(n_clients=fl.n_clients,
+                                   items_per_client=ds.get("items_per_client", 8),
+                                   seed=fl.seed, **kw)
+    if kind == "synthetic_lm":
+        raise _not_ported(f"dataset {kind!r}", "A15")
     raise KeyError(f"unknown dataset {kind!r}")
 
 
@@ -248,9 +274,11 @@ def load_job(path_or_dict) -> Job:
             validate_cohort(fl_s)
             check_ported(raw, fl_s)
             check_client_state(fl_s, get_strategy(fl_s))
+            check_ragged(raw, fl_s, get_strategy(fl_s))
 
     strategy = get_strategy(fl)
     check_client_state(fl, strategy)
+    check_ragged(raw, fl, strategy)
 
     arch = (raw.get("model") or {}).get("arch", "flsim-cnn")
     cfg = get_config(arch)     # small models: ``reduced`` leaves them as-is

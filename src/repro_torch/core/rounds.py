@@ -33,6 +33,11 @@ alive mask; the clients' vmap nests inside it, and the int8 aggregate of
 all lanes is ONE ``ops.quant_aggregate`` launch over ``(S, C, N)`` (its
 vmap rule).
 
+The ragged client plane (``build_ragged_multi``, ``max_cohort > 0``): the
+spatial round over K = max_cohort slots of a per-round cohort slab staged
+by ``data/pipeline``'s slab stagers, the pads at weight 0; stateless
+strategies and client-server topologies only (``check_ragged_support``).
+
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
 noise is drawn from it); the JAX package hands ``local_loss`` a per-step
@@ -446,6 +451,128 @@ def build_multi_round(model, strategy: Strategy, fl: FLConfig,
         for i, r in enumerate(rounds):
             args = (state, staged, determinism.round_key(roots, r),
                     base_w * masks[:, i], hyper) + (() if alive is None else (alive,))
+            state, metrics = lane(*args)
+            out.append(metrics)
+        return state, stacked(out, 1)
+
+    return lanes_fn if lanes else multi_fn
+
+
+def _has_client_state(strategy: Strategy) -> bool:
+    """Whether the strategy carries a per-client state across rounds."""
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        if isinstance(t, (tuple, list)):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+    return bool(leaves(strategy.client_state_init({"x": torch.zeros(())})))
+
+
+def check_ragged_support(fl: FLConfig, strategy: Strategy,
+                         placement: str = "spatial") -> None:
+    """Refuse what the ragged client plane cannot honour, with the JAX
+    package's errors: it trains only the sampled cohort, so a per-client
+    state (SCAFFOLD/MOON variates, error-feedback residuals) or per-client
+    parameters (the decentralized topology) would silently skip the
+    unsampled clients' updates; and its slab is a per-slot client grid,
+    which only the spatial round reads."""
+    topo = get_topology(fl.topology, fl.gossip_steps)
+    if isinstance(topo, Decentralized):
+        raise ValueError(
+            "ragged cohorts (max_cohort > 0) need client-anonymous state, "
+            "but the decentralized topology keeps per-client parameters — "
+            "use a client_server/hierarchical topology or max_cohort: 0")
+    if _has_client_state(strategy):
+        raise ValueError(
+            f"ragged cohorts (max_cohort > 0) cannot carry per-client "
+            f"strategy state (strategy {fl.strategy!r}"
+            + (", error_feedback" if fl.error_feedback else "")
+            + ") — unsampled clients would never update it; use a "
+            "stateless strategy or max_cohort: 0")
+    if placement != "spatial":
+        raise ValueError(
+            f"ragged cohorts support the spatial placement only, got "
+            f"{placement!r} — the cohort slab is a per-slot client grid")
+
+
+def build_ragged_multi(model, strategy: Strategy, fl: FLConfig,
+                       placement: str = "spatial",
+                       batch_size: Optional[int] = None, probes: bool = False,
+                       on_divergence: str = "report", lanes: bool = False):
+    """The ragged-cohort form of ``build_multi_round``: each round reads one
+    row of a cohort slab (``data/pipeline.SlabStager``), the sampled
+    cohort's shards padded to K = max_cohort slots, instead of gathering
+    every client from a resident root. Its client weights are the row's
+    ``w`` (0 on pad slots), so an int8 round reduces K rows in ONE
+    ``ops.quant_aggregate`` launch. The population and cohort sizes live on
+    the host only.
+
+    Returns ``multi_fn(state, slab, root, start_round, n_rounds,
+    hyper=None)`` with the slab in ``build_multi_round``'s ``staged`` slot,
+    or with ``lanes=True`` the campaign's ``lanes_fn(state, slab, roots,
+    start_round, n_rounds, hyper, faults)``, every input with a leading
+    lane dim S (the faults are drawn by the lanes' stagers, on the host);
+    an int8 round of all lanes is one ``(S, K, N)`` launch. Randomness is
+    keyed by (root, absolute round) and, per slot, by the slot's real client
+    id, so chunking, the slab's pad width and the staging backend are
+    unobservable."""
+    from repro_torch.data.pipeline import gather_slab_batches
+
+    check_ragged_support(fl, strategy, placement)
+    single = build_spatial_round(model, strategy, fl, probes=probes)
+    freeze_div = probes and on_divergence == "freeze"
+    batch_size = batch_size or fl.batch_size
+    steps = max(fl.local_steps, 1)
+    k_slots = int(fl.max_cohort)
+
+    def one_round(st, row, rkey, hyper, alive):
+        batch = gather_slab_batches(row, rkey, batch_size, steps)
+        eff_w = row["w"]
+        new_st, metrics = single(st, batch, eff_w, rkey, hyper)
+        if probes:
+            # participation counts the real slots, masked_frac the slab's
+            # pad share (the population's weight mass lives on the host)
+            pr = metrics.pop("probes")
+            real = (eff_w > 0).to(torch.float32)
+            pr["participation"] = real.sum()
+            pr["masked_frac"] = 1.0 - real.sum() / k_slots
+            if freeze_div:
+                new_st = freeze_unless(1.0 - pr["nonfinite"], new_st, st)
+        if alive is not None:
+            new_st = freeze_unless(alive, new_st, st)
+        if probes:
+            if alive is not None:
+                pr = probelib.mask_probes(alive, pr)
+            metrics["probes"] = probelib.stack_probes(pr)
+        return new_st, metrics
+
+    def stacked(per_round, dim):
+        return {k: torch.stack([m[k] for m in per_round], dim) for k in per_round[0]}
+
+    def multi_fn(state, slab, root: int, start_round: int, n_rounds: int,
+                 hyper=None):
+        alive, hyper = pop_alive(hyper)
+        out = []
+        for i in range(n_rounds):
+            row = {k: v[i] for k, v in slab.items()}
+            state, metrics = one_round(state, row, determinism.round_key(
+                root, start_round + i), hyper, alive)
+            out.append(metrics)
+        return state, stacked(out, 0)
+
+    def lanes_fn(state, slab, roots, start_round: int, n_rounds: int, hyper,
+                 faults=None):
+        alive, hyper = pop_alive(hyper)
+        if alive is None:
+            lane = vmap(lambda st, row, rk, hp: one_round(st, row, rk, hp, None))
+        else:
+            lane = vmap(one_round)
+        out = []
+        for i in range(n_rounds):
+            row = {k: v[:, i] for k, v in slab.items()}
+            args = (state, row, determinism.round_key(roots, start_round + i), hyper) \
+                + (() if alive is None else (alive,))
             state, metrics = lane(*args)
             out.append(metrics)
         return state, stacked(out, 1)

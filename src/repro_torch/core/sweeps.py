@@ -42,9 +42,10 @@ DATA_AXES = ("seed", "dirichlet_alpha")
 SCHEDULE_AXES = ("staleness_exponent",)
 SCALAR_AXES = tuple(k for k in SWEEPABLE_SCALARS if k != "seed")
 CATEGORICAL_AXES = SWEEPABLE_CATEGORICAL
-# cohort plane: with max_cohort == 0 (the port's only client plane) these
-# change the round's shapes and bucket through the planner like categorical
-# axes
+# cohort plane: population and cohort sizes are host-side slab-plan values
+# under the ragged client plane (max_cohort > 0), so lanes sweeping them
+# share one round program; with max_cohort == 0 they change the round's
+# shapes and bucket through the planner like categorical axes
 COHORT_AXES = ("n_clients", "cohort")
 KNOWN_AXES = (DATA_AXES + SCHEDULE_AXES + SCALAR_AXES + COHORT_AXES
               + CATEGORICAL_AXES)

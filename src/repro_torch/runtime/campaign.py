@@ -22,9 +22,12 @@ the round as a runtime value: a dropped lane's state freezes
 (``rounds.freeze_unless``), its rows stop landing in the results table and
 its ledger blocks stop.
 
-Not here yet: ragged lanes (``max_cohort > 0``) wait for the streaming
-client plane (ROADMAP A13), a lane mesh (``lane_devices > 0``) for the
-multi-device port (A16); both raise a ``ValueError`` naming the item.
+Ragged lanes (``max_cohort > 0``): one slab stager per distinct plan key,
+stacked by ``data/pipeline.StackedSlabStager`` into a per-chunk slab with a
+leading lane dim, which the ragged round (``rounds.build_ragged_multi(...,
+lanes=True)``) maps over; sync only, as in the JAX package. Not here yet:
+a lane mesh (``lane_devices > 0``) waits for the multi-device port (ROADMAP
+A16) and raises a ``ValueError`` naming it.
 
 Determinism contract (``tests/test_torch_sweeps.py``,
 ``tests/test_torch_plan.py``): lane ``s`` is bitwise an independent single
@@ -53,11 +56,13 @@ import torch
 from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.core import determinism, sweeps
 from repro_torch.core.blockchain import param_digest
-from repro_torch.core.jobs import make_dataset, make_fault, validate_cohort
+from repro_torch.core.jobs import check_ragged, make_dataset, make_fault, validate_cohort
 from repro_torch.core.plan import program_signature
 from repro_torch.core.probes import PROBE_NAMES, buffer_occupancy, staleness_hist
-from repro_torch.core.rounds import build_multi_round, init_state, tree_map
-from repro_torch.data.pipeline import stage_partitions_dedup
+from repro_torch.core.rounds import build_multi_round, build_ragged_multi, init_state, \
+    tree_map
+from repro_torch.data.pipeline import (StackedSlabStager, make_slab_stager,
+                                       stage_partitions_dedup)
 from repro_torch.runtime.executor import Executor, tree_nbytes
 from repro_torch.telemetry import comms as comms_mod
 
@@ -190,9 +195,7 @@ class CampaignExecutor(Executor):
                 "planner: runtime.scheduler.PlanExecutor")
         for fl_s in self.fls:
             validate_cohort(fl_s)
-            if fl_s.max_cohort > 0 or fl_s.streaming:
-                raise ValueError("a campaign over ragged cohorts needs the "
-                                 "streaming client plane (ROADMAP A13)")
+        check_ragged(self.job.raw, self.job.fl, self.job.strategy)
         self.S = len(self.fls)
         self.alive = np.ones(self.S, np.float32)
         self._alive_dev = None         # the mask on the device, per drop
@@ -203,6 +206,11 @@ class CampaignExecutor(Executor):
         super().__post_init__()
 
     def _build_sync(self, spec):
+        if self.ragged:
+            return build_ragged_multi(
+                self.job.model, self.job.strategy, self.job.fl,
+                placement=self.placement, probes=spec.enabled,
+                on_divergence=spec.on_divergence, lanes=True)
         return build_multi_round(
             self.job.model, self.job.strategy, self.job.fl,
             placement=self.placement, fault=self.job.fault, device=self.device,
@@ -243,6 +251,9 @@ class CampaignExecutor(Executor):
         staged once and shared; the scalar plane and the per-lane root keys
         and fault models (the host cohort draws)."""
         cfg = getattr(self.job.model, "cfg", None)
+        if self.ragged:
+            self._stage_ragged(cfg)
+            return
         cache, trajs, keys = {}, [], []
         for fl_s in self.fls:
             k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha)
@@ -253,6 +264,27 @@ class CampaignExecutor(Executor):
             keys.append(k)
         self.data = trajs                # per-lane host views (eval_fn)
         self.staged, self.lane_ds = stage_partitions_dedup(trajs, keys, self.device)
+        self.roots = sweeps.root_keys(self.fls, self.device)
+        self.hyper = sweeps.scalar_plane(self.fls, self.device)
+        self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self.fls]
+
+    def _stage_ragged(self, cfg):
+        """Ragged lanes: one slab stager per distinct plan key (the host
+        cohort draw depends on the population and cohort sizes and on the
+        fault seed, not only on the dataset), stacked by
+        ``StackedSlabStager``; no root is staged up front."""
+        cache, lanes = {}, []
+        for fl_s in self.fls:
+            k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha, fl_s.n_clients,
+                 fl_s.cohort, fl_s.max_cohort, fl_s.straggler_overprovision,
+                 fl_s.streaming)
+            if k not in cache:
+                cache[k] = make_slab_stager(make_dataset(self.job.raw, fl_s, cfg), fl_s,
+                                            make_fault(self.job.raw, fl_s), self.device)
+            lanes.append(cache[k])
+        self.stager = StackedSlabStager(lanes)
+        self.data = [getattr(ln, "data", None) for ln in lanes]
+        self.staged, self.lane_ds = None, None
         self.roots = sweeps.root_keys(self.fls, self.device)
         self.hyper = sweeps.scalar_plane(self.fls, self.device)
         self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self.fls]
@@ -346,9 +378,9 @@ class CampaignExecutor(Executor):
     def _record_plane_bytes(self):
         if not self.recorder.enabled:
             return
+        data = self.stager.device_bytes if self.ragged else tree_nbytes(self.staged)
         self.recorder.counter("staged_bytes", track=self.telemetry_track,
-                              data_plane=tree_nbytes(self.staged),
-                              scalar_plane=tree_nbytes(self.hyper))
+                              data_plane=int(data), scalar_plane=tree_nbytes(self.hyper))
 
     # -- launches ------------------------------------------------------------
     def _skip_dead_bucket(self, n: int):
@@ -360,7 +392,8 @@ class CampaignExecutor(Executor):
         if not self.alive_lanes():
             return self._skip_dead_bucket(n)
         t0 = time.perf_counter()
-        self.state, metrics = self._multi(self.state, self.staged, self.roots, start,
+        staged = self._slab(start, n) if self.ragged else self.staged
+        self.state, metrics = self._multi(self.state, staged, self.roots, start,
                                           n, self._launch_hyper(), self.faults)
         self._sync()
         dt = time.perf_counter() - t0

@@ -1,10 +1,11 @@
-"""Host-level FL executor (port of the resident, single-run subset of
+"""Host-level FL executor (port of the single-run subset of
 ``repro/runtime/executor.py``) — paper Algorithm 1.
 
-``scaffold()`` stages the whole client partition on the device once,
-initializes the state, builds the async event schedule where the job is
-async, resumes from the newest checkpoint in ``ckpt_dir`` if there is one,
-and builds the comms accountant; ``run()`` is the chunk loop:
+``scaffold()`` stages the whole client partition on the device once (or,
+on the ragged client plane, builds a slab stager), initializes the state,
+builds the async event schedule where the job is async, resumes from the
+newest checkpoint in ``ckpt_dir`` if there is one, and builds the comms
+accountant; ``run()`` is the chunk loop:
 ``rounds_per_launch`` rounds run back to back on the device, then one
 synchronisation per chunk, then the chunk-boundary host work: the ledger's
 ``global`` block (``job.ledger``, one per chunk, its digest published in the
@@ -40,6 +41,18 @@ section, ``telemetry/comms.py``) in ``comms.csv`` and the result rows.
 "async" runs FedAsync/FedBuff over the virtual clock
 (``core/async_rounds.py``): a "round" is ``events_per_round`` server events
 (one FedBuff flush, or for FedAsync one arrival per client on average).
+
+The ragged client plane (``fl.max_cohort > 0``, ``self.ragged``): no
+population is staged; ``self.stager`` (``data/pipeline.make_slab_stager``)
+hands each launch the slab of its rounds (sync) or of its event window
+(async), addressed by absolute round or event, so chunking and a resume
+change nothing. The next chunk's slab is kicked off before the current
+chunk's launches start: the host launches kernels until the chunk ends, so
+a later kick would overlap nothing. ``round_s`` keeps its window, from
+taking the slab to the chunk's ``torch.cuda.synchronize()``, which also
+waits for a next chunk's copy still in flight on the side stream. The
+``staged_bytes`` counter gains ``slab``, ``peak_slab`` and
+``resident_equiv`` per launch.
 """
 from __future__ import annotations
 
@@ -61,8 +74,8 @@ from repro_torch.core.plan import resolve_placement
 from repro_torch.core.probes import (ASYNC_REDUCE, PROBE_NAMES, ProbeSpec,
                                      ProbeTable, buffer_occupancy,
                                      staleness_hist)
-from repro_torch.core.rounds import build_multi_round, init_state
-from repro_torch.data.pipeline import stage_partitions
+from repro_torch.core.rounds import build_multi_round, build_ragged_multi, init_state
+from repro_torch.data.pipeline import make_slab_stager, slab_nbytes, stage_partitions
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.metrics.logger import PerformanceLogger, host_usage
@@ -134,6 +147,10 @@ class Executor:
         validate_cohort(fl)
         self.placement = resolve_placement(fl)
         self.mode = fl.mode
+        # the ragged client plane: launches read per-chunk cohort slabs from
+        # a slab stager instead of a resident root
+        self.ragged = fl.max_cohort > 0
+        self.stager = None
         spec = self.probes_spec
         if self.mode == "async":
             self.events_per_round = (fl.async_buffer if fl.async_buffer > 1
@@ -151,6 +168,11 @@ class Executor:
                            for k in SWEEPABLE_SCALARS if k != "seed"})
 
     def _build_sync(self, spec):
+        if self.ragged:
+            return build_ragged_multi(
+                self.job.model, self.job.strategy, self.job.fl,
+                placement=self.placement, probes=spec.enabled,
+                on_divergence=spec.on_divergence)
         return build_multi_round(
             self.job.model, self.job.strategy, self.job.fl,
             placement=self.placement, fault=self.job.fault, device=self.device,
@@ -160,7 +182,8 @@ class Executor:
         from repro_torch.core.async_rounds import build_async_multi
         return build_async_multi(self.job.model, self.job.strategy, self.job.fl,
                                  probes=spec.enabled,
-                                 on_divergence=spec.on_divergence)
+                                 on_divergence=spec.on_divergence,
+                                 ragged=self.ragged)
 
     def compiled_programs(self) -> int:
         """Distinct launch keys ``(mode, n)`` this executor has run: the
@@ -197,8 +220,15 @@ class Executor:
         return self
 
     def _stage_data(self):
-        """"DownloadDataset": the one-time device staging of the partition."""
+        """"DownloadDataset": the one-time device staging of the partition,
+        or on the ragged plane the slab stager (staging per chunk)."""
         fl = self.job.fl
+        if self.ragged:
+            self.stager = make_slab_stager(self.job.dataset, fl, self.job.fault,
+                                           self.device)
+            self.staged = None
+            self.data = getattr(self.stager, "data", None)
+            return
         x, y, parts = self.job.dataset.distribute_into_chunks(
             fl.partition, fl.n_clients, fl.dirichlet_alpha)
         self.data = (x, y, parts)   # host view, kept for eval_fn consumers
@@ -233,11 +263,22 @@ class Executor:
         scalars), from shapes and dtypes."""
         if not self.recorder.enabled:
             return
-        values = {"data_plane": tree_nbytes(self.staged),
-                  "scalar_plane": tree_nbytes(self.hyper)}
+        # ragged: the resident stager's root (0 streaming); each launch's
+        # slab lands as its own counter
+        data = self.stager.device_bytes if self.ragged else tree_nbytes(self.staged)
+        values = {"data_plane": int(data), "scalar_plane": tree_nbytes(self.hyper)}
         if getattr(self, "sched_dev", None) is not None:
             values["schedule_plane"] = tree_nbytes(self.sched_dev)
         self.recorder.counter("staged_bytes", track=self.telemetry_track, **values)
+
+    def _record_slab_bytes(self, slab):
+        """Counter per ragged launch: the slab it staged, the stager's
+        running peak, and what full residency would have cost."""
+        if self.recorder.enabled:
+            self.recorder.counter("staged_bytes", track=self.telemetry_track,
+                                  slab=slab_nbytes(slab),
+                                  peak_slab=int(self.stager.peak_slab_bytes),
+                                  resident_equiv=int(self.stager.resident_bytes))
 
     def _build_schedule(self, n_rounds: int):
         """Precompute the virtual-clock event schedule (async) on the host
@@ -249,7 +290,8 @@ class Executor:
         csm = self.job.fault
         if not isinstance(csm, ClientSystemModel):
             csm = ClientSystemModel(**dataclasses.asdict(csm))
-        lens = np.asarray([len(p) for p in self.data[2]], np.float32)
+        lens = (np.asarray(self.stager.lens, np.float32) if self.ragged
+                else np.asarray([len(p) for p in self.data[2]], np.float32))
         self.schedule = build_schedule(
             csm, fl.n_clients, n_rounds * self.events_per_round, lens,
             buffer_size=fl.async_buffer,
@@ -279,6 +321,7 @@ class Executor:
     def run(self, rounds: Optional[int] = None):
         """Run (or continue) the chunked round loop up to ``rounds``."""
         rounds = rounds or self.job.fl.rounds
+        self._run_total = rounds      # how far the ragged stager prefetches
         launch = self._launch_sync
         if self.mode == "async":
             self._check_async_horizon(rounds)
@@ -376,9 +419,36 @@ class Executor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _next_chunk(self, start: int, n: int) -> int:
+        """Rounds in the chunk after [start, start + n) of this run."""
+        chunk = max(self.job.fl.rounds_per_launch, 1)
+        return min(chunk, self._run_total - (start + n))
+
+    def _slab(self, start: int, n: int):
+        """The ragged launch's slab; the next chunk's is kicked off before
+        this one's launches start."""
+        slab = self.stager.slab(start, n)
+        self._record_slab_bytes(slab)
+        self.stager.prefetch(start + n, self._next_chunk(start, n))
+        return slab
+
+    def _event_slab(self, e0: int, n_ev: int):
+        """The ragged async launch's event slab, with the next window's
+        kicked off before this one's events run."""
+        clients = self.schedule.client
+        slab = self.stager.event_slab(clients[e0:e0 + n_ev], tag=(e0, n_ev))
+        self._record_slab_bytes(slab)
+        epr = self.events_per_round
+        nxt = self._next_chunk(e0 // epr, n_ev // epr) * epr
+        if nxt > 0:
+            e1 = e0 + n_ev
+            self.stager.prefetch_events(clients[e1:e1 + nxt], tag=(e1, nxt))
+        return slab
+
     def _launch_sync(self, start: int, n: int):
         t0 = time.perf_counter()
-        self.state, metrics = self._multi(self.state, self.staged, self.root,
+        staged = self._slab(start, n) if self.ragged else self.staged
+        self.state, metrics = self._multi(self.state, staged, self.root,
                                           start, n, self.hyper)
         self._sync()
         dt = time.perf_counter() - t0
@@ -392,7 +462,8 @@ class Executor:
         epr = self.events_per_round
         n_ev = n * epr
         t0 = time.perf_counter()
-        self.state, metrics = self._multi(self.state, self.staged, self.schedule,
+        staged = self._event_slab(start * epr, n_ev) if self.ragged else self.staged
+        self.state, metrics = self._multi(self.state, staged, self.schedule,
                                           self.sched_dev, self.root, start * epr,
                                           n_ev, self.hyper)
         self._sync()

@@ -170,18 +170,14 @@ def test_load_job_rejects_typos_with_a_hint():
 # the ids keep the cases' first numbering: cases 3 and 9-11 (comms,
 # blockchain, n_workers, byzantine_workers) went with their refusals, and
 # run in test_load_job_runs_what_slice_6_ported; cases 0-2 (sweep,
-# telemetry, probes) likewise, in test_load_job_runs_what_slice_7_ported
+# telemetry, probes) likewise, in test_load_job_runs_what_slice_7_ported;
+# cases 4 and 6-8 (the streaming client plane) in
+# test_load_job_runs_what_slice_8_ported
 @pytest.mark.parametrize("patch,item", [
-    ({"dataset": {"dataset": "synthetic_population"}}, "A13"),
     ({"dataset": {"dataset": "synthetic_lm"}}, "A15"),
-    ({"train": {"max_cohort": 16, "mode": "async"}}, "A13"),
-    ({"train": {"max_cohort": 16}}, "A13"),
-    ({"train": {"max_cohort": 16, "streaming": True}}, "A13"),
     ({"model": {"arch": "minicpm3-4b"}}, "A15"),
     ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
-], ids=[f"patch{i}-{item}" for i, item in zip(
-    (4, 5, 6, 7, 8, 12, 13),
-    ("A13", "A15", "A13", "A13", "A13", "A15", "A15"))])
+], ids=[f"patch{i}-{item}" for i, item in zip((5, 12, 13), ("A15", "A15", "A15"))])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     raw = {"model": {"arch": "flsim-cnn"},
            "strategy": {"strategy": patch.get("strategy", "fedavg"),
@@ -209,13 +205,37 @@ def test_load_job_runs_what_slice_7_ported(section):
     assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
 
 
-@pytest.mark.parametrize("train", [
-    {"max_cohort": 16}, {"max_cohort": 16, "streaming": True}])
-def test_load_job_refuses_a_ragged_campaign(train):
-    raw = {"model": {"arch": "flsim-cnn"}, "sweep": {"seed": [0, 1]},
-           "strategy": {"strategy": "fedavg", "train_params": train}}
-    with pytest.raises(ValueError, match="A13"):
-        load_job(raw)
+# the refusals these cases replace were patch4 and patch6-8 of
+# test_load_job_refuses_what_is_not_yet_ported and the two cases of
+# test_load_job_refuses_a_ragged_campaign; the population runs with the
+# ragged and streaming settings it needs
+@pytest.mark.parametrize("patch", [
+    {"dataset": {"dataset": "synthetic_population"},
+     "train": {"max_cohort": 16, "streaming": True}},
+    {"train": {"max_cohort": 16, "mode": "async"}},
+    {"train": {"max_cohort": 16}},
+    {"train": {"max_cohort": 16, "streaming": True}},
+    {"sweep": {"seed": [0, 1]}, "train": {"max_cohort": 16}},
+    {"sweep": {"seed": [0, 1]}, "train": {"max_cohort": 16, "streaming": True}},
+], ids=["patch4-population", "patch6-async", "patch7-ragged", "patch8-streaming",
+        "campaign-ragged", "campaign-streaming"])
+def test_load_job_runs_what_slice_8_ported(patch):
+    from repro_torch.runtime.campaign import CampaignExecutor
+    raw = {"model": {"arch": "flsim-cnn"},
+           "strategy": {"strategy": "fedavg",
+                        "train_params": dict(patch["train"], rounds=1)}}
+    for k in ("sweep", "dataset"):
+        if k in patch:
+            raw[k] = patch[k]
+    job = load_job(raw)
+    if "sweep" in patch:
+        ex = CampaignExecutor(job, device="cpu").scaffold()
+        assert ex.stager.streaming == bool(patch["train"].get("streaming"))
+    else:
+        ex = Executor(job, device="cpu").scaffold()
+    _, logger = ex.run()
+    assert ex.ragged and ex.staged is None
+    assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
 
 
 @pytest.mark.parametrize("train", [

@@ -262,6 +262,49 @@ def test_kernel_equals_plain_bitwise_at_the_async_and_temporal_shapes(cuda, C, z
     assert torch.equal(got, qa.plain(q, s, w))
 
 
+@pytest.mark.parametrize("S,C,real", [(1, 25, (20,)), (1, 128, (100,)),
+                                      (4, 25, (10, 20, 10, 20))])
+def test_kernel_equals_plain_bitwise_at_the_ragged_shapes(cuda, S, C, real):
+    """The ragged plane's launches at flsim-cnn's N: C = max_cohort slots
+    with the pads at weight 0, one client grid or S lanes in one launch."""
+    lanes = [_inputs(C, 189_952, 256, cuda, seed=70 + s) for s in range(S)]
+    for (_, _, w), k in zip(lanes, real):
+        w[k:] = 0.0
+    q, s, w = (torch.stack([ln[i] for ln in lanes]) for i in range(3))
+    if S == 1:
+        q, s, w = q[0], s[0], w[0]
+    launches = qa.quant_aggregate.launches
+    got = qa.quant_aggregate(q, s, w)
+    torch.cuda.synchronize()
+    assert qa.quant_aggregate.launches == launches + 1
+    assert torch.equal(got, qa.plain(q, s, w))
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_streaming_equals_resident_on_card(cuda, mode):
+    """The ragged plane on the card: the streaming stager's pinned buffers,
+    side-stream copies and events feed the bytes the resident gather
+    feeds (bitwise, chunks of 1 so every chunk after the first comes from
+    the prefetch); int8 launches B1 once a round (sync) or flush (FedBuff)."""
+    tp = {"max_cohort": 6, "error_feedback": False}
+    if mode == "async":
+        tp.update(mode="async", async_buffer=3, cohort=0)
+    runs = []
+    for streaming in (False, True):
+        launches = qa.quant_aggregate.launches
+        ex = Executor(_job("int8", 1, streaming=streaming, **tp)).scaffold()
+        st, lg = ex.run()
+        n = qa.quant_aggregate.launches - launches
+        assert n == (4 if mode == "sync" else int(ex.schedule.apply[:12].sum()))
+        runs.append((st, lg.series("loss"), ex.stager.chunk_stats()))
+    (s_res, l_res, _), (s_str, l_str, stats) = runs
+    assert l_res == l_str and all(np.isfinite(l_res))
+    for k in ("params", "server"):
+        a, b = s_res[k], s_str[k]
+        assert all(torch.equal(a[n], b[n]) for n in a) if isinstance(a, dict) else a == b
+    assert all(s["prefetched"] and s["h2d_ms"] > 0 for s in stats[1:])
+
+
 def _async_job(**train):
     tp = {"n_clients": 4, "local_steps": 2, "batch_size": 8, "client_lr": 0.05,
           "rounds": 3, "rounds_per_launch": 3, "seed": 11}
