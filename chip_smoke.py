@@ -101,7 +101,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    streaming, each bitwise the dense run; a ragged sweep cohort [10, 20] x
    seed [0, 1] (one launch key, one (4, 25, N) B1 launch a round,
    streaming lanes == resident lanes, lanes near their single runs).
-10. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+10. LM training path (slice 9) — B3 forward + the ported backward and B2
+   forward + backward under autograd against autograd through their plain
+   versions (B3 at the training shape 2 x 2048, 40/8 heads of 128, bf16; a
+   ragged shape; f32; B2 at rows of 5120 and qk-norm rows of 128), and
+   under ``vmap(grad)`` over a dim of 1 and 2 against the loop (one launch
+   each per call); their times beside SDPA and F.rms_norm forward and
+   forward + backward; then ``repro_torch.launch.train_fl_lm``'s temporal
+   FedAvgM rounds on qwen2.5-32b at its published width (d_model 5120,
+   40/8 heads, d_ff 27648, vocab 152064, QKV bias), depth cut 64 -> 2,
+   bf16: 4 clients, cohort 2, 2 local steps of 2 x 2048 tokens, 3 rounds on
+   fixed client data; B2 and B3 launches per round asserted, round_s,
+   tokens/s, peak memory, losses finite, a second run bitwise, one warm
+   round profiled; one round of reduced qwen2.5-32b and chameleon-34b in
+   f32 on the card and the CPU (losses and params within 1e-4); and
+   qwen2.5-32b and chameleon-34b served at full width (2 layers, bf16,
+   batch 2 x prompt 128 + 8 new; launches asserted, qk-norm's too; tokens
+   bitwise repeatable).
+11. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -113,7 +130,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-11. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+12. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    card's ``name, power.limit`` line, and last the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -2109,6 +2126,420 @@ def phase_streaming(torch, qa, load_job, Executor):
     return out
 
 
+# phase 10 (slice 9): the LM training path. B2 and B3 under autograd and
+# torch.func on the card, qwen2.5-32b trained at full width (bf16, depth cut
+# 64 -> 2), reduced qwen2.5-32b / chameleon-34b card vs CPU, and serving of
+# the QKV-bias and qk-norm archs at full width
+TRAIN = {"arch": "qwen2.5-32b", "n_layers": 2, "strategy": "fedavgm", "clients": 4,
+         "cohort": 2, "local_epochs": 1, "local_steps": 2, "batch": 2, "seq": 2048,
+         "rounds": 3, "client_lr": 0.05, "server_momentum": 0.9}
+# gradients: max |got - want| within GRAD_TOL of max(1, max |want|), against
+# autograd through the plain version (f32: another summation order; bf16: the
+# two round products at other places, and dk, dv sum over every q row)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv, dtype
+    (2, 2048, 2048, 40, 8, 128, 128, "bfloat16"),   # the training shape (wgmma)
+    (1, 333, 333, 40, 8, 128, 128, "bfloat16"),     # ragged
+    (2, 512, 512, 8, 2, 64, 64, "float32")]         # f32 (SIMT)
+TRAIN_RMS_CHECKS = [((2, 2048, 5120), "bfloat16"),          # the train stack's norms
+                    ((2, 2048, 40, 128), "bfloat16"),       # qk-norm rows, D 128
+                    ((4, 300, 128), "float32")]
+TRAIN_CARD_CPU_TOL = 1e-4     # f32, reduced: the summation orders differ
+SERVE_NEW = {"archs": ("qwen2.5-32b", "chameleon-34b"), "n_layers": 2, "batch": 2,
+             "prompt_len": 128, "max_new": 8, "seed": 3}
+
+
+def grad_close(torch, name, got, want, tol) -> float:
+    """max |got - want|; raises unless finite and within ``tol`` of
+    max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
+    err = (got - want).abs().max().item()
+    if err > tol * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"{name}: max |diff| {err} beyond {tol} of max |want|")
+    return err
+
+
+def _fwd_bwd(torch, fn, args, dout):
+    """fn(*args) and its gradients against ``dout``."""
+    xs = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*xs)
+    out.backward(dout)
+    return out.detach(), [x.grad for x in xs]
+
+
+def check_train_kernels(torch):
+    """B3 and B2 forward + backward on the card against autograd through
+    their plain versions, and under ``vmap(grad)`` over a dim of 1 and 2
+    against the loop. Returns the worst errors."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    dev = torch.device("cuda")
+    worst = {"flash_out": 0.0, "flash_grads": 0.0, "rms_out": 0.0, "rms_grads": 0.0,
+             "vmap": 0.0}
+    for i, (B, Sq, Sk, H, KV, Dk, Dv, dt) in enumerate(TRAIN_FLASH_CHECKS):
+        dtype = getattr(torch, dt)
+        args = [_randn(torch, s, dtype, 60 + 4 * i + j, dev) for j, s in enumerate(
+            [(B, Sq, H, Dk), (B, Sk, KV, Dk), (B, Sk, KV, Dv)])]
+        dout = _randn(torch, (B, Sq, H, Dv), dtype, 63 + 4 * i, dev)
+        name = f"flash train {(B, Sq, Sk, H, KV, Dk, Dv)} {dt}"
+        out, grads = _fwd_bwd(torch, lambda q, k, v: ops.flash_attention(q, k, v, Sk - Sq),
+                              args, dout)
+        pout, pgrads = _fwd_bwd(torch, lambda q, k, v: fa.plain(q, k, v, Sk - Sq)[0],
+                                args, dout)
+        worst["flash_out"] = max(worst["flash_out"],
+                                 close(torch, name, out, pout, ATTN_TOL[dt]))
+        for tag, g, pg in zip("qkv", grads, pgrads):
+            worst["flash_grads"] = max(worst["flash_grads"], grad_close(
+                torch, f"{name} d{tag}", g, pg, GRAD_TOL[dt]))
+        del args, dout, out, grads, pout, pgrads
+    for i, (shape, dt) in enumerate(TRAIN_RMS_CHECKS):
+        dtype = getattr(torch, dt)
+        x = _randn(torch, shape, dtype, 80 + i, dev)
+        w = _randn(torch, shape[-1:], dtype, 90 + i, dev)
+        g = _randn(torch, shape, dtype, 100 + i, dev)
+        name = f"rmsnorm train {shape} {dt}"
+        out, grads = _fwd_bwd(torch, ops.rmsnorm, (x, w), g)
+        pout, pgrads = _fwd_bwd(torch, rms.plain, (x, w), g)
+        worst["rms_out"] = max(worst["rms_out"], close(torch, name, out, pout, RMS_TOL[dt]))
+        for tag, a, b in zip(("dx", "dw"), grads, pgrads):
+            worst["rms_grads"] = max(worst["rms_grads"], grad_close(
+                torch, f"{name} {tag}", a, b, RMS_TOL[dt]))
+    # under the rounds' transform: vmap(grad) over a leading dim of 1 and 2,
+    # one launch of each kernel per call (the dim folds into rows and B)
+    for n in (1, 2):
+        q = _randn(torch, (n, 2, 256, 40, 128), torch.bfloat16, 110 + n, dev)
+        kv = _randn(torch, (n, 2, 256, 8, 128), torch.bfloat16, 120 + n, dev)
+        w = _randn(torch, (128,), torch.bfloat16, 130 + n, dev)
+
+        def f(q, kv, w):
+            return ops.flash_attention(ops.rmsnorm(q, w), kv, kv).float().square().sum()
+        counts = (rms.rmsnorm.launches, fa.flash_attention_fwd.launches)
+        got = vmap(grad(f, argnums=(0, 1, 2)), in_dims=(0, 0, None))(q, kv, w)
+        torch.cuda.synchronize()
+        step = (rms.rmsnorm.launches - counts[0], fa.flash_attention_fwd.launches - counts[1])
+        if step != (1, 1):
+            raise AssertionError(f"vmap over {n}: launches (rmsnorm, flash) {step}, "
+                                 "want (1, 1)")
+        for j in range(n):
+            want = grad(f, argnums=(0, 1, 2))(q[j], kv[j], w)
+            for tag, a, b in zip(("dq", "dkv", "dw"), got, want):
+                worst["vmap"] = max(worst["vmap"], grad_close(
+                    torch, f"vmap({n}) index {j} {tag}", a[j], b, GRAD_TOL["bfloat16"]))
+    torch.cuda.synchronize()
+    log("check train kernels (forward + backward, vmap(grad) over 1 and 2), worst:",
+        json.dumps(worst))
+    return worst
+
+
+def time_train_kernels(torch, flush):
+    """B3 at the training shape (forward, the ported backward, both under
+    autograd) and B2 at the train stack's and the qk-norm rows (forward,
+    backward), beside their plain versions, SDPA and F.rms_norm forward and
+    forward + backward, and their bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    H, KV, HD = 40, 8, 128
+    rows = {}
+    torch_version = tuple(int(p) for p in torch.__version__.split("+")[0].split(".")[:2])
+    gqa = {"enable_gqa": True} if torch_version >= (2, 5) else {}
+
+    def timed(fn, args, iters, batch):
+        return time_device(fn, args, iters, flush, batch=batch)
+
+    # B3: one training layer's attention, causal, q_offset 0
+    q = _randn(torch, (B, S, H, HD), bf16, 140, dev)
+    k = _randn(torch, (B, S, KV, HD), bf16, 141, dev)
+    v = _randn(torch, (B, S, KV, HD), bf16, 142, dev)
+    dout = _randn(torch, (B, S, H, HD), bf16, 143, dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+    want, _ = fa.plain(q, k, v, 0, True)
+    err = close(torch, "flash train fwd", out, want, ATTN_TOL["bfloat16"])
+
+    def ours_fb(q, k, v, dout):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ops.flash_attention(*xs, 0, True), xs, dout)
+
+    def kv_heads(t):
+        return t if gqa else t.repeat_interleave(H // KV, dim=1)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kv_heads(k.transpose(1, 2)),
+                                              kv_heads(v.transpose(1, 2)), is_causal=True,
+                                              **gqa).transpose(1, 2)
+
+    def sdpa_fb(q, k, v, dout):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(sdpa(*xs), xs, dout)
+    ours_g = ours_fb(q, k, v, dout)
+    lib_g = sdpa_fb(q, k, v, dout)
+    lib_err = close(torch, "sdpa train fwd", sdpa(q, k, v), out, YARDSTICK_TOL)
+    lib_grad_err = max(grad_close(torch, f"sdpa d{t}", a, b, YARDSTICK_TOL)
+                       for t, a, b in zip("qkv", lib_g, ours_g))
+    pairs = S * (S + 1) // 2
+    fwd_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+    fwd_flops = 2 * B * H * pairs * (HD + HD)
+    # the backward reads q, k, v, out, dout and lse once and writes dq, dk, dv
+    # once; it recomputes the scores and does four more products per pair
+    bwd_bytes = (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * out.numel()) * 2 \
+        + lse.numel() * 4
+    bwd_flops = 2 * B * H * pairs * (3 * HD + 2 * HD)
+    fb_ms, fb_by = bound(fwd_bytes + bwd_bytes, fwd_flops + bwd_flops, BF16_FLOPS_PER_S)
+    r = {"shape": [B, S, S, H, KV, HD, HD], "dtype": "bfloat16", "max_abs_err": err,
+         "kernel_ms": timed(lambda q, k, v: fa.flash_attention_fwd(q, k, v, 0, True),
+                            (q, k, v), 20, 10),
+         "plain_ms": timed(lambda q, k, v: fa.plain(q, k, v, 0, True), (q, k, v), 4, 2),
+         "library_ms": timed(sdpa, (q, k, v), 20, 10), "library_max_abs_err": lib_err}
+    r["bound_ms"], r["bound_by"] = bound(fwd_bytes, fwd_flops, BF16_FLOPS_PER_S)
+    r["bwd_ms"] = timed(lambda *a: fa.plain_bwd(*a, 0, True),
+                        (q, k, v, out, lse, dout), 6, 3)
+    r["bwd_bound_ms"], r["bwd_bound_by"] = bound(bwd_bytes, bwd_flops, BF16_FLOPS_PER_S)
+    r["fwd_bwd_ms"] = timed(ours_fb, (q, k, v, dout), 6, 3)
+    r["library_fwd_bwd_ms"] = timed(sdpa_fb, (q, k, v, dout), 6, 3)
+    r["library_grad_err"] = lib_grad_err
+    r["fwd_bwd_bound_ms"], r["fwd_bwd_bound_by"] = fb_ms, fb_by
+    r["bytes"], r["flops"] = fwd_bytes, fwd_flops
+    r["bwd_bytes"], r["bwd_flops"] = bwd_bytes, bwd_flops
+    log("kernel flash_attention train (wgmma fwd + ported bwd)", json.dumps(r))
+    rows["flash_train"] = r
+    del q, k, v, dout, out, lse, want, ours_g, lib_g
+
+    # B2: the train stack's norms (B*S rows of 5120) and qk-norm rows (B*S*H of 128)
+    for tag, shape in (("train", (B, S, 5120)), ("qk_norm", (B, S, H, HD))):
+        D = shape[-1]
+        x = _randn(torch, shape, bf16, 150, dev)
+        w = _randn(torch, (D,), bf16, 151, dev)
+        g = _randn(torch, shape, bf16, 152, dev)
+        got = rms.rmsnorm(x, w)
+        err = close(torch, f"rmsnorm {tag}", got, rms.plain(x, w), RMS_TOL["bfloat16"])
+
+        def lib(x, w):
+            return F.rms_norm(x, (D,), w, 1e-6)
+
+        def ours_fb(x, w, g):
+            xs = [t.detach().requires_grad_() for t in (x, w)]
+            return torch.autograd.grad(ops.rmsnorm(*xs), xs, g)
+
+        def lib_fb(x, w, g):
+            xs = [t.detach().requires_grad_() for t in (x, w)]
+            return torch.autograd.grad(lib(*xs), xs, g)
+        lib_err = close(torch, f"F.rms_norm {tag}", lib(x, w), got, YARDSTICK_TOL)
+        R = x.numel() // D
+        plan = rms.launch_plan(R, D, bf16, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+        r = {"shape": list(shape), "rows": R, "D": D, "dtype": "bfloat16", "plan":
+             plan._asdict(), "max_abs_err": err,
+             "kernel_ms": timed(rms.rmsnorm, (x, w), 100, 20),
+             "plain_ms": timed(rms.plain, (x, w), 20, 10),
+             "library_ms": timed(lib, (x, w), 100, 20), "library_max_abs_err": lib_err,
+             "bwd_ms": timed(lambda x, w, g: rms.backward(x, w, g), (x, w, g), 20, 10),
+             "fwd_bwd_ms": timed(ours_fb, (x, w, g), 20, 10),
+             "library_fwd_bwd_ms": timed(lib_fb, (x, w, g), 20, 10)}
+        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D,
+                                             F32_FLOPS_PER_S)
+        # the backward reads x, w, g once and writes dx, dw once
+        r["bwd_bound_ms"], r["bwd_bound_by"] = bound(3 * R * D * 2 + 2 * D * 2, 10 * R * D,
+                                                     F32_FLOPS_PER_S)
+        log(f"kernel rmsnorm {tag} (fwd + bwd)", json.dumps(r))
+        rows[f"rmsnorm_{tag}"] = r
+        del x, w, g, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_lm(torch, kernels):
+    """qwen2.5-32b at its published width, depth cut 64 -> 2, bf16: the
+    temporal FedAvgM rounds of ``repro_torch.launch.train_fl_lm`` on fixed
+    client data, counted and timed round by round; then the same run from
+    the same initial state again, bitwise; then one warm round profiled."""
+    from repro_torch.configs.base import FLConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    from repro_torch.metrics.logger import PerformanceLogger
+    dev, T = torch.device("cuda"), TRAIN
+    torch.cuda.empty_cache()     # the earlier phases' cached blocks back to the card
+    cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
+    fl = FLConfig(strategy=T["strategy"], n_clients=T["clients"],
+                  local_epochs=T["local_epochs"], client_lr=T["client_lr"],
+                  server_momentum=T["server_momentum"], seed=0)
+    t0 = time.perf_counter()
+    _, round_fn, state = train_fl_lm.setup(cfg, fl, dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in state["params"].values())
+    log(f"train: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff {cfg.d_ff} vocab {cfg.padded_vocab} qkv_bias {cfg.qkv_bias}, "
+        f"{cfg.n_layers} of 64 layers, bf16: {n_params} params "
+        f"({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.1f}s")
+    initial = {part: _tree_to(t, "cpu") if isinstance(t, dict) else t
+               for part, t in state.items()}
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    kw = dict(clients=T["clients"], cohort=T["cohort"], batch=T["batch"], seq=T["seq"],
+              local_steps=T["local_steps"], device=dev, data_round=0)
+
+    def run(state):
+        logger = PerformanceLogger(run_name="chip_smoke-lm")
+        per_round = []
+        for r in range(T["rounds"]):
+            before = {n: fn.launches for n, fn in kernels.items()}
+            layouts = dict(kernels["rmsnorm"].launches_by_layout)
+            flash = dict(kernels["flash_attention"].launches_by_kernel)
+            state, logger = train_fl_lm.run_rounds(round_fn, state, lm, r, r + 1,
+                                                   logger=logger, **kw)
+            per_round.append({
+                "launches": {n: fn.launches - before[n] for n, fn in kernels.items()},
+                "rmsnorm_by_layout": {k: v - layouts[k] for k, v in
+                                      kernels["rmsnorm"].launches_by_layout.items()},
+                "flash_by_kernel": {k: v - flash[k] for k, v in
+                                    kernels["flash_attention"].launches_by_kernel.items()}})
+        return state, logger, per_round
+
+    # the counted run; counts zeroed just before it and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["rmsnorm"].launches_by_layout = {k: 0 for k in
+                                             kernels["rmsnorm"].launches_by_layout}
+    kernels["flash_attention"].launches_by_kernel = {
+        k: 0 for k in kernels["flash_attention"].launches_by_kernel}
+    state, logger, per_round = run(state)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    norm_by_layout = dict(kernels["rmsnorm"].launches_by_layout)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, round_s = logger.series("loss"), logger.series("round_s")
+    L, steps = cfg.n_layers, T["cohort"] * T["local_steps"] * T["local_epochs"]
+    # a forward per local step: 2 norms a layer and the final one; one
+    # attention a layer, all on the tensor-core kernel (bf16, head dim 128)
+    want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * steps * T["rounds"],
+            "flash_attention": L * steps * T["rounds"], "decode_attention": 0}
+    log(f"train launches {json.dumps(launches)} (want {json.dumps(want)}); flash by kernel "
+        f"{json.dumps(flash_by_kernel)}; rmsnorm by layout {json.dumps(norm_by_layout)}; "
+        f"per round {json.dumps(per_round[0])}")
+    if launches != want or flash_by_kernel["simt"] != 0:
+        raise AssertionError(f"train launches {launches} by kernel {flash_by_kernel}, "
+                             f"want {want}, all flash on wgmma")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    final = {k: v.cpu() for k, v in state["params"].items()}
+    if not all(torch.isfinite(v.float()).all() for v in final.values()):
+        raise AssertionError("train: non-finite params")
+    del state
+    torch.cuda.empty_cache()
+
+    # the same run again from the same initial state: bitwise
+    state2 = {part: (_tree_to(tree, dev) if isinstance(tree, dict) else tree)
+              for part, tree in initial.items()}
+    state2, logger2, _ = run(state2)
+    losses2 = logger2.series("loss")
+    same = losses2 == losses and all(torch.equal(state2["params"][k].cpu(), v)
+                                     for k, v in final.items())
+    log(f"train repeat: losses {losses2} vs {losses}; params bitwise: {same}")
+    if not same:
+        raise AssertionError("train: a second run from the same state is not bitwise")
+    # where a warm round's time goes
+    prof, by_name = profile_device(torch, lambda: train_fl_lm.run_rounds(
+        round_fn, state2, lm, T["rounds"], T["rounds"] + 1, **kw), "train round (warm)")
+    for tag in ("flash_wgmma", "rmsnorm", "gemm", "nvjet", "elementwise", "reduce"):
+        hits = [val for name, val in by_name.items() if tag in name.lower()]
+        prof[f"{tag}_ms"] = sum(h[0] for h in hits)
+    del state2
+    torch.cuda.empty_cache()
+    tokens = T["cohort"] * T["local_steps"] * T["local_epochs"] * T["batch"] * T["seq"]
+    out = {"arch": cfg.name, "n_layers": L, "params": n_params, "init_s": init_s,
+           "losses": losses, "loss_fell": losses[-1] < losses[0], "round_s": round_s,
+           "tokens_per_round": tokens,
+           "tokens_per_s": [tokens / s for s in round_s], "peak_mem_gb": peak_gb,
+           "launches": launches, "launches_per_round": per_round,
+           "flash_by_kernel": flash_by_kernel, "rmsnorm_by_layout": norm_by_layout,
+           "bitwise_repeat": True, "profile": prof}
+    log("train", json.dumps(out))
+    if not out["loss_fell"]:
+        raise AssertionError(f"train: the loss did not fall over {T['rounds']} rounds at "
+                             f"client_lr {T['client_lr']}: {losses}")
+    return out
+
+
+def phase_train_card_vs_cpu(torch):
+    """One temporal FedAvgM round of reduced qwen2.5-32b (QKV bias) and
+    chameleon-34b (qk-norm) in f32 on the card and on the CPU."""
+    from repro_torch.configs.base import FLConfig, get_config
+    from repro_torch.configs.reduce import reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    res = {}
+    for arch in ("qwen2.5-32b", "chameleon-34b"):
+        cfg = reduced_config(get_config(arch))
+        fl = FLConfig(strategy="fedavgm", n_clients=4, client_lr=0.05, server_momentum=0.9)
+        lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+        out = {}
+        for tag, dev in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+            _, round_fn, state = train_fl_lm.setup(cfg, fl, dev)
+            state, logger = train_fl_lm.run_rounds(
+                round_fn, state, lm, 0, 1, clients=4, cohort=2, batch=2, seq=64,
+                local_steps=2, device=dev)
+            out[tag] = (logger.series("loss")[0],
+                        {k: v.cpu() for k, v in state["params"].items()})
+        loss_err = abs(out["card"][0] - out["cpu"][0])
+        if loss_err > TRAIN_CARD_CPU_TOL * abs(out["cpu"][0]):
+            raise AssertionError(f"train card vs cpu {arch}: losses {out['card'][0]} vs "
+                                 f"{out['cpu'][0]}")
+        err = max(close(torch, f"train card vs cpu {arch} {k}", out["card"][1][k], v,
+                        TRAIN_CARD_CPU_TOL) for k, v in out["cpu"][1].items())
+        res[arch] = {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
+                     "max_abs_param_diff": err}
+    log("train card vs cpu (reduced, f32, one temporal fedavgm round)", json.dumps(res))
+    return res
+
+
+def phase_serve_new_archs(torch, kernels):
+    """qwen2.5-32b (QKV bias) and chameleon-34b (qk-norm) at their published
+    widths, 2 layers, bf16 drawn on the card: ``generate`` counted, then
+    again, bitwise."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    dev, S_ = torch.device("cuda"), SERVE_NEW
+    B, S, new, L = S_["batch"], S_["prompt_len"], S_["max_new"], S_["n_layers"]
+    res = {}
+    for arch in S_["archs"]:
+        cfg = get_config(arch).replace(n_layers=L)
+        model = model_zoo.build(cfg)
+        g = torch.Generator(device=dev)
+        g.manual_seed(S_["seed"])
+        params = model.init(g, dtype=torch.bfloat16)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, params, prompts, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        qk = 2 * L * (1 + new) if cfg.qk_norm else 0
+        want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new) + qk,
+                "flash_attention": L, "decode_attention": L * new}
+        if launches != want:
+            raise AssertionError(f"serve {arch}: launches {launches}, want {want}")
+        if not torch.equal(generate(model, params, prompts, new), toks) or \
+                toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"serve {arch}: tokens not repeatable or out of range")
+        res[arch] = {"launches": launches, "qk_norm_launches": qk, "generate_s": gen_s,
+                     "tokens_head": toks[0].tolist(), "bitwise_repeat": True}
+        log(f"serve {arch} (d_model {cfg.d_model}, {L} layers, bf16)", json.dumps(res[arch]))
+        del params
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2227,14 +2658,28 @@ def main() -> int:
     slice8_s = time.perf_counter() - t0
     log(f"slice 8 phase: {slice8_s:.1f}s")
 
-    # 10. serve path; counts zeroed just before it, read just after
+    # 10. the LM training path (slice 9): B2 and B3 under autograd and
+    # torch.func, qwen2.5-32b trained at full width, card vs CPU, the new
+    # archs served; counts zeroed just before each counted path, read just after
     kernels = {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
                "flash_attention": fa.flash_attention_fwd,
                "decode_attention": da.decode_attention_fwd}
+    t0 = time.perf_counter()
+    train_worst = check_train_kernels(torch)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    train_rows = time_train_kernels(torch, flush)
+    del flush
+    train = phase_train_lm(torch, kernels)
+    train_cpu = phase_train_card_vs_cpu(torch)
+    serve_new = phase_serve_new_archs(torch, kernels)
+    slice9_s = time.perf_counter() - t0
+    log(f"slice 9 phase: {slice9_s:.1f}s")
+
+    # 11. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 11. summary
+    # 12. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -2314,6 +2759,34 @@ def main() -> int:
             "worst_max_abs_err_test_shapes": worst, "shape": r["shape"]})
         if "baseline_ms" in r:
             entries[-1]["baseline_ms"] = r["baseline_ms"]
+    # slice 9: B3 forward at the training shape under autograd (the ported
+    # backward's times beside it), B2 at the train stack's and qk-norm rows
+    fl_row = train_rows["flash_train"]
+    entries.append({
+        "name": "flash_attention_wgmma_train", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu", "replaces": flash_src,
+        "launches": train["flash_by_kernel"]["wgmma"], "max_abs_err": fl_row["max_abs_err"],
+        "ms": fl_row["kernel_ms"], "plain_ms": fl_row["plain_ms"],
+        "bound_ms": fl_row["bound_ms"], "bound_by": fl_row["bound_by"],
+        "library_ms": fl_row["library_ms"], "bitwise": False, "shape": fl_row["shape"],
+        "worst_grad_err_checks": train_worst["flash_grads"],
+        **{k: fl_row[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
+                                  "fwd_bwd_bound_ms", "library_fwd_bwd_ms")}})
+    for name, key, launches in (
+            ("rmsnorm_train", "rmsnorm_train", train["launches"]["rmsnorm"]),
+            # the qk-norm launches of the counted chameleon-34b serve run
+            ("rmsnorm_qk_norm", "rmsnorm_qk_norm",
+             serve_new["chameleon-34b"]["qk_norm_launches"])):
+        r = train_rows[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:11", "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
+            "layout": r["plan"]["layout"], "worst_grad_err_checks": train_worst["rms_grads"],
+            **{k: r[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
+                                 "library_fwd_bwd_ms")}})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -2401,6 +2874,16 @@ def main() -> int:
                                  for p in ("resident", "streaming")},
                     "campaign_single_losses": streaming["campaign"]["single_losses"],
                     "b1_launches_by_path": streaming["b1_launches_by_path"]}))
+    log(json.dumps({"slice": "9: the LM training path (Model.loss, the train stack, "
+                    "SyntheticLM, temporal FL rounds of train_fl_lm) with B2 and B3 "
+                    "differentiable, plus QKV bias and qk-norm: qwen2.5-32b trained at "
+                    "full width, 2 of 64 layers, bf16",
+                    "phase_s": slice9_s, "train": {k: train[k] for k in (
+                        "losses", "loss_fell", "round_s", "tokens_per_s", "peak_mem_gb",
+                        "launches_per_round", "init_s")},
+                    "train_profile": train["profile"],
+                    "worst": train_worst, "card_vs_cpu": train_cpu,
+                    "serve_new_archs": serve_new}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,11 @@ state has the JAX package's names and layouts, so the same state gives the
 same leaves. ``restore`` reads the leaves into the structure of a state of
 the same run and puts them on that state's devices.
 
+numpy has no bfloat16: a bf16 leaf is written as its bits (``uint16``) and
+read back into the bf16 leaf it replaces, so an LM state on the card saves
+and restores bitwise. (The JAX package writes bf16 through ``ml_dtypes``;
+restores across the packages are held for f32 states.)
+
 A save copies the leaves to host memory and writes them into a temporary
 directory that is renamed into place, so a reader never sees half a
 checkpoint. The newest ``KEEP_LAST`` rounds are kept.
@@ -56,13 +61,20 @@ def _rebuild(tree, it):
     return next(it)
 
 
+def _to_host(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def save(ckpt_dir, round_idx: int, state, extra: Optional[dict] = None):
     """Write ``state`` as round ``round_idx``; returns its directory."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     path = ckpt_dir / f"round_{round_idx:08d}"
     tmp = ckpt_dir / f".tmp_round_{round_idx:08d}"
     named = list(_leaves(state))
-    host = [t.detach().cpu().numpy() for _, t in named]
+    host = [_to_host(t) for _, t in named]
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
@@ -108,7 +120,10 @@ def restore(ckpt_dir, round_idx: int, like_state):
         raise ValueError(f"checkpoint has {len(host)} leaves, the state needs {len(like)}")
     out = []
     for (name, t), h in zip(like, host):
-        got = torch.from_numpy(np.array(h, order="C"))
+        bits = t.dtype == torch.bfloat16 and h.dtype == np.uint16
+        got = torch.from_numpy(np.array(h.view(np.int16) if bits else h, order="C"))
+        if bits:
+            got = got.view(torch.bfloat16)
         if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
             raise ValueError(f"checkpoint leaf {name}: {tuple(got.shape)} {got.dtype}, "
                              f"the state has {tuple(t.shape)} {t.dtype}")

@@ -190,7 +190,7 @@ ARCHS = (
 _SMALL = ("flsim-cnn", "flsim-mlp", "flsim-logreg")
 # LM architectures the port runs; the others are named in ARCHS for the
 # registry and refused by ``get_config`` until their part of ROADMAP A15.
-_PORTED_LM = ("yi-34b",)
+_PORTED_LM = ("yi-34b", "qwen2.5-32b", "qwen1.5-32b", "chameleon-34b")
 
 
 def get_config(name: str) -> ModelConfig:

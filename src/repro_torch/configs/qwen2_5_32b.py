@@ -1,0 +1,18 @@
+"""qwen2.5-32b — dense GQA kv8, QKV bias. [hf:Qwen/Qwen2.5-0.5B; hf] (copy of
+``repro/configs/qwen2_5_32b.py``)"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27648,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    notes="GQA, QKV bias",
+    source="hf:Qwen/Qwen2.5-0.5B",
+)

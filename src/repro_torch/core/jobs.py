@@ -31,7 +31,7 @@ from repro_torch.core.plan import resolve_placement
 from repro_torch.core.rounds import check_ragged_support
 from repro_torch.core.strategies import get_strategy
 from repro_torch.core.topology import get_topology
-from repro_torch.data.pipeline import SyntheticPopulation, SyntheticVision
+from repro_torch.data.pipeline import SyntheticLM, SyntheticPopulation, SyntheticVision
 from repro_torch.models import model_zoo
 from repro_torch.runtime.clock import ClientSystemModel
 from repro_torch.runtime.faults import FaultModel
@@ -87,14 +87,10 @@ def _check_keys(section_name: str, section, allowed) -> None:
                 f"unknown key {k!r} in job {section_name!r} section{suffix}")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not yet ported, see ROADMAP {item}")
-
-
 def check_ported(raw: dict, fl: FLConfig) -> None:
-    """Raise for any setting the port cannot run: ``NotImplementedError``
-    naming the ROADMAP item where its code is not yet ported, else a
-    ``ValueError``."""
+    """Raise ``ValueError`` for a setting the port does not know. (An arch
+    whose code is not yet ported raises ``NotImplementedError`` naming
+    ROADMAP A15 in ``get_config`` or ``model_zoo.build``.)"""
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
     if fl.placement not in ("auto", "spatial", "temporal"):
@@ -164,7 +160,9 @@ def make_dataset(raw: dict, fl: FLConfig, cfg=None):
                                    items_per_client=ds.get("items_per_client", 8),
                                    seed=fl.seed, **kw)
     if kind == "synthetic_lm":
-        raise _not_ported(f"dataset {kind!r}", "A15")
+        vocab = (cfg.padded_vocab if cfg is not None
+                 and cfg.family != "small" else 512)
+        return SyntheticLM(vocab=vocab, seed=fl.seed)
     raise KeyError(f"unknown dataset {kind!r}")
 
 

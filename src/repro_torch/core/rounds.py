@@ -57,7 +57,7 @@ from repro_torch.core import determinism, packing
 from repro_torch.core import probes as probelib
 from repro_torch.core.consensus import build_aggregator
 from repro_torch.core.strategy import Strategy, client_sgd_step, tree_add, \
-    tree_scale, tree_sub, tree_zeros_like
+    tree_sub, tree_zeros_like
 from repro_torch.core.topology import Decentralized, get_topology
 from repro_torch.data.pipeline import DEDUP_STAGED_AXES
 from repro_torch.kernels import ops
@@ -119,14 +119,15 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
                 pack_deltas: bool = False, per_client_params: bool = False):
     """Run E local epochs over ``batches`` for every client at once.
 
-    batches: {"x": (C, steps, B, ...), "y": (C, steps, B)}; client_state
-    carries a leading client dim; rng: (C,) int64 client keys;
+    batches: a dict of (C, steps, B, ...) tensors, whatever its keys
+    (``x``/``y`` for the paper's models, ``tokens``/``labels`` for an LM);
+    client_state carries a leading client dim; rng: (C,) int64 client keys;
     ``per_client_params``: ``global_params`` carry a leading client dim too
     (decentralized models). Returns (delta, new_client_state, losses (C,)),
     the delta as (C, ...) leaves or, with ``pack_deltas``, a ``PackedDelta``
     of (C, N) int8 rows (``Strategy.postprocess_packed``)."""
     post = strategy.postprocess_packed if pack_deltas else strategy.postprocess
-    n_steps = batches["x"].shape[1]
+    n_steps = next(iter(batches.values())).shape[1]
     use_mom = fl.client_optimizer == "sgdm" and fl.client_momentum > 0
     g_dim = 0 if per_client_params else None
 
@@ -160,6 +161,7 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
         grads, loss = step_grads(params, i > 0 or per_client_params, i)
         params, mom = client_sgd_step(params, grads, fl.client_lr, mom,
                                       fl.client_momentum)
+        del grads           # not held while the next step runs
         losses.append(loss)
     delta = tree_sub(params, global_params)
     delta, client_state = post(delta, client_state, rng)
@@ -199,8 +201,8 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
     def round_fn(state, batch, weights, rng, hyper=None):
         fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         params, server_state = state["params"], state["server"]
-        dev = batch["x"].device
-        C = batch["x"].shape[0]
+        lead = next(iter(batch.values()))
+        dev, C = lead.device, lead.shape[0]
         keys = determinism.client_keys(rng, C, dev)
         deltas, cstates, losses = local_train(
             model, strategy_h, fl_h, params, server_state, state["clients"],
@@ -279,8 +281,8 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
     def round_fn(state, batch, weights, rng, hyper=None):
         fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         params, server_state = state["params"], state["server"]
-        C_t = batch["x"].shape[0]
-        dev = batch["x"].device
+        lead = next(iter(batch.values()))
+        C_t, dev = lead.shape[0], lead.device
 
         def client(i, pack: bool):
             cbatch = {k: v[i:i + 1] for k, v in batch.items()}
@@ -322,16 +324,25 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             for i in range(C_t):
                 delta, closs = client(i, False)
                 d_i = {k: d[0] for k, d in delta.items()}
-                agg = tree_add(agg, tree_scale(d_i, weights[i] / wsum))
+                w_i = weights[i] / wsum
+                # in place: one f32 accumulator, whatever the model's size;
+                # each delta goes to f32 before its weight, as the JAX
+                # package promotes it
+                for k in d_i:
+                    agg[k].add_(d_i[k].to(torch.float32) * w_i)
                 loss = loss + closs / C_t
                 if probes:
                     # the weighted second moment of the deltas, for drift
                     msq = msq + weights[i] / wsum * probelib.tree_sq_norm(d_i)
+                del delta, d_i      # not held while the next client trains
             if probes:
                 pr["drift_norm"] = torch.sqrt(torch.clamp(
                     msq - probelib.tree_sq_norm(agg), min=0.0))
         if mw is not None:
             agg = mw.run(agg, rng)
+        # the f32 accumulator in the params' dtype (bf16 LM params stay bf16),
+        # as the spatial round casts its mean
+        agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
         new_params, new_server = strategy_h.server_update(params, agg,
                                                           server_state)
         metrics = {"loss": loss}
@@ -589,14 +600,14 @@ def _stack_clients(tree, n: int):
 
 def init_state(model, strategy: Strategy, fl: FLConfig, key: int,
                n_clients_local: int = 1, device="cpu",
-               decentralized: bool = False):
+               decentralized: bool = False, dtype=torch.float32):
     """Initial FL state. Params are drawn on the CPU from
-    ``generator(key)`` and then moved, so a run starts from the same weights
-    on every device. ``decentralized``: one copy of the params per client
-    (the server state is then shaped like them too, as in the JAX
-    package)."""
+    ``generator(key)`` as ``model.init`` draws them in ``dtype`` (bf16 for
+    an LM on the card), then moved, so a run starts from the same weights on
+    every device. ``decentralized``: one copy of the params per client (the
+    server state is then shaped like them too, as in the JAX package)."""
     params = {k: v.to(device) for k, v in
-              model.init(determinism.generator(key, "cpu")).items()}
+              model.init(determinism.generator(key, "cpu"), dtype).items()}
     cstate = strategy.client_state_init(params)
     if decentralized:
         params = _stack_clients(params, n_clients_local)

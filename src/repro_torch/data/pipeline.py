@@ -1,11 +1,11 @@
 """Deterministic synthetic data, device-resident staging and the
 streaming client plane (port of ``repro/data/pipeline.py``).
 
-``SyntheticVision`` and ``SyntheticPopulation`` are the same numpy
-``RandomState`` generators as the JAX package's, so root data and shards
-are bitwise equal. Resident staging puts the whole root set and the padded
-partition index matrix on the device once; every round then gathers its
-batches there with no host round-trip.
+``SyntheticVision``, ``SyntheticPopulation`` and ``SyntheticLM`` are the
+same numpy ``RandomState`` generators as the JAX package's, so root data,
+shards and token streams are bitwise equal. Resident staging puts the
+whole root set and the padded partition index matrix on the device once;
+every round then gathers its batches there with no host round-trip.
 
 The ragged client plane (``max_cohort > 0``) stages per chunk instead: a
 slab stager replays the cohort draw on the host and hands each chunk a
@@ -658,6 +658,35 @@ def make_slab_stager(dataset, fl, fault, device):
     if fl.streaming:
         return StreamingSlabStager.from_partitions(x, y, parts, fl, fault, device)
     return ResidentSlabStager(x, y, parts, fl, fault, device)
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Deterministic synthetic next-token LM dataset family (numpy; the
+    LM training path, ``repro_torch.launch.train_fl_lm``)."""
+    vocab: int = 512
+    seed: int = 0
+
+    def tokens(self, batch: int, seq: int, salt: int = 0):
+        """Markov-ish token stream: next token depends on previous one.
+        -> {"tokens", "labels"}: (batch, seq) int32, labels shifted by one."""
+        rng = np.random.RandomState(self.seed + salt)
+        trans = rng.permutation(self.vocab)
+        toks = np.zeros((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.randint(0, self.vocab, batch)
+        noise = rng.rand(batch, seq)
+        rand_tok = rng.randint(0, self.vocab, (batch, seq))
+        for t in range(seq):
+            nxt = trans[toks[:, t]]
+            toks[:, t + 1] = np.where(noise[:, t] < 0.75, nxt, rand_tok[:, t])
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def client_batches(self, client_id: int, n_steps: int, batch: int,
+                       seq: int, round_idx: int = 0):
+        """Return ``n_steps`` stacked token batches for one client-round."""
+        out = [self.tokens(batch, seq, salt=client_id * 100003 + round_idx * 7 + s)
+               for s in range(n_steps)]
+        return {k: np.stack([o[k] for o in out]) for k in out[0]}
 
 
 @dataclasses.dataclass

@@ -19,6 +19,12 @@ probabilities in f32 (the Pallas kernel's arithmetic); the wgmma kernel
 keeps scores in f32 and rounds P to bf16 before P V; the plain version, like
 ``_blockwise_fwd``, rounds the products of bf16 inputs to bf16 and P to
 bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
+
+``plain_bwd`` is the gradient, a port of the JAX package's flash backward
+(``ops._blockwise_bwd``, jnp under ``jax.custom_vjp``: there is no Pallas
+backward kernel) in torch ops on either device. ``ops.flash_attention``
+puts the two together for autograd and ``torch.func``, handing the backward
+the forward's own ``lse``.
 """
 from __future__ import annotations
 
@@ -87,6 +93,64 @@ def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, H, Dv).to(q.dtype))
         lses.append(lse.reshape(B, H, bq))
     return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def plain_bwd(q, k, v, out, lse, dout, q_offset: int = 0, causal: bool = True,
+              scale=None, block_k: int = 512):
+    """Flash backward from the forward's ``out`` and ``lse`` (B,H,Sq) ->
+    (dq, dk, dv) in q's, k's and v's dtypes.
+
+    The JAX package's ``_blockwise_bwd`` in its loop order: kv blocks
+    outer, each taking every q row at once, p recomputed from ``lse``,
+    ``delta = rowsum(dout * out)``, dq summed in f32 over the blocks and
+    dk, dv written once per block; scores and products in the inputs'
+    dtype, p and ds in f32 and rounded to the inputs' dtype before their
+    products. Two changes that leave its values as they are: a ragged Sk
+    ends in a short block, and under a causal mask a kv block skips the q
+    rows before its first key (every score there is -1e30, so p and ds are
+    0 and their products add 0)."""
+    B, Sq, H, Dk = q.shape
+    _, Sk, KVH, Dv = v.shape
+    G = H // KVH
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    block_k = min(block_k, Sk)
+    dev = q.device
+    dout = dout.contiguous()
+    delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)   # (B, Sq, H)
+    delg = delta.permute(0, 2, 1).reshape(B, KVH, G, Sq)
+    lseg = lse.reshape(B, KVH, G, Sq)
+    qg = q.reshape(B, Sq, KVH, G, Dk)
+    dog = dout.reshape(B, Sq, KVH, G, Dv)
+    dq = None
+    dks, dvs = [], []
+    for ks in range(0, Sk, block_k):
+        kb, vb = k[:, ks:ks + block_k], v[:, ks:ks + block_k]
+        bk = kb.shape[1]
+        q_lo = min(max(0, ks - int(q_offset)), Sq) if causal else 0
+        if q_lo == Sq:      # no q row reaches this block's keys
+            dks.append(torch.zeros_like(kb))
+            dvs.append(torch.zeros_like(vb))
+            continue
+        qr, dor = qg[:, q_lo:], dog[:, q_lo:]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qr, kb).to(torch.float32) * scale
+        if causal:
+            qpos = int(q_offset) + q_lo + torch.arange(Sq - q_lo, device=dev)
+            kpos = ks + torch.arange(bk, device=dev)
+            s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None], s, -1e30)
+        p = torch.exp(s - lseg[..., q_lo:, None])
+        dp = torch.einsum("bqkgd,btkd->bkgqt", dor, vb).to(torch.float32)
+        ds = p * (dp - delg[..., q_lo:, None]) * scale
+        dqb = torch.einsum("bkgqt,btkd->bqkgd", ds.to(kb.dtype), kb).to(torch.float32)
+        if dq is None:          # the first block: q_lo is 0
+            dq = dqb
+        elif q_lo:
+            dq = torch.cat([dq[:, :q_lo], dq[:, q_lo:] + dqb], dim=1)
+        else:
+            dq = dq + dqb
+        dks.append(torch.einsum("bkgqt,bqkgd->btkd", ds.to(qr.dtype), qr))
+        dvs.append(torch.einsum("bkgqt,bqkgd->btkd", p.to(dor.dtype), dor))
+    dq = dq.reshape(B, Sq, H, Dk).to(q.dtype)
+    return dq, torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype)
 
 
 def _check(q, k, v, q_offset):

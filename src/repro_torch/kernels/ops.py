@@ -1,5 +1,5 @@
 """Public kernel API (port of ``repro/kernels/ops.py``): the quantized
-aggregation, RMSNorm, flash attention (forward) and decode attention.
+aggregation, RMSNorm, flash attention and decode attention.
 
 Dispatch is by device only: CUDA tensors launch the hand-written kernel,
 CPU tensors take its plain version (``kernels/{quant_aggregate,rmsnorm,
@@ -9,6 +9,16 @@ so a run of R int8 rounds counts R.
 ``quant_aggregate`` goes through the custom op ``repro_torch::quant_aggregate``,
 whose vmap rule turns a campaign's vmapped call (``torch.func.vmap`` over
 the lanes) into ONE ``(S, C, N)`` launch of the kernel.
+
+``rmsnorm`` and ``flash_attention`` are differentiable: each is a
+``torch.autograd.Function`` whose forward launches the kernel (or, on the
+CPU, takes its plain version), whose backward is the gradient in torch ops
+(``rmsnorm.backward``, ``flash_attention.plain_bwd``; the JAX package has
+no backward kernel), and whose vmap rule folds the vmapped dim into the
+kernel's rows or batch, so they run under the FL rounds'
+``vmap(grad_and_value(...))``. (A ``torch.library.custom_op``'s autograd
+rule is refused under ``torch.func`` transforms: it does not override
+``setup_context``.)
 
 Counters are scoped: ``quant_agg_scope()`` pushes a fresh frame, increments
 land on every active frame, and ``quant_agg_stats()`` snapshots the innermost
@@ -79,6 +89,12 @@ def _quant_agg_dequant_first(qdeltas, scales, weights):
     return out.reshape(N)
 
 
+def _lead(t, d, n):
+    """The vmapped dim of ``t`` moved to the front, or an unmapped ``t``
+    broadcast to the batch size ``n``."""
+    return t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+
+
 @torch.library.custom_op("repro_torch::quant_aggregate", mutates_args=())
 def _quant_agg_op(qdeltas: torch.Tensor, scales: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
@@ -95,10 +111,8 @@ def _quant_agg_vmap(info, in_dims, qdeltas, scales, weights):
     """vmap rule: the mapped dim leads, an unmapped input is broadcast to
     it, and lanes already there fold in, so the whole batch is one (S, C, N)
     launch (lane s bitwise its (C, N) launch)."""
-    def lead(t, d):
-        t = t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape)
-        return t.contiguous()
-    q, s, w = (lead(t, d) for t, d in zip((qdeltas, scales, weights), in_dims))
+    q, s, w = (_lead(t, d, info.batch_size).contiguous()
+               for t, d in zip((qdeltas, scales, weights), in_dims))
     outer = q.shape[:-2]
     out = _quant_agg_op(q.reshape(-1, *q.shape[-2:]), s.reshape(-1, *s.shape[-2:]),
                         w.reshape(-1, w.shape[-1]))
@@ -124,18 +138,98 @@ def quantize_blockwise(x, block: int = 256):
     return _ref.quantize_blockwise_ref(x, block=block)
 
 
+def _dense(t):
+    """``t`` contiguous and, on the card, 16-byte aligned (the kernels load
+    16-byte vectors; a view into a larger tensor may start anywhere)."""
+    t = t.contiguous()
+    if t.is_cuda and t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+class _RMSNorm(torch.autograd.Function):
+    """B2 under autograd and ``torch.func``."""
+
+    @staticmethod
+    def forward(x, w, eps):
+        return _rms.rmsnorm(_dense(x), _dense(w), eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, eps = inputs
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _rms.backward(x, w, g, ctx.eps)
+        return dx, dw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, eps):
+        """The vmapped dim folds into the rows: one launch. A vmapped ``w``
+        (a client's own weights, after its first local step) launches once
+        per index."""
+        n = info.batch_size
+        x = _lead(x, in_dims[0], n)
+        if in_dims[1] is None:
+            out = _RMSNorm.apply(x.reshape(-1, x.shape[-1]), w, eps)
+            return out.reshape(x.shape), 0
+        w = w.movedim(in_dims[1], 0)
+        return torch.stack([_RMSNorm.apply(x[i], w[i], eps) for i in range(n)]), 0
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
-    """RMSNorm over the last dim in f32, output in x's dtype."""
-    return _rms.rmsnorm(x, w, eps)
+    """RMSNorm over the last dim in f32, output in x's dtype;
+    differentiable, and batched under ``torch.func.vmap``."""
+    return _RMSNorm.apply(x, w, eps)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B3 under autograd and ``torch.func``: (out, lse), lse not
+    differentiated."""
+
+    @staticmethod
+    def forward(q, k, v, q_offset, causal, scale):
+        return _fa.flash_attention_fwd(_dense(q), _dense(k), _dense(v), q_offset,
+                                       causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, q_offset, causal, scale = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_offset, causal, scale)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.plain_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_offset, causal, scale):
+        """The vmapped dim folds into B: one launch."""
+        n = info.batch_size
+
+        def fold(t, d):
+            t = _lead(t, d, n)
+            return t.reshape(n * t.shape[1], *t.shape[2:])
+        out, lse = _FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                         fold(v, in_dims[2]), q_offset, causal, scale)
+        return ((out.reshape(n, -1, *out.shape[1:]), lse.reshape(n, -1, *lse.shape[1:])),
+                (0, 0))
 
 
 def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True,
                     scale: float | None = None):
-    """Flash attention, forward only. q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
-    v (B,Sk,KV,Dv) -> (B,Sq,H,Dv) in q's dtype. ``q_offset`` is the global
-    position of q row 0. (The autograd backward comes with the training
-    slice, ROADMAP A15.)"""
-    out, _ = _fa.flash_attention_fwd(q, k, v, q_offset, causal, scale)
+    """Flash attention. q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv) ->
+    (B,Sq,H,Dv) in q's dtype. ``q_offset`` is the global position of q row
+    0 (a Python int). Differentiable in q, k and v, and batched under
+    ``torch.func.vmap``."""
+    out, _ = _FlashAttention.apply(q, k, v, int(q_offset), bool(causal), scale)
     return out
 
 

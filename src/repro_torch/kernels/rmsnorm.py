@@ -12,6 +12,11 @@ per row, narrow when there are at least as many rows as SMs (prefill) and
 wide when there are fewer (decode); a row too long for one CTA is split over
 a thread-block cluster of K CTAs that add their partial sums in rank order.
 ``plain_cluster`` is that split in PyTorch.
+
+``backward`` is the gradient, in torch ops on either device: the JAX
+package has no backward kernel (its CPU path differentiates
+``ref.rmsnorm_ref``). ``ops.rmsnorm`` puts the two together for autograd
+and ``torch.func``.
 """
 from __future__ import annotations
 
@@ -136,6 +141,20 @@ def plain_cluster(x, w, eps: float = 1e-6, K: int = 8):
         total = total + torch.sum(torch.square(xf[..., start:stop]), dim=-1, keepdim=True)
     inv = torch.rsqrt(total / D + eps)
     return (xf * inv * w.to(torch.float32)).to(x.dtype)
+
+
+def backward(x, w, g, eps: float = 1e-6):
+    """The gradient of ``x * rsqrt(mean(x^2) + eps) * w`` against ``g`` ->
+    (dx in x's dtype, dw in w's dtype), in f32 with f32 sums:
+    ``dx = inv * (g w - xhat * mean(g w xhat))``, ``dw = sum over rows of
+    g xhat``, where ``inv = rsqrt(mean(x^2) + eps)`` and ``xhat = x inv``."""
+    xf, gf = x.to(torch.float32), g.to(torch.float32)
+    inv = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = gf * w.to(torch.float32)
+    dx = inv * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def _check(x, w):

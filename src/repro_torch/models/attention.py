@@ -3,9 +3,9 @@
 
 Single device: the JAX functions' ``AxisCtx`` is dropped, and with it the
 sequence-sharding offsets, all-gathers and the cross-shard LSE combine
-(with ``AxisCtx()`` they are identities). QKV bias, qk-norm and MLA come
-with their architectures (ROADMAP A15); ``model_zoo.build`` refuses
-configs that need them.
+(with ``AxisCtx()`` they are identities). QKV bias (qwen2.5-32b,
+qwen1.5-32b) and qk-norm (chameleon-34b) are here; MLA comes with its
+architecture (ROADMAP A15), and ``model_zoo.build`` refuses it.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 
 class KVCache(NamedTuple):
@@ -25,29 +25,44 @@ class KVCache(NamedTuple):
 
 
 def gqa_param_shapes(cfg: ModelConfig) -> dict:
-    """Projection shapes of one GQA layer, in the JAX layout ``(in, out)``."""
+    """Projection shapes of one GQA layer, in the JAX layout ``(in, out)``,
+    with the QKV biases and the qk-norm weights where the config has them."""
     D, H, KV, HD = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    shapes = {
         "wq": (D, H * HD),
         "wk": (D, KV * HD),
         "wv": (D, KV * HD),
         "wo": (H * HD, D),
     }
+    if cfg.qkv_bias:
+        shapes |= {"bq": (H * HD,), "bk": (KV * HD,), "bv": (KV * HD,)}
+    if cfg.qk_norm:
+        shapes |= {"q_norm": (HD,), "k_norm": (HD,)}
+    return shapes
 
 
 def _qkv(w, cfg: ModelConfig, h):
-    """h (B, S, D) -> q (B,S,H,HD), k and v (B,S,KV,HD)."""
+    """h (B, S, D) -> q (B,S,H,HD), k and v (B,S,KV,HD): the projections,
+    their biases added before the heads are split, then qk-norm (an RMSNorm
+    over each head's HD) on q and k."""
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     B, S = h.shape[0], h.shape[1]
-    q = (h @ w["wq"]).reshape(B, S, H, HD)
-    k = (h @ w["wk"]).reshape(B, S, KV, HD)
-    v = (h @ w["wv"]).reshape(B, S, KV, HD)
+    q, k, v = h @ w["wq"], h @ w["wk"], h @ w["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.reshape(B, S, H, HD)
+    k = k.reshape(B, S, KV, HD)
+    v = v.reshape(B, S, KV, HD)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
 def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False):
-    """Causal prefill attention over the whole sequence (one device holds all
-    of it). h: (B, S, D). Returns (B, S, D) [+ the KVCache of these rows]."""
+    """Causal train or prefill attention over the whole sequence (one device
+    holds all of it). h: (B, S, D). Returns (B, S, D) [+ the KVCache of
+    these rows]."""
     S = h.shape[1]
     q, k, v = _qkv(w, cfg, h)
     pos = torch.arange(S, device=h.device)
@@ -61,7 +76,8 @@ def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False):
 def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig):
     """One-token decode. h: (B, 1, D); cache.k/v: (B, S, KV, HD); length:
     (B,) int32 context length (the new token goes to position ``length``).
-    Returns (out (B, 1, D), cache).
+    Returns (out (B, 1, D), cache). The one-token projections take the
+    biases and qk-norm as ``_qkv`` gives them, before the rotary embedding.
 
     The new K/V row is written into the cache IN PLACE, and the same cache
     is returned. The JAX package adds a one-hot row, ``cache + onehot *

@@ -1,5 +1,5 @@
-"""Dense decoder-only LM for serving: prefill and greedy decode (port of the
-dense-family half of ``repro/models/transformer.py``).
+"""Dense decoder-only LM: the training loss, prefill and greedy decode
+(port of the dense-family half of ``repro/models/transformer.py``).
 
 Params are a plain nested ``dict[str, Tensor]`` with the JAX package's
 names and layouts, blocks stacked on a leading layer dim
@@ -8,8 +8,14 @@ is a copy of each leaf. The JAX ``lax.scan`` over layers is a Python loop
 over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the vocab
 sharding of the JAX package drop out (identities with ``AxisCtx()``).
 
-Only the serving phases are here; the training phase (``Model.loss``, the
-flash backward) and the other families come with the rest of ROADMAP A15.
+The training phase keeps every layer's activations for the backward: the
+JAX package rematerializes each layer (``jax.checkpoint``), and
+``torch.utils.checkpoint`` does not run under ``torch.func``'s transforms,
+which the FL rounds differentiate with. ``FlatModel`` is the LM as the FL
+core sees it: one flat param dict with ``/``-joined keys.
+
+The other families (MLA, MoE, encoder-decoder, SSM, hybrid) come with the
+rest of ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -35,8 +41,24 @@ def mlp_forward(w: dict, x, cfg: ModelConfig):
 
 
 def embed_lookup(embed, tokens):
-    """Rows of the (untied) embedding for ``tokens``."""
-    return embed[tokens]
+    """Rows of the (untied) embedding for ``tokens``. Through
+    ``F.embedding``, whose gradient sums each row's tokens in one order on
+    every run and on the CPU too, where indexing's (an accumulating
+    ``index_put_``) is documented as nondeterministic."""
+    return F.embedding(tokens, embed)
+
+
+def softmax_xent_vshard(logits, labels):
+    """Stable cross-entropy, the mean over the tokens. logits: (B, S, V)
+    f32; labels: (B, S) ids. One device holds the whole vocab, so the JAX
+    package's vocab-shard max and sums are the local ones (and its ``valid``
+    mask, which ``Model.loss`` never passes, is left out). The max is a
+    stabilizer only (the loss's gradient does not depend on it) and is held
+    out of the gradient, as there."""
+    m = logits.amax(dim=-1).detach()
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - tgt).mean()
 
 
 def dense_block_shapes(cfg: ModelConfig) -> dict:
@@ -71,7 +93,8 @@ def _leaves(tree, prefix=()):
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32) -> dict:
     """Random params on the generator's device, with the JAX package's
-    initializers: norms 1, embed N(0, 0.02), matrices N(0, 1/fan_in).
+    initializers: norms 1, QKV biases 0, embed N(0, 0.02), matrices
+    N(0, 1/fan_in).
     (``torch.Generator`` and ``jax.random`` draw different numbers; tests
     carry JAX's params across with ``interop`` instead.)"""
     out: dict = {}
@@ -79,6 +102,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         name = path[-2] if path[-1] == "w" else path[-1]
         if name.startswith("ln") or name.endswith("norm"):
             leaf = torch.ones(shape, dtype=dtype, device=generator.device)
+        elif name in ("bq", "bk", "bv"):
+            leaf = torch.zeros(shape, dtype=dtype, device=generator.device)
         elif name == "embed":
             leaf = embed_init(generator, shape, dtype)
         else:
@@ -93,10 +118,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, cache=None,
                  length=None):
-    """One block; phase 'prefill' -> (x, KVCache of the rows), 'decode' ->
-    (x, the cache written in place)."""
+    """One block; phase 'train' -> (x, None), 'prefill' -> (x, KVCache of
+    the rows), 'decode' -> (x, the cache written in place)."""
     h = rms_norm(x, w["ln1"]["w"], cfg.norm_eps)
-    if phase == "prefill":
+    if phase == "train":
+        o, new_cache = attn.gqa_seqsharded(w["attn"], h, cfg), None
+    elif phase == "prefill":
         o, new_cache = attn.gqa_seqsharded(w["attn"], h, cfg, return_cache=True)
     else:
         o, new_cache = attn.gqa_decode(w["attn"], h, cache, length, cfg)
@@ -109,19 +136,21 @@ def _take(tree, i):
     return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "prefill"):
-    """Forward through the stacked blocks, layer by layer. Only the prefill
-    phase is ported: returns (x, aux 0.0, KVCache stacked (L, B, S, KV, HD))."""
-    if phase != "prefill":
-        raise NotImplementedError(
-            f"stack_train phase {phase!r} is not yet ported (the LM training "
-            "path comes with ROADMAP A15)")
+def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
+    """Forward through the stacked blocks, layer by layer. Returns (x, aux,
+    caches): aux is 0.0 for the dense family; caches are None for phase
+    'train' and the KVCache stacked (L, B, S, KV, HD) for 'prefill'.
+    Training keeps every layer's activations (see the module docstring)."""
+    if phase not in ("train", "prefill"):
+        raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, cache = _dense_block(cfg, _take(blocks, i), x, phase="prefill")
-        ks.append(cache.k)
-        vs.append(cache.v)
-    return x, 0.0, attn.KVCache(torch.stack(ks), torch.stack(vs))
+        x, cache = _dense_block(cfg, _take(blocks, i), x, phase=phase)
+        if cache is not None:
+            ks.append(cache.k)
+            vs.append(cache.v)
+    caches = attn.KVCache(torch.stack(ks), torch.stack(vs)) if ks else None
+    return x, 0.0, caches
 
 
 def stack_decode(cfg: ModelConfig, blocks: dict, x, caches: attn.KVCache, length):
@@ -136,11 +165,22 @@ def stack_decode(cfg: ModelConfig, blocks: dict, x, caches: attn.KVCache, length
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """A dense GQA decoder over a param dict: prefill and greedy decode."""
+    """A dense GQA decoder over a param dict: the training loss, prefill and
+    greedy decode."""
     cfg: ModelConfig
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return init_params(generator, self.cfg, dtype)
+
+    def loss(self, params: dict, batch: dict):
+        """batch["tokens"], batch["labels"]: (B, S) ids -> the scalar
+        ``loss + aux`` (the JAX package's first output; aux is 0 for the
+        dense family): next-token cross-entropy over f32 logits."""
+        x = embed_lookup(params["embed"], batch["tokens"])
+        x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train")
+        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        logits = (x @ params["lm_head"].to(x.dtype)).to(torch.float32)
+        return softmax_xent_vshard(logits, batch["labels"]) + aux
 
     def prefill(self, params: dict, batch: dict):
         """batch["tokens"]: (B, S) -> (caches, last-position logits (B, Vp)
@@ -165,6 +205,51 @@ class Model:
         """(B, Vp) -> (B,) the first index of each row's maximum, as
         ``jnp.argmax`` takes it (``torch.argmax`` documents the same rule)."""
         return torch.argmax(logits, dim=-1)
+
+
+def flatten_params(tree: dict, prefix: str = "") -> dict:
+    """A nested param dict -> one flat dict keyed by the ``/``-joined paths
+    (``blocks/attn/wq``); leaves are shared, not copied. Sorting the flat
+    keys gives the nested tree's sorted-key leaf order for the LM trees,
+    whose keys hold no character below ``/``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def unflatten_params(flat: dict) -> dict:
+    """The inverse of ``flatten_params``."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split("/")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatModel:
+    """An LM as the FL core sees it: ``init`` and ``loss`` over one flat
+    param dict (``flatten_params``), so the rounds, the strategies, their
+    one-level tree helpers and the checkpoints take an LM state as they
+    take a paper model's."""
+    model: Model
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.model.cfg
+
+    def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
+        return flatten_params(self.model.init(generator, dtype))
+
+    def loss(self, params: dict, batch: dict):
+        return self.model.loss(unflatten_params(params), batch)
 
 
 def pad_caches(caches: attn.KVCache, extra: int) -> attn.KVCache:

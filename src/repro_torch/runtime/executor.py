@@ -75,7 +75,8 @@ from repro_torch.core.probes import (ASYNC_REDUCE, PROBE_NAMES, ProbeSpec,
                                      ProbeTable, buffer_occupancy,
                                      staleness_hist)
 from repro_torch.core.rounds import build_multi_round, build_ragged_multi, init_state
-from repro_torch.data.pipeline import make_slab_stager, slab_nbytes, stage_partitions
+from repro_torch.data.pipeline import (SyntheticLM, make_slab_stager, slab_nbytes,
+                                      stage_partitions)
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.metrics.logger import PerformanceLogger, host_usage
@@ -194,7 +195,15 @@ class Executor:
     def scaffold(self):
         """Stage the dataset on the device, initialize the state, build the
         async schedule, resume from the newest checkpoint if any, then
-        build the comms accountant; each hook under a recorder span."""
+        build the comms accountant; each hook under a recorder span. An LM
+        job (``synthetic_lm``) raises ``ValueError``: LMs train through
+        ``repro_torch.launch.train_fl_lm``, as in the JAX package, whose
+        executor cannot stage that dataset either."""
+        if isinstance(self.job.dataset, SyntheticLM):
+            raise ValueError(
+                "the executor stages partitioned datasets; an LM job "
+                f"({self.job.arch}, synthetic_lm) trains through "
+                "python -m repro_torch.launch.train_fl_lm")
         fl = self.job.fl
         rec, track = self.recorder, self.telemetry_track
         with rec.span("scaffold", track=track):

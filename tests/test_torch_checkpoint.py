@@ -19,6 +19,18 @@ from repro_torch.models.small import SmallModel
 from repro_torch.runtime.executor import Executor
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _raw(strategy="fedavg", rounds=4, rounds_per_launch=1, **train):
     tp = {"n_clients": 4, "local_steps": 2, "batch_size": 4, "client_lr": 0.05,
           "rounds": rounds, "rounds_per_launch": rounds_per_launch, "seed": 5}

@@ -43,6 +43,19 @@ from repro_torch.runtime.clock import ClientSystemModel, build_schedule
 from repro_torch.runtime.executor import Executor
 from repro_torch.telemetry.comms import CommsSpec
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _COMMS_ON = {"enabled": True}
 _EQUAL_SPEEDS = {"duration_sigma": 0.0, "rate_spread": 0.0, "straggler_prob": 0.0}
 # block-aligned shapes so the int8 padding overhead is purely the scales

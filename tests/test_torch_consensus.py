@@ -49,6 +49,19 @@ from repro_torch.core.strategies import get_strategy
 from repro_torch.interop import params_from_numpy, state_from_numpy, to_numpy
 from repro_torch.models.small import SmallModel
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ROOT_KEY = determinism.root_key(0)
 C, STEPS, B, ROUNDS = 4, 2, 4, 3

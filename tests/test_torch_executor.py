@@ -26,6 +26,19 @@ from repro_torch.models.small import SmallModel
 from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.faults import FaultModel, cohort_mask, select_cohort
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
@@ -172,11 +185,13 @@ def test_load_job_rejects_typos_with_a_hint():
 # run in test_load_job_runs_what_slice_6_ported; cases 0-2 (sweep,
 # telemetry, probes) likewise, in test_load_job_runs_what_slice_7_ported;
 # cases 4 and 6-8 (the streaming client plane) in
-# test_load_job_runs_what_slice_8_ported
+# test_load_job_runs_what_slice_8_ported; cases 5 and 13 (synthetic_lm,
+# qwen2.5-32b) in test_load_job_runs_what_slice_9_ported, their places taken
+# by two archs still refused
 @pytest.mark.parametrize("patch,item", [
-    ({"dataset": {"dataset": "synthetic_lm"}}, "A15"),
+    ({"model": {"arch": "whisper-base"}}, "A15"),
     ({"model": {"arch": "minicpm3-4b"}}, "A15"),
-    ({"model": {"arch": "qwen2.5-32b"}}, "A15"),
+    ({"model": {"arch": "xlstm-125m"}}, "A15"),
 ], ids=[f"patch{i}-{item}" for i, item in zip((5, 12, 13), ("A15", "A15", "A15"))])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     raw = {"model": {"arch": "flsim-cnn"},
@@ -236,6 +251,24 @@ def test_load_job_runs_what_slice_8_ported(patch):
     _, logger = ex.run()
     assert ex.ragged and ex.staged is None
     assert len(logger.rows) == 1 and np.isfinite(logger.rows[0]["loss"])
+
+
+@pytest.mark.parametrize("patch", [
+    {"dataset": {"dataset": "synthetic_lm"}},
+    {"model": {"arch": "qwen2.5-32b"}},
+], ids=["patch5-synthetic_lm", "patch13-qwen2.5-32b"])
+def test_load_job_runs_what_slice_9_ported(patch):
+    """An LM arch and the LM dataset load; the executor sends an LM job to
+    ``repro_torch.launch.train_fl_lm`` (its partitioned staging cannot hold
+    token streams, as the JAX package's cannot)."""
+    raw = dict({"strategy": {"strategy": "fedavg", "train_params": {"rounds": 1}}}, **patch)
+    job = load_job(raw)
+    if "model" in patch:
+        assert job.model.cfg.qkv_bias and job.model.cfg.d_model == 5120
+        return
+    assert job.dataset.vocab == 512 and job.dataset.seed == job.fl.seed
+    with pytest.raises(ValueError, match="repro_torch.launch.train_fl_lm"):
+        Executor(job, device="cpu").scaffold()
 
 
 @pytest.mark.parametrize("train", [

@@ -13,12 +13,26 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd as pallas_flash
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -128,3 +142,78 @@ def test_flash_rejects_what_the_kernel_does_not_take():
     m = torch.zeros(1, 8, 4, 16, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention_fwd(m, m, m)
+
+
+# -- the backward: ops.flash_attention under autograd and torch.func ---------
+# Against jax.grad of the JAX package's differentiable flash attention (its
+# jnp path: _blockwise_fwd under the custom_vjp whose backward is
+# _blockwise_bwd), at tests/test_kernels.py:68's shape and around it.
+# Tolerance that of test_kernels.py's backward test: atol = rtol = 1e-4 (f32).
+
+BWD_SHAPES = [  # B, Sq, Sk, H, KV, Dk, Dv
+    (1, 64, 64, 4, 2, 32, 32),        # tests/test_kernels.py:68
+    (2, 64, 128, 4, 1, 32, 32),       # q_offset 64
+    (1, 64, 64, 4, 2, 48, 32),        # Dk != Dv
+    (1, 100, 100, 6, 2, 16, 16),      # ragged S (one block on both sides)
+]
+
+
+def _jax_grads(arrays, dout, offset, causal):
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+
+    def f(q, k, v):
+        return (jops.flash_attention(q, k, v, offset, causal) * jnp.asarray(dout)).sum()
+    return jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_the_jax_custom_vjp(B, Sq, Sk, H, KV, Dk, Dv, causal):
+    arrays = _inputs(B, Sq, Sk, H, KV, Dk, Dv, seed=3)
+    dout = np.random.RandomState(4).randn(B, Sq, H, Dv).astype(np.float32)
+    offset = Sk - Sq
+    want = _jax_grads(arrays, dout, offset, causal)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    before = fa.flash_attention_fwd.launches
+    out = ops.flash_attention(q, k, v, offset, causal)
+    (out * torch.from_numpy(dout)).sum().backward()
+    assert fa.flash_attention_fwd.launches == before    # CPU tensors never launch
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        _close(got, w, 1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_in_short_kv_blocks_matches(causal):
+    """``plain_bwd`` over several kv blocks with a short last one (and, under
+    the causal mask, blocks that skip their first q rows) against the JAX
+    backward in one block."""
+    B, Sq, Sk, H, KV, D = 1, 70, 100, 4, 2, 16
+    arrays = _inputs(B, Sq, Sk, H, KV, D, D, seed=5)
+    dout = np.random.RandomState(6).randn(B, Sq, H, D).astype(np.float32)
+    want = _jax_grads(arrays, dout, Sk - Sq, causal)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    out, lse = fa.plain(q, k, v, Sk - Sq, causal)
+    got = fa.plain_bwd(q, k, v, out, lse, torch.from_numpy(dout), Sk - Sq, causal,
+                       block_k=32)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_flash_backward_under_vmap_matches_the_loop(n):
+    """``vmap(grad(...))`` over a leading dim of 1 and 2 (the rule folds it
+    into B) gives each index its own gradients."""
+    from torch.func import grad, vmap
+    B, S, H, KV, D = 2, 48, 4, 2, 16
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(n, B, S, h, D).astype(np.float32))
+               for h in (H, KV, KV))
+    dout = torch.from_numpy(rng.randn(n, B, S, H, D).astype(np.float32))
+
+    def f(q, k, v, d):
+        return (ops.flash_attention(q, k, v, 0, True) * d).sum()
+    got = vmap(grad(f, argnums=(0, 1, 2)))(q, k, v, dout)
+    for i in range(n):
+        want = grad(f, argnums=(0, 1, 2))(q[i], k[i], v[i], dout[i])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[i], w, atol=1e-6, rtol=1e-6)

@@ -613,3 +613,118 @@ def test_serve_in_bf16_at_head_dim_128_launches_only_the_wgmma_kernel(cuda):
     assert fa.flash_attention_fwd.launches_by_kernel == {
         "wgmma": by_kernel["wgmma"] + L, "simt": by_kernel["simt"]}
     assert torch.equal(serve.generate(model, params, prompts, 4), toks)
+
+
+# -- the LM training path (slice 9): B2 and B3 under autograd and torch.func --
+# The kernel's forward with the ported backward (rmsnorm.backward,
+# flash_attention.plain_bwd) against autograd through the plain version on
+# the card. Gradient tolerance: max |got - want| within GRAD_TOL of
+# max(1, max |want|) (f32: the kernels sum in another order; bf16: the two
+# round the products at other places, and dk, dv sum over every q row).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_close(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,causal,dtype", [
+    (2, 512, 512, 8, 2, 128, 128, True, torch.bfloat16),      # wgmma
+    (1, 300, 300, 8, 2, 64, 64, True, torch.bfloat16),        # ragged
+    (1, 128, 256, 4, 1, 128, 64, True, torch.bfloat16),       # q_offset, Dk != Dv
+    (2, 256, 256, 8, 2, 64, 64, False, torch.bfloat16),
+    (2, 256, 256, 8, 2, 64, 64, True, torch.float32),         # SIMT
+])
+def test_flash_forward_and_backward_match_autograd_of_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv,
+                                                            causal, dtype):
+    args = [_randn(s, dtype, cuda, i) for i, s in enumerate(
+        [(B, Sq, H, Dk), (B, Sk, KV, Dk), (B, Sk, KV, Dv)])]
+    dout = _randn((B, Sq, H, Dv), dtype, cuda, 9)
+    grads = []
+    for fn in (lambda q, k, v: ops.flash_attention(q, k, v, Sk - Sq, causal),
+               lambda q, k, v: fa.plain(q, k, v, Sk - Sq, causal)[0]):
+        x = [a.clone().requires_grad_() for a in args]
+        out = fn(*x)
+        out.backward(dout)
+        grads.append((out.detach(), *(t.grad for t in x)))
+    launches = fa.flash_attention_fwd.launches
+    ops.flash_attention(*args, Sk - Sq, causal)
+    assert fa.flash_attention_fwd.launches == launches + 1
+    _close(grads[0][0], grads[1][0], TOL[dtype])
+    for got, want in zip(grads[0][1:], grads[1][1:]):
+        _grad_close(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("rows,D", [((2, 64, 5120), 5120), ((2, 64, 40, 128), 128),
+                                    ((3, 64), 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_forward_and_backward_match_autograd_of_plain(cuda, rows, D, dtype):
+    x0, w0 = _randn(rows, dtype, cuda, 0), _randn((D,), dtype, cuda, 1)
+    g = _randn(rows, dtype, cuda, 2)
+    res = []
+    for fn in (ops.rmsnorm, rms.plain):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        out = fn(x, w)
+        out.backward(g)
+        res.append((out.detach(), x.grad, w.grad))
+    _close(res[0][0], res[1][0], 1e-5 if dtype == torch.float32 else 2e-2)
+    for got, want in zip(res[0][1:], res[1][1:]):
+        _grad_close(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_vmapped_gradients_on_card_match_the_loop(cuda, n):
+    """``vmap(grad(...))`` over a leading dim of 1 and 2 through both
+    kernels: one launch each per call (the dim folds into rows and B)."""
+    from torch.func import grad, vmap
+    q = _randn((n, 2, 128, 8, 64), torch.bfloat16, cuda, 0)
+    kv = _randn((n, 2, 128, 2, 64), torch.bfloat16, cuda, 1)
+    w = _randn((64,), torch.bfloat16, cuda, 2)
+
+    def f(q, kv, w):
+        o = ops.flash_attention(ops.rmsnorm(q, w), kv, kv, 0, True)
+        return o.float().square().sum()
+    counts = (rms.rmsnorm.launches, fa.flash_attention_fwd.launches)
+    got = vmap(grad(f, argnums=(0, 1, 2)), in_dims=(0, 0, None))(q, kv, w)
+    assert (rms.rmsnorm.launches - counts[0], fa.flash_attention_fwd.launches - counts[1]) \
+        == (1, 1)
+    for i in range(n):
+        want = grad(f, argnums=(0, 1, 2))(q[i], kv[i], w)
+        for a, b in zip(got, want):
+            _grad_close(a[i], b, GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+def test_lm_round_on_card_matches_cpu_and_repeats_bitwise(cuda, arch):
+    """One temporal fedavgm round of the reduced arch in f32: the card
+    (kernels) against the CPU (plain versions), losses and params within
+    1e-4; two card runs bitwise."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    cfg = reduced_config(get_config(arch))
+    fl = FLConfig(strategy="fedavgm", n_clients=4, client_lr=0.05, server_momentum=0.9)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    out = {}
+    for tag, dev in (("cpu", "cpu"), ("card", cuda), ("card2", cuda)):
+        _, round_fn, state = train_fl_lm.setup(cfg, fl, dev)
+        state, logger = train_fl_lm.run_rounds(
+            round_fn, state, lm, 0, 1, clients=4, cohort=2, batch=2, seq=64,
+            local_steps=2, device=dev)
+        out[tag] = (logger.series("loss"), {k: v.cpu() for k, v in state["params"].items()})
+    assert out["card"][0] == out["card2"][0]
+    assert all(torch.equal(out["card"][1][k], out["card2"][1][k]) for k in out["card"][1])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-4)
+    for k, v in out["cpu"][1].items():
+        _close(out["card"][1][k], v, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+def test_serve_bias_and_qk_norm_archs_on_card_match_cpu(cuda, arch):
+    model = model_zoo.build(reduced_config(get_config(arch)))
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, 512, (2, 40), generator=torch.Generator().manual_seed(1))
+    toks_cpu = serve.generate(model, params, prompts, 5)
+    toks_card = serve.generate(model, _to(params, cuda), prompts.to(cuda), 5)
+    assert torch.equal(toks_card.cpu(), toks_cpu)

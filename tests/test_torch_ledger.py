@@ -32,6 +32,18 @@ from repro_torch.models.small import SmallModel
 from repro_torch.runtime.executor import Executor
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params():
     rng = np.random.RandomState(0)
     return {"w": torch.from_numpy(rng.randn(128).astype(np.float32)),

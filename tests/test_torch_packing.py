@@ -22,6 +22,19 @@ from repro_torch.core import packing
 from repro_torch.core.strategies.compressed import CompressedFedAvg
 from repro_torch.interop import params_from_numpy, to_numpy
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = J_CNN.replace(d_model=8, d_ff=16)
 
 

@@ -30,6 +30,19 @@ from repro_torch.runtime.campaign import read_results
 from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.scheduler import PlanExecutor, SuccessiveHalving
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GRIDS = [
     ({}, {"strategy": ["fedavg", "fedprox", "scaffold"], "topology": ["client_server",
                                                                       "hierarchical"],
@@ -98,16 +111,12 @@ def _job(raw):
 @pytest.fixture
 def native_convs():
     """Lane == single run holds bit for bit on the CPU with oneDNN's
-    convolutions off: oneDNN picks a conv's algorithm by its group count,
-    and the lanes run S times a single run's groups. One thread keeps
-    PyTorch's native convs quick when test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with torch.backends.mkldnn.flags(enabled=False):
-            yield
-    finally:
-        torch.set_num_threads(threads)
+    convolutions off: oneDNN picks a conv's algorithm by its group
+    count, and the lanes run S times a single run's groups. (The tests
+    run on one thread, ``one_thread``, which keeps PyTorch's native convs
+    quick when test processes share the cores.)"""
+    with torch.backends.mkldnn.flags(enabled=False):
+        yield
 
 
 def _single(coord, rounds=3):

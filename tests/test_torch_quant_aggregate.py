@@ -22,6 +22,19 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import quant_aggregate as qa
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [(4, 8192, 256), (10, 4096, 128), (32, 16384, 512),
           # N not a multiple of the Pallas tile (4096)
           (5, 1280, 256), (5, 4096 + 128, 128), (5, 512, 512)]

@@ -17,6 +17,19 @@ from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -189,3 +202,46 @@ def test_plain_cluster_matches_pallas_interpret(shape, K, dtype):
                           interpret=True)
     _close(rms.plain_cluster(torch.from_numpy(x).to(tdt), torch.from_numpy(w), 1e-6, K),
            want, tol)
+
+
+# -- the backward: ops.rmsnorm under autograd and torch.func -----------------
+# Against jax.grad of the JAX package's oracle, ref.rmsnorm_ref (its CPU
+# path differentiates it; there is no backward kernel), at the reduced
+# model's width D = 64 and at the qk-norm rows' head dim D = 128. f32;
+# atol = rtol = 1e-5 (the analytic formula against autodiff of the forward).
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (2, 3, 5, 128)])
+def test_rmsnorm_backward_matches_jax_grad_of_the_ref(shape):
+    import jax
+    x, w = _inputs(shape, seed=3)
+    g = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    want = jax.grad(lambda x, w: (jref.rmsnorm_ref(x, w) * g).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    tx, tw = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    before = rms.rmsnorm.launches
+    (ops.rmsnorm(tx, tw) * torch.from_numpy(g)).sum().backward()
+    assert rms.rmsnorm.launches == before           # CPU tensors never launch
+    _close(tx.grad, want[0], 1e-5)
+    _close(tw.grad, want[1], 1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("w_batched", [False, True])
+def test_rmsnorm_backward_under_vmap_matches_the_loop(n, w_batched):
+    """``vmap(grad(...))`` over a leading dim of 1 and 2, with the weight
+    shared (the rule folds the dim into rows) or per index (one launch per
+    index): each index gets its own gradients."""
+    from torch.func import grad, vmap
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(n, 4, 3, 128).astype(np.float32))
+    w = torch.from_numpy(rng.randn(*((n, 128) if w_batched else (128,))).astype(np.float32))
+    g = torch.from_numpy(rng.randn(n, 4, 3, 128).astype(np.float32))
+
+    def f(x, w, g):
+        return (ops.rmsnorm(x, w) * g).sum()
+    got = vmap(grad(f, argnums=(0, 1)), in_dims=(0, 0 if w_batched else None, 0))(x, w, g)
+    for i in range(n):
+        want = grad(f, argnums=(0, 1))(x[i], w[i] if w_batched else w, g[i])
+        torch.testing.assert_close(got[0][i], want[0], atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(got[1][i], want[1], atol=1e-6, rtol=1e-6)

@@ -33,6 +33,18 @@ from repro_torch.launch import serve
 from repro_torch.models import model_zoo, transformer
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def jnp_kernels(monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_IMPL", "jnp")
@@ -162,11 +174,66 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert "arch=yi-34b-reduced device=cpu" in capsys.readouterr().out
 
 
+# qwen2.5-32b and yi-34b with qkv_bias or qk_norm build since QKV bias and
+# qk-norm were ported (test_bias_and_qk_norm_archs_give_the_jax_packages_tokens
+# runs them); three archs that are still refused take their places
 @pytest.mark.parametrize("arch,change", [
-    ("qwen2.5-32b", None), ("minicpm3-4b", None), ("qwen3-moe-30b-a3b", None),
-    ("yi-34b", {"qkv_bias": True}), ("yi-34b", {"qk_norm": True}),
+    ("arctic-480b", None), ("minicpm3-4b", None), ("qwen3-moe-30b-a3b", None),
+    ("whisper-base", None), ("xlstm-125m", None),
     ("yi-34b", {"tie_embeddings": True}), ("yi-34b", {"attn_type": "mla"}),
+    ("jamba-1.5-large-398b", None),
 ])
 def test_build_refuses_what_is_not_yet_ported(arch, change):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         model_zoo.build(arch if change is None else get_config(arch).replace(**change))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "qwen1.5-32b", "chameleon-34b"])
+def test_bias_and_qk_norm_configs_match_the_jax_package(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert transformer.param_shapes(cfg) == jtf.param_shapes(jcfg)
+    assert model_zoo.count_params(cfg) == jzoo.count_params(jcfg)
+    small = reduced_config(cfg)
+    attn = model_zoo.build(small).init(torch.Generator().manual_seed(0))["blocks"]["attn"]
+    if cfg.qkv_bias:
+        kv = 16 * small.n_kv_heads
+        assert all(torch.equal(attn[b], torch.zeros(2, n))
+                   for b, n in (("bq", 64), ("bk", kv), ("bv", kv)))
+    if cfg.qk_norm:
+        assert torch.equal(attn["q_norm"], torch.ones(2, 16))
+        assert torch.equal(attn["k_norm"], torch.ones(2, 16))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+def test_bias_and_qk_norm_archs_give_the_jax_packages_tokens(arch, jnp_kernels):
+    """Reduced qwen2.5-32b (QKV bias) and chameleon-34b (qk-norm), with the
+    biases and qk-norm weights moved off 0 and 1: the JAX ``generate``'s
+    greedy tokens and its prefill logits."""
+    jcfg = jreduced(jget_config(arch))
+    jmodel = jzoo.build(jcfg)
+    rng = np.random.RandomState(3)
+
+    def move(path, t):
+        if any(f"['{n}']" in jax.tree_util.keystr(path)
+               for n in ("bq", "bk", "bv", "q_norm", "k_norm")):
+            return t + 0.5 * jnp.asarray(rng.randn(*t.shape), t.dtype)
+        return t
+    jparams = jax.tree_util.tree_map_with_path(move, jmodel.init(jax.random.PRNGKey(0)))
+    model = model_zoo.build(reduced_config(get_config(arch)))
+    params = interop.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    prompts = rng.randint(0, 512, (2, 32)).astype(np.int32)
+    _, jlogits, _ = jmodel.prefill(AxisCtx(), jparams, {"tokens": jnp.asarray(prompts)})
+    _, logits, _ = model.prefill(params, {"tokens": torch.from_numpy(prompts).long()})
+    _close(logits, jlogits, 1e-4)
+    want = np.asarray(jgenerate(jmodel, jparams, jnp.asarray(prompts), 6))
+    got = serve.generate(model, params, torch.from_numpy(prompts).long(), 6)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+def test_serve_main_runs_the_new_archs_on_the_cpu(arch, capsys):
+    toks = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--max-new", "3"])
+    assert toks.shape == (2, 3)
+    assert f"arch={arch}-reduced device=cpu" in capsys.readouterr().out

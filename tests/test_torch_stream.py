@@ -52,6 +52,18 @@ from repro_torch.runtime.scheduler import PlanExecutor
 from repro_torch.telemetry.recorder import read_events
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _raw(sweep=None, strategy="fedavg", runtime=None, **tp):
     params = {"n_clients": 8, "cohort": 4, "max_cohort": 6, "client_lr": 0.1,
               "rounds": 4, "seed": 11, "rounds_per_launch": 2, "batch_size": 4,
@@ -314,16 +326,12 @@ def test_resume_mid_stream_equals_uninterrupted(tmp_path):
 @pytest.fixture
 def native_convs():
     """Lane == single run holds bit for bit on the CPU with oneDNN's
-    convolutions off (oneDNN picks a conv's algorithm by its group count);
-    one thread keeps PyTorch's native convs quick beside other test
-    processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with torch.backends.mkldnn.flags(enabled=False):
-            yield
-    finally:
-        torch.set_num_threads(threads)
+    convolutions off: oneDNN picks a conv's algorithm by its group
+    count, and the lanes run S times a single run's groups. (The tests
+    run on one thread, ``one_thread``, which keeps PyTorch's native convs
+    quick when test processes share the cores.)"""
+    with torch.backends.mkldnn.flags(enabled=False):
+        yield
 
 
 @pytest.mark.parametrize("streaming", [False, True])

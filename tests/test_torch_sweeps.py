@@ -44,6 +44,19 @@ from repro_torch.models.small import SmallModel
 from repro_torch.runtime.campaign import CampaignExecutor, lane_of, read_results
 from repro_torch.runtime.executor import Executor
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S, C, STEPS, B = 2, 4, 2, 4
 # the largest int8 step of these rounds' sends (client deltas below 0.13 in
 # magnitude, 127 steps a side): an int8 rounding flip moves the aggregate by
@@ -176,16 +189,12 @@ def _job(raw):
 @pytest.fixture
 def native_convs():
     """Lane == single run holds bit for bit on the CPU with oneDNN's
-    convolutions off: oneDNN picks a conv's algorithm by its group count,
-    and the lanes run S times a single run's groups. One thread keeps
-    PyTorch's native convs quick when test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with torch.backends.mkldnn.flags(enabled=False):
-            yield
-    finally:
-        torch.set_num_threads(threads)
+    convolutions off: oneDNN picks a conv's algorithm by its group
+    count, and the lanes run S times a single run's groups. (The tests
+    run on one thread, ``one_thread``, which keeps PyTorch's native convs
+    quick when test processes share the cores.)"""
+    with torch.backends.mkldnn.flags(enabled=False):
+        yield
 
 
 def _flat(tree):

@@ -26,6 +26,19 @@ from repro_torch.runtime.executor import Executor
 from repro_torch.telemetry import FlightRecorder, read_events
 from repro_torch.telemetry import trace
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every test here on one torch intra-op thread: the suite runs in
+    several processes that share the cores, and with a thread per core in
+    each, torch's many small CPU ops crawl (six of the port's test files took
+    426 s under six processes against 75 s on one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPANS = {"scaffold", "stage_data", "init_state", "restore", "chunk", "launch",
          "finish_chunk", "probe_flush", "comms_flush", "checkpoint_save"}
 COUNTERS = {"staged_bytes", "host", "program_cost", "quant_agg", "programs",
