@@ -118,7 +118,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    qwen2.5-32b and chameleon-34b served at full width (2 layers, bf16,
    batch 2 x prompt 128 + 8 new; launches asserted, qk-norm's too; tokens
    bitwise repeatable).
-11. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+11. MLA and MoE (slice 10) — B3 at MLA's shapes, on the MLA layer's own
+   inputs, against its plain version in bf16 and in f32 and timed beside
+   its bound and SDPA (the backend it took named; SDPA's inputs prepared
+   outside the timed call): the absorbed form (288, 256) at the serve shape
+   (8 x 2048, 40 heads on one kv head) and the training shape (2 x 2048;
+   the ported backward too) on the wgmma kernel, the expanded form (96,
+   64) on the SIMT kernel; B2 at each row width these paths give it
+   (2560, 768, MLA's kv_norm 256 sliced from 288-wide rows, 2048, qk-norm
+   128) at prefill, decode and training rows, and B4 at qwen3-moe's decode
+   layer (8 x 2112 cache, 32 heads on 4 kv heads of 128, ragged lengths),
+   each against its plain version and timed beside its bound and the
+   PyTorch call; then minicpm3-4b (MLA, tied embeddings) served at full
+   width and depth (62 layers, bf16, batch 8 x prompt 2048 + 64 new; B2 4 x
+   62 + 1 a forward, counted by width, B3 62 on wgmma, no B4: MLA decodes
+   with einsums; tokens bitwise repeatable) with layer 0's expanded form
+   (``mla_seqsharded(absorbed=False)``, one SIMT launch) beside its
+   absorbed form; minicpm3-4b (8 of 62 layers) and qwen3-moe-30b-a3b (2 of 48)
+   trained as phase 10 trains qwen2.5-32b (3 rounds, losses finite and
+   falling, a second run bitwise, one round profiled); qwen3-moe-30b-a3b
+   served (4 of 48 layers, 128 experts top-8, batch 8 x 2048 + 64 new;
+   drop fraction per layer at prefill); reduced minicpm3-4b,
+   qwen3-moe-30b-a3b and arctic-480b one f32 round and a served prompt on
+   the card and the CPU.
+12. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -130,8 +153,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal.
-12. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
-   card's ``name, power.limit`` line, and last the ``ok`` JSON line.
+13. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+   whole script's seconds, the card's ``name, power.limit`` line, and last
+   the ``ok`` JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -148,6 +172,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -175,7 +200,11 @@ FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv  (tests/test_kernels.py:34-39, then
     (1, 50, 50, 4, 2, 20, 20),     # rows not 16-byte aligned: the scalar loads
     (2, 70, 200, 4, 1, 128, 128),  # wgmma: ragged Sq and Sk, q_offset 130
     (1, 192, 192, 8, 2, 128, 64), (1, 192, 192, 8, 2, 64, 128),   # wgmma, Dk != Dv
-    (1, 1, 333, 8, 2, 128, 128)]   # one query row, q_offset 332
+    (1, 1, 333, 8, 2, 128, 128),   # one query row, q_offset 332
+    # MLA (slice 10): absorbed (288, 256), 40 heads on one kv head (bf16:
+    # wgmma, 64 keys a stage), ragged, q_offset, one row; expanded (96, 64)
+    (1, 300, 300, 40, 1, 288, 256), (2, 70, 200, 8, 1, 288, 256),
+    (1, 1, 333, 40, 1, 288, 256), (2, 100, 100, 40, 40, 96, 64)]
 DECODE_CHECKS = [  # B, S, H, KV, D  (tests/test_kernels.py:91, then ragged, G = 7)
     (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 128, 8, 1, 32), (4, 600, 14, 2, 16),
     (2, 90, 6, 3, 12)]
@@ -1353,6 +1382,18 @@ def _leaves(tree):
         yield tree
 
 
+def _zero_counts(kernels):
+    """Every kernel's launch count to 0, and B2's by layout and by width and
+    B3's by kernel."""
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["rmsnorm"].launches_by_layout = {k: 0 for k in
+                                             kernels["rmsnorm"].launches_by_layout}
+    kernels["rmsnorm"].launches_by_width = {}
+    kernels["flash_attention"].launches_by_kernel = {
+        k: 0 for k in kernels["flash_attention"].launches_by_kernel}
+
+
 def phase_serve(torch, kernels):
     """The serve path at yi-34b's full width: one counted run of
     ``generate``, a second for determinism and its wall time, then prefill
@@ -1380,12 +1421,8 @@ def phase_serve(torch, kernels):
 
     # the serve path; counts zeroed just before it and read just after
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    flash = kernels["flash_attention"]
-    flash.launches_by_kernel = {key: 0 for key in flash.launches_by_kernel}
-    norm = kernels["rmsnorm"]
-    norm.launches_by_layout = {key: 0 for key in norm.launches_by_layout}
+    _zero_counts(kernels)
+    flash, norm = kernels["flash_attention"], kernels["rmsnorm"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = generate(model, params, prompts, new)
@@ -1480,15 +1517,16 @@ def phase_serve(torch, kernels):
     return out
 
 
-def phase_serve_card_vs_cpu(torch):
-    """Reduced yi-34b in f32 from the same weights: one prefill and 4
-    greedy decode steps on the card (kernels) and on the CPU (plain)."""
+def phase_serve_card_vs_cpu(torch, arch=SERVE["arch"]):
+    """Reduced yi-34b (or ``arch``) in f32 from the same weights: one
+    prefill and 4 greedy decode steps on the card (kernels) and on the CPU
+    (plain)."""
     from repro_torch.configs.base import get_config
     from repro_torch.configs.reduce import reduced_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model_zoo
     from repro_torch.models.transformer import pad_caches
-    model = model_zoo.build(reduced_config(get_config(SERVE["arch"])))
+    model = model_zoo.build(reduced_config(get_config(arch)))
     params = model.init(torch.Generator().manual_seed(1))
     prompts = torch.randint(0, model.cfg.vocab_size, (2, 64),
                             generator=torch.Generator().manual_seed(2))
@@ -1521,7 +1559,7 @@ def phase_serve_card_vs_cpu(torch):
     err = close(torch, "serve card vs cpu logits", out["cuda"][1], out["cpu"][1], 1e-4)
     res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4,
            "flash_by_kernel": flash_by_kernel}
-    log("serve card vs cpu (reduced yi-34b, f32, prefill + 4 decode steps)", json.dumps(res))
+    log(f"serve card vs cpu (reduced {arch}, f32, prefill + 4 decode steps)", json.dumps(res))
     return res
 
 
@@ -2132,7 +2170,8 @@ def phase_streaming(torch, qa, load_job, Executor):
 # the QKV-bias and qk-norm archs at full width
 TRAIN = {"arch": "qwen2.5-32b", "n_layers": 2, "strategy": "fedavgm", "clients": 4,
          "cohort": 2, "local_epochs": 1, "local_steps": 2, "batch": 2, "seq": 2048,
-         "rounds": 3, "client_lr": 0.05, "server_momentum": 0.9}
+         "rounds": 3, "client_lr": 0.05, "server_momentum": 0.9,
+         "norms_per_layer": 2}      # B2 launches a layer a forward: ln1, ln2
 # gradients: max |got - want| within GRAD_TOL of max(1, max |want|), against
 # autograd through the plain version (f32: another summation order; bf16: the
 # two round products at other places, and dk, dv sum over every q row)
@@ -2354,30 +2393,32 @@ def time_train_kernels(torch, flush):
     return rows
 
 
-def phase_train_lm(torch, kernels):
-    """qwen2.5-32b at its published width, depth cut 64 -> 2, bf16: the
-    temporal FedAvgM rounds of ``repro_torch.launch.train_fl_lm`` on fixed
-    client data, counted and timed round by round; then the same run from
-    the same initial state again, bitwise; then one warm round profiled."""
+def phase_train_lm(torch, kernels, T=TRAIN):
+    """An LM at its published width with its depth cut (qwen2.5-32b, 64 ->
+    2, by default), bf16: the temporal FedAvgM rounds of
+    ``repro_torch.launch.train_fl_lm`` on fixed client data, counted and
+    timed round by round; then the same run from the same initial state
+    again, bitwise; then one warm round profiled."""
     from repro_torch.configs.base import FLConfig, get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train_fl_lm
     from repro_torch.metrics.logger import PerformanceLogger
-    dev, T = torch.device("cuda"), TRAIN
+    dev = torch.device("cuda")
     torch.cuda.empty_cache()     # the earlier phases' cached blocks back to the card
     cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
     fl = FLConfig(strategy=T["strategy"], n_clients=T["clients"],
                   local_epochs=T["local_epochs"], client_lr=T["client_lr"],
                   server_momentum=T["server_momentum"], seed=0)
     t0 = time.perf_counter()
-    _, round_fn, state = train_fl_lm.setup(cfg, fl, dev, dtype=torch.bfloat16)
+    model, round_fn, state = train_fl_lm.setup(cfg, fl, dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in state["params"].values())
     log(f"train: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
-        f"d_ff {cfg.d_ff} vocab {cfg.padded_vocab} qkv_bias {cfg.qkv_bias}, "
-        f"{cfg.n_layers} of 64 layers, bf16: {n_params} params "
-        f"({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.1f}s")
+        f"d_ff {cfg.d_ff} vocab {cfg.padded_vocab} qkv_bias {cfg.qkv_bias} attn "
+        f"{cfg.attn_type} moe {cfg.moe is not None} tied {cfg.tie_embeddings}, "
+        f"{cfg.n_layers} of {get_config(T['arch']).n_layers} layers, bf16: {n_params} "
+        f"params ({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.1f}s")
     initial = {part: _tree_to(t, "cpu") if isinstance(t, dict) else t
                for part, t in state.items()}
     lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
@@ -2403,12 +2444,7 @@ def phase_train_lm(torch, kernels):
 
     # the counted run; counts zeroed just before it and read just after
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    kernels["rmsnorm"].launches_by_layout = {k: 0 for k in
-                                             kernels["rmsnorm"].launches_by_layout}
-    kernels["flash_attention"].launches_by_kernel = {
-        k: 0 for k in kernels["flash_attention"].launches_by_kernel}
+    _zero_counts(kernels)
     state, logger, per_round = run(state)
     launches = {n: fn.launches for n, fn in kernels.items()}
     flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
@@ -2416,9 +2452,11 @@ def phase_train_lm(torch, kernels):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses, round_s = logger.series("loss"), logger.series("round_s")
     L, steps = cfg.n_layers, T["cohort"] * T["local_steps"] * T["local_epochs"]
-    # a forward per local step: 2 norms a layer and the final one; one
-    # attention a layer, all on the tensor-core kernel (bf16, head dim 128)
-    want = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * steps * T["rounds"],
+    # a forward per local step: the layers' norms and the final one; one
+    # attention a layer, all on the tensor-core kernel (bf16, head dims
+    # 128/128 or MLA's absorbed 288/256)
+    want = {"quant_aggregate": 0,
+            "rmsnorm": (T["norms_per_layer"] * L + 1) * steps * T["rounds"],
             "flash_attention": L * steps * T["rounds"], "decode_attention": 0}
     log(f"train launches {json.dumps(launches)} (want {json.dumps(want)}); flash by kernel "
         f"{json.dumps(flash_by_kernel)}; rmsnorm by layout {json.dumps(norm_by_layout)}; "
@@ -2446,10 +2484,13 @@ def phase_train_lm(torch, kernels):
         raise AssertionError("train: a second run from the same state is not bitwise")
     # where a warm round's time goes
     prof, by_name = profile_device(torch, lambda: train_fl_lm.run_rounds(
-        round_fn, state2, lm, T["rounds"], T["rounds"] + 1, **kw), "train round (warm)")
-    for tag in ("flash_wgmma", "rmsnorm", "gemm", "nvjet", "elementwise", "reduce"):
+        round_fn, state2, lm, T["rounds"], T["rounds"] + 1, **kw),
+        f"train round (warm) {cfg.name}")
+    for tag in ("flash_wgmma", "rmsnorm", "gemm", "nvjet", "elementwise", "reduce", "index",
+                "scatter", "gather", "scan", "sort", "topk", "copy"):
         hits = [val for name, val in by_name.items() if tag in name.lower()]
         prof[f"{tag}_ms"] = sum(h[0] for h in hits)
+    grad_mem = grad_memory(torch, model, state2["params"], lm, T, dev)
     del state2
     torch.cuda.empty_cache()
     tokens = T["cohort"] * T["local_steps"] * T["local_epochs"] * T["batch"] * T["seq"]
@@ -2459,23 +2500,58 @@ def phase_train_lm(torch, kernels):
            "tokens_per_s": [tokens / s for s in round_s], "peak_mem_gb": peak_gb,
            "launches": launches, "launches_per_round": per_round,
            "flash_by_kernel": flash_by_kernel, "rmsnorm_by_layout": norm_by_layout,
-           "bitwise_repeat": True, "profile": prof}
-    log("train", json.dumps(out))
+           "bitwise_repeat": True, "profile": prof, "grad_memory": grad_mem}
+    log(f"train {cfg.name}", json.dumps(out))
     if not out["loss_fell"]:
         raise AssertionError(f"train: the loss did not fall over {T['rounds']} rounds at "
                              f"client_lr {T['client_lr']}: {losses}")
     return out
 
 
-def phase_train_card_vs_cpu(torch):
+def grad_memory(torch, model, params, lm, T, dev):
+    """Device memory one local step's gradient takes above the params
+    (GB): the forward's saved activations, autograd's ``backward()`` and
+    ``torch.func.grad_and_value`` (the rounds' transform, which records
+    the backward's own graph: it differentiates with ``create_graph``)."""
+    from torch.func import grad_and_value
+    from repro_torch.launch import train_fl_lm
+    b = train_fl_lm.round_batch(lm, 0, clients=T["clients"], cohort=1, batch=T["batch"],
+                                seq=T["seq"], local_steps=1, device=dev)
+    b = {k: v[0, 0] for k, v in b.items()}
+    out = {}
+
+    def peak(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def backward():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        before = torch.cuda.memory_allocated()
+        loss = model.loss(leaves, b)
+        out["saved_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
+        loss.backward()
+    out["backward_peak_gb"] = peak(backward)
+    out["func_grad_peak_gb"] = peak(lambda: grad_and_value(model.loss)(params, b))
+    torch.cuda.empty_cache()
+    log(f"train {model.cfg.name}: one local step's gradient memory", json.dumps(out))
+    return out
+
+
+def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
     """One temporal FedAvgM round of reduced qwen2.5-32b (QKV bias) and
-    chameleon-34b (qk-norm) in f32 on the card and on the CPU."""
+    chameleon-34b (qk-norm), or ``archs``, in f32 on the card and on the
+    CPU."""
     from repro_torch.configs.base import FLConfig, get_config
     from repro_torch.configs.reduce import reduced_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train_fl_lm
     res = {}
-    for arch in ("qwen2.5-32b", "chameleon-34b"):
+    for arch in archs:
         cfg = reduced_config(get_config(arch))
         fl = FLConfig(strategy="fedavgm", n_clients=4, client_lr=0.05, server_momentum=0.9)
         lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
@@ -2495,7 +2571,8 @@ def phase_train_card_vs_cpu(torch):
                         TRAIN_CARD_CPU_TOL) for k, v in out["cpu"][1].items())
         res[arch] = {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
                      "max_abs_param_diff": err}
-    log("train card vs cpu (reduced, f32, one temporal fedavgm round)", json.dumps(res))
+    log(f"train card vs cpu (reduced {', '.join(archs)}, f32, one temporal fedavgm round)",
+        json.dumps(res))
     return res
 
 
@@ -2538,6 +2615,472 @@ def phase_serve_new_archs(torch, kernels):
         del params
         torch.cuda.empty_cache()
     return res
+
+
+# phase 11 (slice 10): MLA with tied embeddings (minicpm3-4b) and the
+# capacity-bucketed MoE (qwen3-moe-30b-a3b, arctic-480b), served and trained
+MLA_KERNEL_SHAPES = {  # name: (B, S, absorbed): one minicpm3-4b prefill layer's B3 call
+    "mla_serve": (8, 2048, True),      # the absorbed form: 40 heads on one kv head, 288/256
+    "mla_train": (2, 2048, True),
+    "mla_expanded": (8, 2048, False)}  # mla_seqsharded(absorbed=False): 40/40 heads, 96/64
+SERVE_MLA = {"arch": "minicpm3-4b", "n_layers": 62, "batch": 8, "prompt_len": 2048,
+             "max_new": 64, "seed": 4,
+             "norms_per_layer": 4,     # B2 a layer a forward: ln1, q_norm, kv_norm, ln2
+             # width: (launches a layer, more a forward): ln1 + ln2 + the final
+             # norm, q_norm, kv_norm
+             "norm_widths": {2560: (2, 1), 768: (1, 0), 256: (1, 0)},
+             "decode_per_layer": 0}    # MLA decode attends with einsums (no B4)
+SERVE_MOE = {"arch": "qwen3-moe-30b-a3b", "n_layers": 4, "batch": 8, "prompt_len": 2048,
+             "max_new": 64, "seed": 5,
+             "norms_per_layer": 4,     # ln1, ln2 and qk-norm's q_norm, k_norm
+             "norm_widths": {2048: (2, 1), 128: (2, 0)},
+             "decode_per_layer": 1}
+# B2 at each row width the phase-11 serve paths give it: (serve prefill
+# rows, a column slice of a wider row or None); also checked at a decode
+# step's rows (B of them) and the training rows (2 x 2048)
+SLICE10_RMS = {"mla_ln": ((8, 2048, 2560), None),
+               "mla_q_norm": ((8, 2048, 768), None),
+               "mla_kv_norm": ((8, 2048, 256), 288),    # dkv[..., :256] of a 288-wide row
+               "moe_ln": ((8, 2048, 2048), None),
+               "moe_qk_norm": ((8, 2048, 32, 128), None)}
+SLICE10_DECODE = (8, 2112, 32, 4, 128)   # B, S, H, KV, D: qwen3-moe's decode layer
+TRAIN_MLA = dict(TRAIN, arch="minicpm3-4b", n_layers=8, norms_per_layer=4)
+TRAIN_MOE = dict(TRAIN, arch="qwen3-moe-30b-a3b", n_layers=2, norms_per_layer=4)
+SLICE10_CARD_CPU = ("minicpm3-4b", "qwen3-moe-30b-a3b", "arctic-480b")
+
+
+def sdpa_yardstick(torch, q, k, v, scale):
+    """One SDPA call computing B3's causal function on (B, S, H, D) inputs,
+    for its time only: the first backend that takes it, fused ones first,
+    GQA through ``enable_gqa``, else with k's and v's heads repeated once
+    here, outside the call. -> (fn, args, grads, backend name): ``fn(*args)``
+    is the SDPA call alone, on (B, H, S, D) views, giving (B, H, S, Dv);
+    ``grads(dq, dk, dv)`` takes the gradients of ``args`` back to q's, k's
+    and v's layouts (summing the repeated heads)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for gqa in (True, False):
+            def fn(q, k, v, backend=backend, gqa=gqa):
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          scale=scale, enable_gqa=gqa)
+            rep = 1 if gqa else G
+            args = (qt, kt, vt) if rep == 1 else (
+                qt, kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1))
+            try:
+                fn(*args)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                del args
+                continue
+
+            def grads(dq, dk, dv, rep=rep):
+                dk, dv = (t.unflatten(1, (-1, rep)).sum(2) for t in (dk, dv))
+                return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+            return fn, args, grads, f"{backend.name.lower()}{' gqa' if gqa else ' repeated kv'}"
+    raise AssertionError("no SDPA backend takes these inputs")
+
+
+def mla_b3_inputs(torch, B, S, absorbed, seed):
+    """B3's (q, k, v, scale) as minicpm3-4b's MLA gives them at prefill: one
+    layer's weights drawn as the model draws them (bf16 on the card), hidden
+    states N(0, 1), and ``attention.mla_seqsharded`` itself run up to its
+    B3 call, whose arguments are kept."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model_zoo
+    dev = torch.device("cuda")
+    cfg = get_config("minicpm3-4b").replace(n_layers=1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = {k: v[0] for k, v in
+         model_zoo.build(cfg).init(g, torch.bfloat16)["blocks"]["attn"].items()}
+    h = _randn(torch, (B, S, cfg.d_model), torch.bfloat16, seed + 1, dev)
+    seen, inner = {}, ops.flash_attention
+
+    def keep(q, k, v, q_offset=0, causal=True, scale=None):
+        seen.update(q=q, k=k, v=v, scale=scale)
+        return inner(q, k, v, q_offset, causal, scale)
+    ops.flash_attention = keep
+    try:
+        with torch.no_grad():
+            attn.mla_seqsharded(w, h, cfg, absorbed=absorbed)
+    finally:
+        ops.flash_attention = inner
+    return seen["q"].contiguous(), seen["k"].contiguous(), seen["v"].contiguous(), \
+        seen["scale"]
+
+
+def time_mla_kernels(torch, flush):
+    """B3 at MLA's shapes (MLA_KERNEL_SHAPES) on the inputs the MLA layer
+    gives it: against its plain version and against the plain version in
+    f32 (both at 2e-2, with max |want| and the relative errors logged);
+    in the absorbed form also against the plain version with the rope
+    columns (256-287, the fifth Q/K panel) zeroed, which the 2e-2 check
+    must reject. Then its device ms beside the plain version's, SDPA's (the
+    backend it picked named) and the bound; at the training shape also the
+    ported backward beside SDPA forward + backward. At the serve shape also
+    on N(0, 1) inputs at MLA's scale, against an f32 reference (the plain
+    version in f32), with the plain version's bf16 error beside it: raw
+    scores of 288-wide unit rows are ~17, and the plain version rounds them
+    to bf16 before scaling (as the JAX package's blockwise forward does);
+    the kernel keeps them in f32."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    bf16 = torch.bfloat16
+    rows = {}
+    for i, (name, (B, S, absorbed)) in enumerate(MLA_KERNEL_SHAPES.items()):
+        q, k, v, scale = mla_b3_inputs(torch, B, S, absorbed, 170 + 10 * i)
+        H, KV, Dk, Dv = q.shape[2], k.shape[2], q.shape[3], v.shape[3]
+        kernel = "wgmma" if fa.uses_wgmma(bf16, Dk, Dv) else "simt"
+        before = dict(fa.flash_attention_fwd.launches_by_kernel)
+        out, lse = fa.flash_attention_fwd(q, k, v, 0, True, scale)
+        torch.cuda.synchronize()
+        if fa.flash_attention_fwd.launches_by_kernel[kernel] != before[kernel] + 1:
+            raise AssertionError(f"flash {name}: not launched on the {kernel} kernel")
+        want, want_lse = fa.plain(q, k, v, 0, True, scale)
+        tol = ATTN_TOL["bfloat16"]
+        err = close(torch, f"flash {name}", out, want, tol)
+        close(torch, f"flash {name} lse", lse, want_lse, tol)
+        ref = fa.plain(q.float(), k.float(), v.float(), 0, True, scale)[0]
+        wf = want.float()
+        r = {"shape": [B, S, S, H, KV, Dk, Dv], "dtype": "bfloat16", "kernel": kernel,
+             "scale": scale, "max_abs_err": err, "max_abs_want": wf.abs().max().item(),
+             "mean_abs_want": wf.abs().mean().item(),
+             "rel_norm_err": ((out.float() - wf).norm() / wf.norm()).item(),
+             "err_vs_f32": close(torch, f"flash {name} vs f32", out, ref, tol),
+             "rel_norm_err_vs_f32": ((out.float() - ref).norm() / ref.norm()).item(),
+             "plain_err_vs_f32": (wf - ref).abs().max().item()}
+        r["rel_err"] = err / r["max_abs_want"]
+        del ref
+        if absorbed:   # a kernel that dropped the rope panel must fail the check
+            qd = q.clone()
+            qd[..., Dv:] = 0
+            d = (fa.plain(qd, k, v, 0, True, scale)[0].float() - wf).abs()
+            r["rope_dropped_max_diff"] = d.max().item()
+            r["rope_dropped_rel_norm"] = (d.norm() / wf.norm()).item()
+            if bool((d <= tol + tol * wf.abs()).all()):
+                raise AssertionError(f"flash {name}: the {tol} check cannot tell a kernel "
+                                     "that drops the rope columns from a right one")
+            del qd, d
+        del wf
+        lib, lib_args, lib_grads, backend = sdpa_yardstick(torch, q, k, v, scale)
+        lib_err = close(torch, f"sdpa {name} ({backend})", lib(*lib_args).transpose(1, 2),
+                        out, YARDSTICK_TOL)
+        pairs = S * (S + 1) // 2
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+        flops = 2 * B * H * pairs * (Dk + Dv)
+        r.update({
+            "kernel_ms": time_device(lambda q, k, v: fa.flash_attention_fwd(
+                q, k, v, 0, True, scale), (q, k, v), 20, flush, batch=10),
+            "plain_ms": time_device(lambda q, k, v: fa.plain(q, k, v, 0, True, scale),
+                                    (q, k, v), 4, flush, batch=2),
+            "library_ms": time_device(lib, lib_args, 6, flush, batch=3),
+            "library_backend": backend, "library_max_abs_err": lib_err,
+            "bytes": nbytes, "flops": flops})
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        if name == "mla_serve":   # unit-variance inputs against an f32 reference
+            g = [_randn(torch, t.shape, bf16, 190 + j, q.device) for j, t in
+                 enumerate((q, k, v))]
+            ref, _ = fa.plain(*(t.float() for t in g), 0, True, scale)
+            got, _ = fa.flash_attention_fwd(*g, 0, True, scale)
+            r["unit_inputs_err_vs_f32"] = close(torch, "flash mla_serve N(0, 1) vs f32",
+                                                got, ref, ATTN_TOL["bfloat16"])
+            r["unit_inputs_plain_err_vs_f32"] = (
+                fa.plain(*g, 0, True, scale)[0].float() - ref).abs().max().item()
+            r["unit_inputs_err_vs_plain"] = (
+                got.float() - fa.plain(*g, 0, True, scale)[0].float()).abs().max().item()
+            del g, ref, got
+        if name == "mla_train":   # the ported backward at the MLA training shape
+            dout = _randn(torch, (B, S, H, Dv), bf16, 163, q.device)
+
+            def ours_fb(q, k, v, dout):
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(ops.flash_attention(*xs, 0, True, scale), xs,
+                                           dout)
+
+            def lib_fb(q, k, v, dout):
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(lib(*xs), xs, dout)
+            dout_t = dout.transpose(1, 2)
+            lib_g = lib_grads(*lib_fb(*lib_args, dout_t))
+            r["library_grad_err"] = max(grad_close(torch, f"sdpa {name} d{t}", a, b,
+                                                   YARDSTICK_TOL)
+                                        for t, a, b in zip("qkv", lib_g, ours_fb(q, k, v, dout)))
+            bwd_bytes = (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * out.numel()) * 2 \
+                + lse.numel() * 4
+            bwd_flops = 2 * B * H * pairs * (3 * Dk + 2 * Dv)
+            r["bwd_ms"] = time_device(lambda *a: fa.plain_bwd(*a, 0, True, scale),
+                                      (q, k, v, out, lse, dout), 4, flush, batch=2)
+            r["bwd_bound_ms"], r["bwd_bound_by"] = bound(bwd_bytes, bwd_flops,
+                                                         BF16_FLOPS_PER_S)
+            r["fwd_bwd_ms"] = time_device(ours_fb, (q, k, v, dout), 4, flush, batch=2)
+            r["library_fwd_bwd_ms"] = time_device(lib_fb, (*lib_args, dout_t), 4, flush,
+                                                  batch=2)
+            r["fwd_bwd_bound_ms"], r["fwd_bwd_bound_by"] = bound(
+                nbytes + bwd_bytes, flops + bwd_flops, BF16_FLOPS_PER_S)
+            del dout, dout_t, lib_g
+        log(f"kernel flash_attention {name} ({kernel})", json.dumps(r))
+        rows[name] = r
+        del q, k, v, out, lse, want, want_lse, lib_args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_slice10_norms_decode(torch, flush):
+    """B2 at every row width of the phase-11 serve paths (SLICE10_RMS) and
+    B4 at qwen3-moe-30b-a3b's decode layer (SLICE10_DECODE), against their
+    plain versions on the card, then timed beside the plain version, the
+    PyTorch call and the bound. B2 is checked at the serve prefill's rows,
+    a decode step's and the training rows; MLA's kv_norm input is the
+    256-column slice of 288-wide rows that the model gives it, through
+    ``ops.rmsnorm`` (which copies it) and the kernel on the copy. B4 is
+    checked at ragged lengths (one 0, one full) and timed at a full
+    cache."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tol = RMS_TOL["bfloat16"]
+    rows = {}
+    for i, (name, (shape, wide)) in enumerate(SLICE10_RMS.items()):
+        D = shape[-1]
+        w = _randn(torch, (D,), bf16, 200 + i, dev)
+        checks = {}
+        for tag, lead in (("prefill", shape[:2]), ("decode", (shape[0], 1)),
+                          ("train", (2, shape[1]))):
+            full = _randn(torch, (*lead, *shape[2:-1], wide or D), bf16, 210 + i, dev)
+            x = full[..., :D]
+            want = rms.plain(x, w)
+            checks[tag] = {"rows": x.numel() // D,
+                           "plan": rms.launch_plan(x.numel() // D, D, bf16, sm)._asdict()}
+            if wide:   # the path's op on the strided slice, then the kernel on a copy
+                checks[tag]["ops_err"] = close(torch, f"rmsnorm {name} {tag} (ops, slice)",
+                                               ops.rmsnorm(x, w), want, tol)
+                x = x.contiguous()
+            checks[tag]["max_abs_err"] = close(torch, f"rmsnorm {name} {tag}",
+                                               rms.rmsnorm(x, w), want, tol)
+            if tag == "prefill":
+                xp, fullp = x, full
+            del full, x, want
+        x = xp
+        R = x.numel() // D
+        lib = (lambda x, w: F.rms_norm(x, (D,), w, 1e-6))
+        r = {"shape": list(shape), "rows": R, "D": D, "dtype": "bfloat16",
+             "strided_from": wide, "checks": checks,
+             "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+             "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush, batch=20),
+             "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
+             "library_ms": time_device(lib, (x, w), 100, flush, batch=20),
+             "library_max_abs_err": close(torch, f"F.rms_norm {name}", lib(x, w),
+                                          rms.rmsnorm(x, w), YARDSTICK_TOL)}
+        if wide:   # what the path pays: the slice's copy and the kernel
+            r["ops_with_copy_ms"] = time_device(
+                lambda t, w: ops.rmsnorm(t[..., :D], w), (fullp, w), 100, flush, batch=20)
+        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D,
+                                             F32_FLOPS_PER_S)
+        log(f"kernel rmsnorm {name}", json.dumps(r))
+        rows[f"rmsnorm_{name}"] = r
+        del x, xp, fullp, w
+    # B4: qwen3-moe's decode layer, 32 heads on 4 kv heads (group 8)
+    B, Sc, H, KV, HD = SLICE10_DECODE
+    q = _randn(torch, (B, H, HD), bf16, 220, dev)
+    k = _randn(torch, (B, Sc, KV, HD), bf16, 221, dev)
+    v = _randn(torch, (B, Sc, KV, HD), bf16, 222, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(223)
+    ragged = torch.randint(1, Sc + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ragged[0], ragged[-1] = 0, Sc
+    full = torch.full((B,), Sc, dtype=torch.int32, device=dev)
+    tol = ATTN_TOL["bfloat16"]
+    errs = {}
+    for tag, length in (("ragged", ragged), ("full", full)):
+        o, m, l = da.decode_attention_fwd(q, k, v, length)
+        po, pm, pl = da.plain(q, k, v, length)
+        ok = length > 0
+        if not ((m[~ok] == -1e30).all() and (l[~ok] == 0).all() and (o[~ok] == 0).all()):
+            raise AssertionError("decode moe: a length-0 row is not m=-1e30, l=0, o=0")
+        errs[tag] = close(torch, f"decode moe {tag}", o[ok] / l[ok][..., None],
+                          po[ok] / pl[ok][..., None], tol)
+        close(torch, f"decode moe {tag} m", m, pm, tol)
+        close(torch, f"decode moe {tag} l", l, pl, tol)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa_decode(q, k, v, length):
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt, enable_gqa=True)
+    lib_err = close(torch, "sdpa decode moe", sdpa_decode(q, k, v, full)[:, :, 0],
+                    o / l[..., None], YARDSTICK_TOL)
+    keys = B * Sc
+    nbytes = keys * KV * (HD + HD) * 2 + q.numel() * 2 + (o.numel() + 2 * m.numel() + B) * 4
+    flops = 2 * keys * H * (HD + HD)
+    r = {"shape": [B, Sc, H, KV, HD], "dtype": "bfloat16", "max_abs_err": max(errs.values()),
+         "ragged_lengths": ragged.tolist(), "errs": errs,
+         "kernel_ms": time_device(da.decode_attention_fwd, (q, k, v, full), 200, flush),
+         "plain_ms": time_device(da.plain, (q, k, v, full), 20, flush, batch=20),
+         "library_ms": time_device(sdpa_decode, (q, k, v, full), 200, flush),
+         "library_max_abs_err": lib_err, "bytes": nbytes, "flops": flops}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    log("kernel decode_attention moe", json.dumps(r))
+    rows["decode_attention_moe"] = r
+    del q, k, v, kt, vt, o, m, l, po, pm, pl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_drop_fractions(torch, model, params, prompts):
+    """One prefill with ``moe.moe_ffn`` wrapped to keep each layer's
+    MoEAux: the drop fraction per layer (and the aux losses)."""
+    from repro_torch.models import moe
+    seen, inner = [], moe.moe_ffn
+
+    def keep(*a, **kw):
+        out, aux = inner(*a, **kw)
+        seen.append(aux)
+        return out, aux
+    moe.moe_ffn = keep
+    try:
+        with torch.inference_mode():
+            model.prefill(params, {"tokens": prompts})
+    finally:
+        moe.moe_ffn = inner
+    return {"drop_fraction": [float(a.drop_fraction) for a in seen],
+            "load_balance": [float(a.load_balance) for a in seen],
+            "z_loss": [float(a.z_loss) for a in seen]}
+
+
+def phase_serve_slice10(torch, kernels, S_):
+    """An LM of slice 10 at its published width (``S_``: minicpm3-4b at
+    full depth, qwen3-moe-30b-a3b cut to 4 layers), bf16 drawn on the card:
+    ``generate`` counted, again for its wall time (bitwise the same
+    tokens), a prefill alone timed and profiled; the MoE's drop fraction
+    per layer at prefill."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    dev = torch.device("cuda")
+    cfg = get_config(S_["arch"]).replace(n_layers=S_["n_layers"])
+    model = model_zoo.build(cfg)
+    B, S, new, L = S_["batch"], S_["prompt_len"], S_["max_new"], cfg.n_layers
+    g = torch.Generator(device=dev)
+    g.manual_seed(S_["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(g, dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve {cfg.name}: d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"attn {cfg.attn_type} moe {cfg.moe} tied {cfg.tie_embeddings} vocab "
+        f"{cfg.padded_vocab}, {L} of {get_config(S_['arch']).n_layers} layers, bf16: "
+        f"{n_params} params ({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.2f}s")
+    # the serve path; counts zeroed just before it and read just after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    norm_by_layout = dict(kernels["rmsnorm"].launches_by_layout)
+    norm_by_width = dict(kernels["rmsnorm"].launches_by_width)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"quant_aggregate": 0, "rmsnorm": (S_["norms_per_layer"] * L + 1) * (1 + new),
+            "flash_attention": L, "decode_attention": S_["decode_per_layer"] * L * new}
+    want_width = {D: (a * L + b) * (1 + new) for D, (a, b) in S_["norm_widths"].items()}
+    log(f"serve {cfg.name} launches {json.dumps(launches)} (want {json.dumps(want)}); "
+        f"flash by kernel {json.dumps(flash_by_kernel)}; rmsnorm by layout "
+        f"{json.dumps(norm_by_layout)}, by width {json.dumps(norm_by_width)} (want "
+        f"{json.dumps(want_width)}); a decode step: rmsnorm "
+        f"{S_['norms_per_layer'] * L + 1}, decode attention {S_['decode_per_layer'] * L}")
+    if launches != want or flash_by_kernel != {"wgmma": L, "simt": 0} or \
+            norm_by_width != want_width:
+        raise AssertionError(f"serve {cfg.name}: launches {launches} by kernel "
+                             f"{flash_by_kernel}, rmsnorm by width {norm_by_width}, want "
+                             f"{want}, {want_width}, all flash on wgmma")
+    if toks.shape != (B, new) or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"serve {cfg.name}: bad tokens {tuple(toks.shape)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(toks, toks2):
+        raise AssertionError(f"serve {cfg.name}: a second generate gave other tokens")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, logits, _ = model.prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if not torch.isfinite(logits).all() or \
+                not torch.equal(model.greedy_token(logits), toks[:, 0]):
+            raise AssertionError(f"serve {cfg.name}: prefill logits do not give token 0")
+        del caches
+        prof, by_name = profile_device(
+            torch, lambda: model.prefill(params, {"tokens": prompts}),
+            f"serve prefill {cfg.name}")
+        for tag in ("flash_wgmma", "rmsnorm", "nvjet", "gemm", "elementwise", "index",
+                    "scatter", "gather", "scan", "sort", "topk", "copy"):
+            prof[f"{tag}_ms"] = sum(v[0] for k, v in by_name.items() if tag in k.lower())
+    out = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S, "max_new": new,
+           "params": n_params, "init_s": init_s, "first_generate_s": first_s,
+           "generate_s": gen_s, "prefill_s": prefill_s,
+           "decode_ms_per_token": (gen_s - prefill_s) / new * 1e3,
+           "generated_tokens_per_s": B * new / gen_s, "peak_mem_gb": peak_gb,
+           "launches": launches, "flash_by_kernel": flash_by_kernel,
+           "rmsnorm_by_layout": norm_by_layout, "rmsnorm_by_width": norm_by_width,
+           "bitwise_repeat": True,
+           "tokens_head": toks[0, :8].tolist(), "profile_prefill": prof}
+    if cfg.moe is not None:
+        out["moe_prefill"] = moe_drop_fractions(torch, model, params, prompts)
+    if cfg.attn_type == "mla":
+        # the expanded form (mla_seqsharded(absorbed=False)) of layer 0 on
+        # the layer's own input: B3 at (96, 64) on the SIMT kernel, counted;
+        # its output near the absorbed form's
+        from repro_torch.models import attention as attn
+        from repro_torch.models.layers import rms_norm
+        from repro_torch.models.transformer import embed_lookup
+        w0 = {k: v[0] for k, v in params["blocks"]["attn"].items()}
+        with torch.inference_mode():
+            h0 = rms_norm(embed_lookup(params["embed"], prompts),
+                          params["blocks"]["ln1"]["w"][0], cfg.norm_eps)
+            for form, absorbed in (("absorbed", True), ("expanded", False)):
+                _zero_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = attn.mla_seqsharded(w0, h0, cfg, absorbed=absorbed)
+                torch.cuda.synchronize()
+                out[f"{form}_layer_s"] = time.perf_counter() - t0
+                out[f"{form}_flash_by_kernel"] = dict(
+                    kernels["flash_attention"].launches_by_kernel)
+                if absorbed:
+                    oa = o
+        if out["expanded_flash_by_kernel"] != {"wgmma": 0, "simt": 1} or \
+                out["absorbed_flash_by_kernel"] != {"wgmma": 1, "simt": 0}:
+            raise AssertionError(f"MLA layer 0: flash launches absorbed "
+                                 f"{out['absorbed_flash_by_kernel']}, expanded "
+                                 f"{out['expanded_flash_by_kernel']}")
+        out["expanded_layer_rel_diff"] = ((o - oa).norm() / oa.norm()).item()
+        if not out["expanded_layer_rel_diff"] < 5e-2:
+            raise AssertionError(f"MLA layer 0: the expanded form's output "
+                                 f"{out['expanded_layer_rel_diff']} from the absorbed "
+                                 "form's (relative norm)")
+        del w0, h0, o, oa
+    log(f"serve {cfg.name}", json.dumps(out))
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2675,11 +3218,29 @@ def main() -> int:
     slice9_s = time.perf_counter() - t0
     log(f"slice 9 phase: {slice9_s:.1f}s")
 
-    # 11. serve path; counts zeroed just before it, read just after
+    # 11. MLA with tied embeddings and MoE (slice 10): B3 at MLA's shapes,
+    # minicpm3-4b served at full width and depth, minicpm3-4b and
+    # qwen3-moe-30b-a3b trained, qwen3-moe-30b-a3b served, reduced card vs
+    # CPU; counts zeroed just before each counted path, read just after
+    t0 = time.perf_counter()
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    mla_rows = time_mla_kernels(torch, flush)
+    norm_decode_rows = time_slice10_norms_decode(torch, flush)
+    del flush
+    serve_mla = phase_serve_slice10(torch, kernels, SERVE_MLA)
+    train_mla = phase_train_lm(torch, kernels, TRAIN_MLA)
+    train_moe = phase_train_lm(torch, kernels, TRAIN_MOE)
+    serve_moe = phase_serve_slice10(torch, kernels, SERVE_MOE)
+    train_cpu10 = phase_train_card_vs_cpu(torch, SLICE10_CARD_CPU)
+    serve_cpu10 = {arch: phase_serve_card_vs_cpu(torch, arch) for arch in SLICE10_CARD_CPU}
+    slice10_s = time.perf_counter() - t0
+    log(f"slice 10 phase: {slice10_s:.1f}s")
+
+    # 12. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 12. summary
+    # 13. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -2787,6 +3348,53 @@ def main() -> int:
             "layout": r["plan"]["layout"], "worst_grad_err_checks": train_worst["rms_grads"],
             **{k: r[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
                                  "library_fwd_bwd_ms")}})
+    # slice 10: B3 at MLA's shapes, launches from the counted paths
+    for name, key, launches, path in (
+            ("flash_attention_wgmma_mla_serve", "mla_serve",
+             serve_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b serve, 62 layers"),
+            ("flash_attention_wgmma_mla_train", "mla_train",
+             train_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b train, 8 layers, 3 rounds"),
+            ("flash_attention_simt_mla_expanded", "mla_expanded",
+             serve_mla["expanded_flash_by_kernel"]["simt"],
+             "minicpm3-4b layer 0, mla_seqsharded(absorbed=False)")):
+        r = mla_rows[key]
+        source = ("src/repro_torch/csrc/flash_attention_wgmma.cu" if r["kernel"] == "wgmma"
+                  else "src/repro_torch/csrc/flash_attention.cu")
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": flash_src,
+            "launches": launches, "launches_path": path, "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_backend": r["library_backend"], "bitwise": False, "shape": r["shape"],
+            **{k: r[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
+                                 "fwd_bwd_bound_ms", "library_fwd_bwd_ms") if k in r}})
+    # slice 10: B2 at each row width and B4 at qwen3-moe's decode layer,
+    # launches from the counted serve paths (B2 by width, prefill and decode)
+    for name, key, launches, path in (
+            ("rmsnorm_mla_ln", "rmsnorm_mla_ln", serve_mla["rmsnorm_by_width"][2560],
+             "minicpm3-4b serve, 62 layers: ln1, ln2, final norm"),
+            ("rmsnorm_mla_q_norm", "rmsnorm_mla_q_norm", serve_mla["rmsnorm_by_width"][768],
+             "minicpm3-4b serve, 62 layers: q_norm"),
+            ("rmsnorm_mla_kv_norm", "rmsnorm_mla_kv_norm",
+             serve_mla["rmsnorm_by_width"][256], "minicpm3-4b serve, 62 layers: kv_norm"),
+            ("rmsnorm_moe_ln", "rmsnorm_moe_ln", serve_moe["rmsnorm_by_width"][2048],
+             "qwen3-moe-30b-a3b serve, 4 layers: ln1, ln2, final norm"),
+            ("rmsnorm_moe_qk_norm", "rmsnorm_moe_qk_norm", serve_moe["rmsnorm_by_width"][128],
+             "qwen3-moe-30b-a3b serve, 4 layers: q_norm, k_norm"),
+            ("decode_attention_moe", "decode_attention_moe",
+             serve_moe["launches"]["decode_attention"], "qwen3-moe-30b-a3b serve, 4 layers")):
+        r = norm_decode_rows[key]
+        rms_row = key.startswith("rmsnorm")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/csrc/rmsnorm.cu" if rms_row
+                       else "src/repro_torch/csrc/decode_attention.cu"),
+            "replaces": ("src/repro/kernels/rmsnorm.py:11" if rms_row
+                         else "src/repro/kernels/decode_attention.py:29"),
+            "launches": launches, "launches_path": path, "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "bitwise": False,
+            "shape": r["shape"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -2884,6 +3492,23 @@ def main() -> int:
                     "train_profile": train["profile"],
                     "worst": train_worst, "card_vs_cpu": train_cpu,
                     "serve_new_archs": serve_new}))
+    log(json.dumps({"slice": "10: MLA with tied embeddings (minicpm3-4b) and "
+                    "capacity-bucketed MoE (qwen3-moe-30b-a3b, arctic-480b), served and "
+                    "trained, with B3 at the absorbed-MLA head dims 288/256 on wgmma",
+                    "phase_s": slice10_s, "b3": mla_rows, "b2_b4": norm_decode_rows,
+                    "serve": {s_["arch"]: {k: s_.get(k) for k in (
+                        "n_layers", "prefill_s", "decode_ms_per_token",
+                        "generated_tokens_per_s", "generate_s", "peak_mem_gb", "init_s",
+                        "moe_prefill", "absorbed_layer_s", "expanded_layer_s",
+                        "expanded_layer_rel_diff")}
+                        for s_ in (serve_mla, serve_moe)},
+                    "train": {t_["arch"]: {k: t_[k] for k in (
+                        "n_layers", "losses", "loss_fell", "round_s", "tokens_per_s",
+                        "peak_mem_gb", "launches_per_round", "init_s")}
+                        for t_ in (train_mla, train_moe)},
+                    "train_profiles": {t_["arch"]: t_["profile"] for t_ in (train_mla, train_moe)},
+                    "card_vs_cpu": {"train": train_cpu10, "serve": serve_cpu10}}))
+    log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@
 A copy, not an import: the port imports nothing of ``repro``. Every
 architecture's config is described here as data, but ``get_config``
 resolves only those the port can run: the paper's small models
-(``flsim-*``) and the dense GQA LM ``yi-34b``. The rest wait for their
-part of the LM slice (ROADMAP A15).
+(``flsim-*``), the dense GQA LMs, MLA (minicpm3-4b) and the MoE LMs
+(qwen3-moe-30b-a3b, arctic-480b). Encoder-decoder, SSM and hybrid wait for
+their parts of the LM slice (ROADMAP A15.5 and A15.6).
 """
 from __future__ import annotations
 
@@ -190,7 +191,8 @@ ARCHS = (
 _SMALL = ("flsim-cnn", "flsim-mlp", "flsim-logreg")
 # LM architectures the port runs; the others are named in ARCHS for the
 # registry and refused by ``get_config`` until their part of ROADMAP A15.
-_PORTED_LM = ("yi-34b", "qwen2.5-32b", "qwen1.5-32b", "chameleon-34b")
+_PORTED_LM = ("yi-34b", "qwen2.5-32b", "qwen1.5-32b", "chameleon-34b", "minicpm3-4b",
+              "qwen3-moe-30b-a3b", "arctic-480b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -205,6 +207,6 @@ def get_config(name: str) -> ModelConfig:
     if name in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported (the port runs "
-            f"{list(_SMALL + _PORTED_LM)}; its attention or family waits for "
-            "its part of the LM slice, see ROADMAP A15)")
+            f"{list(_SMALL + _PORTED_LM)}; encoder-decoder waits for ROADMAP "
+            "A15.5, SSM and hybrid for A15.6)")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS + _SMALL)}")

@@ -1,0 +1,20 @@
+"""minicpm3-4b — dense, MLA. [hf:openbmb/MiniCPM3-4B; hf] (copy of
+``repro/configs/minicpm3_4b.py``)"""
+from repro_torch.configs.base import MLAConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm3-4b",
+    family="dense",
+    n_layers=62,
+    d_model=2560,
+    n_heads=40,
+    n_kv_heads=40,
+    d_ff=6400,
+    vocab_size=73448,
+    attn_type="mla",
+    mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256,
+                  qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64),
+    tie_embeddings=True,
+    notes="MLA latent KV cache (kv_lora 256 + rope 32)",
+    source="hf:openbmb/MiniCPM3-4B",
+)

@@ -21,6 +21,10 @@
 // tensor cores: it is right and simple, and its time stands beside the
 // tensor-core bound in PERF.md. wgmma/TMA is the later speed work.
 //
+// Head dims up to 288 (MLA's absorbed form in f32: Dk 288, Dv 256); the
+// f32 tiles then take 230,400 bytes of shared memory, within the 227 KB a
+// block may use, and the accumulator 4 x 16 registers a thread.
+//
 // Layout: one CTA of 256 threads per (q block of 64 rows, head, batch). It
 // keeps its q tile in shared memory and walks the kv blocks of 64 keys that
 // the causal diagonal lets through (the Pallas kernel skips the others with
@@ -45,7 +49,8 @@ constexpr int kBQ = 64;        // q rows per CTA
 constexpr int kBK = 64;        // keys per kv block
 constexpr int kThreads = 256;  // 16 x 16 threads; each owns rows ty+16i, columns tx+16j
 constexpr int kLdp = kBK + 1;  // padded row stride of the score tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 288;   // MLA's absorbed Dk (kv_lora_rank 256 + rope 32)
+constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block may use on Hopper
 constexpr float kNegInf = -1e30f;
 
 size_t smem_bytes(int Dk, int Dv) {
@@ -247,7 +252,11 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
     return launch_nj<T, 2>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
   if (Dv <= 64)
     return launch_nj<T, 4>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
-  return launch_nj<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
+  if (Dv <= 128)
+    return launch_nj<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
+  if (Dv <= 256)
+    return launch_nj<T, 16>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
+  return launch_nj<T, 18>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
 }
 
 }  // namespace
@@ -255,8 +264,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // Plain C entry point (bound with ctypes). Device pointers to contiguous
 // q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv), out (B,Sq,H,Dv) of one
 // dtype (0 = f32, 1 = bf16) and lse (B,H,Sq) f32. The caller has checked
-// shapes, H % KV == 0, 0 < Dk, Dv <= 128, q_offset >= 0 and B, H < 65536.
-// Returns the first CUDA error of the set-up or the launch, else 0.
+// shapes, H % KV == 0, q_offset >= 0 and B, H < 65536. Head dims must be
+// in 0 < Dk, Dv <= 288 with the tiles (smem_bytes) within the shared memory
+// a block may use: else cudaErrorInvalidValue, before any CUDA call.
+// Returns that, or the first CUDA error of the set-up or the launch, else 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Sk, int H, int KV,
@@ -264,7 +275,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  if (Dk <= 0 || Dv <= 0 || Dk > kMaxD || Dv > kMaxD) return (int)cudaErrorInvalidValue;
+  if (Dk <= 0 || Dv <= 0 || Dk > kMaxD || Dv > kMaxD || smem_bytes(Dk, Dv) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset, causal, scale, s);
   if (dtype == 1)

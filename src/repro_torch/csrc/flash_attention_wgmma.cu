@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py:30 (_fwd_kernel) for bf16 inputs
-// with head dims Dk, Dv in {64, 128}; f32 and other head dims take the SIMT
-// kernel in flash_attention.cu. For q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
+// with head dims Dk, Dv each in {64, 128}, and MLA's absorbed form (Dk 288,
+// Dv 256: 40 query heads on one kv head at minicpm3-4b); f32 and other
+// head dims take the SIMT kernel in flash_attention.cu. For q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
 // v (B,Sk,KV,Dv), head h reading kv head h / (H/KV) (GQA by index, any
 // group size), it computes per row
 //
@@ -31,7 +32,7 @@
 //   four threads of a quad, so its max and sum take two shuffles. No score
 //   tile goes through shared memory. exp is exp2 with log2(e) folded into
 //   the scale.
-// - K and V tiles of 128 keys arrive by TMA (cp.async.bulk.tensor with a
+// - K and V tiles of BK = 128 keys (64 at MLA's dims) arrive by TMA (cp.async.bulk.tensor with a
 //   4-d tensor map per operand, encoded on the host; rows past Sk read as
 //   zeros), each 64-column panel one box that the TMA unit writes in the
 //   128-byte swizzle, into rings of two stages with an mbarrier per stage.
@@ -53,6 +54,24 @@
 // argument; the Sq and Sk tails are masked here (the TPU kernel asserts
 // divisibility).
 //
+// MLA's absorbed dims (288, 256). Bound: operations; at the serve shape (B
+// 8, S 2048 causal, 40 heads on one kv head) the products are 730.5 GFLOP
+// against 733 MB: 0.739 ms at 989 TFLOP/s, 0.219 ms at 3.35 TB/s. Three
+// things change against the 64/128 tiles:
+// - 288 is not a multiple of the 64-column panel of the 128-byte swizzle.
+//   The tensor maps are encoded with Dk = 288 and Q and K are loaded as
+//   five panels; the fifth box's columns 288..319 lie past the tensor, and
+//   TMA writes zeros there (and counts the whole box's bytes). Q K^T takes
+//   18 k-steps of 16, so it reads none of the zero columns.
+// - Shared memory: at 128 keys a stage, Q, two K and two V stages would
+//   take 352 KB. With BK = 64 keys a stage: Q 128 x 320 x 2 B = 80 KB, the K
+//   ring 2 x 64 x 320 x 2 B = 80 KB and the V ring 2 x 64 x 256 x 2 B =
+//   64 KB, 230,464 bytes with alignment and barriers, under the 232,448 a
+//   block may use. 128 q rows a CTA stay, so K and V are read by two
+//   warpgroups at once as before.
+// - O of 64 x 256 f32 is 128 registers a thread; P V is two n128 wgmmas a
+//   k-step, on the two halves of O. S of 64 x 64 takes 32.
+//
 // Measured at the serve shape on an H100 SXM (700 W), in the order the
 // design was reached: two warpgroups in lockstep, blocks of 64 keys through
 // a cp.async ring, 2.09 ms; one warpgroup per CTA, 1.90 ms; two warpgroups
@@ -61,7 +80,7 @@
 // cost every thread some 16 instructions per block), 1.09 ms. Left for
 // later: warp specialisation (a producer warp, so the two warpgroups need
 // not meet at a barrier every block), pingpong between the warpgroups,
-// persistent CTAs, head dims other than 64 and 128.
+// persistent CTAs, head dims other than these five pairs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,8 +92,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kWG = 2;         // consumer warpgroups per CTA, 64 q rows each
-constexpr int kBQ = 64 * kWG;  // q rows per CTA
-constexpr int kBK = 128;       // keys per kv block
+constexpr int kBQ = 64 * kWG;  // q rows per CTA; keys per kv block: BK (64 or 128)
 constexpr int kThreads = 128 * kWG;
 constexpr int kStages = 2;     // K ring and V ring
 constexpr float kNegInf = -1e30f;
@@ -113,13 +131,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head), "r"(row), "r"(batch)
       : "memory");
 }
-// rows [row, row + R) of one head as D/64 panels of R rows x 128 bytes,
-// swizzled by the TMA unit (128B); rows past the tensor's end read as zeros
+// 64-column panels of a head dim D (the last one part zeros where 64 does
+// not divide D)
+__host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
+
+// rows [row, row + R) of one head as panels(D) panels of R rows x 128
+// bytes, swizzled by the TMA unit (128B); rows past the tensor's end, and
+// columns past D, read as zeros
 template <int R, int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int head, int row, int batch) {
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p) tma_load(dst + p * R * 128, map, bar, 64 * p, head, row, batch);
+  for (int p = 0; p < panels(D); ++p)
+    tma_load(dst + p * R * 128, map, bar, 64 * p, head, row, batch);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -214,10 +238,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n128(d, a, b);
 }
 
-template <int DK, int DV>
+template <int DK, int DV, int BK>
 constexpr int smem_bytes() {
-  // + 1024 for alignment; Q, the K ring, the V ring, 5 mbarriers
-  return 1024 + 2 * (kBQ * DK + kStages * kBK * DK + kStages * kBK * DV) + 64;
+  // + 1024 for alignment; Q, the K ring, the V ring (in whole panels), 5 mbarriers
+  constexpr int dk = 64 * panels(DK), dv = 64 * panels(DV);
+  return 1024 + 2 * (kBQ * dk + kStages * BK * dk + kStages * BK * dv) + 64;
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -230,14 +255,14 @@ __device__ __forceinline__ float ex2(float x) {
 // of this thread's two rows; s becomes exp2(s * scale_log2 - m2), the scale
 // folded into one fma. MASK: the block crosses the diagonal or the Sk tail.
 // Returns the rescale of each row's earlier accumulator in alpha.
-template <bool MASK>
-__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], float (&m2)[2],
+template <int BK, bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m2)[2],
                                                float (&l)[2], float (&alpha)[2], int k0,
                                                int q0, int r0, int cq, int Sk, int q_offset,
                                                int causal, float scale_log2) {
   if constexpr (MASK) {
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int key = k0 + 8 * (i / 4) + cq + (i % 2);
       const int row = q0 + r0 + 8 * ((i / 2) % 2);
       if (key >= Sk || (causal && q_offset + row < key)) s[i] = kNegInf;
@@ -248,7 +273,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], float (&m2)[
   for (int hr = 0; hr < 2; ++hr) {
     float mx = kNegInf;
 #pragma unroll
-    for (int j8 = 0; j8 < kBK / 8; ++j8)
+    for (int j8 = 0; j8 < BK / 8; ++j8)
       mx = fmaxf(mx, fmaxf(s[4 * j8 + 2 * hr], s[4 * j8 + 2 * hr + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -257,7 +282,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], float (&m2)[
     m2[hr] = m_new;
     float sum = 0.0f;
 #pragma unroll
-    for (int j8 = 0; j8 < kBK / 8; ++j8)
+    for (int j8 = 0; j8 < BK / 8; ++j8)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float p = ex2(fmaf(s[4 * j8 + 2 * hr + e], scale_log2, -m_new));
@@ -268,22 +293,24 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], float (&m2)[
   }
 }
 
-__device__ __forceinline__ void softmax_block(float (&s)[kBK / 2], float (&m2)[2],
+template <int BK>
+__device__ __forceinline__ void softmax_block(float (&s)[BK / 2], float (&m2)[2],
                                               float (&l)[2], float (&alpha)[2], int k0, int q0,
                                               int r0, int cq, int Sk, int q_offset, int causal,
                                               float scale_log2) {
-  if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > q_offset + q0))
-    online_softmax<true>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
+  if (k0 + BK > Sk || (causal && k0 + BK - 1 > q_offset + q0))
+    online_softmax<BK, true>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
   else
-    online_softmax<false>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
+    online_softmax<BK, false>(s, m2, l, alpha, k0, q0, r0, cq, Sk, q_offset, causal, scale_log2);
 }
 
 // P in bf16: the accumulator pairs of columns 16kk .. 16kk+15 are the A
 // fragment of k-step kk
-__device__ __forceinline__ void to_a_fragments(const float (&s)[kBK / 2],
-                                               uint32_t (&pa)[kBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
+                                               uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const __nv_bfloat162 p2 = __floats2bfloat162_rn(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
@@ -291,46 +318,60 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[kBK / 2],
     }
 }
 
-// S = Q K^T for one kv block, started and committed (not waited for)
-template <int DK>
-__device__ __forceinline__ void start_qk(float (&s)[kBK / 2], uint32_t Qs, uint32_t kt) {
+// S = Q K^T for one kv block, started and committed (not waited for);
+// DK / 16 k-steps, so a last panel's zero columns are never read
+template <int DK, int BK>
+__device__ __forceinline__ void start_qk(float (&s)[BK / 2], uint32_t Qs, uint32_t kt) {
+  static_assert(DK % 16 == 0, "Dk must be a whole number of k-steps");
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DK / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;   // 16 elements = 32 bytes into the panel
-    wgmma_ss<kBK>(s, desc_sw128(Qs + (kk / 4) * (kBQ * 128) + col, 16, 1024),
-                 desc_sw128(kt + (kk / 4) * (kBK * 128) + col, 16, 1024), kk > 0);
+    wgmma_ss<BK>(s, desc_sw128(Qs + (kk / 4) * (kBQ * 128) + col, 16, 1024),
+                 desc_sw128(kt + (kk / 4) * (BK * 128) + col, 16, 1024), kk > 0);
   }
   wgmma_commit();
   fence_regs(s);
 }
 
-// O += P V for one kv block, started and committed (not waited for)
-template <int DV>
-__device__ __forceinline__ void start_pv(float (&o)[DV / 2], const uint32_t (&pa)[kBK / 16][4],
+// O += P V for one kv block, started and committed (not waited for). A
+// Dv of 256 is two n128 products a k-step, on columns 0..127 and 128..255
+// of O (accumulator elements 0..63 and 64..127: the D layout puts column
+// 8j + c at element 4j + c), reading V's panels 0-1 and 2-3.
+template <int DV, int BK>
+__device__ __forceinline__ void start_pv(float (&o)[DV / 2], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t vt) {
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs<DV>(o, pa[kk], desc_sw128(vt + kk * 16 * 128, kBK * 128, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (DV <= 128) {
+      wgmma_rs<DV>(o, pa[kk], desc_sw128(vt + kk * 16 * 128, BK * 128, 1024));
+    } else {
+#pragma unroll
+      for (int c = 0; c < DV / 128; ++c)
+        wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * c), pa[kk],
+                      desc_sw128(vt + c * 2 * BK * 128 + kk * 16 * 128, BK * 128, 1024));
+    }
+  }
   wgmma_commit();
   fence_regs(o);
 }
 
-template <int DK, int DV>
+template <int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                    float* __restrict__ lse, int Sq, int Sk, int H, int KV,
                    int q_offset, int causal, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;   // [DK/64][kBQ][128 B]
-  const uint32_t Ks = Qs + kBQ * DK * 2;                        // kStages x [DK/64][kBK][128 B]
-  const uint32_t Vs = Ks + kStages * kBK * DK * 2;             // kStages x [DV/64][kBK][128 B]
-  const uint32_t bars = Vs + kStages * kBK * DV * 2;           // Q, K stages, V stages
+  constexpr int dk = 64 * panels(DK), dv = 64 * panels(DV);    // in whole panels
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;   // [dk/64][kBQ][128 B]
+  const uint32_t Ks = Qs + kBQ * dk * 2;                        // kStages x [dk/64][BK][128 B]
+  const uint32_t Vs = Ks + kStages * BK * dk * 2;              // kStages x [dv/64][BK][128 B]
+  const uint32_t bars = Vs + kStages * BK * dv * 2;            // Q, K stages, V stages
   const uint32_t qbar = bars, kbar = bars + 8, vbar = kbar + 8 * kStages;
-  constexpr int kTileK = kBK * DK * 2, kTileV = kBK * DV * 2;
+  constexpr int kTileK = BK * dk * 2, kTileV = BK * dv * 2;
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest first
@@ -339,10 +380,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   // kv blocks to visit: under a causal mask, up to the block holding the
   // position of this CTA's last row
-  int nkb = (Sk + kBK - 1) / kBK;
+  int nkb = (Sk + BK - 1) / BK;
   if (causal) {
     const int last = q_offset + min(q0 + kBQ, Sq) - 1;
-    nkb = min(nkb, last < 0 ? 0 : last / kBK + 1);
+    nkb = min(nkb, last < 0 ? 0 : last / BK + 1);
   }
 
   // accumulator fragment: thread holds rows r0 and r0 + 8 of the 64,
@@ -370,31 +411,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   auto load_k = [&](int j) {
     const uint32_t bar = kbar + 8 * (j % kStages);
     mbar_expect_tx(bar, kTileK);
-    tma_tile<kBK, DK>(Ks + (j % kStages) * kTileK, &tk, bar, kvh, j * kBK, b);
+    tma_tile<BK, DK>(Ks + (j % kStages) * kTileK, &tk, bar, kvh, j * BK, b);
   };
   auto load_v = [&](int j) {
     const uint32_t bar = vbar + 8 * (j % kStages);
     mbar_expect_tx(bar, kTileV);
-    tma_tile<kBK, DV>(Vs + (j % kStages) * kTileV, &tv, bar, kvh, j * kBK, b);
+    tma_tile<BK, DV>(Vs + (j % kStages) * kTileV, &tv, bar, kvh, j * BK, b);
   };
   if (copier) {
-    mbar_expect_tx(qbar, kBQ * DK * 2);
+    mbar_expect_tx(qbar, kBQ * dk * 2);
     tma_tile<kBQ, DK>(Qs, &tq, qbar, h, q0, b);
     if (nkb > 0) load_k(0);
     if (nkb > 1) load_k(1);
     if (nkb > 0) load_v(0);
   }
 
-  uint32_t pa[kBK / 16][4];
+  uint32_t pa[BK / 16][4];
   if (nkb > 0) {   // block 0's scores and softmax before the loop
     mbar_wait(qbar, 0);
     mbar_wait(kbar, 0);
-    float s[kBK / 2];
-    start_qk<DK>(s, Qw, Ks);
+    float s[BK / 2];
+    start_qk<DK, BK>(s, Qw, Ks);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_block(s, m2, l, alpha, 0, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
-    to_a_fragments(s, pa);
+    softmax_block<BK>(s, m2, l, alpha, 0, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
+    to_a_fragments<BK>(s, pa);
     __syncthreads();   // K_0's stage is refilled next
   }
 
@@ -406,16 +447,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       if (j + 2 < nkb) load_k(j + 2);
       load_v(j + 1);
     }
-    const int k1 = (j + 1) * kBK;
+    const int k1 = (j + 1) * BK;
     mbar_wait(kbar + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
     mbar_wait(vbar + 8 * (j % kStages), (j / kStages) & 1);
 
-    float s[kBK / 2];
-    start_qk<DK>(s, Qw, Ks + ((j + 1) % kStages) * kTileK);
-    start_pv<DV>(o, pa, Vs + (j % kStages) * kTileV);
+    float s[BK / 2];
+    start_qk<DK, BK>(s, Qw, Ks + ((j + 1) % kStages) * kTileK);
+    start_pv<DV, BK>(o, pa, Vs + (j % kStages) * kTileV);
     wgmma_wait<1>();   // S_{j+1} is done; P_j V_j may still run
     fence_regs(s);
-    softmax_block(s, m2, l, alpha, k1, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
+    softmax_block<BK>(s, m2, l, alpha, k1, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
     wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
@@ -425,12 +466,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       o[4 * jd + 2] *= alpha[1];
       o[4 * jd + 3] *= alpha[1];
     }
-    to_a_fragments(s, pa);
+    to_a_fragments<BK>(s, pa);
     __syncthreads();   // both warpgroups are done with K_j's and V_j's stages
   }
   if (nkb > 0) {   // the last step: P V only
     mbar_wait(vbar + 8 * ((nkb - 1) % kStages), ((nkb - 1) / kStages) & 1);
-    start_pv<DV>(o, pa, Vs + ((nkb - 1) % kStages) * kTileV);
+    start_pv<DV, BK>(o, pa, Vs + ((nkb - 1) % kStages) * kTileV);
     wgmma_wait<0>();
     fence_regs(o);
   } else {
@@ -460,7 +501,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
 // A 4-d tensor map (d, head, row, batch) of a contiguous bf16 (B, S, heads, D)
 // tensor, read in boxes of 64 d x 1 head x `rows` rows with the 128-byte
-// swizzle; rows past S read as zeros. Returns 0 or the driver's error.
+// swizzle; rows past S, and columns past D, read as zeros. Returns 0 or the
+// driver's error.
 int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
@@ -473,21 +515,22 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, in
                                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DK, int DV>
+template <int DK, int DV, int BK>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
            int Sk, int H, int KV, int q_offset, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, q, B, Sq, H, DK, kBQ);
   // with no keys, K and V are never read: their maps only need to be valid
-  if (!rc) rc = Sk ? encode(&tk, k, B, Sk, KV, DK, kBK) : encode(&tk, q, B, Sq, H, DK, kBK);
-  if (!rc) rc = Sk ? encode(&tv, v, B, Sk, KV, DV, kBK) : encode(&tv, q, B, Sq, H, DK, kBK);
+  if (!rc) rc = Sk ? encode(&tk, k, B, Sk, KV, DK, BK) : encode(&tk, q, B, Sq, H, DK, BK);
+  if (!rc) rc = Sk ? encode(&tv, v, B, Sk, KV, DV, BK) : encode(&tv, q, B, Sq, H, DK, BK);
   if (rc) return rc;
-  constexpr int smem = smem_bytes<DK, DV>();
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV>,
+  constexpr int smem = smem_bytes<DK, DV, BK>();
+  static_assert(smem <= 232448, "tiles exceed the shared memory of a block");
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_wgmma_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<DK, DV, BK><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk, H, KV, q_offset,
       causal, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -498,7 +541,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 // Plain C entry point (bound with ctypes), with the signature of
 // flash_attention.cu's. Device pointers to contiguous bf16 (dtype 1)
 // q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv), out (B,Sq,H,Dv), all
-// 16-byte aligned, and f32 lse (B,H,Sq). Dk and Dv each 64 or 128. The
+// 16-byte aligned, and f32 lse (B,H,Sq). Dk and Dv each 64 or 128, or
+// (Dk, Dv) = (288, 256). The
 // caller has checked shapes, H % KV == 0, q_offset >= 0 and B, H < 65536.
 // Returns the driver's error from encoding a tensor map, or the first CUDA
 // error of the set-up or the launch, else 0.
@@ -511,12 +555,14 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (Dk == 128 && Dv == 128)
-    return launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+    return launch<128, 128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
   if (Dk == 64 && Dv == 64)
-    return launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+    return launch<64, 64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
   if (Dk == 128 && Dv == 64)
-    return launch<128, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+    return launch<128, 64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
   if (Dk == 64 && Dv == 128)
-    return launch<64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+    return launch<64, 128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  if (Dk == 288 && Dv == 256)   // MLA absorbed: 64 keys a stage (shared memory)
+    return launch<288, 256, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

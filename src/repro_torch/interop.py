@@ -3,7 +3,7 @@
 The port keeps the JAX package's param names and layouts (LM blocks too:
 nested dicts with the stacked leading layer dim), so carrying a state across
 is a dtype-preserving copy of each leaf. Tests use this to start both
-packages from the same weights, and to compare KV caches.
+packages from the same weights, and to compare KV and MLA latent caches.
 """
 from __future__ import annotations
 
@@ -42,12 +42,20 @@ def kv_cache_from_numpy(cache, device="cpu"):
     return KVCache(*_from_numpy((k, v), device))
 
 
+def latent_cache_from_numpy(cache, device="cpu"):
+    """A JAX ``LatentCache`` (or any ``(ckv, krope)`` pair) of numpy arrays
+    -> the port's ``LatentCache``, same layout."""
+    from repro_torch.models.attention import LatentCache
+    ckv, krope = cache
+    return LatentCache(*_from_numpy((ckv, krope), device))
+
+
 def to_numpy(tree):
     """The port's params, state or KV cache -> the same structure of numpy
     arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta, KVCache
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta, KVCache, LatentCache
         return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)

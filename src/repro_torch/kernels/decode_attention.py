@@ -134,7 +134,9 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the decode-attention kernel takes head dims up to {MAX_HEAD_DIM}, got "
-            f"Dk={Dk}, Dv={Dv}; larger ones (MLA) come with ROADMAP A15")
+            f"Dk={Dk}, Dv={Dv}; MLA's decode attends in its latent space with "
+            "einsums and needs no larger ones, and a larger-dim B4 (the absorbed "
+            "MLA decode on the kernel) is a speed item in ROADMAP B")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and length.is_contiguous()):
         raise ValueError("decode_attention wants contiguous inputs")

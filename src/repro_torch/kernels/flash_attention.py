@@ -5,12 +5,14 @@ blockwise forward (``ops._blockwise_fwd``), for CPU tensors, and for CUDA
 tensors launches one of two hand-written Hopper kernels, chosen by dtype
 and head dims alone (``uses_wgmma``):
 
-- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``): bf16 with Dk and Dv
-  both in ``WGMMA_HEAD_DIMS`` = (64, 128). Both products on the tensor
-  cores, K/V tiles through a cp.async ring.
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``): bf16 with (Dk, Dv) in
+  ``WGMMA_HEAD_DIMS``: each of 64 and 128, and MLA's absorbed (288, 256).
+  Both products on the tensor cores, K/V tiles through a TMA ring.
 - ``csrc/flash_attention.cu`` (``"simt"``): everything else (f32, and head
-  dims such as 20, 32 or 96), on the CUDA cores in f32. TF32 tensor cores
-  would not hold f32 to its 2e-5 tolerance.
+  dims such as 20, 32 or MLA's expanded 96/64), up to 288 where its f32
+  tiles fit in shared memory (its entry point refuses the rest), on the
+  CUDA cores in f32. TF32 tensor cores would not hold f32 to its 2e-5
+  tolerance.
 
 All return ``(out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) f32)`` for causal
 or full GQA attention with a runtime ``q_offset``. They differ in rounding
@@ -34,15 +36,16 @@ import math
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128     # larger head dims (MLA absorbed, 288/256) come with ROADMAP A15
-WGMMA_HEAD_DIMS = (64, 128)
+CUDA_ERROR_INVALID_VALUE = 1    # cudaErrorInvalidValue: what the entry points refuse with
+# (Dk, Dv) pairs the tensor-core kernel is built for, in bf16
+WGMMA_HEAD_DIMS = ((64, 64), (64, 128), (128, 64), (128, 128), (288, 256))
 SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
 
 
 def uses_wgmma(dtype, Dk: int, Dv: int) -> bool:
     """Whether a CUDA call with this dtype and these head dims launches the
     tensor-core kernel (else the SIMT kernel)."""
-    return dtype == torch.bfloat16 and Dk in WGMMA_HEAD_DIMS and Dv in WGMMA_HEAD_DIMS
+    return dtype == torch.bfloat16 and (Dk, Dv) in WGMMA_HEAD_DIMS
 
 
 def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
@@ -205,10 +208,6 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
     dev = q.device
     B, Sq, H, Dk = q.shape
     _, Sk, KV, Dv = v.shape
-    if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the flash-attention kernel takes head dims up to {MAX_HEAD_DIM}, got "
-            f"Dk={Dk}, Dv={Dv}; larger ones (MLA) come with ROADMAP A15")
     if B >= 65536 or H >= 65536:
         raise ValueError(f"flash_attention takes B, H < 65536, got {B}, {H}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -220,7 +219,7 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "wgmma":
             if not uses_wgmma(q.dtype, Dk, Dv):
-                raise ValueError(f"the wgmma kernel takes bf16 with head dims in "
+                raise ValueError(f"the wgmma kernel takes bf16 with (Dk, Dv) in "
                                  f"{WGMMA_HEAD_DIMS}, got {q.dtype}, Dk={Dk}, Dv={Dv}")
             if any(t.data_ptr() % 16 for t in (q, k, v)):
                 raise ValueError("the wgmma flash-attention kernel wants 16-byte aligned "
@@ -229,6 +228,12 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(bool(causal)), scale,
             DTYPE_CODES[q.dtype], stream)
+    if rc == CUDA_ERROR_INVALID_VALUE and kernel == "simt":
+        raise NotImplementedError(
+            f"the SIMT flash-attention kernel refused head dims Dk={Dk}, Dv={Dv}: it "
+            f"takes them up to 288 where its f32 tiles fit in a block's shared memory "
+            f"(csrc/flash_attention.cu, smem_bytes); the tensor-core kernel takes bf16 "
+            f"{WGMMA_HEAD_DIMS}")
     if rc != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: CUDA error {rc}")
     return out, lse

@@ -1,14 +1,17 @@
-"""GQA attention for prefill and decode (port of the GQA half of
+"""GQA and MLA attention for train, prefill and decode (port of
 ``repro/models/attention.py``).
 
 Single device: the JAX functions' ``AxisCtx`` is dropped, and with it the
 sequence-sharding offsets, all-gathers and the cross-shard LSE combine
-(with ``AxisCtx()`` they are identities). QKV bias (qwen2.5-32b,
-qwen1.5-32b) and qk-norm (chameleon-34b) are here; MLA comes with its
-architecture (ROADMAP A15), and ``model_zoo.build`` refuses it.
+(with ``AxisCtx()`` they are identities); the tensor-parallel matmul
+helpers (``col_matmul``, ``row_matmul``) wait for the multi-device port
+(ROADMAP A16). GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and
+qk-norm (chameleon-34b, qwen3-moe-30b-a3b); MLA (minicpm3-4b) keeps a
+latent cache and runs B3 in either of its two forms.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -22,6 +25,13 @@ class KVCache(NamedTuple):
     """KV cache. k/v: (B, S, KV, D), or (L, B, S, KV, D) stacked over layers."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+class LatentCache(NamedTuple):
+    """MLA cache: the normalised kv latent and the shared rope key.
+    ckv: (B, S, R), krope: (B, S, rope), or (L, B, S, *) stacked."""
+    ckv: torch.Tensor
+    krope: torch.Tensor
 
 
 def gqa_param_shapes(cfg: ModelConfig) -> dict:
@@ -39,6 +49,28 @@ def gqa_param_shapes(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         shapes |= {"q_norm": (HD,), "k_norm": (HD,)}
     return shapes
+
+
+def mla_param_shapes(cfg: ModelConfig) -> dict:
+    """Projection shapes of one MLA layer in the JAX layout ``(in, out)``:
+    the query down/up projections with a norm between, the kv down
+    projection to the latent and the rope key, the latent's norm, its up
+    projection to per-head nope keys and values, and the output."""
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": (D, m.q_lora_rank),
+        "q_norm": (m.q_lora_rank,),
+        "wuq": (m.q_lora_rank, H * qk),
+        "wdkv": (D, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": (m.kv_lora_rank,),
+        "wukv": (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": (H * m.v_head_dim, D),
+    }
+
+
+def attn_param_shapes(cfg: ModelConfig) -> dict:
+    return mla_param_shapes(cfg) if cfg.attn_type == "mla" else gqa_param_shapes(cfg)
 
 
 def _qkv(w, cfg: ModelConfig, h):
@@ -106,9 +138,132 @@ def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig):
     return out, cache
 
 
+def _mla_q(w, cfg: ModelConfig, h, positions):
+    """h (B, S, D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope): the query
+    latent ``h @ wdq`` through its RMSNorm, up-projected, split, and the
+    rope part rotated."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S = h.shape[0], h.shape[1]
+    nope = m.qk_nope_head_dim
+    cq = rms_norm(h @ w["wdq"], w["q_norm"], cfg.norm_eps)
+    q = (cq @ w["wuq"]).reshape(B, S, H, nope + m.qk_rope_head_dim)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(w, cfg: ModelConfig, h, positions):
+    """h (B, S, D) -> ckv (B,S,R), krope (B,S,rope): the kv down projection,
+    its first R columns through ``kv_norm`` (B2 over a strided view, which
+    ``ops`` copies to dense rows), the last rope columns rotated (one key
+    shared by every head)."""
+    m = cfg.mla
+    dkv = h @ w["wdkv"]
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], w["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(dkv[:, :, None, m.kv_lora_rank:], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def _mla_expand_kv(w, cfg: ModelConfig, ckv):
+    """ckv (B, S, R) -> per-head k_nope (B,S,H,nope) and v (B,S,H,v)."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S = ckv.shape[0], ckv.shape[1]
+    kv = (ckv @ w["wukv"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def mla_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False,
+                   absorbed: bool = True):
+    """Causal MLA train or prefill attention over the whole sequence. h:
+    (B, S, D). Returns (B, S, D) [+ the LatentCache of these rows].
+
+    Two forms of one function (the JAX package's, chosen there by
+    ``REPRO_MLA_ABSORBED``, here by ``absorbed``):
+    - absorbed (the default): W^UK folded into the queries, B3 attends in
+      the latent space as MQA, H query heads on one kv head of Dk = R +
+      rope (288 at minicpm3-4b) and Dv = R (256); W^UV applied after;
+    - expanded: per-head keys and values from the latent, B3 as MHA at
+      Dk = nope + rope (96) and Dv = v (64).
+    Both scale the scores by 1/sqrt(nope + rope)."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S = h.shape[0], h.shape[1]
+    pos = torch.arange(S, device=h.device)
+    q_nope, q_rope = _mla_q(w, cfg, h, pos)
+    ckv, krope = _mla_kv_latent(w, cfg, h, pos)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    R, nope = m.kv_lora_rank, m.qk_nope_head_dim
+    if absorbed:
+        wukv = w["wukv"].reshape(R, H, nope + m.v_head_dim)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wukv[..., :nope])
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)             # (B,S,H,R+rope)
+        kv_cat = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
+        o_lat = ops.flash_attention(q_cat, kv_cat, ckv[:, :, None, :], 0, True, scale)
+        o = torch.einsum("bshr,rhv->bshv", o_lat, wukv[..., nope:])
+    else:
+        k_nope, v = _mla_expand_kv(w, cfg, ckv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+            *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+        o = ops.flash_attention(q, k, v, 0, True, scale)
+    out = o.reshape(B, S, -1) @ w["wo"]
+    return (out, LatentCache(ckv, krope)) if return_cache else out
+
+
+def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig):
+    """One-token MLA decode in the absorbed form: attention runs in the
+    latent space as einsums (no kernel, as in the JAX package), so a
+    step's work scales with R + rope (288), not H * (Dk + Dv). h: (B, 1,
+    D); cache.ckv (B, S, R), cache.krope (B, S, rope); length: (B,) int32
+    context length (the new token goes to position ``length``). Returns
+    (out (B, 1, D), cache).
+
+    The new latent row is written into the cache IN PLACE, and the same
+    cache is returned. The JAX package adds a one-hot row, ``cache + onehot
+    * row``, which rewrites the whole cache; the values are the same, because
+    slot ``length`` is zero (``pad_caches`` grows the cache with zeros and
+    each slot is written once) and every other slot gets +0. As there, a
+    position past the cache's end writes nothing."""
+    m, H = cfg.mla, cfg.n_heads
+    B = h.shape[0]
+    R, nope = m.kv_lora_rank, m.qk_nope_head_dim
+    pos = length[:, None]
+    q_nope, q_rope = _mla_q(w, cfg, h, pos)                   # (B,1,H,*)
+    ckv_new, krope_new = _mla_kv_latent(w, cfg, h, pos)       # (B,1,R), (B,1,rope)
+
+    S = cache.ckv.shape[1]
+    rows = torch.arange(B, device=h.device)
+    slot = torch.clamp(length, 0, S - 1).long()
+    mine = (length < S)[:, None]
+    cache.ckv[rows, slot] = torch.where(mine, ckv_new[:, 0], cache.ckv[rows, slot])
+    cache.krope[rows, slot] = torch.where(mine, krope_new[:, 0], cache.krope[rows, slot])
+
+    # absorb W^UK into q: q_lat (B, H, R) = q_nope . Wuk_h^T
+    wukv = w["wukv"].reshape(R, H, nope + m.v_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wukv[..., :nope])
+    scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, cache.ckv)
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0], cache.krope)).to(torch.float32)
+    s = s * scale
+    valid = torch.arange(S, device=h.device)[None] < torch.clamp(length + 1, 0, S)[:, None]
+    s = torch.where(valid[:, None], s, -1e30)
+    m_ = s.amax(dim=-1)
+    p = torch.exp(s - m_[..., None])
+    l = p.sum(dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p.to(cache.ckv.dtype), cache.ckv)
+    o_lat = o_lat.to(torch.float32) / torch.clamp(l, min=1e-30)[..., None]
+    o = torch.einsum("bhr,rhv->bhv", o_lat.to(h.dtype), wukv[..., nope:])
+    return o.reshape(B, 1, -1) @ w["wo"], cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_loc: int, dtype=torch.bfloat16,
-               device="cpu") -> KVCache:
-    """An empty (zero) cache of ``s_loc`` slots."""
+               device="cpu"):
+    """An empty (zero) cache of ``s_loc`` slots: a LatentCache for MLA,
+    else a KVCache."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return LatentCache(
+            ckv=torch.zeros((batch, s_loc, m.kv_lora_rank), dtype=dtype, device=device),
+            krope=torch.zeros((batch, s_loc, m.qk_rope_head_dim), dtype=dtype,
+                              device=device))
     HD = cfg.resolved_head_dim
     shape = (batch, s_loc, cfg.n_kv_heads, HD)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),

@@ -1,5 +1,5 @@
-"""Dense decoder-only LM: the training loss, prefill and greedy decode
-(port of the dense-family half of ``repro/models/transformer.py``).
+"""Decoder-only LMs: the training loss, prefill and greedy decode (port of
+the dense and MoE families of ``repro/models/transformer.py``).
 
 Params are a plain nested ``dict[str, Tensor]`` with the JAX package's
 names and layouts, blocks stacked on a leading layer dim
@@ -14,8 +14,12 @@ JAX package rematerializes each layer (``jax.checkpoint``), and
 which the FL rounds differentiate with. ``FlatModel`` is the LM as the FL
 core sees it: one flat param dict with ``/``-joined keys.
 
-The other families (MLA, MoE, encoder-decoder, SSM, hybrid) come with the
-rest of ROADMAP A15.
+A block's attention is GQA or MLA (``cfg.attn_type``), its FFN the SwiGLU
+MLP or, for the MoE family, ``moe.moe_ffn`` (plus a dense residual MLP
+after ``ln3`` where ``dense_residual_d_ff`` is set, as in arctic-480b),
+whose aux losses add to the training loss. Tied embeddings
+(minicpm3-4b) use ``embed.T`` as the head and have no ``lm_head`` leaf.
+Encoder-decoder, SSM and hybrid stacks come with ROADMAP A15.5 and A15.6.
 """
 from __future__ import annotations
 
@@ -26,12 +30,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
 
 
-def mlp_param_shapes(cfg: ModelConfig) -> dict:
-    """SwiGLU MLP: gate ``w1``, up ``w3``, down ``w2``."""
-    D, F_ = cfg.d_model, cfg.d_ff
+def mlp_param_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
+    """SwiGLU MLP of width ``d_ff`` (default ``cfg.d_ff``): gate ``w1``, up
+    ``w3``, down ``w2``."""
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
     return {"w1": (D, F_), "w3": (D, F_), "w2": (F_, D)}
 
 
@@ -41,7 +47,9 @@ def mlp_forward(w: dict, x, cfg: ModelConfig):
 
 
 def embed_lookup(embed, tokens):
-    """Rows of the (untied) embedding for ``tokens``. Through
+    """Rows of the embedding for ``tokens`` (tied or not: one device holds
+    the whole matrix, so the JAX package's two sharded lookups are this
+    one). Through
     ``F.embedding``, whose gradient sums each row's tokens in one order on
     every run and on the CPU too, where indexing's (an accumulating
     ``index_put_``) is documented as nondeterministic."""
@@ -62,9 +70,19 @@ def softmax_xent_vshard(logits, labels):
 
 
 def dense_block_shapes(cfg: ModelConfig) -> dict:
-    """One block: two RMSNorms, GQA attention and the MLP."""
-    return {"ln1": {"w": (cfg.d_model,)}, "ln2": {"w": (cfg.d_model,)},
-            "attn": attn.gqa_param_shapes(cfg), "mlp": mlp_param_shapes(cfg)}
+    """One block: two RMSNorms, GQA or MLA attention, and the MLP or, for
+    the MoE family, the router and experts (with a dense residual MLP and
+    its norm ``ln3`` where the config has one)."""
+    norm = {"w": (cfg.d_model,)}
+    s = {"ln1": norm, "ln2": norm, "attn": attn.attn_param_shapes(cfg)}
+    if cfg.moe is not None and cfg.family == "moe":
+        s["moe"] = moe_mod.moe_param_shapes(cfg)
+        if cfg.moe.dense_residual_d_ff:
+            s["dense_mlp"] = mlp_param_shapes(cfg, cfg.moe.dense_residual_d_ff)
+            s["ln3"] = norm
+    else:
+        s["mlp"] = mlp_param_shapes(cfg)
+    return s
 
 
 def _map_shapes(fn, tree):
@@ -75,11 +93,14 @@ def _map_shapes(fn, tree):
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Full logical shapes, as the JAX package's ``param_shapes`` gives them
-    for the dense family: a nested dict of tuples, blocks stacked."""
+    for the dense and MoE families: a nested dict of tuples, blocks
+    stacked; no ``lm_head`` when the embeddings are tied."""
     Vp, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
-    return {"embed": (Vp, D), "final_norm": {"w": (D,)},
-            "blocks": _map_shapes(lambda sh: (L,) + sh, dense_block_shapes(cfg)),
-            "lm_head": (D, Vp)}
+    p = {"embed": (Vp, D), "final_norm": {"w": (D,)},
+         "blocks": _map_shapes(lambda sh: (L,) + sh, dense_block_shapes(cfg))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = (D, Vp)
+    return p
 
 
 def _leaves(tree, prefix=()):
@@ -93,8 +114,8 @@ def _leaves(tree, prefix=()):
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32) -> dict:
     """Random params on the generator's device, with the JAX package's
-    initializers: norms 1, QKV biases 0, embed N(0, 0.02), matrices
-    N(0, 1/fan_in).
+    initializers: norms 1, QKV biases 0, embed N(0, 0.02), matrices (the
+    router and expert weights too) N(0, 1/fan_in), fan-in ``shape[-2]``.
     (``torch.Generator`` and ``jax.random`` draw different numbers; tests
     carry JAX's params across with ``interop`` instead.)"""
     out: dict = {}
@@ -118,18 +139,28 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, cache=None,
                  length=None):
-    """One block; phase 'train' -> (x, None), 'prefill' -> (x, KVCache of
-    the rows), 'decode' -> (x, the cache written in place)."""
+    """One block -> (x, cache, aux): phase 'train' gives no cache, 'prefill'
+    the KVCache or LatentCache of the rows, 'decode' the cache written in
+    place; aux is the MoE layer's load-balance + z loss, else 0.0."""
     h = rms_norm(x, w["ln1"]["w"], cfg.norm_eps)
-    if phase == "train":
-        o, new_cache = attn.gqa_seqsharded(w["attn"], h, cfg), None
-    elif phase == "prefill":
-        o, new_cache = attn.gqa_seqsharded(w["attn"], h, cfg, return_cache=True)
+    mla = cfg.attn_type == "mla"
+    if phase == "decode":
+        decode = attn.mla_decode if mla else attn.gqa_decode
+        o, new_cache = decode(w["attn"], h, cache, length, cfg)
     else:
-        o, new_cache = attn.gqa_decode(w["attn"], h, cache, length, cfg)
+        fwd = attn.mla_seqsharded if mla else attn.gqa_seqsharded
+        if phase == "prefill":
+            o, new_cache = fwd(w["attn"], h, cfg, return_cache=True)
+        else:
+            o, new_cache = fwd(w["attn"], h, cfg), None
     x = x + o
     h = rms_norm(x, w["ln2"]["w"], cfg.norm_eps)
-    return x + mlp_forward(w["mlp"], h, cfg), new_cache
+    if "moe" not in w:
+        return x + mlp_forward(w["mlp"], h, cfg), new_cache, 0.0
+    mo, maux = moe_mod.moe_ffn(w["moe"], h, cfg)
+    if "dense_mlp" in w:
+        mo = mo + mlp_forward(w["dense_mlp"], rms_norm(x, w["ln3"]["w"], cfg.norm_eps), cfg)
+    return x + mo, new_cache, maux.load_balance + maux.z_loss
 
 
 def _take(tree, i):
@@ -138,68 +169,74 @@ def _take(tree, i):
 
 def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
     """Forward through the stacked blocks, layer by layer. Returns (x, aux,
-    caches): aux is 0.0 for the dense family; caches are None for phase
-    'train' and the KVCache stacked (L, B, S, KV, HD) for 'prefill'.
-    Training keeps every layer's activations (see the module docstring)."""
+    caches): aux sums the MoE layers' aux losses (0.0 without MoE); caches
+    are None for phase 'train' and for 'prefill' the layers' KVCache
+    (L, B, S, KV, HD) or LatentCache (L, B, S, *) stacked. Training keeps
+    every layer's activations (see the module docstring)."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
-    ks, vs = [], []
+    aux, caches = 0.0, []
     for i in range(cfg.n_layers):
-        x, cache = _dense_block(cfg, _take(blocks, i), x, phase=phase)
+        x, cache, a = _dense_block(cfg, _take(blocks, i), x, phase=phase)
+        aux = aux + a
         if cache is not None:
-            ks.append(cache.k)
-            vs.append(cache.v)
-    caches = attn.KVCache(torch.stack(ks), torch.stack(vs)) if ks else None
-    return x, 0.0, caches
+            caches.append(cache)
+    if not caches:
+        return x, aux, None
+    return x, aux, type(caches[0])(*(torch.stack(t) for t in zip(*caches)))
 
 
-def stack_decode(cfg: ModelConfig, blocks: dict, x, caches: attn.KVCache, length):
+def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length):
     """One decode token through the stacked blocks; each layer writes its
-    slot of ``caches`` (L, B, S, KV, HD) in place. Returns (x, caches)."""
+    slot of ``caches`` (a stacked KVCache or LatentCache) in place. Returns
+    (x, caches)."""
     for i in range(cfg.n_layers):
-        layer_cache = attn.KVCache(caches.k[i], caches.v[i])
-        x, _ = _dense_block(cfg, _take(blocks, i), x, phase="decode",
-                            cache=layer_cache, length=length)
+        layer_cache = type(caches)(*(t[i] for t in caches))
+        x, _, _ = _dense_block(cfg, _take(blocks, i), x, phase="decode",
+                               cache=layer_cache, length=length)
     return x, caches
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """A dense GQA decoder over a param dict: the training loss, prefill and
+    """A decoder-only LM over a param dict: the training loss, prefill and
     greedy decode."""
     cfg: ModelConfig
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return init_params(generator, self.cfg, dtype)
 
+    def _logits(self, params: dict, x, last: bool = False):
+        """The final norm over every row, then the head (``embed.T`` when
+        tied) over every row or only the last position -> f32 logits."""
+        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        if last:
+            x = x[:, -1:]
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return (x @ head.to(x.dtype)).to(torch.float32)
+
     def loss(self, params: dict, batch: dict):
         """batch["tokens"], batch["labels"]: (B, S) ids -> the scalar
-        ``loss + aux`` (the JAX package's first output; aux is 0 for the
-        dense family): next-token cross-entropy over f32 logits."""
+        ``loss + aux`` (the JAX package's first output; aux sums the MoE
+        layers' aux losses, 0 without MoE): next-token cross-entropy over
+        f32 logits."""
         x = embed_lookup(params["embed"], batch["tokens"])
         x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train")
-        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype)).to(torch.float32)
-        return softmax_xent_vshard(logits, batch["labels"]) + aux
+        return softmax_xent_vshard(self._logits(params, x), batch["labels"]) + aux
 
     def prefill(self, params: dict, batch: dict):
         """batch["tokens"]: (B, S) -> (caches, last-position logits (B, Vp)
         f32, None)."""
         x = embed_lookup(params["embed"], batch["tokens"])
         x, _, caches = stack_train(self.cfg, params["blocks"], x, phase="prefill")
-        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        last = x[:, -1:]
-        logits = (last @ params["lm_head"].to(last.dtype)).to(torch.float32)
-        return caches, logits[:, 0], None
+        return caches, self._logits(params, x, last=True)[:, 0], None
 
-    def decode_step(self, params: dict, tokens, caches: attn.KVCache, length):
+    def decode_step(self, params: dict, tokens, caches, length):
         """tokens: (B,) previous token ids; length: (B,) int32 context
         length. Returns (logits (B, Vp) f32, caches written in place)."""
         x = embed_lookup(params["embed"], tokens[:, None])
         x, caches = stack_decode(self.cfg, params["blocks"], x, caches, length)
-        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype)).to(torch.float32)
-        return logits[:, 0], caches
+        return self._logits(params, x)[:, 0], caches
 
     def greedy_token(self, logits):
         """(B, Vp) -> (B,) the first index of each row's maximum, as
@@ -252,6 +289,7 @@ class FlatModel:
         return self.model.loss(unflatten_params(params), batch)
 
 
-def pad_caches(caches: attn.KVCache, extra: int) -> attn.KVCache:
-    """Grow stacked caches (L, B, S, KV, HD) by ``extra`` zero slots."""
-    return attn.KVCache(*[F.pad(t, (0, 0, 0, 0, 0, extra)) for t in caches])
+def pad_caches(caches, extra: int):
+    """Grow stacked caches (a KVCache (L, B, S, KV, HD) or a LatentCache
+    (L, B, S, *)) by ``extra`` zero slots on the sequence dim."""
+    return type(caches)(*[F.pad(t, [0, 0] * (t.dim() - 3) + [0, extra]) for t in caches])

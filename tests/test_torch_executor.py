@@ -187,10 +187,11 @@ def test_load_job_rejects_typos_with_a_hint():
 # cases 4 and 6-8 (the streaming client plane) in
 # test_load_job_runs_what_slice_8_ported; cases 5 and 13 (synthetic_lm,
 # qwen2.5-32b) in test_load_job_runs_what_slice_9_ported, their places taken
-# by two archs still refused
+# by two archs still refused; case 12's minicpm3-4b (MLA) was ported in slice
+# 10, its place taken by jamba-1.5-large-398b (hybrid)
 @pytest.mark.parametrize("patch,item", [
     ({"model": {"arch": "whisper-base"}}, "A15"),
-    ({"model": {"arch": "minicpm3-4b"}}, "A15"),
+    ({"model": {"arch": "jamba-1.5-large-398b"}}, "A15"),
     ({"model": {"arch": "xlstm-125m"}}, "A15"),
 ], ids=[f"patch{i}-{item}" for i, item in zip((5, 12, 13), ("A15", "A15", "A15"))])
 def test_load_job_refuses_what_is_not_yet_ported(patch, item):

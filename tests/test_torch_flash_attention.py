@@ -113,6 +113,22 @@ def test_flash_ragged_matches_ref(B, Sq, Sk, H, KV, D, causal, dtype):
     assert torch.isfinite(lse).all()
 
 
+@pytest.mark.parametrize("Dk,Dv,scale", [(24, 16, 16 ** -0.5), (288, 256, 96 ** -0.5)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_at_mla_head_dims_matches_ref(Dk, Dv, scale, dtype, causal):
+    """MLA's absorbed head dims, reduced minicpm3-4b's (24, 16) and the full
+    (288, 256), as MQA (5 query heads on one kv head) with MLA's scale
+    1/sqrt(nope + rope), ragged Sq and Sk and q_offset 60: the port's plain
+    version in blocks of 32 against the JAX package's unblocked oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, 40, 100, 5, 1, Dk, Dv, seed=3), dtype)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, q_offset=60, scale=scale)
+    got, lse = fa.plain(tq, tk, tv, 60, causal, scale, 32, 32)
+    assert tuple(got.shape) == (2, 40, 5, Dv) and tuple(lse.shape) == (2, 5, 40)
+    _close(got, want, DTYPES[dtype][2])
+    _close(ops.flash_attention(tq, tk, tv, 60, causal, scale), want, DTYPES[dtype][2])
+
+
 @pytest.mark.parametrize("dtype,Dk,Dv,kernel", [
     (torch.bfloat16, 128, 128, "wgmma"),     # yi-34b, the serve path
     (torch.bfloat16, 64, 64, "wgmma"),
@@ -122,6 +138,11 @@ def test_flash_ragged_matches_ref(B, Sq, Sk, H, KV, D, causal, dtype):
     (torch.bfloat16, 32, 32, "simt"),
     (torch.bfloat16, 20, 20, "simt"),
     (torch.bfloat16, 16, 16, "simt"),        # reduced yi-34b
+    (torch.bfloat16, 288, 256, "wgmma"),     # MLA absorbed (minicpm3-4b)
+    (torch.bfloat16, 256, 288, "simt"),      # not a pair the wgmma kernel is built for
+    (torch.bfloat16, 288, 288, "simt"),
+    (torch.bfloat16, 24, 16, "simt"),        # reduced minicpm3-4b absorbed
+    (torch.float32, 288, 256, "simt"),
     (torch.float32, 128, 128, "simt"),       # f32 stays on the CUDA cores
     (torch.float32, 64, 64, "simt"),
 ])

@@ -457,6 +457,8 @@ def test_rmsnorm_kernel_refuses_a_plan_that_misses_the_row(cuda):
     (2, 70, 200, 4, 1, 64, 64, True),        # ragged Sq and Sk, q_offset 130
     (2, 64, 64, 4, 2, 16, 16, True),         # reduced yi-34b head dim
     (1, 50, 50, 4, 2, 20, 20, True),         # rows not 16-byte aligned: scalar loads
+    (1, 129, 129, 4, 1, 288, 256, True),     # MLA absorbed (f32: SIMT, bf16: wgmma)
+    (2, 100, 100, 8, 8, 96, 64, True),       # MLA expanded
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtype):
@@ -485,10 +487,15 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtyp
     (1, 192, 192, 8, 2, 128, 64, True),      # Dk != Dv
     (1, 192, 192, 8, 2, 64, 128, True),
     (1, 1, 333, 8, 2, 128, 128, True),       # one query row at q_offset 332
+    (1, 300, 300, 40, 1, 288, 256, True),    # MLA absorbed: 40 heads on one kv head
+    (1, 300, 300, 40, 1, 288, 256, False),
+    (2, 70, 200, 8, 1, 288, 256, True),      # ragged Sq and Sk, q_offset 130
+    (1, 1, 333, 40, 1, 288, 256, True),      # one query row at q_offset 332
+    (1, 64, 64, 4, 1, 288, 256, True),       # one kv block of 64 keys
 ])
 def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal):
-    """The tensor-core kernel (bf16, head dims in (64, 128)) against the
-    plain version."""
+    """The tensor-core kernel (bf16, (Dk, Dv) in ``fa.WGMMA_HEAD_DIMS``)
+    against the plain version."""
     q = _randn((B, Sq, H, Dk), torch.bfloat16, cuda, 4)
     k = _randn((B, Sk, KV, Dk), torch.bfloat16, cuda, 5)
     v = _randn((B, Sk, KV, Dv), torch.bfloat16, cuda, 6)
@@ -517,9 +524,41 @@ def test_flash_simt_kernel_in_bf16_matches_plain(cuda):
 
 
 def test_flash_kernel_refuses_head_dims_above_128(cuda):
-    q = torch.zeros(1, 8, 2, 192, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        fa.flash_attention_fwd(q, q, q)
+    """The tensor-core kernel refuses bf16 head dims above 128 other than
+    MLA's absorbed (288, 256); the wrapper sends those to the SIMT kernel."""
+    for Dk, Dv in ((192, 192), (256, 256), (288, 288)):
+        q = torch.zeros(1, 8, 2, Dk, device=cuda, dtype=torch.bfloat16)
+        v = torch.zeros(1, 8, 2, Dv, device=cuda, dtype=torch.bfloat16)
+        assert not fa.uses_wgmma(torch.bfloat16, Dk, Dv)
+        with pytest.raises(ValueError, match="wgmma kernel takes bf16"):
+            fa._launch("wgmma", q, q, v, 0, True, None)
+    q, k, v = (_randn((1, 8, 2, 192), torch.bfloat16, cuda, i) for i in range(3))
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    out, _ = fa.flash_attention_fwd(q, k, v)
+    assert fa.flash_attention_fwd.launches_by_kernel["simt"] == by_kernel["simt"] + 1
+    # bf16 inputs: the SIMT kernel against the plain version in f32 (the
+    # bf16 plain version rounds the raw scores before scaling)
+    _close(out, fa.plain(q.float(), k.float(), v.float())[0], 2e-2)
+
+
+def test_flash_kernel_takes_dims_up_to_288_and_refuses_beyond(cuda):
+    """Head dims above 128 run up to 288 (MLA's absorbed Dk) where the SIMT
+    kernel's f32 tiles fit in a block's shared memory: (288, 256) and (96,
+    64) do, (288, 288) and (320, 320) do not, and the kernel's entry point
+    refuses them."""
+    for Dk, Dv in ((192, 192), (288, 256), (96, 64)):
+        q = _randn((1, 8, 2, Dk), torch.float32, cuda, 0)
+        v = _randn((1, 8, 2, Dv), torch.float32, cuda, 1)
+        out, _ = fa.flash_attention_fwd(q, q, v)
+        _close(out, fa.plain(q, q, v)[0], 2e-5)
+    for Dk, Dv in ((320, 320), (288, 288)):
+        q = torch.zeros(1, 8, 2, Dk, device=cuda)
+        v = torch.zeros(1, 8, 2, Dv, device=cuda)
+        with pytest.raises(NotImplementedError, match="refused head dims"):
+            fa.flash_attention_fwd(q, q, v)
+    # a refusal leaves no error behind for the next launch
+    q = _randn((1, 8, 2, 64), torch.float32, cuda, 2)
+    _close(fa.flash_attention_fwd(q, q, q)[0], fa.plain(q, q, q)[0], 2e-5)
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128),
@@ -635,6 +674,8 @@ def _grad_close(got, want, tol):
     (1, 128, 256, 4, 1, 128, 64, True, torch.bfloat16),       # q_offset, Dk != Dv
     (2, 256, 256, 8, 2, 64, 64, False, torch.bfloat16),
     (2, 256, 256, 8, 2, 64, 64, True, torch.float32),         # SIMT
+    (1, 256, 256, 8, 1, 288, 256, True, torch.bfloat16),      # MLA absorbed (wgmma)
+    (1, 128, 128, 4, 1, 288, 256, True, torch.float32),       # MLA absorbed (SIMT)
 ])
 def test_flash_forward_and_backward_match_autograd_of_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv,
                                                             causal, dtype):
@@ -695,7 +736,8 @@ def test_vmapped_gradients_on_card_match_the_loop(cuda, n):
             _grad_close(a[i], b, GRAD_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b", "minicpm3-4b",
+                                  "qwen3-moe-30b-a3b", "arctic-480b"])
 def test_lm_round_on_card_matches_cpu_and_repeats_bitwise(cuda, arch):
     """One temporal fedavgm round of the reduced arch in f32: the card
     (kernels) against the CPU (plain versions), losses and params within
@@ -720,7 +762,8 @@ def test_lm_round_on_card_matches_cpu_and_repeats_bitwise(cuda, arch):
         _close(out["card"][1][k], v, 1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b", "minicpm3-4b",
+                                  "qwen3-moe-30b-a3b", "arctic-480b"])
 def test_serve_bias_and_qk_norm_archs_on_card_match_cpu(cuda, arch):
     model = model_zoo.build(reduced_config(get_config(arch)))
     params = model.init(torch.Generator().manual_seed(0))
@@ -728,3 +771,31 @@ def test_serve_bias_and_qk_norm_archs_on_card_match_cpu(cuda, arch):
     toks_cpu = serve.generate(model, params, prompts, 5)
     toks_card = serve.generate(model, _to(params, cuda), prompts.to(cuda), 5)
     assert torch.equal(toks_card.cpu(), toks_cpu)
+
+
+def test_mla_serve_in_bf16_launches_wgmma_at_the_absorbed_dims(cuda):
+    """minicpm3-4b's MLA dims (kv_lora 256, rope 32, nope 64, v 64) in bf16
+    at a small width: every prefill attention goes to the tensor-core
+    kernel at (288, 256), and a second generate repeats the tokens bitwise;
+    the expanded form of one layer (``mla_seqsharded(absorbed=False)``)
+    goes to the SIMT kernel at (96, 64)."""
+    from repro_torch.models import attention
+    cfg = get_config("minicpm3-4b").replace(n_layers=2, d_model=256, n_heads=4,
+                                             n_kv_heads=4, d_ff=512, vocab_size=512)
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), dtype=torch.bfloat16)
+    prompts = torch.randint(0, 512, (2, 96), generator=torch.Generator().manual_seed(1))
+    prompts = prompts.to(cuda)
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    toks = serve.generate(model, params, prompts, 4)
+    assert fa.flash_attention_fwd.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"] + 2, "simt": by_kernel["simt"]}
+    assert torch.equal(serve.generate(model, params, prompts, 4), toks)
+    w = {k: v[0] for k, v in params["blocks"]["attn"].items()}
+    h = params["embed"][prompts]
+    with torch.inference_mode():
+        oa = attention.mla_seqsharded(w, h, cfg)
+        oe = attention.mla_seqsharded(w, h, cfg, absorbed=False)
+    assert fa.flash_attention_fwd.launches_by_kernel["simt"] == by_kernel["simt"] + 1
+    # the two forms round in bf16 at other places: their outputs agree in norm
+    assert ((oa - oe).norm() / oa.norm()).item() < 5e-2

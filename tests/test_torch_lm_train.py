@@ -5,8 +5,10 @@ configs with the same numpy weights (carried across with ``interop`` and
 - ``Model.loss`` and every gradient leaf against ``jax.value_and_grad`` of
   the JAX ``Model.loss`` (its CPU path: jnp flash attention under its
   ``custom_vjp``, RMSNorm differentiated through ``ref.rmsnorm_ref``), for
-  yi-34b, qwen2.5-32b (QKV bias) and chameleon-34b (qk-norm), with the
-  biases and qk-norm weights moved off their initial 0 and 1 so that their
+  yi-34b, qwen2.5-32b (QKV bias), chameleon-34b (qk-norm), minicpm3-4b
+  (MLA, tied embeddings), qwen3-moe-30b-a3b (MoE, qk-norm; the loss adds
+  the aux losses) and arctic-480b (subgrid MoE, dense residual), with the
+  biases and norm weights moved off their initial 0 and 1 so that their
   gradients are exercised. Tolerances: loss rtol 1e-5; gradients atol and
   rtol 1e-4 (f32; the port's RMSNorm backward is the analytic formula, the
   JAX package's the autodiff of the forward, and the two sum in other
@@ -14,10 +16,10 @@ configs with the same numpy weights (carried across with ``interop`` and
 - ``SyntheticLM`` tokens bitwise.
 - 3 temporal rounds of fedavg, fedavgm and fedprox on fixed client data
   (as ``tests/test_system.py::test_fl_lm_round_with_strategies``) against
-  the JAX ``build_temporal_round``, each strategy on one of the three
-  archs. Tolerances those of ``tests/test_torch_strategies.py``: loss rtol
+  the JAX ``build_temporal_round``, each strategy on one or two archs. Tolerances those of ``tests/test_torch_strategies.py``: loss rtol
   1e-5, params and server state atol 1e-5 / rtol 1e-4.
-- A checkpoint resume bitwise the uninterrupted run, bf16 leaves too, and
+- A tied (MLA) LM checkpoint written by either package restores in the
+  other. A checkpoint resume bitwise the uninterrupted run, bf16 leaves too, and
   ``python -m repro_torch.launch.train_fl_lm --device cpu`` end to end.
 """
 import numpy as np
@@ -64,8 +66,9 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-ARCHS = ("yi-34b", "qwen2.5-32b", "chameleon-34b")
-MOVED = ("bq", "bk", "bv", "q_norm", "k_norm")
+ARCHS = ("yi-34b", "qwen2.5-32b", "chameleon-34b", "minicpm3-4b", "qwen3-moe-30b-a3b",
+         "arctic-480b")
+MOVED = ("bq", "bk", "bv", "q_norm", "k_norm", "kv_norm")
 
 
 @pytest.fixture
@@ -111,9 +114,13 @@ def test_model_loss_and_gradients_match_the_jax_package(arch, jnp_kernels):
     assert sorted(grads) == sorted(want)
     for k, g in grads.items():
         np.testing.assert_allclose(g.numpy(), want[k], atol=1e-4, rtol=1e-4, err_msg=k)
-    if arch != "yi-34b":
+    if arch not in ("yi-34b", "arctic-480b"):     # the two without biases or norms
         moved = [k for k in want if k.split("/")[-1] in MOVED]
         assert moved and all(np.abs(want[k]).max() > 1e-3 for k in moved)
+    if get_config(arch).tie_embeddings:     # one embedding, its gradient from both ends
+        assert "lm_head" not in grads and np.abs(want["embed"]).max() > 0
+    if get_config(arch).moe is not None:    # the router learns (through the gates and aux)
+        assert np.abs(want["blocks/moe/router"]).max() > 1e-6
     # the same under the rounds' vmap over one client with its own params
     g1, l1 = vmap(grad_and_value(model.loss))({k: v[None] for k, v in params.items()},
                                               {k: v[None] for k, v in tbatch.items()})
@@ -159,7 +166,8 @@ def _state_from_jax(jstate):
 
 
 @pytest.mark.parametrize("arch,strategy", [
-    ("qwen2.5-32b", "fedavgm"), ("chameleon-34b", "fedprox"), ("yi-34b", "fedavg")])
+    ("qwen2.5-32b", "fedavgm"), ("chameleon-34b", "fedprox"), ("yi-34b", "fedavg"),
+    ("minicpm3-4b", "fedavgm"), ("qwen3-moe-30b-a3b", "fedprox")])
 def test_temporal_lm_rounds_match_the_jax_package(arch, strategy, jnp_kernels):
     kw = dict(strategy=strategy, client_lr=0.05, prox_mu=0.01, local_epochs=1,
               server_momentum=0.9, seed=0, n_clients=4)
@@ -219,6 +227,34 @@ def test_lm_checkpoint_resume_is_bitwise_the_uninterrupted_run(tmp_path, monkeyp
     for part in ("params", "server"):
         for (k, a), (_, b) in zip(ckpt._leaves(whole[part]), ckpt._leaves(resumed[part])):
             assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_tied_lm_checkpoint_restores_in_both_packages(writer, tmp_path):
+    """Reduced minicpm3-4b (tied: no ``lm_head`` leaf; MLA's leaf names):
+    a FedAvgM state written by one package restores bitwise into the
+    other's, leaf for leaf in the JAX flatten order."""
+    from repro.checkpoint import ckpt as j_ckpt
+    fl_kw = dict(strategy="fedavgm", n_clients=4, server_momentum=0.9)
+    jcfg = jreduced(jget_config("minicpm3-4b"))
+    jfl = JFLConfig(**fl_kw)
+    jstate = j_init_state(jzoo.build(jcfg), j_get_strategy(jfl), jfl, jdet.root_key(3))
+    state = _state_from_jax(jax.tree.map(np.asarray, jstate))
+    assert "lm_head" not in state["params"] and "blocks/attn/wdkv" in state["params"]
+    _, _, fresh = train_fl_lm.setup(reduced_config(get_config("minicpm3-4b")),
+                                    FLConfig(**fl_kw), "cpu")
+    if writer == "jax":
+        j_ckpt.save(tmp_path, 1, jstate, extra={"next_round": 1}, async_write=False)
+        back, extra = ckpt.restore(tmp_path, 1, fresh)
+        assert extra == {"next_round": 1}
+        for (k, a), (_, b) in zip(ckpt._leaves(state), ckpt._leaves(back)):
+            assert torch.equal(a, b), k
+    else:
+        ckpt.save(tmp_path, 1, state)
+        jfresh = jax.tree.map(jnp.zeros_like, jstate)
+        jback, _ = j_ckpt.restore(tmp_path, 1, jfresh)
+        for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(jback)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_bf16_lm_state_saves_and_restores_bitwise(tmp_path):

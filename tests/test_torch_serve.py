@@ -1,6 +1,8 @@
-"""The port's LM serving path (``repro_torch.launch.serve`` over the dense
-``transformer.Model``) against the JAX package's, on reduced yi-34b in f32
-with the same numpy weights (carried across with ``interop``).
+"""The port's LM serving path (``repro_torch.launch.serve`` over
+``transformer.Model``) against the JAX package's, on reduced configs in f32
+with the same numpy weights (carried across with ``interop``): yi-34b,
+then QKV bias and qk-norm (qwen2.5-32b, chameleon-34b), MLA with tied
+embeddings (minicpm3-4b) and MoE (qwen3-moe-30b-a3b, arctic-480b).
 
 The JAX side runs its CPU path (``REPRO_KERNEL_IMPL=jnp``); the port takes
 its kernels' plain versions on the CPU.
@@ -176,16 +178,84 @@ def test_serve_main_runs_on_the_cpu(capsys):
 
 # qwen2.5-32b and yi-34b with qkv_bias or qk_norm build since QKV bias and
 # qk-norm were ported (test_bias_and_qk_norm_archs_give_the_jax_packages_tokens
-# runs them); three archs that are still refused take their places
+# runs them), MLA, MoE and tied embeddings since they were
+# (test_mla_and_moe_archs_match_the_jax_package); the families that are still
+# refused take their places
 @pytest.mark.parametrize("arch,change", [
-    ("arctic-480b", None), ("minicpm3-4b", None), ("qwen3-moe-30b-a3b", None),
-    ("whisper-base", None), ("xlstm-125m", None),
-    ("yi-34b", {"tie_embeddings": True}), ("yi-34b", {"attn_type": "mla"}),
-    ("jamba-1.5-large-398b", None),
+    ("whisper-base", None), ("xlstm-125m", None), ("jamba-1.5-large-398b", None),
+    ("yi-34b", {"family": "encdec"}), ("yi-34b", {"family": "ssm"}),
+    ("minicpm3-4b", {"family": "hybrid"}), ("qwen3-moe-30b-a3b", {"family": "hybrid"}),
+    ("arctic-480b", {"family": "encdec"}),
 ])
 def test_build_refuses_what_is_not_yet_ported(arch, change):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         model_zoo.build(arch if change is None else get_config(arch).replace(**change))
+
+
+NEW_ARCHS = ("minicpm3-4b", "qwen3-moe-30b-a3b", "arctic-480b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_mla_and_moe_configs_match_the_jax_package(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(reduced_config(cfg)) == dataclasses.asdict(jreduced(jcfg))
+    assert transformer.param_shapes(cfg) == jtf.param_shapes(jcfg)
+    assert ("lm_head" in transformer.param_shapes(cfg)) == (not cfg.tie_embeddings)
+    p = model_zoo.build(reduced_config(cfg)).init(torch.Generator().manual_seed(0))
+    want = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(
+        jtf.param_shapes(jreduced(jcfg)), is_leaf=lambda x: isinstance(x, tuple))[0]}
+    assert {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+            jax.tree_util.tree_flatten_with_path(p)[0]} == want
+
+
+def _moved_params(arch, seed):
+    """The JAX reduced model and its init, the norm weights moved off 1."""
+    jmodel = jzoo.build(jreduced(jget_config(arch)))
+    rng = np.random.RandomState(seed)
+
+    def move(path, t):
+        if any(f"['{n}']" in jax.tree_util.keystr(path) for n in ("q_norm", "k_norm",
+                                                                   "kv_norm")):
+            return t + 0.3 * jnp.asarray(rng.randn(*t.shape), t.dtype)
+        return t
+    return jmodel, jax.tree_util.tree_map_with_path(move, jmodel.init(jax.random.PRNGKey(0)))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_mla_and_moe_archs_match_the_jax_package(arch, jnp_kernels):
+    """Reduced minicpm3-4b (MLA, tied), qwen3-moe-30b-a3b (MoE, qk-norm) and
+    arctic-480b (subgrid MoE, dense residual): prefill logits and caches
+    (a LatentCache for MLA), two teacher-forced decode steps, and the JAX
+    ``generate``'s greedy tokens."""
+    jmodel, jparams = _moved_params(arch, 4)
+    model = model_zoo.build(reduced_config(get_config(arch)))
+    params = interop.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    B, S, steps = 2, 24, 2
+    rng = np.random.RandomState(5)
+    prompts = rng.randint(0, 512, (B, S)).astype(np.int32)
+    forced = rng.randint(0, 512, (steps, B)).astype(np.int32)
+    ctx = AxisCtx()
+    jcaches, jlogits, _ = jmodel.prefill(ctx, jparams, {"tokens": jnp.asarray(prompts)})
+    caches, logits, _ = model.prefill(params, {"tokens": torch.from_numpy(prompts).long()})
+    assert type(caches).__name__ == type(jcaches).__name__
+    _close(logits, jlogits, 1e-4)
+    for got, want in zip(caches, jcaches):
+        _close(got, want, 1e-5)
+    jcaches, caches = jtf.pad_caches(jcaches, steps), transformer.pad_caches(caches, steps)
+    length = np.full((B,), S, np.int32)
+    for i in range(steps):
+        jlogits, jcaches = jmodel.decode_step(ctx, jparams, jnp.asarray(forced[i]), jcaches,
+                                              jnp.asarray(length), tp=False)
+        logits, caches = model.decode_step(params, torch.from_numpy(forced[i]).long(),
+                                           caches, torch.from_numpy(length))
+        _close(logits, jlogits, 1e-4)
+        length = length + 1
+    for got, want in zip(interop.to_numpy(caches), jcaches):
+        _close(got, want, 1e-5)
+    want = np.asarray(jgenerate(jmodel, jparams, jnp.asarray(prompts), 6))
+    got = serve.generate(model, params, torch.from_numpy(prompts).long(), 6)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "qwen1.5-32b", "chameleon-34b"])
@@ -231,7 +301,7 @@ def test_bias_and_qk_norm_archs_give_the_jax_packages_tokens(arch, jnp_kernels):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "chameleon-34b", *NEW_ARCHS])
 def test_serve_main_runs_the_new_archs_on_the_cpu(arch, capsys):
     toks = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                        "--prompt-len", "8", "--max-new", "3"])

@@ -100,8 +100,9 @@ def test_model_zoo_builds_paper_models_only():
     assert input_shape(get_config("flsim-logreg")) == (28, 28, 1)
     assert type(model_zoo.build("yi-34b")).__name__ == "Model"   # dense GQA LM
     assert type(model_zoo.build("qwen2.5-32b")).__name__ == "Model"   # + QKV bias
+    assert type(model_zoo.build("arctic-480b")).__name__ == "Model"   # MoE
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        model_zoo.build("arctic-480b")
+        model_zoo.build("whisper-base")
 
 
 @pytest.mark.parametrize("arch", ["flsim-cnn", "flsim-mlp", "flsim-logreg"])
@@ -112,3 +113,22 @@ def test_count_params_of_the_paper_models_equals_jax(arch):
     assert model_zoo.count_params(get_config(arch)) == want
     if arch == "flsim-cnn":
         assert want == 188_810
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "qwen2.5-32b", "qwen1.5-32b", "chameleon-34b",
+                                  "minicpm3-4b", "qwen3-moe-30b-a3b", "arctic-480b"])
+def test_count_params_of_every_ported_lm_equals_jax(arch):
+    """Padded and not (the vocab padding off once when tied), and active
+    (top_k of each MoE layer's experts), at full and at reduced size."""
+    from repro.configs.base import get_config as j_get_config
+    from repro.configs.reduce import reduced_config as j_reduced
+    from repro.models import model_zoo as j_model_zoo
+    from repro_torch.configs.reduce import reduced_config
+    for cfg, jcfg in ((get_config(arch), j_get_config(arch)),
+                      (reduced_config(get_config(arch)), j_reduced(j_get_config(arch)))):
+        for kw in ({}, {"padded": True}, {"active_only": True},
+                   {"padded": True, "active_only": True}):
+            assert model_zoo.count_params(cfg, **kw) == j_model_zoo.count_params(jcfg, **kw)
+    if arch == "qwen3-moe-30b-a3b":   # 30.5 B params, 3.3 B active
+        assert 30e9 < model_zoo.count_params(get_config(arch)) < 31e9
+        assert 3e9 < model_zoo.count_params(get_config(arch), active_only=True) < 3.5e9
