@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-``--baseline DIR``: DIR is the ``csrc`` directory of an earlier version of
-the port whose rmsnorm and quant_aggregate have PR 13's C entry points (for
-instance ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR
---strip-components=3``); those two kernels are built from it and timed
-beside this tree's, in turns (old, new, new, old).
+``--baseline DIR``: DIR holds sources of an earlier version of the port
+(for instance ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR
+--strip-components=3``, then keep the ones to compare); whichever of
+``rmsnorm.cu`` and ``quant_aggregate.cu`` with PR 13's C entry points and
+``flash_attention.cu`` with PR 12's (the CUDA-core B3, up to PR 20) it
+holds are built from it and timed beside this tree's, in turns (old, new,
+new, old).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -15,9 +17,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    limit, and the TF32 flags the entry points set.
 2. build   — compiles every kernel under ``src/repro_torch/csrc/`` with nvcc
    (all at once, with an empty kernel for the launch floor and the baseline's
-   two kernels) into ``build/repro_torch/``; prints the build seconds, the
-   compiler's register/spill report, and the count of wgmma (``HGMMA``)
-   instructions in the tensor-core flash kernel's machine code.
+   kernels) into ``build/repro_torch/``; prints the build seconds, the
+   compiler's register/spill report, and the count of tensor-core
+   instructions in the two flash kernels' machine code (``HGMMA`` in the
+   wgmma kernel, TF32 ``HMMA`` in the tf32x3 one: neither may be missing).
 3. kernels — each kernel against its plain PyTorch version on the card:
    quant_aggregate bitwise at the shapes the FL path and the aggregation
    benchmark use, plus a ragged tail and a single client, with its launch
@@ -26,10 +29,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    tolerances at its shapes (f32 and bf16: MHA, GQA, MQA with Sq != Sk and
    q_offset, Dk != Dv, full attention, a decode row of length 0, ragged
    lengths, decode lengths at the split boundaries) and at the serve path's
-   shapes in bf16. Flash attention in bf16 with head dims 64/128 runs the
-   tensor-core (wgmma) kernel, the rest the SIMT kernel; the SIMT kernel is
-   also run and timed in bf16 at the serve shape, beside the new one, through
-   its own C entry point. Decode attention splits the cache over CTAs and
+   shapes in bf16. Flash attention in bf16 with head dims that are
+   multiples of 8 runs the wgmma kernel, f32 and the other bf16 dims the
+   tf32x3 kernel (three TF32 passes on mma.sync), as
+   ``flash_attention.launch_plan`` names it; the tf32x3 kernel is also
+   run on the bf16 inputs of every wgmma check, and timed in bf16 at the
+   serve shape beside wgmma. Then (slice 11) the tf32x3 kernel in f32 at
+   the two shapes the f32 card-vs-CPU phases launch (reduced GQA and
+   reduced MLA), and, kernel-level only, at yi-34b's serve shape and at
+   MLA's absorbed dims, against its plain version and timed
+   beside its bound at both rates (f32 CUDA cores; three TF32 passes on
+   the tensor cores), SDPA in f32 and, with ``--baseline``, PR 12's
+   kernel. Decode attention splits the cache over CTAs and
    combines the splits in the same call; it is also held to ``plain_split``,
    the PyTorch mirror of that split. Times with CUDA events
    (L2 flushed before every launch) beside the bound: device time with the
@@ -123,8 +134,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    its bound and SDPA (the backend it took named; SDPA's inputs prepared
    outside the timed call): the absorbed form (288, 256) at the serve shape
    (8 x 2048, 40 heads on one kv head) and the training shape (2 x 2048;
-   the ported backward too) on the wgmma kernel, the expanded form (96,
-   64) on the SIMT kernel; B2 at each row width these paths give it
+   the ported backward too) and the expanded form (96, 64) on the wgmma
+   kernel (the expanded form also beside PR 12's kernel with
+   ``--baseline``); B2 at each row width these paths give it
    (2560, 768, MLA's kv_norm 256 sliced from 288-wide rows, 2048, qk-norm
    128) at prefill, decode and training rows, and B4 at qwen3-moe's decode
    layer (8 x 2112 cache, 32 heads on 4 kv heads of 128, ragged lengths),
@@ -133,7 +145,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    width and depth (62 layers, bf16, batch 8 x prompt 2048 + 64 new; B2 4 x
    62 + 1 a forward, counted by width, B3 62 on wgmma, no B4: MLA decodes
    with einsums; tokens bitwise repeatable) with layer 0's expanded form
-   (``mla_seqsharded(absorbed=False)``, one SIMT launch) beside its
+   (``mla_seqsharded(absorbed=False)``, one wgmma launch) beside its
    absorbed form; minicpm3-4b (8 of 62 layers) and qwen3-moe-30b-a3b (2 of 48)
    trained as phase 10 trains qwen2.5-32b (3 rounds, losses finite and
    falling, a second run bitwise, one round profiled); qwen3-moe-30b-a3b
@@ -147,12 +159,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
    whole number of 512-key blocks). Launch counts rmsnorm 17 x 65 (17 in
    the narrow row layout at prefill, 17 x 64 in the wide one at decode),
-   flash 8 (all wgmma, no SIMT), decode 8 x 64; a second run gives bitwise the same
-   tokens, prefill and
-   decode logits; prefill seconds, decode ms per token, tokens/s and peak
+   flash 8 (all wgmma, no tf32x3), decode 8 x 64; a second run gives
+   bitwise the same tokens, prefill and decode logits; prefill seconds, decode ms per token, tokens/s and peak
    memory. Then reduced yi-34b in f32 from the same weights on the card and
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
-   tokens equal.
+   tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
+   train rounds of phases 10 and 11 count theirs too).
 13. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
@@ -179,6 +191,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 dense tensor cores
+TF32_FLOPS_PER_S = 494.7e12    # H100 SXM data sheet, tf32 dense tensor cores
+# B3 in f32 (slice 11): the tf32x3 kernel at the two shapes the f32
+# card-vs-CPU serve and train phases launch (the reduced GQA configs, and
+# reduced minicpm3-4b's absorbed MLA), and, on no path, at yi-34b's serve
+# shape and at MLA's absorbed dims in f32; B, S, H, KV, Dk, Dv
+F32_FLASH = {"reduced": (2, 64, 4, 2, 16, 16), "mla_reduced": (2, 64, 4, 1, 24, 16),
+             "serve": (8, 2048, 56, 8, 128, 128), "mla_absorbed": (2, 2048, 40, 1, 288, 256)}
 KERNEL_SHAPES = [(100, 189_952, 256),     # main path: C=100 clients, flsim-cnn packed
                  (16, 1_048_576, 256),    # BENCH_agg shape
                  (7, 4_224, 128),         # ragged tail
@@ -204,7 +223,11 @@ FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv  (tests/test_kernels.py:34-39, then
     # MLA (slice 10): absorbed (288, 256), 40 heads on one kv head (bf16:
     # wgmma, 64 keys a stage), ragged, q_offset, one row; expanded (96, 64)
     (1, 300, 300, 40, 1, 288, 256), (2, 70, 200, 8, 1, 288, 256),
-    (1, 1, 333, 40, 1, 288, 256), (2, 100, 100, 40, 40, 96, 64)]
+    (1, 1, 333, 40, 1, 288, 256), (2, 100, 100, 40, 40, 96, 64),
+    # slice 11: the reduced MLA dims, a single kv block, (288, 288) (bf16
+    # on the tf32x3 kernel), GQA heads packed in one tile at Sq 1
+    (2, 70, 200, 8, 1, 24, 16), (2, 32, 32, 4, 2, 64, 64), (1, 100, 100, 4, 1, 288, 288),
+    (2, 1, 129, 40, 1, 24, 16)]
 DECODE_CHECKS = [  # B, S, H, KV, D  (tests/test_kernels.py:91, then ragged, G = 7)
     (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 128, 8, 1, 32), (4, 600, 14, 2, 16),
     (2, 90, 6, 3, 12)]
@@ -378,14 +401,16 @@ extern "C" int empty_launch(void* stream) {
 
 def build_extras(build, baseline):
     """The empty kernel (its source written under build/) and, with
-    ``--baseline``, the earlier rmsnorm and quant_aggregate, all built
-    together; returns {name: library path}."""
+    ``--baseline``, whichever of the earlier rmsnorm, quant_aggregate and
+    flash_attention the directory holds, each group built together;
+    returns {name: library path}."""
     extra = build.BUILD_DIR.parent / "chip_smoke"
     extra.mkdir(parents=True, exist_ok=True)
     (extra / "empty.cu").write_text(EMPTY_CU)
     libs = {}
-    todo = [(["empty"], extra)] + ([(["rmsnorm", "quant_aggregate"], baseline)]
-                                   if baseline else [])
+    old = [n for n in ("rmsnorm", "quant_aggregate", "flash_attention")
+           if baseline and (baseline / f"{n}.cu").exists()]
+    todo = [(["empty"], extra)] + ([(old, baseline)] if old else [])
     for names, csrc in todo:
         for name, path in build.build(names, csrc).items():
             libs[name if csrc == extra else f"{name} (baseline)"] = path
@@ -395,7 +420,8 @@ def build_extras(build, baseline):
 def bind_extras(torch, libs):
     """Python callables for the extra libraries: ``empty()`` and, where the
     baseline was built, ``rmsnorm(x, w)`` and ``quant_aggregate(q, s, w)``
-    through PR 13's C entry points."""
+    through PR 13's C entry points and ``flash_attention(q, k, v,
+    q_offset=0, causal=True, scale=None) -> (out, lse)`` through PR 12's."""
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
@@ -406,31 +432,51 @@ def bind_extras(torch, libs):
     empty = ctypes.CDLL(str(libs["empty"])).empty_launch
     empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
     out = {"empty": lambda: checked(empty(stream()), "empty kernel")}
-    if "rmsnorm (baseline)" not in libs:
-        return out
-    rms = ctypes.CDLL(str(libs["rmsnorm (baseline)"])).rmsnorm_launch
-    rms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    rms.restype = ctypes.c_int
-    agg = ctypes.CDLL(str(libs["quant_aggregate (baseline)"])).quant_aggregate_launch
-    agg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
-    agg.restype = ctypes.c_int
     codes = {torch.float32: 0, torch.bfloat16: 1}
+    if "rmsnorm (baseline)" in libs:
+        rms = ctypes.CDLL(str(libs["rmsnorm (baseline)"])).rmsnorm_launch
+        rms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        rms.restype = ctypes.c_int
 
-    def old_rmsnorm(x, w):
-        o = torch.empty_like(x)
-        D = x.shape[-1]
-        checked(rms(x.data_ptr(), w.data_ptr(), o.data_ptr(), x.numel() // D, D, 1e-6,
-                    codes[x.dtype], codes[w.dtype], stream()), "baseline rmsnorm")
-        return o
+        def old_rmsnorm(x, w):
+            o = torch.empty_like(x)
+            D = x.shape[-1]
+            checked(rms(x.data_ptr(), w.data_ptr(), o.data_ptr(), x.numel() // D, D, 1e-6,
+                        codes[x.dtype], codes[w.dtype], stream()), "baseline rmsnorm")
+            return o
+        out["rmsnorm"] = old_rmsnorm
+    if "quant_aggregate (baseline)" in libs:
+        agg = ctypes.CDLL(str(libs["quant_aggregate (baseline)"])).quant_aggregate_launch
+        agg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                                ctypes.c_void_p]
+        agg.restype = ctypes.c_int
 
-    def old_quant_aggregate(q, s, w):
-        o = torch.empty((q.shape[1],), dtype=torch.float32, device=q.device)
-        checked(agg(q.data_ptr(), s.data_ptr(), w.data_ptr(), o.data_ptr(), q.shape[0],
-                    q.shape[1], q.shape[1] // s.shape[1], stream()), "baseline quant_aggregate")
-        return o
-    out.update(rmsnorm=old_rmsnorm, quant_aggregate=old_quant_aggregate)
+        def old_quant_aggregate(q, s, w):
+            o = torch.empty((q.shape[1],), dtype=torch.float32, device=q.device)
+            checked(agg(q.data_ptr(), s.data_ptr(), w.data_ptr(), o.data_ptr(), q.shape[0],
+                        q.shape[1], q.shape[1] // s.shape[1], stream()),
+                    "baseline quant_aggregate")
+            return o
+        out["quant_aggregate"] = old_quant_aggregate
+    if "flash_attention (baseline)" not in libs:
+        return out
+    fl = ctypes.CDLL(str(libs["flash_attention (baseline)"])).flash_attention_launch
+    fl.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                                               ctypes.c_void_p]
+    fl.restype = ctypes.c_int
+
+    def old_flash(q, k, v, q_offset=0, causal=True, scale=None):
+        B, Sq, H, Dk = q.shape
+        _, Sk, KV, Dv = v.shape
+        o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        checked(fl(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B,
+                   Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(causal),
+                   float(scale if scale is not None else Dk ** -0.5), codes[q.dtype],
+                   stream()), "baseline flash_attention")
+        return o, lse
+    out["flash_attention"] = old_flash
     return out
 
 
@@ -1126,8 +1172,8 @@ def check_lm_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     dev = torch.device("cuda")
-    worst = {"rmsnorm": 0.0, "flash_attention_wgmma": 0.0, "flash_attention_simt_f32": 0.0,
-             "flash_attention_simt_bf16": 0.0, "decode_attention": 0.0}
+    worst = {"rmsnorm": 0.0, "flash_attention_wgmma": 0.0, "flash_attention_tf32x3_f32": 0.0,
+             "flash_attention_tf32x3_bf16": 0.0, "decode_attention": 0.0}
     for i, shape in enumerate(RMS_CHECKS):
         for dt in (torch.float32, torch.bfloat16):
             x = _randn(torch, shape, dt, i, dev)
@@ -1146,15 +1192,16 @@ def check_lm_kernels(torch):
                 want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
                 err = close(torch, name, out, want, ATTN_TOL[_dt(q)])
                 close(torch, name + " lse", lse, want_lse, ATTN_TOL[_dt(q)])
-                key = ("flash_attention_wgmma" if fa.uses_wgmma(dt, Dk, Dv)
-                       else f"flash_attention_simt_{'f32' if dt == torch.float32 else 'bf16'}")
+                kernel = fa.launch_plan(dt, Dk, Dv).kernel
+                key = (f"flash_attention_{kernel}" if kernel == "wgmma" else
+                       f"flash_attention_tf32x3_{'f32' if dt == torch.float32 else 'bf16'}")
                 worst[key] = max(worst[key], err)
-                if key == "flash_attention_wgmma":   # the SIMT kernel on the same bf16 inputs
-                    out, lse = fa._launch("simt", q, k, v, Sk - Sq, causal, None)
-                    err = close(torch, name + " simt", out, want, ATTN_TOL[_dt(q)])
-                    close(torch, name + " simt lse", lse, want_lse, ATTN_TOL[_dt(q)])
-                    worst["flash_attention_simt_bf16"] = max(
-                        worst["flash_attention_simt_bf16"], err)
+                if kernel == "wgmma":   # the tf32x3 kernel on the same bf16 inputs
+                    out, lse = fa._launch("tf32x3", q, k, v, Sk - Sq, causal, None)
+                    err = close(torch, name + " tf32x3", out, want, ATTN_TOL[_dt(q)])
+                    close(torch, name + " tf32x3 lse", lse, want_lse, ATTN_TOL[_dt(q)])
+                    worst["flash_attention_tf32x3_bf16"] = max(
+                        worst["flash_attention_tf32x3_bf16"], err)
     for i, (B, S, H, KV, D) in enumerate(DECODE_CHECKS):
         for dt in (torch.float32, torch.bfloat16):
             q = _randn(torch, (B, H, D), dt, 3 * i, dev)
@@ -1315,7 +1362,7 @@ def time_lm_kernels(torch, flush, extras):
     lib_err = close(torch, "sdpa prefill", sdpa(q, k, v).transpose(1, 2), out,
                     YARDSTICK_TOL)
     pairs = S * (S + 1) // 2
-    if not fa.uses_wgmma(q.dtype, HD, HD):
+    if fa.launch_plan(q.dtype, HD, HD).kernel != "wgmma":
         raise AssertionError("the serve shape does not take the wgmma flash kernel")
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
     flops = 2 * B * H * pairs * (HD + HD)
@@ -1324,18 +1371,18 @@ def time_lm_kernels(torch, flush, extras):
         lambda q, k, v: fa.flash_attention_fwd(q, k, v, 0, True), (q, k, v),
         lambda q, k, v: fa.plain(q, k, v, 0, True), sdpa, nbytes, flops,
         BF16_FLOPS_PER_S, 50, 5, lib_err)
-    # the SIMT kernel (the f32 path) in bf16 on the same inputs, for old vs new
-    def simt(q, k, v):
-        return fa._launch("simt", q, k, v, 0, True, None)
-    s_out, s_lse = simt(q, k, v)
-    s_err = close(torch, "flash prefill simt", s_out, want, ATTN_TOL["bfloat16"])
-    close(torch, "flash prefill simt lse", s_lse, want_lse, ATTN_TOL["bfloat16"])
+    # the tf32x3 kernel (the f32 path) in bf16 on the same inputs, beside wgmma
+    def tf32x3(q, k, v):
+        return fa._launch("tf32x3", q, k, v, 0, True, None)
+    s_out, s_lse = tf32x3(q, k, v)
+    s_err = close(torch, "flash prefill tf32x3", s_out, want, ATTN_TOL["bfloat16"])
+    close(torch, "flash prefill tf32x3 lse", s_lse, want_lse, ATTN_TOL["bfloat16"])
     # same function and inputs: the bound, plain and SDPA times carry over
     r = dict(rows["flash_attention"], max_abs_err=s_err,
-             kernel_ms=time_device(simt, (q, k, v), 10, flush, batch=10),
-             kernel_call_ms=time_call(simt, (q, k, v), 10, flush))
-    log("kernel flash_attention prefill (simt, bf16)", json.dumps(r))
-    rows["flash_attention_simt"] = r
+             kernel_ms=time_device(tf32x3, (q, k, v), 10, flush, batch=10),
+             kernel_call_ms=time_call(tf32x3, (q, k, v), 10, flush))
+    log("kernel flash_attention prefill (tf32x3, bf16)", json.dumps(r))
+    rows["flash_attention_tf32x3_bf16"] = r
     del q, k, v, kt, vt, out, lse, want, want_lse, s_out, s_lse
 
     # B4 decode attention: one decode layer at the last step (full 2112 cache)
@@ -1365,6 +1412,70 @@ def time_lm_kernels(torch, flush, extras):
         2 * keys * H * (HD + HD), BF16_FLOPS_PER_S, 200, 20, lib_err)
     del q, k, v, kt, vt, o, m, l, po, pm, pl
     torch.cuda.empty_cache()
+    return rows
+
+
+def time_f32_flash(torch, flush, extras):
+    """B3 in f32 on the tf32x3 kernel (slice 11) at F32_FLASH's shapes,
+    causal, q_offset 0: against its plain version (2e-5), then its device
+    ms beside the plain version's, SDPA's in f32 (the backend it took
+    named; TF32 off, as the entry points set it), the PR 12 kernel's (with
+    ``--baseline``, in turns: old, new, new, old) and the bound at both
+    rates: the products over the f32 CUDA cores' rate
+    (``bound_f32_cores_ms``), and their three TF32 passes over the tensor
+    cores' (``bound_ms``: the kernel's own operations)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev, f32 = torch.device("cuda"), torch.float32
+    rows = {}
+    for i, (name, (B, S, H, KV, Dk, Dv)) in enumerate(F32_FLASH.items()):
+        q = _randn(torch, (B, S, H, Dk), f32, 200 + 3 * i, dev)
+        k = _randn(torch, (B, S, KV, Dk), f32, 201 + 3 * i, dev)
+        v = _randn(torch, (B, S, KV, Dv), f32, 202 + 3 * i, dev)
+        plan = fa.launch_plan(f32, Dk, Dv)
+        before = fa.flash_attention_fwd.launches_by_kernel["tf32x3"]
+        out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+        torch.cuda.synchronize()
+        if plan.kernel != "tf32x3" or \
+                fa.flash_attention_fwd.launches_by_kernel["tf32x3"] != before + 1:
+            raise AssertionError(f"flash f32 {name}: not launched on the tf32x3 kernel")
+        want, want_lse = fa.plain(q, k, v, 0, True)
+        err = close(torch, f"flash f32 {name}", out, want, ATTN_TOL["float32"])
+        close(torch, f"flash f32 {name} lse", lse, want_lse, ATTN_TOL["float32"])
+        lib, lib_args, _, backend = sdpa_yardstick(torch, q, k, v, Dk ** -0.5)
+        lib_err = close(torch, f"sdpa f32 {name} ({backend})",
+                        lib(*lib_args).transpose(1, 2), out, YARDSTICK_TOL)
+        pairs = S * (S + 1) // 2
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel() + lse.numel()) * 4
+        flops = 2 * B * H * pairs * (Dk + Dv)
+        big = S > 64
+        it, pit = (20, 2) if big else (200, 20)
+
+        def ours(q, k, v):
+            return fa.flash_attention_fwd(q, k, v, 0, True)
+        r = {"shape": [B, S, S, H, KV, Dk, Dv], "dtype": "float32", "plan": plan._asdict(),
+             "max_abs_err": err, "kernel_ms": time_device(ours, (q, k, v), it, flush,
+                                                          batch=min(it, 10)),
+             "kernel_call_ms": time_call(ours, (q, k, v), it, flush),
+             "plain_ms": time_device(lambda q, k, v: fa.plain(q, k, v, 0, True), (q, k, v),
+                                     pit, flush, batch=min(pit, 10)),
+             "library_ms": time_device(lib, lib_args, it // 2, flush, batch=min(it // 2, 10)),
+             "library_backend": backend, "library_max_abs_err": lib_err,
+             "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                      "cudnn": torch.backends.cudnn.allow_tf32},
+             "bytes": nbytes, "flops": flops, "tf32_flops": 3 * flops}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        r["bound_f32_cores_ms"], r["bound_f32_cores_by"] = bound(nbytes, flops,
+                                                                 F32_FLOPS_PER_S)
+        if "flash_attention" in extras:   # the PR 12 kernel on the same inputs
+            old = extras["flash_attention"]
+            r["baseline_max_abs_err"] = close(torch, f"baseline flash f32 {name}",
+                                              old(q, k, v)[0], want, ATTN_TOL["float32"])
+            r["baseline_ms"], r["new_ms_in_turns"] = in_turns(
+                old, ours, (q, k, v), 4 if big else 100, flush, batch=2 if big else 20)
+        log(f"kernel flash_attention f32 {name} (tf32x3)", json.dumps(r))
+        rows[name] = r
+        del q, k, v, out, lse, want, want_lse, lib_args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1444,7 +1555,7 @@ def phase_serve(torch, kernels):
     if norm_by_layout != want_layout:
         raise AssertionError(f"serve path rmsnorm launches by layout {norm_by_layout}, "
                              f"want {want_layout}")
-    if flash_by_kernel != {"wgmma": L, "simt": 0}:
+    if flash_by_kernel != {"wgmma": L, "tf32x3": 0}:
         raise AssertionError(f"serve path flash launches {flash_by_kernel}, want all "
                              f"{L} on the wgmma kernel")
     if toks.shape != (B, new) or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
@@ -1531,9 +1642,9 @@ def phase_serve_card_vs_cpu(torch, arch=SERVE["arch"]):
     prompts = torch.randint(0, model.cfg.vocab_size, (2, 64),
                             generator=torch.Generator().manual_seed(2))
     out = {}
-    # the f32 serve path (head dim 16) runs the SIMT flash kernel; its counts
-    # are zeroed just before the card's run and read just after
-    fa.flash_attention_fwd.launches_by_kernel = {"wgmma": 0, "simt": 0}
+    # the f32 serve path (head dim 16) runs the tf32x3 flash kernel; its
+    # counts are zeroed just before the card's run and read just after
+    fa.flash_attention_fwd.launches_by_kernel = {k: 0 for k in fa.SOURCES}
     for dev in ("cuda", "cpu"):
         p = _tree_to(params, dev)
         with torch.inference_mode():
@@ -1551,14 +1662,14 @@ def phase_serve_card_vs_cpu(torch, arch=SERVE["arch"]):
             toks.append(tok)
         out[dev] = (torch.stack(toks).cpu(), torch.stack(all_logits).cpu())
     flash_by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
-    if flash_by_kernel != {"wgmma": 0, "simt": model.cfg.n_layers}:
+    if flash_by_kernel != {"wgmma": 0, "tf32x3": model.cfg.n_layers}:
         raise AssertionError(f"f32 serve path flash launches {flash_by_kernel}")
     if not torch.equal(out["cuda"][0], out["cpu"][0]):
         raise AssertionError("serve card vs cpu: tokens differ")
     # tolerance: f32 matmuls sum in another order on the card (TF32 off)
     err = close(torch, "serve card vs cpu logits", out["cuda"][1], out["cpu"][1], 1e-4)
     res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4,
-           "flash_by_kernel": flash_by_kernel}
+           "flash_by_kernel": flash_by_kernel, "mla": model.cfg.attn_type == "mla"}
     log(f"serve card vs cpu (reduced {arch}, f32, prefill + 4 decode steps)", json.dumps(res))
     return res
 
@@ -2179,7 +2290,7 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_FLASH_CHECKS = [  # B, Sq, Sk, H, KV, Dk, Dv, dtype
     (2, 2048, 2048, 40, 8, 128, 128, "bfloat16"),   # the training shape (wgmma)
     (1, 333, 333, 40, 8, 128, 128, "bfloat16"),     # ragged
-    (2, 512, 512, 8, 2, 64, 64, "float32")]         # f32 (SIMT)
+    (2, 512, 512, 8, 2, 64, 64, "float32")]         # f32 (tf32x3)
 TRAIN_RMS_CHECKS = [((2, 2048, 5120), "bfloat16"),          # the train stack's norms
                     ((2, 2048, 40, 128), "bfloat16"),       # qk-norm rows, D 128
                     ((4, 300, 128), "float32")]
@@ -2461,7 +2572,7 @@ def phase_train_lm(torch, kernels, T=TRAIN):
     log(f"train launches {json.dumps(launches)} (want {json.dumps(want)}); flash by kernel "
         f"{json.dumps(flash_by_kernel)}; rmsnorm by layout {json.dumps(norm_by_layout)}; "
         f"per round {json.dumps(per_round[0])}")
-    if launches != want or flash_by_kernel["simt"] != 0:
+    if launches != want or flash_by_kernel["tf32x3"] != 0:
         raise AssertionError(f"train launches {launches} by kernel {flash_by_kernel}, "
                              f"want {want}, all flash on wgmma")
     if not all(math.isfinite(x) for x in losses):
@@ -2545,10 +2656,11 @@ def grad_memory(torch, model, params, lm, T, dev):
 def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
     """One temporal FedAvgM round of reduced qwen2.5-32b (QKV bias) and
     chameleon-34b (qk-norm), or ``archs``, in f32 on the card and on the
-    CPU."""
+    CPU; B3's launches counted on the card's round."""
     from repro_torch.configs.base import FLConfig, get_config
     from repro_torch.configs.reduce import reduced_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train_fl_lm
     res = {}
     for arch in archs:
@@ -2558,11 +2670,19 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
         out = {}
         for tag, dev in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
             _, round_fn, state = train_fl_lm.setup(cfg, fl, dev)
+            # B3's counts zeroed just before the round, read just after
+            fa.flash_attention_fwd.launches_by_kernel = {k: 0 for k in fa.SOURCES}
             state, logger = train_fl_lm.run_rounds(
                 round_fn, state, lm, 0, 1, clients=4, cohort=2, batch=2, seq=64,
                 local_steps=2, device=dev)
             out[tag] = (logger.series("loss")[0],
-                        {k: v.cpu() for k, v in state["params"].items()})
+                        {k: v.cpu() for k, v in state["params"].items()},
+                        dict(fa.flash_attention_fwd.launches_by_kernel))
+        # f32 on the card: one tf32x3 launch a layer per local step (cohort 2 x 2)
+        want_by_kernel = {"wgmma": 0, "tf32x3": cfg.n_layers * 4}
+        if out["card"][2] != want_by_kernel:
+            raise AssertionError(f"train card vs cpu {arch}: flash launches "
+                                 f"{out['card'][2]}, want {want_by_kernel}")
         loss_err = abs(out["card"][0] - out["cpu"][0])
         if loss_err > TRAIN_CARD_CPU_TOL * abs(out["cpu"][0]):
             raise AssertionError(f"train card vs cpu {arch}: losses {out['card'][0]} vs "
@@ -2570,7 +2690,8 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
         err = max(close(torch, f"train card vs cpu {arch} {k}", out["card"][1][k], v,
                         TRAIN_CARD_CPU_TOL) for k, v in out["cpu"][1].items())
         res[arch] = {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
-                     "max_abs_param_diff": err}
+                     "max_abs_param_diff": err, "flash_by_kernel": out["card"][2],
+                     "mla": cfg.attn_type == "mla"}
     log(f"train card vs cpu (reduced {', '.join(archs)}, f32, one temporal fedavgm round)",
         json.dumps(res))
     return res
@@ -2716,7 +2837,7 @@ def mla_b3_inputs(torch, B, S, absorbed, seed):
         seen["scale"]
 
 
-def time_mla_kernels(torch, flush):
+def time_mla_kernels(torch, flush, extras):
     """B3 at MLA's shapes (MLA_KERNEL_SHAPES) on the inputs the MLA layer
     gives it: against its plain version and against the plain version in
     f32 (both at 2e-2, with max |want| and the relative errors logged);
@@ -2729,7 +2850,8 @@ def time_mla_kernels(torch, flush):
     version in f32), with the plain version's bf16 error beside it: raw
     scores of 288-wide unit rows are ~17, and the plain version rounds them
     to bf16 before scaling (as the JAX package's blockwise forward does);
-    the kernel keeps them in f32."""
+    the kernel keeps them in f32. With ``--baseline`` the expanded form
+    also on the PR 12 kernel, in turns."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     bf16 = torch.bfloat16
@@ -2737,7 +2859,7 @@ def time_mla_kernels(torch, flush):
     for i, (name, (B, S, absorbed)) in enumerate(MLA_KERNEL_SHAPES.items()):
         q, k, v, scale = mla_b3_inputs(torch, B, S, absorbed, 170 + 10 * i)
         H, KV, Dk, Dv = q.shape[2], k.shape[2], q.shape[3], v.shape[3]
-        kernel = "wgmma" if fa.uses_wgmma(bf16, Dk, Dv) else "simt"
+        kernel = fa.launch_plan(bf16, Dk, Dv).kernel
         before = dict(fa.flash_attention_fwd.launches_by_kernel)
         out, lse = fa.flash_attention_fwd(q, k, v, 0, True, scale)
         torch.cuda.synchronize()
@@ -2784,6 +2906,14 @@ def time_mla_kernels(torch, flush):
             "library_backend": backend, "library_max_abs_err": lib_err,
             "bytes": nbytes, "flops": flops})
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        if not absorbed and "flash_attention" in extras:   # the PR 12 kernel
+            old = extras["flash_attention"]
+            r["baseline_max_abs_err"] = close(torch, f"baseline flash {name}",
+                                              old(q, k, v, 0, True, scale)[0], want, tol)
+            r["baseline_ms"], r["new_ms_in_turns"] = in_turns(
+                lambda q, k, v: old(q, k, v, 0, True, scale),
+                lambda q, k, v: fa.flash_attention_fwd(q, k, v, 0, True, scale),
+                (q, k, v), 4, flush, batch=2)
         if name == "mla_serve":   # unit-variance inputs against an f32 reference
             g = [_randn(torch, t.shape, bf16, 190 + j, q.device) for j, t in
                  enumerate((q, k, v))]
@@ -3003,7 +3133,7 @@ def phase_serve_slice10(torch, kernels, S_):
         f"{json.dumps(norm_by_layout)}, by width {json.dumps(norm_by_width)} (want "
         f"{json.dumps(want_width)}); a decode step: rmsnorm "
         f"{S_['norms_per_layer'] * L + 1}, decode attention {S_['decode_per_layer'] * L}")
-    if launches != want or flash_by_kernel != {"wgmma": L, "simt": 0} or \
+    if launches != want or flash_by_kernel != {"wgmma": L, "tf32x3": 0} or \
             norm_by_width != want_width:
         raise AssertionError(f"serve {cfg.name}: launches {launches} by kernel "
                              f"{flash_by_kernel}, rmsnorm by width {norm_by_width}, want "
@@ -3046,7 +3176,7 @@ def phase_serve_slice10(torch, kernels, S_):
         out["moe_prefill"] = moe_drop_fractions(torch, model, params, prompts)
     if cfg.attn_type == "mla":
         # the expanded form (mla_seqsharded(absorbed=False)) of layer 0 on
-        # the layer's own input: B3 at (96, 64) on the SIMT kernel, counted;
+        # the layer's own input: B3 at (96, 64) on the wgmma kernel, counted;
         # its output near the absorbed form's
         from repro_torch.models import attention as attn
         from repro_torch.models.layers import rms_norm
@@ -3066,8 +3196,8 @@ def phase_serve_slice10(torch, kernels, S_):
                     kernels["flash_attention"].launches_by_kernel)
                 if absorbed:
                     oa = o
-        if out["expanded_flash_by_kernel"] != {"wgmma": 0, "simt": 1} or \
-                out["absorbed_flash_by_kernel"] != {"wgmma": 1, "simt": 0}:
+        if out["expanded_flash_by_kernel"] != {"wgmma": 1, "tf32x3": 0} or \
+                out["absorbed_flash_by_kernel"] != {"wgmma": 1, "tf32x3": 0}:
             raise AssertionError(f"MLA layer 0: flash launches absorbed "
                                  f"{out['absorbed_flash_by_kernel']}, expanded "
                                  f"{out['expanded_flash_by_kernel']}")
@@ -3087,8 +3217,9 @@ def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path, default=None,
-                    help="csrc directory of an earlier version: its rmsnorm and "
-                         "quant_aggregate are timed beside this tree's")
+                    help="sources of an earlier version: whichever of its rmsnorm, "
+                         "quant_aggregate and flash_attention the directory holds are "
+                         "timed beside this tree's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3117,17 +3248,25 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:   # the extras' nvcc runs beside the package's
+
+    def timed_build(name):   # one source's nvcc, timed from the common start
+        path = build.build([name])[name]
+        return path, time.perf_counter() - t0
+    sources = build.sources()
+    with ThreadPoolExecutor(len(sources) + 1) as pool:   # every nvcc started together
         extra_build = pool.submit(build_extras, build, args.baseline)
-        libs = build.build(build.sources())
+        builds = {name: pool.submit(timed_build, name) for name in sources}
+        libs = {name: f.result()[0] for name, f in builds.items()}
+        nvcc_s = {name: round(f.result()[1], 1) for name, f in builds.items()}
         extra_libs = extra_build.result()
-    log(f"build: {sorted(libs)} + {sorted(extra_libs)} in {time.perf_counter() - t0:.1f}s")
+    log(f"build: {sorted(libs)} + {sorted(extra_libs)} in {time.perf_counter() - t0:.1f}s; "
+        f"nvcc seconds by source (all started together): {json.dumps(nvcc_s)}")
     extras = bind_extras(torch, extra_libs)
     for name, path in sorted({**libs, **extra_libs}.items()):
         for line in build.ptxas(path).splitlines():
             if "entry function" in line:
                 log(f"ptxas {name}: {line.split('entry function')[1].strip()[:110]}")
-            if "registers" in line or "spill" in line:
+            if ("registers" in line and "Used" in line) or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
                            "-sass", str(libs["flash_attention_wgmma"])],
@@ -3136,12 +3275,20 @@ def main() -> int:
     log(f"cuobjdump flash_attention_wgmma: {hgmma} HGMMA (wgmma) instructions")
     if hgmma == 0:
         raise AssertionError("the tensor-core flash kernel holds no wgmma instruction")
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(libs["flash_attention"])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hmma_tf32 = sum("HMMA" in line and "TF32" in line for line in sass.splitlines())
+    log(f"cuobjdump flash_attention: {hmma_tf32} TF32 HMMA (mma.sync) instructions")
+    if hmma_tf32 == 0:
+        raise AssertionError("the tf32x3 flash kernel holds no TF32 mma.sync instruction")
 
     # 3. kernels vs plain versions
     rows = phase_kernels(torch, qa, extras)
     lm_worst = check_lm_kernels(torch)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     lm_rows = time_lm_kernels(torch, flush, extras)
+    f32_flash_rows = time_f32_flash(torch, flush, extras)
     del flush
 
     # 4. FL path; counts zeroed just before it, read just after
@@ -3224,7 +3371,7 @@ def main() -> int:
     # CPU; counts zeroed just before each counted path, read just after
     t0 = time.perf_counter()
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    mla_rows = time_mla_kernels(torch, flush)
+    mla_rows = time_mla_kernels(torch, flush, extras)
     norm_decode_rows = time_slice10_norms_decode(torch, flush)
     del flush
     serve_mla = phase_serve_slice10(torch, kernels, SERVE_MLA)
@@ -3300,12 +3447,6 @@ def main() -> int:
             ("flash_attention_wgmma", "flash_attention",
              "src/repro_torch/csrc/flash_attention_wgmma.cu", flash_src,
              serve["flash_by_kernel"]["wgmma"], lm_worst["flash_attention_wgmma"]),
-            # the f32 path: launches on the f32 serve path (reduced yi-34b,
-            # head dim 16); times in bf16 at the serve shape, beside wgmma
-            ("flash_attention_simt", "flash_attention_simt",
-             "src/repro_torch/csrc/flash_attention.cu", flash_src,
-             serve_cpu["flash_by_kernel"]["simt"],
-             max(lm_worst["flash_attention_simt_f32"], lm_worst["flash_attention_simt_bf16"])),
             ("decode_attention", "decode_attention",
              "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:29", serve["launches"]["decode_attention"],
@@ -3320,6 +3461,37 @@ def main() -> int:
             "worst_max_abs_err_test_shapes": worst, "shape": r["shape"]})
         if "baseline_ms" in r:
             entries[-1]["baseline_ms"] = r["baseline_ms"]
+    # slice 11: B3 in f32 on the tf32x3 kernel. The path entries are timed
+    # at the shapes their launches have (the f32 card-vs-CPU serve and train
+    # runs: reduced GQA at 16/16, reduced MLA absorbed at 24/16); yi-34b's
+    # serve shape and MLA's absorbed dims in f32 are kernel-level only
+    def f32_launches(mla):
+        runs = (serve_cpu, *serve_cpu10.values(), *train_cpu.values(), *train_cpu10.values())
+        return sum(r["flash_by_kernel"]["tf32x3"] for r in runs if r["mla"] == mla)
+    for name, key, launches, path in (
+            ("flash_attention_tf32x3_reduced", "reduced", f32_launches(False),
+             "reduced yi-34b, qwen3-moe-30b-a3b, arctic-480b served and reduced "
+             "qwen2.5-32b, chameleon-34b, qwen3-moe-30b-a3b, arctic-480b trained in f32 on "
+             "the card (card vs CPU)"),
+            ("flash_attention_tf32x3_mla_reduced", "mla_reduced", f32_launches(True),
+             "reduced minicpm3-4b (absorbed MLA) served and trained in f32 on the card "
+             "(card vs CPU)"),
+            ("flash_attention_tf32x3_f32_serve_shape", "serve", 0,
+             "kernel-level only: no path launches f32 at yi-34b's width"),
+            ("flash_attention_tf32x3_f32_mla_absorbed", "mla_absorbed", 0,
+             "kernel-level only: no path launches f32 at minicpm3-4b's width")):
+        r = f32_flash_rows[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": flash_src, "launches": launches, "launches_path": path,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "call_ms": r["kernel_call_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "bound_f32_cores_ms": r["bound_f32_cores_ms"],
+            "library_ms": r["library_ms"], "library_backend": r["library_backend"],
+            "baseline_ms": r.get("baseline_ms"), "bitwise": False, "shape": r["shape"],
+            "dtype": "float32",
+            "worst_max_abs_err_test_shapes": max(lm_worst["flash_attention_tf32x3_f32"],
+                                                 lm_worst["flash_attention_tf32x3_bf16"])})
     # slice 9: B3 forward at the training shape under autograd (the ported
     # backward's times beside it), B2 at the train stack's and qk-norm rows
     fl_row = train_rows["flash_train"]
@@ -3354,8 +3526,8 @@ def main() -> int:
              serve_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b serve, 62 layers"),
             ("flash_attention_wgmma_mla_train", "mla_train",
              train_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b train, 8 layers, 3 rounds"),
-            ("flash_attention_simt_mla_expanded", "mla_expanded",
-             serve_mla["expanded_flash_by_kernel"]["simt"],
+            ("flash_attention_wgmma_mla_expanded", "mla_expanded",
+             serve_mla["expanded_flash_by_kernel"]["wgmma"],
              "minicpm3-4b layer 0, mla_seqsharded(absorbed=False)")):
         r = mla_rows[key]
         source = ("src/repro_torch/csrc/flash_attention_wgmma.cu" if r["kernel"] == "wgmma"
@@ -3367,7 +3539,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_backend": r["library_backend"], "bitwise": False, "shape": r["shape"],
             **{k: r[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
-                                 "fwd_bwd_bound_ms", "library_fwd_bwd_ms") if k in r}})
+                                 "fwd_bwd_bound_ms", "library_fwd_bwd_ms", "baseline_ms")
+               if k in r}})
     # slice 10: B2 at each row width and B4 at qwen3-moe's decode layer,
     # launches from the counted serve paths (B2 by width, prefill and decode)
     for name, key, launches, path in (
@@ -3410,7 +3583,7 @@ def main() -> int:
     log(json.dumps({"slice": "3: B3 flash attention on the tensor cores (wgmma, TMA) and "
                     "B4 decode attention split over the cache",
                     "flash_wgmma_ms": lm_rows["flash_attention"]["kernel_ms"],
-                    "flash_simt_bf16_ms": lm_rows["flash_attention_simt"]["kernel_ms"],
+                    "flash_tf32x3_bf16_ms": lm_rows["flash_attention_tf32x3_bf16"]["kernel_ms"],
                     "decode_ms": lm_rows["decode_attention"]["kernel_ms"],
                     "prefill_device_busy_ms": serve["profile_prefill"]["device_busy_ms"],
                     "decode_step_device_busy_ms":
@@ -3508,6 +3681,23 @@ def main() -> int:
                         for t_ in (train_mla, train_moe)},
                     "train_profiles": {t_["arch"]: t_["profile"] for t_ in (train_mla, train_moe)},
                     "card_vs_cpu": {"train": train_cpu10, "serve": serve_cpu10}}))
+    exp = mla_rows["mla_expanded"]
+    log(json.dumps({"slice": "11: B3 on the tensor cores only: f32 (and bf16 at dims TMA "
+                    "cannot take) in three TF32 passes on mma.sync, bf16 at any head dim "
+                    "that is a multiple of 8 on wgmma",
+                    "f32_flash": f32_flash_rows,
+                    "tf32x3_bf16_at_serve_shape_ms":
+                        lm_rows["flash_attention_tf32x3_bf16"]["kernel_ms"],
+                    "mla_expanded_wgmma": {k: exp.get(k) for k in (
+                        "kernel_ms", "bound_ms", "library_ms", "library_backend",
+                        "baseline_ms", "new_ms_in_turns", "max_abs_err")},
+                    "tf32x3_launches": {
+                        "serve_card_vs_cpu": {a: r["flash_by_kernel"] for a, r in
+                                              ((SERVE["arch"], serve_cpu),
+                                               *serve_cpu10.items())},
+                        "train_card_vs_cpu": {a: r["flash_by_kernel"] for a, r in
+                                              (*train_cpu.items(), *train_cpu10.items())}},
+                    "worst": {k: v for k, v in lm_worst.items() if k.startswith("flash")}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py:30 (_fwd_kernel) for bf16 inputs
-// with head dims Dk, Dv each in {64, 128}, and MLA's absorbed form (Dk 288,
-// Dv 256: 40 query heads on one kv head at minicpm3-4b); f32 and other
-// head dims take the SIMT kernel in flash_attention.cu. For q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
+// whose head dims Dk, Dv are multiples of 8 (a tensor map's row stride is
+// a multiple of 16 bytes) and fit one of the tiles below: every (Dk, Dv)
+// of the port's configs (128/128, 64/64, MLA's absorbed 288/256 and
+// expanded 96/64, the reduced configs' 16/16 and 24/16). f32, and bf16 at
+// other head dims, take the 3xTF32 mma.sync kernel in flash_attention.cu
+// (kernels/flash_attention.launch_plan decides). For q (B,Sq,H,Dk), k (B,Sk,KV,Dk),
 // v (B,Sk,KV,Dv), head h reading kv head h / (H/KV) (GQA by index, any
 // group size), it computes per row
 //
@@ -54,20 +57,28 @@
 // argument; the Sq and Sk tails are masked here (the TPU kernel asserts
 // divisibility).
 //
+// Tiles, any head dim. The kernel is templated on KS, the k-steps of 16
+// columns that Q K^T takes, and DVP, the 64-column panels of V and O. Q
+// and K load as ceil(KS / 4) panels. The tensor maps are encoded with the
+// true head dims, so where a dim stops short of its last panel (16, 24, 96,
+// 288) the box's columns past it lie outside the tensor, and TMA writes
+// zeros there (and counts the whole box's bytes): the zero columns of Q
+// and K add nothing to Q K^T, and O's zero columns are not stored.
+// kernels/flash_attention.launch_plan names the first tile of
+// FA_WGMMA_TILES that holds a call's dims, so Dk = 24 takes KS = 2 and Dk =
+// 288 takes 18, reading none of the fifth panel's zero columns; the entry
+// point launches the tile it is given.
+//
 // MLA's absorbed dims (288, 256). Bound: operations; at the serve shape (B
 // 8, S 2048 causal, 40 heads on one kv head) the products are 730.5 GFLOP
-// against 733 MB: 0.739 ms at 989 TFLOP/s, 0.219 ms at 3.35 TB/s. Three
-// things change against the 64/128 tiles:
-// - 288 is not a multiple of the 64-column panel of the 128-byte swizzle.
-//   The tensor maps are encoded with Dk = 288 and Q and K are loaded as
-//   five panels; the fifth box's columns 288..319 lie past the tensor, and
-//   TMA writes zeros there (and counts the whole box's bytes). Q K^T takes
-//   18 k-steps of 16, so it reads none of the zero columns.
+// against 733 MB: 0.739 ms at 989 TFLOP/s, 0.219 ms at 3.35 TB/s. Against
+// the 64/128 tiles:
 // - Shared memory: at 128 keys a stage, Q, two K and two V stages would
-//   take 352 KB. With BK = 64 keys a stage: Q 128 x 320 x 2 B = 80 KB, the K
-//   ring 2 x 64 x 320 x 2 B = 80 KB and the V ring 2 x 64 x 256 x 2 B =
-//   64 KB, 230,464 bytes with alignment and barriers, under the 232,448 a
-//   block may use. 128 q rows a CTA stay, so K and V are read by two
+//   take 352 KB. keys_a_stage picks 128 keys a stage where the tiles fit
+//   in a block's shared memory, else 64. With 64: Q 128 x 320 x 2 B = 80
+//   KB, the K ring 2 x 64 x 320 x 2 B = 80 KB and the V ring 2 x 64 x 256
+//   x 2 B = 64 KB, 230,464 bytes with alignment and barriers, under the
+//   232,448 a block may use. 128 q rows a CTA stay, so K and V are read by two
 //   warpgroups at once as before.
 // - O of 64 x 256 f32 is 128 registers a thread; P V is two n128 wgmmas a
 //   k-step, on the two halves of O. S of 64 x 64 takes 32.
@@ -80,7 +91,7 @@
 // cost every thread some 16 instructions per block), 1.09 ms. Left for
 // later: warp specialisation (a producer warp, so the two warpgroups need
 // not meet at a barrier every block), pingpong between the warpgroups,
-// persistent CTAs, head dims other than these five pairs.
+// persistent CTAs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -90,14 +101,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kWG = 2;         // consumer warpgroups per CTA, 64 q rows each
-constexpr int kBQ = 64 * kWG;  // q rows per CTA; keys per kv block: BK (64 or 128)
-constexpr int kThreads = 128 * kWG;
-constexpr int kStages = 2;     // K ring and V ring
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -131,19 +134,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head), "r"(row), "r"(batch)
       : "memory");
 }
-// 64-column panels of a head dim D (the last one part zeros where 64 does
-// not divide D)
-__host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
-
-// rows [row, row + R) of one head as panels(D) panels of R rows x 128
-// bytes, swizzled by the TMA unit (128B); rows past the tensor's end, and
-// columns past D, read as zeros
-template <int R, int D>
+// rows [row, row + R) of one head as P panels of R rows x 64 columns (128
+// bytes), swizzled by the TMA unit (128B); rows past the tensor's end, and
+// columns past its head dim, read as zeros
+template <int R, int P>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int head, int row, int batch) {
 #pragma unroll
-  for (int p = 0; p < panels(D); ++p)
-    tma_load(dst + p * R * 128, map, bar, 64 * p, head, row, batch);
+  for (int p = 0; p < P; ++p) tma_load(dst + p * R * 128, map, bar, 64 * p, head, row, batch);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -172,6 +170,24 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kWG = 2;         // consumer warpgroups per CTA, 64 q rows each
+constexpr int kBQ = 64 * kWG;  // q rows per CTA; keys per kv block: BK (64 or 128)
+constexpr int kThreads = 128 * kWG;
+constexpr int kStages = 2;     // K ring and V ring
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 64-column panels that KS k-steps of 16 read (the last one part zeros
+// where the head dim stops short of it)
+__host__ __device__ constexpr int k_panels(int ks) { return (ks + 3) / 4; }
 
 // D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both from shared memory,
 // both K-major; scale_d == 0 overwrites D.
@@ -238,17 +254,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n128(d, a, b);
 }
 
-template <int DK, int DV, int BK>
-constexpr int smem_bytes() {
-  // + 1024 for alignment; Q, the K ring, the V ring (in whole panels), 5 mbarriers
-  constexpr int dk = 64 * panels(DK), dv = 64 * panels(DV);
-  return 1024 + 2 * (kBQ * dk + kStages * BK * dk + kStages * BK * dv) + 64;
+// shared memory of the tiles, in bytes: + 1024 for alignment; Q, the K
+// ring, the V ring (in whole panels), 5 mbarriers
+__host__ __device__ constexpr int smem_bytes(int ks, int dvp, int bk) {
+  return 1024 + 2 * (kBQ * 64 * k_panels(ks) + kStages * bk * 64 * k_panels(ks) +
+                     kStages * bk * 64 * dvp) + 64;
 }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use on Hopper
+// keys a stage: 128 where the tiles fit in shared memory, else 64
+__host__ __device__ constexpr int keys_a_stage(int ks, int dvp) {
+  return smem_bytes(ks, dvp, 128) <= kMaxSmem ? 128 : 64;
 }
 
 // Fold a block of raw scores into the running max m2 (log2 units) and sum l
@@ -319,13 +334,12 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
 }
 
 // S = Q K^T for one kv block, started and committed (not waited for);
-// DK / 16 k-steps, so a last panel's zero columns are never read
-template <int DK, int BK>
+// KS k-steps of 16 columns: columns between Dk and 16 * KS are zeros
+template <int KS, int BK>
 __device__ __forceinline__ void start_qk(float (&s)[BK / 2], uint32_t Qs, uint32_t kt) {
-  static_assert(DK % 16 == 0, "Dk must be a whole number of k-steps");
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint32_t col = (kk % 4) * 32;   // 16 elements = 32 bytes into the panel
     wgmma_ss<BK>(s, desc_sw128(Qs + (kk / 4) * (kBQ * 128) + col, 16, 1024),
                  desc_sw128(kt + (kk / 4) * (BK * 128) + col, 16, 1024), kk > 0);
@@ -334,22 +348,24 @@ __device__ __forceinline__ void start_qk(float (&s)[BK / 2], uint32_t Qs, uint32
   fence_regs(s);
 }
 
-// O += P V for one kv block, started and committed (not waited for). A
-// Dv of 256 is two n128 products a k-step, on columns 0..127 and 128..255
-// of O (accumulator elements 0..63 and 64..127: the D layout puts column
-// 8j + c at element 4j + c), reading V's panels 0-1 and 2-3.
-template <int DV, int BK>
-__device__ __forceinline__ void start_pv(float (&o)[DV / 2], const uint32_t (&pa)[BK / 16][4],
+// O += P V for one kv block, started and committed (not waited for), on
+// DVP panels of V (64 * DVP columns of O). Four panels are two n128
+// products a k-step, on columns 0..127 and 128..255 of O (accumulator
+// elements 0..63 and 64..127: the D layout puts column 8j + c at element
+// 4j + c), reading V's panels 0-1 and 2-3.
+template <int DVP, int BK>
+__device__ __forceinline__ void start_pv(float (&o)[32 * DVP], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t vt) {
+  static_assert(DVP == 1 || DVP == 2 || DVP == 4, "V is 1, 2 or 4 panels");
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    if constexpr (DV <= 128) {
-      wgmma_rs<DV>(o, pa[kk], desc_sw128(vt + kk * 16 * 128, BK * 128, 1024));
+    if constexpr (DVP <= 2) {
+      wgmma_rs<64 * DVP>(o, pa[kk], desc_sw128(vt + kk * 16 * 128, BK * 128, 1024));
     } else {
 #pragma unroll
-      for (int c = 0; c < DV / 128; ++c)
+      for (int c = 0; c < 2; ++c)
         wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * c), pa[kk],
                       desc_sw128(vt + c * 2 * BK * 128 + kk * 16 * 128, BK * 128, 1024));
     }
@@ -358,14 +374,17 @@ __device__ __forceinline__ void start_pv(float (&o)[DV / 2], const uint32_t (&pa
   fence_regs(o);
 }
 
-template <int DK, int DV, int BK>
+// KS: k-steps of Q K^T (Dk <= 16 * KS); DVP: 64-column panels of V and O
+// (Dv <= 64 * DVP); BK: keys a stage
+template <int KS, int DVP, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                   float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int KV, int Dv,
                    int q_offset, int causal, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
-  constexpr int dk = 64 * panels(DK), dv = 64 * panels(DV);    // in whole panels
+  constexpr int PK = k_panels(KS), DV = 64 * DVP;
+  constexpr int dk = 64 * PK, dv = DV;                          // in whole panels
   const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;   // [dk/64][kBQ][128 B]
   const uint32_t Ks = Qs + kBQ * dk * 2;                        // kStages x [dk/64][BK][128 B]
   const uint32_t Vs = Ks + kStages * BK * dk * 2;              // kStages x [dv/64][BK][128 B]
@@ -411,16 +430,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   auto load_k = [&](int j) {
     const uint32_t bar = kbar + 8 * (j % kStages);
     mbar_expect_tx(bar, kTileK);
-    tma_tile<BK, DK>(Ks + (j % kStages) * kTileK, &tk, bar, kvh, j * BK, b);
+    tma_tile<BK, PK>(Ks + (j % kStages) * kTileK, &tk, bar, kvh, j * BK, b);
   };
   auto load_v = [&](int j) {
     const uint32_t bar = vbar + 8 * (j % kStages);
     mbar_expect_tx(bar, kTileV);
-    tma_tile<BK, DV>(Vs + (j % kStages) * kTileV, &tv, bar, kvh, j * BK, b);
+    tma_tile<BK, DVP>(Vs + (j % kStages) * kTileV, &tv, bar, kvh, j * BK, b);
   };
   if (copier) {
     mbar_expect_tx(qbar, kBQ * dk * 2);
-    tma_tile<kBQ, DK>(Qs, &tq, qbar, h, q0, b);
+    tma_tile<kBQ, PK>(Qs, &tq, qbar, h, q0, b);
     if (nkb > 0) load_k(0);
     if (nkb > 1) load_k(1);
     if (nkb > 0) load_v(0);
@@ -431,7 +450,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     mbar_wait(qbar, 0);
     mbar_wait(kbar, 0);
     float s[BK / 2];
-    start_qk<DK, BK>(s, Qw, Ks);
+    start_qk<KS, BK>(s, Qw, Ks);
     wgmma_wait<0>();
     fence_regs(s);
     softmax_block<BK>(s, m2, l, alpha, 0, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
@@ -452,8 +471,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     mbar_wait(vbar + 8 * (j % kStages), (j / kStages) & 1);
 
     float s[BK / 2];
-    start_qk<DK, BK>(s, Qw, Ks + ((j + 1) % kStages) * kTileK);
-    start_pv<DV, BK>(o, pa, Vs + (j % kStages) * kTileV);
+    start_qk<KS, BK>(s, Qw, Ks + ((j + 1) % kStages) * kTileK);
+    start_pv<DVP, BK>(o, pa, Vs + (j % kStages) * kTileV);
     wgmma_wait<1>();   // S_{j+1} is done; P_j V_j may still run
     fence_regs(s);
     softmax_block<BK>(s, m2, l, alpha, k1, qw0, r0, cq, Sk, q_offset, causal, scale_log2);
@@ -471,7 +490,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   if (nkb > 0) {   // the last step: P V only
     mbar_wait(vbar + 8 * ((nkb - 1) % kStages), ((nkb - 1) / kStages) & 1);
-    start_pv<DV, BK>(o, pa, Vs + ((nkb - 1) % kStages) * kTileV);
+    start_pv<DVP, BK>(o, pa, Vs + ((nkb - 1) % kStages) * kTileV);
     wgmma_wait<0>();
     fence_regs(o);
   } else {
@@ -487,11 +506,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int qi = qw0 + r0 + 8 * hr;
     if (qi >= Sq) continue;
     const float inv = 1.0f / fmaxf(lr, 1e-30f);
-    bf16* orow = out + (((int64_t)b * Sq + qi) * H + h) * DV;
+    bf16* orow = out + (((int64_t)b * Sq + qi) * H + h) * Dv;
 #pragma unroll
-    for (int jd = 0; jd < DV / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd + cq) =
-          __floats2bfloat162_rn(o[4 * jd + 2 * hr] * inv, o[4 * jd + 2 * hr + 1] * inv);
+    for (int jd = 0; jd < DV / 8; ++jd)   // columns past Dv (a multiple of 8) are zeros
+      if (8 * jd < Dv)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd + cq) =
+            __floats2bfloat162_rn(o[4 * jd + 2 * hr] * inv, o[4 * jd + 2 * hr + 1] * inv);
     if (lane % 4 == 0) {
       const float m = m2[hr] == kNegInf ? kNegInf : m2[hr] * kLn2;
       lse[((int64_t)b * H + h) * Sq + qi] = m + logf(fmaxf(lr, 1e-30f));
@@ -499,70 +519,84 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-// A 4-d tensor map (d, head, row, batch) of a contiguous bf16 (B, S, heads, D)
-// tensor, read in boxes of 64 d x 1 head x `rows` rows with the 128-byte
-// swizzle; rows past S, and columns past D, read as zeros. Returns 0 or the
-// driver's error.
+// A 4-d tensor map (d, head, row, batch) of a contiguous bf16 (B, S,
+// heads, D) tensor, read in boxes of 64 d x 1 head x `rows` rows with the
+// 128-byte swizzle; rows past S, and columns past D, read as zeros.
+// Returns 0 or the driver's error.
 int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                                     dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return (int)cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DK, int DV, int BK>
+template <int KS, int DVP>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-           int Sk, int H, int KV, int q_offset, int causal, float scale, cudaStream_t stream) {
+           int Sk, int H, int KV, int Dk, int Dv, int q_offset, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int BK = keys_a_stage(KS, DVP);
+  constexpr int smem = smem_bytes(KS, DVP, BK);
+  static_assert(smem <= kMaxSmem, "tiles exceed the shared memory of a block");
   CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, q, B, Sq, H, DK, kBQ);
+  int rc = encode(&tq, q, B, Sq, H, Dk, kBQ);
   // with no keys, K and V are never read: their maps only need to be valid
-  if (!rc) rc = Sk ? encode(&tk, k, B, Sk, KV, DK, BK) : encode(&tk, q, B, Sq, H, DK, BK);
-  if (!rc) rc = Sk ? encode(&tv, v, B, Sk, KV, DV, BK) : encode(&tv, q, B, Sq, H, DK, BK);
+  if (!rc)
+    rc = Sk ? encode(&tk, k, B, Sk, KV, Dk, BK) : encode(&tk, q, B, Sq, H, Dk, BK);
+  if (!rc)
+    rc = Sk ? encode(&tv, v, B, Sk, KV, Dv, BK) : encode(&tv, q, B, Sq, H, Dk, BK);
   if (rc) return rc;
-  constexpr int smem = smem_bytes<DK, DV, BK>();
-  static_assert(smem <= 232448, "tiles exceed the shared memory of a block");
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV, BK>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<KS, DVP, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_wgmma_kernel<DK, DV, BK><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk, H, KV, q_offset,
-      causal, scale * kLog2e);
+  flash_wgmma_kernel<KS, DVP, BK><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk, H, KV, Dv,
+      q_offset, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
+
+// The instantiated tiles, (k-steps of Q K^T, panels of V), indexed by the
+// entry point's `tile`; kernels/flash_attention.WGMMA_TILES mirrors this
+// list (a CPU test reads it from here).
+#define FA_WGMMA_TILES(X) X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(6, 1) X(8, 1) X(8, 2) X(18, 4)
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes), with the signature of
 // flash_attention.cu's. Device pointers to contiguous bf16 (dtype 1)
 // q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv), out (B,Sq,H,Dv), all
-// 16-byte aligned, and f32 lse (B,H,Sq). Dk and Dv each 64 or 128, or
-// (Dk, Dv) = (288, 256). The
-// caller has checked shapes, H % KV == 0, q_offset >= 0 and B, H < 65536.
-// Returns the driver's error from encoding a tensor map, or the first CUDA
-// error of the set-up or the launch, else 0.
+// 16-byte aligned, and f32 lse (B,H,Sq). Dk and Dv multiples of 8 (a tensor
+// map's row stride is a multiple of 16 bytes). `tile` indexes
+// FA_WGMMA_TILES and `smem` is the dynamic shared memory the caller's plan
+// gives it; the call runs on that tile if it holds the dims (Dk <= 16 *
+// KS, Dv <= 64 * DVP) and its shared bytes are `smem`, else gets
+// cudaErrorInvalidValue before any CUDA call. The caller has checked
+// shapes, H % KV == 0, q_offset >= 0 and B, H < 65536. Returns the
+// driver's error from encoding a tensor map, or the first CUDA error of the
+// set-up or the launch, else 0.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* out, void* lse, int B, int Sq, int Sk,
                                             int H, int KV, int Dk, int Dv, int q_offset,
-                                            int causal, float scale, int dtype,
-                                            void* stream) {
+                                            int causal, float scale, int dtype, int tile,
+                                            int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (Dk == 128 && Dv == 128)
-    return launch<128, 128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
-  if (Dk == 64 && Dv == 64)
-    return launch<64, 64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
-  if (Dk == 128 && Dv == 64)
-    return launch<128, 64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
-  if (Dk == 64 && Dv == 128)
-    return launch<64, 128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
-  if (Dk == 288 && Dv == 256)   // MLA absorbed: 64 keys a stage (shared memory)
-    return launch<288, 256, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, q_offset, causal, scale, s);
+  if (dtype != 1 || Dk <= 0 || Dv <= 0 || Dk % 8 || Dv % 8) return (int)cudaErrorInvalidValue;
+  int i = 0;
+#define FA_TRY(KS, DVP)                                                                       \
+  if (tile == i++)                                                                            \
+    return Dk <= 16 * KS && Dv <= 64 * DVP &&                                                 \
+                   smem == smem_bytes(KS, DVP, keys_a_stage(KS, DVP))                         \
+               ? launch<KS, DVP>(q, k, v, out, lse, B, Sq, Sk, H, KV, Dk, Dv, q_offset,       \
+                                 causal, scale, s)                                            \
+               : (int)cudaErrorInvalidValue;
+  FA_WGMMA_TILES(FA_TRY)
+#undef FA_TRY
   return (int)cudaErrorInvalidValue;
 }

@@ -2,25 +2,35 @@
 
 ``flash_attention_fwd`` takes ``plain``, a port of the JAX package's
 blockwise forward (``ops._blockwise_fwd``), for CPU tensors, and for CUDA
-tensors launches one of two hand-written Hopper kernels, chosen by dtype
-and head dims alone (``uses_wgmma``):
+tensors launches one of two hand-written Hopper kernels, both on the
+tensor cores, as ``launch_plan`` names it from dtype and head dims alone:
 
-- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``): bf16 with (Dk, Dv) in
-  ``WGMMA_HEAD_DIMS``: each of 64 and 128, and MLA's absorbed (288, 256).
-  Both products on the tensor cores, K/V tiles through a TMA ring.
-- ``csrc/flash_attention.cu`` (``"simt"``): everything else (f32, and head
-  dims such as 20, 32 or MLA's expanded 96/64), up to 288 where its f32
-  tiles fit in shared memory (its entry point refuses the rest), on the
-  CUDA cores in f32. TF32 tensor cores would not hold f32 to its 2e-5
-  tolerance.
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``): bf16 whose head dims
+  are multiples of 8 (a TMA tensor map's row stride is a multiple of 16
+  bytes) and fit one of ``WGMMA_TILES``: Dk up to 288, Dv up to 256, so
+  every (Dk, Dv) of the port's configs (128/128, 64/64, MLA's 288/256 and
+  96/64, the reduced 16/16 and 24/16). Both products by ``wgmma``, K/V
+  tiles through a TMA ring.
+- ``csrc/flash_attention.cu`` (``"tf32x3"``): f32, and bf16 at the other
+  head dims up to 288 (20, 288/288), on ``mma.sync`` in TF32 with three
+  passes (each f32 operand split into hi + lo TF32 parts; lo*lo dropped),
+  which holds f32 to its 2e-5 tolerance where one TF32 pass does not;
+  bf16 is exact in TF32, so it takes one pass for Q K^T and two for P V.
+  Tiles through a ``cp.async`` ring (``TF32X3_TILES``).
+
+The plan names the tile (an index into the kernel's list, the first that
+holds the dims) and its shared bytes; the C entry point launches that tile
+and refuses a call whose tile does not hold the dims or whose shared bytes
+are not its own. The CPU tests hold the lists to the ones in the sources.
+What neither kernel takes (a head dim above 288), the plan refuses.
 
 All return ``(out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) f32)`` for causal
 or full GQA attention with a runtime ``q_offset``. They differ in rounding
-only: the SIMT kernel reads q, k, v as f32 and keeps scores and
-probabilities in f32 (the Pallas kernel's arithmetic); the wgmma kernel
-keeps scores in f32 and rounds P to bf16 before P V; the plain version, like
-``_blockwise_fwd``, rounds the products of bf16 inputs to bf16 and P to
-bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
+only: the tf32x3 kernel keeps scores and probabilities in f32 (the Pallas
+kernel's arithmetic), its products within 2^-22 of f32's; the wgmma kernel
+keeps scores in f32 and rounds P to bf16 before P V; the plain version,
+like ``_blockwise_fwd``, rounds the products of bf16 inputs to bf16 and P
+to bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
 
 ``plain_bwd`` is the gradient, a port of the JAX package's flash backward
 (``ops._blockwise_bwd``, jnp under ``jax.custom_vjp``: there is no Pallas
@@ -31,21 +41,95 @@ the forward's own ``lse``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CUDA_ERROR_INVALID_VALUE = 1    # cudaErrorInvalidValue: what the entry points refuse with
-# (Dk, Dv) pairs the tensor-core kernel is built for, in bf16
-WGMMA_HEAD_DIMS = ((64, 64), (64, 128), (128, 64), (128, 128), (288, 256))
-SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
+SOURCES = {"wgmma": "flash_attention_wgmma", "tf32x3": "flash_attention"}
+MAX_SMEM = 232_448              # dynamic shared memory a block may use on Hopper
+MAX_HEAD_DIM = 288              # MLA's absorbed Dk
+# csrc/flash_attention_wgmma.cu's FA_WGMMA_TILES: (k-steps of 16 columns in
+# Q K^T, 64-column panels of V), in the order launch_plan tries them
+WGMMA_TILES = ((1, 1), (2, 1), (4, 1), (4, 2), (6, 1), (8, 1), (8, 2), (18, 4))
+# csrc/flash_attention.cu's FA_TF32X3_TILES: (Dk, Dv the tile holds,
+# m-tiles of 16 rows a warp, keys a block), in the order launch_plan tries them
+TF32X3_TILES = ((32, 32, 2, 64), (64, 64, 2, 64), (128, 64, 2, 32), (128, 128, 2, 32),
+                (288, 128, 2, 16), (288, 256, 1, 32), (288, 288, 1, 32))
 
 
-def uses_wgmma(dtype, Dk: int, Dv: int) -> bool:
-    """Whether a CUDA call with this dtype and these head dims launches the
-    tensor-core kernel (else the SIMT kernel)."""
-    return dtype == torch.bfloat16 and (Dk, Dv) in WGMMA_HEAD_DIMS
+class Plan(NamedTuple):
+    """How a CUDA call runs: ``kernel`` ("wgmma" or "tf32x3", a key of
+    ``SOURCES``), ``tile`` its index in that kernel's tile list (what the C
+    entry point launches), ``rows`` q rows a CTA, ``keys`` keys a stage,
+    ``stages`` K (and V) buffers, ``tile_dims`` the (Dk, Dv) columns its
+    tiles hold (zeros past the head dims: whole 64-column panels on wgmma),
+    ``fill`` how tiles reach shared memory ("tma" or "cp.async"),
+    ``smem_bytes`` the dynamic shared memory of a CTA (the entry point
+    refuses any other)."""
+    kernel: str
+    tile: int
+    rows: int
+    keys: int
+    stages: int
+    tile_dims: tuple
+    fill: str
+    smem_bytes: int
+
+
+def _wgmma_smem(ks: int, dvp: int, keys: int) -> int:
+    """``smem_bytes`` of csrc/flash_attention_wgmma.cu: 1024 for alignment,
+    Q (128 rows), two K and two V stages in whole panels, 5 mbarriers."""
+    kp = (ks + 3) // 4
+    return 1024 + 2 * (128 * 64 * kp + 2 * keys * 64 * kp + 2 * keys * 64 * dvp) + 64
+
+
+def _tf32x3_smem(dk: int, dv: int, mt: int, keys: int, esize: int) -> int:
+    """``smem_bytes`` of csrc/flash_attention.cu: Q (64 * mt rows), one K and
+    one V buffer, rows padded so that fragment loads hit distinct banks."""
+    def ld_qk(d):
+        unit, w = 128 // esize, -(-d // 16) * 16
+        return w + (16 - w) % unit
+
+    def ld_v(d):
+        unit, w = 64 // esize, -(-d // 8) * 8
+        return w + (16 // esize - w) % unit
+    return esize * ((64 * mt + keys) * ld_qk(dk) + keys * ld_v(dv))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(dtype: torch.dtype, Dk: int, Dv: int, kernel: str | None = None) -> Plan:
+    """The kernel and geometry a CUDA call with these inputs takes, from
+    dtype and head dims alone. bf16 with Dk, Dv multiples of 8 that a wgmma
+    tile holds: "wgmma" on the first of ``WGMMA_TILES`` that holds them
+    (128 keys a stage where the tiles fit in shared memory, else 64). Else,
+    head dims up to 288 in f32 or bf16: "tf32x3" on the first of
+    ``TF32X3_TILES`` that holds them. ``kernel`` asks for that kernel's plan
+    (the tf32x3 kernel also takes bf16 at the wgmma kernel's dims). What no
+    kernel takes raises ``NotImplementedError``."""
+    if dtype not in DTYPE_CODES:
+        raise NotImplementedError(f"flash_attention: no kernel takes {dtype}")
+    if kernel in (None, "wgmma") and dtype == torch.bfloat16 and Dk > 0 and Dv > 0 and \
+            Dk % 8 == 0 and Dv % 8 == 0:
+        for i, (ks, dvp) in enumerate(WGMMA_TILES):
+            if Dk <= 16 * ks and Dv <= 64 * dvp:
+                keys = 128 if _wgmma_smem(ks, dvp, 128) <= MAX_SMEM else 64
+                return Plan("wgmma", i, 128, keys, 2, (64 * ((ks + 3) // 4), 64 * dvp), "tma",
+                            _wgmma_smem(ks, dvp, keys))
+    if kernel in (None, "tf32x3") and 0 < Dk <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM:
+        esize = torch.empty((), dtype=dtype).element_size()
+        for i, (dk, dv, mt, keys) in enumerate(TF32X3_TILES):
+            if Dk <= dk and Dv <= dv:
+                return Plan("tf32x3", i, 64 * mt, keys, 1, (dk, dv), "cp.async",
+                            _tf32x3_smem(dk, dv, mt, keys, esize))
+    raise NotImplementedError(
+        f"flash_attention: no kernel takes {dtype} head dims Dk={Dk}, Dv={Dv}"
+        f"{f' as {kernel!r} asks' if kernel else ''}: the tf32x3 kernel takes each up to "
+        f"{MAX_HEAD_DIM}, the wgmma kernel bf16 multiples of 8 within {WGMMA_TILES} "
+        f"(k-steps of 16, panels of 64)")
 
 
 def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
@@ -181,7 +265,7 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
 
     ``q_offset`` is the global position of q row 0 (a Python int). CPU
     tensors take ``plain``; CUDA tensors launch the kernel that
-    ``uses_wgmma`` names on the current stream (no synchronisation) or
+    ``launch_plan`` names on the current stream (no synchronisation) or
     raise. Each launch adds one to ``flash_attention_fwd.launches`` and to
     its kernel's entry in ``flash_attention_fwd.launches_by_kernel``."""
     _check(q, k, v, q_offset)
@@ -190,8 +274,7 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
         return plain(q, k, v, int(q_offset), causal, scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
-    Dk, Dv = q.shape[-1], v.shape[-1]
-    kernel = "wgmma" if uses_wgmma(q.dtype, Dk, Dv) else "simt"
+    kernel = launch_plan(q.dtype, q.shape[-1], v.shape[-1]).kernel
     out, lse = _launch(kernel, q, k, v, q_offset, causal, scale)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_kernel[kernel] += 1
@@ -199,12 +282,14 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
 
 
 flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_by_kernel = {"wgmma": 0, "simt": 0}
+flash_attention_fwd.launches_by_kernel = {k: 0 for k in SOURCES}
 
 
 def _launch(kernel, q, k, v, q_offset, causal, scale):
-    """Launch ``kernel`` ("wgmma" or "simt") on checked CUDA tensors; counts
-    nothing (the public wrapper does)."""
+    """Launch ``kernel`` ("wgmma" or "tf32x3") on checked CUDA tensors with
+    its ``launch_plan``; counts nothing (the public wrapper does). The
+    tf32x3 kernel also takes bf16 at the wgmma kernel's dims, for timing
+    the two side by side."""
     dev = q.device
     B, Sq, H, Dk = q.shape
     _, Sk, KV, Dv = v.shape
@@ -212,28 +297,30 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
         raise ValueError(f"flash_attention takes B, H < 65536, got {B}, {H}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention wants contiguous q, k, v")
+    try:
+        plan = launch_plan(q.dtype, Dk, Dv, kernel)
+    except NotImplementedError:
+        if kernel != "wgmma":
+            raise
+        raise ValueError(f"the wgmma kernel takes bf16 with head dims that are multiples of "
+                         f"8 within {WGMMA_TILES} (k-steps of 16, panels of 64), got "
+                         f"{q.dtype}, Dk={Dk}, Dv={Dv}") from None
+    if plan.fill == "tma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"the {kernel} flash-attention kernel loads these tiles by TMA and "
+                         f"wants 16-byte aligned q, k, v")
     scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "wgmma":
-            if not uses_wgmma(q.dtype, Dk, Dv):
-                raise ValueError(f"the wgmma kernel takes bf16 with (Dk, Dv) in "
-                                 f"{WGMMA_HEAD_DIMS}, got {q.dtype}, Dk={Dk}, Dv={Dv}")
-            if any(t.data_ptr() % 16 for t in (q, k, v)):
-                raise ValueError("the wgmma flash-attention kernel wants 16-byte aligned "
-                                 "q, k, v")
         rc = _entry(SOURCES[kernel])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(bool(causal)), scale,
-            DTYPE_CODES[q.dtype], stream)
-    if rc == CUDA_ERROR_INVALID_VALUE and kernel == "simt":
-        raise NotImplementedError(
-            f"the SIMT flash-attention kernel refused head dims Dk={Dk}, Dv={Dv}: it "
-            f"takes them up to 288 where its f32 tiles fit in a block's shared memory "
-            f"(csrc/flash_attention.cu, smem_bytes); the tensor-core kernel takes bf16 "
-            f"{WGMMA_HEAD_DIMS}")
+            DTYPE_CODES[q.dtype], plan.tile, plan.smem_bytes, stream)
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(
+            f"the {kernel} flash-attention kernel refused {plan} for {q.dtype} Dk={Dk}, "
+            f"Dv={Dv}: launch_plan's tile list or shared bytes differ from the source's")
     if rc != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: CUDA error {rc}")
     return out, lse
@@ -245,6 +332,6 @@ def _entry(name):
     from repro_torch.kernels import build
     fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -45,10 +45,12 @@ CKPT_EVERY = 10
 
 
 def scaled_config(arch: str, scale: str) -> ModelConfig:
-    """The arch's reduced config at one of ``SCALES``."""
+    """The arch's reduced config at one of ``SCALES``. The hybrid and ssm
+    families keep the reduced config's layer count (one whole period), as
+    the JAX example does."""
     d, L, f, v = SCALES[scale]
-    return reduced_config(get_config(arch)).replace(d_model=d, d_ff=f, vocab_size=v,
-                                                    n_layers=L)
+    cfg = reduced_config(get_config(arch)).replace(d_model=d, d_ff=f, vocab_size=v)
+    return cfg if cfg.family in ("hybrid", "ssm") else cfg.replace(n_layers=L)
 
 
 def setup(cfg: ModelConfig, fl: FLConfig, device, dtype=torch.float32):

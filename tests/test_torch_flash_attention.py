@@ -134,21 +134,194 @@ def test_plain_at_mla_head_dims_matches_ref(Dk, Dv, scale, dtype, causal):
     (torch.bfloat16, 64, 64, "wgmma"),
     (torch.bfloat16, 128, 64, "wgmma"),      # Dk != Dv
     (torch.bfloat16, 64, 128, "wgmma"),
-    (torch.bfloat16, 96, 64, "simt"),        # head dims outside (64, 128)
-    (torch.bfloat16, 32, 32, "simt"),
-    (torch.bfloat16, 20, 20, "simt"),
-    (torch.bfloat16, 16, 16, "simt"),        # reduced yi-34b
+    (torch.bfloat16, 96, 64, "wgmma"),       # MLA expanded: two Q/K panels
+    (torch.bfloat16, 32, 32, "wgmma"),
+    (torch.bfloat16, 20, 20, "tf32x3"),      # not a multiple of 8: no tensor map
+    (torch.bfloat16, 16, 16, "wgmma"),       # reduced yi-34b
     (torch.bfloat16, 288, 256, "wgmma"),     # MLA absorbed (minicpm3-4b)
-    (torch.bfloat16, 256, 288, "simt"),      # not a pair the wgmma kernel is built for
-    (torch.bfloat16, 288, 288, "simt"),
-    (torch.bfloat16, 24, 16, "simt"),        # reduced minicpm3-4b absorbed
-    (torch.float32, 288, 256, "simt"),
-    (torch.float32, 128, 128, "simt"),       # f32 stays on the CUDA cores
-    (torch.float32, 64, 64, "simt"),
+    (torch.bfloat16, 256, 288, "tf32x3"),    # Dv above the wgmma tiles' 256
+    (torch.bfloat16, 288, 288, "tf32x3"),
+    (torch.bfloat16, 24, 16, "wgmma"),       # reduced minicpm3-4b absorbed
+    (torch.float32, 288, 256, "tf32x3"),
+    (torch.float32, 128, 128, "tf32x3"),     # f32 on the tensor cores in three passes
+    (torch.float32, 64, 64, "tf32x3"),
 ])
 def test_flash_dispatch_by_dtype_and_head_dims(dtype, Dk, Dv, kernel):
     """Which kernel a CUDA call launches depends on dtype and head dims only."""
-    assert fa.uses_wgmma(dtype, Dk, Dv) == (kernel == "wgmma")
+    assert fa.launch_plan(dtype, Dk, Dv).kernel == kernel
+
+
+def _config_head_dims():
+    """(Dk, Dv) of every attention the configs give, full and reduced: the
+    port's for the archs it runs, the JAX package's for the rest (whisper,
+    xlstm, jamba); MLA in both its forms."""
+    from repro.configs import base as jbase
+    from repro.configs.reduce import reduced_config as jreduced
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.reduce import reduced_config
+    dims = set()
+    for arch in jbase.ARCHS:
+        try:
+            full = get_config(arch)
+            cfgs = (full, reduced_config(full))
+        except NotImplementedError:
+            full = jbase.get_config(arch)
+            cfgs = (full, jreduced(full))
+        for c in cfgs:
+            if c.attn_type == "mla":
+                m = c.mla
+                dims.add((m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank))
+                dims.add((m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim))
+            else:
+                dims.add((c.resolved_head_dim, c.resolved_head_dim))
+    return sorted(dims)
+
+
+CONFIG_HEAD_DIMS = _config_head_dims()
+# the head dims of test_torch_gpu.py's kernel tests
+GPU_TEST_HEAD_DIMS = [(64, 64), (32, 32), (96, 64), (128, 128), (16, 16), (20, 20),
+                      (288, 256), (128, 64), (64, 128), (24, 16), (192, 192), (288, 288)]
+
+
+def _wgmma_holds(Dk, Dv):
+    return any(Dk <= 16 * ks and Dv <= 64 * dvp for ks, dvp in fa.WGMMA_TILES)
+
+
+@pytest.mark.parametrize("Dk,Dv", sorted(set(CONFIG_HEAD_DIMS + GPU_TEST_HEAD_DIMS)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_puts_every_config_on_the_tensor_cores(dtype, Dk, Dv):
+    plan = fa.launch_plan(dtype, Dk, Dv)
+    assert plan.kernel in ("wgmma", "tf32x3") and plan.kernel in fa.SOURCES
+    assert 0 < plan.smem_bytes <= 232_448
+    assert plan.tile_dims[0] >= Dk and plan.tile_dims[1] >= Dv
+    to_wgmma = dtype == torch.bfloat16 and Dk % 8 == 0 and Dv % 8 == 0 and _wgmma_holds(Dk, Dv)
+    assert (plan.kernel == "wgmma") == to_wgmma
+    assert plan.fill == ("tma" if to_wgmma else "cp.async")
+    # the tile the C entry point is told to launch: the first of its
+    # kernel's list that holds the dims
+    if to_wgmma:
+        holds = [Dk <= 16 * ks and Dv <= 64 * dvp for ks, dvp in fa.WGMMA_TILES]
+    else:
+        holds = [Dk <= dk and Dv <= dv for dk, dv, _, _ in fa.TF32X3_TILES]
+    assert plan.tile == holds.index(True)
+
+
+def test_every_config_head_dim_takes_wgmma_in_bf16():
+    """The wgmma tiles hold every (Dk, Dv) of the configs: 128/128, 64/64,
+    MLA's 288/256 and 96/64, the reduced 16/16, 24/16 and MLA's 16/8."""
+    assert {(128, 128), (64, 64), (288, 256), (96, 64), (16, 16), (24, 16)} <= \
+        set(CONFIG_HEAD_DIMS)
+    for Dk, Dv in CONFIG_HEAD_DIMS:
+        assert fa.launch_plan(torch.bfloat16, Dk, Dv).kernel == "wgmma", (Dk, Dv)
+
+
+@pytest.mark.parametrize("dtype,Dk,Dv", [
+    (torch.float32, 320, 320), (torch.float32, 289, 64), (torch.bfloat16, 64, 296),
+    (torch.float32, 0, 16), (torch.bfloat16, 16, 0), (torch.float16, 64, 64)])
+def test_launch_plan_refuses_what_no_kernel_takes(dtype, Dk, Dv):
+    with pytest.raises(NotImplementedError, match="no kernel takes"):
+        fa.launch_plan(dtype, Dk, Dv)
+
+
+@pytest.mark.parametrize("Dk,Dv", [(128, 128), (96, 64), (288, 256), (16, 16), (24, 16)])
+def test_launch_plan_for_the_tf32x3_kernel_at_the_wgmma_dims(Dk, Dv):
+    """Asked for the tf32x3 kernel, bf16 at the wgmma kernel's dims gets the
+    tf32x3 kernel's own tile (chip_smoke.py times the two side by side), the
+    same one f32 takes, with bf16's shared bytes."""
+    plan = fa.launch_plan(torch.bfloat16, Dk, Dv, "tf32x3")
+    f32 = fa.launch_plan(torch.float32, Dk, Dv)
+    assert plan.kernel == f32.kernel == "tf32x3" and plan.tile == f32.tile
+    assert plan.fill == "cp.async" and plan.smem_bytes < f32.smem_bytes <= 232_448
+    assert fa.launch_plan(torch.bfloat16, Dk, Dv).kernel == "wgmma"
+    with pytest.raises(NotImplementedError, match="no kernel takes"):
+        fa.launch_plan(torch.float32, Dk, Dv, "wgmma")
+
+
+def test_tile_tables_are_the_sources_own():
+    """The plan's tile lists are the ones the C entry points try, in order."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(fa.__file__).resolve().parents[1] / "csrc"
+
+    def table(name, macro):
+        text = (csrc / f"{name}.cu").read_text()
+        body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)", text).group(1)
+        return tuple(tuple(int(x) for x in m.split(",")) for m in
+                     re.findall(r"X\(([\d, ]+)\)", body))
+    assert table("flash_attention_wgmma", "FA_WGMMA_TILES") == fa.WGMMA_TILES
+    assert table("flash_attention", "FA_TF32X3_TILES") == fa.TF32X3_TILES
+    assert fa.SOURCES == {"wgmma": "flash_attention_wgmma", "tf32x3": "flash_attention"}
+    assert set(fa.flash_attention_fwd.launches_by_kernel) == set(fa.SOURCES)
+
+
+# -- the precision argument for the tf32x3 kernel, on the CPU ----------------
+# Each f32 operand is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi)
+# (round to nearest, ties away, to TF32's 10 mantissa bits, by bit masking)
+# and each product taken as lo*hi + hi*lo + hi*hi, summed in f32: what the
+# tensor cores compute (TF32 products are exact in f32). One pass is hi*hi.
+
+def _rna_tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    ah, bh = _rna_tf32(a), _rna_tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_attention(q, k, v, q_offset, causal, scale, passes):
+    """Attention with both products in TF32 (``passes`` 1 or 3), softmax in
+    f32 -> (out, lse)."""
+    B, Sq, H, Dk = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qh = q.permute(0, 2, 1, 3)
+    kh = k.permute(0, 2, 3, 1).repeat_interleave(G, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    s = _tf32_matmul(qh, kh, passes) * scale
+    if causal:
+        ok = q_offset + torch.arange(Sq)[:, None] >= torch.arange(Sk)[None]
+        s = torch.where(ok, s, torch.tensor(-1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return (_tf32_matmul(p, vh, passes) / l).permute(0, 2, 1, 3), (m + torch.log(l))[..., 0]
+
+
+TF32_SHAPES = [  # B, Sq, Sk, H, KV, Dk, Dv, scale (None: 1/sqrt(Dk))
+    *[(*shape, None) for shape in KERNEL_SHAPES],
+    (2, 40, 100, 5, 1, 288, 256, 96 ** -0.5),    # MLA absorbed: raw scores ~17
+    (1, 64, 64, 40, 1, 288, 256, 96 ** -0.5),    # 40 heads on one kv head
+    (2, 100, 100, 8, 8, 96, 64, 96 ** -0.5),     # MLA expanded
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,scale", TF32_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_three_tf32_passes_hold_f32_to_its_tolerance(B, Sq, Sk, H, KV, Dk, Dv, scale, causal):
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, Sq, Sk, H, KV, Dk, Dv, seed=8))
+    scale = scale or Dk ** -0.5
+    want, want_lse = fa.plain(q, k, v, Sk - Sq, causal, scale)
+    got, lse = _tf32_attention(q, k, v, Sk - Sq, causal, scale, passes=3)
+    _close(got, want, 2e-5)
+    _close(lse, want_lse, 2e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,scale", TF32_SHAPES[-3:])
+def test_one_tf32_pass_misses_f32(B, Sq, Sk, H, KV, Dk, Dv, scale):
+    """Why three passes: one TF32 pass misses the f32 tolerance by ~50x at
+    MLA's shapes (and at every f32 test shape)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, Sq, Sk, H, KV, Dk, Dv, seed=8))
+    want, _ = fa.plain(q, k, v, Sk - Sq, True, scale)
+    got, _ = _tf32_attention(q, k, v, Sk - Sq, True, scale, passes=1)
+    assert (q.reshape(-1, Dk)[:1] @ k.reshape(-1, Dk).T).abs().max() > 10   # raw scores
+    with pytest.raises(AssertionError):
+        _close(got, want, 2e-5)
+    assert (got - want).abs().max() > 20 * 2e-5
 
 
 def test_flash_rejects_what_the_kernel_does_not_take():

@@ -456,9 +456,16 @@ def test_rmsnorm_kernel_refuses_a_plan_that_misses_the_row(cuda):
     (1, 300, 300, 56, 8, 128, 128, True),    # yi-34b heads (G = 7), ragged S
     (2, 70, 200, 4, 1, 64, 64, True),        # ragged Sq and Sk, q_offset 130
     (2, 64, 64, 4, 2, 16, 16, True),         # reduced yi-34b head dim
-    (1, 50, 50, 4, 2, 20, 20, True),         # rows not 16-byte aligned: scalar loads
-    (1, 129, 129, 4, 1, 288, 256, True),     # MLA absorbed (f32: SIMT, bf16: wgmma)
+    (1, 50, 50, 4, 2, 20, 20, True),         # rows not 16-byte aligned: narrower copies
+    (1, 129, 129, 4, 1, 288, 256, True),     # MLA absorbed (f32: tf32x3, bf16: wgmma)
     (2, 100, 100, 8, 8, 96, 64, True),       # MLA expanded
+    (1, 300, 300, 40, 1, 288, 256, True),    # 40 heads on one kv head
+    (2, 70, 200, 4, 2, 24, 16, True),        # reduced minicpm3-4b absorbed, q_offset 130
+    (1, 1, 333, 8, 2, 128, 128, True),       # one query row at q_offset 332
+    (1, 1, 333, 40, 1, 288, 256, True),      # one row, 40 heads in one tile
+    (2, 32, 32, 4, 2, 64, 64, True),         # a single kv block
+    (1, 50, 50, 4, 2, 20, 20, False),        # rows not 16-byte aligned, full attention
+    (2, 100, 100, 8, 8, 96, 64, False),      # full attention at MLA's expanded dims
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtype):
@@ -492,19 +499,26 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtyp
     (2, 70, 200, 8, 1, 288, 256, True),      # ragged Sq and Sk, q_offset 130
     (1, 1, 333, 40, 1, 288, 256, True),      # one query row at q_offset 332
     (1, 64, 64, 4, 1, 288, 256, True),       # one kv block of 64 keys
+    (2, 100, 100, 40, 40, 96, 64, True),     # MLA expanded: two Q/K panels, 6 k-steps
+    (2, 100, 100, 40, 40, 96, 64, False),
+    (2, 70, 200, 8, 1, 24, 16, True),        # reduced MLA absorbed: 2 k-steps, one panel
+    (2, 64, 64, 4, 2, 16, 16, True),         # reduced yi-34b: 1 k-step
+    (2, 70, 200, 4, 2, 16, 8, True),         # reduced MLA expanded: Dv 8
+    (2, 128, 256, 4, 1, 32, 32, False),
+    (1, 192, 192, 8, 2, 192, 192, True),     # 12 k-steps' dims on the 18-step tile
 ])
 def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal):
-    """The tensor-core kernel (bf16, (Dk, Dv) in ``fa.WGMMA_HEAD_DIMS``)
-    against the plain version."""
+    """The tensor-core kernel (bf16, head dims multiples of 8 that one of
+    ``fa.WGMMA_TILES`` holds) against the plain version."""
     q = _randn((B, Sq, H, Dk), torch.bfloat16, cuda, 4)
     k = _randn((B, Sk, KV, Dk), torch.bfloat16, cuda, 5)
     v = _randn((B, Sk, KV, Dv), torch.bfloat16, cuda, 6)
-    assert fa.uses_wgmma(q.dtype, Dk, Dv)
+    assert fa.launch_plan(q.dtype, Dk, Dv).kernel == "wgmma"
     by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
     out, lse = fa.flash_attention_fwd(q, k, v, Sk - Sq, causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches_by_kernel == {
-        "wgmma": by_kernel["wgmma"] + 1, "simt": by_kernel["simt"]}
+        "wgmma": by_kernel["wgmma"] + 1, "tf32x3": by_kernel["tf32x3"]}
     want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
     assert out.dtype == torch.bfloat16 and out.shape == (B, Sq, H, Dv)
     _close(out, want, 2e-2)
@@ -512,53 +526,100 @@ def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal
 
 
 def test_flash_simt_kernel_in_bf16_matches_plain(cuda):
-    """The SIMT kernel still takes bf16 at a wgmma shape when asked directly
-    (chip_smoke.py times the two against each other)."""
+    """The tf32x3 kernel takes bf16 at a wgmma shape when asked directly
+    (chip_smoke.py times the two side by side)."""
     q = _randn((1, 300, 56, 128), torch.bfloat16, cuda, 7)
     k = _randn((1, 300, 8, 128), torch.bfloat16, cuda, 8)
     v = _randn((1, 300, 8, 128), torch.bfloat16, cuda, 9)
-    out, lse = fa._launch("simt", q, k, v, 0, True, None)
+    out, lse = fa._launch("tf32x3", q, k, v, 0, True, None)
     want, want_lse = fa.plain(q, k, v, 0, True)
     _close(out, want, 2e-2)
     _close(lse, want_lse, 2e-2)
 
 
 def test_flash_kernel_refuses_head_dims_above_128(cuda):
-    """The tensor-core kernel refuses bf16 head dims above 128 other than
-    MLA's absorbed (288, 256); the wrapper sends those to the SIMT kernel."""
-    for Dk, Dv in ((192, 192), (256, 256), (288, 288)):
+    """The wgmma kernel refuses bf16 head dims that no wgmma tile holds (Dv
+    above 256, dims that are not multiples of 8); the wrapper sends those
+    to the tf32x3 kernel."""
+    for Dk, Dv in ((288, 288), (256, 264), (20, 20)):
         q = torch.zeros(1, 8, 2, Dk, device=cuda, dtype=torch.bfloat16)
         v = torch.zeros(1, 8, 2, Dv, device=cuda, dtype=torch.bfloat16)
-        assert not fa.uses_wgmma(torch.bfloat16, Dk, Dv)
+        assert fa.launch_plan(torch.bfloat16, Dk, Dv).kernel == "tf32x3"
         with pytest.raises(ValueError, match="wgmma kernel takes bf16"):
             fa._launch("wgmma", q, q, v, 0, True, None)
-    q, k, v = (_randn((1, 8, 2, 192), torch.bfloat16, cuda, i) for i in range(3))
+    q, k, v = (_randn((1, 8, 2, 288), torch.bfloat16, cuda, i) for i in range(3))
     by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
     out, _ = fa.flash_attention_fwd(q, k, v)
-    assert fa.flash_attention_fwd.launches_by_kernel["simt"] == by_kernel["simt"] + 1
-    # bf16 inputs: the SIMT kernel against the plain version in f32 (the
+    assert fa.flash_attention_fwd.launches_by_kernel["tf32x3"] == by_kernel["tf32x3"] + 1
+    # bf16 inputs: the tf32x3 kernel against the plain version in f32 (the
     # bf16 plain version rounds the raw scores before scaling)
     _close(out, fa.plain(q.float(), k.float(), v.float())[0], 2e-2)
 
 
 def test_flash_kernel_takes_dims_up_to_288_and_refuses_beyond(cuda):
-    """Head dims above 128 run up to 288 (MLA's absorbed Dk) where the SIMT
-    kernel's f32 tiles fit in a block's shared memory: (288, 256) and (96,
-    64) do, (288, 288) and (320, 320) do not, and the kernel's entry point
-    refuses them."""
-    for Dk, Dv in ((192, 192), (288, 256), (96, 64)):
+    """f32 head dims run up to 288 (MLA's absorbed Dk) on the tf32x3
+    kernel, (288, 288) included; (320, 320) and (289, 64) no kernel takes:
+    the plan refuses them, whichever kernel is asked for, and the tf32x3
+    kernel's C entry point does too."""
+    for Dk, Dv in ((192, 192), (288, 256), (96, 64), (288, 288)):
         q = _randn((1, 8, 2, Dk), torch.float32, cuda, 0)
         v = _randn((1, 8, 2, Dv), torch.float32, cuda, 1)
         out, _ = fa.flash_attention_fwd(q, q, v)
         _close(out, fa.plain(q, q, v)[0], 2e-5)
-    for Dk, Dv in ((320, 320), (288, 288)):
+    for Dk, Dv in ((320, 320), (289, 64)):
         q = torch.zeros(1, 8, 2, Dk, device=cuda)
         v = torch.zeros(1, 8, 2, Dv, device=cuda)
-        with pytest.raises(NotImplementedError, match="refused head dims"):
+        with pytest.raises(NotImplementedError, match="no kernel takes"):
             fa.flash_attention_fwd(q, q, v)
+        with pytest.raises(NotImplementedError, match="no kernel takes"):
+            fa._launch("tf32x3", q, q, v, 0, True, None)
+        # the widest tile, told to the C entry point directly
+        last = fa.launch_plan(torch.float32, 288, 288)
+        assert last.tile == len(fa.TF32X3_TILES) - 1
+        assert _flash_entry(q, q, v, "tf32x3", last.tile, last.smem_bytes) == \
+            fa.CUDA_ERROR_INVALID_VALUE
     # a refusal leaves no error behind for the next launch
     q = _randn((1, 8, 2, 64), torch.float32, cuda, 2)
     _close(fa.flash_attention_fwd(q, q, q)[0], fa.plain(q, q, q)[0], 2e-5)
+
+
+def _flash_entry(q, k, v, kernel, tile, smem):
+    """One call of ``kernel``'s C entry point with the given tile and shared
+    bytes; returns its code."""
+    B, Sq, H, Dk = q.shape
+    _, Sk, KV, Dv = v.shape
+    out = torch.empty(B, Sq, H, Dv, device=q.device, dtype=q.dtype)
+    lse = torch.empty(B, H, Sq, device=q.device)
+    rc = fa._entry(fa.SOURCES[kernel])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, Sq, Sk, H, KV, Dk, Dv, 0, 1, 0.1, fa.DTYPE_CODES[q.dtype], tile, smem,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return rc
+
+
+@pytest.mark.parametrize("dtype,Dk,Dv", [(torch.float32, 128, 128), (torch.bfloat16, 20, 20),
+                                         (torch.bfloat16, 128, 128), (torch.bfloat16, 288, 256)])
+def test_flash_entry_points_launch_the_plan_and_refuse_another(cuda, dtype, Dk, Dv):
+    """The C entry point launches the tile ``launch_plan`` names (and so
+    agrees with its shared bytes), and refuses a tile that does not hold the
+    dims or shared bytes that are not the tile's; the next launch works."""
+    q = _randn((1, 70, 4, Dk), dtype, cuda, 0)
+    k = _randn((1, 70, 2, Dk), dtype, cuda, 1)
+    v = _randn((1, 70, 2, Dv), dtype, cuda, 2)
+    plan = fa.launch_plan(dtype, Dk, Dv)
+    assert _flash_entry(q, k, v, plan.kernel, plan.tile, plan.smem_bytes) == 0
+    assert _flash_entry(q, k, v, plan.kernel, plan.tile, plan.smem_bytes + 16) == \
+        fa.CUDA_ERROR_INVALID_VALUE
+    if plan.tile > 0:   # the tile before it does not hold these dims
+        assert _flash_entry(q, k, v, plan.kernel, plan.tile - 1, plan.smem_bytes) == \
+            fa.CUDA_ERROR_INVALID_VALUE
+    assert _flash_entry(q, k, v, plan.kernel, 99, plan.smem_bytes) == \
+        fa.CUDA_ERROR_INVALID_VALUE
+    out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+    want, want_lse = fa.plain(q, k, v, 0, True)
+    _close(out, want, TOL[dtype])
+    _close(lse, want_lse, TOL[dtype])
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128),
@@ -650,8 +711,21 @@ def test_serve_in_bf16_at_head_dim_128_launches_only_the_wgmma_kernel(cuda):
     toks = serve.generate(model, params, prompts, 4)
     L = cfg.n_layers
     assert fa.flash_attention_fwd.launches_by_kernel == {
-        "wgmma": by_kernel["wgmma"] + L, "simt": by_kernel["simt"]}
+        "wgmma": by_kernel["wgmma"] + L, "tf32x3": by_kernel["tf32x3"]}
     assert torch.equal(serve.generate(model, params, prompts, 4), toks)
+
+
+def test_f32_serve_launches_the_tf32x3_kernel(cuda):
+    """Reduced yi-34b in f32 (head dim 16): every prefill attention is
+    counted under the tf32x3 kernel's name, none under wgmma's."""
+    model = model_zoo.build(reduced_config(get_config("yi-34b")))
+    params = _to(model.init(torch.Generator().manual_seed(0)), cuda)
+    prompts = torch.randint(0, 512, (2, 40), generator=torch.Generator().manual_seed(1))
+    assert set(fa.flash_attention_fwd.launches_by_kernel) == {"wgmma", "tf32x3"}
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    serve.generate(model, params, prompts.to(cuda), 2)
+    assert fa.flash_attention_fwd.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"], "tf32x3": by_kernel["tf32x3"] + model.cfg.n_layers}
 
 
 # -- the LM training path (slice 9): B2 and B3 under autograd and torch.func --
@@ -673,9 +747,9 @@ def _grad_close(got, want, tol):
     (1, 300, 300, 8, 2, 64, 64, True, torch.bfloat16),        # ragged
     (1, 128, 256, 4, 1, 128, 64, True, torch.bfloat16),       # q_offset, Dk != Dv
     (2, 256, 256, 8, 2, 64, 64, False, torch.bfloat16),
-    (2, 256, 256, 8, 2, 64, 64, True, torch.float32),         # SIMT
+    (2, 256, 256, 8, 2, 64, 64, True, torch.float32),         # tf32x3
     (1, 256, 256, 8, 1, 288, 256, True, torch.bfloat16),      # MLA absorbed (wgmma)
-    (1, 128, 128, 4, 1, 288, 256, True, torch.float32),       # MLA absorbed (SIMT)
+    (1, 128, 128, 4, 1, 288, 256, True, torch.float32),       # MLA absorbed (tf32x3)
 ])
 def test_flash_forward_and_backward_match_autograd_of_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv,
                                                             causal, dtype):
@@ -778,7 +852,7 @@ def test_mla_serve_in_bf16_launches_wgmma_at_the_absorbed_dims(cuda):
     at a small width: every prefill attention goes to the tensor-core
     kernel at (288, 256), and a second generate repeats the tokens bitwise;
     the expanded form of one layer (``mla_seqsharded(absorbed=False)``)
-    goes to the SIMT kernel at (96, 64)."""
+    goes to it too, at (96, 64)."""
     from repro_torch.models import attention
     cfg = get_config("minicpm3-4b").replace(n_layers=2, d_model=256, n_heads=4,
                                              n_kv_heads=4, d_ff=512, vocab_size=512)
@@ -789,13 +863,15 @@ def test_mla_serve_in_bf16_launches_wgmma_at_the_absorbed_dims(cuda):
     by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
     toks = serve.generate(model, params, prompts, 4)
     assert fa.flash_attention_fwd.launches_by_kernel == {
-        "wgmma": by_kernel["wgmma"] + 2, "simt": by_kernel["simt"]}
+        "wgmma": by_kernel["wgmma"] + 2, "tf32x3": by_kernel["tf32x3"]}
     assert torch.equal(serve.generate(model, params, prompts, 4), toks)
     w = {k: v[0] for k, v in params["blocks"]["attn"].items()}
     h = params["embed"][prompts]
     with torch.inference_mode():
         oa = attention.mla_seqsharded(w, h, cfg)
         oe = attention.mla_seqsharded(w, h, cfg, absorbed=False)
-    assert fa.flash_attention_fwd.launches_by_kernel["simt"] == by_kernel["simt"] + 1
+    # two generates (2 layers each), then the absorbed and the expanded form
+    assert fa.flash_attention_fwd.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"] + 6, "tf32x3": by_kernel["tf32x3"]}
     # the two forms round in bf16 at other places: their outputs agree in norm
     assert ((oa - oe).norm() / oa.norm()).item() < 5e-2
