@@ -153,7 +153,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    drop fraction per layer at prefill); reduced minicpm3-4b,
    qwen3-moe-30b-a3b and arctic-480b one f32 round and a served prompt on
    the card and the CPU.
-12. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+12. the last three LM families (slice 12) — ``determinism.normal``'s two
+   halves (``_log_u1``, ``_cos_2pi_u2``) bitwise card == CPU over all 2**24
+   inputs each, beside the count of f64 ``torch.log``/``torch.cos`` values
+   that differ (C7); B3, B4 and B2 at every new shape in bf16 against their
+   plain versions, timed beside SDPA / ``F.rms_norm`` and the bound
+   (whisper's encoder 8 x 1,500 full, cross-attention 187 over 1,500 full,
+   decoder 187 causal, all 8/8 x 64; jamba's 8 x 2,048 causal, 64/8 x 128;
+   B4 over whisper's self cache (251) and encoder cache (1,500) at G = 1 and
+   jamba's 2,049 at G = 8; B2 at 768 and 8,192, prefill and decode rows);
+   whisper-base at full width and depth (6 + 6 layers, bf16) served over
+   1,500 frames, batch 8, a 187-token prompt and 64 greedy tokens (B3 18,
+   B4 768, counted by shape; tokens bitwise repeatable) and its loss
+   gradient at batch 8 under ``torch.func.grad_and_value``; xlstm-125m at
+   full width and depth served (batch 8, prompt 2,048, 64 new; B2 845 by
+   rows), the sLSTM's launches a token (one layer profiled), one temporal
+   FedAvgM round of ``train_fl_lm`` (4 local steps of 2 x 512, losses
+   finite); jamba-1.5-large-398b's attention sublayer and one Mamba mixer
+   at full width (8 x 2,048 prefill and a decode step, counted and timed;
+   a full-width period's ~77 GB of bf16 MoE weights exceed the card); the
+   three reduced archs in f32 on the card against the CPU.
+13. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -165,7 +185,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-13. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+14. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -192,12 +212,19 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 dense tensor cores
 TF32_FLOPS_PER_S = 494.7e12    # H100 SXM data sheet, tf32 dense tensor cores
-# B3 in f32 (slice 11): the tf32x3 kernel at the two shapes the f32
-# card-vs-CPU serve and train phases launch (the reduced GQA configs, and
-# reduced minicpm3-4b's absorbed MLA), and, on no path, at yi-34b's serve
-# shape and at MLA's absorbed dims in f32; B, S, H, KV, Dk, Dv
-F32_FLASH = {"reduced": (2, 64, 4, 2, 16, 16), "mla_reduced": (2, 64, 4, 1, 24, 16),
-             "serve": (8, 2048, 56, 8, 128, 128), "mla_absorbed": (2, 2048, 40, 1, 288, 256)}
+# B3 in f32 (slice 11): the tf32x3 kernel at every shape the f32
+# card-vs-CPU serve and train phases launch (the reduced GQA configs,
+# reduced minicpm3-4b's absorbed MLA, and reduced whisper-base's encoder,
+# cross and decoder attention), and, on no path, at yi-34b's serve shape
+# and at MLA's absorbed dims in f32; B, Sq, Sk, H, KV, Dk, Dv, causal, as
+# B3's launches_by_shape keys them
+F32_FLASH = {"reduced": (2, 64, 64, 4, 2, 16, 16, True),
+             "mla_reduced": (2, 64, 64, 4, 1, 24, 16, True),
+             "whisper_encoder_reduced": (2, 64, 64, 4, 4, 16, 16, False),
+             "whisper_cross_reduced": (2, 8, 64, 4, 4, 16, 16, False),
+             "whisper_decoder_reduced": (2, 8, 8, 4, 4, 16, 16, True),
+             "serve": (8, 2048, 2048, 56, 8, 128, 128, True),
+             "mla_absorbed": (2, 2048, 2048, 40, 1, 288, 256, True)}
 KERNEL_SHAPES = [(100, 189_952, 256),     # main path: C=100 clients, flsim-cnn packed
                  (16, 1_048_576, 256),    # BENCH_agg shape
                  (7, 4_224, 128),         # ragged tail
@@ -1416,47 +1443,51 @@ def time_lm_kernels(torch, flush, extras):
 
 
 def time_f32_flash(torch, flush, extras):
-    """B3 in f32 on the tf32x3 kernel (slice 11) at F32_FLASH's shapes,
-    causal, q_offset 0: against its plain version (2e-5), then its device
+    """B3 in f32 on the tf32x3 kernel (slice 11) at F32_FLASH's shapes
+    (a causal one with its last query on the last key, as the paths call
+    it): against its plain version (2e-5), then its device
     ms beside the plain version's, SDPA's in f32 (the backend it took
     named; TF32 off, as the entry points set it), the PR 12 kernel's (with
-    ``--baseline``, in turns: old, new, new, old) and the bound at both
+    ``--baseline``, causal at Sq = Sk only, in turns: old, new, new, old)
+    and the bound at both
     rates: the products over the f32 CUDA cores' rate
     (``bound_f32_cores_ms``), and their three TF32 passes over the tensor
     cores' (``bound_ms``: the kernel's own operations)."""
     from repro_torch.kernels import flash_attention as fa
     dev, f32 = torch.device("cuda"), torch.float32
     rows = {}
-    for i, (name, (B, S, H, KV, Dk, Dv)) in enumerate(F32_FLASH.items()):
-        q = _randn(torch, (B, S, H, Dk), f32, 200 + 3 * i, dev)
-        k = _randn(torch, (B, S, KV, Dk), f32, 201 + 3 * i, dev)
-        v = _randn(torch, (B, S, KV, Dv), f32, 202 + 3 * i, dev)
+    for i, (name, (B, Sq, Sk, H, KV, Dk, Dv, causal)) in enumerate(F32_FLASH.items()):
+        q = _randn(torch, (B, Sq, H, Dk), f32, 200 + 3 * i, dev)
+        k = _randn(torch, (B, Sk, KV, Dk), f32, 201 + 3 * i, dev)
+        v = _randn(torch, (B, Sk, KV, Dv), f32, 202 + 3 * i, dev)
+        off = Sk - Sq if causal else 0
         plan = fa.launch_plan(f32, Dk, Dv)
         before = fa.flash_attention_fwd.launches_by_kernel["tf32x3"]
-        out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+        out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
         torch.cuda.synchronize()
         if plan.kernel != "tf32x3" or \
                 fa.flash_attention_fwd.launches_by_kernel["tf32x3"] != before + 1:
             raise AssertionError(f"flash f32 {name}: not launched on the tf32x3 kernel")
-        want, want_lse = fa.plain(q, k, v, 0, True)
+        want, want_lse = fa.plain(q, k, v, off, causal)
         err = close(torch, f"flash f32 {name}", out, want, ATTN_TOL["float32"])
         close(torch, f"flash f32 {name} lse", lse, want_lse, ATTN_TOL["float32"])
-        lib, lib_args, _, backend = sdpa_yardstick(torch, q, k, v, Dk ** -0.5)
+        lib, lib_args, _, backend = sdpa_yardstick(torch, q, k, v, Dk ** -0.5, causal)
         lib_err = close(torch, f"sdpa f32 {name} ({backend})",
                         lib(*lib_args).transpose(1, 2), out, YARDSTICK_TOL)
-        pairs = S * (S + 1) // 2
+        pairs = Sq * (Sq + 1) // 2 + Sq * off if causal else Sq * Sk
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel() + lse.numel()) * 4
         flops = 2 * B * H * pairs * (Dk + Dv)
-        big = S > 64
+        big = Sk > 64
         it, pit = (20, 2) if big else (200, 20)
 
-        def ours(q, k, v):
-            return fa.flash_attention_fwd(q, k, v, 0, True)
-        r = {"shape": [B, S, S, H, KV, Dk, Dv], "dtype": "float32", "plan": plan._asdict(),
+        def ours(q, k, v, off=off, causal=causal):
+            return fa.flash_attention_fwd(q, k, v, off, causal)
+        r = {"shape": [B, Sq, Sk, H, KV, Dk, Dv], "causal": causal, "dtype": "float32",
+             "plan": plan._asdict(),
              "max_abs_err": err, "kernel_ms": time_device(ours, (q, k, v), it, flush,
                                                           batch=min(it, 10)),
              "kernel_call_ms": time_call(ours, (q, k, v), it, flush),
-             "plain_ms": time_device(lambda q, k, v: fa.plain(q, k, v, 0, True), (q, k, v),
+             "plain_ms": time_device(lambda q, k, v: fa.plain(q, k, v, off, causal), (q, k, v),
                                      pit, flush, batch=min(pit, 10)),
              "library_ms": time_device(lib, lib_args, it // 2, flush, batch=min(it // 2, 10)),
              "library_backend": backend, "library_max_abs_err": lib_err,
@@ -1466,7 +1497,8 @@ def time_f32_flash(torch, flush, extras):
         r["bound_ms"], r["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
         r["bound_f32_cores_ms"], r["bound_f32_cores_by"] = bound(nbytes, flops,
                                                                  F32_FLOPS_PER_S)
-        if "flash_attention" in extras:   # the PR 12 kernel on the same inputs
+        if "flash_attention" in extras and causal and Sq == Sk:
+            # the PR 12 kernel on the same inputs
             old = extras["flash_attention"]
             r["baseline_max_abs_err"] = close(torch, f"baseline flash f32 {name}",
                                               old(q, k, v)[0], want, ATTN_TOL["float32"])
@@ -1494,15 +1526,34 @@ def _leaves(tree):
 
 
 def _zero_counts(kernels):
-    """Every kernel's launch count to 0, and B2's by layout and by width and
-    B3's by kernel."""
+    """Every kernel's launch count and its counts by shape to 0, and B2's by
+    layout and B3's by kernel."""
     for fn in kernels.values():
         fn.launches = 0
+        fn.launches_by_shape = {}
     kernels["rmsnorm"].launches_by_layout = {k: 0 for k in
                                              kernels["rmsnorm"].launches_by_layout}
-    kernels["rmsnorm"].launches_by_width = {}
     kernels["flash_attention"].launches_by_kernel = {
         k: 0 for k in kernels["flash_attention"].launches_by_kernel}
+
+
+def shape_name(key) -> str:
+    """A ``launches_by_shape`` key as text: its sizes joined by x, and B3's
+    causal flag as causal or full."""
+    if isinstance(key[-1], bool):
+        return "x".join(map(str, key[:-1])) + (" causal" if key[-1] else " full")
+    return "x".join(map(str, key))
+
+
+def named(counts) -> dict:
+    """{shape key: launches} with the keys as ``shape_name`` gives them."""
+    return {shape_name(k): n for k, n in counts.items()}
+
+
+def launches_by_shape(kernels) -> dict:
+    """Each kernel's launches by shape since its counts were zeroed, as the
+    wrappers counted them where they launch."""
+    return {name: named(fn.launches_by_shape) for name, fn in kernels.items()}
 
 
 def phase_serve(torch, kernels):
@@ -1631,26 +1682,33 @@ def phase_serve(torch, kernels):
 def phase_serve_card_vs_cpu(torch, arch=SERVE["arch"]):
     """Reduced yi-34b (or ``arch``) in f32 from the same weights: one
     prefill and 4 greedy decode steps on the card (kernels) and on the CPU
-    (plain)."""
+    (plain); the encoder-decoder's prefill also takes 64 frames beside a
+    prompt of 8."""
     from repro_torch.configs.base import get_config
     from repro_torch.configs.reduce import reduced_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model_zoo
     from repro_torch.models.transformer import pad_caches
     model = model_zoo.build(reduced_config(get_config(arch)))
+    cfg = model.cfg
     params = model.init(torch.Generator().manual_seed(1))
-    prompts = torch.randint(0, model.cfg.vocab_size, (2, 64),
-                            generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(2)
+    S = 64 // cfg.dec_len_ratio if cfg.family == "encdec" else 64
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 64, cfg.d_model), generator=gen)
     out = {}
     # the f32 serve path (head dim 16) runs the tf32x3 flash kernel; its
-    # counts are zeroed just before the card's run and read just after
+    # counts (by kernel and by shape) are zeroed just before the card's run
+    # and read just after
     fa.flash_attention_fwd.launches_by_kernel = {k: 0 for k in fa.SOURCES}
+    fa.flash_attention_fwd.launches_by_shape = {}
     for dev in ("cuda", "cpu"):
         p = _tree_to(params, dev)
         with torch.inference_mode():
-            caches, logits, _ = model.prefill(p, {"tokens": prompts.to(dev)})
+            caches, logits, _ = model.prefill(p, {k: v.to(dev) for k, v in batch.items()})
             caches = pad_caches(caches, 4)
-            length = torch.full((2,), 64, dtype=torch.int32, device=dev)
+            length = torch.full((2,), S, dtype=torch.int32, device=dev)
             all_logits, toks = [logits], []
             tok = model.greedy_token(logits)
             for _ in range(4):
@@ -1662,14 +1720,16 @@ def phase_serve_card_vs_cpu(torch, arch=SERVE["arch"]):
             toks.append(tok)
         out[dev] = (torch.stack(toks).cpu(), torch.stack(all_logits).cpu())
     flash_by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
-    if flash_by_kernel != {"wgmma": 0, "tf32x3": model.cfg.n_layers}:
+    flash_by_shape = named(fa.flash_attention_fwd.launches_by_shape)
+    if flash_by_kernel != {"wgmma": 0, "tf32x3": attention_layers(cfg)}:
         raise AssertionError(f"f32 serve path flash launches {flash_by_kernel}")
     if not torch.equal(out["cuda"][0], out["cpu"][0]):
         raise AssertionError("serve card vs cpu: tokens differ")
     # tolerance: f32 matmuls sum in another order on the card (TF32 off)
     err = close(torch, "serve card vs cpu logits", out["cuda"][1], out["cpu"][1], 1e-4)
     res = {"max_abs_logit_diff": err, "tokens_equal": True, "steps": 4,
-           "flash_by_kernel": flash_by_kernel, "mla": model.cfg.attn_type == "mla"}
+           "flash_by_kernel": flash_by_kernel, "flash_by_shape": flash_by_shape,
+           "mla": cfg.attn_type == "mla"}
     log(f"serve card vs cpu (reduced {arch}, f32, prefill + 4 decode steps)", json.dumps(res))
     return res
 
@@ -2672,12 +2732,14 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
             _, round_fn, state = train_fl_lm.setup(cfg, fl, dev)
             # B3's counts zeroed just before the round, read just after
             fa.flash_attention_fwd.launches_by_kernel = {k: 0 for k in fa.SOURCES}
+            fa.flash_attention_fwd.launches_by_shape = {}
             state, logger = train_fl_lm.run_rounds(
                 round_fn, state, lm, 0, 1, clients=4, cohort=2, batch=2, seq=64,
                 local_steps=2, device=dev)
             out[tag] = (logger.series("loss")[0],
                         {k: v.cpu() for k, v in state["params"].items()},
-                        dict(fa.flash_attention_fwd.launches_by_kernel))
+                        dict(fa.flash_attention_fwd.launches_by_kernel),
+                        named(fa.flash_attention_fwd.launches_by_shape))
         # f32 on the card: one tf32x3 launch a layer per local step (cohort 2 x 2)
         want_by_kernel = {"wgmma": 0, "tf32x3": cfg.n_layers * 4}
         if out["card"][2] != want_by_kernel:
@@ -2691,6 +2753,7 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
                         TRAIN_CARD_CPU_TOL) for k, v in out["cpu"][1].items())
         res[arch] = {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
                      "max_abs_param_diff": err, "flash_by_kernel": out["card"][2],
+                     "flash_by_shape": out["card"][3],
                      "mla": cfg.attn_type == "mla"}
     log(f"train card vs cpu (reduced {', '.join(archs)}, f32, one temporal fedavgm round)",
         json.dumps(res))
@@ -2770,9 +2833,10 @@ TRAIN_MOE = dict(TRAIN, arch="qwen3-moe-30b-a3b", n_layers=2, norms_per_layer=4)
 SLICE10_CARD_CPU = ("minicpm3-4b", "qwen3-moe-30b-a3b", "arctic-480b")
 
 
-def sdpa_yardstick(torch, q, k, v, scale):
-    """One SDPA call computing B3's causal function on (B, S, H, D) inputs,
-    for its time only: the first backend that takes it, fused ones first,
+def sdpa_yardstick(torch, q, k, v, scale, causal=True):
+    """One SDPA call computing B3's function on (B, S, H, D) inputs (causal
+    only where Sq = Sk: SDPA aligns the mask to the top left), for its time
+    only: the first backend that takes it, fused ones first,
     GQA through ``enable_gqa``, else with k's and v's heads repeated once
     here, outside the call. -> (fn, args, grads, backend name): ``fn(*args)``
     is the SDPA call alone, on (B, H, S, D) views, giving (B, H, S, Dv);
@@ -2787,7 +2851,7 @@ def sdpa_yardstick(torch, q, k, v, scale):
         for gqa in (True, False):
             def fn(q, k, v, backend=backend, gqa=gqa):
                 with sdpa_kernel([backend]):
-                    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                           scale=scale, enable_gqa=gqa)
             rep = 1 if gqa else G
             args = (qt, kt, vt) if rep == 1 else (
@@ -3123,7 +3187,9 @@ def phase_serve_slice10(torch, kernels, S_):
     launches = {name: fn.launches for name, fn in kernels.items()}
     flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
     norm_by_layout = dict(kernels["rmsnorm"].launches_by_layout)
-    norm_by_width = dict(kernels["rmsnorm"].launches_by_width)
+    norm_by_width = {}
+    for (_, D), n in kernels["rmsnorm"].launches_by_shape.items():
+        norm_by_width[D] = norm_by_width.get(D, 0) + n
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"quant_aggregate": 0, "rmsnorm": (S_["norms_per_layer"] * L + 1) * (1 + new),
             "flash_attention": L, "decode_attention": S_["decode_per_layer"] * L * new}
@@ -3211,6 +3277,528 @@ def phase_serve_slice10(torch, kernels, S_):
     del params, logits
     torch.cuda.empty_cache()
     return out
+
+
+# phase 12 (slice 12): the last three LM families. whisper-base (the
+# encoder-decoder) and xlstm-125m served at full width and depth (whisper's
+# loss gradient, an xlstm temporal round); jamba-1.5-large-398b, whose one
+# full-width period holds ~77 GB of MoE weights in bf16, as its attention
+# sublayer and one Mamba mixer at full width; reduced card vs CPU for all
+# three; C7's two halves of determinism.normal over every input
+WHISPER = {"arch": "whisper-base", "batch": 8, "frames": 1500, "max_new": 64, "seed": 6}
+XLSTM = {"arch": "xlstm-125m", "batch": 8, "prompt_len": 2048, "max_new": 64, "seed": 7,
+         "slstm_profile_len": 256}
+XLSTM_TRAIN = {"clients": 4, "cohort": 2, "local_epochs": 1, "local_steps": 2, "batch": 2,
+               "seq": 512, "client_lr": 0.05, "server_momentum": 0.9}
+JAMBA = {"arch": "jamba-1.5-large-398b", "batch": 8, "prompt_len": 2048, "seed": 8}
+SLICE12_CARD_CPU = ("whisper-base", "xlstm-125m", "jamba-1.5-large-398b")
+# B3 and B4 at the slice-12 paths' shapes, bf16: (B, Sq, Sk, H, KV, D, causal)
+# and (B, S, H, KV, D); B2 at their rows, (leading dims, D)
+SLICE12_FLASH = {"whisper_encoder": (8, 1500, 1500, 8, 8, 64, False),
+                 "whisper_cross": (8, 187, 1500, 8, 8, 64, False),
+                 "whisper_decoder": (8, 187, 187, 8, 8, 64, True),
+                 "jamba": (8, 2048, 2048, 64, 8, 128, True)}
+SLICE12_DECODE = {"whisper_self": (8, 251, 8, 8, 64),      # 187 + 64 slots
+                  "whisper_cross": (8, 1500, 8, 8, 64),    # the encoder cache, G = 1
+                  "jamba": (8, 2049, 64, 8, 128)}          # one step after 2,048
+SLICE12_RMS = {"xlstm_prefill": ((8, 2048), 768), "xlstm_decode": ((8, 1), 768),
+               "xlstm_train": ((XLSTM_TRAIN["batch"], XLSTM_TRAIN["seq"]), 768),
+               "jamba_prefill": ((8, 2048), 8192), "jamba_decode": ((8, 1), 8192)}
+
+
+def check_normal_halves(torch):
+    """C7: ``determinism.normal``'s two halves over every one of their 2**24
+    inputs, bitwise on the card and the CPU (with IEEE ``sqrt``, ``*`` and
+    the one rounding to f32 this covers every draw); beside them, how many
+    of the same inputs f64 ``torch.log`` / ``torch.cos`` give other bits on
+    the card (what the draws went through before)."""
+    from repro_torch.core import determinism as det
+    k = torch.arange(1 << 24, dtype=torch.int64)
+    kc = k.cuda()
+    log_diff = int((det._log_u1(kc).cpu() * -2.0 != det._log_u1(k) * -2.0).sum())
+    cos_diff = int((det._cos_2pi_u2(kc).cpu() != det._cos_2pi_u2(k)).sum())
+    u1 = (k + 1).to(torch.float64) * 2.0 ** -24
+    u2 = k.to(torch.float64) * 2.0 ** -24
+    libm = {"log": int((torch.log(u1.cuda()).cpu() != torch.log(u1)).sum()),
+            "cos": int((torch.cos((2 * math.pi) * u2.cuda()).cpu()
+                        != torch.cos((2 * math.pi) * u2)).sum())}
+    out = {"inputs": 1 << 24, "neg2_log_u1_differing": log_diff,
+           "cos_2pi_u2_differing": cos_diff, "f64_libm_differing": libm}
+    log("C7 normal halves card vs cpu", json.dumps(out))
+    if log_diff or cos_diff:
+        raise AssertionError(f"determinism.normal's halves differ on the card: {out}")
+    return out
+
+
+def time_slice12_kernels(torch, flush):
+    """B3, B4 and B2 at every new shape of the slice-12 paths, bf16,
+    against their plain versions on the card, then timed beside the plain
+    version, the PyTorch call (SDPA, ``F.rms_norm``) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    tol = ATTN_TOL["bfloat16"]
+    rows = {}
+    for i, (name, (B, Sq, Sk, H, KV, D, causal)) in enumerate(SLICE12_FLASH.items()):
+        q = _randn(torch, (B, Sq, H, D), bf16, 300 + 3 * i, dev)
+        k = _randn(torch, (B, Sk, KV, D), bf16, 301 + 3 * i, dev)
+        v = _randn(torch, (B, Sk, KV, D), bf16, 302 + 3 * i, dev)
+        off = Sk - Sq if causal else 0
+        if fa.launch_plan(bf16, D, D).kernel != "wgmma":
+            raise AssertionError(f"flash {name}: bf16 at head dim {D} is not on wgmma")
+        out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
+        want, want_lse = fa.plain(q, k, v, off, causal)
+        err = close(torch, f"flash {name}", out, want, tol)
+        close(torch, f"flash {name} lse", lse, want_lse, tol)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa(q, k, v, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=H != KV)
+        lib_err = close(torch, f"sdpa {name}", sdpa(q, k, v).transpose(1, 2), out,
+                        YARDSTICK_TOL)
+        pairs = Sq * (Sq + 1) // 2 + Sq * off if causal else Sq * Sk
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+        flops = 2 * B * H * pairs * (D + D)
+        fn = (lambda q, k, v, off=off, causal=causal:
+              fa.flash_attention_fwd(q, k, v, off, causal))
+        r = {"shape": [B, Sq, Sk, H, KV, D, D], "causal": causal, "kernel": "wgmma",
+             "dtype": "bfloat16", "max_abs_err": err,
+             "kernel_ms": time_device(fn, (q, k, v), 50, flush),
+             "plain_ms": time_device(lambda q, k, v, off=off, causal=causal:
+                                     fa.plain(q, k, v, off, causal), (q, k, v), 5, flush,
+                                     batch=5),
+             "library_ms": time_device(sdpa, (q, k, v), 50, flush),
+             "library_max_abs_err": lib_err, "bytes": nbytes, "flops": flops}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"kernel flash_attention {name}", json.dumps(r))
+        rows[f"flash_{name}"] = r
+        del q, k, v, qt, kt, vt, out, lse, want, want_lse
+    for i, (name, (B, S, H, KV, D)) in enumerate(SLICE12_DECODE.items()):
+        q = _randn(torch, (B, H, D), bf16, 320 + 3 * i, dev)
+        k = _randn(torch, (B, S, KV, D), bf16, 321 + 3 * i, dev)
+        v = _randn(torch, (B, S, KV, D), bf16, 322 + 3 * i, dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(330 + i)
+        ragged = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+        ragged[0], ragged[-1] = 0, S
+        full = torch.full((B,), S, dtype=torch.int32, device=dev)
+        errs = {}
+        for tag, length in (("ragged", ragged), ("full", full)):
+            o, m, l = da.decode_attention_fwd(q, k, v, length)
+            po, pm, pl = da.plain(q, k, v, length)
+            ok = length > 0
+            if not ((m[~ok] == -1e30).all() and (l[~ok] == 0).all() and (o[~ok] == 0).all()):
+                raise AssertionError(f"decode {name}: a length-0 row is not m=-1e30, l=0, o=0")
+            errs[tag] = close(torch, f"decode {name} {tag}", o[ok] / l[ok][..., None],
+                              po[ok] / pl[ok][..., None], tol)
+            close(torch, f"decode {name} {tag} m", m, pm, tol)
+            close(torch, f"decode {name} {tag} l", l, pl, tol)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa_decode(q, k, v, length):
+            return F.scaled_dot_product_attention(q[:, :, None], kt, vt, enable_gqa=H != KV)
+        lib_err = close(torch, f"sdpa decode {name}", sdpa_decode(q, k, v, full)[:, :, 0],
+                        o / l[..., None], YARDSTICK_TOL)
+        keys = B * S
+        nbytes = keys * KV * 2 * D * 2 + q.numel() * 2 + (o.numel() + 2 * m.numel() + B) * 4
+        flops = 2 * keys * H * 2 * D
+        r = {"shape": [B, S, H, KV, D], "dtype": "bfloat16", "max_abs_err": max(errs.values()),
+             "errs": errs, "ragged_lengths": ragged.tolist(),
+             "kernel_ms": time_device(da.decode_attention_fwd, (q, k, v, full), 200, flush),
+             "plain_ms": time_device(da.plain, (q, k, v, full), 20, flush, batch=20),
+             "library_ms": time_device(sdpa_decode, (q, k, v, full), 200, flush),
+             "library_max_abs_err": lib_err, "bytes": nbytes, "flops": flops}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"kernel decode_attention {name}", json.dumps(r))
+        rows[f"decode_{name}"] = r
+        del q, k, v, kt, vt, o, m, l, po, pm, pl
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (name, (lead, D)) in enumerate(SLICE12_RMS.items()):
+        w = _randn(torch, (D,), bf16, 340 + i, dev)
+        x = _randn(torch, (*lead, D), bf16, 350 + i, dev)
+        R = x.numel() // D
+        lib = (lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6))
+        err = close(torch, f"rmsnorm {name}", rms.rmsnorm(x, w), rms.plain(x, w),
+                    RMS_TOL["bfloat16"])
+        r = {"shape": list(x.shape), "rows": R, "D": D, "dtype": "bfloat16",
+             "plan": rms.launch_plan(R, D, bf16, sm)._asdict(), "max_abs_err": err,
+             "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush),
+             "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
+             "library_ms": time_device(lib, (x, w), 100, flush),
+             "library_max_abs_err": close(torch, f"F.rms_norm {name}", lib(x, w),
+                                          rms.rmsnorm(x, w), YARDSTICK_TOL)}
+        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S)
+        log(f"kernel rmsnorm {name}", json.dumps(r))
+        rows[f"rmsnorm_{name}"] = r
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _encdec_generate(torch, model, params, batch, new):
+    """The encoder-decoder's greedy serve: ``launch.serve.generate``'s loop
+    (prefill, caches grown by ``new``, ``new`` decode steps) with the frames
+    passed to the prefill, which ``generate`` (token-only, as in the JAX
+    package) does not take -> (B, new) tokens."""
+    from repro_torch.models.transformer import pad_caches
+    with torch.inference_mode():
+        caches, logits, _ = model.prefill(params, batch)
+        caches = pad_caches(caches, new)
+        B, S = batch["tokens"].shape
+        length = torch.full((B,), S, dtype=torch.int32, device=logits.device)
+        tok, out = model.greedy_token(logits), []
+        for _ in range(new):
+            out.append(tok)
+            logits, caches = model.decode_step(params, tok, caches, length)
+            tok = model.greedy_token(logits)
+            length = length + 1
+    return torch.stack(out, dim=1)
+
+
+def _serve_twice(torch, kernels, gen, model, params, batch, new, label):
+    """The counted serve run ``gen(batch)`` -> (B, new) tokens (counts
+    zeroed just before, read just after, by shape too), a second run for
+    its wall time (bitwise the same tokens), a prefill alone timed."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = gen(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    by_shape = launches_by_shape(kernels)
+    flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = gen(batch)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(toks, toks2):
+        raise AssertionError(f"serve {label}: a second run gave other tokens")
+    cfg = model.cfg
+    if toks.shape != (batch["tokens"].shape[0], new) or toks.min() < 0 or \
+            toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"serve {label}: bad tokens {tuple(toks.shape)}")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all() or \
+            not torch.equal(model.greedy_token(logits), toks[:, 0]):
+        raise AssertionError(f"serve {label}: prefill logits do not give token 0")
+    B = batch["tokens"].shape[0]
+    return {"arch": cfg.name, "batch": B, "prompt_len": batch["tokens"].shape[1],
+            "max_new": new, "first_s": first_s, "generate_s": gen_s, "prefill_s": prefill_s,
+            "decode_ms_per_token": (gen_s - prefill_s) / new * 1e3,
+            "generated_tokens_per_s": B * new / gen_s, "peak_mem_gb": peak_gb,
+            "launches": launches, "flash_by_kernel": flash_by_kernel,
+            "by_shape": by_shape, "bitwise_repeat": True, "tokens_head": toks[0, :8].tolist()}
+
+
+PROFILE_TAGS = ("flash_wgmma", "decode_mma", "decode_combine", "rmsnorm", "gemm", "nvjet",
+                "cutlass", "elementwise", "reduce", "cat", "copy")
+
+
+def profile_tags(torch, fn, label):
+    """``profile_device`` of one call, with the device ms of the kernels
+    whose names hold each of ``PROFILE_TAGS``; profiled again once if the
+    profiler saw no device time, and None (not measured) if it saw none
+    again."""
+    prof, by_name = profile_device(torch, fn, label)
+    if not by_name:
+        prof, by_name = profile_device(torch, fn, f"{label} (again)")
+    if not by_name:
+        return None
+    for tag in PROFILE_TAGS:
+        prof[f"{tag}_ms"] = sum(v[0] for k, v in by_name.items() if tag in k.lower())
+    return prof
+
+
+def _decode_profile(torch, model, params, batch, label):
+    """One prefill, the caches grown by a slot, then one decode step
+    profiled (host-bound by nature: its idle share is the measurement)."""
+    from repro_torch.models.transformer import pad_caches
+    with torch.inference_mode():
+        caches, logits, _ = model.prefill(params, batch)
+        caches = pad_caches(caches, 1)
+        B, S = batch["tokens"].shape
+        length = torch.full((B,), S, dtype=torch.int32, device=logits.device)
+        tok = model.greedy_token(logits)
+        return profile_tags(torch, lambda: model.decode_step(params, tok, caches, length),
+                            label)
+
+
+def phase_whisper(torch, kernels):
+    """whisper-base at full width and depth (6 + 6 layers, 512, 8 heads of
+    64, vocab 51,865), bf16 drawn on the card: served over 1,500 frames
+    (its 30-second window) with a 187-token prompt and 64 greedy tokens,
+    counted by kernel and shape; then one loss gradient at batch 8."""
+    from torch.func import grad_and_value
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model_zoo
+    W, dev = WHISPER, torch.device("cuda")
+    cfg = get_config(W["arch"])
+    model = model_zoo.build(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(W["seed"])
+    B, Fr, new = W["batch"], W["frames"], W["max_new"]
+    S = Fr // cfg.dec_len_ratio
+    params = model.init(g, dtype=torch.bfloat16)
+    frames = torch.randn((B, Fr, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"whisper: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff {cfg.d_ff} vocab {cfg.padded_vocab}, {cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, bf16: {n_params} params; frames {Fr}, prompt {S}, {new} new")
+    serve_batch = {"frames": frames, "tokens": toks[:, :-1]}
+    out = _serve_twice(torch, kernels,
+                       lambda b: _encdec_generate(torch, model, params, b, new),
+                       model, params, serve_batch, new, cfg.name)
+    L, Le, Dh = cfg.n_layers, cfg.n_enc_layers, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    want = {"quant_aggregate": 0, "rmsnorm": 0, "flash_attention": Le + 2 * L,
+            "decode_attention": 2 * L * new}
+    want_shape = {"quant_aggregate": {}, "rmsnorm": {},
+                  "flash_attention": named({(B, Fr, Fr, H, KV, Dh, Dh, False): Le,
+                                            (B, S, Fr, H, KV, Dh, Dh, False): L,
+                                            (B, S, S, H, KV, Dh, Dh, True): L}),
+                  "decode_attention": named({(B, S + new, H, KV, Dh, Dh): L * new,
+                                             (B, Fr, H, KV, Dh, Dh): L * new})}
+    with torch.inference_mode():
+        out["profile_prefill"] = profile_tags(
+            torch, lambda: model.prefill(params, serve_batch), "whisper prefill")
+    out["profile_decode_step"] = _decode_profile(torch, model, params, serve_batch,
+                                                 "whisper decode step")
+    log(f"whisper serve launches {json.dumps(out['launches'])} (want {json.dumps(want)}); "
+        f"by shape {json.dumps(out['by_shape'])}")
+    if out["launches"] != want or out["by_shape"] != want_shape or \
+            out["flash_by_kernel"] != {"wgmma": Le + 2 * L, "tf32x3": 0}:
+        raise AssertionError(f"whisper serve: launches {out['launches']} by shape "
+                             f"{out['by_shape']}, by kernel {out['flash_by_kernel']}; want "
+                             f"{want}, {want_shape}, all flash on wgmma")
+    # one loss gradient at batch 8 (the FL rounds' transform)
+    batch = {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, loss = grad_and_value(model.loss)(params, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = {name: fn.launches for name, fn in kernels.items()}
+    bad = [p for p, v in zip(_paths(grads), _leaves(grads))
+           if not torch.isfinite(v.float()).all()]
+    if not math.isfinite(loss.item()) or bad or grad_launches["flash_attention"] != Le + 2 * L:
+        raise AssertionError(f"whisper gradient: loss {loss.item()}, non-finite {bad}, "
+                             f"launches {grad_launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad_norm = float(sum(v.float().square().sum() for v in _leaves(grads)) ** 0.5)
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()          # again, warm: the first call's set-up left out
+    grads, loss2 = grad_and_value(model.loss)(params, batch)
+    torch.cuda.synchronize()
+    out["gradient"] = {"loss": loss.item(), "first_s": grad_s,
+                       "warm_s": time.perf_counter() - t0, "launches": grad_launches,
+                       "peak_mem_gb": peak_gb, "grad_norm": grad_norm,
+                       "repeat_bitwise": bool(torch.equal(loss, loss2))}
+    log("whisper", json.dumps(out))
+    del params, grads, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1]
+
+
+def phase_xlstm(torch, kernels):
+    """xlstm-125m at full width and depth (12 layers, 768), bf16 drawn on
+    the card: served (batch 8, prompt 2,048, 64 new), B2 counted by rows;
+    the sLSTM's launches a token of the prompt (profiled on one layer); one
+    temporal FedAvgM round of ``repro_torch.launch.train_fl_lm``."""
+    from repro_torch.configs.base import FLConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo, ssm
+    X, dev = XLSTM, torch.device("cuda")
+    cfg = get_config(X["arch"])
+    model = model_zoo.build(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(X["seed"])
+    B, S, new = X["batch"], X["prompt_len"], X["max_new"]
+    params = model.init(g, dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"xlstm: {cfg.name} d_model {cfg.d_model} {cfg.n_layers} layers (mLSTM head dim "
+        f"{ssm.xlstm_dims(cfg)[2]}), bf16: {n_params} params")
+    out = _serve_twice(torch, kernels, lambda b: generate(model, params, b["tokens"], new),
+                       model, params, {"tokens": prompts}, new, cfg.name)
+    norms = cfg.n_layers + 1                   # one before each block, and the final norm
+    want = {"quant_aggregate": 0, "rmsnorm": norms * (1 + new), "flash_attention": 0,
+            "decode_attention": 0}
+    want_rows = named({(B * S, cfg.d_model): norms, (B, cfg.d_model): norms * new})
+    log(f"xlstm serve launches {json.dumps(out['launches'])} (want {json.dumps(want)}); "
+        f"rmsnorm by rows {json.dumps(out['by_shape']['rmsnorm'])}")
+    if out["launches"] != want or out["by_shape"]["rmsnorm"] != want_rows:
+        raise AssertionError(f"xlstm serve: launches {out['launches']}, by rows "
+                             f"{out['by_shape']['rmsnorm']}; want {want}, {want_rows}")
+    out["profile_decode_step"] = _decode_profile(torch, model, params, {"tokens": prompts},
+                                                 "xlstm decode step")
+    # the sLSTM's launches a token: one layer's forward over a shorter prompt
+    n = X["slstm_profile_len"]
+    w = {k: v[0] for k, v in params["blocks"]["slstm"].items()}
+    x = torch.randn((B, n, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        prof, _ = profile_device(torch, lambda: ssm.slstm_forward(w, x, cfg),
+                                 f"slstm forward {B} x {n}")
+    out["slstm_launches_per_token"] = prof["kernel_launches"] / n
+    out["slstm_profile"] = prof
+    del params, x
+    torch.cuda.empty_cache()
+    # one temporal round at full width and depth
+    T = XLSTM_TRAIN
+    fl = FLConfig(strategy="fedavgm", n_clients=T["clients"], local_epochs=T["local_epochs"],
+                  client_lr=T["client_lr"], server_momentum=T["server_momentum"], seed=0)
+    t0 = time.perf_counter()
+    _, round_fn, state = train_fl_lm.setup(cfg, fl, dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    state, logger = train_fl_lm.run_rounds(
+        round_fn, state, lm, 0, 1, clients=T["clients"], cohort=T["cohort"],
+        batch=T["batch"], seq=T["seq"], local_steps=T["local_steps"], device=dev)
+    steps = T["cohort"] * T["local_steps"] * T["local_epochs"]
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    by_shape = launches_by_shape(kernels)
+    want_rows = named({(T["batch"] * T["seq"], cfg.d_model): norms * steps})
+    losses = logger.series("loss")
+    if launches["rmsnorm"] != norms * steps or by_shape["rmsnorm"] != want_rows \
+            or not all(math.isfinite(v) for v in losses) \
+            or not all(torch.isfinite(v.float()).all() for v in state["params"].values()):
+        raise AssertionError(f"xlstm train round: losses {losses}, launches {launches}, "
+                             f"B2 by rows {by_shape['rmsnorm']} (want {want_rows})")
+    out["train"] = {"losses": losses, "round_s": logger.series("round_s"), "init_s": init_s,
+                    "seq": T["seq"], "batch": T["batch"], "local_steps": steps,
+                    "tokens_per_round": steps * T["batch"] * T["seq"],
+                    "launches": launches, "by_shape": by_shape, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("xlstm", json.dumps(out))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_jamba_sublayers(torch, kernels):
+    """jamba-1.5-large-398b's attention sublayer and one Mamba mixer alone
+    at full width (d_model 8,192; 64 heads on 8 of 128; d_inner 16,384, N
+    16, dt_rank 512), bf16 drawn on the card, each after its RMSNorm:
+    prefill over 8 x 2,048 and one decode step, counted and timed."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import init_tree
+    J, dev = JAMBA, torch.device("cuda")
+    cfg = get_config(J["arch"])
+    B, S, D = J["batch"], J["prompt_len"], cfg.d_model
+    g = torch.Generator(device=dev)
+    g.manual_seed(J["seed"])
+    w = init_tree(g, {"ln_mix": {"w": (D,)}, "attn": attn.attn_param_shapes(cfg),
+                      "mamba": ssm.mamba_param_shapes(cfg)}, torch.bfloat16)
+    ln = w["ln_mix"]["w"]
+    x = torch.randn((B, S, D), generator=g, device=dev).to(torch.bfloat16)
+    xd = torch.randn((B, 1, D), generator=g, device=dev).to(torch.bfloat16)
+    length = torch.full((B,), S, dtype=torch.int32, device=dev)
+    Q = ssm.mamba_chunk_len(cfg, B, S)
+    out = {"shape": [B, S, D], "mamba_chunk": Q, "mamba_dims": list(ssm.mamba_dims(cfg))}
+
+    def attn_prefill():
+        o, cache = attn.gqa_seqsharded(w["attn"], rms_norm(x, ln, cfg.norm_eps), cfg,
+                                       return_cache=True)
+        return x + o, cache
+
+    def attn_decode(cache):
+        o, cache = attn.gqa_decode(w["attn"], rms_norm(xd, ln, cfg.norm_eps), cache,
+                                   length, cfg)
+        return xd + o
+
+    def mamba_prefill():
+        return ssm.mamba_forward(w["mamba"], rms_norm(x, ln, cfg.norm_eps), cfg)
+
+    def mamba_decode(st):
+        return ssm.mamba_decode(w["mamba"], rms_norm(xd, ln, cfg.norm_eps), cfg, st)
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for name, pre, dec in (("attention", attn_prefill, attn_decode),
+                               ("mamba", mamba_prefill, mamba_decode)):
+            _zero_counts(kernels)
+            (y, cache), pre_ms = timed(pre)
+            if name == "attention":     # one free slot for the decode token
+                cache = attn.KVCache(*(F.pad(t, (0, 0, 0, 0, 0, 1)) for t in cache))
+            yd, dec_ms = timed(dec, cache)
+            yd = yd[0] if isinstance(yd, tuple) else yd
+            launches = {n: fn.launches for n, fn in kernels.items()}
+            by_shape = launches_by_shape(kernels)
+            flash = dict(kernels["flash_attention"].launches_by_kernel)
+            if not (torch.isfinite(y).all() and torch.isfinite(yd).all()):
+                raise AssertionError(f"jamba {name} sublayer: non-finite output")
+            attention = name == "attention"
+            want = {"quant_aggregate": 0, "rmsnorm": 2, "flash_attention": int(attention),
+                    "decode_attention": int(attention)}
+            if launches != want or flash["tf32x3"]:
+                raise AssertionError(f"jamba {name}: launches {launches}, flash {flash}; "
+                                     f"want {want}")
+            # warm times: the median of three more
+            pre_ms = sorted([pre_ms] + [timed(pre)[1] for _ in range(3)])[1]
+            dec_ms = sorted([dec_ms] + [timed(dec, cache)[1] for _ in range(3)])[1]
+            out[name] = {"prefill_ms": pre_ms, "decode_step_ms": dec_ms,
+                         "launches": launches, "by_shape": by_shape,
+                         "profile_prefill": profile_tags(torch, pre, f"jamba {name} prefill")}
+            del y, yd, cache
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("jamba sublayers at full width", json.dumps(out))
+    del w, x, xd
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_layers(cfg) -> int:
+    """B3 launches of one prefill: every attention layer (the encoder's and
+    the decoder's self and cross attention for encdec, one a period for
+    hybrid, none for ssm)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.period
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
 
 
 def main() -> int:
@@ -3383,11 +3971,27 @@ def main() -> int:
     slice10_s = time.perf_counter() - t0
     log(f"slice 10 phase: {slice10_s:.1f}s")
 
-    # 12. serve path; counts zeroed just before it, read just after
+    # 12. the last three LM families (slice 12): C7's normal halves on the
+    # card, B2-B4 at the new shapes, whisper-base and xlstm-125m at full
+    # width and depth, jamba's sublayers at full width, reduced card vs CPU;
+    # counts zeroed just before each counted path, read just after
+    t0 = time.perf_counter()
+    c7 = check_normal_halves(torch)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    slice12_rows = time_slice12_kernels(torch, flush)
+    del flush
+    whisper = phase_whisper(torch, kernels)
+    xlstm = phase_xlstm(torch, kernels)
+    jamba = phase_jamba_sublayers(torch, kernels)
+    serve_cpu12 = {arch: phase_serve_card_vs_cpu(torch, arch) for arch in SLICE12_CARD_CPU}
+    slice12_s = time.perf_counter() - t0
+    log(f"slice 12 phase: {slice12_s:.1f}s")
+
+    # 13. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 13. summary
+    # 14. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -3461,25 +4065,43 @@ def main() -> int:
             "worst_max_abs_err_test_shapes": worst, "shape": r["shape"]})
         if "baseline_ms" in r:
             entries[-1]["baseline_ms"] = r["baseline_ms"]
-    # slice 11: B3 in f32 on the tf32x3 kernel. The path entries are timed
-    # at the shapes their launches have (the f32 card-vs-CPU serve and train
-    # runs: reduced GQA at 16/16, reduced MLA absorbed at 24/16); yi-34b's
-    # serve shape and MLA's absorbed dims in f32 are kernel-level only
-    def f32_launches(mla):
-        runs = (serve_cpu, *serve_cpu10.values(), *train_cpu.values(), *train_cpu10.values())
-        return sum(r["flash_by_kernel"]["tf32x3"] for r in runs if r["mla"] == mla)
-    for name, key, launches, path in (
-            ("flash_attention_tf32x3_reduced", "reduced", f32_launches(False),
-             "reduced yi-34b, qwen3-moe-30b-a3b, arctic-480b served and reduced "
-             "qwen2.5-32b, chameleon-34b, qwen3-moe-30b-a3b, arctic-480b trained in f32 on "
-             "the card (card vs CPU)"),
-            ("flash_attention_tf32x3_mla_reduced", "mla_reduced", f32_launches(True),
+    # slice 11: B3 in f32 on the tf32x3 kernel. Each path entry is timed at
+    # the shape its launches have, counted by shape in the f32 card-vs-CPU
+    # serve and train runs; yi-34b's serve shape and MLA's absorbed dims in
+    # f32 are kernel-level only
+    f32_runs = (serve_cpu, *serve_cpu10.values(), *serve_cpu12.values(),
+                *train_cpu.values(), *train_cpu10.values())
+    f32_by_shape = {}
+    for r in f32_runs:
+        for k, n in r["flash_by_shape"].items():
+            f32_by_shape[k] = f32_by_shape.get(k, 0) + n
+    unlisted = set(f32_by_shape) - {shape_name(v) for v in F32_FLASH.values()}
+    if unlisted:
+        raise AssertionError(f"tf32x3 launched on the f32 paths at shapes F32_FLASH lacks: "
+                             f"{sorted(unlisted)}")
+    for name, key, path in (
+            ("flash_attention_tf32x3_reduced", "reduced",
+             "reduced yi-34b, qwen3-moe-30b-a3b, arctic-480b, jamba-1.5-large-398b served "
+             "and reduced qwen2.5-32b, chameleon-34b, qwen3-moe-30b-a3b, arctic-480b "
+             "trained in f32 on the card (card vs CPU)"),
+            ("flash_attention_tf32x3_mla_reduced", "mla_reduced",
              "reduced minicpm3-4b (absorbed MLA) served and trained in f32 on the card "
              "(card vs CPU)"),
-            ("flash_attention_tf32x3_f32_serve_shape", "serve", 0,
+            ("flash_attention_tf32x3_whisper_encoder_reduced", "whisper_encoder_reduced",
+             "reduced whisper-base served in f32 on the card: the encoder's self-attention "
+             "(full)"),
+            ("flash_attention_tf32x3_whisper_cross_reduced", "whisper_cross_reduced",
+             "reduced whisper-base served in f32 on the card: the cross-attention (full, "
+             "Sq != Sk)"),
+            ("flash_attention_tf32x3_whisper_decoder_reduced", "whisper_decoder_reduced",
+             "reduced whisper-base served in f32 on the card: the decoder's self-attention"),
+            ("flash_attention_tf32x3_f32_serve_shape", "serve",
              "kernel-level only: no path launches f32 at yi-34b's width"),
-            ("flash_attention_tf32x3_f32_mla_absorbed", "mla_absorbed", 0,
+            ("flash_attention_tf32x3_f32_mla_absorbed", "mla_absorbed",
              "kernel-level only: no path launches f32 at minicpm3-4b's width")):
+        launches = f32_by_shape.get(shape_name(F32_FLASH[key]), 0)
+        if (launches == 0) != path.startswith("kernel-level only"):
+            raise AssertionError(f"{name}: {launches} launches on the f32 paths ({path})")
         r = f32_flash_rows[key]
         entries.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3564,6 +4186,67 @@ def main() -> int:
                        else "src/repro_torch/csrc/decode_attention.cu"),
             "replaces": ("src/repro/kernels/rmsnorm.py:11" if rms_row
                          else "src/repro/kernels/decode_attention.py:29"),
+            "launches": launches, "launches_path": path, "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "bitwise": False,
+            "shape": r["shape"]})
+    # slice 12: B3, B4 and B2 at the last three families' shapes, launches
+    # from the counted whisper-base and xlstm-125m serve runs and jamba's
+    # sublayer runs
+    def s12_launches(key):
+        """A slice-12 row's launches: its shape's count in the counted run of
+        the path that launches it."""
+        kind, name = key.split("_", 1)
+        if kind == "flash":
+            B, Sq, Sk, H, KV, D, causal = SLICE12_FLASH[name]
+            shape, fn = (B, Sq, Sk, H, KV, D, D, causal), "flash_attention"
+        elif kind == "decode":
+            shape, fn = (*SLICE12_DECODE[name], SLICE12_DECODE[name][-1]), "decode_attention"
+        else:
+            lead, D = SLICE12_RMS[name]
+            shape, fn = (math.prod(lead), D), "rmsnorm"
+        runs = {"whisper": [whisper], "jamba": [jamba["attention"], jamba["mamba"]],
+                "xlstm": [xlstm["train"] if name.endswith("train") else xlstm]}
+        return sum(r["by_shape"][fn].get(shape_name(shape), 0)
+                   for r in runs[name.split("_")[0]])
+    for name, key, path in (
+            ("flash_attention_wgmma_whisper_encoder", "flash_whisper_encoder",
+             "whisper-base serve: the encoder's self-attention (full)"),
+            ("flash_attention_wgmma_whisper_cross", "flash_whisper_cross",
+             "whisper-base serve: the decoder's cross-attention (full, Sq != Sk)"),
+            ("flash_attention_wgmma_whisper_decoder", "flash_whisper_decoder",
+             "whisper-base serve: the decoder's self-attention"),
+            ("flash_attention_wgmma_jamba", "flash_jamba",
+             "jamba-1.5-large-398b attention sublayer at full width, prefill"),
+            ("decode_attention_whisper_self", "decode_whisper_self",
+             "whisper-base serve: the decoder's self cache, 64 steps"),
+            ("decode_attention_whisper_cross", "decode_whisper_cross",
+             "whisper-base serve: cross-attention over the encoder cache (combine=False)"),
+            ("decode_attention_jamba", "decode_jamba",
+             "jamba-1.5-large-398b attention sublayer at full width, one decode step"),
+            ("rmsnorm_xlstm_prefill", "rmsnorm_xlstm_prefill",
+             "xlstm-125m serve: the prefill's norms"),
+            ("rmsnorm_xlstm_decode", "rmsnorm_xlstm_decode",
+             "xlstm-125m serve: 64 decode steps' norms"),
+            ("rmsnorm_xlstm_train", "rmsnorm_xlstm_train",
+             "xlstm-125m: one temporal train_fl_lm round's forward norms"),
+            ("rmsnorm_jamba_prefill", "rmsnorm_jamba_prefill",
+             "jamba-1.5-large-398b attention and Mamba sublayers at full width, prefill"),
+            ("rmsnorm_jamba_decode", "rmsnorm_jamba_decode",
+             "jamba-1.5-large-398b attention and Mamba sublayers, one decode step")):
+        launches = s12_launches(key)
+        if not launches:
+            raise AssertionError(f"{name}: its shape was launched no time on its path")
+        r = slice12_rows[key]
+        kind = key.split("_")[0]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": {"flash": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                       "decode": "src/repro_torch/csrc/decode_attention.cu",
+                       "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu"}[kind],
+            "replaces": {"flash": flash_src,
+                         "decode": "src/repro/kernels/decode_attention.py:29",
+                         "rmsnorm": "src/repro/kernels/rmsnorm.py:11"}[kind],
             "launches": launches, "launches_path": path, "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "bitwise": False,
@@ -3698,6 +4381,21 @@ def main() -> int:
                         "train_card_vs_cpu": {a: r["flash_by_kernel"] for a, r in
                                               (*train_cpu.items(), *train_cpu10.items())}},
                     "worst": {k: v for k, v in lm_worst.items() if k.startswith("flash")}}))
+    log(json.dumps({"slice": "12: the last three LM families: whisper-base (encoder-decoder) "
+                    "and xlstm-125m (mLSTM/sLSTM) served and trained at full width and "
+                    "depth, jamba-1.5-large-398b's attention sublayer and Mamba mixer at full "
+                    "width, reduced card vs CPU; determinism.normal from correctly rounded "
+                    "operations (C7)",
+                    "card": smi, "phase_s": slice12_s, "c7": c7, "kernels": slice12_rows,
+                    "whisper": {k: whisper[k] for k in (
+                        "prefill_s", "decode_ms_per_token", "generated_tokens_per_s",
+                        "generate_s", "peak_mem_gb", "by_shape", "gradient",
+                        "profile_prefill", "profile_decode_step")},
+                    "xlstm": {k: xlstm[k] for k in (
+                        "prefill_s", "decode_ms_per_token", "generated_tokens_per_s",
+                        "generate_s", "peak_mem_gb", "launches", "slstm_launches_per_token",
+                        "train", "profile_decode_step")},
+                    "jamba": jamba, "card_vs_cpu": serve_cpu12}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

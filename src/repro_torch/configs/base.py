@@ -1,12 +1,11 @@
 """Configuration dataclasses for models and FL jobs (port of
 ``repro/configs/base.py``).
 
-A copy, not an import: the port imports nothing of ``repro``. Every
-architecture's config is described here as data, but ``get_config``
-resolves only those the port can run: the paper's small models
-(``flsim-*``), the dense GQA LMs, MLA (minicpm3-4b) and the MoE LMs
-(qwen3-moe-30b-a3b, arctic-480b). Encoder-decoder, SSM and hybrid wait for
-their parts of the LM slice (ROADMAP A15.5 and A15.6).
+A copy, not an import: the port imports nothing of ``repro``. ``get_config``
+resolves every architecture of the JAX package: the paper's small models
+(``flsim-*``), the dense GQA LMs, MLA (minicpm3-4b), the MoE LMs
+(qwen3-moe-30b-a3b, arctic-480b), the encoder-decoder (whisper-base),
+xLSTM (xlstm-125m) and the Mamba hybrid (jamba-1.5-large-398b).
 """
 from __future__ import annotations
 
@@ -189,14 +188,14 @@ ARCHS = (
 )
 
 _SMALL = ("flsim-cnn", "flsim-mlp", "flsim-logreg")
-# LM architectures the port runs; the others are named in ARCHS for the
-# registry and refused by ``get_config`` until their part of ROADMAP A15.
+# LM architectures the port runs: every one of ARCHS
 _PORTED_LM = ("yi-34b", "qwen2.5-32b", "qwen1.5-32b", "chameleon-34b", "minicpm3-4b",
-              "qwen3-moe-30b-a3b", "arctic-480b")
+              "qwen3-moe-30b-a3b", "arctic-480b", "whisper-base", "xlstm-125m",
+              "jamba-1.5-large-398b")
 
 
 def get_config(name: str) -> ModelConfig:
-    """Resolve a ported architecture's config by name."""
+    """Resolve an architecture's config by name."""
     if name in _SMALL:
         from repro_torch.configs import flsim_small
         return getattr(flsim_small, name.replace("-", "_").upper())
@@ -204,9 +203,4 @@ def get_config(name: str) -> ModelConfig:
         mod = importlib.import_module(
             f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
         return mod.CONFIG
-    if name in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported (the port runs "
-            f"{list(_SMALL + _PORTED_LM)}; encoder-decoder waits for ROADMAP "
-            "A15.5, SSM and hybrid for A15.6)")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS + _SMALL)}")

@@ -16,8 +16,9 @@ at ``(key, i)`` is the i-th output of the splitmix64 stream seeded with
 ``key`` (``draw_bits``), computed with int64 tensor ops, so it is the same
 on the CPU and on the card, and a draw for one client is by construction
 lane ``c`` of the draw for all clients. ``uniform_index`` turns those bits
-into batch positions and ``normal`` into Gaussians (Box-Muller, the same
-bits on the CPU and the card too).
+into batch positions and ``normal`` into Gaussians (Box-Muller from
+correctly rounded operations only, so the same bits on any CPU and the
+card too).
 
 This does NOT reproduce ``jax.random``'s bits: the two packages draw
 different batches, noise and cohorts from the same seed. Parity tests feed
@@ -26,6 +27,7 @@ both packages the same numpy inputs instead.
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 
 import torch
 
@@ -161,14 +163,104 @@ def uniform_index(keys, counters, n):
     return (_srl(draw_bits(keys, counters), 32) * n) >> 32
 
 
+# log(u1): fdlibm's split of ln 2 (``ln2_hi`` has 32 trailing zero bits, so
+# ``e * ln2_hi`` is exact for any |e| < 2**20) and the Taylor coefficients
+# 2 / (2k + 1) of ``log(1 + f) = 2s + s * R(s**2)``, ``s = f / (2 + f)``:
+# |s| < 0.1716 on the folded mantissa, and 11 terms leave under 1e-19.
+_LN2_HI = 6.93147180369123816490e-01
+_LN2_LO = 1.90821492927058770002e-10
+_SQRT2 = 1.4142135623730951
+_LOG_R = tuple(float(Fraction(2, 2 * k + 1)) for k in range(1, 12))
+# cos(2 pi u2): the angle within an octant, t = a * (pi/2) / 2**22 for an
+# integer a <= 2**21, so t <= pi/4; Taylor coefficients (-1)**n / (2n)! and
+# (-1)**n / (2n + 1)!, terms up to t**20 and t**21 (the next under 1e-19).
+_QUARTER_STEP = (math.pi / 2) * 2.0 ** -22
+_COS_C = tuple(float(Fraction((-1) ** n, math.factorial(2 * n))) for n in range(11))
+_SIN_C = tuple(float(Fraction((-1) ** n, math.factorial(2 * n + 1))) for n in range(1, 11))
+
+
+def _horner(z, coeffs):
+    """``c0 + z * (c1 + z * (c2 + ...))``: one multiply and one add a term,
+    each its own rounded op."""
+    p = torch.full_like(z, coeffs[-1])
+    for c in reversed(coeffs[:-1]):
+        p = p * z
+        p = p + c
+    return p
+
+
+def _log_u1(k):
+    """f64 ``log((k + 1) * 2**-24)`` for int64 ``k`` in [0, 2**24), from
+    correctly rounded operations only (see ``normal``): within one f64 ulp
+    of the true value.
+
+    ``k + 1 = m * 2**e`` with ``m`` in [sqrt(1/2), sqrt(2)) (``frexp`` and
+    a fold, exact); ``log u1 = (e - 24) * ln2 + log m``, the exponent
+    offset taken in integers, ``e * ln2`` in Cody-Waite hi/lo parts, and
+    ``log m = log(1 + f)`` in fdlibm's arrangement ``f - (hfsq - (s * (hfsq
+    + R) + e * ln2_lo))`` with ``hfsq = f*f/2`` and ``R`` a Taylor series
+    in ``s**2``. ``f = m - 1`` and ``2 + f`` are exact: ``m`` carries at
+    most 25 significant bits."""
+    x = (k + 1).to(torch.float64)
+    mant, e = torch.frexp(x)                  # x = mant * 2**e, mant in [1/2, 1)
+    m = mant * 2.0
+    e = e.to(torch.float64) - 1.0
+    big = m > _SQRT2
+    m = torch.where(big, m * 0.5, m)
+    e = torch.where(big, e + 1.0, e) - 24.0   # the 2**-24 of u1, exactly
+    f = m - 1.0
+    s = f / (f + 2.0)
+    z = s * s
+    r = _horner(z, _LOG_R) * z
+    hfsq = (f * f) * 0.5
+    inner = s * (hfsq + r) + e * _LN2_LO
+    return e * _LN2_HI - ((hfsq - inner) - f)
+
+
+def _cos_2pi_u2(j):
+    """f64 ``cos(2 pi j 2**-24)`` for int64 ``j`` in [0, 2**24), from
+    correctly rounded operations only (see ``normal``): within 4e-16 of the
+    true value.
+
+    The quadrant is j's top two bits; within it the angle is ``r * step``,
+    ``r = j mod 2**22``, ``step = (pi/2) / 2**22``. Past the octant (``r >
+    2**21``) the complement ``(2**22 - r) * step`` is taken and cos and sin
+    swap, so the polynomials see ``t <= pi/4``, and each angle is one
+    rounded product of exact integers and ``step``."""
+    quad = _srl(j, 22) & 3
+    r = j & ((1 << 22) - 1)
+    swap = r > (1 << 21)
+    a = torch.where(swap, (1 << 22) - r, r).to(torch.float64)
+    t = a * _QUARTER_STEP
+    z = t * t
+    cos_t = _horner(z, _COS_C)
+    sin_t = t + (t * z) * _horner(z, _SIN_C)
+    cos_r = torch.where(swap, sin_t, cos_t)   # cos of the angle within the quadrant
+    sin_r = torch.where(swap, cos_t, sin_t)
+    # cos(q pi/2 + phi) = cos phi, -sin phi, -cos phi, sin phi for q = 0..3
+    val = torch.where((quad & 1) == 1, sin_r, cos_r)
+    neg = (quad == 1) | (quad == 2)
+    return torch.where(neg, -val, val)
+
+
 def normal(keys, counters):
     """Standard normals (f32) by Box-Muller from one draw each: 24 bits give
-    ``u1`` in (0, 1], 24 more ``u2`` in [0, 1). The transform runs in f64
-    and is rounded to f32 once: the f32 ``log``, ``cos`` and ``sqrt`` of the
-    CPU and of the card differ in the last place, their f64 results round
-    to the same f32, so a draw has the same bits on both."""
+    ``u1 = (k + 1) * 2**-24`` in (0, 1], 24 more ``u2 = j * 2**-24`` in
+    [0, 1). The transform runs in f64 and is rounded to f32 once.
+
+    Its f64 value is a function of the 48 bits alone, the same on every
+    CPU and on the card: ``log`` and ``cos`` are not correctly rounded, and
+    the card's and a CPU's libm differ in the last bits (f64 ``log(u1)`` in
+    80,420 and ``cos(2 pi u2)`` in 2,824,694 of the 2**24 inputs each on an
+    H100 80GB HBM3 against its host, ``chip_smoke.check_normal_halves``), so
+    neither is called. ``_log_u1`` and ``_cos_2pi_u2`` build them from
+    ``+ - * /``, ``sqrt``, ``frexp``, exact conversions and integer ops,
+    each one eager elementwise op that IEEE 754 rounds correctly on both
+    devices; no fused op (``addcmul``, ``add`` with ``alpha``, a compiled
+    graph) that one device could contract into an FMA and the other not,
+    and no division by a Python scalar (the card multiplies by its
+    reciprocal)."""
     bits = draw_bits(keys, counters)
-    u1 = (_srl(bits, 40) + 1).to(torch.float64) * 2.0 ** -24
-    u2 = ((bits >> 16) & 0xFFFFFF).to(torch.float64) * 2.0 ** -24
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+    radius = torch.sqrt(_log_u1(_srl(bits, 40)) * -2.0)
+    z = radius * _cos_2pi_u2((bits >> 16) & 0xFFFFFF)
     return z.to(torch.float32)

@@ -88,9 +88,7 @@ def _check_keys(section_name: str, section, allowed) -> None:
 
 
 def check_ported(raw: dict, fl: FLConfig) -> None:
-    """Raise ``ValueError`` for a setting the port does not know. (An arch
-    whose code is not yet ported raises ``NotImplementedError`` naming
-    ROADMAP A15 in ``get_config`` or ``model_zoo.build``.)"""
+    """Raise ``ValueError`` for a setting the port does not know."""
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {fl.mode!r} (want 'sync' or 'async')")
     if fl.placement not in ("auto", "spatial", "temporal"):

@@ -3,7 +3,9 @@
 The port keeps the JAX package's param names and layouts (LM blocks too:
 nested dicts with the stacked leading layer dim), so carrying a state across
 is a dtype-preserving copy of each leaf. Tests use this to start both
-packages from the same weights, and to compare KV and MLA latent caches.
+packages from the same weights, and to carry caches and recurrent states
+(KV, MLA latent, encoder-decoder, Mamba, mLSTM and sLSTM, and the per-period
+trees of the hybrid and xLSTM stacks) from one to the other.
 """
 from __future__ import annotations
 
@@ -34,20 +36,31 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
             for k in ("params", "server", "clients")}
 
 
-def kv_cache_from_numpy(cache, device="cpu"):
-    """A JAX ``KVCache`` (or any ``(k, v)`` pair) of numpy arrays -> the
-    port's ``KVCache``, same layout."""
-    from repro_torch.models.attention import KVCache
-    k, v = cache
-    return KVCache(*_from_numpy((k, v), device))
+def _port_cache_types() -> dict:
+    from repro_torch.models.attention import KVCache, LatentCache
+    from repro_torch.models.ssm import MambaState, MLSTMState, SLSTMState
+    from repro_torch.models.transformer import EncDecCaches
+    return {t.__name__: t for t in (KVCache, LatentCache, EncDecCaches, MambaState,
+                                    MLSTMState, SLSTMState)}
 
 
-def latent_cache_from_numpy(cache, device="cpu"):
-    """A JAX ``LatentCache`` (or any ``(ckv, krope)`` pair) of numpy arrays
-    -> the port's ``LatentCache``, same layout."""
-    from repro_torch.models.attention import LatentCache
-    ckv, krope = cache
-    return LatentCache(*_from_numpy((ckv, krope), device))
+def caches_from_numpy(tree, device="cpu"):
+    """A JAX cache tree of numpy leaves (what ``Model.prefill`` gives, or a
+    layer's state: dicts, lists and the JAX package's cache NamedTuples) ->
+    the same tree of tensors, each NamedTuple as the port's type of that
+    name (``KVCache``, ``LatentCache``, ``EncDecCaches``, ``MambaState``,
+    ``MLSTMState``, ``SLSTMState``)."""
+    types = _port_cache_types()
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return types[type(t).__name__](*(conv(v) for v in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(conv(v) for v in t)
+        return torch.tensor(np.asarray(t), device=device)
+    return conv(tree)
 
 
 def to_numpy(tree):
@@ -55,7 +68,7 @@ def to_numpy(tree):
     arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta, KVCache, LatentCache
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # PackedDelta, the caches
         return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)

@@ -122,7 +122,9 @@ def decode_attention_fwd(q, k, v, length, scale=None):
 
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
     stream (no synchronisation) or raise. Each call on the card (the split
-    kernel and its combine) adds one to ``decode_attention_fwd.launches``."""
+    kernel and its combine) adds one to ``decode_attention_fwd.launches``
+    and to its shape's, ``(B, S, H, KV, Dk, Dv)``, in
+    ``decode_attention_fwd.launches_by_shape``."""
     _check(q, k, v, length)
     dev = q.device
     if dev.type == "cpu":
@@ -162,10 +164,14 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
     decode_attention_fwd.launches += 1
+    key = (B, S, H, KV, Dk, Dv)
+    decode_attention_fwd.launches_by_shape[key] = \
+        decode_attention_fwd.launches_by_shape.get(key, 0) + 1
     return o, m, l
 
 
 decode_attention_fwd.launches = 0
+decode_attention_fwd.launches_by_shape = {}
 
 
 def _lib():

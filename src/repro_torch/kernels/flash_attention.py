@@ -266,8 +266,10 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
     ``q_offset`` is the global position of q row 0 (a Python int). CPU
     tensors take ``plain``; CUDA tensors launch the kernel that
     ``launch_plan`` names on the current stream (no synchronisation) or
-    raise. Each launch adds one to ``flash_attention_fwd.launches`` and to
-    its kernel's entry in ``flash_attention_fwd.launches_by_kernel``."""
+    raise. Each launch adds one to ``flash_attention_fwd.launches``, to its
+    kernel's entry in ``flash_attention_fwd.launches_by_kernel`` and to its
+    shape's, ``(B, Sq, Sk, H, KV, Dk, Dv, causal)``, in
+    ``flash_attention_fwd.launches_by_shape``."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
@@ -278,11 +280,16 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
     out, lse = _launch(kernel, q, k, v, q_offset, causal, scale)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_kernel[kernel] += 1
+    key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+           bool(causal))
+    flash_attention_fwd.launches_by_shape[key] = \
+        flash_attention_fwd.launches_by_shape.get(key, 0) + 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_kernel = {k: 0 for k in SOURCES}
+flash_attention_fwd.launches_by_shape = {}
 
 
 def _launch(kernel, q, k, v, q_offset, causal, scale):

@@ -145,7 +145,8 @@ def quant_aggregate(qdeltas, scales, weights):
 
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
     stream (no synchronisation) or raise. Each launch adds one to
-    ``quant_aggregate.launches``."""
+    ``quant_aggregate.launches`` and to its shape's, ``(S, C, N, qblock)``,
+    in ``quant_aggregate.launches_by_shape``."""
     S, C, N, qblock = _check(qdeltas, scales, weights)
     devices = {t.device for t in (qdeltas, scales, weights)}
     if len(devices) != 1:
@@ -164,10 +165,13 @@ def quant_aggregate(qdeltas, scales, weights):
                                               else torch.cuda.current_device()), S=S)
     out = _launch(qdeltas, scales, weights, qblock, plan)
     quant_aggregate.launches += 1
+    key = (S, C, N, qblock)
+    quant_aggregate.launches_by_shape[key] = quant_aggregate.launches_by_shape.get(key, 0) + 1
     return out
 
 
 quant_aggregate.launches = 0
+quant_aggregate.launches_by_shape = {}
 
 
 @functools.lru_cache(maxsize=None)

@@ -178,8 +178,8 @@ def rmsnorm(x, w, eps: float = 1e-6):
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
     stream (no synchronisation) with ``launch_plan``'s geometry, or raise.
     Each launch adds one to ``rmsnorm.launches``, to its layout's count in
-    ``rmsnorm.launches_by_layout`` and to its row width's in
-    ``rmsnorm.launches_by_width``."""
+    ``rmsnorm.launches_by_layout`` and to its shape's, ``(rows, D)``, in
+    ``rmsnorm.launches_by_shape``."""
     _check(x, w)
     dev = x.device
     if dev.type == "cpu":
@@ -201,13 +201,13 @@ def rmsnorm(x, w, eps: float = 1e-6):
     _launch(x, w, out, eps, plan)
     rmsnorm.launches += 1
     rmsnorm.launches_by_layout[plan.layout] += 1
-    rmsnorm.launches_by_width[D] = rmsnorm.launches_by_width.get(D, 0) + 1
+    rmsnorm.launches_by_shape[R, D] = rmsnorm.launches_by_shape.get((R, D), 0) + 1
     return out
 
 
 rmsnorm.launches = 0
 rmsnorm.launches_by_layout = {"row": 0, "wide_row": 0, "cluster": 0}
-rmsnorm.launches_by_width = {}
+rmsnorm.launches_by_shape = {}
 
 
 def _launch(x, w, out, eps: float, plan: Plan):

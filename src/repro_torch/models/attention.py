@@ -91,16 +91,18 @@ def _qkv(w, cfg: ModelConfig, h):
     return q, k, v
 
 
-def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False):
-    """Causal train or prefill attention over the whole sequence (one device
-    holds all of it). h: (B, S, D). Returns (B, S, D) [+ the KVCache of
-    these rows]."""
+def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, causal: bool = True,
+                   return_cache: bool = False):
+    """Train or prefill attention over the whole sequence (one device holds
+    all of it), causal or, for an encoder, full; rope either way, as in the
+    JAX package. h: (B, S, D). Returns (B, S, D) [+ the KVCache of these
+    rows]."""
     S = h.shape[1]
     q, k, v = _qkv(w, cfg, h)
     pos = torch.arange(S, device=h.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, 0, True)
+    o = ops.flash_attention(q, k, v, 0, causal)
     out = o.reshape(h.shape[0], S, -1) @ w["wo"]
     return (out, KVCache(k, v)) if return_cache else out
 

@@ -1,5 +1,5 @@
-"""Shared layers: RMSNorm, rotary embeddings, initializers (port of
-``repro/models/layers.py``)."""
+"""Shared layers: RMSNorm, LayerNorm, rotary embeddings, initializers (port
+of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -13,6 +13,17 @@ from repro_torch.kernels import ops
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm over the last dim (the hand-written kernel on the card)."""
     return ops.rmsnorm(x, w, eps=eps)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm over the last dim with a bias (whisper's): f32 mean and
+    variance, ``rsqrt(var + eps)``, cast back to x's dtype. jnp in the JAX
+    package, so torch ops here (no kernel is owed)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w + b).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float):

@@ -1,12 +1,14 @@
-"""Decoder-only LMs: the training loss, prefill and greedy decode (port of
-the dense and MoE families of ``repro/models/transformer.py``).
+"""The LMs: the training loss, prefill and greedy decode (port of
+``repro/models/transformer.py``) for every family of the JAX package:
+dense and MoE decoders, the encoder-decoder (whisper-base), xLSTM
+(xlstm-125m) and the Mamba + attention + MoE hybrid (jamba).
 
 Params are a plain nested ``dict[str, Tensor]`` with the JAX package's
-names and layouts, blocks stacked on a leading layer dim
+names and layouts, blocks stacked on a leading stack dim
 (``blocks/attn/wq`` is ``(L, D, H*HD)``), so ``interop.params_from_numpy``
-is a copy of each leaf. The JAX ``lax.scan`` over layers is a Python loop
-over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the vocab
-sharding of the JAX package drop out (identities with ``AxisCtx()``).
+is a copy of each leaf. The JAX ``lax.scan`` over the stack is a Python
+loop over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the
+vocab sharding of the JAX package drop out (identities with ``AxisCtx()``).
 
 The training phase keeps every layer's activations for the backward: the
 JAX package rematerializes each layer (``jax.checkpoint``), and
@@ -14,36 +16,55 @@ JAX package rematerializes each layer (``jax.checkpoint``), and
 which the FL rounds differentiate with. ``FlatModel`` is the LM as the FL
 core sees it: one flat param dict with ``/``-joined keys.
 
-A block's attention is GQA or MLA (``cfg.attn_type``), its FFN the SwiGLU
-MLP or, for the MoE family, ``moe.moe_ffn`` (plus a dense residual MLP
-after ``ln3`` where ``dense_residual_d_ff`` is set, as in arctic-480b),
-whose aux losses add to the training loss. Tied embeddings
-(minicpm3-4b) use ``embed.T`` as the head and have no ``lm_head`` leaf.
-Encoder-decoder, SSM and hybrid stacks come with ROADMAP A15.5 and A15.6.
+A dense block's attention is GQA or MLA (``cfg.attn_type``), its FFN the
+SwiGLU MLP or, for the MoE family, ``moe.moe_ffn`` (plus a dense residual
+MLP after ``ln3`` where ``dense_residual_d_ff`` is set, as in arctic-480b),
+whose aux losses add to the training loss. Tied embeddings (minicpm3-4b)
+use ``embed.T`` as the head and have no ``lm_head`` leaf. The hybrid and
+ssm families stack periods, not layers (``n_stacks``): a jamba period is
+one attention and ``period - 1`` Mamba mixers, each followed by an MoE or a
+SwiGLU FFN; an xLSTM period ``slstm_every - 1`` mLSTM blocks and one
+sLSTM. Their caches are per-period trees stacked as the JAX scan's ``ys``.
+The encoder-decoder (``EncDecModel``) uses LayerNorm with a bias and a
+two-matrix GELU MLP with biases, a full-attention encoder over frame
+embeddings (its conv frontend is a stub in the JAX package too) and a
+decoder with cross-attention over the encoder's output.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import dense_init, embed_init, rms_norm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import dense_init, embed_init, layer_norm, rms_norm
 
 
 def mlp_param_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
-    """SwiGLU MLP of width ``d_ff`` (default ``cfg.d_ff``): gate ``w1``, up
-    ``w3``, down ``w2``."""
+    """The FFN of width ``d_ff`` (default ``cfg.d_ff``): SwiGLU with gate
+    ``w1``, up ``w3``, down ``w2``; whisper's two matrices with biases for
+    the encdec family."""
     D, F_ = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.family == "encdec":
+        return {"w1": (D, F_), "b1": (F_,), "w2": (F_, D), "b2": (D,)}
     return {"w1": (D, F_), "w3": (D, F_), "w2": (F_, D)}
 
 
 def mlp_forward(w: dict, x, cfg: ModelConfig):
-    """silu(x @ w1) * (x @ w3) @ w2."""
-    return (F.silu(x @ w["w1"]) * (x @ w["w3"])) @ w["w2"]
+    """silu(x @ w1) * (x @ w3) @ w2, or gelu(x @ w1 + b1) @ w2 + b2 with
+    ``jax.nn.gelu``'s default, the tanh form (``F.gelu``'s default is the
+    exact erf)."""
+    if "w3" in w:
+        return (F.silu(x @ w["w1"]) * (x @ w["w3"])) @ w["w2"]
+    h = F.gelu(x @ w["w1"] + w["b1"], approximate="tanh")
+    return h @ w["w2"] + w["b2"]
 
 
 def embed_lookup(embed, tokens):
@@ -69,17 +90,32 @@ def softmax_xent_vshard(logits, labels):
     return (lse - tgt).mean()
 
 
+def _norm_shapes(cfg: ModelConfig) -> dict:
+    """A norm's leaves: LayerNorm's weight and bias for encdec, else the
+    RMSNorm weight."""
+    if cfg.family == "encdec":
+        return {"w": (cfg.d_model,), "b": (cfg.d_model,)}
+    return {"w": (cfg.d_model,)}
+
+
+def _apply_norm(w: dict, x, cfg: ModelConfig):
+    """LayerNorm (eps 1e-5) where the norm has a bias, else B2."""
+    if "b" in w:
+        return layer_norm(x, w["w"], w["b"], eps=1e-5)
+    return rms_norm(x, w["w"], cfg.norm_eps)
+
+
 def dense_block_shapes(cfg: ModelConfig) -> dict:
-    """One block: two RMSNorms, GQA or MLA attention, and the MLP or, for
+    """One block: two norms, GQA or MLA attention, and the MLP or, for
     the MoE family, the router and experts (with a dense residual MLP and
     its norm ``ln3`` where the config has one)."""
-    norm = {"w": (cfg.d_model,)}
-    s = {"ln1": norm, "ln2": norm, "attn": attn.attn_param_shapes(cfg)}
+    s = {"ln1": _norm_shapes(cfg), "ln2": _norm_shapes(cfg),
+         "attn": attn.attn_param_shapes(cfg)}
     if cfg.moe is not None and cfg.family == "moe":
         s["moe"] = moe_mod.moe_param_shapes(cfg)
         if cfg.moe.dense_residual_d_ff:
             s["dense_mlp"] = mlp_param_shapes(cfg, cfg.moe.dense_residual_d_ff)
-            s["ln3"] = norm
+            s["ln3"] = _norm_shapes(cfg)
     else:
         s["mlp"] = mlp_param_shapes(cfg)
     return s
@@ -91,15 +127,81 @@ def _map_shapes(fn, tree):
     return fn(tree)
 
 
+def _stacked(n: int, tree: dict) -> dict:
+    return _map_shapes(lambda sh: (n,) + sh, tree)
+
+
+def hybrid_period_shapes(cfg: ModelConfig) -> dict:
+    """A jamba period: one attention and ``period - 1`` Mamba mixers, an MoE
+    FFN every ``moe_every`` sublayers and the SwiGLU MLP at the others, and
+    a norm before each mixer and each FFN (4 MoE + 4 MLP FFNs and 16 norms
+    at jamba's period of 8)."""
+    P = cfg.hybrid.period
+    n_moe = P // cfg.moe.moe_every
+    return {
+        "attn": attn.attn_param_shapes(cfg),
+        "mamba": _stacked(P - 1, ssm_mod.mamba_param_shapes(cfg)),
+        "moe": _stacked(n_moe, moe_mod.moe_param_shapes(cfg)),
+        "mlp": _stacked(P - n_moe, mlp_param_shapes(cfg)),
+        "ln_mix": {"w": (P, cfg.d_model)},
+        "ln_ffn": {"w": (P, cfg.d_model)},
+    }
+
+
+def xlstm_period_shapes(cfg: ModelConfig) -> dict:
+    """An xLSTM period: ``slstm_every - 1`` mLSTM blocks, one sLSTM, and a
+    norm before each."""
+    n_m = cfg.ssm.slstm_every - 1
+    return {
+        "mlstm": _stacked(n_m, ssm_mod.mlstm_param_shapes(cfg)),
+        "slstm": ssm_mod.slstm_param_shapes(cfg),
+        "ln": {"w": (cfg.ssm.slstm_every, cfg.d_model)},
+    }
+
+
+def encdec_block_shapes(cfg: ModelConfig, cross: bool) -> dict:
+    """A whisper block: self-attention and the MLP, each after a LayerNorm;
+    a decoder block (``cross``) adds cross-attention after ``ln_x``."""
+    s = {"ln1": _norm_shapes(cfg), "attn": attn.attn_param_shapes(cfg),
+         "ln2": _norm_shapes(cfg), "mlp": mlp_param_shapes(cfg)}
+    if cross:
+        s["ln_x"] = _norm_shapes(cfg)
+        s["xattn"] = attn.attn_param_shapes(cfg)
+    return s
+
+
+def block_shapes(cfg: ModelConfig) -> dict:
+    """One entry of the stack: a period for hybrid and ssm, else a block."""
+    if cfg.family == "hybrid":
+        return hybrid_period_shapes(cfg)
+    if cfg.family == "ssm":
+        return xlstm_period_shapes(cfg)
+    return dense_block_shapes(cfg)
+
+
+def n_stacks(cfg: ModelConfig) -> int:
+    """Entries of the stack: periods for hybrid and ssm, else layers."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.period
+    if cfg.family == "ssm":
+        return cfg.n_layers // cfg.ssm.slstm_every
+    return cfg.n_layers
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Full logical shapes, as the JAX package's ``param_shapes`` gives them
-    for the dense and MoE families: a nested dict of tuples, blocks
-    stacked; no ``lm_head`` when the embeddings are tied."""
-    Vp, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
-    p = {"embed": (Vp, D), "final_norm": {"w": (D,)},
-         "blocks": _map_shapes(lambda sh: (L,) + sh, dense_block_shapes(cfg))}
+    """Full logical shapes, as the JAX package's ``param_shapes`` gives
+    them: a nested dict of tuples, the stack's entries on a leading dim; no
+    ``lm_head`` when the embeddings are tied; for encdec the encoder's
+    blocks and final norm beside the decoder's."""
+    Vp, D = cfg.padded_vocab, cfg.d_model
+    p = {"embed": (Vp, D), "final_norm": _norm_shapes(cfg),
+         "blocks": _stacked(n_stacks(cfg), block_shapes(cfg))}
     if not cfg.tie_embeddings:
         p["lm_head"] = (D, Vp)
+    if cfg.family == "encdec":
+        p["enc_blocks"] = _stacked(cfg.n_enc_layers, encdec_block_shapes(cfg, cross=False))
+        p["blocks"] = _stacked(cfg.n_layers, encdec_block_shapes(cfg, cross=True))
+        p["enc_final_norm"] = _norm_shapes(cfg)
     return p
 
 
@@ -111,20 +213,30 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig,
-                dtype=torch.float32) -> dict:
-    """Random params on the generator's device, with the JAX package's
-    initializers: norms 1, QKV biases 0, embed N(0, 0.02), matrices (the
+_ZERO_INIT = ("b", "b1", "b2", "bq", "bk", "bv", "conv_b", "dt_bias")
+
+
+def init_tree(generator: torch.Generator, shapes: dict, dtype=torch.float32) -> dict:
+    """Random leaves for a nested dict of shapes, on the generator's
+    device, with the JAX package's initializers by leaf name: norm weights
+    1 and their biases 0, the other biases 0, Mamba's ``A_log`` = log(1..N)
+    on every channel and ``D_skip`` 1, embed N(0, 0.02), matrices (the
     router and expert weights too) N(0, 1/fan_in), fan-in ``shape[-2]``.
     (``torch.Generator`` and ``jax.random`` draw different numbers; tests
     carry JAX's params across with ``interop`` instead.)"""
     out: dict = {}
-    for path, shape in _leaves(param_shapes(cfg)):
-        name = path[-2] if path[-1] == "w" else path[-1]
-        if name.startswith("ln") or name.endswith("norm"):
-            leaf = torch.ones(shape, dtype=dtype, device=generator.device)
-        elif name in ("bq", "bk", "bv"):
-            leaf = torch.zeros(shape, dtype=dtype, device=generator.device)
+    dev = generator.device
+    for path, shape in _leaves(shapes):
+        name = path[-1]
+        owner = path[-2] if len(path) > 1 else ""
+        if (name == "w" and (owner.startswith("ln") or owner.endswith("norm"))) \
+                or name.endswith("norm") or name == "D_skip":
+            leaf = torch.ones(shape, dtype=dtype, device=dev)
+        elif name in _ZERO_INIT:
+            leaf = torch.zeros(shape, dtype=dtype, device=dev)
+        elif name == "A_log":
+            n = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev)
+            leaf = torch.log(n).expand(shape).to(dtype).contiguous()
         elif name == "embed":
             leaf = embed_init(generator, shape, dtype)
         else:
@@ -133,33 +245,43 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = leaf
+        node[name] = leaf
     return out
 
 
-def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, cache=None,
-                 length=None):
-    """One block -> (x, cache, aux): phase 'train' gives no cache, 'prefill'
-    the KVCache or LatentCache of the rows, 'decode' the cache written in
-    place; aux is the MoE layer's load-balance + z loss, else 0.0."""
-    h = rms_norm(x, w["ln1"]["w"], cfg.norm_eps)
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                dtype=torch.float32) -> dict:
+    """The model's random params (``init_tree`` of ``param_shapes``)."""
+    return init_tree(generator, param_shapes(cfg), dtype)
+
+
+def _attn(cfg: ModelConfig, w: dict, h, *, phase: str, cache=None, length=None):
+    """The attention sublayer -> (out, cache): phase 'train' gives no cache,
+    'prefill' the KVCache or LatentCache of the rows, 'decode' the cache
+    written in place."""
     mla = cfg.attn_type == "mla"
     if phase == "decode":
         decode = attn.mla_decode if mla else attn.gqa_decode
-        o, new_cache = decode(w["attn"], h, cache, length, cfg)
-    else:
-        fwd = attn.mla_seqsharded if mla else attn.gqa_seqsharded
-        if phase == "prefill":
-            o, new_cache = fwd(w["attn"], h, cfg, return_cache=True)
-        else:
-            o, new_cache = fwd(w["attn"], h, cfg), None
+        return decode(w, h, cache, length, cfg)
+    fwd = attn.mla_seqsharded if mla else attn.gqa_seqsharded
+    if phase == "prefill":
+        return fwd(w, h, cfg, return_cache=True)
+    return fwd(w, h, cfg), None
+
+
+def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
+                 length=None):
+    """One block -> (x, cache, aux): aux is the MoE layer's load-balance +
+    z loss, else 0.0."""
+    h = _apply_norm(w["ln1"], x, cfg)
+    o, new_cache = _attn(cfg, w["attn"], h, phase=phase, cache=caches, length=length)
     x = x + o
-    h = rms_norm(x, w["ln2"]["w"], cfg.norm_eps)
+    h = _apply_norm(w["ln2"], x, cfg)
     if "moe" not in w:
         return x + mlp_forward(w["mlp"], h, cfg), new_cache, 0.0
     mo, maux = moe_mod.moe_ffn(w["moe"], h, cfg)
     if "dense_mlp" in w:
-        mo = mo + mlp_forward(w["dense_mlp"], rms_norm(x, w["ln3"]["w"], cfg.norm_eps), cfg)
+        mo = mo + mlp_forward(w["dense_mlp"], _apply_norm(w["ln3"], x, cfg), cfg)
     return x + mo, new_cache, maux.load_balance + maux.z_loss
 
 
@@ -167,40 +289,140 @@ def _take(tree, i):
     return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
+                   length=None):
+    """One jamba period -> (x, {"attn": cache, "mamba": [MambaState, ...]},
+    aux). Sublayer i mixes with the attention at ``attn_index`` and with the
+    next Mamba mixer elsewhere; its FFN is MoE ``i // moe_every`` where ``i %
+    moe_every == moe_offset``, else MLP ``i // 2`` (the JAX package's
+    indices, as written)."""
+    P, eps = cfg.hybrid.period, cfg.norm_eps
+    new = {"attn": None, "mamba": []}
+    aux, mi = 0.0, 0
+    for i in range(P):
+        h = rms_norm(x, w["ln_mix"]["w"][i], eps)
+        if i == cfg.hybrid.attn_index:
+            o, new["attn"] = _attn(cfg, w["attn"], h, phase=phase,
+                                   cache=None if caches is None else caches["attn"],
+                                   length=length)
+        else:
+            st = None if caches is None else caches["mamba"][mi]
+            o, st = ssm_mod.mamba_forward(_take(w["mamba"], mi), h, cfg, state=st)
+            new["mamba"].append(st)
+            mi += 1
+        x = x + o
+        h = rms_norm(x, w["ln_ffn"]["w"][i], eps)
+        if i % cfg.moe.moe_every == cfg.moe.moe_offset:
+            mo, maux = moe_mod.moe_ffn(_take(w["moe"], i // cfg.moe.moe_every), h, cfg)
+            aux = aux + maux.load_balance + maux.z_loss
+            x = x + mo
+        else:
+            x = x + mlp_forward(_take(w["mlp"], i // 2), h, cfg)
+    return x, new, aux
+
+
+def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
+                  length=None):
+    """One xLSTM period (residual mLSTM blocks, then the sLSTM) -> (x,
+    {"mlstm": [MLSTMState, ...], "slstm": SLSTMState}, 0.0)."""
+    n_m, eps = cfg.ssm.slstm_every - 1, cfg.norm_eps
+    new = {"mlstm": [], "slstm": None}
+    for i in range(n_m):
+        h = rms_norm(x, w["ln"]["w"][i], eps)
+        st = None if caches is None else caches["mlstm"][i]
+        o, st = ssm_mod.mlstm_forward(_take(w["mlstm"], i), h, cfg, state=st)
+        new["mlstm"].append(st)
+        x = x + o
+    h = rms_norm(x, w["ln"]["w"][n_m], eps)
+    o, new["slstm"] = ssm_mod.slstm_forward(
+        w["slstm"], h, cfg, state=None if caches is None else caches["slstm"])
+    return x + o, new, 0.0
+
+
+def _block_fn(cfg: ModelConfig):
+    if cfg.family == "hybrid":
+        return _hybrid_period
+    if cfg.family == "ssm":
+        return _xlstm_period
+    return _dense_block
+
+
+def _stack_trees(trees: list):
+    """Per-entry caches (dicts, lists and NamedTuples of tensors) -> one
+    tree of their leaves stacked on a new leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_stack_trees(list(f)) for f in zip(*trees)))
+    if isinstance(first, list):
+        return [_stack_trees(list(f)) for f in zip(*trees)]
+    return torch.stack(trees)
+
+
+def _index(tree, i):
+    """Entry i of a stacked cache tree: views into its leaves."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_index(v, i) for v in tree))
+    if isinstance(tree, list):
+        return [_index(v, i) for v in tree]
+    return tree[i]
+
+
+def _write_back(tree, i, new) -> None:
+    """Entry i of a stacked cache tree set to ``new`` in place. KV and
+    latent caches were written in place through their views already;
+    recurrent states are new tensors and are copied in."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _write_back(v, i, new[k])
+    elif isinstance(tree, (tuple, list)):
+        for v, n in zip(tree, new):
+            _write_back(v, i, n)
+    elif tree[i].data_ptr() != new.data_ptr():
+        tree[i].copy_(new)
+
+
 def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
-    """Forward through the stacked blocks, layer by layer. Returns (x, aux,
-    caches): aux sums the MoE layers' aux losses (0.0 without MoE); caches
-    are None for phase 'train' and for 'prefill' the layers' KVCache
-    (L, B, S, KV, HD) or LatentCache (L, B, S, *) stacked. Training keeps
-    every layer's activations (see the module docstring)."""
+    """Forward through the stacked entries (layers, or periods for hybrid
+    and ssm). Returns (x, aux, caches): aux sums the MoE layers' aux losses
+    (0.0 without MoE); caches are None for phase 'train' and for 'prefill'
+    the entries' caches stacked, as the JAX scan's ``ys``: a KVCache (L, B,
+    S, KV, HD) or LatentCache (L, B, S, *), for hybrid ``{"attn": KVCache,
+    "mamba": [MambaState] * (period - 1)}``, for ssm ``{"mlstm":
+    [MLSTMState] * (slstm_every - 1), "slstm": SLSTMState}``, each leaf (L,
+    ...). Training keeps every layer's activations (see the module
+    docstring)."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
+    fn = _block_fn(cfg)
     aux, caches = 0.0, []
-    for i in range(cfg.n_layers):
-        x, cache, a = _dense_block(cfg, _take(blocks, i), x, phase=phase)
+    for i in range(n_stacks(cfg)):
+        x, cache, a = fn(cfg, _take(blocks, i), x, phase=phase)
         aux = aux + a
-        if cache is not None:
+        if phase == "prefill":
             caches.append(cache)
-    if not caches:
-        return x, aux, None
-    return x, aux, type(caches[0])(*(torch.stack(t) for t in zip(*caches)))
+    return x, aux, (_stack_trees(caches) if caches else None)
 
 
 def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length):
-    """One decode token through the stacked blocks; each layer writes its
-    slot of ``caches`` (a stacked KVCache or LatentCache) in place. Returns
-    (x, caches)."""
-    for i in range(cfg.n_layers):
-        layer_cache = type(caches)(*(t[i] for t in caches))
-        x, _, _ = _dense_block(cfg, _take(blocks, i), x, phase="decode",
-                               cache=layer_cache, length=length)
+    """One decode token through the stacked entries; each writes its slot
+    of ``caches`` (the tree ``stack_train`` gives) in place. Returns (x,
+    caches)."""
+    fn = _block_fn(cfg)
+    for i in range(n_stacks(cfg)):
+        x, new, _ = fn(cfg, _take(blocks, i), x, phase="decode",
+                       caches=_index(caches, i), length=length)
+        _write_back(caches, i, new)
     return x, caches
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """A decoder-only LM over a param dict: the training loss, prefill and
-    greedy decode."""
+    """An LM over a param dict: the training loss, prefill and greedy
+    decode."""
     cfg: ModelConfig
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
@@ -209,7 +431,7 @@ class Model:
     def _logits(self, params: dict, x, last: bool = False):
         """The final norm over every row, then the head (``embed.T`` when
         tied) over every row or only the last position -> f32 logits."""
-        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        x = _apply_norm(params["final_norm"], x, self.cfg)
         if last:
             x = x[:, -1:]
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -242,6 +464,136 @@ class Model:
         """(B, Vp) -> (B,) the first index of each row's maximum, as
         ``jnp.argmax`` takes it (``torch.argmax`` documents the same rule)."""
         return torch.argmax(logits, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def _sinusoid(positions, D: int):
+    """Sinusoidal position embeddings (S, D): f64 numpy frequencies, cast
+    to f32 (as the JAX package's product takes them), f32 angles."""
+    half = D // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / half)
+    ang = positions[:, None].to(torch.float32) * torch.tensor(
+        freqs, dtype=torch.float32, device=positions.device)[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _enc_kv(cfg: ModelConfig, w: dict, enc_out):
+    """K and V of the encoder's output for cross-attention: (B, S_enc, KV,
+    HD) each, with the biases where the config has them."""
+    B = enc_out.shape[0]
+    KV, HD = cfg.n_kv_heads, cfg.resolved_head_dim
+    k, v = enc_out @ w["wk"], enc_out @ w["wv"]
+    if "bk" in w:
+        k, v = k + w["bk"], v + w["bv"]
+    return k.reshape(B, -1, KV, HD), v.reshape(B, -1, KV, HD)
+
+
+def _cross_q(cfg: ModelConfig, w: dict, x_dec):
+    q = x_dec @ w["wq"]
+    if "bq" in w:
+        q = q + w["bq"]
+    return q.reshape(x_dec.shape[0], x_dec.shape[1], cfg.n_heads, cfg.resolved_head_dim)
+
+
+def _cross_attn(cfg: ModelConfig, w: dict, x_dec, enc_k, enc_v):
+    """Cross-attention: queries from the decoder's rows over the encoder's
+    K/V, B3 non-causal (Sq = S_dec over Sk = S_enc), no rope."""
+    B, S = x_dec.shape[0], x_dec.shape[1]
+    o = ops.flash_attention(_cross_q(cfg, w, x_dec), enc_k, enc_v, 0, False)
+    return o.reshape(B, S, -1) @ w["wo"]
+
+
+def encoder_forward(cfg: ModelConfig, enc_blocks: dict, frames):
+    """frames: (B, S_enc, D) frame embeddings (the conv frontend's stub) ->
+    the encoder's output before its final norm: sinusoidal positions, then
+    pre-norm blocks of full (non-causal) self-attention and the MLP."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + _sinusoid(pos, cfg.d_model)[None].to(frames.dtype)
+    for i in range(cfg.n_enc_layers):
+        blk = _take(enc_blocks, i)
+        x = x + attn.gqa_seqsharded(blk["attn"], _apply_norm(blk["ln1"], x, cfg), cfg,
+                                    causal=False)
+        x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+    return x
+
+
+def _decoder(cfg: ModelConfig, params: dict, batch: dict, *, prefill: bool):
+    """The encoder, its final norm and the decoder's blocks over
+    ``batch["tokens"]`` -> (x, EncDecCaches or None)."""
+    enc = encoder_forward(cfg, params["enc_blocks"], batch["frames"])
+    enc = _apply_norm(params["enc_final_norm"], enc, cfg)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(enc.dtype)
+    caches = []
+    for i in range(cfg.n_layers):
+        blk = _take(params["blocks"], i)
+        h = _apply_norm(blk["ln1"], x, cfg)
+        if prefill:
+            o, cache = attn.gqa_seqsharded(blk["attn"], h, cfg, return_cache=True)
+        else:
+            o = attn.gqa_seqsharded(blk["attn"], h, cfg)
+        x = x + o
+        ek, ev = _enc_kv(cfg, blk["xattn"], enc)
+        x = x + _cross_attn(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg), ek, ev)
+        x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+        if prefill:
+            caches.append(EncDecCaches(cache, ek, ev))
+    return x, (_stack_trees(caches) if prefill else None)
+
+
+class EncDecCaches(NamedTuple):
+    """The decoder's caches: its self-attention KVCache (L, B, S_dec, KV,
+    HD) and the cross-attention K and V of the encoder's output (L, B,
+    S_enc, KV, HD) each."""
+    self_caches: Any
+    cross_k: Any
+    cross_v: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecModel(Model):
+    """whisper: batches carry ``frames`` (B, S_enc, D) beside the decoder's
+    ``tokens`` (and ``labels`` for the loss)."""
+
+    def loss(self, params: dict, batch: dict):
+        """Next-token cross-entropy of the decoder's tokens (no aux)."""
+        x, _ = _decoder(self.cfg, params, batch, prefill=False)
+        return softmax_xent_vshard(self._logits(params, x), batch["labels"])
+
+    def prefill(self, params: dict, batch: dict):
+        """The encoder over the frames and the decoder's prefill over the
+        prompt tokens -> (EncDecCaches, last-position logits, None)."""
+        x, caches = _decoder(self.cfg, params, batch, prefill=True)
+        return caches, self._logits(params, x, last=True)[:, 0], None
+
+    def decode_step(self, params: dict, tokens, caches, length):
+        """One token: self-attention over the decoder's cache (written in
+        place), cross-attention by B4 over the whole encoder cache
+        (``combine=False``, normalised here by ``max(l, 1e-30)``)."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens[:, None])
+        B = x.shape[0]
+        enc_len = torch.full((B,), caches.cross_k.shape[2], dtype=torch.int32,
+                             device=x.device)
+        for i in range(cfg.n_layers):
+            blk = _take(params["blocks"], i)
+            o, _ = attn.gqa_decode(blk["attn"], _apply_norm(blk["ln1"], x, cfg),
+                                   _index(caches.self_caches, i), length, cfg)
+            x = x + o
+            q = _cross_q(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg))[:, 0]
+            o2, _, l2 = ops.decode_attention(q, caches.cross_k[i], caches.cross_v[i], enc_len,
+                                             combine=False)
+            o2 = o2 / torch.clamp(l2, min=1e-30)[..., None]
+            x = x + o2.to(x.dtype).reshape(B, 1, -1) @ blk["xattn"]["wo"]
+            x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+        return self._logits(params, x)[:, 0], caches
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    """``EncDecModel`` for the encdec family, else ``Model``."""
+    return EncDecModel(cfg) if cfg.family == "encdec" else Model(cfg)
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
@@ -290,6 +642,17 @@ class FlatModel:
 
 
 def pad_caches(caches, extra: int):
-    """Grow stacked caches (a KVCache (L, B, S, KV, HD) or a LatentCache
-    (L, B, S, *)) by ``extra`` zero slots on the sequence dim."""
-    return type(caches)(*[F.pad(t, [0, 0] * (t.dim() - 3) + [0, extra]) for t in caches])
+    """Grow the attention caches in a cache tree by ``extra`` zero slots on
+    the sequence dim: stacked KVCaches (L, B, S, KV, HD) and LatentCaches
+    (L, B, S, *), an ``EncDecCaches``' self caches. Recurrent states and
+    the cross-attention K/V pass through untouched."""
+    if isinstance(caches, (attn.KVCache, attn.LatentCache)):
+        return type(caches)(*[F.pad(t, [0, 0] * (t.dim() - 3) + [0, extra])
+                              for t in caches])
+    if isinstance(caches, EncDecCaches):
+        return caches._replace(self_caches=pad_caches(caches.self_caches, extra))
+    if isinstance(caches, dict):
+        return {k: pad_caches(v, extra) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [pad_caches(v, extra) for v in caches]
+    return caches

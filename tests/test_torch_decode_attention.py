@@ -62,9 +62,10 @@ def test_decode_matches_pallas_interpret(B, S, H, KV, D, dtype):
     length = np.random.RandomState(3).randint(1, S + 1, (B,)).astype(np.int32)
     o, m, l = pallas_decode(jq, jk, jv, jnp.asarray(length), block_k=64, interpret=True)
     want = np.asarray(o) / np.maximum(np.asarray(l)[..., None], 1e-30)
-    before = da.decode_attention_fwd.launches
+    before = (da.decode_attention_fwd.launches, dict(da.decode_attention_fwd.launches_by_shape))
     go, gm, gl = ops.decode_attention(tq, tk, tv, torch.from_numpy(length), combine=False)
-    assert da.decode_attention_fwd.launches == before    # CPU tensors never launch
+    # CPU tensors never launch
+    assert (da.decode_attention_fwd.launches, da.decode_attention_fwd.launches_by_shape) == before
     assert all(t.dtype == torch.float32 for t in (go, gm, gl))
     tol = DTYPES[dtype][2]
     _close(go / torch.clamp(gl, min=1e-30)[..., None], want, tol)

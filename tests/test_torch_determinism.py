@@ -6,7 +6,9 @@ per-client models, DP noise).
 
 The hash is splitmix64 (Steele, Lea, Flood, "Fast splittable pseudorandom
 number generators", OOPSLA 2014); its first output from seed 0 is the
-published 0xe220a8397b1dcdaf. Everything here is bitwise.
+published 0xe220a8397b1dcdaf. Everything here is bitwise, but for the
+normals' two halves, which are held to numpy's ``log`` and ``cos`` over
+every one of their 2**24 inputs.
 """
 import math
 
@@ -74,6 +76,59 @@ def test_normal_is_box_muller_of_the_bits():
             * math.cos(2 * math.pi * ((b >> 16) & 0xFFFFFF) * 2.0 ** -24) for b in bits]
     np.testing.assert_allclose(d.normal(key, torch.arange(64)).numpy(), want,
                                rtol=1e-5, atol=1e-5)
+
+
+def test_normal_calls_no_transcendental_function(monkeypatch):
+    """``normal`` runs with ``torch.log``, ``log1p``, ``exp``, ``cos`` and
+    ``sin`` made to raise: its value comes from correctly rounded
+    operations only, so it has the same bits on any CPU and on the card."""
+    want = d.normal(d.root_key(4), torch.arange(4096))
+    for name in ("log", "log1p", "exp", "cos", "sin"):
+        def boom(*a, _name=name, **kw):
+            raise AssertionError(f"normal called torch.{_name}")
+        monkeypatch.setattr(torch, name, boom)
+    got = d.normal(d.root_key(4), torch.arange(4096))
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_normals_log_part_is_within_two_ulp_of_numpy_over_every_input():
+    """``log(u1)``, u1 = (k + 1) 2**-24, for all 2**24 values of k against
+    numpy's f64 ``log`` of the same (exact) u1, in four slices."""
+    n = 1 << 22
+    for lo in range(0, 1 << 24, n):
+        k = np.arange(lo, lo + n, dtype=np.int64)
+        got = d._log_u1(torch.from_numpy(k)).numpy()
+        want = np.log((k + 1).astype(np.float64) * 2.0 ** -24)
+        assert (np.abs(got - want) <= 2 * np.spacing(np.abs(want))).all()
+    assert d._log_u1(torch.tensor([(1 << 24) - 1])).item() == 0.0     # u1 = 1
+
+
+def test_normals_cos_part_is_within_4e_16_of_numpy_over_every_input():
+    """``cos(2 pi u2)``, u2 = j 2**-24, for all 2**24 values of j within
+    4e-16 (absolute: cos crosses zero) of numpy's ``cos``, in four slices.
+    numpy takes the angle in extended precision (``np.longdouble``) where
+    the platform has it, else its f64 ``cos`` and ``sin`` of the angle
+    within the quadrant (exact quadrant from j's top bits): the f64 angle
+    ``2 pi j 2**-24`` alone is off by up to 4.4e-16, which would move its
+    cosine as far."""
+    n = 1 << 22
+    wide = np.finfo(np.longdouble).nmant >= 63
+    for lo in range(0, 1 << 24, n):
+        j = np.arange(lo, lo + n, dtype=np.int64)
+        got = d._cos_2pi_u2(torch.from_numpy(j)).numpy()
+        if wide:
+            pi = np.longdouble("3.14159265358979323846264338327950288")
+            want = np.cos(2 * pi * j.astype(np.longdouble) / 2 ** 24).astype(np.float64)
+        else:
+            q, phi = j >> 22, (j & ((1 << 22) - 1)) * ((np.pi / 2) / 2 ** 22)
+            want = np.choose(q, [np.cos(phi), -np.sin(phi), -np.cos(phi), np.sin(phi)])
+        assert np.abs(got - want).max() <= 4e-16
+
+
+def test_normal_has_the_moments_of_a_standard_normal():
+    z = d.normal(d.root_key(11), torch.arange(10 ** 6)).double()
+    assert abs(z.mean().item()) < 3e-3 and abs(z.var().item() - 1) < 1e-2
 
 
 @pytest.mark.parametrize("n_clients,steps,batch", [(4, 2, 8), (7, 3, 5)])

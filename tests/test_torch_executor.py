@@ -187,8 +187,10 @@ def test_load_job_rejects_typos_with_a_hint():
 # cases 4 and 6-8 (the streaming client plane) in
 # test_load_job_runs_what_slice_8_ported; cases 5 and 13 (synthetic_lm,
 # qwen2.5-32b) in test_load_job_runs_what_slice_9_ported, their places taken
-# by two archs still refused; case 12's minicpm3-4b (MLA) was ported in slice
-# 10, its place taken by jamba-1.5-large-398b (hybrid)
+# by two archs then refused; case 12's minicpm3-4b (MLA) was ported in slice
+# 10, its place taken by jamba-1.5-large-398b (hybrid). Slice 12 ported the
+# last three archs (ROADMAP A15.5, A15.6): the cases keep their ids and now
+# hold that each job loads with its family's model.
 @pytest.mark.parametrize("patch,item", [
     ({"model": {"arch": "whisper-base"}}, "A15"),
     ({"model": {"arch": "jamba-1.5-large-398b"}}, "A15"),
@@ -201,8 +203,11 @@ def test_load_job_refuses_what_is_not_yet_ported(patch, item):
     for k in ("sweep", "telemetry", "probes", "comms", "model", "dataset"):
         if k in patch:
             raw[k] = patch[k]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        load_job(raw)
+    job = load_job(raw)
+    family = {"whisper-base": ("encdec", "EncDecModel"), "xlstm-125m": ("ssm", "Model"),
+              "jamba-1.5-large-398b": ("hybrid", "Model")}[patch["model"]["arch"]]
+    assert (job.model.cfg.family, type(job.model).__name__) == family
+    assert job.model.cfg.name == patch["model"]["arch"]
 
 
 @pytest.mark.parametrize("section", [
@@ -329,6 +334,9 @@ def test_port_imports_neither_jax_nor_repro():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 15, mods\n"
+        "assert {'repro_torch.models.ssm', 'repro_torch.configs.whisper_base',"
+        " 'repro_torch.configs.xlstm_125m',"
+        " 'repro_torch.configs.jamba_1_5_large_398b'} <= set(mods), mods\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "print(len(mods), bad)\n"

@@ -70,9 +70,10 @@ def test_flash_matches_pallas_interpret(B, Sq, Sk, H, KV, Dk, Dv, dtype, causal)
     offset = Sk - Sq
     want = pallas_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
                         q_offset=offset, interpret=True)
-    before = fa.flash_attention_fwd.launches
+    before = (fa.flash_attention_fwd.launches, dict(fa.flash_attention_fwd.launches_by_shape))
     got = ops.flash_attention(tq, tk, tv, offset, causal)
-    assert fa.flash_attention_fwd.launches == before    # CPU tensors never launch
+    # CPU tensors never launch
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_fwd.launches_by_shape) == before
     assert got.dtype == tq.dtype and tuple(got.shape) == (B, Sq, H, Dv)
     _close(got, want, DTYPES[dtype][2])
 

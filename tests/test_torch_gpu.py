@@ -56,9 +56,11 @@ def _inputs(C, N, qblock, device, seed=0):
 def test_kernel_equals_plain_bitwise(cuda, C, N, qblock):
     q, s, w = _inputs(C, N, qblock, cuda)
     launches = qa.quant_aggregate.launches
+    by_shape = qa.quant_aggregate.launches_by_shape.get((1, C, N, qblock), 0)
     got = qa.quant_aggregate(q, s, w)
     torch.cuda.synchronize()
     assert qa.quant_aggregate.launches == launches + 1
+    assert qa.quant_aggregate.launches_by_shape[1, C, N, qblock] == by_shape + 1
     assert got.shape == (N,) and torch.equal(got, qa.plain(q, s, w))
 
 
@@ -351,10 +353,13 @@ def _close(got, want, tol):
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, w_dtype):
     x = _randn(shape, dtype, cuda, 0)
     w = _randn(shape[-1:], w_dtype, cuda, 1)
+    key = (x.numel() // shape[-1], shape[-1])
     launches = rms.rmsnorm.launches
+    by_shape = rms.rmsnorm.launches_by_shape.get(key, 0)
     got = rms.rmsnorm(x, w)
     torch.cuda.synchronize()
     assert rms.rmsnorm.launches == launches + 1
+    assert rms.rmsnorm.launches_by_shape[key] == by_shape + 1
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, rms.plain(x, w), 1e-5 if dtype == torch.float32 else 2e-2)
 
@@ -472,10 +477,13 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, Dk, Dv, causal, dtyp
     q = _randn((B, Sq, H, Dk), dtype, cuda, 0)
     k = _randn((B, Sk, KV, Dk), dtype, cuda, 1)
     v = _randn((B, Sk, KV, Dv), dtype, cuda, 2)
+    key = (B, Sq, Sk, H, KV, Dk, Dv, causal)
     launches = fa.flash_attention_fwd.launches
+    by_shape = fa.flash_attention_fwd.launches_by_shape.get(key, 0)
     out, lse = fa.flash_attention_fwd(q, k, v, Sk - Sq, causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == launches + 1
+    assert fa.flash_attention_fwd.launches_by_shape[key] == by_shape + 1
     want, want_lse = fa.plain(q, k, v, Sk - Sq, causal)
     assert out.dtype == dtype and out.shape == (B, Sq, H, Dv)
     _close(out, want, TOL[dtype])
@@ -637,10 +645,13 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
     if B > 1:
         length[0] = 0                        # an empty row keeps m = -1e30, l = 0
     length = length.to(cuda)
+    key = (B, S, H, KV, D, D)
     launches = da.decode_attention_fwd.launches
+    by_shape = da.decode_attention_fwd.launches_by_shape.get(key, 0)
     o, m, l = da.decode_attention_fwd(q, k, v, length)
     torch.cuda.synchronize()
     assert da.decode_attention_fwd.launches == launches + 1
+    assert da.decode_attention_fwd.launches_by_shape[key] == by_shape + 1
     po, pm, pl = da.plain(q, k, v, length)
     empty = length == 0
     assert (m[empty] == -1e30).all() and (l[empty] == 0).all() and (o[empty] == 0).all()
@@ -875,3 +886,80 @@ def test_mla_serve_in_bf16_launches_wgmma_at_the_absorbed_dims(cuda):
         "wgmma": by_kernel["wgmma"] + 6, "tf32x3": by_kernel["tf32x3"]}
     # the two forms round in bf16 at other places: their outputs agree in norm
     assert ((oa - oe).norm() / oa.norm()).item() < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_whispers_cross_attention(cuda, dtype):
+    """B3 full (non-causal) attention at whisper-base's cross-attention:
+    Sq = 187 decoder rows over Sk = 1,500 encoder keys, 8 on 8 heads of 64
+    (bf16 on wgmma, f32 on tf32x3), forward and the ported backward against
+    autograd through the plain version."""
+    B, Sq, Sk, H, D = 2, 187, 1500, 8, 64
+    args = [_randn(s, dtype, cuda, 20 + i) for i, s in enumerate(
+        [(B, Sq, H, D), (B, Sk, H, D), (B, Sk, H, D)])]
+    dout = _randn((B, Sq, H, D), dtype, cuda, 23)
+    kernel = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    by_kernel = dict(fa.flash_attention_fwd.launches_by_kernel)
+    res = []
+    for fn in (lambda q, k, v: ops.flash_attention(q, k, v, 0, False),
+               lambda q, k, v: fa.plain(q, k, v, 0, False)[0]):
+        x = [a.clone().requires_grad_() for a in args]
+        out = fn(*x)
+        out.backward(dout)
+        res.append((out.detach(), *(t.grad for t in x)))
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_kernel[kernel] == by_kernel[kernel] + 1
+    _close(res[0][0], res[1][0], TOL[dtype])
+    for got, want in zip(res[0][1:], res[1][1:]):
+        _grad_close(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_over_whispers_encoder_cache(cuda, dtype):
+    """B4 ``combine=False`` at G = 1 (8 heads on 8 kv heads of 64) over the
+    1,500 keys of an encoder cache, every row at the full length, as
+    ``EncDecModel.decode_step`` calls it, then normalised as there."""
+    B, S, H, D = 8, 1500, 8, 64
+    q = _randn((B, H, D), dtype, cuda, 30)
+    k = _randn((B, S, H, D), dtype, cuda, 31)
+    v = _randn((B, S, H, D), dtype, cuda, 32)
+    length = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    launches = da.decode_attention_fwd.launches
+    o, m, l = ops.decode_attention(q, k, v, length, combine=False)
+    torch.cuda.synchronize()
+    assert da.decode_attention_fwd.launches == launches + 1
+    po, pm, pl = da.plain(q, k, v, length)
+    _close(o / torch.clamp(l, min=1e-30)[..., None], po / pl[..., None], TOL[dtype])
+    _close(m, pm, TOL[dtype])
+    _close(l, pl, TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "xlstm-125m", "jamba-1.5-large-398b"])
+def test_slice12_families_on_card_match_cpu(cuda, arch):
+    """Reduced whisper-base, xlstm-125m and jamba in f32 from the same
+    weights: prefill logits within 1e-4 and 4 greedy decode steps' tokens
+    equal on the card (kernels) and the CPU (plain versions)."""
+    from repro_torch.models.transformer import pad_caches
+    cfg = reduced_config(get_config(arch))
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    S = 32 if cfg.family == "encdec" else 40
+    batch = {"tokens": torch.randint(0, 512, (2, S), generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 8 * S, cfg.d_model, generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        with torch.inference_mode():
+            caches, logits, _ = model.prefill(p, {k: v.to(dev) for k, v in batch.items()})
+            caches = pad_caches(caches, 4)
+            length = torch.full((2,), S, dtype=torch.int32, device=dev)
+            toks, first = [], logits
+            for i in range(4):
+                tok = model.greedy_token(logits)
+                toks.append(tok)
+                logits, caches = model.decode_step(p, tok, caches, length + i)
+        out[str(dev)] = (first.cpu(), torch.stack(toks).cpu())
+    _close(out[str(cuda)][0], out["cpu"][0], 1e-4)
+    assert torch.equal(out[str(cuda)][1], out["cpu"][1])

@@ -131,7 +131,7 @@ def test_mla_decode_matches_the_jax_package(jnp_kernels):
     for t in padded:
         t[1, 9:] = 0
     jcache = jattn.LatentCache(*(jnp.asarray(t) for t in padded))
-    cache = interop.latent_cache_from_numpy(padded)
+    cache = interop.caches_from_numpy(jattn.LatentCache(*padded))
     length = np.array([12, 9], np.int32)
     for step in range(2):
         x = _h(2, 1, cfg.d_model, seed=10 + step)
@@ -202,7 +202,7 @@ def test_latent_cache_crosses_in_both_directions():
     rng = np.random.RandomState(6)
     jcache = jattn.LatentCache(*(jnp.asarray(rng.randn(*t.shape), jnp.float32)
                                  for t in jcache))
-    cache = interop.latent_cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    cache = interop.caches_from_numpy(jax.tree.map(np.asarray, jcache))
     assert isinstance(cache, attn.LatentCache)
     back = interop.to_numpy(cache)
     assert type(back).__name__ == "LatentCache"

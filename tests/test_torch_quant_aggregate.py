@@ -103,12 +103,13 @@ def test_quantize_blockwise_equals_jax_bitwise(n, block):
 
 def test_dispatcher_counts_calls_and_takes_plain_on_cpu():
     q, s, w = _torch(*_inputs(3, 1024, 256))
-    launches = qa.quant_aggregate.launches
+    launches = (qa.quant_aggregate.launches, dict(qa.quant_aggregate.launches_by_shape))
     with ops.quant_agg_scope() as frame:
         for _ in range(3):
             out = ops.quant_aggregate(q, s, w)
     assert frame["calls"] == 3 and frame["last_impl"] == "plain"
-    assert qa.quant_aggregate.launches == launches    # no kernel on the CPU
+    # no kernel on the CPU
+    assert (qa.quant_aggregate.launches, qa.quant_aggregate.launches_by_shape) == launches
     assert torch.equal(out, qa.plain(q, s, w))
     ops.reset_quant_agg_stats()
     ops.quant_aggregate(q, s, w)
