@@ -122,10 +122,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    FedAvgM rounds on qwen2.5-32b at its published width (d_model 5120,
    40/8 heads, d_ff 27648, vocab 152064, QKV bias), depth cut 64 -> 2,
    bf16: 4 clients, cohort 2, 2 local steps of 2 x 2048 tokens, 3 rounds on
-   fixed client data; B2 and B3 launches per round asserted, round_s,
-   tokens/s, peak memory, losses finite, a second run bitwise, one warm
-   round profiled; one round of reduced qwen2.5-32b and chameleon-34b in
-   f32 on the card and the CPU (losses and params within 1e-4); and
+   fixed client data; B2 and B3 launches per round asserted (each layer's
+   twice a local step: the client's gradient is plain autograd with each
+   layer recomputed in the backward), round_s, tokens/s, peak memory,
+   losses finite, a second run bitwise, one warm round profiled, one local
+   step's gradient memory (the remat'd autograd step beside
+   ``torch.func.grad_and_value`` and the recorded un-remat'd peak); one
+   round of reduced qwen2.5-32b and chameleon-34b in f32 on the card and
+   the CPU (losses and params within 1e-4); and
    qwen2.5-32b and chameleon-34b served at full width (2 layers, bf16,
    batch 2 x prompt 128 + 8 new; launches asserted, qk-norm's too; tokens
    bitwise repeatable).
@@ -142,13 +146,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    layer (8 x 2112 cache, 32 heads on 4 kv heads of 128, ragged lengths),
    each against its plain version and timed beside its bound and the
    PyTorch call; then minicpm3-4b (MLA, tied embeddings) served at full
-   width and depth (62 layers, bf16, batch 8 x prompt 2048 + 64 new; B2 4 x
-   62 + 1 a forward, counted by width, B3 62 on wgmma, no B4: MLA decodes
-   with einsums; tokens bitwise repeatable) with layer 0's expanded form
-   (``mla_seqsharded(absorbed=False)``, one wgmma launch) beside its
-   absorbed form; minicpm3-4b (8 of 62 layers) and qwen3-moe-30b-a3b (2 of 48)
-   trained as phase 10 trains qwen2.5-32b (3 rounds, losses finite and
-   falling, a second run bitwise, one round profiled); qwen3-moe-30b-a3b
+   width, depth cut 62 -> 16 (phase 13 trains all 62; bf16, batch 8 x
+   prompt 2048 + 64 new; B2 4 x 16 + 1 a forward, counted by width, B3 16
+   on wgmma, no B4: MLA decodes with einsums; tokens bitwise repeatable)
+   with layer 0's expanded form (``mla_seqsharded(absorbed=False)``, one
+   wgmma launch) beside its absorbed form; qwen3-moe-30b-a3b (2 of 48 layers) trained as phase 10
+   trains qwen2.5-32b (3 rounds, losses finite and falling, a second run
+   bitwise, one round profiled); qwen3-moe-30b-a3b
    served (4 of 48 layers, 128 experts top-8, batch 8 x 2048 + 64 new;
    drop fraction per layer at prefill); reduced minicpm3-4b,
    qwen3-moe-30b-a3b and arctic-480b one f32 round and a served prompt on
@@ -165,15 +169,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    whisper-base at full width and depth (6 + 6 layers, bf16) served over
    1,500 frames, batch 8, a 187-token prompt and 64 greedy tokens (B3 18,
    B4 768, counted by shape; tokens bitwise repeatable) and its loss
-   gradient at batch 8 under ``torch.func.grad_and_value``; xlstm-125m at
+   gradient at batch 8 under ``torch.func.grad_and_value`` (with the
+   gradient memory lines of phase 10); xlstm-125m at
    full width and depth served (batch 8, prompt 2,048, 64 new; B2 845 by
    rows), the sLSTM's launches a token (one layer profiled), one temporal
    FedAvgM round of ``train_fl_lm`` (4 local steps of 2 x 512, losses
-   finite); jamba-1.5-large-398b's attention sublayer and one Mamba mixer
+   finite; B2 twice a period's norm, the recompute's); jamba-1.5-large-398b's
+   attention sublayer and one Mamba mixer
    at full width (8 x 2,048 prefill and a decode step, counted and timed;
    a full-width period's ~77 GB of bf16 MoE weights exceed the card); the
    three reduced archs in f32 on the card against the CPU.
-13. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+13. the rematerialized LM step and int8 LM sends (slice 13) — B1 at the
+   int8 LM round's shape, (2, 4,073,937,408) (minicpm3-4b's packed delta,
+   past 2**31), bitwise its plain version over every column slice of 2**27
+   and timed beside its bound; qwen3-moe-30b-a3b's MoE FFN at full width
+   twice on one batch, outputs and routing bitwise (the backward's
+   recompute routes as the forward did); B2 at minicpm3-4b's train rows
+   (2 x 2048 of 2560, 768 and 256 sliced from 288); then minicpm3-4b at its
+   published width and full depth (62 layers, 4.07 B params, bf16) through
+   ``train_fl_lm.setup`` and ``run_rounds``, phase 10's temporal FedAvgM
+   round (4 clients, cohort 2, 2 local steps of 2 x 2048, 3 rounds, fixed
+   data), then with int8 sends (``strategy: compressed``) from the same
+   initial params: B2 and B3 by shape, each layer's forward and its
+   recompute (``train_launches``), B1 once a round at (2, N); round_s,
+   tokens/s, peak memory; losses finite and falling; then minicpm3-4b at
+   8 layers as phase 10 trains qwen2.5-32b (the cut depth: a second run
+   bitwise, one round profiled, the gradient memory lines).
+14. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -185,7 +207,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-14. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+15. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -2564,6 +2586,18 @@ def time_train_kernels(torch, flush):
     return rows
 
 
+def train_launches(T, n_layers: int, steps: int) -> dict:
+    """B2 and B3 launches of ``steps`` local steps of a dense LM: a
+    client's gradient recomputes each layer in the backward (a checkpoint
+    per layer, the JAX package's ``jax.checkpoint``), so each layer's norms
+    and its attention launch twice a step, in the forward and in the
+    recompute, and the final norm, outside the layers, once; B3 all on
+    the tensor-core kernel (bf16, head dims 128/128 or MLA's absorbed
+    288/256)."""
+    return {"rmsnorm": (2 * T["norms_per_layer"] * n_layers + 1) * steps,
+            "flash_attention": 2 * n_layers * steps, "decode_attention": 0}
+
+
 def phase_train_lm(torch, kernels, T=TRAIN):
     """An LM at its published width with its depth cut (qwen2.5-32b, 64 ->
     2, by default), bf16: the temporal FedAvgM rounds of
@@ -2613,22 +2647,22 @@ def phase_train_lm(torch, kernels, T=TRAIN):
                                     kernels["flash_attention"].launches_by_kernel.items()}})
         return state, logger, per_round
 
-    # the counted run; counts zeroed just before it and read just after
+    # the counted run; counts zeroed just before it and read just after. The
+    # initial state is handed over (popped from a list), so that this frame
+    # holds no reference to it while the rounds run: a held initial state
+    # stays on the card the whole run and would add to the peak
+    handover = [state]
+    del state
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
-    state, logger, per_round = run(state)
+    state, logger, per_round = run(handover.pop())
     launches = {n: fn.launches for n, fn in kernels.items()}
     flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
     norm_by_layout = dict(kernels["rmsnorm"].launches_by_layout)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses, round_s = logger.series("loss"), logger.series("round_s")
     L, steps = cfg.n_layers, T["cohort"] * T["local_steps"] * T["local_epochs"]
-    # a forward per local step: the layers' norms and the final one; one
-    # attention a layer, all on the tensor-core kernel (bf16, head dims
-    # 128/128 or MLA's absorbed 288/256)
-    want = {"quant_aggregate": 0,
-            "rmsnorm": (T["norms_per_layer"] * L + 1) * steps * T["rounds"],
-            "flash_attention": L * steps * T["rounds"], "decode_attention": 0}
+    want = {"quant_aggregate": 0, **train_launches(T, L, steps * T["rounds"])}
     log(f"train launches {json.dumps(launches)} (want {json.dumps(want)}); flash by kernel "
         f"{json.dumps(flash_by_kernel)}; rmsnorm by layout {json.dumps(norm_by_layout)}; "
         f"per round {json.dumps(per_round[0])}")
@@ -2661,7 +2695,9 @@ def phase_train_lm(torch, kernels, T=TRAIN):
                 "scatter", "gather", "scan", "sort", "topk", "copy"):
         hits = [val for name, val in by_name.items() if tag in name.lower()]
         prof[f"{tag}_ms"] = sum(h[0] for h in hits)
-    grad_mem = grad_memory(torch, model, state2["params"], lm, T, dev)
+    b = train_fl_lm.round_batch(lm, 0, clients=T["clients"], cohort=1, batch=T["batch"],
+                                seq=T["seq"], local_steps=1, device=dev)
+    grad_mem = grad_memory(torch, model, state2["params"], {k: v[0, 0] for k, v in b.items()})
     del state2
     torch.cuda.empty_cache()
     tokens = T["cohort"] * T["local_steps"] * T["local_epochs"] * T["batch"] * T["seq"]
@@ -2679,37 +2715,68 @@ def phase_train_lm(torch, kernels, T=TRAIN):
     return out
 
 
-def grad_memory(torch, model, params, lm, T, dev):
+# one local step's gradient peak under autograd's backward() before the LM
+# step rematerialized (GB, this script's earlier runs on an H100 80GB HBM3 at
+# 700.00 W; PERF.md section 6), printed beside today's: the port keeps no
+# switch to run the un-remat'd step again
+RECORDED_AUTOGRAD_PEAK_GB = {("minicpm3-4b", 8): 8.015, ("qwen2.5-32b", 2): 9.91,
+                             ("qwen3-moe-30b-a3b", 2): 9.03, ("whisper-base", 6): 3.39}
+
+
+def grad_memory(torch, model, params, batch):
     """Device memory one local step's gradient takes above the params
-    (GB): the forward's saved activations, autograd's ``backward()`` and
-    ``torch.func.grad_and_value`` (the rounds' transform, which records
-    the backward's own graph: it differentiates with ``create_graph``)."""
+    (GB), for a ``FlatModel`` over its flat ``params``: the forward's saved
+    activations (``saved_gb``) and the peak (``backward_peak_gb``) of the
+    step an LM client takes, ``torch.autograd.grad`` of the loss, which
+    rematerializes each layer in the backward; beside it the peak of
+    ``torch.func.grad_and_value`` (``func_grad_peak_gb``: the transform
+    keeps every activation and records the backward's own graph) and the
+    recorded peak of autograd before it rematerialized. The remat'd
+    gradient is held to ``grad_and_value``'s, bitwise or within
+    ``GRAD_TOL`` (with the reason printed)."""
     from torch.func import grad_and_value
-    from repro_torch.launch import train_fl_lm
-    b = train_fl_lm.round_batch(lm, 0, clients=T["clients"], cohort=1, batch=T["batch"],
-                                seq=T["seq"], local_steps=1, device=dev)
-    b = {k: v[0, 0] for k, v in b.items()}
-    out = {}
+    cfg = model.cfg
+    out = {"recorded_unremat_backward_peak_gb":
+           RECORDED_AUTOGRAD_PEAK_GB.get((cfg.name, cfg.n_layers))}
 
     def peak(fn):
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        fn()
+        res = fn()
         torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 1e9
+        return (torch.cuda.max_memory_allocated() - base) / 1e9, res
 
-    def backward():
+    def step():
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         before = torch.cuda.memory_allocated()
-        loss = model.loss(leaves, b)
+        loss = model.loss(leaves, batch)
         out["saved_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
-        loss.backward()
-    out["backward_peak_gb"] = peak(backward)
-    out["func_grad_peak_gb"] = peak(lambda: grad_and_value(model.loss)(params, b))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return dict(zip(leaves, (g.cpu() for g in grads)))
+
+    def func_step():
+        grads, _ = grad_and_value(model.loss)(params, batch)
+        return {k: g.cpu() for k, g in grads.items()}
+    out["backward_peak_gb"], got = peak(step)
+    out["func_grad_peak_gb"], want = peak(func_step)
+    differ = [k for k in got if not torch.equal(got[k], want[k])]
+    out["remat_bitwise"] = not differ
+    if differ:
+        tol = GRAD_TOL[str(next(iter(params.values())).dtype).split(".")[1]]
+        out["remat_max_abs_diff"] = max(grad_close(torch, f"remat {k}", got[k], want[k], tol)
+                                        for k in differ)
+        again = step()          # is the remat'd step itself repeatable?
+        out["remat_differs_because"] = (
+            f"{len(differ)} of {len(got)} leaves differ from grad_and_value's ("
+            f"{', '.join(differ[:4])}{', ...' if len(differ) > 4 else ''}): its backward "
+            "sums them in another order; two remat'd steps differ in "
+            f"{sum(not torch.equal(again[k], got[k]) for k in got)} leaves")
+        del again
+    del got, want
     torch.cuda.empty_cache()
-    log(f"train {model.cfg.name}: one local step's gradient memory", json.dumps(out))
+    log(f"train {cfg.name}: one local step's gradient memory", json.dumps(out))
     return out
 
 
@@ -2740,8 +2807,9 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
                         {k: v.cpu() for k, v in state["params"].items()},
                         dict(fa.flash_attention_fwd.launches_by_kernel),
                         named(fa.flash_attention_fwd.launches_by_shape))
-        # f32 on the card: one tf32x3 launch a layer per local step (cohort 2 x 2)
-        want_by_kernel = {"wgmma": 0, "tf32x3": cfg.n_layers * 4}
+        # f32 on the card: two tf32x3 launches a layer per local step (cohort 2
+        # x 2), in the forward and in the backward's recompute of the layer
+        want_by_kernel = {"wgmma": 0, "tf32x3": 2 * cfg.n_layers * 4}
         if out["card"][2] != want_by_kernel:
             raise AssertionError(f"train card vs cpu {arch}: flash launches "
                                  f"{out['card'][2]}, want {want_by_kernel}")
@@ -2807,7 +2875,9 @@ MLA_KERNEL_SHAPES = {  # name: (B, S, absorbed): one minicpm3-4b prefill layer's
     "mla_serve": (8, 2048, True),      # the absorbed form: 40 heads on one kv head, 288/256
     "mla_train": (2, 2048, True),
     "mla_expanded": (8, 2048, False)}  # mla_seqsharded(absorbed=False): 40/40 heads, 96/64
-SERVE_MLA = {"arch": "minicpm3-4b", "n_layers": 62, "batch": 8, "prompt_len": 2048,
+# depth 62 -> 16: the serve's host-bound decode took ~24 s at 62 layers, and
+# phase 13 runs the full depth in training
+SERVE_MLA = {"arch": "minicpm3-4b", "n_layers": 16, "batch": 8, "prompt_len": 2048,
              "max_new": 64, "seed": 4,
              "norms_per_layer": 4,     # B2 a layer a forward: ln1, q_norm, kv_norm, ln2
              # width: (launches a layer, more a forward): ln1 + ln2 + the final
@@ -3150,8 +3220,8 @@ def moe_drop_fractions(torch, model, params, prompts):
 
 
 def phase_serve_slice10(torch, kernels, S_):
-    """An LM of slice 10 at its published width (``S_``: minicpm3-4b at
-    full depth, qwen3-moe-30b-a3b cut to 4 layers), bf16 drawn on the card:
+    """An LM of slice 10 at its published width (``S_``: minicpm3-4b cut to
+    16 layers, qwen3-moe-30b-a3b to 4), bf16 drawn on the card:
     ``generate`` counted, again for its wall time (bitwise the same
     tokens), a prefill alone timed and profiled; the MoE's drop fraction
     per layer at prefill."""
@@ -3544,6 +3614,7 @@ def phase_whisper(torch, kernels):
     from torch.func import grad_and_value
     from repro_torch.configs.base import get_config
     from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import FlatModel, flatten_params
     W, dev = WHISPER, torch.device("cuda")
     cfg = get_config(W["arch"])
     model = model_zoo.build(cfg)
@@ -3611,8 +3682,10 @@ def phase_whisper(torch, kernels):
                        "warm_s": time.perf_counter() - t0, "launches": grad_launches,
                        "peak_mem_gb": peak_gb, "grad_norm": grad_norm,
                        "repeat_bitwise": bool(torch.equal(loss, loss2))}
+    del grads
+    out["grad_memory"] = grad_memory(torch, FlatModel(model), flatten_params(params), batch)
     log("whisper", json.dumps(out))
-    del params, grads, frames
+    del params, frames
     torch.cuda.empty_cache()
     return out
 
@@ -3687,9 +3760,12 @@ def phase_xlstm(torch, kernels):
     steps = T["cohort"] * T["local_steps"] * T["local_epochs"]
     launches = {name: fn.launches for name, fn in kernels.items()}
     by_shape = launches_by_shape(kernels)
-    want_rows = named({(T["batch"] * T["seq"], cfg.d_model): norms * steps})
+    # each period's norms twice a step, in the forward and in the backward's
+    # recompute of the period; the final norm once
+    train_norms = 2 * cfg.n_layers + 1
+    want_rows = named({(T["batch"] * T["seq"], cfg.d_model): train_norms * steps})
     losses = logger.series("loss")
-    if launches["rmsnorm"] != norms * steps or by_shape["rmsnorm"] != want_rows \
+    if launches["rmsnorm"] != train_norms * steps or by_shape["rmsnorm"] != want_rows \
             or not all(math.isfinite(v) for v in losses) \
             or not all(torch.isfinite(v.float()).all() for v in state["params"].values()):
         raise AssertionError(f"xlstm train round: losses {losses}, launches {launches}, "
@@ -3788,6 +3864,237 @@ def phase_jamba_sublayers(torch, kernels):
     return out
 
 
+# phase 13 (slice 13): the rematerialized LM training step and int8 LM
+# sends. minicpm3-4b (hf:openbmb/MiniCPM3-4B) trained at its full published
+# depth, 62 layers, bf16, through train_fl_lm's temporal FedAvgM round and
+# through the same round with int8 sends (strategy compressed): B1 at the
+# packed N of 4.07e9 (past 2**31), checked bitwise over column slices first;
+# qwen3-moe-30b-a3b's MoE FFN repeats its forward bitwise (the recompute's
+# routing must pick the forward's experts); B2 at minicpm3-4b's train rows
+TRAIN_FULL = dict(TRAIN, arch="minicpm3-4b", n_layers=62, norms_per_layer=4)
+B1_LM = {"C": 2, "qblock": 256, "slice": 1 << 27, "seed": 90}   # N from TRAIN_FULL's arch
+MOE_REPEAT = {"arch": "qwen3-moe-30b-a3b", "batch": 2, "seq": 2048, "seed": 91}
+# B2 at the training rows of minicpm3-4b (2 x 2048): (width, a column slice of
+# a wider row or None): ln1/ln2/final norm, q_norm, kv_norm of the 288-wide dkv
+TRAIN_MLA_RMS = {"mla_train_ln": (2560, None), "mla_train_q_norm": (768, None),
+                 "mla_train_kv_norm": (256, 288)}
+# qwen2.5-32b's round before rematerialization (PERF.md), printed beside today's
+RECORDED = {"qwen2.5-32b_peak_gb": 59.86, "qwen2.5-32b_warm_round_s": 0.58}
+
+
+def packed_n(cfg) -> int:
+    """The packed int8 length of an LM's delta: every leaf padded to whole
+    256-value blocks (``core/packing``), from the config's shapes alone."""
+    from repro_torch.core.packing import QBLOCK
+    from repro_torch.models.transformer import flatten_params, param_shapes
+    return sum(n + (-n) % QBLOCK for n in
+               (math.prod(s) for s in flatten_params(param_shapes(cfg)).values()))
+
+
+def phase_b1_lm(torch, qa, N):
+    """B1 at the int8 LM round's shape, (2, N) with N past 2**31, on random
+    sends: bitwise its plain version over every column slice of
+    ``B1_LM["slice"]`` (the plain version of the whole row would need (C,
+    N) f32 temporaries), then timed beside its bound and the plain version
+    run slice by slice."""
+    dev = torch.device("cuda")
+    C, qblock, step = B1_LM["C"], B1_LM["qblock"], B1_LM["slice"]
+    q, s, w = agg_inputs(C, N, qblock, seed=B1_LM["seed"], device=dev)
+    got = qa.quant_aggregate(q, s, w)
+
+    def plain_by_slices(q, s, w, check=None):
+        for lo in range(0, N, step):
+            hi = min(N, lo + step)
+            part = qa.plain(q[:, lo:hi], s[:, lo // qblock:hi // qblock], w)
+            if check is not None and not torch.equal(check[lo:hi], part):
+                raise AssertionError(f"quant_aggregate at N={N}: columns [{lo}, {hi}) are "
+                                     "not bitwise its plain version")
+    plain_by_slices(q, s, w, check=got)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"quant_aggregate at N={N}: non-finite output")
+    del got
+    nbytes = C * N + 4 * C * (N // qblock) + 4 * C + 4 * N
+    bound_ms, bound_by = bound(nbytes, 3 * C * N, F32_FLOPS_PER_S)
+    plan = qa.launch_plan(C, N, qblock)
+    r = {"S": 1, "C": C, "N": N, "qblock": qblock, "bitwise": True, "max_abs_err": 0.0,
+         "checked_slices": -(-N // step), "plan": plan._asdict(),
+         "tma_last_column": (-(-N // plan.tile) - 1) * plan.tile // 4,
+         "kernel_ms": time_device(qa.quant_aggregate, (q, s, w), 10, None, batch=5),
+         "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 10, None),
+         "plain_ms": time_device(plain_by_slices, (q, s, w), 2, None, batch=1),
+         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
+    log("kernel quant_aggregate lm_int8", json.dumps(r))
+    del q, s, w
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_moe_repeat(torch):
+    """qwen3-moe-30b-a3b's MoE FFN at full width (128 experts top-8, one
+    layer's weights in bf16) on a training batch's tokens, twice: the
+    outputs, aux losses and routing bitwise (the backward's recompute then
+    routes every token to the forward's experts)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    M, dev = MOE_REPEAT, torch.device("cuda")
+    cfg = get_config(M["arch"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(M["seed"])
+    w = moe.init_moe_params(g, cfg, dtype=torch.bfloat16)
+    x = torch.randn((M["batch"], M["seq"], cfg.d_model), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, aux = moe.moe_ffn(w, x, cfg)
+        _, eids, *_ = moe._route(x.reshape(-1, cfg.d_model), w["router"], cfg)
+        runs.append((out, aux, eids))
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][2], runs[1][2]) \
+        and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    r = {"arch": cfg.name, "tokens": M["batch"] * M["seq"], "experts": cfg.moe.n_experts,
+         "top_k": cfg.moe.top_k, "bitwise_repeat": same,
+         "drop_fraction": runs[0][1].drop_fraction.item()}
+    log("moe forward repeat", json.dumps(r))
+    if not same:
+        raise AssertionError("moe_ffn's forward is not bitwise repeatable: a recompute "
+                             "could route a token to another expert")
+    del w, x, runs
+    torch.cuda.empty_cache()
+    return r
+
+
+def time_train_norms_mla(torch, flush):
+    """B2 at minicpm3-4b's training rows (2 x 2048) at each width the train
+    stack gives it, against its plain version and timed beside it, the
+    PyTorch call and the bound; kv_norm's input is the 256-column slice of
+    288-wide rows, through ``ops.rmsnorm`` (which copies it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    rows = {}
+    for i, (name, (D, wide)) in enumerate(TRAIN_MLA_RMS.items()):
+        full = _randn(torch, (B, S, wide or D), bf16, 230 + i, dev)
+        w = _randn(torch, (D,), bf16, 240 + i, dev)
+        want = rms.plain(full[..., :D], w)
+        err = close(torch, f"rmsnorm {name} (ops)", ops.rmsnorm(full[..., :D], w), want,
+                    RMS_TOL["bfloat16"])
+        x = full[..., :D].contiguous()
+        err = max(err, close(torch, f"rmsnorm {name}", rms.rmsnorm(x, w), want,
+                             RMS_TOL["bfloat16"]))
+        R = B * S
+        lib = (lambda x, w: F.rms_norm(x, (D,), w, 1e-6))
+        r = {"shape": [B, S, D], "rows": R, "D": D, "dtype": "bfloat16",
+             "strided_from": wide, "max_abs_err": err,
+             "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush, batch=20),
+             "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
+             "library_ms": time_device(lib, (x, w), 100, flush, batch=20)}
+        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D,
+                                             F32_FLOPS_PER_S)
+        log(f"kernel rmsnorm {name}", json.dumps(r))
+        rows[f"rmsnorm_{name}"] = r
+        del full, w, want, x
+    return rows
+
+
+def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
+    """minicpm3-4b at its published width and full depth (62 layers, 4.07 B
+    params in bf16): ``train_fl_lm.setup`` and ``run_rounds`` on fixed client
+    data, TRAIN's temporal FedAvgM round (4 clients, cohort 2, 2 local steps
+    of 2 x 2048 tokens, 3 rounds), then the same round with int8 sends
+    (``strategy: compressed``) from the same initial params; each run counted
+    (B2 and B3 by shape, forward plus recompute; B1 once a round at (2, N)
+    on the int8 run), timed round by round, its peak memory read."""
+    from repro_torch.configs.base import FLConfig, get_config
+    from repro_torch.core.rounds import build_temporal_round
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = get_config(T["arch"])
+    if cfg.n_layers != T["n_layers"]:
+        raise AssertionError(f"{cfg.name} has {cfg.n_layers} layers, not {T['n_layers']}")
+    kw_fl = dict(n_clients=T["clients"], local_epochs=T["local_epochs"],
+                 client_lr=T["client_lr"], seed=0)
+    t0 = time.perf_counter()
+    model, round_fn, state = train_fl_lm.setup(
+        cfg, FLConfig(strategy=T["strategy"], server_momentum=T["server_momentum"], **kw_fl),
+        dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in state["params"].values())
+    N = packed_n(cfg)
+    log(f"train full depth: {cfg.name}, {cfg.n_layers} of {cfg.n_layers} layers, bf16: "
+        f"{n_params} params ({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.1f}s; packed "
+        f"N {N} ({N / 2**31:.3f} x 2**31)")
+    initial = {k: v.cpu() for k, v in state["params"].items()}
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    kw = dict(clients=T["clients"], cohort=T["cohort"], batch=T["batch"], seq=T["seq"],
+              local_steps=T["local_steps"], device=dev, data_round=0)
+    L, steps = cfg.n_layers, T["cohort"] * T["local_steps"] * T["local_epochs"] * T["rounds"]
+    want = train_launches(T, L, steps)
+    rows = T["batch"] * T["seq"]
+    want_by_shape = {
+        "rmsnorm": named({(rows, D): (2 * per_layer * L + more) * steps
+                          for D, (per_layer, more) in SERVE_MLA["norm_widths"].items()}),
+        "flash_attention": named({(T["batch"], T["seq"], T["seq"], cfg.n_heads, 1,
+                                   cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim,
+                                   cfg.mla.kv_lora_rank, True): 2 * L * steps})}
+    out = {"arch": cfg.name, "n_layers": L, "params": n_params, "packed_n": N,
+           "init_s": init_s}
+    # each run's initial state is handed over (popped from a list), so that no
+    # frame here holds it while the rounds run (16.3 GB of params and
+    # momentum on the card at this depth)
+    handover = [state]
+    del state
+    for tag in ("plain", "int8"):
+        if tag == "int8":
+            fl8 = FLConfig(strategy="compressed", compression="int8", **kw_fl)
+            strategy = get_strategy(fl8)
+            round_fn = build_temporal_round(model, strategy, fl8)
+            params = {k: v.to(dev) for k, v in initial.items()}
+            handover.append({"params": params, "server": strategy.server_state_init(params),
+                             "clients": ()})
+            del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        state, logger = train_fl_lm.run_rounds(round_fn, handover.pop(), lm, 0, T["rounds"],
+                                               **kw)
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        by_shape = launches_by_shape(kernels)
+        flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses, round_s = logger.series("loss"), logger.series("round_s")
+        b1 = T["rounds"] if tag == "int8" else 0
+        run_want = {"quant_aggregate": b1, **want}
+        b1_shape = named({(1, B1_LM["C"], N, B1_LM["qblock"]): b1} if b1 else {})
+        tokens = steps // T["rounds"] * T["batch"] * T["seq"]
+        r = {"losses": losses, "loss_fell": losses[-1] < losses[0], "round_s": round_s,
+             "tokens_per_round": tokens, "tokens_per_s": [tokens / t for t in round_s],
+             "peak_mem_gb": peak_gb, "launches": launches, "flash_by_kernel": flash_by_kernel,
+             "by_shape": by_shape}
+        log(f"train full depth {tag} {cfg.name}", json.dumps(r))
+        if launches != run_want or flash_by_kernel["tf32x3"] != 0 \
+                or by_shape["rmsnorm"] != want_by_shape["rmsnorm"] \
+                or by_shape["flash_attention"] != want_by_shape["flash_attention"] \
+                or by_shape["quant_aggregate"] != b1_shape:
+            raise AssertionError(f"train full depth {tag}: launches {launches}, by shape "
+                                 f"{by_shape}; want {run_want}, {want_by_shape}, B1 {b1_shape}")
+        if not all(math.isfinite(x) for x in losses) or not r["loss_fell"] \
+                or not all(torch.isfinite(v.float()).all() for v in state["params"].values()):
+            raise AssertionError(f"train full depth {tag}: losses {losses} not finite and "
+                                 "falling, or non-finite params")
+        out[tag] = r
+        del state
+        torch.cuda.empty_cache()
+    del initial
+    return out
+
+
 def attention_layers(cfg) -> int:
     """B3 launches of one prefill: every attention layer (the encoder's and
     the decoder's self and cross attention for encdec, one a period for
@@ -3813,6 +4120,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from repro_torch.configs.base import get_config
     from repro_torch.core.jobs import load_job
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
@@ -3963,7 +4271,6 @@ def main() -> int:
     norm_decode_rows = time_slice10_norms_decode(torch, flush)
     del flush
     serve_mla = phase_serve_slice10(torch, kernels, SERVE_MLA)
-    train_mla = phase_train_lm(torch, kernels, TRAIN_MLA)
     train_moe = phase_train_lm(torch, kernels, TRAIN_MOE)
     serve_moe = phase_serve_slice10(torch, kernels, SERVE_MOE)
     train_cpu10 = phase_train_card_vs_cpu(torch, SLICE10_CARD_CPU)
@@ -3987,11 +4294,28 @@ def main() -> int:
     slice12_s = time.perf_counter() - t0
     log(f"slice 12 phase: {slice12_s:.1f}s")
 
-    # 13. serve path; counts zeroed just before it, read just after
+    # 13. the rematerialized LM training step and int8 LM sends (slice 13):
+    # B1 at the int8 LM round's (2, 4.07e9) bitwise over column slices, the
+    # MoE forward's repeat, B2 at minicpm3-4b's train rows, minicpm3-4b at its
+    # full 62 layers trained plain and with int8 sends, then at 8 layers
+    # twice, bitwise (the cut depth); counts zeroed just before each counted
+    # path, read just after
+    t0 = time.perf_counter()
+    b1_lm = phase_b1_lm(torch, qa, packed_n(get_config(TRAIN_FULL["arch"])))
+    moe_repeat = check_moe_repeat(torch)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    mla_train_norms = time_train_norms_mla(torch, flush)
+    del flush
+    full = phase_train_full_depth(torch, kernels)
+    train_mla = phase_train_lm(torch, kernels, TRAIN_MLA)
+    slice13_s = time.perf_counter() - t0
+    log(f"slice 13 phase: {slice13_s:.1f}s")
+
+    # 14. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 14. summary
+    # 15. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -4145,9 +4469,12 @@ def main() -> int:
     # slice 10: B3 at MLA's shapes, launches from the counted paths
     for name, key, launches, path in (
             ("flash_attention_wgmma_mla_serve", "mla_serve",
-             serve_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b serve, 62 layers"),
+             serve_mla["flash_by_kernel"]["wgmma"],
+             f"minicpm3-4b serve, {SERVE_MLA['n_layers']} layers"),
             ("flash_attention_wgmma_mla_train", "mla_train",
-             train_mla["flash_by_kernel"]["wgmma"], "minicpm3-4b train, 8 layers, 3 rounds"),
+             sum(full[t]["flash_by_kernel"]["wgmma"] for t in ("plain", "int8")),
+             "minicpm3-4b train at 62 layers, 3 rounds plain and 3 with int8 sends (a layer's "
+             "forward and its recompute)"),
             ("flash_attention_wgmma_mla_expanded", "mla_expanded",
              serve_mla["expanded_flash_by_kernel"]["wgmma"],
              "minicpm3-4b layer 0, mla_seqsharded(absorbed=False)")):
@@ -4167,11 +4494,12 @@ def main() -> int:
     # launches from the counted serve paths (B2 by width, prefill and decode)
     for name, key, launches, path in (
             ("rmsnorm_mla_ln", "rmsnorm_mla_ln", serve_mla["rmsnorm_by_width"][2560],
-             "minicpm3-4b serve, 62 layers: ln1, ln2, final norm"),
+             f"minicpm3-4b serve, {SERVE_MLA['n_layers']} layers: ln1, ln2, final norm"),
             ("rmsnorm_mla_q_norm", "rmsnorm_mla_q_norm", serve_mla["rmsnorm_by_width"][768],
-             "minicpm3-4b serve, 62 layers: q_norm"),
+             f"minicpm3-4b serve, {SERVE_MLA['n_layers']} layers: q_norm"),
             ("rmsnorm_mla_kv_norm", "rmsnorm_mla_kv_norm",
-             serve_mla["rmsnorm_by_width"][256], "minicpm3-4b serve, 62 layers: kv_norm"),
+             serve_mla["rmsnorm_by_width"][256],
+             f"minicpm3-4b serve, {SERVE_MLA['n_layers']} layers: kv_norm"),
             ("rmsnorm_moe_ln", "rmsnorm_moe_ln", serve_moe["rmsnorm_by_width"][2048],
              "qwen3-moe-30b-a3b serve, 4 layers: ln1, ln2, final norm"),
             ("rmsnorm_moe_qk_norm", "rmsnorm_moe_qk_norm", serve_moe["rmsnorm_by_width"][128],
@@ -4251,6 +4579,32 @@ def main() -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "bitwise": False,
             "shape": r["shape"]})
+    # slice 13: B1 at the int8 LM round's N (past 2**31), B2 at minicpm3-4b's
+    # train rows; launches from the counted full-depth runs
+    entries.append({
+        "name": "quant_aggregate_lm_int8", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_aggregate.cu",
+        "replaces": "src/repro/kernels/quant_aggregate.py:22",
+        "launches": full["int8"]["launches"]["quant_aggregate"],
+        "launches_path": "minicpm3-4b at 62 layers, 3 temporal rounds with int8 sends",
+        "max_abs_err": b1_lm["max_abs_err"], "ms": b1_lm["kernel_ms"],
+        "plain_ms": b1_lm["plain_ms"], "call_ms": b1_lm["kernel_call_ms"],
+        "bound_ms": b1_lm["bound_ms"], "bound_by": b1_lm["bound_by"], "library_ms": None,
+        "bitwise": True, "shape": [b1_lm["S"], b1_lm["C"], b1_lm["N"], b1_lm["qblock"]]})
+    for name, (D, _) in TRAIN_MLA_RMS.items():
+        r = mla_train_norms[f"rmsnorm_{name}"]
+        key = shape_name((TRAIN_FULL["batch"] * TRAIN_FULL["seq"], D))
+        entries.append({
+            "name": f"rmsnorm_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:11",
+            "launches": sum(full[t]["by_shape"]["rmsnorm"].get(key, 0)
+                            for t in ("plain", "int8")),
+            "launches_path": "minicpm3-4b train at 62 layers, plain and int8 (forward and "
+                             "recompute)",
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -4396,6 +4750,26 @@ def main() -> int:
                         "generate_s", "peak_mem_gb", "launches", "slstm_launches_per_token",
                         "train", "profile_decode_step")},
                     "jamba": jamba, "card_vs_cpu": serve_cpu12}))
+    log(json.dumps({"slice": "13: the rematerialized LM training step (a checkpoint per "
+                    "layer, block, period, Mamba mixer, MoE FFN and scan chunk, under plain "
+                    "autograd for an LM client) and int8 LM sends quantized leaf by leaf: "
+                    "minicpm3-4b trained at its full 62 layers, plain and int8",
+                    "card": smi, "phase_s": slice13_s, "b1_lm": b1_lm,
+                    "moe_repeat": moe_repeat, "rmsnorm_mla_train": mla_train_norms,
+                    "full_depth": {k: full[k] if k not in ("plain", "int8") else {
+                        f: full[k][f] for f in ("losses", "round_s", "tokens_per_s",
+                                                "peak_mem_gb", "by_shape")}
+                        for k in full},
+                    "gradient_memory": {
+                        "qwen2.5-32b, 2 layers": train["grad_memory"],
+                        "minicpm3-4b, 8 layers": train_mla["grad_memory"],
+                        "qwen3-moe-30b-a3b, 2 layers": train_moe["grad_memory"],
+                        "whisper-base": whisper["grad_memory"]},
+                    "qwen2.5-32b": {"peak_mem_gb": train["peak_mem_gb"],
+                                    "warm_round_s": train["round_s"][-1],
+                                    "recorded": RECORDED},
+                    "minicpm3-4b, 8 layers": {k: train_mla[k] for k in (
+                        "losses", "round_s", "peak_mem_gb", "bitwise_repeat")}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -65,11 +65,44 @@ def pack_tree(tree: dict, qblock: int = QBLOCK, lead: int = 0):
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
 
 
-def quantize_tree(tree: dict, qblock: int = QBLOCK, lead: int = 0) -> PackedDelta:
-    """Block-quantize a delta dict into the kernel's packed layout."""
-    q, sc = kref.quantize_blockwise_ref(pack_tree(tree, qblock, lead),
-                                        block=qblock)
-    return PackedDelta(q=q, scale=sc)
+QUANT_CHUNK = 1 << 24   # values a chunk of ``quantize_tree`` takes to f32 at once
+
+
+def quantize_tree(tree: dict, qblock: int = QBLOCK, lead: int = 0,
+                  out: PackedDelta | None = None) -> PackedDelta:
+    """Block-quantize a delta dict into the kernel's packed layout: bitwise
+    ``quantize_blockwise_ref(pack_tree(tree))``, without its (..., N) f32
+    copy. Every block lies inside one leaf (per-leaf padding), so each leaf
+    is quantized on its own, in chunks of whole blocks of at most
+    ``QUANT_CHUNK`` values, straight into its slice of the (..., N) int8
+    row and the (..., N / qblock) scale row: the f32 copies and the
+    quantizer's temporaries never exceed a chunk's (an LM's delta runs to
+    billions of values). ``out``: the rows to write (views of a larger
+    matrix, say); else new ones."""
+    leaves = _leaves(tree)
+    lead_shape = leaves[0].shape[:lead]
+    if out is None:
+        n, n_blocks = packed_size({k: v[(0,) * lead] for k, v in tree.items()}, qblock)
+        # new_empty of a leaf: under a campaign's vmap the rows carry its lanes
+        out = PackedDelta(leaves[0].new_empty((*lead_shape, n), dtype=torch.int8),
+                          leaves[0].new_empty((*lead_shape, n_blocks), dtype=torch.float32))
+    q, scale = out
+    off = 0
+    step = max(qblock, QUANT_CHUNK // qblock * qblock)
+    for leaf in leaves:
+        flat = leaf.reshape(*lead_shape, -1)
+        size = flat.shape[-1]
+        for lo in range(0, size, step):
+            x = flat[..., lo:lo + step].to(torch.float32)
+            pad = (-x.shape[-1]) % qblock
+            qc, sc = kref.quantize_blockwise_ref(F.pad(x, (0, pad)) if pad else x,
+                                                 block=qblock)
+            a = off + lo
+            q[..., a:a + qc.shape[-1]] = qc
+            scale[..., a // qblock:(a + qc.shape[-1]) // qblock] = sc
+            del x, qc, sc
+        off += _padded_size(size, qblock)
+    return PackedDelta(q=q, scale=scale)
 
 
 def dequant_flat(pd: PackedDelta):

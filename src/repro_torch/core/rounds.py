@@ -12,8 +12,9 @@ Two client placements:
   launch per round. The decentralized topology keeps one model per client
   and gossips them instead of aggregating.
 - ``temporal``: the clients train one at a time and their deltas are
-  accumulated in f32 in client order; on the int8 path the clients' sends
-  are stacked into one ``(C, N)`` matrix and reduced by ONE kernel launch.
+  accumulated in f32 in client order; on the int8 path each client's send
+  is quantized straight into its row of one ``(C, N)`` matrix, reduced by
+  ONE kernel launch.
 
 With ``n_workers > 1`` or ``byzantine_workers > 0`` both rounds pass the
 aggregate through ``consensus.MultiWorkerAggregator`` before the server
@@ -38,6 +39,20 @@ spatial round over K = max_cohort slots of a per-round cohort slab staged
 by ``data/pipeline``'s slab stagers, the pads at weight 0; stateless
 strategies and client-server topologies only (``check_ragged_support``).
 
+The client gradient: a model may declare ``autograd_remat = True`` (the
+LMs' ``transformer.FlatModel`` does): its loss rematerializes under plain
+autograd, as the JAX package's ``jax.checkpoint`` does, so the backward
+keeps each layer's input and recomputes the rest. For such a model, one
+client (a one-client batch) and shared params, as the temporal round trains
+its clients, ``local_train`` takes ``torch.autograd.grad`` of
+``strategy.local_loss`` with no backward graph kept. Everything else (the
+paper's models, the spatial round, every campaign lane) takes
+``vmap(grad_and_value)`` over the client dim, which keeps every activation
+(``torch.utils.checkpoint`` is refused under ``torch.func``). This module
+reads the declaration and nothing else of the model. An LM never runs in a
+campaign lane (``Executor.scaffold`` refuses LM jobs); if it did,
+``torch.autograd.grad`` would raise under the lanes' ``vmap``.
+
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
 noise is drawn from it); the JAX package hands ``local_loss`` a per-step
@@ -46,6 +61,7 @@ key, which no strategy reads, so the port hands it the client's key.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -116,7 +132,8 @@ def _zero(dev):
 
 def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
                 server_state, client_state, batches, rng,
-                pack_deltas: bool = False, per_client_params: bool = False):
+                pack_deltas: bool = False, per_client_params: bool = False,
+                pack_out: Optional[packing.PackedDelta] = None):
     """Run E local epochs over ``batches`` for every client at once.
 
     batches: a dict of (C, steps, B, ...) tensors, whatever its keys
@@ -125,22 +142,45 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
     ``per_client_params``: ``global_params`` carry a leading client dim too
     (decentralized models). Returns (delta, new_client_state, losses (C,)),
     the delta as (C, ...) leaves or, with ``pack_deltas``, a ``PackedDelta``
-    of (C, N) int8 rows (``Strategy.postprocess_packed``)."""
-    post = strategy.postprocess_packed if pack_deltas else strategy.postprocess
+    of (C, N) int8 rows (``Strategy.postprocess_packed``), written into
+    ``pack_out``'s rows where given. The gradient is
+    ``vmap(grad_and_value)`` over the clients, or, for one client of a
+    model that declares ``autograd_remat`` with shared params, plain
+    autograd through the rematerialized loss, its leading client dim of 1
+    dropped around it (see the module docstring)."""
+    post = (functools.partial(strategy.postprocess_packed, out=pack_out) if pack_deltas
+            else strategy.postprocess)
     n_steps = next(iter(batches.values())).shape[1]
     use_mom = fl.client_optimizer == "sgdm" and fl.client_momentum > 0
     g_dim = 0 if per_client_params else None
+    autograd = (getattr(model, "autograd_remat", False) and not per_client_params
+                and next(iter(batches.values())).shape[0] == 1)
 
     def client_loss(p, g, batch, cstate, key):
         return strategy.local_loss(model.loss, p, g, batch, cstate, key)
 
     grad_fn = grad_and_value(client_loss)
 
+    def one_client_grads(params, batched: bool, batch):
+        """The lone client's gradient by ``torch.autograd.grad`` (no
+        backward graph kept), as (1, ...) leaves beside its (1,) loss."""
+        def first(tree):
+            return tree_map(lambda t: t[0], tree)
+        p = {k: (v[0] if batched else v).detach().requires_grad_()
+             for k, v in params.items()}
+        loss = strategy.local_loss(model.loss, p, global_params, first(batch),
+                                   first(client_state), rng[0])
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return {k: g[None] for k, g in zip(p, grads)}, loss.detach()[None]
+
     def step_grads(params, batched: bool, step: int):
         batch = {k: v[:, step % n_steps] for k, v in batches.items()}
-        in_dims = (0 if batched else None, g_dim, 0, 0, 0)
-        grads, loss = vmap(grad_fn, in_dims=in_dims)(
-            params, global_params, batch, client_state, rng)
+        if autograd:
+            grads, loss = one_client_grads(params, batched, batch)
+        else:
+            in_dims = (0 if batched else None, g_dim, 0, 0, 0)
+            grads, loss = vmap(grad_fn, in_dims=in_dims)(
+                params, global_params, batch, client_state, rng)
         return strategy.grad_transform(grads, client_state, server_state), loss
 
     if fl.local_epochs * n_steps == 1 and not use_mom:
@@ -271,9 +311,9 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
     against the round's params, with no client state (as in the JAX
     package). Deltas are accumulated in f32, in client order, each scaled
     by its normalised weight; with C_t == 1 the raw delta is applied. On the
-    int8 path the C_t sends are stacked into one (C_t, N) matrix and
-    reduced by ONE ``ops.quant_aggregate`` launch with the normalised
-    weights (C_t == 1: weight 1). ``probes`` as in ``build_spatial_round``
+    int8 path each send is written into its row of one preallocated (C_t,
+    N) matrix, reduced by ONE ``ops.quant_aggregate`` launch with the
+    normalised weights (C_t == 1: weight 1). ``probes`` as in ``build_spatial_round``
     (the drift moments accumulate client by client)."""
     packed = strategy.packs_deltas
     mw = build_aggregator(fl)
@@ -284,36 +324,46 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
         lead = next(iter(batch.values()))
         C_t, dev = lead.shape[0], lead.device
 
-        def client(i, pack: bool):
+        def client(i, pack_out=None):
             cbatch = {k: v[i:i + 1] for k, v in batch.items()}
             key = determinism.key_tensor(determinism.client_key(rng, i), dev)
             delta, _, loss = local_train(model, strategy_h, fl_h, params,
                                          server_state, (), cbatch, key,
-                                         pack_deltas=pack)
+                                         pack_deltas=pack_out is not None,
+                                         pack_out=pack_out)
             return delta, loss[0]
 
         pr = {"sat_frac": _zero(dev), "ef_residual_norm": _zero(dev),
               "drift_norm": _zero(dev)} if probes else {}
         if packed:
-            sends = [client(i, True) for i in range(C_t)]
-            q = torch.cat([pd.q for pd, _ in sends])
-            scale = torch.cat([pd.scale for pd, _ in sends])
+            # each client's send quantized straight into its row of one
+            # (C_t, N) int8 matrix and (C_t, N / qblock) scales, its delta
+            # dropped before the next client trains
+            n, n_blocks = packing.packed_size(params)
+            leaf = next(iter(params.values()))     # under a campaign's vmap: its lanes
+            q = leaf.new_empty((C_t, n), dtype=torch.int8)
+            scale = leaf.new_empty((C_t, n_blocks), dtype=torch.float32)
+            losses = [client(i, packing.PackedDelta(q[i:i + 1], scale[i:i + 1]))[1]
+                      for i in range(C_t)]
             if C_t == 1:
-                loss = sends[0][1]
+                loss = losses[0]
                 w = torch.ones((1,), dtype=torch.float32, device=dev)
             else:
-                loss = torch.stack([l for _, l in sends]).sum() / C_t
+                loss = torch.stack(losses).sum() / C_t
                 w = weights / torch.clamp(weights.sum(), min=1e-12)
             agg_flat = ops.quant_aggregate(q, scale, w)
-            agg = {k: a.to(params[k].dtype) for k, a in
-                   packing.unpack_tree(agg_flat, params).items()}
             if probes:
                 pr["sat_frac"] = probelib.sat_frac(q)
                 pr["drift_norm"] = probelib.drift_from_moments(
                     w, probelib.packed_sq_norms(q, scale),
                     torch.square(agg_flat).sum())
+            del q, scale
+            # views of the (N,) f32 aggregate, cast one leaf at a time
+            agg = {k: a.to(params[k].dtype) for k, a in
+                   packing.unpack_tree(agg_flat, params).items()}
+            del agg_flat
         elif C_t == 1:
-            delta, loss = client(0, False)
+            delta, loss = client(0)
             agg = {k: d[0] for k, d in delta.items()}
         else:
             agg = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -322,7 +372,7 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             msq = 0.0
             wsum = torch.clamp(weights.sum(), min=1e-12)
             for i in range(C_t):
-                delta, closs = client(i, False)
+                delta, closs = client(i)
                 d_i = {k: d[0] for k, d in delta.items()}
                 w_i = weights[i] / wsum
                 # in place: one f32 accumulator, whatever the model's size;

@@ -73,13 +73,14 @@ class CompressedFedAvg(Strategy):
         """True when the int8 path emits ``PackedDelta`` for fused aggregation."""
         return self.fl.compression == "int8"
 
-    def postprocess_packed(self, delta, client_state, rng):
+    def postprocess_packed(self, delta, client_state, rng, out=None):
         """(C, N) int8 + (C, N/256) block-scale emission in the kernel's flat
-        layout. The error-feedback residual is computed against the
-        dequantized send (what the server reconstructs); per-leaf packing
-        makes it bitwise the residual ``_roundtrip_int8`` would give."""
+        layout, into ``out``'s rows where given. The error-feedback residual
+        is computed against the dequantized send (what the server
+        reconstructs); per-leaf packing makes it bitwise the residual
+        ``_roundtrip_int8`` would give."""
         delta, ef = self._with_residual(delta, client_state)
-        pd = packing.quantize_tree(delta, lead=1)
+        pd = packing.quantize_tree(delta, lead=1, out=out)
         if ef:
             sent = packing.unpack_tree(packing.dequant_flat(pd), delta, lead=1)
             return pd, {"residual": {k: delta[k] - sent[k].to(delta[k].dtype)

@@ -101,9 +101,11 @@ class Strategy:
         ``kernels/ops.quant_aggregate`` instead of a dense f32 mean."""
         return False
 
-    def postprocess_packed(self, delta, client_state, rng):
+    def postprocess_packed(self, delta, client_state, rng, out=None):
         """Packed counterpart of ``postprocess``: returns
-        (PackedDelta, new_client_state). Only called when ``packs_deltas``."""
+        (PackedDelta, new_client_state), written into ``out`` (a
+        ``PackedDelta`` of rows) where given. Only called when
+        ``packs_deltas``."""
         raise NotImplementedError(
             f"{self.name}: packs_deltas is True but postprocess_packed "
             "is not implemented")

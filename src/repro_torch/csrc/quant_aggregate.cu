@@ -71,6 +71,9 @@ namespace {
 constexpr int kOut = 8;            // outputs per consumer thread (8 int8 bytes per client)
 constexpr int kMaxStageClients = 8;
 constexpr int kMaxStages = 4;
+// Tile, output and scale offsets are 64-bit; the TMA copy's column, in
+// int32 words of q, is a signed 32-bit coordinate: N / 4 <= INT32_MAX.
+constexpr int64_t kMaxN = (int64_t)0x7fffffff * 4;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -322,9 +325,9 @@ extern "C" int quant_aggregate_launch(const void* q, const void* scale, const vo
                                       void* stream) {
   if (tile < 256 || tile % 256 || tile > 1024 || stage_clients < 1 ||
       stage_clients > kMaxStageClients || stages < 1 || stages > kMaxStages || C < 0 ||
-      S < 1 || (int64_t)S * C > 0x7fffffff || N < 1 || qblock < 16 || qblock % 16 ||
-      N % qblock || N % 16 || chunk < stage_clients || chunk % stage_clients || grid < 1 ||
-      grid > (int64_t)S * ((N + tile - 1) / tile))
+      S < 1 || (int64_t)S * C > 0x7fffffff || N < 1 || N > kMaxN || qblock < 16 ||
+      qblock % 16 || N % qblock || N % 16 || chunk < stage_clients || chunk % stage_clients ||
+      grid < 1 || grid > (int64_t)S * ((N + tile - 1) / tile))
     return (int)cudaErrorInvalidValue;
   const int threads = tile / kOut + 32;
   const size_t smem = (size_t)stages * stage_clients * tile + 16 * (size_t)stages +

@@ -18,7 +18,11 @@ no backward kernel), and whose vmap rule folds the vmapped dim into the
 kernel's rows or batch, so they run under the FL rounds'
 ``vmap(grad_and_value(...))``. (A ``torch.library.custom_op``'s autograd
 rule is refused under ``torch.func`` transforms: it does not override
-``setup_context``.)
+``setup_context``.) Under ``torch.utils.checkpoint`` (an LM client's
+rematerialized step) their forward runs again in the backward's recompute:
+``setup_context`` keeps only the saved tensors and Python scalars, so the
+second forward is the first at the same shapes, gives its bits, and its
+launch is counted as the first's is.
 
 Counters are scoped: ``quant_agg_scope()`` pushes a fresh frame, increments
 land on every active frame, and ``quant_agg_stats()`` snapshots the innermost

@@ -34,6 +34,11 @@ CTAS_PER_SM = 4          # CTAs at most, per SM; each takes tiles in turn
 # the client count, so the clients are bounded only by the C entry point's
 # 32-bit client count.
 MAX_CLIENTS = 2**31 - 1
+# Offsets into q, the scales and the output are 64-bit in the kernel; the
+# TMA copy's column coordinate, in int32 words of q, is a signed 32-bit
+# value, so N stays at or below 4 * (2**31 - 1) (the C entry point's kMaxN;
+# minicpm3-4b's packed delta of 4.07e9 values is about half of it).
+MAX_N = 4 * (2**31 - 1)
 
 
 class Plan(NamedTuple):
@@ -72,6 +77,9 @@ def launch_plan(C: int, N: int, qblock: int, sm_count: int = 132,
     if N < 1 or qblock < VEC or qblock % VEC or N % qblock:
         raise ValueError(f"quant_aggregate wants N a whole number of scale blocks, "
                          f"qblock a multiple of {VEC}; got N={N}, qblock={qblock}")
+    if N > MAX_N:
+        raise ValueError(f"quant_aggregate takes N up to {MAX_N} (the TMA column is a "
+                         f"signed 32-bit word index), got N={N}")
     if tile is None:
         # the largest tile within 10 % of the fewest outputs on the busiest
         # SM: a small tile leaves each CTA few consumer threads
@@ -194,7 +202,11 @@ def _launch(qdeltas, scales, weights, qblock: int, plan: Plan):
             qdeltas.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
             S, C, N, qblock, *plan.launch_args(), stream)
     if rc != 0:
-        raise RuntimeError(f"quant_aggregate kernel launch failed ({plan}): CUDA error {rc}")
+        # 1, cudaErrorInvalidValue: the entry point's argument check refused
+        # them (the geometry, or N above its kMaxN)
+        why = f", its arguments refused (N up to {MAX_N})" if rc == 1 else ""
+        raise RuntimeError(f"quant_aggregate kernel launch failed ({plan}): CUDA error "
+                           f"{rc}{why}")
     return out
 
 

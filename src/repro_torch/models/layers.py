@@ -1,13 +1,34 @@
 """Shared layers: RMSNorm, LayerNorm, rotary embeddings, initializers (port
-of ``repro/models/layers.py``)."""
+of ``repro/models/layers.py``), and ``checkpointed``, the port's
+``jax.checkpoint``."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+
+
+def func_transform_active() -> bool:
+    """Whether a ``torch.func`` transform (``vmap``, ``grad``) is active
+    around the caller. ``torch.utils.checkpoint`` and ``torch.autograd.grad``
+    are refused under one, and torch 2.13 has no public query for it: this
+    is the one place in the port that reads functorch's private state."""
+    return torch._C._functorch.maybe_current_level() is not None
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, rematerialized as ``jax.checkpoint`` does: under plain
+    autograd (grad enabled, no ``torch.func`` transform) through the
+    non-reentrant ``torch.utils.checkpoint``, so the backward keeps
+    ``args`` and recomputes what ``fn`` saved; else a plain call (the
+    transforms refuse the checkpoint and keep every activation)."""
+    if not torch.is_grad_enabled() or func_transform_active():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def rms_norm(x, w, eps: float = 1e-6):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import checkpointed
 
 # ---------------------------------------------------------------------------
 # Mamba (S6)
@@ -118,7 +119,10 @@ def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None)
     The causal depthwise conv is a sum of ``d_conv`` shifted products over
     the previous inputs (``state.conv``, zeros from a fresh start) and x;
     dt = softplus(x_proj's dt columns @ dt_proj + dt_bias), A = -exp(A_log),
-    then ``y = C h + D_skip x``, gated by silu(z)."""
+    then ``y = C h + D_skip x``, gated by silu(z). Each chunk step is
+    ``checkpointed``, as the JAX package remats it: under plain autograd the
+    backward keeps each chunk's (B, d_inner, N) carry and not the doubling's
+    (B, Q, d_inner, N) intermediates."""
     _check_local(w, cfg)
     B, S, D = x.shape
     d_inner, dt_rank, N, d_conv = mamba_dims(cfg)
@@ -147,7 +151,7 @@ def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None)
          else state.h.to(torch.float32))
     ys = []
     for lo in range(0, S, Q):
-        h, y = _mamba_chunk(h, xif[:, lo:lo + Q], dt[:, lo:lo + Q],
+        h, y = checkpointed(_mamba_chunk, h, xif[:, lo:lo + Q], dt[:, lo:lo + Q],
                             Bmat[:, lo:lo + Q], Cmat[:, lo:lo + Q], A)
         ys.append(y)
     y = torch.cat(ys, dim=1) + xif * w["D_skip"].to(torch.float32)

@@ -10,11 +10,20 @@ is a copy of each leaf. The JAX ``lax.scan`` over the stack is a Python
 loop over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the
 vocab sharding of the JAX package drop out (identities with ``AxisCtx()``).
 
-The training phase keeps every layer's activations for the backward: the
-JAX package rematerializes each layer (``jax.checkpoint``), and
-``torch.utils.checkpoint`` does not run under ``torch.func``'s transforms,
-which the FL rounds differentiate with. ``FlatModel`` is the LM as the FL
-core sees it: one flat param dict with ``/``-joined keys.
+Rematerialization: the training forward is ``layers.checkpointed`` where
+the JAX package's is ``jax.checkpoint``ed: each stack entry of
+``stack_train`` at phase 'train' (a layer, or a period), each encoder
+block, each decoder block when not prefilling, and, nested inside a jamba
+period, each Mamba mixer and MoE FFN (and, in ``ssm.mamba_forward``, each
+scan chunk). Under plain autograd (``core/rounds.local_train`` takes it
+for an LM client) the backward then keeps the entries' inputs and the
+head's activations, not every layer's. ``torch.utils.checkpoint`` does not
+run under ``torch.func``'s transforms, so under them, and without grad, the
+stack keeps every activation. The training and prefill loops take their
+entries with one ``torch.unbind`` of each stacked leaf (``_unstack``), so a
+stacked leaf's gradient is one stack of its entries' gradients instead of a
+sum of one zero-padded full-size gradient per entry. ``FlatModel`` is the
+LM as the FL core sees it: one flat param dict with ``/``-joined keys.
 
 A dense block's attention is GQA or MLA (``cfg.attn_type``), its FFN the
 SwiGLU MLP or, for the MoE family, ``moe.moe_ffn`` (plus a dense residual
@@ -33,6 +42,7 @@ decoder with cross-attention over the encoder's output.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -44,7 +54,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dense_init, embed_init, layer_norm, rms_norm
+from repro_torch.models.layers import checkpointed, dense_init, embed_init, layer_norm, \
+    rms_norm
 
 
 def mlp_param_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -289,14 +300,32 @@ def _take(tree, i):
     return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _unstack(tree) -> list:
+    """The entries of a stacked param tree, each leaf unbound once
+    (``torch.unbind``): the gradient of a stacked leaf is then one stack of
+    its entries' gradients, where indexing entry by entry (``_take``) would
+    sum one zero-padded full-size gradient per entry."""
+    parts = {k: torch.unbind(v) for k, v in flatten_params(tree).items()}
+    n = len(next(iter(parts.values())))
+    return [unflatten_params({k: p[i] for k, p in parts.items()}) for i in range(n)]
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
 def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
                    length=None):
     """One jamba period -> (x, {"attn": cache, "mamba": [MambaState, ...]},
     aux). Sublayer i mixes with the attention at ``attn_index`` and with the
     next Mamba mixer elsewhere; its FFN is MoE ``i // moe_every`` where ``i %
     moe_every == moe_offset``, else MLP ``i // 2`` (the JAX package's
-    indices, as written)."""
+    indices, as written). At phase 'train' each Mamba mixer and each MoE FFN
+    is ``checkpointed`` on its own, nested in the period's, as the JAX
+    package nests them: without them the period's recompute would hold all
+    its mixers' and MoE layers' activations at once."""
     P, eps = cfg.hybrid.period, cfg.norm_eps
+    ckpt = checkpointed if phase == "train" else _call
     new = {"attn": None, "mamba": []}
     aux, mi = 0.0, 0
     for i in range(P):
@@ -307,13 +336,15 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
                                    length=length)
         else:
             st = None if caches is None else caches["mamba"][mi]
-            o, st = ssm_mod.mamba_forward(_take(w["mamba"], mi), h, cfg, state=st)
+            mixer = functools.partial(ssm_mod.mamba_forward, cfg=cfg, state=st)
+            o, st = ckpt(mixer, _take(w["mamba"], mi), h)
             new["mamba"].append(st)
             mi += 1
         x = x + o
         h = rms_norm(x, w["ln_ffn"]["w"][i], eps)
         if i % cfg.moe.moe_every == cfg.moe.moe_offset:
-            mo, maux = moe_mod.moe_ffn(_take(w["moe"], i // cfg.moe.moe_every), h, cfg)
+            wmoe = _take(w["moe"], i // cfg.moe.moe_every)
+            mo, maux = ckpt(moe_mod.moe_ffn, wmoe, h, cfg)
             aux = aux + maux.load_balance + maux.z_loss
             x = x + mo
         else:
@@ -393,14 +424,15 @@ def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
     S, KV, HD) or LatentCache (L, B, S, *), for hybrid ``{"attn": KVCache,
     "mamba": [MambaState] * (period - 1)}``, for ssm ``{"mlstm":
     [MLSTMState] * (slstm_every - 1), "slstm": SLSTMState}``, each leaf (L,
-    ...). Training keeps every layer's activations (see the module
+    ...). At phase 'train' each entry is ``checkpointed`` (see the module
     docstring)."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
-    fn = _block_fn(cfg)
+    fn = functools.partial(_block_fn(cfg), cfg, phase=phase)
+    ckpt = checkpointed if phase == "train" else _call
     aux, caches = 0.0, []
-    for i in range(n_stacks(cfg)):
-        x, cache, a = fn(cfg, _take(blocks, i), x, phase=phase)
+    for w in _unstack(blocks):
+        x, cache, a = ckpt(fn, w, x)
         aux = aux + a
         if phase == "prefill":
             caches.append(cache)
@@ -441,7 +473,8 @@ class Model:
         """batch["tokens"], batch["labels"]: (B, S) ids -> the scalar
         ``loss + aux`` (the JAX package's first output; aux sums the MoE
         layers' aux losses, 0 without MoE): next-token cross-entropy over
-        f32 logits."""
+        f32 logits; the stack rematerialized under plain autograd (see the
+        module docstring)."""
         x = embed_lookup(params["embed"], batch["tokens"])
         x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train")
         return softmax_xent_vshard(self._logits(params, x), batch["labels"]) + aux
@@ -506,40 +539,53 @@ def _cross_attn(cfg: ModelConfig, w: dict, x_dec, enc_k, enc_v):
     return o.reshape(B, S, -1) @ w["wo"]
 
 
+def _enc_block(cfg: ModelConfig, blk: dict, x):
+    """One encoder block: full self-attention and the MLP, pre-norm."""
+    x = x + attn.gqa_seqsharded(blk["attn"], _apply_norm(blk["ln1"], x, cfg), cfg,
+                                causal=False)
+    return x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+
+
 def encoder_forward(cfg: ModelConfig, enc_blocks: dict, frames):
     """frames: (B, S_enc, D) frame embeddings (the conv frontend's stub) ->
     the encoder's output before its final norm: sinusoidal positions, then
-    pre-norm blocks of full (non-causal) self-attention and the MLP."""
+    pre-norm blocks of full (non-causal) self-attention and the MLP, each
+    block ``checkpointed`` (as the JAX package's, at every phase)."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + _sinusoid(pos, cfg.d_model)[None].to(frames.dtype)
-    for i in range(cfg.n_enc_layers):
-        blk = _take(enc_blocks, i)
-        x = x + attn.gqa_seqsharded(blk["attn"], _apply_norm(blk["ln1"], x, cfg), cfg,
-                                    causal=False)
-        x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+    for blk in _unstack(enc_blocks):
+        x = checkpointed(_enc_block, cfg, blk, x)
     return x
+
+
+def _dec_block(cfg: ModelConfig, blk: dict, x, enc, prefill: bool = False):
+    """One decoder block -> (x, its EncDecCaches at prefill, else None):
+    causal self-attention, cross-attention over ``enc`` (its K/V computed
+    here), the MLP."""
+    h = _apply_norm(blk["ln1"], x, cfg)
+    if prefill:
+        o, cache = attn.gqa_seqsharded(blk["attn"], h, cfg, return_cache=True)
+    else:
+        o = attn.gqa_seqsharded(blk["attn"], h, cfg)
+    x = x + o
+    ek, ev = _enc_kv(cfg, blk["xattn"], enc)
+    x = x + _cross_attn(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg), ek, ev)
+    x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+    return x, (EncDecCaches(cache, ek, ev) if prefill else None)
 
 
 def _decoder(cfg: ModelConfig, params: dict, batch: dict, *, prefill: bool):
     """The encoder, its final norm and the decoder's blocks over
-    ``batch["tokens"]`` -> (x, EncDecCaches or None)."""
+    ``batch["tokens"]`` -> (x, EncDecCaches or None); each decoder block
+    ``checkpointed`` when not prefilling."""
     enc = encoder_forward(cfg, params["enc_blocks"], batch["frames"])
     enc = _apply_norm(params["enc_final_norm"], enc, cfg)
     x = embed_lookup(params["embed"], batch["tokens"]).to(enc.dtype)
     caches = []
-    for i in range(cfg.n_layers):
-        blk = _take(params["blocks"], i)
-        h = _apply_norm(blk["ln1"], x, cfg)
-        if prefill:
-            o, cache = attn.gqa_seqsharded(blk["attn"], h, cfg, return_cache=True)
-        else:
-            o = attn.gqa_seqsharded(blk["attn"], h, cfg)
-        x = x + o
-        ek, ev = _enc_kv(cfg, blk["xattn"], enc)
-        x = x + _cross_attn(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg), ek, ev)
-        x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
-        if prefill:
-            caches.append(EncDecCaches(cache, ek, ev))
+    for blk in _unstack(params["blocks"]):
+        x, cache = (_dec_block(cfg, blk, x, enc, prefill) if prefill
+                    else checkpointed(_dec_block, cfg, blk, x, enc))
+        caches.append(cache)
     return x, (_stack_trees(caches) if prefill else None)
 
 
@@ -627,8 +673,11 @@ class FlatModel:
     """An LM as the FL core sees it: ``init`` and ``loss`` over one flat
     param dict (``flatten_params``), so the rounds, the strategies, their
     one-level tree helpers and the checkpoints take an LM state as they
-    take a paper model's."""
+    take a paper model's. ``autograd_remat``: its loss rematerializes
+    under plain autograd, so ``core/rounds.local_train`` takes a lone
+    client's gradient that way (see its module docstring)."""
     model: Model
+    autograd_remat = True
 
     @property
     def cfg(self) -> ModelConfig:

@@ -196,13 +196,14 @@ class Executor:
         """Stage the dataset on the device, initialize the state, build the
         async schedule, resume from the newest checkpoint if any, then
         build the comms accountant; each hook under a recorder span. An LM
-        job (``synthetic_lm``) raises ``ValueError``: LMs train through
+        job (``synthetic_lm``, or an LM arch on any dataset) raises
+        ``ValueError`` before anything is drawn: LMs train through
         ``repro_torch.launch.train_fl_lm``, as in the JAX package, whose
         executor cannot stage that dataset either."""
-        if isinstance(self.job.dataset, SyntheticLM):
+        if isinstance(self.job.dataset, SyntheticLM) or self.job.model.cfg.family != "small":
             raise ValueError(
                 "the executor stages partitioned datasets; an LM job "
-                f"({self.job.arch}, synthetic_lm) trains through "
+                f"({self.job.arch}, {type(self.job.dataset).__name__}) trains through "
                 "python -m repro_torch.launch.train_fl_lm")
         fl = self.job.fl
         rec, track = self.recorder, self.telemetry_track

@@ -963,3 +963,136 @@ def test_slice12_families_on_card_match_cpu(cuda, arch):
         out[str(dev)] = (first.cpu(), torch.stack(toks).cpu())
     _close(out[str(cuda)][0], out["cpu"][0], 1e-4)
     assert torch.equal(out[str(cuda)][1], out["cpu"][1])
+
+
+def test_kernel_past_two_to_the_31_equals_plain_over_column_slices(cuda):
+    """B1 at (2, 2**31 + 4096), an int8 LM round's shape class (minicpm3-4b's
+    packed N is 4.07e9): 64-bit tile, output and scale offsets, the TMA
+    column below 2**31 words. The plain version of the whole row needs (C,
+    N) f32 temporaries, so it is held bitwise over column slices (each
+    output reads its own column and block only): the first, one across
+    2**31 and the last."""
+    C, N, qblock = 2, 2**31 + 4096, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randint(-127, 128, (C, N), dtype=torch.int8, device=cuda, generator=g)
+    s = torch.rand((C, N // qblock), device=cuda, generator=g) * 1e-2 + 1e-4
+    w = torch.tensor([0.25, 0.75], device=cuda)
+    launches = qa.quant_aggregate.launches
+    got = qa.quant_aggregate(q, s, w)
+    torch.cuda.synchronize()
+    assert qa.quant_aggregate.launches == launches + 1 and got.shape == (N,)
+    half = 1 << 21
+    for lo in (0, 2**31 - half, N - 2 * half):
+        hi = lo + 2 * half
+        want = qa.plain(q[:, lo:hi], s[:, lo // qblock:hi // qblock], w)
+        assert torch.equal(got[lo:hi], want), lo
+    with pytest.raises(ValueError, match="N up to"):
+        qa.launch_plan(C, qa.MAX_N + 4, qblock)
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "minicpm3-4b", "qwen3-moe-30b-a3b",
+                                  "whisper-base", "jamba-1.5-large-398b"])
+def test_remat_gradient_on_card_is_bitwise_the_plain_autograd_one(cuda, arch, monkeypatch):
+    """The rematerialized loss's gradient on the card (B2 and B3 launched
+    again in the recompute) bitwise that of plain autograd keeping every
+    activation (the baseline: ``layers.func_transform_active`` patched to
+    answer yes, so ``checkpointed`` makes a plain call, as under a
+    transform): the kernels, cuBLAS and the MoE routing repeat their bits
+    at fixed shapes."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import FlatModel
+    cfg = reduced_config(get_config(arch))
+    model = FlatModel(model_zoo.build(cfg))
+    params = {k: v.to(cuda) for k, v in model.init(torch.Generator().manual_seed(0)).items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 64 * cfg.dec_len_ratio, cfg.d_model), device=cuda,
+                                      generator=g)
+    out = {}
+    for remat in (True, False):
+        if not remat:
+            monkeypatch.setattr(layers, "func_transform_active", lambda: True)
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        launches = (rms.rmsnorm.launches, fa.flash_attention_fwd.launches)
+        loss = model.loss(p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, (rms.rmsnorm.launches - launches[0],
+                                    fa.flash_attention_fwd.launches - launches[1]))
+    assert torch.equal(out[True][0], out[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[True][1], out[False][1]))
+    if cfg.family in ("dense", "moe"):
+        # each layer's kernels again in its recompute; the final norm once
+        L = cfg.n_layers
+        norms, flash = out[False][2]
+        assert out[True][2] == (2 * (norms - 1) + 1, 2 * flash) and flash == L
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_b2_and_b3_launch_again_in_the_recompute_and_repeat_their_bits(cuda, dtype):
+    """``ops.rmsnorm`` and ``ops.flash_attention`` inside
+    ``torch.utils.checkpoint`` on the card: the backward's recompute
+    launches each kernel a second time, counted by shape where it launches;
+    the loss is the forward's bits and the gradients bitwise those of plain
+    autograd, whose backward reads the first forward's contexts."""
+    import torch.utils.checkpoint as tuc
+
+    def step(x, w, q, k, v):
+        h = ops.rmsnorm(x, w)
+        return ops.flash_attention(q * h[..., :1, None], k, v).float().sum() \
+            + h.float().square().sum()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 256, 128), device=cuda, generator=g).to(dtype)
+    w = torch.randn((128,), device=cuda, generator=g).to(dtype)
+    q, k, v = (torch.randn((2, 256, 8, 128), device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    rkey, fkey = (512, 128), (2, 256, 256, 8, 8, 128, 128, True)
+    out = {}
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, w, q, k, v)]
+        before = (rms.rmsnorm.launches_by_shape.get(rkey, 0),
+                  fa.flash_attention_fwd.launches_by_shape.get(fkey, 0))
+        loss = (tuc.checkpoint(step, *leaves, use_reentrant=False) if remat
+                else step(*leaves))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), grads,
+                      (rms.rmsnorm.launches_by_shape[rkey] - before[0],
+                       fa.flash_attention_fwd.launches_by_shape[fkey] - before[1]))
+    assert out[False][2] == (1, 1) and out[True][2] == (2, 2)
+    assert torch.equal(out[True][0], out[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[True][1], out[False][1]))
+
+
+def test_int8_lm_round_on_card_launches_b1_once_and_repeats_bitwise(cuda):
+    """Reduced minicpm3-4b through the int8 temporal round on the card (f32):
+    one B1 launch a round, losses and params within 1e-4 of the CPU's
+    (within one quantum where an int8 boundary flips: at most 1e-3 of the
+    entries), two card runs bitwise."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train_fl_lm
+    cfg = reduced_config(get_config("minicpm3-4b"))
+    fl = FLConfig(strategy="compressed", compression="int8", n_clients=4, client_lr=0.05)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    out = {}
+    for tag, dev in (("cpu", "cpu"), ("card", cuda), ("card2", cuda)):
+        _, round_fn, state = train_fl_lm.setup(cfg, fl, dev)
+        launches = qa.quant_aggregate.launches
+        state, logger = train_fl_lm.run_rounds(
+            round_fn, state, lm, 0, 2, clients=4, cohort=2, batch=2, seq=64,
+            local_steps=2, device=dev)
+        out[tag] = (logger.series("loss"), {k: v.cpu() for k, v in state["params"].items()},
+                    qa.quant_aggregate.launches - launches)
+    assert out["card"][2] == 2 and out["cpu"][2] == 0
+    assert out["card"][0] == out["card2"][0]
+    assert all(torch.equal(out["card"][1][k], out["card2"][1][k]) for k in out["card"][1])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-4)
+    outside = total = 0
+    for k, v in out["cpu"][1].items():
+        diff = (out["card"][1][k] - v).abs()
+        outside += int((diff > 1e-4 * (1 + v.abs())).sum())
+        total += diff.numel()
+    assert outside <= max(1, 1e-3 * total), (outside, total)

@@ -203,6 +203,65 @@ def test_temporal_lm_rounds_match_the_jax_package(arch, strategy, jnp_kernels):
     assert losses[-1] < losses[0], losses
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "minicpm3-4b"])
+def test_int8_temporal_lm_rounds_match_the_jax_package(arch, jnp_kernels, monkeypatch):
+    """``compressed`` with int8 through the temporal round: each client's
+    send quantized leaf by leaf into its row of the (C_t, N) matrix, ONE B1
+    call a round. A value within float noise of a rounding boundary can
+    quantize one step apart in the two packages: at most 1e-3 of the
+    entries may differ by more than the params' tolerance, each by at most
+    one quantum (the largest block scale the round sent). Each round starts
+    the port from the JAX package's state: a flipped value moves the next
+    round's gradients, so flips compound over chained rounds (8-10x a round
+    at this size, on either gradient path), and the rule holds for one
+    quantization."""
+    from repro_torch.core import rounds
+    from repro_torch.kernels import ops
+    kw = dict(strategy="compressed", compression="int8", client_lr=0.05, local_epochs=1,
+              seed=0, n_clients=4)
+    jfl, fl = JFLConfig(**kw), FLConfig(**kw)
+    jcfg = jreduced(jget_config(arch))
+    jmodel = jzoo.build(jcfg)
+    jstrat = j_get_strategy(jfl)
+    jround = jax.jit(lambda s, b, w, r: j_build_temporal_round(
+        jmodel, jstrat, jfl, jcfg)(AxisCtx(), s, b, w, r))
+    jstate = j_init_state(jmodel, jstrat, jfl, jdet.root_key(0))
+    _, round_fn, _ = train_fl_lm.setup(reduced_config(get_config(arch)), fl, "cpu")
+    scales = []
+    agg = rounds.ops.quant_aggregate
+
+    def recording(q, s, w):
+        scales.append(float(s.max()))
+        return agg(q, s, w)
+    monkeypatch.setattr(rounds.ops, "quant_aggregate", recording)
+    lm = SyntheticLM(vocab=512, seed=0)
+    batches = [lm.client_batches(c, 2, 2, 16, round_idx=0) for c in (0, 1)]
+    batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    w = np.array([1.0, 3.0], np.float32)
+    losses = []
+    with ops.quant_agg_scope() as frame:
+        for r in range(3):
+            state = _state_from_jax(jax.tree.map(np.asarray, jstate))
+            jstate, jm = jround(jstate, batch, jnp.asarray(w),
+                                jdet.round_key(jdet.root_key(0), r))
+            state, m = round_fn(state, tbatch, torch.from_numpy(w),
+                                determinism.round_key(determinism.root_key(0), r))
+            np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
+            want = _state_from_jax(jax.tree.map(np.asarray, jstate))["params"]
+            outside = total = 0
+            for k, v in want.items():
+                diff = np.abs(state["params"][k].numpy() - v.numpy())
+                tol = 1e-5 + 1e-4 * np.abs(v.numpy())
+                assert (diff <= scales[-1] + tol).all(), (r, k)
+                outside += int((diff > tol).sum())
+                total += diff.size
+            assert outside <= max(1, 1e-3 * total), (r, outside, total)
+            losses.append(m["loss"].item())
+    assert frame["calls"] == 3 and len(scales) == 3     # one B1 call a round
+    assert losses[-1] < losses[0], losses
+
+
 def _run(round_fn, state, lm, start, stop, ckpt_dir=None):
     return train_fl_lm.run_rounds(round_fn, state, lm, start, stop, clients=4, cohort=2,
                                   batch=2, seq=16, local_steps=2, device="cpu",

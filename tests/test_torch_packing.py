@@ -124,3 +124,41 @@ def test_packed_residual_equals_roundtrip_residual():
     for k in d:
         assert torch.equal(r1["residual"][k], r2["residual"][k])
         assert torch.equal(sent[k], back[k])
+
+
+@pytest.mark.parametrize("chunk", [256, 768, 1 << 24])
+@pytest.mark.parametrize("lead", [0, 1])
+def test_quantize_tree_leaf_by_leaf_is_the_whole_row_quantized(chunk, lead, monkeypatch):
+    """``quantize_tree`` quantizes leaf by leaf, in chunks of whole blocks,
+    into preallocated rows: bitwise ``quantize_blockwise_ref`` of the
+    whole ``pack_tree`` row, and the JAX package's ``quantize_tree``, on
+    leaves whose sizes are no multiple of 256 (a bf16 leaf among them), with
+    chunks that split a leaf (256, 768 values) and one that holds it."""
+    from repro_torch.kernels import ref as kref
+    monkeypatch.setattr(packing, "QUANT_CHUNK", chunk)
+    rng = np.random.RandomState(3)
+    lead_shape = (3,) * lead
+    tree = {"a": rng.randn(*lead_shape, 1000), "b": rng.randn(*lead_shape, 17, 5) * 1e-3,
+            "c": rng.randn(*lead_shape, 2, 640), "z": np.zeros(lead_shape + (7,))}
+    tree = {k: v.astype(np.float32) for k, v in tree.items()}
+    ttree = {k: torch.from_numpy(v) for k, v in tree.items()}
+    ttree["c"] = ttree["c"].to(torch.bfloat16)
+    pd = packing.quantize_tree(ttree, lead=lead)
+    q, sc = kref.quantize_blockwise_ref(packing.pack_tree(ttree, lead=lead), block=256)
+    assert pd.q.dtype == torch.int8 and pd.q.shape == lead_shape + (1024 + 256 + 1280 + 256,)
+    assert torch.equal(pd.q, q) and torch.equal(pd.scale, sc)
+    # into given rows (the temporal round's (C_t, N) matrix): in place there
+    mq = torch.zeros((2, *q.shape), dtype=torch.int8)
+    ms = torch.zeros((2, *sc.shape))
+    into = packing.quantize_tree(ttree, lead=lead, out=packing.PackedDelta(mq[1], ms[1]))
+    assert into.q.data_ptr() == mq[1].data_ptr()
+    assert torch.equal(mq[1], q) and torch.equal(ms[1], sc)
+    assert not mq[0].any() and not ms[0].any()
+    # the JAX package quantizes one client's tree at a time (its rounds vmap it)
+    for c in range(3 if lead else 1):
+        jtree = {k: jnp.asarray((v[c] if lead else v).float().numpy())
+                 for k, v in ttree.items()}
+        jq, jsc = jpacking.quantize_tree(jtree)
+        np.testing.assert_array_equal((pd.q[c] if lead else pd.q).numpy(), np.asarray(jq))
+        np.testing.assert_array_equal((pd.scale[c] if lead else pd.scale).numpy(),
+                                      np.asarray(jsc))

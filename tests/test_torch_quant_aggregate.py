@@ -257,3 +257,25 @@ def test_wrapper_checks_lane_shapes():
         qa.quant_aggregate(q[None], s, w)
     with pytest.raises(ValueError, match=r"\[S,\]"):
         qa.quant_aggregate(torch.stack([q, q]), torch.stack([s, s, s]), torch.stack([w, w]))
+
+
+@pytest.mark.parametrize("C", [1, 2, 100])
+def test_launch_plan_takes_n_up_to_the_tma_column_limit_and_refuses_more(C):
+    """N past 2**31 (an LM's packed delta: minicpm3-4b's is 4,073,937,408)
+    plans; the TMA copy's column, in int32 words of q, is a signed 32-bit
+    coordinate, so N above 4 * (2**31 - 1) is refused with the limit named,
+    and the C entry point's ``kMaxN`` is that same limit."""
+    import pathlib
+    import re
+    assert qa.MAX_N == 4 * (2**31 - 1)
+    for N in (4_073_937_408, qa.MAX_N - 252):
+        plan = qa.launch_plan(C, N, 256)
+        last_column = (-(-N // plan.tile) - 1) * plan.tile // 4
+        assert last_column <= 2**31 - 1, (N, plan)
+    for N, qblock in ((2**33, 16), (2**33 + 256, 256), (2**34, 256)):
+        with pytest.raises(ValueError, match=f"N up to {qa.MAX_N}"):
+            qa.launch_plan(C, N, qblock)
+    src = (pathlib.Path(qa.__file__).parents[1] / "csrc" / "quant_aggregate.cu").read_text()
+    limit = re.search(r"constexpr int64_t kMaxN = \(int64_t\)0x7fffffff \* 4;", src)
+    assert limit is not None and 0x7fffffff * 4 == qa.MAX_N
+    assert "N > kMaxN" in src
