@@ -195,7 +195,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    tokens/s, peak memory; losses finite and falling; then minicpm3-4b at
    8 layers as phase 10 trains qwen2.5-32b (the cut depth: a second run
    bitwise, one round profiled, the gradient memory lines).
-14. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+14. the mesh runtime (slice 14) — a world-1 rank over NCCL
+   (``launch.mesh.spawn``): on a (1, 1) ``("data", "model")`` mesh on the
+   card, MAIN_JOB's int8 round (100 clients, cohort 20) bound to the mesh
+   for 3 rounds, client-server and hierarchical, bitwise the meshless
+   ``build_spatial_round`` (losses, params, B1 once a round), round_s of
+   both printed; ``Decentralized.mix`` on the card's mesh bitwise a (1, 1)
+   CPU ``gloo`` mesh's; the round's NCCL ``all_reduce`` timed; the spatial
+   train step (``launch.steps.make_train_step``) of xlstm-125m (8 x 2,048)
+   and whisper-base (8 x 1,500 frames, 187 decoder tokens) at published
+   width and full depth, bf16, bitwise the meshless round on the same
+   inputs (step seconds, tokens/s, peak memory, B2/B3 by shape). Then two
+   lane ranks sharing the card (``gloo`` for host objects): phase 8's int8
+   sweep at ``lane_devices = 2``, each rank's block bitwise a one-process
+   campaign of its two lanes and within LANE_LOSS_RTOL of phase 8's S = 4
+   campaign, ``campaign.csv`` written once, the checkpoint resumed in one
+   process, the halving plan's drops the same as at 0. B1 at the block's
+   (2, 100, 189,952) and B2/B3 at the LM steps' shapes against their plain
+   versions, timed beside the bound and the PyTorch call.
+15. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -207,7 +225,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-15. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+16. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -4095,6 +4113,449 @@ def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. the mesh runtime (slice 14)
+# ---------------------------------------------------------------------------
+
+# the spatial LM train steps on a (1, 1) mesh: (seq_len, global batch);
+# whisper-base's decoder runs seq_len // 8 = 187 tokens over 1,500 frames
+MESH_LM = {"xlstm-125m": (2048, 8), "whisper-base": (1500, 8)}
+MESH_ROUNDS = 3
+MESH_LANES = 2                      # lane ranks sharing the one card
+LANE_BLOCK_SHAPE = (2, 100, 189_952, 256)   # each lane rank's B1 launch
+
+
+def _counted_kernels():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_aggregate as qa
+    from repro_torch.kernels import rmsnorm as rms
+    return {"quant_aggregate": qa.quant_aggregate, "rmsnorm": rms.rmsnorm,
+            "flash_attention": fa.flash_attention_fwd,
+            "decode_attention": da.decode_attention_fwd}
+
+
+def _mesh_fl_rounds(torch, job, staged, ctx, kernels):
+    """MESH_ROUNDS spatial rounds of ``job`` bound to ``ctx`` (every
+    client on this rank), as the executor's round loop gathers and masks
+    them; B1's count zeroed just before, read just after."""
+    from repro_torch.core import determinism
+    from repro_torch.core.rounds import build_spatial_round, init_state
+    from repro_torch.data.pipeline import gather_client_batches
+    from repro_torch.runtime.faults import cohort_mask
+    fl, dev = job.fl, staged["x"].device
+    root = determinism.root_key(fl.seed)
+    round_fn = build_spatial_round(job.model, job.strategy, fl, ctx=ctx)
+    state = init_state(job.model, job.strategy, fl, root, n_clients_local=fl.n_clients,
+                       device=dev)
+    base_w = staged["len"].to(torch.float32)
+    losses, round_s = [], []
+    _zero_counts(kernels)
+    for r in range(MESH_ROUNDS):
+        rkey = determinism.round_key(root, r)
+        mask = torch.as_tensor(cohort_mask(job.fault, r, fl.n_clients, fl.cohort,
+                                           fl.straggler_overprovision), device=dev)
+        t0 = time.perf_counter()
+        batch = gather_client_batches(staged, rkey, fl.batch_size, fl.local_steps)
+        state, m = round_fn(state, batch, base_w * mask, rkey)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    return {"losses": losses, "round_s": round_s, "state": state,
+            "b1": kernels["quant_aggregate"].launches,
+            "b1_by_shape": dict(kernels["quant_aggregate"].launches_by_shape)}
+
+
+def _event_ms(torch, fn, iters=50) -> float:
+    """Median device ms of ``fn()`` by CUDA events, after a warm call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def mesh_world1_rank(rank, world):
+    """Phase 14's world-1 rank (``launch.mesh.spawn(..., 1, "cuda")``): a
+    (1, 1) ``("data", "model")`` mesh on the card over NCCL, beside a (1, 1)
+    CPU mesh over ``gloo``. The int8 FL rounds (client-server and
+    hierarchical) and the spatial LM train steps bound to the mesh against
+    the same rounds meshless, bitwise; ``Decentralized.mix`` on the card
+    mesh against the CPU mesh, bitwise; the cost of the round's NCCL
+    ``all_reduce``. Counts zeroed just before each counted path, read just
+    after. Returns the results (raises on a failed check)."""
+    import torch
+    from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
+    from repro_torch.core.jobs import load_job
+    from repro_torch.core.rounds import build_spatial_round
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.core.topology import Decentralized
+    from repro_torch.data.pipeline import stage_partitions
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step, mesh_ctx
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import FlatModel
+    from repro_torch.runtime.device import resolve_device
+    from repro_torch.sharding.axes import SINGLE
+    import torch.distributed as dist
+
+    dev = resolve_device("cuda")
+    kernels = _counted_kernels()
+    ctx = mesh_ctx(make_test_mesh((1, 1), ("data", "model"), device="cuda"))
+    cpu_ctx = mesh_ctx(make_test_mesh((1, 1), ("data", "model"), device="cpu"))
+    out = {"backend": str(dist.get_backend_config()), "world": world}
+    # the int8 FL round, client-server and hierarchical
+    data = None
+    for topo in ("client_server", "hierarchical"):
+        job = load_job(job_dict("compressed", "int8", 1, rounds=MESH_ROUNDS, topology=topo))
+        fl = job.fl
+        if data is None:
+            data = job.dataset.distribute_into_chunks(fl.partition, fl.n_clients,
+                                                      fl.dirichlet_alpha)
+        staged = stage_partitions(*data, dev)
+        mesh_run = _mesh_fl_rounds(torch, job, staged, ctx, kernels)
+        plain_run = _mesh_fl_rounds(torch, job, staged, SINGLE, kernels)
+        if mesh_run["losses"] != plain_run["losses"] or \
+                not _same(torch, mesh_run["state"], plain_run["state"]):
+            raise AssertionError(f"mesh {topo}: the (1, 1) NCCL mesh round != the meshless "
+                                 f"round ({mesh_run['losses']} vs {plain_run['losses']})")
+        if mesh_run["b1"] != MESH_ROUNDS or not all(math.isfinite(v)
+                                                    for v in mesh_run["losses"]):
+            raise AssertionError(f"mesh {topo}: {mesh_run['b1']} B1 launches in "
+                                 f"{MESH_ROUNDS} rounds, losses {mesh_run['losses']}")
+        out[topo] = {"losses": mesh_run["losses"], "round_s_mesh": mesh_run["round_s"],
+                     "round_s_meshless": plain_run["round_s"], "bitwise": True,
+                     "b1": mesh_run["b1"], "b1_by_shape": named(mesh_run["b1_by_shape"])}
+        log(f"mesh fl {topo}", json.dumps(out[topo]))
+        del mesh_run, plain_run, staged
+    # the round's two all_reduces (the (N,) numerator and the weight sum)
+    num = torch.randn(189_952, device=dev)
+    den = num[:1].sum()
+    out["all_reduce_ms"] = {
+        "numerator_189952_f32": _event_ms(torch, lambda: ctx.psum(num, ("data", "model"))),
+        "weight_sum_f32": _event_ms(torch, lambda: ctx.psum(den, ("data", "model"))),
+        "clone_189952_f32": _event_ms(torch, lambda: num.clone())}
+    log("mesh all_reduce (NCCL, world 1)", json.dumps(out["all_reduce_ms"]))
+    # gossip: the card's mesh against the CPU's, bitwise
+    g = torch.Generator(device="cpu")
+    g.manual_seed(140)
+    state = {"w": torch.randn(20, 189_952, generator=g), "b": torch.randn(20, 10, generator=g)}
+    card = Decentralized(gossip_steps=2, ctx=ctx).mix(_tree_to(state, dev))
+    cpu = Decentralized(gossip_steps=2, ctx=cpu_ctx).mix(state)
+    if not all(torch.equal(card[k].cpu(), cpu[k]) for k in state):
+        raise AssertionError("Decentralized.mix: the card's (1, 1) mesh != the CPU's")
+    out["gossip_card_eq_cpu"] = True
+    log("mesh gossip: Decentralized.mix on the card's NCCL mesh == the CPU's gloo mesh, "
+        "bitwise")
+    # the spatial LM train steps at published width and full depth
+    fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
+    for arch, (S, B) in MESH_LM.items():
+        cfg = get_config(arch)
+        built = make_train_step(cfg, ShapeConfig(arch, S, B, "train"), ctx.mesh)
+        t0 = time.perf_counter()
+        state, batch, w, rng = built.materialize(seed=14, device=dev)
+        w = torch.ones_like(w)
+        init_s = time.perf_counter() - t0
+        # the meshless twin first: it pays the process's first-use costs
+        plain_fn = build_spatial_round(FlatModel(model_zoo.build(cfg)), get_strategy(fl), fl)
+        t0 = time.perf_counter()
+        want, wmet = plain_fn(state, batch, w, int(rng))
+        torch.cuda.synchronize()
+        meshless_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        new, met = built.fn(state, batch, w, rng)
+        loss = met["loss"].item()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        by_shape = {k: dict(fn.launches_by_shape) for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if wmet["loss"].item() != loss or not _same(torch, new, want) \
+                or not math.isfinite(loss):
+            raise AssertionError(f"mesh step {arch}: loss {loss} vs meshless "
+                                 f"{wmet['loss'].item()}, params bitwise "
+                                 f"{_same(torch, new, want)}")
+        tokens = B * (S // cfg.dec_len_ratio if cfg.family == "encdec" else S)
+        r = {"loss": loss, "step_s": step_s, "meshless_step_s": meshless_s,
+             "tokens_per_s": tokens / step_s, "tokens": tokens, "peak_mem_gb": peak,
+             "init_s": init_s, "bitwise_meshless": True,
+             "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+        log(f"mesh train step {arch}", json.dumps(r))
+        r["by_shape_raw"] = by_shape
+        out[arch] = r
+        del built, state, batch, new, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lane_raw(rounds_per_launch: int, **train) -> dict:
+    """Phase 8's int8 sweep (S = 4) on MAIN_JOB."""
+    return dict(job_dict("compressed", "int8", rounds_per_launch, rounds=3, **train),
+                sweep=SWEEP)
+
+
+def _plan_raw() -> dict:
+    return dict(job_dict("compressed", "int8", 1, rounds=2), sweep=SWEEP)
+
+
+def _halving():
+    from repro_torch.runtime.scheduler import SuccessiveHalving
+    return SuccessiveHalving(metric="loss", rung_every=1, eta=2.0)
+
+
+def mesh_lanes_rank(rank, world, out_dir, ckpt_dir):
+    """Phase 14's lane rank (``spawn(..., MESH_LANES, "cuda",
+    backend="gloo")``, every rank on the one card): the int8 sweep at
+    ``lane_devices = world`` in chunks of 1 with a checkpoint at round 2,
+    B1 counted just before and read just after; the halving plan. Returns
+    this rank's block."""
+    from repro_torch.runtime import campaign as campaign_mod
+    with _CachedDatasets(campaign_mod):     # one dataset draw for the rank's runs
+        return _mesh_lanes_rank(rank, world, out_dir, ckpt_dir)
+
+
+def _mesh_lanes_rank(rank, world, out_dir, ckpt_dir):
+    from repro_torch.core.jobs import load_job
+    from repro_torch.kernels import quant_aggregate as qa
+    from repro_torch.runtime.campaign import CampaignExecutor
+    from repro_torch.runtime.device import resolve_device
+    from repro_torch.runtime.scheduler import PlanExecutor
+    resolve_device("cuda")
+    ex = CampaignExecutor(load_job(_lane_raw(1, checkpoint_every=2)), lane_devices=world,
+                          out_dir=out_dir, ckpt_dir=ckpt_dir).scaffold()
+    qa.quant_aggregate.launches, qa.quant_aggregate.launches_by_shape = 0, {}
+    ex.run()
+    res = {"rank": rank, "block": (ex.block.start, ex.block.stop), "S_pad": ex.S_pad,
+           "b1": qa.quant_aggregate.launches,
+           "b1_by_shape": dict(qa.quant_aggregate.launches_by_shape),
+           "rank_round_s": ex.rank_round_s,
+           "lane_losses": [[r["loss"] for r in ex.results if r["traj"] == s]
+                           for s in range(ex.S)],
+           "params": {k: v.cpu() for k, v in ex.state["params"].items()}}
+    log(f"mesh lanes rank {rank}", json.dumps({k: res[k] for k in (
+        "block", "b1", "rank_round_s", "lane_losses")}))
+    del ex
+    pe = PlanExecutor(load_job(_plan_raw()), scheduler=_halving(),
+                      lane_devices=world).scaffold()
+    pe.run()
+    res["plan_dropped"] = dict(pe.dropped)
+    return res
+
+
+def time_mesh_kernels(torch, flush, by_shape):
+    """B2 and B3 at every shape the mesh LM steps launched them (bf16),
+    against their plain versions, timed beside the PyTorch call and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rows = {}
+    for i, key in enumerate(sorted(by_shape.get("flash_attention", {}))):
+        B, Sq, Sk, H, KV, Dk, Dv, causal = key
+        q = _randn(torch, (B, Sq, H, Dk), bf16, 1400 + 3 * i, dev)
+        k = _randn(torch, (B, Sk, KV, Dk), bf16, 1401 + 3 * i, dev)
+        v = _randn(torch, (B, Sk, KV, Dv), bf16, 1402 + 3 * i, dev)
+        off = Sk - Sq if causal else 0
+        out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
+        want, want_lse = fa.plain(q, k, v, off, causal)
+        err = close(torch, f"mesh flash {key}", out, want, ATTN_TOL["bfloat16"])
+        close(torch, f"mesh flash {key} lse", lse, want_lse, ATTN_TOL["bfloat16"])
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa(q, k, v, causal=causal, gqa=H != KV):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=gqa)
+        pairs = Sq * (Sq + 1) // 2 + Sq * off if causal else Sq * Sk
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+        flops = 2 * B * H * pairs * (Dk + Dv)
+        fn = (lambda q, k, v, off=off, causal=causal:
+              fa.flash_attention_fwd(q, k, v, off, causal))
+        r = {"shape": list(key[:-1]), "causal": causal,
+             "kernel": fa.launch_plan(bf16, Dk, Dv).kernel, "max_abs_err": err,
+             "library_max_abs_err": close(torch, f"mesh sdpa {key}",
+                                          sdpa(q, k, v).transpose(1, 2), out, YARDSTICK_TOL),
+             "kernel_ms": time_device(fn, (q, k, v), 50, flush),
+             "plain_ms": time_device(lambda q, k, v, off=off, causal=causal:
+                                     fa.plain(q, k, v, off, causal), (q, k, v), 5, flush,
+                                     batch=5),
+             "library_ms": time_device(sdpa, (q, k, v), 50, flush),
+             "bytes": nbytes, "flops": flops}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"kernel flash_attention mesh {shape_name(key)}", json.dumps(r))
+        rows[("flash_attention", key)] = r
+        del q, k, v, qt, kt, vt, out, lse, want, want_lse
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, key in enumerate(sorted(by_shape.get("rmsnorm", {}))):
+        R, D = key
+        w = _randn(torch, (D,), bf16, 1450 + i, dev)
+        x = _randn(torch, (R, D), bf16, 1460 + i, dev)
+        lib = (lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6))
+        r = {"shape": [R, D], "plan": rms.launch_plan(R, D, bf16, sm)._asdict(),
+             "max_abs_err": close(torch, f"mesh rmsnorm {key}", rms.rmsnorm(x, w),
+                                  rms.plain(x, w), RMS_TOL["bfloat16"]),
+             "library_max_abs_err": close(torch, f"mesh F.rms_norm {key}", lib(x, w),
+                                          rms.rmsnorm(x, w), YARDSTICK_TOL),
+             "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush),
+             "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
+             "library_ms": time_device(lib, (x, w), 100, flush)}
+        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S)
+        log(f"kernel rmsnorm mesh {shape_name(key)}", json.dumps(r))
+        rows[("rmsnorm", key)] = r
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_b1_lane_block(torch, qa, flush):
+    """B1 at a lane rank's block, (2, 100, 189,952): bitwise its plain
+    version, timed beside it and the bound."""
+    dev = torch.device("cuda")
+    S, C, N, qblock = LANE_BLOCK_SHAPE
+    lanes = [agg_inputs(C, N, qblock, seed=140 + s, device=dev) for s in range(S)]
+    q, s, w = (torch.stack([ln[i] for ln in lanes]).contiguous() for i in range(3))
+    got, want = qa.quant_aggregate(q, s, w), qa.plain(q, s, w)
+    if got.shape != (S, N) or not torch.equal(got, want):
+        raise AssertionError("quant_aggregate at the lane block: not bitwise its plain version")
+    nbytes = S * (C * N + 4 * C * (N // qblock) + 4 * C + 4 * N)
+    bound_ms, bound_by = bound(nbytes, 3 * S * C * N, F32_FLOPS_PER_S)
+    row = {"S": S, "C": C, "N": N, "qblock": qblock, "bitwise": True, "max_abs_err": 0.0,
+           "plan": qa.launch_plan(C, N, qblock, S=S)._asdict(),
+           "kernel_ms": time_device(qa.quant_aggregate, (q, s, w), 200, flush),
+           "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 200, flush),
+           "plain_ms": time_device(qa.plain, (q, s, w), 20, flush, batch=2),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
+    log("kernel quant_aggregate lane block", json.dumps(row))
+    return row
+
+
+def phase_mesh(torch, qa, load_job, sweep):
+    """Slice 14: the mesh runtime on the card.
+
+    - A world-1 rank over NCCL (``mesh_world1_rank``): the int8 FL round
+      (client-server, hierarchical) and the spatial LM steps (xlstm-125m,
+      whisper-base at published width and full depth) bound to a (1, 1)
+      mesh == their meshless rounds, bitwise; gossip card == CPU mesh.
+    - Two lane ranks on the one card (``mesh_lanes_rank``, ``gloo`` for
+      host objects only): phase 8's int8 sweep at ``lane_devices = 2``;
+      each rank's block bitwise a one-process campaign of its two lanes
+      (run here), within LANE_LOSS_RTOL of phase 8's one-process S = 4
+      campaign (``sweep``: its summary, losses and round_s); ``campaign.csv`` written once; the checkpoint saved at
+      ``lane_devices = 2`` resumed here at 0; the halving plan's drops the
+      same as at 0.
+    - B1 at the lane block's shape, and B2/B3 at every shape the LM steps
+      launched, against their plain versions and timed.
+
+    Returns the phase's summary."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w1 = spawn(mesh_world1_rank, 1, "cuda")[0]
+    w1_s = time.perf_counter() - t0
+    base = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    t1 = time.perf_counter()
+    ranks = spawn(mesh_lanes_rank, MESH_LANES, "cuda", str(base / "out"), str(base / "ckpt"),
+                  backend="gloo")
+    lanes_s = time.perf_counter() - t1
+    from repro_torch.runtime import campaign as campaign_mod
+    with _CachedDatasets(campaign_mod):
+        blocks, resumed_losses, plan0_dropped = _mesh_lanes_here(torch, load_job, ranks, base,
+                                                                 sweep["lane_losses"])
+    shutil.rmtree(base, ignore_errors=True)
+    log("mesh lanes: each rank's block == a one-process campaign of its lanes, bitwise; "
+        "campaign.csv written once; checkpoint at lane_devices=2 resumed at 0; plan drops "
+        "the same")
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    block_row = phase_b1_lane_block(torch, qa, flush)
+    # each arch's step counts kept apart: {arch: {kernel: {shape: launches}}}
+    lm_by_shape = {arch: {fn: c for fn, c in w1[arch]["by_shape_raw"].items() if c}
+                   for arch in MESH_LM}
+    shapes = {}
+    for counts in lm_by_shape.values():
+        for fn, c in counts.items():
+            shapes.setdefault(fn, set()).update(c)
+    kernel_rows = time_mesh_kernels(torch, flush, shapes)
+    del flush
+    out = {"phase_s": time.perf_counter() - t0, "world1_s": w1_s, "lanes_s": lanes_s,
+           "world1": {k: ({f: v[f] for f in v if f != "by_shape_raw"}
+                          if isinstance(v, dict) else v) for k, v in w1.items()},
+           "lanes": {"blocks": blocks, "plan_dropped": plan0_dropped,
+                     "one_process_s4_round_s": sweep["round_s"],
+                     "resumed_round_2_losses": resumed_losses,
+                     "b1_launches": sum(r["b1"] for r in ranks)},
+           "b1_block": block_row, "lm_by_shape": lm_by_shape, "kernel_rows": kernel_rows}
+    log(f"mesh phase: {out['phase_s']:.1f}s (world-1 rank {w1_s:.1f}s, lane ranks "
+        f"{lanes_s:.1f}s)")
+    return out
+
+
+def _mesh_lanes_here(torch, load_job, ranks, base, sweep_lane_losses):
+    """Phase 14's one-process twins of the lane ranks' runs: each block's
+    two lanes, the resume of their checkpoint, the plan at 0."""
+    from repro_torch.runtime.campaign import CampaignExecutor, read_results
+    from repro_torch.runtime.scheduler import PlanExecutor
+    blocks = []
+    for res in ranks:
+        lo, hi = res["block"]
+        job = load_job(_lane_raw(1, checkpoint_every=2))
+        one = CampaignExecutor(job, lanes=(job.sweep.coords()[lo:hi],
+                                           _sweep_fls(job)[lo:hi])).scaffold()
+        one.run()
+        same = all(torch.equal(res["params"][k], v.cpu()) for k, v in one.state["params"].items())
+        one_losses = [[r["loss"] for r in one.results if r["traj"] == s]
+                      for s in range(hi - lo)]
+        if not same or res["lane_losses"][lo:hi] != one_losses:
+            raise AssertionError(f"lane rank {res['rank']}: its block != a one-process "
+                                 f"campaign of lanes {lo}..{hi - 1}")
+        if res["b1"] != 3 or list(res["b1_by_shape"]) != [LANE_BLOCK_SHAPE]:
+            raise AssertionError(f"lane rank {res['rank']}: B1 {res['b1_by_shape']}")
+        blocks.append({"block": [lo, hi], "rank_round_s": res["rank_round_s"],
+                       "lane_losses": res["lane_losses"][lo:hi], "bitwise_one_process": True})
+        del one
+    for got, want in zip(ranks[0]["lane_losses"], sweep_lane_losses):
+        if not losses_close(got, want, LANE_LOSS_RTOL):
+            raise AssertionError(f"lane block losses {got} vs phase 8's S = 4 campaign {want}")
+    rows = read_results(base / "out" / "campaign.csv")
+    table = sorted((r["traj"], r["round"], r["loss"]) for r in rows)
+    want_table = sorted((s, i, v) for s, ls in enumerate(ranks[0]["lane_losses"])
+                        for i, v in enumerate(ls))
+    if table != want_table:
+        raise AssertionError("campaign.csv is not the gathered table of the lane ranks")
+    # the checkpoint of lane_devices = 2, resumed in one process
+    resumed = CampaignExecutor(load_job(_lane_raw(1, checkpoint_every=2)),
+                               ckpt_dir=str(base / "ckpt")).scaffold()
+    if resumed.round_idx != 2:
+        raise AssertionError(f"lane checkpoint: resumed at round {resumed.round_idx}")
+    resumed.run()
+    resumed_losses = [[r["loss"] for r in resumed.results if r["traj"] == s and r["round"] == 2]
+                      for s in range(resumed.S)]
+    for got, want in zip(resumed_losses, sweep_lane_losses):
+        if not losses_close(got, want[2:], LANE_LOSS_RTOL):
+            raise AssertionError(f"resumed round 2 losses {got} vs {want[2:]}")
+    del resumed
+    plan0 = PlanExecutor(load_job(_plan_raw()), scheduler=_halving()).scaffold()
+    plan0.run()
+    for res in ranks:
+        if res["plan_dropped"] != plan0.dropped or not plan0.dropped:
+            raise AssertionError(f"plan drops at lane_devices=2 {res['plan_dropped']} vs "
+                                 f"at 0 {plan0.dropped}")
+    dropped = dict(plan0.dropped)
+    del plan0
+    return blocks, resumed_losses, dropped
+
+
+def _sweep_fls(job):
+    from repro_torch.core import sweeps
+    return sweeps.expand(job.fl, job.sweep)
+
+
 def attention_layers(cfg) -> int:
     """B3 launches of one prefill: every attention layer (the encoder's and
     the decoder's self and cross attention for encdec, one a period for
@@ -4311,11 +4772,17 @@ def main() -> int:
     slice13_s = time.perf_counter() - t0
     log(f"slice 13 phase: {slice13_s:.1f}s")
 
-    # 14. serve path; counts zeroed just before it, read just after
+    # 14. the mesh runtime (slice 14): a world-1 NCCL rank's mesh rounds and
+    # spatial LM steps against their meshless twins, two lane ranks sharing
+    # the card for a lane-sharded int8 sweep; counts zeroed just before each
+    # counted path, read just after (in the ranks)
+    mesh = phase_mesh(torch, qa, load_job, campaigns["sweep"])
+
+    # 15. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 15. summary
+    # 16. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -4605,6 +5072,56 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
+    # slice 14: B1 at the mesh round (C = 100, a (1, 1) NCCL mesh; timed in
+    # phase 3 at this shape) and at a lane rank's block (2, 100, N); B2 and B3
+    # at every shape the spatial LM steps launched
+    mesh_b1 = sum(mesh["world1"][t]["b1"] for t in ("client_server", "hierarchical"))
+    main_key = named({(1, main["C"], main["N"], main["qblock"]): MESH_ROUNDS})
+    for t in ("client_server", "hierarchical"):
+        if mesh["world1"][t]["b1_by_shape"] != main_key:
+            raise AssertionError(f"mesh {t}: B1 by shape {mesh['world1'][t]['b1_by_shape']}, "
+                                 f"not phase 3's timed row {main_key}")
+    entries.append({
+        "name": "quant_aggregate_mesh_round", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_aggregate.cu",
+        "replaces": "src/repro/kernels/quant_aggregate.py:22", "launches": mesh_b1,
+        "launches_path": f"the int8 FL round bound to a (1, 1) NCCL mesh, client-server "
+                         f"and hierarchical, {MESH_ROUNDS} rounds each",
+        "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"], "call_ms": main["kernel_call_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "bitwise": True, "shape": [main["C"], main["N"], main["qblock"]]})
+    br = mesh["b1_block"]
+    entries.append({
+        "name": "quant_aggregate_lane_block", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_aggregate.cu",
+        "replaces": "src/repro/kernels/quant_aggregate.py:22",
+        "launches": mesh["lanes"]["b1_launches"],
+        "launches_path": f"the int8 sweep at lane_devices = {MESH_LANES}, each rank's "
+                         "block, 3 rounds",
+        "max_abs_err": br["max_abs_err"], "ms": br["kernel_ms"], "plain_ms": br["plain_ms"],
+        "call_ms": br["kernel_call_ms"], "bound_ms": br["bound_ms"],
+        "bound_by": br["bound_by"], "library_ms": None, "bitwise": True,
+        "shape": [br["S"], br["C"], br["N"], br["qblock"]]})
+    for arch, counts in mesh["lm_by_shape"].items():
+        for fn, key in ((fn, key) for fn in sorted(counts) for key in sorted(counts[fn])):
+            r, launches = mesh["kernel_rows"][(fn, key)], counts[fn][key]
+            flash = fn == "flash_attention"
+            entries.append({
+                "name": f"{fn}_{r['kernel'] + '_' if flash else ''}mesh_step_{arch}_"
+                        f"{shape_name(key).replace(' ', '_')}",
+                "route": "cuda",
+                "source": ("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                           if flash and r["kernel"] == "wgmma" else
+                           "src/repro_torch/csrc/flash_attention.cu" if flash
+                           else "src/repro_torch/csrc/rmsnorm.cu"),
+                "replaces": flash_src if flash else "src/repro/kernels/rmsnorm.py:11",
+                "launches": launches,
+                "launches_path": f"the spatial train step on a (1, 1) NCCL mesh: {arch} at "
+                                 "published width and full depth (forward and recompute)",
+                "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -4770,6 +5287,19 @@ def main() -> int:
                                     "recorded": RECORDED},
                     "minicpm3-4b, 8 layers": {k: train_mla[k] for k in (
                         "losses", "round_s", "peak_mem_gb", "bitwise_repeat")}}))
+    log(json.dumps({"slice": "14: the mesh runtime: AxisCtx on a (1, 1) NCCL mesh (the int8 "
+                    "FL round client-server and hierarchical, the spatial LM train step of "
+                    "xlstm-125m and whisper-base at published width and full depth, each "
+                    "bitwise its meshless twin; gossip card == CPU mesh), and a lane-sharded "
+                    "int8 campaign over two ranks sharing the card",
+                    "card": smi, **{k: v for k, v in mesh.items()
+                                    if k not in ("kernel_rows", "lm_by_shape")},
+                    "lm_launches_by_shape": {arch: {fn: named(v) for fn, v in c.items()}
+                                             for arch, c in mesh["lm_by_shape"].items()},
+                    "kernel_rows": {f"{fn} {shape_name(key)}": {
+                        f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                        for (fn, key), r in mesh["kernel_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -50,12 +50,12 @@ def leaves(tree) -> list:
     return [t for _, t in _leaves(tree)]
 
 
-def _rebuild(tree, it):
+def rebuild(tree, it):
     """``tree``'s structure with its leaves taken in order from ``it``."""
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+        return {k: rebuild(tree[k], it) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_rebuild(v, it) for v in tree)
+        return type(tree)(rebuild(v, it) for v in tree)
     if tree is None:
         return None
     return next(it)
@@ -107,25 +107,37 @@ def latest_round(ckpt_dir) -> Optional[int]:
     return int(rounds[-1].name.split("_")[1])
 
 
-def restore(ckpt_dir, round_idx: int, like_state):
-    """Load round ``round_idx`` into the structure of ``like_state``, each
-    leaf on the device of the leaf it replaces. Returns (state, extra).
-    Raises if the leaves' count, shapes or dtypes differ from the state's."""
+def read(ckpt_dir, round_idx: int):
+    """Round ``round_idx``'s leaves as host arrays, in flatten order, and
+    its manifest's extras."""
     path = pathlib.Path(ckpt_dir) / f"round_{round_idx:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "shard_0.npz") as z:
         host = [z[f"leaf_{i}"] for i in range(manifest["n_leaves"])]
+    return host, manifest["extra"]
+
+
+def as_leaf(h, like: torch.Tensor) -> torch.Tensor:
+    """A saved host array as a CPU tensor of ``like``'s dtype where the
+    file holds it (bf16 from its ``uint16`` bits)."""
+    bits = like.dtype == torch.bfloat16 and h.dtype == np.uint16
+    got = torch.from_numpy(np.array(h.view(np.int16) if bits else h, order="C"))
+    return got.view(torch.bfloat16) if bits else got
+
+
+def restore(ckpt_dir, round_idx: int, like_state):
+    """Load round ``round_idx`` into the structure of ``like_state``, each
+    leaf on the device of the leaf it replaces. Returns (state, extra).
+    Raises if the leaves' count, shapes or dtypes differ from the state's."""
+    host, extra = read(ckpt_dir, round_idx)
     like = list(_leaves(like_state))
     if len(like) != len(host):
         raise ValueError(f"checkpoint has {len(host)} leaves, the state needs {len(like)}")
     out = []
     for (name, t), h in zip(like, host):
-        bits = t.dtype == torch.bfloat16 and h.dtype == np.uint16
-        got = torch.from_numpy(np.array(h.view(np.int16) if bits else h, order="C"))
-        if bits:
-            got = got.view(torch.bfloat16)
+        got = as_leaf(h, t)
         if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
             raise ValueError(f"checkpoint leaf {name}: {tuple(got.shape)} {got.dtype}, "
                              f"the state has {tuple(t.shape)} {t.dtype}")
         out.append(got.to(t.device))
-    return _rebuild(like_state, iter(out)), manifest["extra"]
+    return rebuild(like_state, iter(out)), extra

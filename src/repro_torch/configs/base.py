@@ -1,5 +1,5 @@
-"""Configuration dataclasses for models and FL jobs (port of
-``repro/configs/base.py``).
+"""Configuration dataclasses for models, input shapes, device meshes and FL
+jobs (port of ``repro/configs/base.py``).
 
 A copy, not an import: the port imports nothing of ``repro``. ``get_config``
 resolves every architecture of the JAX package: the paper's small models
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 import importlib
-from typing import Optional
+from typing import Optional, Sequence
 
 
 @dataclass(frozen=True)
@@ -161,6 +161,38 @@ class FLConfig:
     rounds: int = 10
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the JAX package's assigned set)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One step's input shape: sequence length, global batch and kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+# archs with sub-quadratic token mixing also run long_500k
+SUBQUADRATIC = ("xlstm-125m", "jamba-1.5-large-398b")
+
+
+def shapes_for(arch: str) -> Sequence[str]:
+    """The shape names an arch runs."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in SUBQUADRATIC:
+        names.append("long_500k")
+    return tuple(names)
+
+
 # FLConfig fields a campaign sweeps as per-lane runtime values (the scalar
 # plane, ``core/sweeps.scalar_plane``); the single-run executor threads the
 # same names as device tensors, so a lane computes what a single run does.
@@ -172,6 +204,39 @@ SWEEPABLE_SCALARS = ("seed", "client_lr", "server_lr", "server_momentum",
 # program signature instead.
 SWEEPABLE_CATEGORICAL = ("strategy", "topology", "placement", "mode",
                          "async_buffer", "compression")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh: ``(data, model)``, or ``(pod, data, model)`` with
+    ``multi_pod``, and the campaigns' lane axis in front when ``lanes > 1``
+    (``launch/mesh.lane_mesh``; ``runtime/campaign.py`` pads S to a multiple
+    of it with dead lanes). ``lanes = 1`` means no lane axis: the one-process
+    campaign."""
+    multi_pod: bool = False
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+    lanes: int = 1
+
+    @property
+    def shape(self):
+        base = ((self.pods, self.data, self.model) if self.multi_pod
+                else (self.data, self.model))
+        return (self.lanes,) + base if self.lanes > 1 else base
+
+    @property
+    def axes(self):
+        base = (("pod", "data", "model") if self.multi_pod
+                else ("data", "model"))
+        return ("lanes",) + base if self.lanes > 1 else base
+
+    @property
+    def n_chips(self) -> int:
+        n = self.data * self.model
+        if self.multi_pod:
+            n *= self.pods
+        return n * self.lanes if self.lanes > 1 else n
 
 
 ARCHS = (

@@ -129,9 +129,11 @@ def fold_in_tensor(key, data):
     return mix_tensor(k ^ mix_tensor(data))
 
 
-def client_keys(round_key_: int, n_clients: int, device) -> torch.Tensor:
-    """(C,) int64: ``client_key(round_key_, c)`` for every client c."""
-    ids = torch.arange(n_clients, dtype=torch.int64, device=device)
+def client_keys(round_key_: int, n_clients: int, device, first: int = 0) -> torch.Tensor:
+    """(C,) int64: ``client_key(round_key_, c)`` for the clients c =
+    ``first`` .. ``first + n_clients - 1`` (a mesh rank's clients start at
+    its grid position times their count)."""
+    ids = torch.arange(first, first + n_clients, dtype=torch.int64, device=device)
     return fold_in_tensor(fold_in(round_key_, 0x11C), ids)
 
 

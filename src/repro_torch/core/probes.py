@@ -164,11 +164,12 @@ def sat_frac(q):
     return (torch.abs(q.to(torch.int32)) >= 127).to(torch.float32).mean()
 
 
-def drift_from_moments(weights, per_client_sq, agg_sq):
+def drift_from_moments(weights, per_client_sq, agg_sq, psum=lambda x: x):
     """sqrt(E_w ||d_c||^2 - ||agg||^2), clipped at 0: the weighted std of
-    the client deltas around their aggregate (variance identity)."""
-    wsum = weights.sum()
-    mean_sq = (weights * per_client_sq).sum() / torch.clamp(wsum, min=1e-12)
+    the client deltas around their aggregate (variance identity); ``psum``
+    folds the client shards of a mesh's ranks."""
+    wsum = psum(weights.sum())
+    mean_sq = psum((weights * per_client_sq).sum()) / torch.clamp(wsum, min=1e-12)
     return torch.sqrt(torch.clamp(mean_sq - agg_sq, min=0.0))
 
 

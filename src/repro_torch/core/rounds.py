@@ -1,5 +1,5 @@
-"""FL rounds on one device (port of the meshless subset of
-``repro/core/rounds.py``).
+"""FL rounds (port of ``repro/core/rounds.py``): on one device, and the
+spatial round on a device mesh.
 
 Two client placements:
 
@@ -53,6 +53,16 @@ reads the declaration and nothing else of the model. An LM never runs in a
 campaign lane (``Executor.scaffold`` refuses LM jobs); if it did,
 ``torch.autograd.grad`` would raise under the lanes' ``vmap``.
 
+On a mesh (``build_spatial_round(..., ctx=)``, ``sharding/axes.AxisCtx``
+bound when the round is built): each rank of a ``(data, model[, pod])``
+mesh holds ``C_loc`` clients, numbered from its place in the flattened
+grid (``_grid_below``), trains them as above and reduces by the
+topology's plan over the mesh (``topo.reduce``; in ``packed_aggregate``
+only B1's (N,) numerator and the weight sum cross it); the loss and the probe moments
+are summed or averaged over the grid. The temporal round, the ragged plane
+and campaign lanes stay meshless (a campaign shards its lanes instead:
+``runtime/campaign.py``).
+
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
 noise is drawn from it); the JAX package hands ``local_loss`` a per-step
@@ -78,6 +88,7 @@ from repro_torch.core.topology import Decentralized, get_topology
 from repro_torch.data.pipeline import DEDUP_STAGED_AXES
 from repro_torch.kernels import ops
 from repro_torch.runtime.device import resolve_device
+from repro_torch.sharding.axes import SINGLE, AxisCtx
 
 
 def tree_map(fn, *trees):
@@ -213,14 +224,23 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
 def packed_aggregate(topo, pd: packing.PackedDelta, weights):
     """Weighted mean of stacked ``PackedDelta``s ((C, N) int8 + (C, N/b)
     scales) through the fused dequant + weighted-sum kernel: each int8 byte
-    is read once. On one device both client-server and hierarchical reduce
-    to this one mean. Returns the flat (N,) f32 aggregate."""
-    num = ops.quant_aggregate(pd.q, pd.scale, weights)
-    return num / torch.clamp(weights.sum(), min=1e-12)
+    is read once, and on a mesh only the (N,) f32 numerator and the weight
+    sum cross it, by the topology's plan (``topo.reduce``). Returns the
+    flat (N,) f32 aggregate."""
+    return topo.reduce(ops.quant_aggregate(pd.q, pd.scale, weights), weights.sum())
+
+
+def _grid_below(ctx: AxisCtx, axis: str) -> int:
+    """Flattened grid stride of ``axis`` for the client ids."""
+    if axis == ctx.data:
+        return ctx.size(ctx.model)
+    if axis == ctx.pod:
+        return ctx.size(ctx.model) * ctx.size(ctx.data)
+    return 1
 
 
 def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
-                        probes: bool = False):
+                        probes: bool = False, ctx: AxisCtx = SINGLE):
     """Returns round_fn(state, batch, weights, rng, hyper=None) ->
     (state, {"loss"[, "probes"]}).
 
@@ -230,20 +250,38 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
     cohort mask); rng: the round key (an int, or a 0-d int64 tensor);
     hyper: the sweepable scalars (``bind_hyper``). ``probes`` adds the
     round's probe dict (``core/probes.py``), read off values the round
-    computes anyway."""
-    topo = get_topology(fl.topology, fl.gossip_steps)
+    computes anyway.
+
+    ``ctx``: the mesh the round runs on, bound here once. With ``SINGLE``
+    the round is the one-device program. With a mesh's axes this rank holds
+    ``C`` of the grid's clients (ids from its place in the flattened
+    ``(pod, data, model)`` grid, ``_grid_below``), each running the model
+    unsharded; the aggregate, the loss and the probe moments cross the mesh
+    as the JAX package's ``shard_map`` round does."""
+    topo = get_topology(fl.topology, fl.gossip_steps, ctx)
     decentralized = isinstance(topo, Decentralized)
     mw = build_aggregator(fl)
     # gossip has no server-side reduce to fuse into: int8 sends take the
     # unpacked round trip there
     packed = strategy.packs_deltas and not decentralized
+    axes = ctx.grid_axes
+    chip = ctx.index(ctx.model)
+    for axis in (ctx.data, ctx.pod):
+        if axis is not None:
+            chip = ctx.index(axis) * _grid_below(ctx, axis) + chip
+
+    def psum_(x):
+        return ctx.psum(x, axes)
+
+    def pmean_(x):
+        return ctx.pmean(x, axes)
 
     def round_fn(state, batch, weights, rng, hyper=None):
         fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
         params, server_state = state["params"], state["server"]
         lead = next(iter(batch.values()))
         dev, C = lead.device, lead.shape[0]
-        keys = determinism.client_keys(rng, C, dev)
+        keys = determinism.client_keys(rng, C, dev, first=chip * C)
         deltas, cstates, losses = local_train(
             model, strategy_h, fl_h, params, server_state, state["clients"],
             batch, keys, pack_deltas=packed, per_client_params=decentralized)
@@ -254,22 +292,27 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
             if probes:
                 # drift for gossip: the spread of the client models
                 spread = probelib.per_client_sq_norms(
-                    {k: t - t.mean(0)[None] for k, t in new_params.items()})
-                pr.update(drift_norm=torch.sqrt(spread.mean()),
+                    {k: t - pmean_(t.mean(0))[None] for k, t in new_params.items()})
+                pr.update(drift_norm=torch.sqrt(pmean_(spread.mean())),
                           sat_frac=_zero(dev), ef_residual_norm=_zero(dev))
         else:
             if probes:
                 # per-client moments of the sends, read before the reduce
                 if packed:
                     sq = probelib.packed_sq_norms(deltas.q, deltas.scale)
-                    pr["sat_frac"] = (torch.abs(deltas.q.to(torch.int32)) >= 127) \
-                        .to(torch.float32).mean(-1).mean()
+                    pr["sat_frac"] = pmean_((torch.abs(deltas.q.to(torch.int32)) >= 127)
+                                            .to(torch.float32).mean(-1).mean())
                 else:
                     sq = probelib.per_client_sq_norms(deltas)
                     pr["sat_frac"] = _zero(dev)
                 if isinstance(cstates, dict) and "residual" in cstates:
                     rsq = probelib.per_client_sq_norms(cstates["residual"])
-                    pr["ef_residual_norm"] = torch.sqrt(rsq.sum() / max(C, 1))
+                    if axes:
+                        n_c = psum_(torch.full((), float(C), device=dev))
+                        pr["ef_residual_norm"] = torch.sqrt(
+                            psum_(rsq.sum()) / torch.clamp(n_c, min=1.0))
+                    else:
+                        pr["ef_residual_norm"] = torch.sqrt(rsq.sum() / max(C, 1))
                 else:
                     pr["ef_residual_norm"] = _zero(dev)
             if packed:
@@ -290,8 +333,8 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
                                   c=topo.aggregate(cstates["c_i"], weights))
             if probes:
                 pr["drift_norm"] = probelib.drift_from_moments(
-                    weights, sq, probelib.tree_sq_norm(agg))
-        metrics = {"loss": losses.mean()}
+                    weights, sq, probelib.tree_sq_norm(agg), psum_)
+        metrics = {"loss": pmean_(losses.mean())}
         if probes:
             pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params))
             pr["nonfinite"] = probelib.norm_nonfinite(pr["update_norm"])

@@ -99,7 +99,7 @@ def stage_partitions_stacked(trajectories, device) -> dict:
 DEDUP_STAGED_AXES = {"x": None, "y": None, "idx": 0, "len": 0}
 
 
-def stage_partitions_dedup(trajectories, keys, device):
+def stage_partitions_dedup(trajectories, keys, device, mesh=None):
     """Stage S trajectories' ``(x, y, parts)`` with the root datasets
     deduplicated: lanes with equal ``keys`` (the campaign's (seed,
     partition, alpha)) share ONE device copy. The unique roots are
@@ -110,7 +110,13 @@ def stage_partitions_dedup(trajectories, keys, device):
       x ((sum_u N_u), ...) f32   y ((sum_u N_u),) int64   shared roots
       idx (S, C, Lmax) int64     len (S, C) int64         per lane
 
-    and ``lane_ds`` (S,) int, each lane's unique root."""
+    and ``lane_ds`` (S,) int, each lane's unique root.
+
+    ``mesh`` (a ``launch/mesh.lane_mesh``) places the staging for a
+    device-parallel campaign by ``DEDUP_STAGED_AXES``: the concatenated
+    roots whole on every rank, the ``idx``/``len`` planes cut to the rank's
+    block of lanes (S must then split over the mesh: the campaign pads it
+    with dead lanes first)."""
     keys = list(keys)
     if len(keys) != len(trajectories):
         raise ValueError(f"{len(keys)} dedup keys for {len(trajectories)} trajectories")
@@ -129,14 +135,14 @@ def stage_partitions_dedup(trajectories, keys, device):
     pads = [_pad_idx(parts, lmax).astype(np.int64) + int(offsets[u])
             for u, (_, _, parts) in enumerate(roots)]
     lens = [np.asarray([len(p) for p in parts], np.int64) for _, _, parts in roots]
-    staged = {
-        "x": torch.as_tensor(np.concatenate([np.asarray(x, np.float32)
-                                             for x, _, _ in roots]), device=device),
-        "y": torch.as_tensor(np.concatenate([np.asarray(y, np.int64)
-                                             for _, y, _ in roots]), device=device),
-        "idx": torch.as_tensor(np.stack([pads[u] for u in lane_ds]), device=device),
-        "len": torch.as_tensor(np.stack([lens[u] for u in lane_ds]), device=device)}
-    return staged, lane_ds
+    staged = {"x": np.concatenate([np.asarray(x, np.float32) for x, _, _ in roots]),
+              "y": np.concatenate([np.asarray(y, np.int64) for _, y, _ in roots]),
+              "idx": np.stack([pads[u] for u in lane_ds]),
+              "len": np.stack([lens[u] for u in lane_ds])}
+    if mesh is not None:
+        from repro_torch.launch.mesh import shard_lanes
+        staged = shard_lanes(staged, mesh, DEDUP_STAGED_AXES)
+    return {k: torch.as_tensor(v, device=device) for k, v in staged.items()}, lane_ds
 
 
 def _positions(keys, lens, n_steps: int, batch_size: int):

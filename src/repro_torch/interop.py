@@ -73,3 +73,12 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+def specs_from_jax(tree):
+    """A tree of JAX ``PartitionSpec``s (nested dicts; any object that
+    iterates over its entries) -> the port's specs: a tuple per leaf, each
+    entry None, an axis name, or a tuple of names."""
+    if isinstance(tree, dict):
+        return {k: specs_from_jax(v) for k, v in tree.items()}
+    return tuple(tuple(e) if isinstance(e, (tuple, list)) else e for e in tree)

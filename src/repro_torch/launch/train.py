@@ -11,7 +11,8 @@ items, fedavg over ``--clients`` clients, a checkpoint every 2 rounds) ->
 ``--ckpt-dir``. Prints the FL dashboard. LMs train through
 ``repro_torch.launch.train_fl_lm`` (the executor refuses an LM job and
 names it). ``--dry-run`` (the JAX package's lower-and-compile of the LM
-step on a production mesh) waits for the multi-device port, ROADMAP A16.
+step on a production mesh) waits for the meta-device dry run, ROADMAP
+A16.4.
 """
 from __future__ import annotations
 
@@ -45,12 +46,13 @@ def main(argv=None):
                     help="use the reduced config for LM archs")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower + compile the LM step on a mesh (ROADMAP A16)")
+                    help="lower + compile the LM step on a mesh (ROADMAP A16.4)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.dry_run:
         raise ValueError("--dry-run (the LM step's lower-and-compile on a device mesh) "
-                         "comes with the multi-device port, ROADMAP A16")
+                         "comes with the meta-device dry run of the multi-device port, "
+                         "ROADMAP A16.4")
     job = load_job(args.job if args.job else
                    default_job(args.arch, args.clients, args.rounds, args.reduced))
     ex = Executor(job, device=args.device, ckpt_dir=args.ckpt_dir).scaffold()

@@ -4,8 +4,8 @@
 Single device: the JAX functions' ``AxisCtx`` is dropped, and with it the
 sequence-sharding offsets, all-gathers and the cross-shard LSE combine
 (with ``AxisCtx()`` they are identities); the tensor-parallel matmul
-helpers (``col_matmul``, ``row_matmul``) wait for the multi-device port
-(ROADMAP A16). GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and
+helpers (``col_matmul``, ``row_matmul``) wait for the temporal placement
+on a mesh (ROADMAP A16.2). GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and
 qk-norm (chameleon-34b, qwen3-moe-30b-a3b); MLA (minicpm3-4b) keeps a
 latent cache and runs B3 in either of its two forms.
 """

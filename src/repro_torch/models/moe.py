@@ -13,8 +13,9 @@ the same, and "subgrid" reassembles (E, D, F) first.
 
 The collectives that shard the experts over devices (the all-to-alls, the
 ring of ``REPRO_QUANT_RING`` and the subgrid butterfly) come with the
-multi-device port, ROADMAP A16: expert weights holding fewer experts than
-the config (a device's shard) raise a ``ValueError`` naming it.
+sharded halves of the multi-device port, ROADMAP A16.3: expert weights
+holding fewer experts than the config (a device's shard) raise a
+``ValueError`` naming it.
 
 Two choices differ from the JAX package's code, not its values:
 - the bucket scatter writes dropped pairs into a swallow slot past each
@@ -81,8 +82,8 @@ def _check_local(w: dict, cfg: ModelConfig) -> None:
     if w["w1"].shape[-3] != want:
         raise ValueError(
             f"moe_ffn got {w['w1'].shape[-3]} expert slices, the config has {want}: "
-            "expert weights sharded over devices come with the multi-device port, "
-            "ROADMAP A16")
+            "expert weights sharded over devices come with the sharded MoE FFN of the "
+            "multi-device port, ROADMAP A16.3")
 
 
 def _route(xf, router, cfg: ModelConfig):

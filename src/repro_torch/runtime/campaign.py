@@ -25,9 +25,24 @@ its ledger blocks stop.
 Ragged lanes (``max_cohort > 0``): one slab stager per distinct plan key,
 stacked by ``data/pipeline.StackedSlabStager`` into a per-chunk slab with a
 leading lane dim, which the ragged round (``rounds.build_ragged_multi(...,
-lanes=True)``) maps over; sync only, as in the JAX package. Not here yet:
-a lane mesh (``lane_devices > 0``) waits for the multi-device port (ROADMAP
-A16) and raises a ``ValueError`` naming it.
+lanes=True)``) maps over; sync only and meshless, as in the JAX package.
+
+Device-parallel campaigns (``lane_devices = n``, or a ``MeshConfig`` whose
+``lanes`` axis is n): the sweep axis over an n-rank lane mesh
+(``launch/mesh.lane_mesh``), one process per rank (``launch/mesh.spawn``),
+each building the same executor. S pads to ``S_pad``, a multiple of n, with
+dead lanes (clones of the last config, ``alive = 0`` from launch 1), and
+each rank runs its contiguous block of ``S_pad // n`` lanes: its own
+staging (``stage_partitions_dedup(mesh=)``: the data roots whole, the
+lanes' planes its block), state and one B1 launch a round over its lanes.
+The round needs no collective. At each chunk boundary the ranks gather host
+objects over the mesh's ``gloo`` group: the block's metrics and probes
+(so every rank holds the whole results table, and a planner's lane
+scheduler decides the same drops on every rank), eval and digests, and the
+state to checkpoint. Rank 0 alone writes ``campaign.csv``, the journals
+and the checkpoint, which holds the real lanes only (the one-process
+layout), so a resume may use another device count: the real lanes come
+from the file and the pad tail from the fresh scaffold.
 
 Determinism contract (``tests/test_torch_sweeps.py``,
 ``tests/test_torch_plan.py``): lane ``s`` is bitwise an independent single
@@ -63,6 +78,8 @@ from repro_torch.core.rounds import build_multi_round, build_ragged_multi, init_
     tree_map
 from repro_torch.data.pipeline import (StackedSlabStager, make_slab_stager,
                                        stage_partitions_dedup)
+from repro_torch.launch.mesh import (barrier, gather_objects, lane_block, lane_mesh,
+                                     lane_rank, shard_lanes)
 from repro_torch.runtime.executor import Executor, tree_nbytes
 from repro_torch.telemetry import comms as comms_mod
 
@@ -164,7 +181,10 @@ class CampaignExecutor(Executor):
     single-run signature ``params -> dict`` and is applied per lane.
     ``out_dir`` (if set) receives ``campaign.csv`` at every chunk boundary.
     ``lane_scheduling`` threads the alive mask into the rounds (the planner
-    sets it when a lane scheduler is attached)."""
+    sets it when a lane scheduler is attached). ``lane_devices``: the lane
+    mesh's rank count (or a ``MeshConfig``; 0 and ``MeshConfig()``'s
+    ``lanes = 1`` keep the one-process campaign), see the module
+    docstring."""
     out_dir: Optional[str] = None
     lanes: Optional[tuple] = None     # (coords, fls) bucket override
     parquet: bool = True              # planner buckets defer to the merge
@@ -175,10 +195,6 @@ class CampaignExecutor(Executor):
         if self.job.sweep is None:
             raise ValueError("CampaignExecutor needs a job with a sweep: "
                              "section (see core/sweeps.py for the axes)")
-        if self.lane_devices:
-            raise ValueError("lane_devices > 0 shards the lanes over a device mesh, "
-                             "which the port does not run yet (ROADMAP A16); "
-                             "use lane_devices=0")
         self.spec = self.job.sweep
         if self.lanes is not None:
             self.coords, self.fls = list(self.lanes[0]), list(self.lanes[1])
@@ -197,13 +213,39 @@ class CampaignExecutor(Executor):
             validate_cohort(fl_s)
         check_ragged(self.job.raw, self.job.fl, self.job.strategy)
         self.S = len(self.fls)
-        self.alive = np.ones(self.S, np.float32)
+        # a MeshConfig's `lanes` axis is a spelling of the count; its
+        # lanes = 1 default means no lane axis, the one-process campaign
+        if hasattr(self.lane_devices, "lanes"):
+            self.lane_devices = (self.lane_devices.lanes
+                                 if self.lane_devices.lanes > 1 else 0)
+        self.lane_devices = int(self.lane_devices)
+        if self.lane_devices and self.job.fl.max_cohort > 0:
+            raise NotImplementedError(
+                "ragged campaigns (max_cohort > 0) do not shard over a "
+                "lane mesh yet: the stacked slab is restaged per chunk "
+                "on the host, which would break the zero-collective "
+                "lane-sharding contract. Use lane_devices=0")
+        self.mesh = lane_mesh(self.lane_devices) if self.lane_devices else None
+        # S padded to a multiple of the rank count with dead lanes, clones
+        # of the last config (no extra staged bytes through the dedup)
+        d = max(self.lane_devices, 1)
+        self.S_pad = -(-self.S // d) * d
+        self._fls_pad = list(self.fls) + [self.fls[-1]] * (self.S_pad - self.S)
+        self.block = lane_block(self.mesh, self.S_pad)      # the lanes run here
+        self._fls_local = self._fls_pad[self.block.start:self.block.stop]
+        self._writer = lane_rank(self.mesh) == 0            # files: rank 0 only
+        self.alive = np.ones(self.S_pad, np.float32)        # scheduler + pad mask
+        self.alive[self.S:] = 0.0                           # pad lanes never run
+        self._thread_alive = self.lane_scheduling or self.S_pad > self.S
+        self.rank_round_s = []         # per launch: every rank's seconds for it
         self._alive_dev = None         # the mask on the device, per drop
         self.results = []              # tidy rows: coords + traj/round/metrics
         self._tail_rows = []           # (lane, row) of each lane's last round
         self._table = (AppendTable(pathlib.Path(self.out_dir) / "campaign.csv")
-                       if self.out_dir else None)
+                       if self.out_dir and self._writer else None)
         super().__post_init__()
+        if not self._writer:
+            self.recorder.out_dir = None   # events in memory: rank 0 writes
 
     def _build_sync(self, spec):
         if self.ragged:
@@ -238,12 +280,39 @@ class CampaignExecutor(Executor):
         return [s for s in range(self.S) if self.alive[s] > 0]
 
     def _launch_hyper(self):
-        """The scalar plane, plus the (S,) alive mask under a scheduler."""
-        if not self.lane_scheduling:
+        """The scalar plane, plus this rank's block of the alive mask under a
+        scheduler or with pad lanes."""
+        if not self._thread_alive:
             return self.hyper
         if self._alive_dev is None:
-            self._alive_dev = torch.as_tensor(self.alive, device=self.device)
+            self._alive_dev = torch.as_tensor(
+                self.alive[self.block.start:self.block.stop], device=self.device)
         return dict(self.hyper, alive=self._alive_dev)
+
+    # -- the lane mesh's host gathers ------------------------------------------
+    def _gather_lanes(self, local: dict) -> dict:
+        """Arrays with a leading dim over this rank's lanes -> over all
+        ``S_pad`` lanes, from every rank in block order."""
+        if self.mesh is None:
+            return local
+        parts = gather_objects(self.mesh, local)
+        return {k: np.concatenate([p[k] for p in parts]) for k in local}
+
+    def _owned(self, lanes, fn) -> dict:
+        """{s: fn(local index of s)} for every lane of ``lanes``, each
+        computed by the rank that runs it and gathered."""
+        mine = {s: fn(s - self.block.start) for s in lanes if s in self.block}
+        out = {}
+        for part in gather_objects(self.mesh, mine):
+            out.update(part)
+        return out
+
+    def gather_trajectories(self) -> dict:
+        """The real lanes' params, stacked (S, ...) on the CPU, from every
+        rank (a collective under a lane mesh)."""
+        local = {k: v.detach().cpu() for k, v in self.state["params"].items()}
+        parts = gather_objects(self.mesh, local)
+        return {k: torch.cat([p[k] for p in parts])[:self.S] for k in local}
 
     # -- scaffold hooks ------------------------------------------------------
     def _stage_data(self):
@@ -255,18 +324,19 @@ class CampaignExecutor(Executor):
             self._stage_ragged(cfg)
             return
         cache, trajs, keys = {}, [], []
-        for fl_s in self.fls:
+        for fl_s in self._fls_pad:
             k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha)
             if k not in cache:
                 cache[k] = make_dataset(self.job.raw, fl_s, cfg).distribute_into_chunks(
                     fl_s.partition, fl_s.n_clients, fl_s.dirichlet_alpha)
             trajs.append(cache[k])
             keys.append(k)
-        self.data = trajs                # per-lane host views (eval_fn)
-        self.staged, self.lane_ds = stage_partitions_dedup(trajs, keys, self.device)
-        self.roots = sweeps.root_keys(self.fls, self.device)
-        self.hyper = sweeps.scalar_plane(self.fls, self.device)
-        self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self.fls]
+        self.data = trajs                # per-lane host views (eval_fn), all S_pad
+        self.staged, self.lane_ds = stage_partitions_dedup(trajs, keys, self.device,
+                                                           mesh=self.mesh)
+        self.roots = shard_lanes(sweeps.root_keys(self._fls_pad, self.device), self.mesh)
+        self.hyper = shard_lanes(sweeps.scalar_plane(self._fls_pad, self.device), self.mesh)
+        self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self._fls_local]
 
     def _stage_ragged(self, cfg):
         """Ragged lanes: one slab stager per distinct plan key (the host
@@ -290,7 +360,8 @@ class CampaignExecutor(Executor):
         self.faults = [make_fault(self.job.raw, fl_s) for fl_s in self.fls]
 
     def _init_state(self):
-        """Each lane's initial state is its single run's, stacked."""
+        """Each lane's initial state is its single run's, stacked (this
+        rank's lanes)."""
         fl = self.job.fl
         self.decentralized = (self.mode == "sync" and self.placement == "spatial"
                               and fl.topology == "decentralized")
@@ -298,7 +369,7 @@ class CampaignExecutor(Executor):
             init_state(self.job.model, self.job.strategy, fl,
                        determinism.root_key(fl_s.seed), n_clients_local=fl.n_clients,
                        device=self.device, decentralized=self.decentralized)
-            for fl_s in self.fls])
+            for fl_s in self._fls_local])
 
     def _build_schedule(self, n_rounds: int):
         """Per-lane virtual-clock schedules, deduplicated on (seed,
@@ -308,9 +379,10 @@ class CampaignExecutor(Executor):
         from repro_torch.runtime.clock import build_schedule
 
         fl = self.job.fl
-        lens = self.staged["len"].cpu().numpy().astype(np.float32)   # (S, C)
+        lens = np.asarray([[len(p) for p in parts] for _, _, parts in self.data],
+                          np.float32)                                # (S_pad, C)
         cache, uniq, lane_u = {}, [], []
-        for s, fl_s in enumerate(self.fls):
+        for s, fl_s in enumerate(self._fls_pad):
             k = (fl_s.seed, fl_s.partition, fl_s.dirichlet_alpha,
                  fl_s.staleness_exponent)
             if k not in cache:
@@ -332,28 +404,62 @@ class CampaignExecutor(Executor):
         if "hist" not in self.state:
             ring = uniq[0].ring
             self.state = stack_lanes([
-                async_init_state(lane_of(self.state, s), ring, fl, self.job.strategy)
-                for s in range(self.S)])
+                async_init_state(lane_of(self.state, i), ring, fl, self.job.strategy)
+                for i in range(len(self.block))])
 
     def _maybe_restore(self):
         """Resume from the newest checkpoint of the same grid (its lane
-        count and coordinates digest ride in the manifest)."""
+        count and coordinates digest ride in the manifest), elastically: the
+        file holds the S real lanes, and this rank takes its block of them,
+        its pad lanes (frozen at their initial state from launch 1) from the
+        fresh scaffold. A checkpoint saved at one ``lane_devices`` resumes
+        at any other."""
         if not self.ckpt_dir:
             return
         last = ckpt_mod.latest_round(self.ckpt_dir)
         if last is None:
             return
-        restored, extra = ckpt_mod.restore(self.ckpt_dir, last, self.state)
+        host, extra = ckpt_mod.read(self.ckpt_dir, last)
         if extra.get("campaign_lanes") != self.S or \
                 extra.get("campaign_grid") != self._coords_digest():
             raise ValueError(
                 f"checkpoint was written by another sweep grid "
                 f"({extra.get('campaign_lanes')} lanes, digest "
                 f"{extra.get('campaign_grid')}) than this one ({self.S} lanes, "
-                f"digest {self._coords_digest()}); point ckpt_dir elsewhere "
-                "to start the new grid fresh")
-        self.state = restored
+                f"digest {self._coords_digest()}); a resume needs the same grid "
+                "(lane_devices may differ); point ckpt_dir elsewhere to start "
+                "the new grid fresh")
+        like = ckpt_mod.leaves(self.state)
+        if len(like) != len(host):
+            raise ValueError(f"checkpoint has {len(host)} leaves, the state needs {len(like)}")
+        lo, real = self.block.start, max(min(self.block.stop, self.S) - self.block.start, 0)
+
+        def fit(h, t):
+            saved = ckpt_mod.as_leaf(h, t)
+            if saved.shape[1:] != t.shape[1:] or saved.shape[0] != self.S \
+                    or saved.dtype != t.dtype:
+                raise ValueError(f"checkpoint leaf {tuple(saved.shape)} {saved.dtype} does "
+                                 f"not fit the campaign's {tuple(t.shape)} {t.dtype} "
+                                 f"(S = {self.S})")
+            return torch.cat([saved[lo:lo + real].to(t.device), t[real:]])
+
+        self.state = ckpt_mod.rebuild(self.state, iter([fit(h, t) for h, t in zip(host, like)]))
         self.round_idx = extra["next_round"]
+
+    def _save_checkpoint(self):
+        """The single-device checkpoint of the real lanes: the ranks' blocks
+        gathered, rank 0 writes."""
+        if self.mesh is None:
+            super()._save_checkpoint()
+            return
+        parts = gather_objects(self.mesh, [t.detach().cpu() for t in
+                                           ckpt_mod.leaves(self.state)])
+        if self._writer:
+            whole = [torch.cat(ts)[:self.S] for ts in zip(*parts)]
+            ckpt_mod.save(self.ckpt_dir, self.round_idx,
+                          ckpt_mod.rebuild(self.state, iter(whole)),
+                          extra=self._ckpt_extra())
+        barrier(self.mesh)
 
     def _coords_digest(self) -> str:
         """Digest of the expanded sweep coordinates: the grid's identity."""
@@ -396,13 +502,19 @@ class CampaignExecutor(Executor):
         self.state, metrics = self._multi(self.state, staged, self.roots, start,
                                           n, self._launch_hyper(), self.faults)
         self._sync()
-        dt = time.perf_counter() - t0
-        probes = metrics.pop("probes", None)
-        self._capture_probes(start, n, None if probes is None else probes.cpu().numpy())
+        dt = self._round_seconds(time.perf_counter() - t0)
+        stacked = self._gather_lanes({k: v.cpu().numpy() for k, v in metrics.items()})
+        self._capture_probes(start, n, stacked.pop("probes", None))
         cols = self._account_comms(start, n)
-        stacked = {k: v.cpu().numpy() for k, v in metrics.items()}      # (S, n)
-        self._merge_comms_stacked(stacked, cols)
+        self._merge_comms_stacked(stacked, cols)        # (S_pad, n) each
         return self._table_rows(stacked, start, n, dt)
+
+    def _round_seconds(self, dt: float) -> float:
+        """A launch's seconds: every rank's (``rank_round_s``), the
+        slowest's in the table."""
+        per = gather_objects(self.mesh, dt)
+        self.rank_round_s.append(per)
+        return max(per)
 
     def _launch_async(self, start: int, n: int):
         if not self.alive_lanes():
@@ -411,13 +523,18 @@ class CampaignExecutor(Executor):
         n_ev = n * epr
         t0 = time.perf_counter()
         self.state, metrics = self._multi(
-            self.state, self.staged, self.uniq_schedules, self.lane_sched, self.roots,
+            self.state, self.staged, self.uniq_schedules,
+            self.lane_sched[self.block.start:self.block.stop], self.roots,
             start * epr, n_ev, self._launch_hyper())
         self._sync()
-        dt = time.perf_counter() - t0
+        dt = self._round_seconds(time.perf_counter() - t0)
+        local = {k: np.asarray(v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                 .reshape(len(self.block), n, epr) for k, v in metrics.items() if k != "probes"}
         probes = self._reduce_async_probes(metrics.pop("probes", None), n)
-        ev = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-              .reshape(self.S, n, epr) for k, v in metrics.items()}
+        if probes is not None:
+            local["probes"] = probes
+        ev = self._gather_lanes(local)
+        probes = ev.pop("probes", None)
         if probes is not None:
             self._capture_probes(
                 start, n, probes, extra=self._async_probe_extras(start, n),
@@ -440,7 +557,7 @@ class CampaignExecutor(Executor):
     def _async_probe_extras(self, start: int, n: int):
         epr = self.events_per_round
         occ = self._occupancy_lane[:, start * epr:(start + n) * epr]
-        return {"buffer_occ": occ.reshape(self.S, n, epr).mean(-1)}
+        return {"buffer_occ": occ.reshape(self.S_pad, n, epr).mean(-1)}
 
     def _table_rows(self, stacked, start: int, n: int, dt: float):
         """Per-(lane, round) rows into the results table (alive lanes
@@ -460,21 +577,25 @@ class CampaignExecutor(Executor):
                      round_s=dt / n, n_alive=len(live)) for i in range(n)]
 
     # -- boundary hooks, per lane --------------------------------------------
+    def _lane_digests(self, lanes) -> dict:
+        return self._owned(lanes, lambda i: param_digest(lane_of(self.state["params"], i)))
+
     def _ledger_record(self, last: int):
         """One ``global`` block per alive lane: lane s's digest is its
         single run's, so the chain certifies params a run produced."""
+        digs = self._lane_digests(self.alive_lanes())
         for s in self.alive_lanes():
-            dig = param_digest(lane_of(self.state["params"], s))
-            self.job.ledger.append(last, "global", {"digest": dig})
-            self.kv.publish(f"global_digest/{last}/traj{s}", dig)
+            self.job.ledger.append(last, "global", {"digest": digs[s]})
+            self.kv.publish(f"global_digest/{last}/traj{s}", digs[s])
 
     def _merge_eval(self, rows):
         """Per-lane eval into each alive lane's tail row; means into the
         logger's row."""
         agg = {}
+        evs = self._owned([s for s, _ in self._tail_rows], lambda i: {
+            k: float(v) for k, v in self.eval_fn(lane_of(self.state["params"], i)).items()})
         for s, row in self._tail_rows:
-            ev = {k: float(v) for k, v in
-                  self.eval_fn(lane_of(self.state["params"], s)).items()}
+            ev = evs[s]
             row.update(ev)
             for k, v in ev.items():
                 agg.setdefault(k, []).append(v)
@@ -483,8 +604,9 @@ class CampaignExecutor(Executor):
     def _digest_record(self, marks, last: int):
         """The async digest cadence per alive lane, each block at its lane's
         virtual time."""
+        digs = self._lane_digests(self.alive_lanes())
         for s in self.alive_lanes():
-            dig = param_digest(lane_of(self.state["params"], s))
+            dig = digs[s]
             for m in marks:
                 self._digest_blocks += 1
                 self.job.ledger.append(
@@ -577,11 +699,18 @@ class CampaignExecutor(Executor):
 
     # -- flight-recorder hooks ---------------------------------------------
     def _telemetry_attrs(self) -> dict:
-        return {"n_alive": len(self.alive_lanes()), "S": self.S}
+        return {"n_alive": len(self.alive_lanes()), "S": self.S, "S_pad": self.S_pad}
 
     def _record_lane_telemetry(self):
-        """``lane_occupancy`` when it changed (first launch, each drop)."""
+        """``lane_occupancy`` when it changed (first launch, each drop),
+        with each rank's alive lanes under a lane mesh (a block of
+        ``S_pad // lane_devices``: the one with dead lanes idles its card
+        for them)."""
         values = {"alive": len(self.alive_lanes()), "total": self.S}
+        if self.lane_devices:
+            per = self.S_pad // self.lane_devices
+            for d in range(self.lane_devices):
+                values[f"shard{d}_alive"] = int((self.alive[d * per:(d + 1) * per] > 0).sum())
         if values != getattr(self, "_last_occupancy", None):
             self._last_occupancy = values
             self.recorder.counter("lane_occupancy", track=self.telemetry_track,
@@ -597,9 +726,12 @@ class CampaignExecutor(Executor):
             with self.recorder.span("table_flush", track=self.telemetry_track):
                 self._table.flush(self.results, self._lead_columns())
 
+    def _out_path(self, knob, stem: str):
+        return super()._out_path(knob, stem) if self._writer else None
+
     def run(self, rounds: Optional[int] = None):
         state, logger = super().run(rounds)
-        if self.out_dir:
+        if self._table is not None:
             self._table.flush(self.results, self._lead_columns())
             if self.parquet:
                 write_parquet(self.results, self._lead_columns(), self.out_dir)
@@ -607,8 +739,13 @@ class CampaignExecutor(Executor):
 
     def trajectory_params(self, s: int):
         """Lane ``s``'s params (bitwise its single run's; frozen at the drop
-        round for a dropped lane)."""
-        return lane_of(self.state["params"], s)
+        round for a dropped lane); under a lane mesh, on the rank that runs
+        it (``gather_trajectories`` collects every lane)."""
+        if s not in self.block:
+            raise ValueError(f"lane {s} runs on another rank (this one runs "
+                             f"{self.block.start}..{self.block.stop - 1}); use "
+                             "gather_trajectories()")
+        return lane_of(self.state["params"], s - self.block.start)
 
     def write_results(self, out_dir=None):
         """Write the whole results table: ``campaign.csv`` (and

@@ -698,8 +698,11 @@ class Executor:
         if self.ckpt_dir and fl.checkpoint_every and \
                 start // fl.checkpoint_every != self.round_idx // fl.checkpoint_every:
             with rec.span("checkpoint_save", track=track, round=self.round_idx):
-                ckpt_mod.save(self.ckpt_dir, self.round_idx, self.state,
-                              extra=self._ckpt_extra())
+                self._save_checkpoint()
+
+    def _save_checkpoint(self):
+        """Write the state as the round ``self.round_idx`` checkpoint."""
+        ckpt_mod.save(self.ckpt_dir, self.round_idx, self.state, extra=self._ckpt_extra())
 
     def _ckpt_extra(self) -> dict:
         """Checkpoint manifest extras (campaigns add their grid)."""

@@ -113,11 +113,12 @@ class PlanExecutor:
     out_dir: Optional[str] = None
     ckpt_dir: Optional[str] = None
     eval_fn: Optional[Callable] = None
-    # Shard each bucket's sweep axis over this many devices (0 = no
-    # sharding). Buckets shard *independently* — each pads its own lane
-    # count up to a multiple of the device count with dead lanes — while
-    # scheduler decisions stay host-side, computed from the tidy table.
-    # The port runs no lane mesh yet (ROADMAP A16): > 0 raises.
+    # Shard each bucket's sweep axis over this many ranks (0 = no
+    # sharding; a MeshConfig's `lanes` axis is also accepted). Buckets
+    # shard *independently*: each pads its own lane count up to a multiple
+    # of the rank count with dead lanes. Every rank holds the whole tidy
+    # table (the buckets gather their rows), so every rank's scheduler
+    # decides the same drops; rank 0 alone writes the files.
     lane_devices: int = 0
     device: Any = None                # None -> cuda; "cpu" on the CPU
 
@@ -154,6 +155,8 @@ class PlanExecutor:
                 recorder=self.recorder, telemetry_track=sub)
             ex.scaffold()
             self.execs.append(ex)
+        self._writer = self.execs[0]._writer
+        self._mesh = self.execs[0].mesh
         # a crash can leave buckets at different rounds; the lockstep loop
         # lets the laggards catch up (run(rounds=r) no-ops past r)
         self.round_idx = min(ex.round_idx for ex in self.execs)
@@ -162,13 +165,13 @@ class PlanExecutor:
         self._taken = [0] * len(self.execs)    # per-bucket rows consumed
         self._table = (AppendTable(pathlib.Path(self.out_dir) /
                                    "campaign.csv")
-                       if self.out_dir else None)
+                       if self.out_dir and self._writer else None)
         self._journal = (pathlib.Path(self.out_dir) / "decisions.jsonl"
                          if self.out_dir and self.scheduler is not None
                          else None)
         if self.scheduler is not None and self.round_idx > 0:
             self._replay_decisions()
-        elif self._journal is not None and self._journal.exists():
+        elif self._journal is not None and self._journal.exists() and self._writer:
             self._journal.unlink()             # fresh campaign, stale file
         return self
 
@@ -197,7 +200,7 @@ class PlanExecutor:
             if self._table is not None:
                 with rec.span("table_flush", track="plan"):
                     self._table.flush(self.rows(), self._lead_columns())
-        if self.out_dir:
+        if self.out_dir and self._writer:
             with rec.span("parquet", track="plan"):
                 self._write_parquet()
             if any(ex.probe_rows for ex in self.execs):
@@ -266,7 +269,7 @@ class PlanExecutor:
         boundary sequence the live loop visited (it depends on the run()
         horizons, so a resume cannot reconstruct it from the chunk size
         alone) plus which lanes were dropped there."""
-        if self._journal is None:
+        if self._journal is None or not self._writer:
             return
         import json
         with open(self._journal, "a") as f:
@@ -285,6 +288,8 @@ class PlanExecutor:
         re-adopted table, which is exactly what the live run would have
         done there."""
         import json
+        from repro_torch.launch.mesh import barrier
+
         resumed = self.round_idx
         kept, last = [], 0
         if self._journal is not None and self._journal.exists():
@@ -295,10 +300,12 @@ class PlanExecutor:
                     for lane in e["dropped"]:
                         self._drop(lane, e["round"], record=True)
                     last = max(last, e["round"])
+            barrier(self._mesh)            # every rank read before rank 0 writes
             # truncate: boundaries past the resume point get re-made live
-            with open(self._journal, "w") as f:
-                for e in kept:
-                    f.write(json.dumps(e) + "\n")
+            if self._writer:
+                with open(self._journal, "w") as f:
+                    for e in kept:
+                        f.write(json.dumps(e) + "\n")
         if last < resumed:
             dropped = self._apply_decisions(resumed, last, record=True)
             self._journal_append(resumed, last, dropped)

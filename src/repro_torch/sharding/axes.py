@@ -1,0 +1,251 @@
+"""Mesh-axis context: collectives that are the identity off the mesh (port
+of ``repro/sharding/axes.py``).
+
+Code is written once against an ``AxisCtx``. With ``SINGLE`` (every axis
+None) each collective is the identity and the code runs on one device; with
+the axes of a ``DeviceMesh`` (``launch/steps.mesh_ctx``) the same code runs
+in every rank of the mesh (SPMD, one process per device) and its
+collectives are c10d calls on the mesh's process groups: NCCL for a
+``cuda`` mesh, ``gloo`` for a ``cpu`` one. A collective that fails raises;
+nothing falls back.
+
+- ``psum``/``pmean``: ``all_reduce`` over the axis's group; a tuple of
+  axes (``data_axes``, ``(pod, data, model)``) is one group over their
+  flattened grid, built once per mesh; ``pmean`` divides by a device
+  scalar (``divisor``), so it rounds as the CPU does.
+- ``all_gather``, ``psum_scatter`` and ``all_to_all`` are tiled, as the JAX
+  package's ``tiled=True`` calls are: shards concatenate along the dim.
+- ``ppermute``: ``batch_isend_irecv`` over the group's ranks; a rank that
+  receives nothing gets zeros, and a self pair (an axis of size 1) is a copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+_FOLLOW_MODEL = "__follow_model__"
+_GROUPS: dict = {}       # id(mesh) -> (mesh, {axes tuple: (group, index, size, row)})
+_BY_SET: dict = {}       # sorted global ranks -> their process group
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def divisor(n, device) -> torch.Tensor:
+    """``n`` as a 0-d f32 tensor on ``device``, to divide by: CUDA turns a
+    host-scalar divisor into a multiply by its reciprocal, which rounds
+    otherwise than the CPU's (and XLA's) true divide. Made by a fill on the
+    device, not copied from the host."""
+    return torch.full((), float(n), device=device)
+
+
+def _mesh_groups(mesh) -> dict:
+    """Every axis tuple's group on ``mesh`` as ``(group, index, size,
+    row)``: ``row`` the global ranks of this rank's grid line over the
+    tuple's axes in row-major order (its ``index`` there), the group one
+    per distinct set of ranks (so one for ``(data, model)`` and ``(model,
+    data)``; c10d orders a group's ranks ascending, the collectives map
+    between the two orders). Built on first use, and collective over the
+    whole world: every rank builds every mesh's context in the same order,
+    a rank outside the mesh too (its entries are None)."""
+    key = id(mesh)
+    if key in _GROUPS:
+        return _GROUPS[key][1]
+    import torch.distributed as dist
+
+    names = tuple(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    me = dist.get_rank()
+    out = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.permutations(names, k):
+            dims = [names.index(a) for a in axes]
+            rest = [d for d in range(len(names)) if d not in dims]
+            rows = grid.permute(*rest, *dims).reshape(
+                -1, math.prod(grid.shape[d] for d in dims)).tolist()
+            out[axes] = None
+            for row in rows:
+                if k == 1:            # the mesh's own dim groups
+                    if me in row:
+                        out[axes] = (mesh.get_group(axes[0]), row.index(me), len(row), row)
+                    continue
+                members = tuple(sorted(row))
+                if members not in _BY_SET:
+                    _BY_SET[members] = dist.new_group(ranks=list(members))
+                if me in row:
+                    out[axes] = (_BY_SET[members], row.index(me), len(row), row)
+    _GROUPS[key] = (mesh, out)        # the mesh held, so its id stays its own
+    return out
+
+
+def _to_row_order(parts: list, row: list) -> list:
+    """Parts in c10d's group order (ascending ranks) -> the row's order."""
+    order = sorted(row)
+    return [parts[order.index(r)] for r in row]
+
+
+def _to_group_order(parts: list, row: list) -> list:
+    """Parts in the row's order -> c10d's group order (ascending ranks)."""
+    return [parts[row.index(r)] for r in sorted(row)]
+
+
+@dataclass(frozen=True)
+class AxisCtx:
+    """The mesh axes a function runs over, and the mesh itself."""
+    data: Optional[str] = None    # FL-client / batch axis
+    model: Optional[str] = None   # TP / FSDP / EP axis
+    pod: Optional[str] = None     # hierarchical / replica axis
+    # vocab-sharding axis for embeddings/logits/loss; defaults to `model`
+    vocab: Optional[str] = _FOLLOW_MODEL
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.mesh is None and any((self.data, self.model, self.pod)):
+            raise ValueError("an AxisCtx with axes needs their DeviceMesh "
+                             "(launch/steps.mesh_ctx builds one)")
+        if self.mesh is not None:
+            _mesh_groups(self.mesh)
+
+    @property
+    def vaxis(self) -> Optional[str]:
+        return self.model if self.vocab == _FOLLOW_MODEL else self.vocab
+
+    def _axes(self, name) -> tuple:
+        if name is None:
+            return ()
+        return tuple(name) if isinstance(name, tuple) else (name,)
+
+    def _group(self, name):
+        entry = _mesh_groups(self.mesh)[self._axes(name)]
+        if entry is None:
+            raise ValueError(f"this rank is outside the mesh of axis {name!r}")
+        return entry
+
+    # -- axis sizes (1 when absent) -----------------------------------
+    def size(self, name) -> int:
+        if not self._axes(name):
+            return 1
+        return self._group(name)[2]
+
+    def index(self, name) -> int:
+        if not self._axes(name):
+            return 0
+        return self._group(name)[1]
+
+    @property
+    def grid_axes(self) -> tuple:
+        """The whole client grid ``(pod, data, model)``, its absent axes
+        dropped; ``()`` off the mesh."""
+        return tuple(a for a in (self.pod, self.data, self.model) if a is not None)
+
+    @property
+    def data_axes(self):
+        """Axes that jointly act as the batch/client grid (data [+ pod])."""
+        axes = tuple(a for a in (self.pod, self.data) if a is not None)
+        return axes if axes else None
+
+    # -- collectives ---------------------------------------------------
+    def all_gather(self, x, name, axis: int):
+        if not self._axes(name):
+            return x
+        import torch.distributed as dist
+        g, _, n, row = self._group(name)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=g)
+        return torch.cat(_to_row_order(parts, row), dim=axis)
+
+    def psum(self, x, name):
+        if not self._axes(name):
+            return x
+        import torch.distributed as dist
+        g = self._group(name)[0]
+
+        def one(t):
+            t = t.clone()
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+            return t
+        return _tree_map(one, x)
+
+    def pmean(self, x, name):
+        if not self._axes(name):
+            return x
+        n = self.size(name)
+        return _tree_map(lambda t: t / divisor(n, t.device), self.psum(x, name))
+
+    def psum_scatter(self, x, name, axis: int):
+        if not self._axes(name):
+            return x
+        import torch.distributed as dist
+        g, _, n, row = self._group(name)
+        moved = torch.cat(_to_group_order(list(x.movedim(axis, 0).chunk(n)), row))
+        out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+        dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=g)
+        return out.movedim(0, axis)
+
+    def all_to_all(self, x, name, split_axis: int, concat_axis: int):
+        if not self._axes(name):
+            return x
+        import torch.distributed as dist
+        g, _, n, row = self._group(name)
+        moved = torch.cat(_to_group_order(list(x.movedim(split_axis, 0).chunk(n)), row))
+        out = torch.empty_like(moved)
+        dist.all_to_all_single(out, moved, group=g)
+        parts = _to_row_order(list(out.chunk(n)), row)
+        return torch.cat([p.movedim(0, split_axis) for p in parts], dim=concat_axis)
+
+    def ppermute(self, x, name, perm):
+        if not self._axes(name):
+            return x
+        import torch.distributed as dist
+        g, me, _, row = self._group(name)
+        out = torch.zeros_like(x)
+        x = x.contiguous()
+        ops = []
+        for src, dst in perm:
+            if src == me and dst == me:
+                out = x.clone()
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, x, row[dst], g))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, row[src], g))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+
+# Convenience contexts
+SINGLE = AxisCtx()
+
+
+def gather_on_spec(ctx: AxisCtx, tensor, spec, axis_name):
+    """All-gather ``tensor`` along whichever dim ``spec`` (a tuple of axis
+    names or None per dim, the port's ``PartitionSpec``) shards over
+    ``axis_name``; the tensor whole on that dim."""
+    if axis_name is None:
+        return tensor
+    for dim, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if axis_name in names:
+            return ctx.all_gather(tensor, axis_name, axis=dim)
+    return tensor
+
+
+def gather_params(ctx: AxisCtx, params: dict, specs: dict, axis_name):
+    """ZeRO-3 style: all-gather every tensor on its ``axis_name``-sharded
+    dim (``params`` and ``specs`` same-keyed dicts, nested or flat)."""
+    if isinstance(params, dict):
+        return {k: gather_params(ctx, v, specs[k], axis_name) for k, v in params.items()}
+    if params is None:
+        return None
+    return gather_on_spec(ctx, params, specs, axis_name)

@@ -1,0 +1,205 @@
+"""Partition rule tables for every (architecture x phase) (port of
+``repro/sharding/specs.py``).
+
+A spec is the port's ``PartitionSpec``: a tuple with one entry per dim,
+each None (whole), an axis name or a tuple of names. Phases:
+
+- ``fsdp`` (train / prefill): every block tensor ZeRO-3-sharded over
+  ``model`` on one divisible dim; MoE expert tensors EP-resident.
+- ``tp`` (decode): column/row tensor-parallel resident weights; tensors
+  whose parallel dim does not divide the mesh (MLA attention, xLSTM)
+  replicate.
+- ``spatial`` (small archs): everything replicated; the flattened (data x
+  model) grid is the FL client grid.
+
+The tables are the JAX package's, keyed by parameter leaf name. The
+ZeRO-3 gather and gradient sync built from them (``make_gather_fn``,
+``make_grad_sync``) come with the temporal placement on a mesh.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+# Archs small enough for spatial (per-chip replica) placement.
+SPATIAL_ARCHS = ("whisper-base", "xlstm-125m", "flsim-cnn", "flsim-mlp",
+                 "flsim-logreg")
+
+
+def placement_for(cfg: ModelConfig) -> str:
+    """"spatial" for the archs of ``SPATIAL_ARCHS``, else "temporal"."""
+    name = cfg.name.removesuffix("-reduced")
+    return "spatial" if name in SPATIAL_ARCHS else "temporal"
+
+
+# name -> dim sharded over `model` (per-layer shapes, no stack dim); None:
+# replicated
+_FSDP_DIM = {
+    # attention (GQA)
+    "wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0,
+    "q_norm": 0, "k_norm": 0,
+    # MLA
+    "wdq": 1, "wuq": 1, "wdkv": 1, "kv_norm": 0, "wukv": 1,
+    # MLP
+    "w1": 1, "w3": 1, "w2": 0, "b1": 0, "b2": 0,
+    # norms
+    "w": 0, "b": 0,
+    # moe (router gathered; experts resident)
+    "router": 1,
+    # mamba
+    "in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "conv_b": 0,
+    "x_proj": 1, "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D_skip": 0,
+    "out_proj": 0,
+    # xlstm
+    "up_proj": 1, "wif": 0, "o_norm": 0, "down_proj": 0,
+    "wx": 1, "rh": 1, "ff1": 1, "ff2": 0,
+}
+
+_TP_DIM = {
+    # attention: column for qkv, row for wo
+    "wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0,
+    "q_norm": None, "k_norm": None,
+    # MLA decode: replicated (absorbed einsums are not head-shardable)
+    "wdq": None, "wuq": None, "wdkv": None, "kv_norm": None, "wukv": None,
+    # MLP
+    "w1": 1, "w3": 1, "w2": 0, "b1": 0, "b2": None,
+    "w": None, "b": None,
+    "router": None,
+    # mamba decode: channels (d_inner) sharded
+    "in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "conv_b": 0,
+    "x_proj": 0, "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D_skip": 0,
+    "out_proj": 0,
+    # xlstm decode: replicated (tiny)
+    "up_proj": None, "wif": None, "o_norm": None, "down_proj": None,
+    "wx": None, "rh": None, "ff1": None, "ff2": None,
+}
+
+# MLA attention weights replicate in tp mode
+_TP_MLA_OVERRIDE = {"wo": None, "wq": None, "wk": None, "wv": None}
+
+_BASE_NDIM = {
+    "wq": 2, "wk": 2, "wv": 2, "wo": 2, "bq": 1, "bk": 1, "bv": 1,
+    "q_norm": 1, "k_norm": 1, "wdq": 2, "wuq": 2, "wdkv": 2,
+    "kv_norm": 1, "wukv": 2, "w1": 2, "w3": 2, "w2": 2, "b1": 1, "b2": 1,
+    "w": 1, "b": 1, "router": 2, "in_proj_x": 2, "in_proj_z": 2,
+    "conv_w": 2, "conv_b": 1, "x_proj": 2, "dt_proj": 2, "dt_bias": 1,
+    "A_log": 2, "D_skip": 1, "out_proj": 2, "up_proj": 2, "wif": 2,
+    "o_norm": 1, "down_proj": 2, "wx": 2, "rh": 2, "ff1": 2, "ff2": 2,
+    "embed": 2, "lm_head": 2,
+}
+
+
+def _moe_expert_spec(cfg: ModelConfig, nstack: int) -> dict:
+    """Expert tensors (stack, E, D, F) / (stack, E, F, D): EP-resident."""
+    lead = (None,) * nstack
+    if cfg.moe.ep_mode == "model":
+        w1 = w2 = lead + ("model", None, None)
+    elif cfg.moe.ep_mode == "subgrid":
+        # packed (E*f_sub, D, F/f_sub) over the flattened grid
+        w1 = w2 = lead + (("data", "model"), None, None)
+    else:  # grid: E over data, F over model
+        w1 = lead + ("data", None, "model")
+        w2 = lead + ("data", "model", None)
+    return {"w1": w1, "w3": w1, "w2": w2}
+
+
+def _base_ndim(keys) -> int:
+    """ndim of the per-layer tensor (no stack dims) for this leaf."""
+    name = keys[-1]
+    if "moe" in keys and name in ("w1", "w3", "w2"):
+        return 3  # (E, D, F)
+    return _BASE_NDIM[name]
+
+
+def _map_shapes(fn, shapes, keys=()):
+    """``fn(keys, shape)`` over the shape tuples of a nested dict."""
+    if isinstance(shapes, dict):
+        return {k: _map_shapes(fn, v, keys + (k,)) for k, v in shapes.items()}
+    return fn(keys, shapes)
+
+
+def param_specs(cfg: ModelConfig, phase: str) -> dict:
+    """A spec tree matching ``transformer.param_shapes(cfg)`` exactly."""
+    shapes = transformer.param_shapes(cfg)
+    if phase == "spatial":
+        return _map_shapes(lambda keys, sh: (), shapes)
+    table = dict(_TP_DIM if phase == "tp" else _FSDP_DIM)
+    if phase == "tp" and cfg.attn_type == "mla":
+        table.update(_TP_MLA_OVERRIDE)
+
+    def assign(keys, shape):
+        name, top = keys[-1], keys[0]
+        # input embedding D-sharded; tied embeddings stay vocab-sharded
+        if name == "embed":
+            return ("model", None) if cfg.tie_embeddings else (None, "model")
+        if name == "lm_head":
+            return (None, "model")
+        if top in ("final_norm", "enc_final_norm"):
+            return (None,)
+        nstack = len(shape) - _base_ndim(keys)
+        if "moe" in keys and name in ("w1", "w3", "w2"):
+            return _moe_expert_spec(cfg, nstack)[name]
+        dim = table.get(name, 0 if len(shape) == 1 else None)
+        if dim is None:
+            return (None,) * len(shape)
+        dim += nstack
+        if shape[dim] % 16 != 0:
+            # replicate where the mesh cannot divide the dim
+            return (None,) * len(shape)
+        spec = [None] * len(shape)
+        spec[dim] = "model"
+        return tuple(spec)
+
+    return _map_shapes(assign, shapes)
+
+
+def _flat(tree, keys=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, keys + (k,))
+    else:
+        yield keys, tree
+
+
+def gather_dim_table(cfg: ModelConfig) -> dict:
+    """(parent, name) -> the per-layer gather dim over ``model`` (the spec's
+    ``model`` position minus the one stack dim a layer loop consumes), or
+    None: never gathered (EP experts, vocab shards, replicated leaves)."""
+    table: dict = {}
+    for keys, spec in _flat(param_specs(cfg, "fsdp")):
+        name = keys[-1]
+        parent = keys[-2] if len(keys) >= 2 else ""
+        if keys[0] in ("embed", "lm_head", "final_norm", "enc_final_norm"):
+            continue
+        if "moe" in keys and name in ("w1", "w3", "w2"):
+            table[(parent, name)] = None
+            continue
+        dim = None
+        for i, entry in enumerate(spec):
+            if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+                dim = i - 1
+                break
+        prev = table.get((parent, name), "missing")
+        assert prev in ("missing", dim), \
+            f"gather-dim conflict for {(parent, name)}: {prev} vs {dim}"
+        table[(parent, name)] = dim
+    return table
+
+
+def batch_specs(cfg: ModelConfig, shape_kind: str, global_batch: int, mesh_axes) -> tuple:
+    """The spec of the leading batch dim: over (pod, data) where they
+    divide it; a spatial arch's train batch over the (data, model) client
+    grid. ``mesh_axes``: (name, size) pairs."""
+    axes, n = [], 1
+    sizes = dict(mesh_axes)
+    if placement_for(cfg) == "spatial" and shape_kind == "train":
+        want = ["data", "model"]
+    else:
+        want = ["pod", "data"]
+    for a in want:
+        if a in sizes and global_batch % (n * sizes[a]) == 0:
+            axes.append(a)
+            n *= sizes[a]
+    if not axes:
+        return (None,)
+    return (axes[0] if len(axes) == 1 else tuple(axes),)   # a 1-tuple is its name

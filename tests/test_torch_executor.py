@@ -336,7 +336,9 @@ def test_port_imports_neither_jax_nor_repro():
         "assert len(mods) > 15, mods\n"
         "assert {'repro_torch.models.ssm', 'repro_torch.configs.whisper_base',"
         " 'repro_torch.configs.xlstm_125m',"
-        " 'repro_torch.configs.jamba_1_5_large_398b'} <= set(mods), mods\n"
+        " 'repro_torch.configs.jamba_1_5_large_398b', 'repro_torch.sharding.axes',"
+        " 'repro_torch.sharding.specs', 'repro_torch.launch.mesh',"
+        " 'repro_torch.launch.steps'} <= set(mods), mods\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "print(len(mods), bad)\n"
