@@ -213,7 +213,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    process, the halving plan's drops the same as at 0. B1 at the block's
    (2, 100, 189,952) and B2/B3 at the LM steps' shapes against their plain
    versions, timed beside the bound and the PyTorch call.
-15. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+15. the temporal placement on a mesh (slice 15) — a world-1 rank over NCCL
+   on a (1, 1) ``("data", "model")`` mesh, yi-34b at published width in
+   bf16 (weights drawn on the card): ``launch.steps.make_train_step``'s
+   temporal step (4 of 60 layers, one FedAvg round of one local step of 2
+   x 2,048 tokens over the whole vocab; per-layer ZeRO-3 gathers inside
+   each layer's checkpoint, the sequence-sharded attention, the exact
+   sharded embedding and loss, the gradient sync) bitwise the meshless
+   ``build_temporal_round`` (loss and every new param; B2 and B3 counted:
+   each layer's forward and recompute); ``make_prefill_step`` and 16
+   ``make_decode_step`` steps with ``greedy_token`` (8 of 60 layers, batch
+   8, prompt 2,048; B4 at ``combine=False`` then the shards' log-sum-exp
+   combine) bitwise meshless ``Model.prefill``/``decode_step`` (every
+   logits tensor, the tokens, the caches; B2-B4 counted). Then B2, B3 and
+   B4 at every shape those runs launched, and, kernel-level, at one rank's
+   shapes on a 4-rank model axis (B3 over 512 of 2,048 rows at q_offset 0
+   and 1,536; B4 over a 512-key shard at lengths 0, 1, 300, 512), against
+   their plain versions, timed beside the bound, the plain version and
+   SDPA (the same mask) / ``F.rms_norm``.
+16. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -225,7 +243,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-16. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+17. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -4355,60 +4373,16 @@ def time_mesh_kernels(torch, flush, by_shape):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
     rows = {}
     for i, key in enumerate(sorted(by_shape.get("flash_attention", {}))):
-        B, Sq, Sk, H, KV, Dk, Dv, causal = key
-        q = _randn(torch, (B, Sq, H, Dk), bf16, 1400 + 3 * i, dev)
-        k = _randn(torch, (B, Sk, KV, Dk), bf16, 1401 + 3 * i, dev)
-        v = _randn(torch, (B, Sk, KV, Dv), bf16, 1402 + 3 * i, dev)
-        off = Sk - Sq if causal else 0
-        out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
-        want, want_lse = fa.plain(q, k, v, off, causal)
-        err = close(torch, f"mesh flash {key}", out, want, ATTN_TOL["bfloat16"])
-        close(torch, f"mesh flash {key} lse", lse, want_lse, ATTN_TOL["bfloat16"])
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-        def sdpa(q, k, v, causal=causal, gqa=H != KV):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                  enable_gqa=gqa)
-        pairs = Sq * (Sq + 1) // 2 + Sq * off if causal else Sq * Sk
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
-        flops = 2 * B * H * pairs * (Dk + Dv)
-        fn = (lambda q, k, v, off=off, causal=causal:
-              fa.flash_attention_fwd(q, k, v, off, causal))
-        r = {"shape": list(key[:-1]), "causal": causal,
-             "kernel": fa.launch_plan(bf16, Dk, Dv).kernel, "max_abs_err": err,
-             "library_max_abs_err": close(torch, f"mesh sdpa {key}",
-                                          sdpa(q, k, v).transpose(1, 2), out, YARDSTICK_TOL),
-             "kernel_ms": time_device(fn, (q, k, v), 50, flush),
-             "plain_ms": time_device(lambda q, k, v, off=off, causal=causal:
-                                     fa.plain(q, k, v, off, causal), (q, k, v), 5, flush,
-                                     batch=5),
-             "library_ms": time_device(sdpa, (q, k, v), 50, flush),
-             "bytes": nbytes, "flops": flops}
-        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        r = _time_flash_row(torch, F, fa, flush, key, key[2] - key[1] if key[-1] else 0,
+                            1400 + 3 * i, "mesh")
         log(f"kernel flash_attention mesh {shape_name(key)}", json.dumps(r))
         rows[("flash_attention", key)] = r
-        del q, k, v, qt, kt, vt, out, lse, want, want_lse
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, key in enumerate(sorted(by_shape.get("rmsnorm", {}))):
-        R, D = key
-        w = _randn(torch, (D,), bf16, 1450 + i, dev)
-        x = _randn(torch, (R, D), bf16, 1460 + i, dev)
-        lib = (lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6))
-        r = {"shape": [R, D], "plan": rms.launch_plan(R, D, bf16, sm)._asdict(),
-             "max_abs_err": close(torch, f"mesh rmsnorm {key}", rms.rmsnorm(x, w),
-                                  rms.plain(x, w), RMS_TOL["bfloat16"]),
-             "library_max_abs_err": close(torch, f"mesh F.rms_norm {key}", lib(x, w),
-                                          rms.rmsnorm(x, w), YARDSTICK_TOL),
-             "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush),
-             "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
-             "library_ms": time_device(lib, (x, w), 100, flush)}
-        r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S)
+        r = _time_rms_row(torch, F, rms, flush, key, 1450 + 10 * i, "mesh")
         log(f"kernel rmsnorm mesh {shape_name(key)}", json.dumps(r))
         rows[("rmsnorm", key)] = r
-        del x
     torch.cuda.empty_cache()
     return rows
 
@@ -4554,6 +4528,394 @@ def _mesh_lanes_here(torch, load_job, ranks, base, sweep_lane_losses):
 def _sweep_fls(job):
     from repro_torch.core import sweeps
     return sweeps.expand(job.fl, job.sweep)
+
+
+# phase 15 (slice 15): the temporal placement on a (1, 1) NCCL mesh, yi-34b at
+# published width: one FedAvg round of one local step, a prefill and decode
+# steps, each against its meshless twin, bitwise
+MESH_TRAIN = {"arch": "yi-34b", "n_layers": 4, "batch": 2, "seq": 2048, "seed": 150}
+MESH_SERVE = {"arch": "yi-34b", "n_layers": 8, "batch": 8, "prompt_len": 2048,
+              "max_new": 16, "seed": 151}
+# what one rank of a 4-rank model axis launches (kernel-level, 0 launches on
+# the card's world-1 path): B3 over its 512 rows of the training sequence at
+# ranks 0 and 3, B4 over a 512-key cache shard
+MESH_SHARD_FLASH = {"rank0": 0, "rank3": 1536}        # q_offset at B 2, Sq 512, Sk 2048
+MESH_SHARD_DECODE = {"S_loc": 512, "lengths": (0, 1, 300, 512)}
+
+
+def _serve_run(torch, prefill, decode, greedy_first, greedy, B, S, new):
+    """A prefill, the caches grown by ``new`` zero slots, then ``new``
+    decode steps with greedy tokens -> (every logits tensor, the tokens
+    (B, new + 1), the final caches, prefill s, decode ms per step)."""
+    from repro_torch.models.transformer import pad_caches
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, logits = prefill()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = pad_caches(caches, new)
+        length = torch.full((B,), S, dtype=torch.int32, device=logits.device)
+        tok = greedy_first(logits)
+        all_logits, toks, step_ms = [logits], [tok], []
+        for _ in range(new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(tok, caches, length)
+            tok = greedy(logits)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            all_logits.append(logits)
+            toks.append(tok)
+            length = length + 1
+    return all_logits, torch.stack(toks, dim=1), caches, prefill_s, step_ms
+
+
+def mesh_temporal_rank(rank, world):
+    """Phase 15's world-1 rank (``launch.mesh.spawn(..., 1, "cuda")``): on a
+    (1, 1) ``("data", "model")`` NCCL mesh, yi-34b at published width in
+    bf16, weights drawn on the card from a seed:
+
+    - ``make_train_step``'s temporal step (MESH_TRAIN: 4 of 60 layers, one
+      FedAvg round of one local step of 2 x 2,048 tokens over the whole
+      vocab): loss and new params bitwise the meshless
+      ``build_temporal_round`` on the same inputs; B2 and B3 counted
+      (each layer's forward and recompute, the final norm once);
+    - ``make_prefill_step`` then 16 ``make_decode_step`` steps with
+      ``greedy_token`` (MESH_SERVE: 8 of 60 layers, batch 8, prompt 2,048,
+      cache 2,064): every logits tensor, the tokens and the final caches
+      bitwise meshless ``Model.prefill`` / ``decode_step``; B2-B4 counted.
+
+    Counts zeroed just before each mesh run, read just after; the meshless
+    twins run first (they pay the process's first uses). Returns the
+    results (raises on a failed check)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
+    from repro_torch.core.rounds import build_temporal_round
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          make_train_step, mesh_ctx)
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import FlatModel, flatten_params
+    from repro_torch.runtime.device import resolve_device
+
+    dev = resolve_device("cuda")
+    kernels = _counted_kernels()
+    mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+    # NCCL sets a group's communicator up at its first collective: each
+    # group the steps use, once, before anything is timed
+    ctx = mesh_ctx(mesh)
+    t0 = time.perf_counter()
+    for name in ("data", "model", ("data", "model")):
+        ctx.psum(torch.zeros(1, device=dev), name)
+    torch.cuda.synchronize()
+    out = {"backend": str(dist.get_backend_config()), "world": world,
+           "nccl_first_use_s": time.perf_counter() - t0}
+    # the temporal train step
+    T = MESH_TRAIN
+    cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
+    B, S, L = T["batch"], T["seq"], T["n_layers"]
+    fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
+    built = make_train_step(cfg, ShapeConfig("mesh_train", S, B, "train"), mesh, fl)
+    model = model_zoo.build(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(T["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = {"params": flatten_params(model.init(g, dtype=torch.bfloat16)), "server": (),
+             "clients": ()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1, 1, B, S), generator=g, device=dev)
+    batch = {"tokens": tokens[0], "labels": tokens[1]}
+    weights = torch.ones(1, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state["params"].values())
+    plain_fn = build_temporal_round(FlatModel(model), get_strategy(fl), fl)
+    t0 = time.perf_counter()
+    want, wmet = plain_fn(state, batch, weights, 0)
+    want_loss = wmet["loss"].item()
+    meshless_s = time.perf_counter() - t0
+    # this rank's shards (the whole arrays at world 1), through the step's specs
+    shards = built.shard((state, batch, weights, torch.zeros((), dtype=torch.int64)), dev)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    new, met = built.fn(*shards)
+    loss = met["loss"].item()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    by_shape = {k: dict(fn.launches_by_shape) for k, fn in kernels.items()}
+    flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if loss != want_loss or not _same(torch, new["params"], want["params"]) \
+            or not math.isfinite(loss):
+        raise AssertionError(f"mesh temporal step: loss {loss} vs meshless {want_loss}, "
+                             f"params bitwise {_same(torch, new['params'], want['params'])}")
+    want_launches = dict(train_launches({"norms_per_layer": 2}, L, 1), quant_aggregate=0)
+    if launches != want_launches or flash_by_kernel != {"wgmma": 2 * L, "tf32x3": 0}:
+        raise AssertionError(f"mesh temporal step launches {launches} (want "
+                             f"{want_launches}), flash by kernel {flash_by_kernel}")
+    moved = sum(not torch.equal(new["params"][k], state["params"][k]) for k in state["params"])
+    del new, want
+    # both once more, warm (the meshless twin's first call paid the process's
+    # first uses), uncounted
+    warm = {}
+    for name, fn, args in (("meshless", plain_fn, (state, batch, weights, 0)),
+                           ("mesh", built.fn, shards)):
+        t0 = time.perf_counter()
+        res, m = fn(*args)
+        m["loss"].item()
+        warm[name] = time.perf_counter() - t0
+        del res, m
+    out["train"] = {"arch": cfg.name, "n_layers": L, "batch": B, "seq": S,
+                    "params": n_params, "init_s": init_s, "loss": loss,
+                    "step_s": step_s, "meshless_step_s": meshless_s,
+                    "warm_step_s": warm["mesh"], "meshless_warm_step_s": warm["meshless"],
+                    "tokens_per_s": B * S / step_s, "peak_mem_gb": peak,
+                    "bitwise_meshless": True, "leaves_moved": moved,
+                    "leaves": len(state["params"]), "launches": launches,
+                    "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+    log("mesh temporal train step", json.dumps(out["train"]))
+    out["train"]["by_shape_raw"] = by_shape
+    del built, state, batch, tokens, shards, model, plain_fn
+    torch.cuda.empty_cache()
+    # the serve steps
+    V = MESH_SERVE
+    cfg = get_config(V["arch"]).replace(n_layers=V["n_layers"])
+    B, S, new_tok, L = V["batch"], V["prompt_len"], V["max_new"], V["n_layers"]
+    model = model_zoo.build(cfg)
+    g.manual_seed(V["seed"])
+    params = model.init(g, dtype=torch.bfloat16)
+    flat = flatten_params(params)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    pre = make_prefill_step(cfg, ShapeConfig("mesh_prefill", S, B, "prefill"), mesh)
+    dec = make_decode_step(cfg, ShapeConfig("mesh_decode", S + new_tok, B, "decode"), mesh)
+    pflat, pbatch = pre.shard((flat, {"tokens": prompts, "labels": prompts}), dev)
+    dflat = flat                  # the tp shards at world 1: every leaf whole
+    plain = _serve_run(
+        torch, lambda: model.prefill(params, {"tokens": prompts})[:2],
+        lambda t, c, ln: model.decode_step(params, t, c, ln), model.greedy_token,
+        model.greedy_token, B, S, new_tok)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    mesh_run = _serve_run(
+        torch, lambda: pre.fn(pflat, pbatch), lambda t, c, ln: dec.fn(dflat, t, c, ln),
+        model.greedy_token, lambda lg: model.greedy_token(lg, ctx=dec.ctx), B, S, new_tok)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    by_shape = {k: dict(fn.launches_by_shape) for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same_logits = all(torch.equal(a, b) for a, b in zip(mesh_run[0], plain[0]))
+    same_caches = _same(torch, list(mesh_run[2]), list(plain[2]))
+    if not (same_logits and torch.equal(mesh_run[1], plain[1]) and same_caches):
+        raise AssertionError(f"mesh serve: logits bitwise {same_logits}, tokens "
+                             f"{torch.equal(mesh_run[1], plain[1])}, caches {same_caches}")
+    if not all(torch.isfinite(t).all() for t in mesh_run[0]) or \
+            mesh_run[0][0].shape != (B, cfg.padded_vocab) or \
+            mesh_run[0][1].shape != (B, cfg.padded_vocab):
+        raise AssertionError("mesh serve: logits not finite or not (B, V)")
+    want_launches = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new_tok),
+                     "flash_attention": L, "decode_attention": L * new_tok}
+    if launches != want_launches:
+        raise AssertionError(f"mesh serve launches {launches}, want {want_launches}")
+    out["serve"] = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S,
+                    "decode_steps": new_tok, "cache_len": S + new_tok,
+                    "prefill_s": mesh_run[3], "meshless_prefill_s": plain[3],
+                    "decode_step_ms": sorted(mesh_run[4])[new_tok // 2],
+                    "meshless_decode_step_ms": sorted(plain[4])[new_tok // 2],
+                    "peak_mem_gb": peak, "bitwise_meshless": True,
+                    "tokens_head": mesh_run[1][0, :8].tolist(), "launches": launches,
+                    "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+    log("mesh temporal serve", json.dumps(out["serve"]))
+    out["serve"]["by_shape_raw"] = by_shape
+    del params, flat, pflat, dflat, plain, mesh_run, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_flash_row(torch, F, fa, flush, key, off, seed, label):
+    """B3 at ``key`` = (B, Sq, Sk, H, KV, Dk, Dv, causal) with ``q_offset``
+    ``off`` (bf16): against its plain version, timed beside it, SDPA with
+    the same mask and the bound (the keys the causal mask reaches read
+    once)."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, Sq, Sk, H, KV, Dk, Dv, causal = key
+    q = _randn(torch, (B, Sq, H, Dk), bf16, seed, dev)
+    k = _randn(torch, (B, Sk, KV, Dk), bf16, seed + 1, dev)
+    v = _randn(torch, (B, Sk, KV, Dv), bf16, seed + 2, dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
+    want, want_lse = fa.plain(q, k, v, off, causal)
+    err = close(torch, f"{label} flash {key} q_offset {off}", out, want, ATTN_TOL["bfloat16"])
+    close(torch, f"{label} flash {key} q_offset {off} lse", lse, want_lse,
+          ATTN_TOL["bfloat16"])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if causal and (Sq != Sk or off):
+        mask = (torch.arange(Sk, device=dev)[None, :]
+                <= off + torch.arange(Sq, device=dev)[:, None])
+
+    def sdpa(q, k, v):
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=H != KV)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=H != KV)
+    keys = min(Sk, off + Sq) if causal else Sk
+    pairs = Sq * (Sq + 1) // 2 + Sq * off if causal else Sq * Sk
+    nbytes = (q.numel() + out.numel() + B * keys * KV * (Dk + Dv)) * 2 + lse.numel() * 4
+    flops = 2 * B * H * pairs * (Dk + Dv)
+    r = {"shape": list(key[:-1]), "causal": causal, "q_offset": off,
+         "kernel": fa.launch_plan(bf16, Dk, Dv).kernel, "max_abs_err": err,
+         "library_max_abs_err": close(torch, f"{label} sdpa {key} {off}",
+                                      sdpa(q, k, v).transpose(1, 2), out, YARDSTICK_TOL),
+         "kernel_ms": time_device(lambda q, k, v: fa.flash_attention_fwd(q, k, v, off, causal),
+                                  (q, k, v), 50, flush),
+         "plain_ms": time_device(lambda q, k, v: fa.plain(q, k, v, off, causal), (q, k, v), 5,
+                                 flush, batch=5),
+         "library_ms": time_device(sdpa, (q, k, v), 50, flush),
+         "bytes": nbytes, "flops": flops}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return r
+
+
+def _time_decode_row(torch, F, da, flush, key, lengths, seed):
+    """B4 at ``key`` = (B, S, H, KV, Dk, Dv), ``combine=False`` as the mesh
+    decode calls it, at per-row ``lengths``: (o, m, l) against its plain
+    version (a row of length 0: exactly m = -1e30, l = 0, o = 0, no NaN),
+    timed beside it, SDPA with the same length mask (rows of length 0 left
+    out of its check) and the bound (the keys up to each row's length)."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, Sc, H, KV, Dk, Dv = key
+    q = _randn(torch, (B, H, Dk), bf16, seed, dev)
+    k = _randn(torch, (B, Sc, KV, Dk), bf16, seed + 1, dev)
+    v = _randn(torch, (B, Sc, KV, Dv), bf16, seed + 2, dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    o, m, l = da.decode_attention_fwd(q, k, v, length)
+    po, pm, pl = da.plain(q, k, v, length)
+    ok = length > 0
+    if not (torch.isfinite(o).all() and (m[~ok] == -1e30).all() and (l[~ok] == 0).all()
+            and (o[~ok] == 0).all()):
+        raise AssertionError(f"mesh temporal decode {key}: a length-0 row is not "
+                             "m=-1e30, l=0, o=0, or an output is not finite")
+    tol = ATTN_TOL["bfloat16"]
+    err = close(torch, f"mesh temporal decode {key}", o[ok] / l[ok][..., None],
+                po[ok] / pl[ok][..., None], tol)
+    close(torch, f"mesh temporal decode {key} m", m[ok], pm[ok], tol)
+    close(torch, f"mesh temporal decode {key} l", l[ok], pl[ok], tol)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(Sc, device=dev)[None, :] < length[:, None])[:, None, None, :]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
+                                              enable_gqa=H != KV)[:, :, 0]
+    keys = int(length.clamp(0, Sc).sum())
+    nbytes = keys * KV * (Dk + Dv) * 2 + q.numel() * 2 + (o.numel() + 2 * m.numel() + B) * 4
+    flops = 2 * keys * H * (Dk + Dv)
+    r = {"shape": list(key), "lengths": list(lengths), "combine": False, "max_abs_err": err,
+         "library_max_abs_err": close(torch, f"mesh temporal sdpa decode {key}",
+                                      sdpa(q, k, v)[ok], (o / l[..., None])[ok],
+                                      YARDSTICK_TOL),
+         "kernel_ms": time_device(lambda q, k, v: da.decode_attention_fwd(q, k, v, length),
+                                  (q, k, v), 200, flush),
+         "plain_ms": time_device(lambda q, k, v: da.plain(q, k, v, length), (q, k, v), 20,
+                                 flush, batch=20),
+         "library_ms": time_device(sdpa, (q, k, v), 200, flush),
+         "bytes": nbytes, "flops": flops}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return r
+
+
+def _time_rms_row(torch, F, rms, flush, key, seed, label):
+    """B2 at ``key`` = (rows, D) in bf16: against its plain version, timed
+    beside it, ``F.rms_norm`` and the bound."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    R, D = key
+    w = _randn(torch, (D,), bf16, seed, dev)
+    x = _randn(torch, (R, D), bf16, seed + 1, dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = (lambda x, w: F.rms_norm(x, (D,), w, 1e-6))
+    r = {"shape": [R, D], "plan": rms.launch_plan(R, D, bf16, sm)._asdict(),
+         "max_abs_err": close(torch, f"{label} rmsnorm {key}", rms.rmsnorm(x, w),
+                              rms.plain(x, w), RMS_TOL["bfloat16"]),
+         "library_max_abs_err": close(torch, f"{label} F.rms_norm {key}", lib(x, w),
+                                      rms.rmsnorm(x, w), YARDSTICK_TOL),
+         "kernel_ms": time_device(rms.rmsnorm, (x, w), 100, flush),
+         "plain_ms": time_device(rms.plain, (x, w), 20, flush, batch=10),
+         "library_ms": time_device(lib, (x, w), 100, flush)}
+    r["bound_ms"], r["bound_by"] = bound(2 * R * D * 2 + D * 2, 4 * R * D, F32_FLOPS_PER_S)
+    return r
+
+
+def time_mesh_temporal_kernels(torch, flush, by_path):
+    """B2, B3 and B4 at every shape phase 15's counted runs launched
+    (``by_path``: {path: {kernel: {shape: launches}}}), and, kernel-level,
+    at one rank's shapes on a 4-rank model axis (MESH_SHARD_FLASH,
+    MESH_SHARD_DECODE). Returns {(kernel, tag): row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    rows, seed = {}, 1500
+    shapes = {}
+    for counts in by_path.values():
+        for fn, c in counts.items():
+            shapes.setdefault(fn, set()).update(c)
+    for key in sorted(shapes.get("flash_attention", ())):
+        rows[("flash_attention", shape_name(key))] = _time_flash_row(
+            torch, F, fa, flush, key, key[2] - key[1], seed, "mesh temporal")
+        seed += 10
+    for key in sorted(shapes.get("rmsnorm", ())):
+        rows[("rmsnorm", shape_name(key))] = _time_rms_row(torch, F, rms, flush, key, seed,
+                                                           "mesh temporal")
+        seed += 10
+    S, new = MESH_SERVE["prompt_len"], MESH_SERVE["max_new"]
+    for key in sorted(shapes.get("decode_attention", ())):
+        # the cache as the decode steps see it half way: prompt + new / 2
+        rows[("decode_attention", shape_name(key))] = _time_decode_row(
+            torch, F, da, flush, key, (S + new // 2,) * key[0], seed)
+        seed += 10
+    from repro_torch.configs.base import get_config
+    T, V = MESH_TRAIN, MESH_SERVE
+    cfg = get_config(T["arch"])
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    for tag, off in MESH_SHARD_FLASH.items():
+        key = (T["batch"], T["seq"] // 4, T["seq"], H, KV, HD, HD, True)
+        rows[("flash_attention", f"shard_{tag}")] = _time_flash_row(torch, F, fa, flush, key,
+                                                                    off, seed, "mesh temporal")
+        seed += 10
+    lengths = MESH_SHARD_DECODE["lengths"] * (V["batch"] // len(MESH_SHARD_DECODE["lengths"]))
+    key = (V["batch"], MESH_SHARD_DECODE["S_loc"], H, KV, HD, HD)
+    rows[("decode_attention", "shard")] = _time_decode_row(torch, F, da, flush, key, lengths,
+                                                           seed)
+    for (fn, tag), r in rows.items():
+        log(f"kernel {fn} mesh temporal {tag}", json.dumps(r))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_temporal(torch):
+    """Slice 15: the temporal placement on the card. A world-1 NCCL rank
+    (``mesh_temporal_rank``) drives the temporal train step and the
+    prefill and decode steps of yi-34b at published width, each bitwise
+    its meshless twin; then B2, B3 and B4 at every shape those runs
+    launched and at one rank's shapes on a 4-rank model axis, against their
+    plain versions, timed. Returns the phase's summary."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w1 = spawn(mesh_temporal_rank, 1, "cuda")[0]
+    rank_s = time.perf_counter() - t0
+    by_path = {path: {fn: c for fn, c in w1[path]["by_shape_raw"].items() if c}
+               for path in ("train", "serve")}
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    rows = time_mesh_temporal_kernels(torch, flush, by_path)
+    del flush
+    out = {"phase_s": time.perf_counter() - t0, "rank_s": rank_s,
+           "train": {k: v for k, v in w1["train"].items() if k != "by_shape_raw"},
+           "serve": {k: v for k, v in w1["serve"].items() if k != "by_shape_raw"},
+           "by_path": by_path, "kernel_rows": rows}
+    log(f"mesh temporal phase: {out['phase_s']:.1f}s (world-1 rank {rank_s:.1f}s)")
+    return out
 
 
 def attention_layers(cfg) -> int:
@@ -4778,11 +5140,17 @@ def main() -> int:
     # counted path, read just after (in the ranks)
     mesh = phase_mesh(torch, qa, load_job, campaigns["sweep"])
 
-    # 15. serve path; counts zeroed just before it, read just after
+    # 15. the temporal placement on a mesh (slice 15): a world-1 NCCL rank's
+    # temporal train step and prefill and decode steps of yi-34b at published
+    # width against their meshless twins, bitwise; counts zeroed just before
+    # each mesh run, read just after (in the rank)
+    mesh_temporal = phase_mesh_temporal(torch)
+
+    # 16. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 16. summary
+    # 17. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -5122,6 +5490,45 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
+    # slice 15: B2, B3 and B4 at every shape the temporal mesh runs launched
+    # (a world-1 NCCL rank), and kernel-level at one rank's shapes on a
+    # 4-rank model axis
+    mt = mesh_temporal
+    sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:11"),
+               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:29")}
+    paths = {"train": f"the temporal train step on a (1, 1) NCCL mesh: yi-34b at published "
+                      f"width, {MESH_TRAIN['n_layers']} layers, one local step of "
+                      f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} (forward and recompute)",
+             "serve": f"the prefill step and {MESH_SERVE['max_new']} decode steps on a (1, 1) "
+                      f"NCCL mesh: yi-34b at published width, {MESH_SERVE['n_layers']} "
+                      f"layers, batch {MESH_SERVE['batch']}"}
+    rows15 = [(path, fn, shape_name(key), n, paths[path])
+              for path, counts in mt["by_path"].items()
+              for fn in sorted(counts) for key, n in sorted(counts[fn].items())]
+    rows15 += [(None, "flash_attention", f"shard_{tag}", 0,
+                f"kernel-level only: rank {tag[-1]} of a 4-rank model axis, its "
+                f"{MESH_TRAIN['seq'] // 4} rows of the training sequence at q_offset {off}")
+               for tag, off in MESH_SHARD_FLASH.items()]
+    rows15.append((None, "decode_attention", "shard", 0,
+                   f"kernel-level only: combine=False over one rank's {MESH_SHARD_DECODE['S_loc']}"
+                   f"-key cache shard of a 4-rank model axis, row lengths "
+                   f"{list(MESH_SHARD_DECODE['lengths'])}"))
+    for path, fn, tag, launches, where in rows15:
+        r = mt["kernel_rows"][(fn, tag)]
+        flash = fn == "flash_attention"
+        source, replaces = ((("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                              if r["kernel"] == "wgmma" else
+                              "src/repro_torch/csrc/flash_attention.cu"), flash_src)
+                            if flash else sources[fn])
+        entries.append({
+            "name": f"{fn}_{r['kernel'] + '_' if flash else ''}mesh_temporal_"
+                    f"{path + '_' if path else ''}{tag.replace(' ', '_')}",
+            "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_path": where, "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
+            **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -5300,6 +5707,19 @@ def main() -> int:
                         f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
                         for (fn, key), r in mesh["kernel_rows"].items()}}))
+    log(json.dumps({"slice": "15: the temporal placement on a device mesh for dense GQA "
+                    "(differentiable collectives, ZeRO-3 gathers, sequence-sharded attention, "
+                    "an exact sharded embedding and loss, the mesh train, prefill and decode "
+                    "steps): yi-34b at published width on a (1, 1) NCCL mesh, bitwise its "
+                    "meshless twins",
+                    "card": smi, **{k: v for k, v in mesh_temporal.items()
+                                    if k not in ("kernel_rows", "by_path")},
+                    "launches_by_shape": {p: {fn: named(v) for fn, v in c.items()}
+                                          for p, c in mesh_temporal["by_path"].items()},
+                    "kernel_rows": {f"{fn} {tag}": {
+                        f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                        for (fn, tag), r in mesh_temporal["kernel_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -59,9 +59,14 @@ mesh holds ``C_loc`` clients, numbered from its place in the flattened
 grid (``_grid_below``), trains them as above and reduces by the
 topology's plan over the mesh (``topo.reduce``; in ``packed_aggregate``
 only B1's (N,) numerator and the weight sum cross it); the loss and the probe moments
-are summed or averaged over the grid. The temporal round, the ragged plane
-and campaign lanes stay meshless (a campaign shards its lanes instead:
-``runtime/campaign.py``).
+are summed or averaged over the grid. The temporal round on a mesh
+(``build_temporal_round(..., ctx=)``, dense GQA LMs): each rank holds its
+ZeRO-3 shard of every param and its shard of each client's batch; the
+client's loss runs with the per-layer gather (``sharding/specs.
+make_gather_fn``) and its gradient goes through ``make_grad_sync`` before
+the strategy's transform, as in the JAX package's ``shard_map`` round.
+The ragged plane and campaign lanes stay meshless (a campaign shards its
+lanes instead: ``runtime/campaign.py``).
 
 Randomness: the round key ``rng`` gives every client its key
 ``determinism.client_key(rng, c)``, which the strategy hooks receive (DP
@@ -144,7 +149,8 @@ def _zero(dev):
 def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
                 server_state, client_state, batches, rng,
                 pack_deltas: bool = False, per_client_params: bool = False,
-                pack_out: Optional[packing.PackedDelta] = None):
+                pack_out: Optional[packing.PackedDelta] = None,
+                ctx: AxisCtx = SINGLE, gather_fn=None, grad_sync=None):
     """Run E local epochs over ``batches`` for every client at once.
 
     batches: a dict of (C, steps, B, ...) tensors, whatever its keys
@@ -158,7 +164,13 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
     ``vmap(grad_and_value)`` over the clients, or, for one client of a
     model that declares ``autograd_remat`` with shared params, plain
     autograd through the rematerialized loss, its leading client dim of 1
-    dropped around it (see the module docstring)."""
+    dropped around it (see the module docstring).
+
+    On a mesh (``ctx`` with axes; the temporal round's one client): the
+    params and batches are this rank's shards, the loss runs with ``ctx``
+    and ``gather_fn`` (the per-layer ZeRO-3 gather), and each gradient goes
+    through ``grad_sync`` before ``strategy.grad_transform``. Only the
+    autograd path runs there (collectives do not run under ``vmap``)."""
     post = (functools.partial(strategy.postprocess_packed, out=pack_out) if pack_deltas
             else strategy.postprocess)
     n_steps = next(iter(batches.values())).shape[1]
@@ -166,9 +178,15 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
     g_dim = 0 if per_client_params else None
     autograd = (getattr(model, "autograd_remat", False) and not per_client_params
                 and next(iter(batches.values())).shape[0] == 1)
+    loss_fn = model.loss
+    if ctx.grid_axes:
+        if not autograd:
+            raise ValueError("local_train on a mesh trains one client of a model that "
+                             "declares autograd_remat (an LM), with shared params")
+        loss_fn = functools.partial(model.loss, ctx=ctx, gather_fn=gather_fn)
 
     def client_loss(p, g, batch, cstate, key):
-        return strategy.local_loss(model.loss, p, g, batch, cstate, key)
+        return strategy.local_loss(loss_fn, p, g, batch, cstate, key)
 
     grad_fn = grad_and_value(client_loss)
 
@@ -179,7 +197,7 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
             return tree_map(lambda t: t[0], tree)
         p = {k: (v[0] if batched else v).detach().requires_grad_()
              for k, v in params.items()}
-        loss = strategy.local_loss(model.loss, p, global_params, first(batch),
+        loss = strategy.local_loss(loss_fn, p, global_params, first(batch),
                                    first(client_state), rng[0])
         grads = torch.autograd.grad(loss, list(p.values()))
         return {k: g[None] for k, g in zip(p, grads)}, loss.detach()[None]
@@ -192,6 +210,8 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
             in_dims = (0 if batched else None, g_dim, 0, 0, 0)
             grads, loss = vmap(grad_fn, in_dims=in_dims)(
                 params, global_params, batch, client_state, rng)
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         return strategy.grad_transform(grads, client_state, server_state), loss
 
     if fl.local_epochs * n_steps == 1 and not use_mom:
@@ -346,7 +366,7 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
 
 
 def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
-                         probes: bool = False):
+                         probes: bool = False, ctx: AxisCtx = SINGLE):
     """Returns round_fn(state, batch, weights, rng, hyper=None) ->
     (state, {"loss"[, "probes"]}).
 
@@ -357,9 +377,27 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
     int8 path each send is written into its row of one preallocated (C_t,
     N) matrix, reduced by ONE ``ops.quant_aggregate`` launch with the
     normalised weights (C_t == 1: weight 1). ``probes`` as in ``build_spatial_round``
-    (the drift moments accumulate client by client)."""
+    (the drift moments accumulate client by client).
+
+    ``ctx``: the mesh the round runs on, bound here once (``SINGLE``: one
+    device). On a mesh every client uses the whole mesh: this rank holds
+    the ZeRO-3 shard of every param (``state``) and its shard of each
+    client's batch; ``local_train`` gathers per layer and syncs the
+    gradient (``sharding/specs.make_gather_fn``, ``make_grad_sync``); the
+    aggregate is averaged over ``pod`` (the cross-pod tier), and the loss
+    (and each probe) over the whole grid, as in the JAX package. The int8
+    sends and the multi-worker consensus stay meshless."""
     packed = strategy.packs_deltas
     mw = build_aggregator(fl)
+    axes = ctx.grid_axes
+    gather_fn = grad_sync = None
+    if axes:
+        from repro_torch.sharding import specs
+        if packed or mw is not None:
+            raise ValueError("the temporal round on a mesh sends f32 deltas to one "
+                             "server: int8 sends and multi-worker consensus run meshless")
+        gather_fn = specs.make_gather_fn(model.cfg, ctx)
+        grad_sync = specs.make_grad_sync(model.cfg, ctx)
 
     def round_fn(state, batch, weights, rng, hyper=None):
         fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
@@ -373,7 +411,8 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             delta, _, loss = local_train(model, strategy_h, fl_h, params,
                                          server_state, (), cbatch, key,
                                          pack_deltas=pack_out is not None,
-                                         pack_out=pack_out)
+                                         pack_out=pack_out, ctx=ctx, gather_fn=gather_fn,
+                                         grad_sync=grad_sync)
             return delta, loss[0]
 
         pr = {"sat_frac": _zero(dev), "ef_residual_norm": _zero(dev),
@@ -431,6 +470,9 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             if probes:
                 pr["drift_norm"] = torch.sqrt(torch.clamp(
                     msq - probelib.tree_sq_norm(agg), min=0.0))
+        if ctx.pod is not None:
+            # the cross-pod tier: the pods' aggregates averaged
+            agg = ctx.pmean(agg, ctx.pod)
         if mw is not None:
             agg = mw.run(agg, rng)
         # the f32 accumulator in the params' dtype (bf16 LM params stay bf16),
@@ -438,10 +480,12 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
         agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
         new_params, new_server = strategy_h.server_update(params, agg,
                                                           server_state)
-        metrics = {"loss": loss}
+        metrics = {"loss": ctx.pmean(loss, axes) if axes else loss}
         if probes:
             pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params))
             pr["nonfinite"] = probelib.norm_nonfinite(pr["update_norm"])
+            if axes:
+                pr = {k: ctx.pmean(v, axes) for k, v in pr.items()}
             metrics["probes"] = pr
         return ({"params": new_params, "server": new_server,
                  "clients": state.get("clients", ())}, metrics)

@@ -7,14 +7,26 @@ per-rank function and its inputs' global shapes, dtypes and specs
 (``InputSpec``), and ``materialize`` builds each rank's shards from one
 numpy draw of the global arrays.
 
-Built here: the spatial train step (``make_train_step`` for a spatial
-arch, ``sharding/specs.SPATIAL_ARCHS``): each point of the ``(data,
-model)`` grid holds ``n_clients = data x model`` clients' share of the
-batch, lead ``(n_clients, 1, B // n_clients)``, params and server state
-replicated, the round ``core/rounds.build_spatial_round`` bound to the
-mesh. With one client a rank, an LM client takes ``local_train``'s
-rematerialized autograd path. The temporal step (ZeRO-3 and sequence
-sharding, ROADMAP A16.2) and the serve steps (A16.2, A16.3) raise.
+- The spatial train step (``make_train_step`` for a spatial arch,
+  ``sharding/specs.SPATIAL_ARCHS``): each point of the ``(data, model)``
+  grid holds ``n_clients = data x model`` clients' share of the batch,
+  lead ``(n_clients, 1, B // n_clients)``, params and server state
+  replicated, the round ``core/rounds.build_spatial_round`` bound to the
+  mesh.
+- The temporal train step (the other archs): one client of the whole
+  mesh, lead ``(1, 1)``; params (and server state shaped like them)
+  ZeRO-3-sharded over ``model`` (``fsdp``), the batch over ``(pod,
+  data)`` and the sequence over ``model`` (``layout="dp2d"``: the batch
+  over ``model`` too, whole sequences); ``core/rounds.build_temporal_round``
+  bound to the mesh.
+- ``make_prefill_step``: ``fsdp`` params gathered per layer, the caches
+  out sequence-sharded, the last position's logits over the whole vocab.
+- ``make_decode_step``: tensor-parallel (``tp``) params, a
+  sequence-sharded cache, the logits ``(B, V_loc)`` of the rank's vocab
+  slice (``Model.greedy_token(..., ctx=)`` takes the global argmax).
+
+On a mesh with a model axis the temporal steps run dense GQA only; MoE,
+MLA, hybrid, ssm and encdec raise (ROADMAP A16.3).
 """
 from __future__ import annotations
 
@@ -24,11 +36,14 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FLConfig, ModelConfig, ShapeConfig
-from repro_torch.core.rounds import build_spatial_round
+from repro_torch.configs.base import FLConfig, ModelConfig, ShapeConfig, get_config
+from repro_torch.core.rounds import build_spatial_round, build_temporal_round
 from repro_torch.core.strategies import get_strategy
 from repro_torch.models import model_zoo
-from repro_torch.models.transformer import FlatModel, flatten_params, param_shapes
+from repro_torch.models.attention import KVCache, LatentCache
+from repro_torch.models.transformer import (FlatModel, flatten_params, param_shapes,
+                                            refuse_model_axis, seq_sharded_in,
+                                            unflatten_params)
 from repro_torch.sharding import specs as sspecs
 from repro_torch.sharding.axes import AxisCtx
 
@@ -45,6 +60,22 @@ def _axis_sizes(mesh):
     return list(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def _batch_axes(sizes: dict, global_batch: int, order=("pod", "data")) -> tuple:
+    """The axes of ``sizes`` (name -> size) in ``order`` that the leading
+    batch dim shards over, each taken while it divides the batch."""
+    axes, n = [], 1
+    for a in order:
+        if a in sizes and global_batch % (n * sizes[a]) == 0:
+            axes.append(a)
+            n *= sizes[a]
+    return tuple(axes)
+
+
+def _entry(axes: tuple):
+    """A spec entry for ``axes``: None, the name, or the tuple."""
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
 class InputSpec(NamedTuple):
     """A step input's global shape, dtype and spec (one entry per dim:
     None, an axis name or a tuple of names)."""
@@ -57,12 +88,18 @@ def _is_spec(x) -> bool:
     return isinstance(x, InputSpec)
 
 
+def _rebuild(tree, parts):
+    """A tuple, list or NamedTuple like ``tree`` holding ``parts``."""
+    parts = list(parts)
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
 def _map(fn, tree):
     if _is_spec(tree) or not isinstance(tree, (dict, tuple, list)):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k]) for k in sorted(tree)}
-    return type(tree)(_map(fn, v) for v in tree)
+    return _rebuild(tree, (_map(fn, v) for v in tree))
 
 
 def _map2(fn, a, b):
@@ -70,7 +107,7 @@ def _map2(fn, a, b):
         return fn(a, b)
     if isinstance(a, dict):
         return {k: _map2(fn, a[k], b[k]) for k in sorted(a)}
-    return type(a)(_map2(fn, x, y) for x, y in zip(a, b))
+    return _rebuild(a, (_map2(fn, x, y) for x, y in zip(a, b)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,35 +159,67 @@ def global_arrays(inputs, seed: int = 0):
     return _map(draw, inputs)
 
 
-def _server_specs(strategy, shapes: dict, dtype) -> Any:
-    """The server state's ``InputSpec`` tree (replicated), from the
-    strategy's init over meta tensors shaped like the params."""
+def _server_specs(strategy, shapes: dict, dtype, specs: Optional[dict] = None) -> Any:
+    """The server state's ``InputSpec`` tree, from the strategy's init over
+    meta tensors shaped like the (flat) params: a leaf under a param's key
+    and of its shape sharded as ``specs`` shards that param, every other
+    leaf (and every leaf without ``specs``) replicated."""
     meta = {k: torch.empty(s, dtype=dtype, device="meta") for k, s in shapes.items()}
 
-    def spec(t):
-        return InputSpec(tuple(t.shape), t.dtype, ()) if isinstance(t, torch.Tensor) else t
-    return _map(spec, strategy.server_state_init(meta))
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if not isinstance(t, torch.Tensor):
+            return t
+        sp = ()
+        if specs is not None and key in specs and tuple(t.shape) == tuple(shapes[key]):
+            sp = specs[key]
+        return InputSpec(tuple(t.shape), t.dtype, sp)
+    return walk(strategy.server_state_init(meta))
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
-                    fl: Optional[FLConfig] = None, dtype=torch.bfloat16) -> BuiltStep:
-    """The spatial FL train step of ``cfg`` on ``mesh`` (one round with
-    one local step per client). ``dtype``: the params' and frames'."""
+                    fl: Optional[FLConfig] = None, dtype=torch.bfloat16,
+                    layout: str = "sp") -> BuiltStep:
+    """The FL train step of ``cfg`` on ``mesh`` (one round with one local
+    step per client): the spatial round for a spatial arch, else the
+    temporal one (``layout``: its training layout, ``"sp"`` or ``"dp2d"``,
+    ``transformer.seq_sharded_in``). ``dtype``: the params' and frames'."""
     fl = fl or FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
-    if sspecs.placement_for(cfg) != "spatial":
-        raise ValueError(
-            f"{cfg.name} trains in the temporal placement (ZeRO-3 and sequence "
-            "sharding over the mesh), which comes with ROADMAP A16.2")
-    model = FlatModel(model_zoo.build(cfg))
     strategy = get_strategy(fl)
     ctx = mesh_ctx(mesh)
-    round_fn = build_spatial_round(model, strategy, fl, ctx=ctx)
+    sizes = dict(_axis_sizes(mesh))
+    if sspecs.placement_for(cfg) == "spatial":
+        model = FlatModel(model_zoo.build(cfg))
+        round_fn = build_spatial_round(model, strategy, fl, ctx=ctx)
+        inputs = train_inputs(cfg, shape, sizes, strategy, dtype)
+    else:
+        refuse_model_axis(cfg, ctx)
+        model = FlatModel(dataclasses.replace(model_zoo.build(cfg), layout=layout))
+        round_fn = build_temporal_round(model, strategy, fl, ctx=ctx)
+        inputs = temporal_train_inputs(cfg, shape, sizes, strategy, dtype, layout)
 
     def fn(state, batch, weights, rng):
         return round_fn(state, batch, weights, int(rng))
 
-    inputs = train_inputs(cfg, shape, dict(_axis_sizes(mesh)), strategy, dtype)
     return BuiltStep(fn, inputs, "train", ctx)
+
+
+def temporal_train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
+                          dtype=torch.bfloat16, layout: str = "sp") -> tuple:
+    """The temporal train step's ``(state, batch, weights, rng)``
+    ``InputSpec`` trees on a mesh of axis ``sizes``: params ``fsdp``
+    (``param_structs``) and server state shaped like them sharded as they
+    are, the batch ``batch_struct`` with lead ``(1, 1)``, one client
+    weight and the key replicated."""
+    params = param_structs(cfg, sizes, "fsdp", dtype)
+    shapes = {k: sp.shape for k, sp in params.items()}
+    specs = {k: sp.spec for k, sp in params.items()}
+    state = {"params": params, "server": _server_specs(strategy, shapes, dtype, specs),
+             "clients": ()}
+    batch = batch_struct(cfg, shape, sizes, lead=(1, 1), layout=layout)
+    return (state, batch, InputSpec((1,), torch.float32, (None,)),
+            InputSpec((), torch.int64, ()))
 
 
 def train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
@@ -182,16 +251,140 @@ def train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
     return state, batch, weights, rng
 
 
-def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> BuiltStep:
-    """The prefill step on a mesh: ROADMAP A16.2 (sequence-sharded
-    attention, ZeRO-3 gathers), A16.3 for the sharded MLA, MoE, Mamba and
-    cross-attention halves."""
-    raise ValueError("the prefill step on a device mesh comes with ROADMAP A16.2 "
-                     "(and A16.3 for MLA, MoE, Mamba and the encdec cross decode)")
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, lead: tuple = (),
+                 layout: str = "sp") -> dict:
+    """The token and label (and, for encdec, frame) ``InputSpec``s of one
+    step on a mesh of axis ``sizes``, ``lead`` dims prepended whole. The
+    batch dim over ``(pod, data)`` where they divide it; the sequence over
+    ``model`` where ``transformer.seq_sharded_in`` says so, else (training
+    without it, but for ssm) the batch over ``(data, model, pod)``."""
+    B, S = shape.global_batch, shape.seq_len
+    sharded_seq = seq_sharded_in(cfg, shape.kind, layout)
+    order = (("data", "model", "pod") if shape.kind == "train" and not sharded_seq
+             and cfg.family != "ssm" else ("pod", "data"))
+    baxes = _batch_axes(sizes, B, order)
+    seq = "model" if sharded_seq and "model" in sizes and "model" not in baxes else None
+    pad = (None,) * len(lead)
+
+    def tok(shp, spec, dt=torch.int64):
+        return InputSpec(lead + shp, dt, pad + spec)
+    if cfg.family == "encdec":
+        S_dec = S // cfg.dec_len_ratio
+        return {"frames": tok((B, S, cfg.d_model), (_entry(baxes), seq, None), torch.bfloat16),
+                "tokens": tok((B, S_dec), (_entry(baxes), seq)),
+                "labels": tok((B, S_dec), (_entry(baxes), seq))}
+    return {"tokens": tok((B, S), (_entry(baxes), seq)),
+            "labels": tok((B, S), (_entry(baxes), seq))}
 
 
-def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> BuiltStep:
-    """The decode step on a mesh: ROADMAP A16.2 / A16.3."""
-    raise ValueError("the decode step on a device mesh comes with ROADMAP A16.2 "
-                     "(and A16.3 for MLA, MoE, Mamba and the encdec cross decode)")
+def param_structs(cfg: ModelConfig, sizes: dict, phase: str, dtype=torch.bfloat16) -> dict:
+    """The flat params' ``InputSpec``s (``transformer.flatten_params``
+    keys) with ``sharding/specs.param_specs(cfg, phase)``, on a mesh of
+    axis ``sizes`` (an axis it lacks leaves its dims whole)."""
+    shapes = flatten_params(param_shapes(cfg))
+    specs = flatten_params(sspecs.param_specs(cfg, phase))
 
+    def keep(entry):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        return entry if entry is not None and all(n in sizes for n in names) else None
+    return {k: InputSpec(tuple(shapes[k]), dtype, tuple(keep(e) for e in specs[k]))
+            for k in shapes}
+
+
+def cache_tree(cfg: ModelConfig, shape: ShapeConfig, sizes: dict,
+               dtype=torch.bfloat16):
+    """The decode cache's ``InputSpec`` tree at context length
+    ``shape.seq_len`` for the dense and MoE decoders (the JAX package's
+    ``cache_tree``, which reads the tree off the prefill): a stacked
+    KVCache, (L, B, S, KV, HD) each, or for MLA a LatentCache; the batch
+    over ``(pod, data)``, the sequence over ``model``. The other families'
+    trees come with their mesh halves (ROADMAP A16.3)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the {cfg.family} family's decode cache on a mesh comes with "
+                         "ROADMAP A16.3")
+    L, B, S = cfg.n_layers, shape.global_batch, shape.seq_len
+    lead = (None, _entry(_batch_axes(sizes, B)), "model" if "model" in sizes else None)
+
+    def leaf(*rest):
+        return InputSpec((L, B, S) + rest, dtype, lead + (None,) * len(rest))
+    if cfg.attn_type == "mla":
+        return LatentCache(ckv=leaf(cfg.mla.kv_lora_rank), krope=leaf(cfg.mla.qk_rope_head_dim))
+    HD = cfg.resolved_head_dim
+    return KVCache(k=leaf(cfg.n_kv_heads, HD), v=leaf(cfg.n_kv_heads, HD))
+
+
+def _serve_ctx(cfg: ModelConfig, mesh) -> AxisCtx:
+    """The serve steps' ctx: the mesh's, without the vocab axis for a
+    spatial arch (its embeddings stay whole, as in the JAX package); a
+    model axis refused where A16.2 does not shard the arch."""
+    ctx = mesh_ctx(mesh)
+    refuse_model_axis(cfg, ctx)
+    if sspecs.placement_for(cfg) == "spatial":
+        ctx = dataclasses.replace(ctx, vocab=None)
+    return ctx
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      dtype=torch.bfloat16) -> BuiltStep:
+    """The prefill step on ``mesh``: ``fn(params, batch) -> (caches,
+    logits)``, under ``torch.inference_mode``. Params ``fsdp``, gathered
+    per layer; the batch as ``batch_struct`` shards it; the caches this
+    rank's shard (``cache_tree``'s specs); the logits (B_loc, Vp), the last
+    position's over the whole vocab on every rank."""
+    ctx = _serve_ctx(cfg, mesh)
+    sizes = dict(_axis_sizes(mesh))
+    model = model_zoo.build(cfg)
+    spatial = sspecs.placement_for(cfg) == "spatial"
+    gather = sspecs.make_gather_fn(cfg, ctx)
+
+    def fn(params, batch):
+        with torch.inference_mode():
+            caches, logits, _ = model.prefill(unflatten_params(params), batch, ctx=ctx,
+                                              gather_fn=gather)
+        return caches, logits
+
+    inputs = (param_structs(cfg, sizes, "spatial" if spatial else "fsdp", dtype),
+              batch_struct(cfg, shape, sizes))
+    return BuiltStep(fn, inputs, "prefill", ctx)
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                     dtype=torch.bfloat16) -> BuiltStep:
+    """The decode step on ``mesh``: ``fn(params, tokens, caches, length)
+    -> (logits, caches)``, under ``torch.inference_mode``, the caches
+    written in place. Params ``tp`` (tensor-parallel, resident); tokens
+    and lengths (B,) over ``(pod, data)``; the caches ``cache_tree`` at
+    capacity ``shape.seq_len``, sequence-sharded; the logits (B_loc, V_loc)
+    of the rank's vocab slice."""
+    ctx = _serve_ctx(cfg, mesh)
+    sizes = dict(_axis_sizes(mesh))
+    model = model_zoo.build(cfg)
+    tp = sspecs.placement_for(cfg) == "temporal"
+
+    def fn(params, tokens, caches, length):
+        with torch.inference_mode():
+            return model.decode_step(unflatten_params(params), tokens, caches, length,
+                                     ctx=ctx, tp=tp)
+
+    B = shape.global_batch
+    bspec = (_entry(_batch_axes(sizes, B)),)
+    inputs = (param_structs(cfg, sizes, "tp" if tp else "spatial", dtype),
+              InputSpec((B,), torch.int64, bspec), cache_tree(cfg, shape, sizes, dtype),
+              InputSpec((B,), torch.int32, bspec))
+    return BuiltStep(fn, inputs, "decode", ctx)
+
+
+def make_step_from_cfg(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh,
+                       fl: Optional[FLConfig] = None) -> BuiltStep:
+    """The step of ``shape_cfg.kind``: train, prefill or decode."""
+    if shape_cfg.kind == "train":
+        return make_train_step(cfg, shape_cfg, mesh, fl)
+    if shape_cfg.kind == "prefill":
+        return make_prefill_step(cfg, shape_cfg, mesh)
+    return make_decode_step(cfg, shape_cfg, mesh)
+
+
+def make_step(arch: str, shape_cfg: ShapeConfig, mesh,
+              fl: Optional[FLConfig] = None) -> BuiltStep:
+    """``make_step_from_cfg`` for an arch name."""
+    return make_step_from_cfg(get_config(arch), shape_cfg, mesh, fl)

@@ -1,13 +1,24 @@
 """GQA and MLA attention for train, prefill and decode (port of
 ``repro/models/attention.py``).
 
-Single device: the JAX functions' ``AxisCtx`` is dropped, and with it the
-sequence-sharding offsets, all-gathers and the cross-shard LSE combine
-(with ``AxisCtx()`` they are identities); the tensor-parallel matmul
-helpers (``col_matmul``, ``row_matmul``) wait for the temporal placement
-on a mesh (ROADMAP A16.2). GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and
-qk-norm (chameleon-34b, qwen3-moe-30b-a3b); MLA (minicpm3-4b) keeps a
-latent cache and runs B3 in either of its two forms.
+GQA runs on one device (``ctx=SINGLE``, the default: every collective the
+identity) or on a rank of the temporal placement's mesh
+(``sharding/axes.AxisCtx`` with a ``model`` axis), as the JAX functions do:
+
+- train and prefill (``gqa_seqsharded``): the rank holds ``S_loc`` rows of
+  the sequence at offset ``index(model) * S_loc``; its K and V are
+  all-gathered along the sequence and B3 runs its rows over all of them
+  (``Sq = S_loc``, ``Sk = S``, ``q_offset`` the offset);
+- decode (``gqa_decode``): the cache is sequence-sharded over ``model``;
+  the new row is written into the shard that owns its position, B4 runs
+  ``combine=False`` over the shard, and the shards' ``(o, m, l)`` are
+  log-sum-exp combined over ``model``. With ``tp`` the projections are
+  column/row tensor-parallel (``col_matmul``, ``row_matmul``).
+
+GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and qk-norm (chameleon-34b,
+qwen3-moe-30b-a3b); MLA (minicpm3-4b) keeps a latent cache and runs B3 in
+either of its two forms, on one device only: its sharded half is ROADMAP
+A16.3.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.sharding.axes import SINGLE, AxisCtx
 
 
 class KVCache(NamedTuple):
@@ -73,6 +85,35 @@ def attn_param_shapes(cfg: ModelConfig) -> dict:
     return mla_param_shapes(cfg) if cfg.attn_type == "mla" else gqa_param_shapes(cfg)
 
 
+def col_matmul(ctx: AxisCtx, h, w_loc, b_loc=None, tp: bool = False):
+    """Column-parallel ``h @ W (+ b)``: with ``tp`` on a model axis the
+    rank holds a column block of W (and b), and the output is all-gathered
+    to full width; otherwise the plain product."""
+    y = h @ w_loc
+    if b_loc is not None:
+        y = y + b_loc
+    if tp and ctx.model is not None:
+        y = ctx.all_gather(y, ctx.model, axis=y.dim() - 1)
+    return y
+
+
+def row_matmul(ctx: AxisCtx, h, w_loc, tp: bool = False):
+    """Row-parallel ``h @ W`` with ``h`` full width: with ``tp`` on a model
+    axis the rank holds a row block of W, multiplies its slice of ``h``'s
+    columns and the partial products are summed over ``model``."""
+    if tp and ctx.model is not None:
+        n = w_loc.shape[0]
+        h_loc = h.narrow(h.dim() - 1, ctx.index(ctx.model) * n, n)
+        return ctx.psum(h_loc @ w_loc, ctx.model)
+    return h @ w_loc
+
+
+def _refuse_mla_shards(ctx: AxisCtx):
+    if ctx.model is not None:
+        raise ValueError("MLA on a mesh with a model axis (its sequence-sharded "
+                         "latent cache and attention) comes with ROADMAP A16.3")
+
+
 def _qkv(w, cfg: ModelConfig, h):
     """h (B, S, D) -> q (B,S,H,HD), k and v (B,S,KV,HD): the projections,
     their biases added before the heads are split, then qk-norm (an RMSNorm
@@ -91,52 +132,80 @@ def _qkv(w, cfg: ModelConfig, h):
     return q, k, v
 
 
-def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, causal: bool = True,
-                   return_cache: bool = False):
-    """Train or prefill attention over the whole sequence (one device holds
-    all of it), causal or, for an encoder, full; rope either way, as in the
-    JAX package. h: (B, S, D). Returns (B, S, D) [+ the KVCache of these
-    rows]."""
-    S = h.shape[1]
+def gqa_seqsharded(w: dict, h, cfg: ModelConfig, *, ctx: AxisCtx = SINGLE,
+                   causal: bool = True, return_cache: bool = False):
+    """Train or prefill attention, causal or, for an encoder, full; rope
+    either way, as in the JAX package. h: (B, S_loc, D), this rank's rows
+    of the sequence (all of it off the mesh), at offset ``index(model) *
+    S_loc``; K and V all-gathered along the sequence over ``model``.
+    Returns (B, S_loc, D) [+ the KVCache of these rows]."""
+    S_loc = h.shape[1]
     q, k, v = _qkv(w, cfg, h)
-    pos = torch.arange(S, device=h.device)
+    off = ctx.index(ctx.model) * S_loc
+    pos = off + torch.arange(S_loc, device=h.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, 0, causal)
-    out = o.reshape(h.shape[0], S, -1) @ w["wo"]
+    kg = ctx.all_gather(k, ctx.model, axis=1)
+    vg = ctx.all_gather(v, ctx.model, axis=1)
+    o = ops.flash_attention(q, kg, vg, off, causal)
+    out = o.reshape(h.shape[0], S_loc, -1) @ w["wo"]
     return (out, KVCache(k, v)) if return_cache else out
 
 
-def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig):
-    """One-token decode. h: (B, 1, D); cache.k/v: (B, S, KV, HD); length:
-    (B,) int32 context length (the new token goes to position ``length``).
-    Returns (out (B, 1, D), cache). The one-token projections take the
-    biases and qk-norm as ``_qkv`` gives them, before the rotary embedding.
+def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig, *,
+               ctx: AxisCtx = SINGLE, tp: bool = False):
+    """One-token decode. h: (B, 1, D), the same on every model rank;
+    cache.k/v: (B, S_loc, KV, HD), this rank's shard of the cache, global
+    positions ``[index(model) * S_loc, ...)`` (the whole cache off the
+    mesh); length: (B,) int32 context length (the new token goes to
+    position ``length``). Returns (out (B, 1, D), cache). The one-token
+    projections take the biases and qk-norm as ``_qkv`` gives them, before
+    the rotary embedding; with ``tp`` they are column/row-parallel.
 
-    The new K/V row is written into the cache IN PLACE, and the same cache
-    is returned. The JAX package adds a one-hot row, ``cache + onehot *
-    k_new``, which rewrites the whole cache; the values are the same,
-    because slot ``length`` is zero (``pad_caches`` grows the cache with
-    zeros and each slot is written once) and every other slot gets +0. As
-    there, a position past the cache's end writes nothing."""
+    The new K/V row is written IN PLACE into the shard that owns position
+    ``length``, and the same cache is returned. The JAX package adds a
+    one-hot row, ``cache + onehot * k_new``, which rewrites the whole
+    cache; the values are the same, because slot ``length`` is zero
+    (``pad_caches`` grows the cache with zeros and each slot is written
+    once) and every other slot gets +0. As there, a position past the
+    cache's end writes nothing. B4 runs ``combine=False`` over the shard's
+    ``clip(length + 1 - start, 0, S_loc)`` keys (0 in a shard past the
+    token: m = -1e30, l = 0, o = 0), then the shards' ``(o, m, l)`` are
+    log-sum-exp combined over ``model``."""
     B = h.shape[0]
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k_new, v_new = _qkv(w, cfg, h)
+    q = col_matmul(ctx, h, w["wq"], w.get("bq"), tp).reshape(B, 1, H, HD)
+    k_new = col_matmul(ctx, h, w["wk"], w.get("bk"), tp).reshape(B, 1, KV, HD)
+    v_new = col_matmul(ctx, h, w["wv"], w.get("bv"), tp).reshape(B, 1, KV, HD)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k_new = rms_norm(k_new, w["k_norm"], cfg.norm_eps)
     pos = length[:, None]                                    # (B, 1)
     q = apply_rope(q, pos, cfg.rope_theta)
     k_new = apply_rope(k_new, pos, cfg.rope_theta)
 
-    S = cache.k.shape[1]
+    S_loc = cache.k.shape[1]
+    start = ctx.index(ctx.model) * S_loc
     rows = torch.arange(B, device=h.device)
-    slot = torch.clamp(length, 0, S - 1).long()
-    mine = (length < S)[:, None, None]
+    slot = torch.clamp(length - start, 0, S_loc - 1).long()
+    mine = ((length >= start) & (length < start + S_loc))[:, None, None]
     cache.k[rows, slot] = torch.where(mine, k_new[:, 0], cache.k[rows, slot])
     cache.v[rows, slot] = torch.where(mine, v_new[:, 0], cache.v[rows, slot])
 
-    local_len = torch.clamp(length + 1, 0, S).to(torch.int32)
+    local_len = torch.clamp(length + 1 - start, 0, S_loc).to(torch.int32)
     o, m, l = ops.decode_attention(q[:, 0], cache.k, cache.v, local_len, combine=False)
+    if ctx.model is not None:
+        Dv = o.shape[-1]
+        stats = torch.cat([o.reshape(B, -1), m, l], dim=-1)
+        g = ctx.all_gather(stats[None], ctx.model, axis=0)          # (M, B, ...)
+        o_all = g[..., :H * Dv].reshape(-1, B, H, Dv)
+        m_all, l_all = g[..., H * Dv:H * Dv + H], g[..., H * Dv + H:]
+        m_g = m_all.amax(dim=0)
+        wgt = torch.exp(m_all - m_g[None])
+        l = (l_all * wgt).sum(dim=0)
+        o = (o_all * wgt[..., None]).sum(dim=0)
     o = o / torch.clamp(l, min=1e-30)[..., None]
-    out = o.to(h.dtype).reshape(B, 1, -1) @ w["wo"]
+    out = row_matmul(ctx, o.to(h.dtype).reshape(B, 1, -1), w["wo"], tp)
     return out, cache
 
 
@@ -174,7 +243,7 @@ def _mla_expand_kv(w, cfg: ModelConfig, ckv):
 
 
 def mla_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False,
-                   absorbed: bool = True):
+                   absorbed: bool = True, ctx: AxisCtx = SINGLE):
     """Causal MLA train or prefill attention over the whole sequence. h:
     (B, S, D). Returns (B, S, D) [+ the LatentCache of these rows].
 
@@ -185,7 +254,9 @@ def mla_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False,
       rope (288 at minicpm3-4b) and Dv = R (256); W^UV applied after;
     - expanded: per-head keys and values from the latent, B3 as MHA at
       Dk = nope + rope (96) and Dv = v (64).
-    Both scale the scores by 1/sqrt(nope + rope)."""
+    Both scale the scores by 1/sqrt(nope + rope). A ``ctx`` with a model
+    axis raises (ROADMAP A16.3)."""
+    _refuse_mla_shards(ctx)
     m, H = cfg.mla, cfg.n_heads
     B, S = h.shape[0], h.shape[1]
     pos = torch.arange(S, device=h.device)
@@ -210,7 +281,8 @@ def mla_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False,
     return (out, LatentCache(ckv, krope)) if return_cache else out
 
 
-def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig):
+def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig, *,
+               ctx: AxisCtx = SINGLE, tp: bool = False):
     """One-token MLA decode in the absorbed form: attention runs in the
     latent space as einsums (no kernel, as in the JAX package), so a
     step's work scales with R + rope (288), not H * (Dk + Dv). h: (B, 1,
@@ -223,7 +295,9 @@ def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig):
     * row``, which rewrites the whole cache; the values are the same, because
     slot ``length`` is zero (``pad_caches`` grows the cache with zeros and
     each slot is written once) and every other slot gets +0. As there, a
-    position past the cache's end writes nothing."""
+    position past the cache's end writes nothing. A ``ctx`` with a model
+    axis raises (ROADMAP A16.3); ``tp`` changes nothing off the mesh."""
+    _refuse_mla_shards(ctx)
     m, H = cfg.mla, cfg.n_heads
     B = h.shape[0]
     R, nope = m.kv_lora_rank, m.qk_nope_head_dim

@@ -7,8 +7,27 @@ Params are a plain nested ``dict[str, Tensor]`` with the JAX package's
 names and layouts, blocks stacked on a leading stack dim
 (``blocks/attn/wq`` is ``(L, D, H*HD)``), so ``interop.params_from_numpy``
 is a copy of each leaf. The JAX ``lax.scan`` over the stack is a Python
-loop over that dim. Single device: ``AxisCtx``, the ZeRO-3 gathers and the
-vocab sharding of the JAX package drop out (identities with ``AxisCtx()``).
+loop over that dim.
+
+Every entry point takes ``ctx`` (``sharding/axes.AxisCtx``, default
+``SINGLE``: one device, every collective the identity). Dense GQA also
+runs on a rank of the temporal placement's ``(data, model[, pod])`` mesh,
+as the JAX package's ``shard_map`` step does: weights ZeRO-3-sharded over
+``model`` and gathered per layer (``gather_fn``, inside the layer's
+checkpoint, so the backward's recompute gathers again), the batch over
+``(pod, data)``, the sequence over ``model`` (``layout="sp"``; "dp2d":
+the batch over ``model`` too, whole sequences, the JAX package's
+``REPRO_TRAIN_LAYOUT=dp2d``), the embedding D-sharded and the head
+vocab-sharded over ``model``; at decode the weights are tensor-parallel
+(``tp``) and the cache sequence-sharded. The embedding, the loss and the
+prefill logits compute the meshless function exactly (ROADMAP C10: the JAX
+package's mesh step does not): the embedding gathers the rank's token rows
+over the vocab axis, looks them all up in its D slice and all-to-alls the
+slices back; the loss gathers the final hidden rows over the vocab axis,
+so each rank holds every row's logits over its vocab slice; prefill
+broadcasts the last position's row before the head and gathers the
+vocab. The other families (MoE, MLA, hybrid, ssm, encdec) refuse a model
+axis: their sharded halves are ROADMAP A16.3.
 
 Rematerialization: the training forward is ``layers.checkpointed`` where
 the JAX package's is ``jax.checkpoint``ed: each stack entry of
@@ -56,6 +75,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import checkpointed, dense_init, embed_init, layer_norm, \
     rms_norm
+from repro_torch.sharding.axes import SINGLE, AxisCtx
 
 
 def mlp_param_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -68,37 +88,99 @@ def mlp_param_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
     return {"w1": (D, F_), "w3": (D, F_), "w2": (F_, D)}
 
 
-def mlp_forward(w: dict, x, cfg: ModelConfig):
+def mlp_forward(w: dict, x, cfg: ModelConfig, *, ctx: AxisCtx = SINGLE, tp: bool = False):
     """silu(x @ w1) * (x @ w3) @ w2, or gelu(x @ w1 + b1) @ w2 + b2 with
     ``jax.nn.gelu``'s default, the tanh form (``F.gelu``'s default is the
-    exact erf)."""
+    exact erf); with ``tp`` on a model axis w1/w3 column- and w2
+    row-parallel (``attention.col_matmul``, ``row_matmul``)."""
     if "w3" in w:
-        return (F.silu(x @ w["w1"]) * (x @ w["w3"])) @ w["w2"]
-    h = F.gelu(x @ w["w1"] + w["b1"], approximate="tanh")
-    return h @ w["w2"] + w["b2"]
+        g = attn.col_matmul(ctx, x, w["w1"], None, tp)
+        u = attn.col_matmul(ctx, x, w["w3"], None, tp)
+        return attn.row_matmul(ctx, F.silu(g) * u, w["w2"], tp)
+    h = F.gelu(attn.col_matmul(ctx, x, w["w1"], w["b1"], tp), approximate="tanh")
+    return attn.row_matmul(ctx, h, w["w2"], tp) + w["b2"]
 
 
-def embed_lookup(embed, tokens):
-    """Rows of the embedding for ``tokens`` (tied or not: one device holds
-    the whole matrix, so the JAX package's two sharded lookups are this
-    one). Through
-    ``F.embedding``, whose gradient sums each row's tokens in one order on
-    every run and on the CPU too, where indexing's (an accumulating
-    ``index_put_``) is documented as nondeterministic."""
-    return F.embedding(tokens, embed)
+def embed_lookup(embed, tokens, *, ctx: AxisCtx = SINGLE, tied: bool = False,
+                 tokens_replicated: bool = False):
+    """Rows of the embedding for ``tokens``, through ``F.embedding``, whose
+    gradient sums each row's tokens in one order on every run and on the
+    CPU too, where indexing's (an accumulating ``index_put_``) is
+    documented as nondeterministic.
+
+    Off the vocab axis (``ctx.vaxis`` None) ``embed`` is the whole matrix.
+    On it:
+    - untied, ``embed`` (V, D_loc) D-sharded: with ``tokens_replicated``
+      (decode) the rank looks them up in its slice and the slices are
+      all-gathered; otherwise the ranks' token rows are all-gathered, each
+      rank looks every row up in its slice and an all-to-all gives each
+      rank its own rows at full width. Exact for any sharding of the rows
+      (the JAX package looks each rank's own rows up and gathers the
+      feature dim, which mixes ranks' rows: ROADMAP C10);
+    - tied, ``embed`` (V_loc, D) vocab-sharded: with ``tokens_replicated``
+      a masked local lookup summed over the axis (the JAX package's);
+      otherwise the caller passes the gathered whole matrix."""
+    va = ctx.vaxis
+    if va is None or (tied and not tokens_replicated):
+        return F.embedding(tokens, embed)
+    if tied:
+        V = embed.shape[0]
+        ids = tokens - ctx.index(va) * V
+        ok = (ids >= 0) & (ids < V)
+        x = F.embedding(torch.clamp(ids, 0, V - 1), embed) * ok[..., None].to(embed.dtype)
+        return ctx.psum(x.to(torch.float32), va).to(embed.dtype)
+    if tokens_replicated:
+        x = F.embedding(tokens, embed)
+        return ctx.all_gather(x, va, axis=x.dim() - 1)
+    every = ctx.all_gather(tokens.reshape(-1), va, axis=0)
+    x = ctx.all_to_all(F.embedding(every, embed), va, split_axis=0, concat_axis=1)
+    return x.reshape(*tokens.shape, -1)
 
 
-def softmax_xent_vshard(logits, labels):
-    """Stable cross-entropy, the mean over the tokens. logits: (B, S, V)
-    f32; labels: (B, S) ids. One device holds the whole vocab, so the JAX
-    package's vocab-shard max and sums are the local ones (and its ``valid``
-    mask, which ``Model.loss`` never passes, is left out). The max is a
-    stabilizer only (the loss's gradient does not depend on it) and is held
-    out of the gradient, as there."""
-    m = logits.amax(dim=-1).detach()
-    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - tgt).mean()
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient scaled by ``s``."""
+
+    @staticmethod
+    def forward(x, s):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.s = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def softmax_xent_vshard(logits, labels, *, ctx: AxisCtx = SINGLE):
+    """Stable cross-entropy, the mean over the tokens. logits: (..., V_loc)
+    f32, this rank's vocab slice of every row's logits (the whole vocab off
+    the vocab axis); labels: (...) global ids. The shard max (a stabilizer,
+    held out of the gradient: the loss's does not depend on it), the sums
+    of ``exp`` and of the target logit over the vocab axis, the mean over
+    the rows, averaged over ``(pod, data)``. (The JAX package's ``valid``
+    mask, which ``Model.loss`` never passes, is left out.)
+
+    On the vocab axis the rows' losses are the same on every rank of it,
+    and each rank's cotangent reaches every rank's logits through the
+    sums' backward (a ``psum``): the rows' loss gradient is scaled by
+    1 / the axis size here, so every gradient is the meshless one."""
+    va = ctx.vaxis
+    m = ctx.pmax(logits.amax(dim=-1), va)
+    lse = m + torch.log(ctx.psum(torch.exp(logits - m[..., None]).sum(dim=-1), va))
+    if va is None:
+        tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        V = logits.shape[-1]
+        ids = labels.long() - ctx.index(va) * V
+        ok = (ids >= 0) & (ids < V)
+        tgt = torch.gather(logits, -1, torch.clamp(ids, 0, V - 1)[..., None])[..., 0]
+        tgt = ctx.psum(tgt * ok, va)
+    nll = lse - tgt
+    if va is not None:
+        nll = _ScaleGrad.apply(nll, 1.0 / ctx.size(va))
+    return ctx.pmean(nll.mean(), ctx.data_axes)
 
 
 def _norm_shapes(cfg: ModelConfig) -> dict:
@@ -266,30 +348,33 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return init_tree(generator, param_shapes(cfg), dtype)
 
 
-def _attn(cfg: ModelConfig, w: dict, h, *, phase: str, cache=None, length=None):
+def _attn(cfg: ModelConfig, w: dict, h, *, phase: str, cache=None, length=None,
+          ctx: AxisCtx = SINGLE, tp: bool = False):
     """The attention sublayer -> (out, cache): phase 'train' gives no cache,
     'prefill' the KVCache or LatentCache of the rows, 'decode' the cache
     written in place."""
     mla = cfg.attn_type == "mla"
     if phase == "decode":
         decode = attn.mla_decode if mla else attn.gqa_decode
-        return decode(w, h, cache, length, cfg)
+        return decode(w, h, cache, length, cfg, ctx=ctx, tp=tp)
     fwd = attn.mla_seqsharded if mla else attn.gqa_seqsharded
     if phase == "prefill":
-        return fwd(w, h, cfg, return_cache=True)
-    return fwd(w, h, cfg), None
+        return fwd(w, h, cfg, return_cache=True, ctx=ctx)
+    return fwd(w, h, cfg, ctx=ctx), None
 
 
 def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
-                 length=None):
+                 length=None, ctx: AxisCtx = SINGLE, tp: bool = False):
     """One block -> (x, cache, aux): aux is the MoE layer's load-balance +
-    z loss, else 0.0."""
+    z loss, else 0.0. ``ctx``: the mixer's (``mixer_ctx``); ``tp``: the
+    decode's tensor-parallel projections."""
     h = _apply_norm(w["ln1"], x, cfg)
-    o, new_cache = _attn(cfg, w["attn"], h, phase=phase, cache=caches, length=length)
+    o, new_cache = _attn(cfg, w["attn"], h, phase=phase, cache=caches, length=length,
+                         ctx=ctx, tp=tp)
     x = x + o
     h = _apply_norm(w["ln2"], x, cfg)
     if "moe" not in w:
-        return x + mlp_forward(w["mlp"], h, cfg), new_cache, 0.0
+        return x + mlp_forward(w["mlp"], h, cfg, ctx=ctx, tp=tp), new_cache, 0.0
     mo, maux = moe_mod.moe_ffn(w["moe"], h, cfg)
     if "dense_mlp" in w:
         mo = mo + mlp_forward(w["dense_mlp"], _apply_norm(w["ln3"], x, cfg), cfg)
@@ -315,7 +400,7 @@ def _call(fn, *args):
 
 
 def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
-                   length=None):
+                   length=None, ctx: AxisCtx = SINGLE, tp: bool = False):
     """One jamba period -> (x, {"attn": cache, "mamba": [MambaState, ...]},
     aux). Sublayer i mixes with the attention at ``attn_index`` and with the
     next Mamba mixer elsewhere; its FFN is MoE ``i // moe_every`` where ``i %
@@ -323,7 +408,10 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     indices, as written). At phase 'train' each Mamba mixer and each MoE FFN
     is ``checkpointed`` on its own, nested in the period's, as the JAX
     package nests them: without them the period's recompute would hold all
-    its mixers' and MoE layers' activations at once."""
+    its mixers' and MoE layers' activations at once. One device only
+    (``ctx`` without a model axis, ``tp`` unused): the sharded half is
+    ROADMAP A16.3."""
+    refuse_model_axis(cfg, ctx)
     P, eps = cfg.hybrid.period, cfg.norm_eps
     ckpt = checkpointed if phase == "train" else _call
     new = {"attn": None, "mamba": []}
@@ -353,9 +441,11 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
 
 
 def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
-                  length=None):
+                  length=None, ctx: AxisCtx = SINGLE, tp: bool = False):
     """One xLSTM period (residual mLSTM blocks, then the sLSTM) -> (x,
-    {"mlstm": [MLSTMState, ...], "slstm": SLSTMState}, 0.0)."""
+    {"mlstm": [MLSTMState, ...], "slstm": SLSTMState}, 0.0). One device
+    only, as ``_hybrid_period``."""
+    refuse_model_axis(cfg, ctx)
     n_m, eps = cfg.ssm.slstm_every - 1, cfg.norm_eps
     new = {"mlstm": [], "slstm": None}
     for i in range(n_m):
@@ -368,6 +458,43 @@ def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     o, new["slstm"] = ssm_mod.slstm_forward(
         w["slstm"], h, cfg, state=None if caches is None else caches["slstm"])
     return x + o, new, 0.0
+
+
+def refuse_model_axis(cfg: ModelConfig, ctx: AxisCtx) -> None:
+    """A16.2 shards dense GQA; the other families' sharded halves (MoE's
+    all-to-alls, MLA's latent cache, the Mamba handoff, the encdec cross
+    decode) are ROADMAP A16.3."""
+    if ctx.model is not None and (cfg.family != "dense" or cfg.attn_type != "gqa"):
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}, {cfg.attn_type}) on a mesh with a model axis comes "
+            "with ROADMAP A16.3 (the sharded MLA, MoE, Mamba and encdec halves); the "
+            "temporal placement on a mesh runs dense GQA (A16.2)")
+
+
+LAYOUTS = ("sp", "dp2d")
+
+
+def seq_sharded_in(cfg: ModelConfig, phase: str, layout: str = "sp") -> bool:
+    """Whether the sequence dim is sharded over ``model`` in this phase:
+    never for ssm (the recurrences cross shard boundaries), not in hybrid
+    training (the JAX package's rule), not in training with ``layout`` "dp2d"
+    (the batch over data x model, whole sequences: no per-layer K/V gather;
+    the JAX package's ``REPRO_TRAIN_LAYOUT=dp2d``), else always."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: want one of {LAYOUTS}")
+    if cfg.family == "ssm":
+        return False
+    if phase == "train" and (cfg.family == "hybrid" or layout == "dp2d"):
+        return False
+    return True
+
+
+def mixer_ctx(ctx: AxisCtx, cfg: ModelConfig, phase: str, layout: str = "sp") -> AxisCtx:
+    """The token mixers' ctx: without the model axis where the sequences
+    are whole (the vocab axis and the data and pod axes kept)."""
+    if seq_sharded_in(cfg, phase, layout) or ctx.model is None:
+        return ctx
+    return dataclasses.replace(ctx, model=None, vocab=ctx.vaxis)
 
 
 def _block_fn(cfg: ModelConfig):
@@ -416,7 +543,8 @@ def _write_back(tree, i, new) -> None:
         tree[i].copy_(new)
 
 
-def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
+def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train",
+                ctx: AxisCtx = SINGLE, gather_fn=None, layout: str = "sp"):
     """Forward through the stacked entries (layers, or periods for hybrid
     and ssm). Returns (x, aux, caches): aux sums the MoE layers' aux losses
     (0.0 without MoE); caches are None for phase 'train' and for 'prefill'
@@ -425,28 +553,38 @@ def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train"):
     "mamba": [MambaState] * (period - 1)}``, for ssm ``{"mlstm":
     [MLSTMState] * (slstm_every - 1), "slstm": SLSTMState}``, each leaf (L,
     ...). At phase 'train' each entry is ``checkpointed`` (see the module
-    docstring)."""
+    docstring), its ZeRO-3 gather (``gather_fn``, on a mesh) inside, so the
+    recompute gathers the entry's weights again, as ``jax.checkpoint``
+    does around the JAX scan's body."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
-    fn = functools.partial(_block_fn(cfg), cfg, phase=phase)
+    block = functools.partial(_block_fn(cfg), cfg, phase=phase,
+                              ctx=mixer_ctx(ctx, cfg, phase, layout))
+
+    def entry(w, x):
+        return block(w if gather_fn is None else gather_fn(w), x)
     ckpt = checkpointed if phase == "train" else _call
     aux, caches = 0.0, []
     for w in _unstack(blocks):
-        x, cache, a = ckpt(fn, w, x)
+        x, cache, a = ckpt(entry, w, x)
         aux = aux + a
         if phase == "prefill":
             caches.append(cache)
     return x, aux, (_stack_trees(caches) if caches else None)
 
 
-def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length):
+def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length, *,
+                 ctx: AxisCtx = SINGLE, gather_fn=None, tp: bool = False):
     """One decode token through the stacked entries; each writes its slot
-    of ``caches`` (the tree ``stack_train`` gives) in place. Returns (x,
-    caches)."""
+    of ``caches`` (the tree ``stack_train`` gives; on a mesh this rank's
+    sequence shard of it) in place. Returns (x, caches)."""
     fn = _block_fn(cfg)
     for i in range(n_stacks(cfg)):
-        x, new, _ = fn(cfg, _take(blocks, i), x, phase="decode",
-                       caches=_index(caches, i), length=length)
+        blk = _take(blocks, i)
+        if gather_fn is not None:
+            blk = gather_fn(blk)
+        x, new, _ = fn(cfg, blk, x, phase="decode", caches=_index(caches, i),
+                       length=length, ctx=ctx, tp=tp)
         _write_back(caches, i, new)
     return x, caches
 
@@ -454,49 +592,102 @@ def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length):
 @dataclasses.dataclass(frozen=True)
 class Model:
     """An LM over a param dict: the training loss, prefill and greedy
-    decode."""
+    decode, on one device or (dense GQA) a rank of a mesh (``ctx``).
+    ``layout``: the training layout on a mesh (``seq_sharded_in``)."""
     cfg: ModelConfig
+    layout: str = "sp"
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return init_params(generator, self.cfg, dtype)
 
-    def _logits(self, params: dict, x, last: bool = False):
-        """The final norm over every row, then the head (``embed.T`` when
-        tied) over every row or only the last position -> f32 logits."""
-        x = _apply_norm(params["final_norm"], x, self.cfg)
-        if last:
-            x = x[:, -1:]
+    def _embed(self, params: dict, tokens, ctx: AxisCtx, replicated: bool = False):
+        emb = params["embed"]
+        if self.cfg.tie_embeddings and not replicated and ctx.vaxis is not None:
+            emb = ctx.all_gather(emb, ctx.vaxis, axis=0)       # the whole matrix
+        return embed_lookup(emb, tokens, ctx=ctx, tied=self.cfg.tie_embeddings,
+                            tokens_replicated=replicated)
+
+    def _head(self, params: dict, x):
+        """x @ the head (``embed.T`` when tied; this rank's vocab slice on
+        the vocab axis) -> f32 logits."""
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         return (x @ head.to(x.dtype)).to(torch.float32)
 
-    def loss(self, params: dict, batch: dict):
-        """batch["tokens"], batch["labels"]: (B, S) ids -> the scalar
-        ``loss + aux`` (the JAX package's first output; aux sums the MoE
-        layers' aux losses, 0 without MoE): next-token cross-entropy over
-        f32 logits; the stack rematerialized under plain autograd (see the
-        module docstring)."""
-        x = embed_lookup(params["embed"], batch["tokens"])
-        x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train")
-        return softmax_xent_vshard(self._logits(params, x), batch["labels"]) + aux
+    def _logits(self, params: dict, x, last: bool = False):
+        """The final norm over every row, then the head over every row or
+        only the last position -> f32 logits."""
+        x = _apply_norm(params["final_norm"], x, self.cfg)
+        return self._head(params, x[:, -1:] if last else x)
 
-    def prefill(self, params: dict, batch: dict):
+    def loss(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
+        """batch["tokens"], batch["labels"]: (B, S) ids (this rank's rows
+        on a mesh) -> the scalar ``loss + aux`` (the JAX package's first
+        output; aux sums the MoE layers' aux losses, 0 without MoE):
+        next-token cross-entropy over f32 logits; the stack rematerialized
+        under plain autograd (see the module docstring). On a mesh: the
+        mean over every row of the ``(pod, data)`` batch, the same on every
+        rank."""
+        refuse_model_axis(self.cfg, ctx)
+        x = self._embed(params, batch["tokens"], ctx)
+        x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train", ctx=ctx,
+                                gather_fn=gather_fn, layout=self.layout)
+        x = _apply_norm(params["final_norm"], x, self.cfg)
+        labels = batch["labels"]
+        if ctx.vaxis is not None:
+            # every row of the batch shard on each rank of the vocab axis
+            x = ctx.all_gather(x.reshape(-1, x.shape[-1]), ctx.vaxis, axis=0)
+            labels = ctx.all_gather(labels.reshape(-1), ctx.vaxis, axis=0)
+        loss = softmax_xent_vshard(self._head(params, x), labels, ctx=ctx)
+        if isinstance(aux, torch.Tensor):
+            aux = ctx.pmean(aux, ctx.grid_axes)
+        return loss + aux
+
+    def prefill(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
         """batch["tokens"]: (B, S) -> (caches, last-position logits (B, Vp)
-        f32, None)."""
-        x = embed_lookup(params["embed"], batch["tokens"])
-        x, _, caches = stack_train(self.cfg, params["blocks"], x, phase="prefill")
-        return caches, self._logits(params, x, last=True)[:, 0], None
+        f32, None). On a mesh the caches are this rank's sequence shard and
+        the logits the whole vocab's on every rank: the last position's row
+        (on the last rank of ``model``) summed over ``model`` before the
+        head, the vocab slices gathered after it (the JAX package sums each
+        rank's vocab slice of the logits and keeps one slice: ROADMAP
+        C10)."""
+        refuse_model_axis(self.cfg, ctx)
+        x = self._embed(params, batch["tokens"], ctx)
+        x, _, caches = stack_train(self.cfg, params["blocks"], x, phase="prefill", ctx=ctx,
+                                   gather_fn=gather_fn)
+        last = _apply_norm(params["final_norm"], x, self.cfg)[:, -1:]
+        if ctx.model is not None:
+            is_last = float(ctx.index(ctx.model) == ctx.size(ctx.model) - 1)
+            last = ctx.psum(last * is_last, ctx.model)
+        logits = self._head(params, last)
+        if ctx.vaxis is not None:
+            logits = ctx.all_gather(logits, ctx.vaxis, axis=logits.dim() - 1)
+        return caches, logits[:, 0], None
 
-    def decode_step(self, params: dict, tokens, caches, length):
+    def decode_step(self, params: dict, tokens, caches, length, *, ctx: AxisCtx = SINGLE,
+                    gather_fn=None, tp: bool = True):
         """tokens: (B,) previous token ids; length: (B,) int32 context
-        length. Returns (logits (B, Vp) f32, caches written in place)."""
-        x = embed_lookup(params["embed"], tokens[:, None])
-        x, caches = stack_decode(self.cfg, params["blocks"], x, caches, length)
+        length. Returns (logits (B, Vp) f32, caches written in place). On a
+        mesh: tensor-parallel weights (``tp``), this rank's shard of the
+        caches, and this rank's vocab slice of the logits (B, V_loc)."""
+        refuse_model_axis(self.cfg, ctx)
+        x = self._embed(params, tokens[:, None], ctx, replicated=True)
+        x, caches = stack_decode(self.cfg, params["blocks"], x, caches, length, ctx=ctx,
+                                 gather_fn=gather_fn, tp=tp)
         return self._logits(params, x)[:, 0], caches
 
-    def greedy_token(self, logits):
-        """(B, Vp) -> (B,) the first index of each row's maximum, as
-        ``jnp.argmax`` takes it (``torch.argmax`` documents the same rule)."""
-        return torch.argmax(logits, dim=-1)
+    def greedy_token(self, logits, *, ctx: AxisCtx = SINGLE):
+        """(B, V_loc) -> (B,) the first index of each row's maximum, as
+        ``jnp.argmax`` takes it (``torch.argmax`` documents the same rule);
+        over the vocab axis, each slice's first maximum and its value
+        gathered, the first slice holding the largest taken."""
+        idx = torch.argmax(logits, dim=-1)
+        if ctx.vaxis is None:
+            return idx
+        val = torch.gather(logits, -1, idx[:, None])[:, 0]
+        glob = (idx + ctx.index(ctx.vaxis) * logits.shape[-1]).to(val.dtype)
+        every = ctx.all_gather(torch.stack([val, glob], dim=-1)[None], ctx.vaxis, axis=0)
+        best = torch.argmax(every[..., 0], dim=0)
+        return torch.gather(every[..., 1], 0, best[None])[0].long()
 
 
 # ---------------------------------------------------------------------------
@@ -603,21 +794,26 @@ class EncDecModel(Model):
     """whisper: batches carry ``frames`` (B, S_enc, D) beside the decoder's
     ``tokens`` (and ``labels`` for the loss)."""
 
-    def loss(self, params: dict, batch: dict):
-        """Next-token cross-entropy of the decoder's tokens (no aux)."""
+    def loss(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
+        """Next-token cross-entropy of the decoder's tokens (no aux); on a
+        mesh without a model axis, averaged over ``(pod, data)``."""
+        refuse_model_axis(self.cfg, ctx)
         x, _ = _decoder(self.cfg, params, batch, prefill=False)
-        return softmax_xent_vshard(self._logits(params, x), batch["labels"])
+        return softmax_xent_vshard(self._logits(params, x), batch["labels"], ctx=ctx)
 
-    def prefill(self, params: dict, batch: dict):
+    def prefill(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
         """The encoder over the frames and the decoder's prefill over the
         prompt tokens -> (EncDecCaches, last-position logits, None)."""
+        refuse_model_axis(self.cfg, ctx)
         x, caches = _decoder(self.cfg, params, batch, prefill=True)
         return caches, self._logits(params, x, last=True)[:, 0], None
 
-    def decode_step(self, params: dict, tokens, caches, length):
+    def decode_step(self, params: dict, tokens, caches, length, *, ctx: AxisCtx = SINGLE,
+                    gather_fn=None, tp: bool = True):
         """One token: self-attention over the decoder's cache (written in
         place), cross-attention by B4 over the whole encoder cache
         (``combine=False``, normalised here by ``max(l, 1e-30)``)."""
+        refuse_model_axis(self.cfg, ctx)
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens[:, None])
         B = x.shape[0]
@@ -686,8 +882,8 @@ class FlatModel:
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return flatten_params(self.model.init(generator, dtype))
 
-    def loss(self, params: dict, batch: dict):
-        return self.model.loss(unflatten_params(params), batch)
+    def loss(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
+        return self.model.loss(unflatten_params(params), batch, ctx=ctx, gather_fn=gather_fn)
 
 
 def pad_caches(caches, extra: int):

@@ -17,6 +17,16 @@ nothing falls back.
   package's ``tiled=True`` calls are: shards concatenate along the dim.
 - ``ppermute``: ``batch_isend_irecv`` over the group's ranks; a rank that
   receives nothing gets zeros, and a self pair (an axis of size 1) is a copy.
+- ``pmax``: ``all_reduce(MAX)``, a stabiliser: its result carries no
+  gradient.
+
+Every collective but ``pmax`` is differentiable (a ``torch.autograd.Function``),
+its backward the transpose that ``jax.lax`` gives it under ``shard_map``
+with ``check_rep=False``: ``psum``'s is ``psum`` (so ``pmean``'s is
+``pmean``), ``all_gather``'s is ``psum_scatter`` on the same dim and the
+reverse, ``all_to_all``'s swaps split and concat, ``ppermute``'s is the
+inverse permutation. A backward is a collective too, so every rank must run
+the same backwards in the same order, as every rank runs the same forwards.
 """
 from __future__ import annotations
 
@@ -158,23 +168,13 @@ class AxisCtx:
     def all_gather(self, x, name, axis: int):
         if not self._axes(name):
             return x
-        import torch.distributed as dist
-        g, _, n, row = self._group(name)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=g)
-        return torch.cat(_to_row_order(parts, row), dim=axis)
+        return _AllGather.apply(x, self._group(name), axis)
 
     def psum(self, x, name):
         if not self._axes(name):
             return x
-        import torch.distributed as dist
-        g = self._group(name)[0]
-
-        def one(t):
-            t = t.clone()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
-            return t
-        return _tree_map(one, x)
+        entry = self._group(name)
+        return _tree_map(lambda t: _Psum.apply(t, entry), x)
 
     def pmean(self, x, name):
         if not self._axes(name):
@@ -182,46 +182,154 @@ class AxisCtx:
         n = self.size(name)
         return _tree_map(lambda t: t / divisor(n, t.device), self.psum(x, name))
 
+    def pmax(self, x, name):
+        """The elementwise max over the axis, of ``x.detach()``: a
+        stabiliser (the JAX package takes it under ``stop_gradient``)."""
+        if not self._axes(name):
+            return x.detach()
+        return _all_reduce(x.detach(), self._group(name), "max")
+
     def psum_scatter(self, x, name, axis: int):
         if not self._axes(name):
             return x
-        import torch.distributed as dist
-        g, _, n, row = self._group(name)
-        moved = torch.cat(_to_group_order(list(x.movedim(axis, 0).chunk(n)), row))
-        out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
-        dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=g)
-        return out.movedim(0, axis)
+        return _PsumScatter.apply(x, self._group(name), axis)
 
     def all_to_all(self, x, name, split_axis: int, concat_axis: int):
         if not self._axes(name):
             return x
-        import torch.distributed as dist
-        g, _, n, row = self._group(name)
-        moved = torch.cat(_to_group_order(list(x.movedim(split_axis, 0).chunk(n)), row))
-        out = torch.empty_like(moved)
-        dist.all_to_all_single(out, moved, group=g)
-        parts = _to_row_order(list(out.chunk(n)), row)
-        return torch.cat([p.movedim(0, split_axis) for p in parts], dim=concat_axis)
+        return _AllToAll.apply(x, self._group(name), split_axis, concat_axis)
 
     def ppermute(self, x, name, perm):
         if not self._axes(name):
             return x
-        import torch.distributed as dist
-        g, me, _, row = self._group(name)
-        out = torch.zeros_like(x)
-        x = x.contiguous()
-        ops = []
-        for src, dst in perm:
-            if src == me and dst == me:
-                out = x.clone()
-            elif src == me:
-                ops.append(dist.P2POp(dist.isend, x, row[dst], g))
-            elif dst == me:
-                ops.append(dist.P2POp(dist.irecv, out, row[src], g))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return out
+        return _Ppermute.apply(x, self._group(name), tuple(map(tuple, perm)))
+
+
+# The c10d calls; ``entry`` is a ``_mesh_groups`` value (group, index, size,
+# row).
+
+def _all_reduce(x, entry, op: str = "sum"):
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=entry[0])
+    return out
+
+
+def _all_gather(x, entry, axis: int):
+    import torch.distributed as dist
+    g, _, n, row = entry
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=g)
+    return torch.cat(_to_row_order(parts, row), dim=axis)
+
+
+def _reduce_scatter(x, entry, axis: int):
+    import torch.distributed as dist
+    g, _, n, row = entry
+    moved = torch.cat(_to_group_order(list(x.movedim(axis, 0).chunk(n)), row))
+    out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=g)
+    return out.movedim(0, axis)
+
+
+def _all_to_all(x, entry, split_axis: int, concat_axis: int):
+    import torch.distributed as dist
+    g, _, n, row = entry
+    moved = torch.cat(_to_group_order(list(x.movedim(split_axis, 0).chunk(n)), row))
+    out = torch.empty_like(moved)
+    dist.all_to_all_single(out, moved, group=g)
+    parts = _to_row_order(list(out.chunk(n)), row)
+    return torch.cat([p.movedim(0, split_axis) for p in parts], dim=concat_axis)
+
+
+def _permute(x, entry, perm):
+    import torch.distributed as dist
+    g, me, _, row = entry
+    out = torch.zeros_like(x)
+    x = x.contiguous()
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out = x.clone()
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x, row[dst], g))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, row[src], g))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, entry):
+        return _all_reduce(x, entry)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.entry), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, entry, axis):
+        return _all_gather(x, entry, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry, ctx.axis = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.entry, ctx.axis), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(x, entry, axis):
+        return _reduce_scatter(x, entry, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry, ctx.axis = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.entry, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(x, entry, split_axis, concat_axis):
+        return _all_to_all(x, entry, split_axis, concat_axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry, ctx.split, ctx.concat = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.entry, ctx.concat, ctx.split), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(x, entry, perm):
+        return _permute(x, entry, perm)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry, ctx.perm = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.entry, tuple((d, s) for s, d in ctx.perm)), None, None
 
 
 # Convenience contexts

@@ -12,11 +12,13 @@ each None (whole), an axis name or a tuple of names. Phases:
 - ``spatial`` (small archs): everything replicated; the flattened (data x
   model) grid is the FL client grid.
 
-The tables are the JAX package's, keyed by parameter leaf name. The
-ZeRO-3 gather and gradient sync built from them (``make_gather_fn``,
-``make_grad_sync``) come with the temporal placement on a mesh.
+The tables are the JAX package's, keyed by parameter leaf name. Built from
+them for the temporal placement on a mesh: the per-layer ZeRO-3 gather
+(``make_gather_fn``) and the gradient sync (``make_grad_sync``).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
@@ -184,6 +186,96 @@ def gather_dim_table(cfg: ModelConfig) -> dict:
             f"gather-dim conflict for {(parent, name)}: {prev} vs {dim}"
         table[(parent, name)] = dim
     return table
+
+
+def _has(spec, axis) -> bool:
+    return any(axis in (e if isinstance(e, tuple) else (e,)) for e in spec if e is not None)
+
+
+def make_gather_fn(cfg: ModelConfig, ctx, quant: bool = False):
+    """The per-layer ZeRO-3 all-gather of the layer loops: a function of
+    one entry's param subtree (a decoder layer, an encoder block, a hybrid
+    period) that all-gathers every leaf of ``gather_dim_table`` over
+    ``model`` on its dim, the rest as they are. The identity without a
+    model axis and for spatial archs. Differentiable: a gathered leaf's
+    gradient is the ``psum_scatter`` of the ranks' gradients.
+
+    ``quant`` (the JAX package's ``REPRO_QUANT_GATHER=1``): a bf16 leaf of
+    at least 2**16 values crosses as symmetric int8, one f32 scale per
+    line along the gathered dim (``amax / 127``, 1 where the line is
+    zero), and is dequantized after: shard j of the gather by scale slice
+    j, as there. The scale is ``amax`` times the f32 reciprocal of 127,
+    which is how XLA computes the JAX package's ``amax / 127.0``."""
+    if ctx.model is None or placement_for(cfg) == "spatial":
+        return lambda blk: blk
+    table = gather_dim_table(cfg)
+
+    def ag(t, d):
+        if quant and t.numel() >= 1 << 16 and t.dtype == torch.bfloat16:
+            tf = t.to(torch.float32)
+            amax = tf.abs().amax(dim=d, keepdim=True)
+            scale = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+            q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+            qg = ctx.all_gather(q, ctx.model, axis=d)
+            sg = ctx.all_gather(scale, ctx.model, axis=d)
+            m = sg.shape[d]
+            qm, sm = qg.movedim(d, -1), sg.movedim(d, -1)
+            out = (qm.reshape(*qm.shape[:-1], m, qm.shape[-1] // m).to(torch.float32)
+                   * sm[..., None]).reshape(qm.shape)
+            return out.movedim(-1, d).to(t.dtype)
+        return ctx.all_gather(t, ctx.model, axis=d)
+
+    def gather(blk, parent=""):
+        out = {}
+        for name, t in blk.items():
+            if isinstance(t, dict):
+                out[name] = gather(t, name)
+                continue
+            d = table.get((parent, name))
+            out[name] = t if d is None else ag(t, d)
+        return out
+
+    return gather
+
+
+def grad_sync_axes(cfg: ModelConfig, ctx) -> dict:
+    """flat param key -> (the axes its gradient is averaged over, the axes
+    it is summed over) on the temporal placement's mesh.
+
+    Averaged over ``(pod, data)`` where the leaf is not sharded over them
+    (the JAX package's ``make_grad_sync``: each batch shard's mean-loss
+    gradient, averaged). Summed over ``model`` where the leaf is not
+    sharded over it (``final_norm``; a leaf replicated because the mesh
+    cannot divide it): each model rank runs such a leaf on its own rows
+    only, so its gradient there is one rank's share of the sum (a gathered
+    leaf's comes whole, from the gather's ``psum_scatter``). The JAX
+    package sums nothing over ``model`` there (part of ROADMAP C10)."""
+    out = {}
+    for key, spec in transformer.flatten_params(param_specs(cfg, "fsdp")).items():
+        mean = tuple(a for a in (ctx.pod, ctx.data) if a is not None and not _has(spec, a))
+        total = (ctx.model,) if ctx.model is not None and not _has(spec, "model") else ()
+        out[key] = (mean, total)
+    return out
+
+
+def make_grad_sync(cfg: ModelConfig, ctx):
+    """The temporal round's gradient sync over a flat gradient dict (its
+    leaves may carry a leading client dim): ``grad_sync_axes``'s mean and
+    sum per leaf. The identity off the mesh."""
+    if ctx.pod is None and ctx.data is None and ctx.model is None:
+        return lambda g: g
+    axes = grad_sync_axes(cfg, ctx)
+
+    def sync(grads):
+        out = {}
+        for key, g in grads.items():
+            mean, total = axes[key]
+            if total:
+                g = ctx.psum(g, total[0])
+            out[key] = ctx.pmean(g, mean) if mean else g
+        return out
+
+    return sync
 
 
 def batch_specs(cfg: ModelConfig, shape_kind: str, global_batch: int, mesh_axes) -> tuple:

@@ -10,6 +10,12 @@ must be set before jax initializes). Each rank or device holds block
 ``rank`` of one numpy-seeded global array; single axes and tuples of axes
 (``data_axes``, the whole grid in either order) are checked. Gathers,
 all-to-alls and permutes move data only: bitwise. Sums: within 1e-6.
+
+The gradients (C9): each differentiable collective's gradient of
+``sum(f(x) * c)``, ``c`` a numpy-seeded cotangent block shaped like the
+output, on every rank against ``jax.grad`` inside the ``shard_map`` body
+(the transposes ``jax.lax`` gives under ``check_rep=False``), within 1e-6;
+``pmax``'s value as ``jax.lax.pmax`` gives it, and no gradient.
 This module imports no JAX at its top: the spawned ranks import it.
 """
 import os
@@ -27,7 +33,9 @@ NAMES = {"dm": ["data", "model", ("data", "model"), ("model", "data")],
          "pdm": ["pod", "data", "model", ("pod", "data"), ("data", "model"),
                  ("pod", "data", "model"), ("model", "pod", "data")]}
 LOCAL = (2, 8, 8)           # each device's block of the global array
-OPS = ("psum", "pmean", "all_gather", "psum_scatter", "all_to_all", "ppermute", "index")
+OPS = ("psum", "pmean", "all_gather", "psum_scatter", "all_to_all", "ppermute", "index",
+       "pmax")
+GRAD_OPS = ("psum", "pmean", "all_gather", "psum_scatter", "all_to_all", "ppermute")
 
 
 def _key(mesh, name, op):
@@ -38,18 +46,58 @@ def _global_x():
     return np.random.RandomState(0).randn(8 * LOCAL[0], *LOCAL[1:]).astype(np.float32)
 
 
+def _pmax(ctx):
+    """``ctx.pmax``, or for the JAX package's ``AxisCtx`` (which has none)
+    ``jax.lax.pmax``, as its model code calls it."""
+    if hasattr(ctx, "pmax"):
+        return ctx.pmax
+    import jax
+    return lambda x, name: jax.lax.pmax(x, name)
+
+
+def _ops(ctx, name):
+    """op name -> the collective of ``ctx`` over ``name`` as a function of
+    the local block (``ppermute``: the ring shift, single axes only)."""
+    ops = {"psum": lambda x: ctx.psum(x, name),
+           "pmean": lambda x: ctx.pmean(x, name),
+           "all_gather": lambda x: ctx.all_gather(x, name, axis=1),
+           "psum_scatter": lambda x: ctx.psum_scatter(x, name, axis=1),
+           "all_to_all": lambda x: ctx.all_to_all(x, name, split_axis=1, concat_axis=2),
+           "pmax": lambda x: _pmax(ctx)(x, name)}
+    if not isinstance(name, tuple):
+        sz = ctx.size(name)
+        ops["ppermute"] = lambda x: ctx.ppermute(x, name, [(i, (i + 1) % sz)
+                                                           for i in range(sz)])
+    return ops
+
+
 def _collectives(ctx, x, name, put):
     """Every collective of ``ctx`` over ``name`` on the local block ``x``;
     ``put(op, value)`` records each."""
-    put("psum", ctx.psum(x, name))
-    put("pmean", ctx.pmean(x, name))
-    put("all_gather", ctx.all_gather(x, name, axis=1))
-    put("psum_scatter", ctx.psum_scatter(x, name, axis=1))
-    put("all_to_all", ctx.all_to_all(x, name, split_axis=1, concat_axis=2))
+    for op, fn in _ops(ctx, name).items():
+        put(op, fn(x))
     put("index", ctx.index(name))
-    if not isinstance(name, tuple):
-        sz = ctx.size(name)
-        put("ppermute", ctx.ppermute(x, name, [(i, (i + 1) % sz) for i in range(sz)]))
+
+
+def _out_shape(op, n):
+    """The local output shape of ``op`` over an axis of ``n`` devices."""
+    b, s, d = LOCAL
+    return {"all_gather": (b, s * n, d), "psum_scatter": (b, s // n, d),
+            "all_to_all": (b, s // n, d * n)}.get(op, LOCAL)
+
+
+def _cotangent(mesh, name, op, n):
+    """The global cotangent of ``op``: one numpy-seeded block a device,
+    stacked on dim 0 in device order."""
+    shape = _out_shape(op, _size(mesh, name))
+    seed = sum(map(ord, _key(mesh, name, op)))
+    return np.random.RandomState(seed).randn(n * shape[0], *shape[1:]).astype(np.float32)
+
+
+def _size(mesh, name):
+    shape, axes = MESHES[mesh]
+    names = name if isinstance(name, tuple) else (name,)
+    return int(np.prod([shape[axes.index(a)] for a in names]))
 
 
 def rank_body(rank, world):
@@ -77,6 +125,20 @@ def rank_body(rank, world):
                          lambda op, v: out.__setitem__(
                              _key(m, name, op),
                              v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)))
+            for op, fn in _ops(ctx, name).items():
+                xg = x.clone().requires_grad_()
+                y = fn(xg)
+                if op == "pmax":
+                    out[_key(m, name, "pmax") + "|grad"] = y.requires_grad
+                    continue
+                c = _cotangent(m, name, op, mesh.size())
+                c = torch.from_numpy(c[rank * y.shape[0]:(rank + 1) * y.shape[0]])
+                out[_key(m, name, op) + "|grad"] = \
+                    torch.autograd.grad((y * c).sum(), xg)[0].numpy()
+        if m == "dm":
+            xg = x.clone().requires_grad_()
+            out["dm|sum_psum_data|grad"] = \
+                torch.autograd.grad(ctx.psum(xg, "data").sum(), xg)[0].numpy()
     return out
 
 
@@ -111,6 +173,17 @@ def _jax_side(out_path):
             got = jax.jit(f)(xg[:n * LOCAL[0]])
             for op, v in got.items():
                 res[_key(m, name, op)] = np.asarray(v)      # (n, ...) device order
+            for op in GRAD_OPS:
+                if op == "ppermute" and isinstance(name, tuple):
+                    continue
+
+                def grad_body(x, c, op=op, name=name):
+                    fn = _ops(ctx, name)[op]        # sizes are read inside the body
+                    return jax.grad(lambda x: jnp.sum(fn(x) * c))(x)
+                g = shard_map(grad_body, mesh=mesh, in_specs=(P(tuple(axes)), P(tuple(axes))),
+                              out_specs=P(tuple(axes)), check_rep=False)
+                got = jax.jit(g)(xg[:n * LOCAL[0]], jnp.asarray(_cotangent(m, name, op, n)))
+                res[_key(m, name, op) + "|grad"] = np.asarray(got).reshape(n, *LOCAL)
     np.savez(out_path, **res)
 
 
@@ -154,6 +227,43 @@ def test_every_collective_matches_jax(both, mesh, op):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("op", GRAD_OPS)
+def test_every_collective_gradient_matches_jax(both, mesh, op):
+    """C9: the gradient through each collective is its JAX transpose's."""
+    ranks, jx = both
+    n = int(np.prod(MESHES[mesh][0]))
+    checked = 0
+    for name in NAMES[mesh]:
+        key = _key(mesh, name, op) + "|grad"
+        if key not in jx:
+            assert op == "ppermute" and isinstance(name, tuple)
+            continue
+        for r in range(n):
+            got, want = ranks[r][key], jx[key][r]
+            assert got.shape == want.shape == LOCAL, (key, r)
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=f"{key} {r}")
+        checked += 1
+    assert checked >= 2
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_pmax_carries_no_gradient(both, mesh):
+    ranks, _ = both
+    for r in range(int(np.prod(MESHES[mesh][0]))):
+        for name in NAMES[mesh]:
+            assert ranks[r][_key(mesh, name, "pmax") + "|grad"] is False
+
+
+def test_grad_of_sum_psum_is_the_axis_size(both):
+    """The re-anchor's probe of C9: d sum(psum(x)) / dx over a 2-rank axis
+    is 2 everywhere (JAX's value; the port gave 1.0 before C9's fix)."""
+    ranks, _ = both
+    for r in range(4):
+        np.testing.assert_array_equal(ranks[r]["dm|sum_psum_data|grad"],
+                                      np.full(LOCAL, 2.0, np.float32))
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_sizes_and_data_axes(both, mesh):
     ranks, _ = both
     shape, axes = MESHES[mesh]
@@ -179,6 +289,7 @@ def test_single_is_the_identity():
     x = torch.randn(3, 4)
     assert SINGLE == AxisCtx() and SINGLE.data_axes is None
     assert SINGLE.size(SINGLE.data) == 1 and SINGLE.index(SINGLE.model) == 0
+    assert torch.equal(SINGLE.pmax(x, None), x)
     for out in (SINGLE.psum(x, None), SINGLE.pmean(x, ()), SINGLE.all_gather(x, None, 0),
                 SINGLE.psum_scatter(x, None, 0), SINGLE.all_to_all(x, None, 0, 1),
                 SINGLE.ppermute(x, None, [(0, 0)]), gather_on_spec(SINGLE, x, (None, "model"), None)):
