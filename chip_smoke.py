@@ -231,6 +231,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 1,536; B4 over a 512-key shard at lengths 0, 1, 300, 512), against
    their plain versions, timed beside the bound, the plain version and
    SDPA (the same mask) / ``F.rms_norm``.
+15b. MLA and the MoE FFN's expert parallelism on a mesh (slice 16) — the
+   world-1 NCCL rank on the (1, 1) mesh, bf16 at published width, weights
+   drawn on the card: minicpm3-4b (MLA, tied embeddings: the gathered
+   embedding, the latent rows gathered along the sequence, the shards'
+   latent log-sum-exp combine) and qwen3-moe-30b-a3b (the experts'
+   all-to-alls over ``model``), each's temporal train step (8 and 2
+   layers, one local step of 2 x 2,048) and prefill of 8 x 2,048 with 16
+   decode steps (16 and 4 layers), bitwise its meshless twin, B2-B4
+   counted; one MoE layer of jamba-1.5-large-398b at published width (16
+   experts of d_ff 24,576, ~19.3 GB) over 8 x 2,048 tokens through the
+   grid ring, bitwise the meshless ``moe_ffn``, and ``quant_ring``'s
+   accumulator within half an int8 step plus bf16 rounding. Then B2, B3 and
+   B4 at every shape those runs launched, and, kernel-level, B3 at MLA's
+   (288, 256) over 512 of 2,048 rows at q_offset 0 and 1,536 (B 8) and B4
+   at qwen3-moe's heads over a 512-key shard with rows of length 0, against
+   their plain versions, timed.
 16. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
@@ -4571,57 +4587,53 @@ def _serve_run(torch, prefill, decode, greedy_first, greedy, B, S, new):
     return all_logits, torch.stack(toks, dim=1), caches, prefill_s, step_ms
 
 
-def mesh_temporal_rank(rank, world):
-    """Phase 15's world-1 rank (``launch.mesh.spawn(..., 1, "cuda")``): on a
-    (1, 1) ``("data", "model")`` NCCL mesh, yi-34b at published width in
-    bf16, weights drawn on the card from a seed:
-
-    - ``make_train_step``'s temporal step (MESH_TRAIN: 4 of 60 layers, one
-      FedAvg round of one local step of 2 x 2,048 tokens over the whole
-      vocab): loss and new params bitwise the meshless
-      ``build_temporal_round`` on the same inputs; B2 and B3 counted
-      (each layer's forward and recompute, the final norm once);
-    - ``make_prefill_step`` then 16 ``make_decode_step`` steps with
-      ``greedy_token`` (MESH_SERVE: 8 of 60 layers, batch 8, prompt 2,048,
-      cache 2,064): every logits tensor, the tokens and the final caches
-      bitwise meshless ``Model.prefill`` / ``decode_step``; B2-B4 counted.
-
-    Counts zeroed just before each mesh run, read just after; the meshless
-    twins run first (they pay the process's first uses). Returns the
-    results (raises on a failed check)."""
-    import torch
+def _mesh_setup(torch):
+    """The world-1 rank's card, counted kernels and (1, 1) ``("data",
+    "model")`` NCCL mesh; every group the steps use set up once (NCCL sets
+    a group's communicator up at its first collective), before anything
+    is timed. -> (dev, kernels, mesh, out)."""
     import torch.distributed as dist
-    from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
-    from repro_torch.core.rounds import build_temporal_round
-    from repro_torch.core.strategies import get_strategy
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                          make_train_step, mesh_ctx)
-    from repro_torch.models import model_zoo
-    from repro_torch.models.transformer import FlatModel, flatten_params
+    from repro_torch.launch.steps import mesh_ctx
     from repro_torch.runtime.device import resolve_device
 
     dev = resolve_device("cuda")
     kernels = _counted_kernels()
     mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
-    # NCCL sets a group's communicator up at its first collective: each
-    # group the steps use, once, before anything is timed
     ctx = mesh_ctx(mesh)
     t0 = time.perf_counter()
     for name in ("data", "model", ("data", "model")):
         ctx.psum(torch.zeros(1, device=dev), name)
     torch.cuda.synchronize()
-    out = {"backend": str(dist.get_backend_config()), "world": world,
-           "nccl_first_use_s": time.perf_counter() - t0}
-    # the temporal train step
-    T = MESH_TRAIN
-    cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
-    B, S, L = T["batch"], T["seq"], T["n_layers"]
+    return dev, kernels, mesh, {"backend": str(dist.get_backend_config()),
+                                "world": dist.get_world_size(),
+                                "nccl_first_use_s": time.perf_counter() - t0}
+
+
+def _mesh_train_check(torch, kernels, mesh, dev, arch, L, B, S, seed, want_launches,
+                      label):
+    """``make_train_step``'s temporal step of ``arch`` at published width,
+    ``L`` layers, bf16 weights drawn on the card from ``seed``: one FedAvg
+    round of one local step of ``B`` x ``S`` tokens over the whole vocab,
+    its loss and every new param bitwise the meshless
+    ``build_temporal_round`` on the same inputs (which runs first and pays
+    the process's first uses); the kernels counted in the mesh run only
+    (zeroed just before it, read just after) and held to
+    ``want_launches(cfg)`` ({kernel: launches}, with B3 all on wgmma).
+    Returns the run's record, with ``by_shape_raw``."""
+    from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
+    from repro_torch.core.rounds import build_temporal_round
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import FlatModel, flatten_params
+
+    cfg = get_config(arch).replace(n_layers=L)
     fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
-    built = make_train_step(cfg, ShapeConfig("mesh_train", S, B, "train"), mesh, fl)
+    built = make_train_step(cfg, ShapeConfig(f"{label}_train", S, B, "train"), mesh, fl)
     model = model_zoo.build(cfg)
     g = torch.Generator(device=dev)
-    g.manual_seed(T["seed"])
+    g.manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = {"params": flatten_params(model.init(g, dtype=torch.bfloat16)), "server": (),
@@ -4651,16 +4663,17 @@ def mesh_temporal_rank(rank, world):
     peak = torch.cuda.max_memory_allocated() / 2**30
     if loss != want_loss or not _same(torch, new["params"], want["params"]) \
             or not math.isfinite(loss):
-        raise AssertionError(f"mesh temporal step: loss {loss} vs meshless {want_loss}, "
-                             f"params bitwise {_same(torch, new['params'], want['params'])}")
-    want_launches = dict(train_launches({"norms_per_layer": 2}, L, 1), quant_aggregate=0)
-    if launches != want_launches or flash_by_kernel != {"wgmma": 2 * L, "tf32x3": 0}:
-        raise AssertionError(f"mesh temporal step launches {launches} (want "
-                             f"{want_launches}), flash by kernel {flash_by_kernel}")
+        raise AssertionError(f"{label} mesh temporal step: loss {loss} vs meshless "
+                             f"{want_loss}, params bitwise "
+                             f"{_same(torch, new['params'], want['params'])}")
+    want_n = want_launches(cfg)
+    if launches != want_n or flash_by_kernel != {"wgmma": want_n["flash_attention"],
+                                                 "tf32x3": 0}:
+        raise AssertionError(f"{label} mesh temporal step launches {launches} (want "
+                             f"{want_n}), flash by kernel {flash_by_kernel}")
     moved = sum(not torch.equal(new["params"][k], state["params"][k]) for k in state["params"])
     del new, want
-    # both once more, warm (the meshless twin's first call paid the process's
-    # first uses), uncounted
+    # both once more, warm, uncounted
     warm = {}
     for name, fn, args in (("meshless", plain_fn, (state, batch, weights, 0)),
                            ("mesh", built.fn, shards)):
@@ -4669,29 +4682,42 @@ def mesh_temporal_rank(rank, world):
         m["loss"].item()
         warm[name] = time.perf_counter() - t0
         del res, m
-    out["train"] = {"arch": cfg.name, "n_layers": L, "batch": B, "seq": S,
-                    "params": n_params, "init_s": init_s, "loss": loss,
-                    "step_s": step_s, "meshless_step_s": meshless_s,
-                    "warm_step_s": warm["mesh"], "meshless_warm_step_s": warm["meshless"],
-                    "tokens_per_s": B * S / step_s, "peak_mem_gb": peak,
-                    "bitwise_meshless": True, "leaves_moved": moved,
-                    "leaves": len(state["params"]), "launches": launches,
-                    "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
-    log("mesh temporal train step", json.dumps(out["train"]))
-    out["train"]["by_shape_raw"] = by_shape
+    out = {"arch": cfg.name, "n_layers": L, "batch": B, "seq": S, "params": n_params,
+           "init_s": init_s, "loss": loss, "step_s": step_s, "meshless_step_s": meshless_s,
+           "warm_step_s": warm["mesh"], "meshless_warm_step_s": warm["meshless"],
+           "tokens_per_s": B * S / step_s, "peak_mem_gb": peak, "bitwise_meshless": True,
+           "leaves_moved": moved, "leaves": len(state["params"]), "launches": launches,
+           "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+    log(f"{label} mesh temporal train step", json.dumps(out))
+    out["by_shape_raw"] = by_shape
     del built, state, batch, tokens, shards, model, plain_fn
     torch.cuda.empty_cache()
-    # the serve steps
-    V = MESH_SERVE
-    cfg = get_config(V["arch"]).replace(n_layers=V["n_layers"])
-    B, S, new_tok, L = V["batch"], V["prompt_len"], V["max_new"], V["n_layers"]
+    return out
+
+
+def _mesh_serve_check(torch, kernels, mesh, dev, arch, L, B, S, new_tok, seed,
+                      want_launches, label):
+    """``make_prefill_step`` then ``new_tok`` ``make_decode_step`` steps
+    with ``greedy_token`` for ``arch`` at published width, ``L`` layers,
+    batch ``B``, prompt ``S``: every logits tensor, the tokens and the
+    final caches bitwise meshless ``Model.prefill`` / ``decode_step``
+    (which run first); the kernels counted in the mesh run only and held
+    to ``want_launches(cfg)``. Returns the run's record, with
+    ``by_shape_raw``."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import flatten_params
+
+    cfg = get_config(arch).replace(n_layers=L)
     model = model_zoo.build(cfg)
-    g.manual_seed(V["seed"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
     params = model.init(g, dtype=torch.bfloat16)
     flat = flatten_params(params)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
-    pre = make_prefill_step(cfg, ShapeConfig("mesh_prefill", S, B, "prefill"), mesh)
-    dec = make_decode_step(cfg, ShapeConfig("mesh_decode", S + new_tok, B, "decode"), mesh)
+    pre = make_prefill_step(cfg, ShapeConfig(f"{label}_prefill", S, B, "prefill"), mesh)
+    dec = make_decode_step(cfg, ShapeConfig(f"{label}_decode", S + new_tok, B, "decode"), mesh)
     pflat, pbatch = pre.shard((flat, {"tokens": prompts, "labels": prompts}), dev)
     dflat = flat                  # the tp shards at world 1: every leaf whole
     plain = _serve_run(
@@ -4709,28 +4735,61 @@ def mesh_temporal_rank(rank, world):
     same_logits = all(torch.equal(a, b) for a, b in zip(mesh_run[0], plain[0]))
     same_caches = _same(torch, list(mesh_run[2]), list(plain[2]))
     if not (same_logits and torch.equal(mesh_run[1], plain[1]) and same_caches):
-        raise AssertionError(f"mesh serve: logits bitwise {same_logits}, tokens "
+        raise AssertionError(f"{label} mesh serve: logits bitwise {same_logits}, tokens "
                              f"{torch.equal(mesh_run[1], plain[1])}, caches {same_caches}")
     if not all(torch.isfinite(t).all() for t in mesh_run[0]) or \
             mesh_run[0][0].shape != (B, cfg.padded_vocab) or \
             mesh_run[0][1].shape != (B, cfg.padded_vocab):
-        raise AssertionError("mesh serve: logits not finite or not (B, V)")
-    want_launches = {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new_tok),
-                     "flash_attention": L, "decode_attention": L * new_tok}
-    if launches != want_launches:
-        raise AssertionError(f"mesh serve launches {launches}, want {want_launches}")
-    out["serve"] = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S,
-                    "decode_steps": new_tok, "cache_len": S + new_tok,
-                    "prefill_s": mesh_run[3], "meshless_prefill_s": plain[3],
-                    "decode_step_ms": sorted(mesh_run[4])[new_tok // 2],
-                    "meshless_decode_step_ms": sorted(plain[4])[new_tok // 2],
-                    "peak_mem_gb": peak, "bitwise_meshless": True,
-                    "tokens_head": mesh_run[1][0, :8].tolist(), "launches": launches,
-                    "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
-    log("mesh temporal serve", json.dumps(out["serve"]))
-    out["serve"]["by_shape_raw"] = by_shape
+        raise AssertionError(f"{label} mesh serve: logits not finite or not (B, V)")
+    want_n = want_launches(cfg)
+    if launches != want_n:
+        raise AssertionError(f"{label} mesh serve launches {launches}, want {want_n}")
+    out = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S,
+           "decode_steps": new_tok, "cache_len": S + new_tok,
+           "prefill_s": mesh_run[3], "meshless_prefill_s": plain[3],
+           "decode_step_ms": sorted(mesh_run[4])[new_tok // 2],
+           "meshless_decode_step_ms": sorted(plain[4])[new_tok // 2],
+           "peak_mem_gb": peak, "bitwise_meshless": True,
+           "tokens_head": mesh_run[1][0, :8].tolist(), "launches": launches,
+           "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+    log(f"{label} mesh temporal serve", json.dumps(out))
+    out["by_shape_raw"] = by_shape
     del params, flat, pflat, dflat, plain, mesh_run, model
     torch.cuda.empty_cache()
+    return out
+
+
+def mesh_temporal_rank(rank, world):
+    """Phase 15's world-1 rank (``launch.mesh.spawn(..., 1, "cuda")``): on a
+    (1, 1) ``("data", "model")`` NCCL mesh, yi-34b at published width in
+    bf16, weights drawn on the card from a seed:
+
+    - ``make_train_step``'s temporal step (MESH_TRAIN: 4 of 60 layers, one
+      FedAvg round of one local step of 2 x 2,048 tokens over the whole
+      vocab): loss and new params bitwise the meshless
+      ``build_temporal_round`` on the same inputs; B2 and B3 counted
+      (each layer's forward and recompute, the final norm once);
+    - ``make_prefill_step`` then 16 ``make_decode_step`` steps with
+      ``greedy_token`` (MESH_SERVE: 8 of 60 layers, batch 8, prompt 2,048,
+      cache 2,064): every logits tensor, the tokens and the final caches
+      bitwise meshless ``Model.prefill`` / ``decode_step``; B2-B4 counted.
+
+    Counts zeroed just before each mesh run, read just after; the meshless
+    twins run first (they pay the process's first uses). Returns the
+    results (raises on a failed check)."""
+    import torch
+    dev, kernels, mesh, out = _mesh_setup(torch)
+    T, V = MESH_TRAIN, MESH_SERVE
+    out["train"] = _mesh_train_check(
+        torch, kernels, mesh, dev, T["arch"], T["n_layers"], T["batch"], T["seq"],
+        T["seed"], lambda cfg: dict(train_launches({"norms_per_layer": 2}, cfg.n_layers, 1),
+                                    quant_aggregate=0), "yi-34b")
+    new_tok, L = V["max_new"], V["n_layers"]
+    out["serve"] = _mesh_serve_check(
+        torch, kernels, mesh, dev, V["arch"], L, V["batch"], V["prompt_len"], new_tok,
+        V["seed"], lambda cfg: {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new_tok),
+                                "flash_attention": L, "decode_attention": L * new_tok},
+        "yi-34b")
     return out
 
 
@@ -4915,6 +4974,210 @@ def phase_mesh_temporal(torch):
            "serve": {k: v for k, v in w1["serve"].items() if k != "by_shape_raw"},
            "by_path": by_path, "kernel_rows": rows}
     log(f"mesh temporal phase: {out['phase_s']:.1f}s (world-1 rank {rank_s:.1f}s)")
+    return out
+
+
+# phase 15b (slice 16): MLA and the MoE FFN's expert parallelism on the (1, 1)
+# NCCL mesh, at published width: each arch's temporal step, a prefill and
+# decode steps, each bitwise its meshless twin; one jamba-width MoE layer
+# through the grid ring
+MESH_MLA_MOE = {  # arch: train layers, serve layers, B2 a layer a forward
+    "minicpm3-4b": {"train_layers": 8, "serve_layers": 16, "norms_per_layer": 4,
+                    "decode_per_layer": 0},      # MLA decode attends with einsums
+    "qwen3-moe-30b-a3b": {"train_layers": 2, "serve_layers": 4, "norms_per_layer": 4,
+                          "decode_per_layer": 1}}
+MESH_MLA_MOE_TRAIN = {"batch": 2, "seq": 2048, "seed": 160}
+MESH_MLA_MOE_SERVE = {"batch": 8, "prompt_len": 2048, "max_new": 16, "seed": 161}
+MESH_GRID_RING = {"arch": "jamba-1.5-large-398b", "batch": 8, "seq": 2048, "seed": 162}
+# one rank of a 4-rank model axis, kernel-level: B3 in MLA's absorbed form
+# (40 heads on one kv head, 288/256) over its 512 of 2,048 rows at ranks 0
+# and 3, B 8; B4 at qwen3-moe's heads over a 512-key cache shard
+MESH_MLA_SHARD_FLASH = {"rank0": 0, "rank3": 1536}
+MESH_MOE_SHARD_DECODE = {"S_loc": 512, "lengths": (0, 1, 300, 512)}
+
+
+def _grid_ring_check(torch, dev, mesh):
+    """One MoE layer of jamba-1.5-large-398b at published width (16
+    experts of d_ff 24,576 on d_model 8,192, ~19.3 GB of bf16 experts) over
+    8 x 2,048 tokens, ``moe_ffn`` on the (1, 1) mesh's ctx: the grid ring
+    (one hop at world 1) bitwise the meshless ``moe_ffn``; ``quant_ring``
+    at the bucket level within the accumulator's int8 rounding (half a
+    step, ``amax / 254`` a row) plus bf16's (``amax / 256``) of the plain
+    ring run on the same dequantized visit, and its whole error against the
+    plain output reported. Returns the record."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import mesh_ctx
+    from repro_torch.models import moe
+
+    G = MESH_GRID_RING
+    cfg = get_config(G["arch"])
+    m = cfg.moe
+    ctx = mesh_ctx(mesh)
+    g = torch.Generator(device=dev)
+    g.manual_seed(G["seed"])
+    t0 = time.perf_counter()
+    w = moe.init_moe_params(g, cfg, dtype=torch.bfloat16)
+    x = torch.randn((G["batch"], G["seq"], cfg.d_model), generator=g, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    expert_gb = sum(w[k].numel() * 2 for k in ("w1", "w3", "w2")) / 1e9
+    times = {}
+    with torch.inference_mode():
+        outs = {}
+        for name, kw in (("meshless", {}), ("ring", {"ctx": ctx}),
+                         ("quant_ring", {"ctx": ctx, "quant_ring": True})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = moe.moe_ffn(w, x, cfg, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        plain, paux = outs["meshless"]
+        ring, raux = outs["ring"]
+        if not (torch.equal(ring, plain) and torch.equal(raux.drop_fraction,
+                                                        paux.drop_fraction)):
+            raise AssertionError("grid ring at world 1: not bitwise the meshless moe_ffn "
+                                 f"(max diff {(ring.float() - plain.float()).abs().max()})")
+        q_out = outs["quant_ring"][0]
+        rowmax = plain.float().abs().amax(dim=-1, keepdim=True)
+        q_rel = ((q_out.float() - plain.float()).abs() / rowmax.clamp(min=1e-30)).max().item()
+        # the bucket level: the quantized ring against the plain ring on
+        # the same dequantized visit differs by the accumulator's rounding
+        xf = x.reshape(-1, cfg.d_model)
+        _, eids, _, _, hits = moe._route(xf, w["router"], cfg)
+        C = moe.capacity(xf.shape[0], m.top_k, m.n_experts, m.capacity_factor)
+        buckets = moe._dispatch(xf, eids, hits, C, m.n_experts)[0]
+        vq, vs = moe._q8(buckets)
+        acc = moe._ring(ctx, moe._dq(vq, vs, buckets.dtype), w, False).float()
+        qb = moe._ring(ctx, buckets, w, True).float()
+        amax = acc.abs().amax(dim=-1, keepdim=True)
+        excess = ((qb - acc).abs() - amax * (0.5 / 127 + 2.0 ** -8)).max().item()
+        acc_rel = ((qb - acc).abs() / amax.clamp(min=1e-30)).max().item()
+    if excess > 0 or not torch.isfinite(q_out).all():
+        raise AssertionError(f"quant ring: the accumulator's error passes half an int8 "
+                             f"step plus bf16 rounding by {excess}")
+    out = {"arch": cfg.name, "n_experts": m.n_experts, "expert_d_ff": m.expert_d_ff,
+           "d_model": cfg.d_model, "tokens": G["batch"] * G["seq"], "capacity": C,
+           "expert_gb": expert_gb, "init_s": init_s, "bitwise_meshless": True,
+           "drop_fraction": paux.drop_fraction.item(), "meshless_s": times["meshless"],
+           "ring_s": times["ring"], "quant_ring_s": times["quant_ring"],
+           "quant_ring_max_rel_err_of_row_max": q_rel,
+           "quant_ring_acc_max_rel_err_of_row_max": acc_rel,
+           "quant_ring_acc_bound": 0.5 / 127 + 2.0 ** -8}
+    log("grid ring world 1", json.dumps(out))
+    del w, x, outs, plain, ring, q_out, buckets, acc, qb, xf
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_mla_moe_rank(rank, world):
+    """Phase 15b's world-1 rank: on a (1, 1) ``("data", "model")`` NCCL
+    mesh, in bf16 at published width, weights drawn on the card from a
+    seed, for minicpm3-4b (MLA, tied embeddings) and qwen3-moe-30b-a3b
+    (model EP; the experts' all-to-alls over the model axis): the temporal
+    train step (8 and 2 layers, one local step of 2 x 2,048) and a prefill
+    of 8 x 2,048 with 16 decode steps (16 and 4 layers), each bitwise its
+    meshless twin, B2-B4 counted in the mesh runs; then one jamba-width MoE
+    layer through the grid ring (``_grid_ring_check``). Returns the
+    results (raises on a failed check)."""
+    import torch
+    dev, kernels, mesh, out = _mesh_setup(torch)
+    T, V = MESH_MLA_MOE_TRAIN, MESH_MLA_MOE_SERVE
+    new_tok = V["max_new"]
+    for arch, A in MESH_MLA_MOE.items():
+        def train_want(cfg, A=A):
+            return dict(train_launches(A, cfg.n_layers, 1), quant_aggregate=0)
+
+        def serve_want(cfg, A=A):
+            L = cfg.n_layers
+            return {"quant_aggregate": 0,
+                    "rmsnorm": (A["norms_per_layer"] * L + 1) * (1 + new_tok),
+                    "flash_attention": L,
+                    "decode_attention": A["decode_per_layer"] * L * new_tok}
+        out[arch] = {
+            "train": _mesh_train_check(torch, kernels, mesh, dev, arch, A["train_layers"],
+                                       T["batch"], T["seq"], T["seed"], train_want, arch),
+            "serve": _mesh_serve_check(torch, kernels, mesh, dev, arch, A["serve_layers"],
+                                       V["batch"], V["prompt_len"], new_tok, V["seed"],
+                                       serve_want, arch)}
+    out["grid_ring"] = _grid_ring_check(torch, dev, mesh)
+    return out
+
+
+def time_mesh_mla_moe_kernels(torch, flush, by_path):
+    """B2, B3 and B4 at every shape phase 15b's counted runs launched
+    (``by_path``: {path: {kernel: {shape: launches}}}), and, kernel-level,
+    at one rank's shapes on a 4-rank model axis (MESH_MLA_SHARD_FLASH,
+    MESH_MOE_SHARD_DECODE). Returns {(kernel, tag): row}."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    rows, seed = {}, 1600
+    shapes = {}
+    for counts in by_path.values():
+        for fn, c in counts.items():
+            shapes.setdefault(fn, set()).update(c)
+    for key in sorted(shapes.get("flash_attention", ())):
+        rows[("flash_attention", shape_name(key))] = _time_flash_row(
+            torch, F, fa, flush, key, key[2] - key[1], seed, "mesh mla/moe")
+        seed += 10
+    for key in sorted(shapes.get("rmsnorm", ())):
+        rows[("rmsnorm", shape_name(key))] = _time_rms_row(torch, F, rms, flush, key, seed,
+                                                           "mesh mla/moe")
+        seed += 10
+    S, new = MESH_MLA_MOE_SERVE["prompt_len"], MESH_MLA_MOE_SERVE["max_new"]
+    for key in sorted(shapes.get("decode_attention", ())):
+        rows[("decode_attention", shape_name(key))] = _time_decode_row(
+            torch, F, da, flush, key, (S + new // 2,) * key[0], seed)
+        seed += 10
+    mla = get_config("minicpm3-4b")
+    B, Sq = MESH_MLA_MOE_SERVE["batch"], MESH_MLA_MOE_SERVE["prompt_len"]
+    dk, dv = mla.mla.kv_lora_rank + mla.mla.qk_rope_head_dim, mla.mla.kv_lora_rank
+    for tag, off in MESH_MLA_SHARD_FLASH.items():
+        key = (B, Sq // 4, Sq, mla.n_heads, 1, dk, dv, True)
+        rows[("flash_attention", f"mla_shard_{tag}")] = _time_flash_row(
+            torch, F, fa, flush, key, off, seed, "mesh mla/moe")
+        seed += 10
+    qm = get_config("qwen3-moe-30b-a3b")
+    lengths = MESH_MOE_SHARD_DECODE["lengths"] * (B // len(MESH_MOE_SHARD_DECODE["lengths"]))
+    HD = qm.resolved_head_dim
+    key = (B, MESH_MOE_SHARD_DECODE["S_loc"], qm.n_heads, qm.n_kv_heads, HD, HD)
+    rows[("decode_attention", "moe_shard")] = _time_decode_row(torch, F, da, flush, key,
+                                                               lengths, seed)
+    for (fn, tag), r in rows.items():
+        log(f"kernel {fn} mesh mla/moe {tag}", json.dumps(r))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_mla_moe(torch):
+    """Slice 16: MLA and the MoE FFN's expert parallelism in the temporal
+    placement on the card. A world-1 NCCL rank (``mesh_mla_moe_rank``)
+    drives minicpm3-4b's and qwen3-moe-30b-a3b's temporal train step,
+    prefill and decode steps at published width, each bitwise its meshless
+    twin, and a jamba-width MoE layer through the grid ring; then B2, B3
+    and B4 at every shape those runs launched and at one rank's shapes on a
+    4-rank model axis, against their plain versions, timed. Returns the
+    phase's summary."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w1 = spawn(mesh_mla_moe_rank, 1, "cuda")[0]
+    rank_s = time.perf_counter() - t0
+    by_path = {f"{arch}_{path}": {fn: c for fn, c in w1[arch][path]["by_shape_raw"].items()
+                                  if c}
+               for arch in MESH_MLA_MOE for path in ("train", "serve")}
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    rows = time_mesh_mla_moe_kernels(torch, flush, by_path)
+    del flush
+    out = {"phase_s": time.perf_counter() - t0, "rank_s": rank_s,
+           **{arch: {path: {k: v for k, v in w1[arch][path].items() if k != "by_shape_raw"}
+                     for path in ("train", "serve")} for arch in MESH_MLA_MOE},
+           "grid_ring": w1["grid_ring"], "nccl_first_use_s": w1["nccl_first_use_s"],
+           "by_path": by_path, "kernel_rows": rows}
+    log(f"mesh mla/moe phase: {out['phase_s']:.1f}s (world-1 rank {rank_s:.1f}s)")
     return out
 
 
@@ -5145,6 +5408,14 @@ def main() -> int:
     # width against their meshless twins, bitwise; counts zeroed just before
     # each mesh run, read just after (in the rank)
     mesh_temporal = phase_mesh_temporal(torch)
+
+    # 15b. MLA and the MoE FFN's expert parallelism on a mesh (slice 16): the
+    # world-1 NCCL rank's temporal train, prefill and decode steps of
+    # minicpm3-4b and qwen3-moe-30b-a3b at published width against their
+    # meshless twins, bitwise, and a jamba-width MoE layer through the grid
+    # ring; counts zeroed just before each mesh run, read just after (in the
+    # rank)
+    mesh_mla_moe = phase_mesh_mla_moe(torch)
 
     # 16. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
@@ -5529,6 +5800,47 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
             **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
+    # slice 16: B2, B3 and B4 at every shape the world-1 rank's MLA and MoE
+    # mesh runs launched, and kernel-level at one rank's shapes on a 4-rank
+    # model axis
+    mm = mesh_mla_moe
+    T16, V16 = MESH_MLA_MOE_TRAIN, MESH_MLA_MOE_SERVE
+    paths16 = {}
+    for arch, A in MESH_MLA_MOE.items():
+        paths16[f"{arch}_train"] = (
+            f"the temporal train step on a (1, 1) NCCL mesh: {arch} at published width, "
+            f"{A['train_layers']} layers, one local step of {T16['batch']} x {T16['seq']} "
+            "(forward and recompute)")
+        paths16[f"{arch}_serve"] = (
+            f"the prefill step and {V16['max_new']} decode steps on a (1, 1) NCCL mesh: "
+            f"{arch} at published width, {A['serve_layers']} layers, batch {V16['batch']}")
+    rows16 = [(path, fn, shape_name(key), n, paths16[path])
+              for path, counts in mm["by_path"].items()
+              for fn in sorted(counts) for key, n in sorted(counts[fn].items())]
+    rows16 += [(None, "flash_attention", f"mla_shard_{tag}", 0,
+                f"kernel-level only: rank {tag[-1]} of a 4-rank model axis, its "
+                f"{V16['prompt_len'] // 4} rows of minicpm3-4b's absorbed MLA prefill "
+                f"(288/256) at q_offset {off}")
+               for tag, off in MESH_MLA_SHARD_FLASH.items()]
+    rows16.append((None, "decode_attention", "moe_shard", 0,
+                   f"kernel-level only: qwen3-moe-30b-a3b's heads, combine=False over one "
+                   f"rank's {MESH_MOE_SHARD_DECODE['S_loc']}-key cache shard of a 4-rank "
+                   f"model axis, row lengths {list(MESH_MOE_SHARD_DECODE['lengths'])}"))
+    for path, fn, tag, launches, where in rows16:
+        r = mm["kernel_rows"][(fn, tag)]
+        flash = fn == "flash_attention"
+        source, replaces = ((("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                              if r["kernel"] == "wgmma" else
+                              "src/repro_torch/csrc/flash_attention.cu"), flash_src)
+                            if flash else sources[fn])
+        entries.append({
+            "name": f"{fn}_{r['kernel'] + '_' if flash else ''}mesh_mla_moe_"
+                    f"{path + '_' if path else ''}{tag.replace(' ', '_')}",
+            "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_path": where, "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
+            **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -5720,6 +6032,19 @@ def main() -> int:
                         f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
                         for (fn, tag), r in mesh_temporal["kernel_rows"].items()}}))
+    log(json.dumps({"slice": "16: MLA (minicpm3-4b, tied embeddings) and the MoE FFN's "
+                    "expert parallelism (qwen3-moe-30b-a3b's model all-to-all; the grid ring) "
+                    "in the temporal placement on a device mesh: each step at published width "
+                    "on a (1, 1) NCCL mesh bitwise its meshless twin, a jamba-width MoE layer "
+                    "through the grid ring bitwise the meshless moe_ffn",
+                    "card": smi, **{k: v for k, v in mesh_mla_moe.items()
+                                    if k not in ("kernel_rows", "by_path")},
+                    "launches_by_shape": {p: {fn: named(v) for fn, v in c.items()}
+                                          for p, c in mesh_mla_moe["by_path"].items()},
+                    "kernel_rows": {f"{fn} {tag}": {
+                        f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                        for (fn, tag), r in mesh_mla_moe["kernel_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,8 +25,11 @@ numpy draw of the global arrays.
   sequence-sharded cache, the logits ``(B, V_loc)`` of the rank's vocab
   slice (``Model.greedy_token(..., ctx=)`` takes the global argmax).
 
-On a mesh with a model axis the temporal steps run dense GQA only; MoE,
-MLA, hybrid, ssm and encdec raise (ROADMAP A16.3).
+On a mesh with a model axis the temporal steps run the dense and MoE
+decoders, GQA or MLA (their expert leaves resident, each rank's shard
+materialized from the global draw like any other leaf); hybrid, ssm and
+encdec raise (ROADMAP A16.3b), and so does a subgrid-EP arch on a mesh
+whose ``E / data * f_sub`` is not ``model`` (``moe.check_mesh``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.configs.base import FLConfig, ModelConfig, ShapeConfig, get_con
 from repro_torch.core.rounds import build_spatial_round, build_temporal_round
 from repro_torch.core.strategies import get_strategy
 from repro_torch.models import model_zoo
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, LatentCache
 from repro_torch.models.transformer import (FlatModel, flatten_params, param_shapes,
                                             refuse_model_axis, seq_sharded_in,
@@ -195,6 +199,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         inputs = train_inputs(cfg, shape, sizes, strategy, dtype)
     else:
         refuse_model_axis(cfg, ctx)
+        moe_mod.check_mesh(cfg, sizes)
         model = FlatModel(dataclasses.replace(model_zoo.build(cfg), layout=layout))
         round_fn = build_temporal_round(model, strategy, fl, ctx=ctx)
         inputs = temporal_train_inputs(cfg, shape, sizes, strategy, dtype, layout)
@@ -298,10 +303,10 @@ def cache_tree(cfg: ModelConfig, shape: ShapeConfig, sizes: dict,
     ``cache_tree``, which reads the tree off the prefill): a stacked
     KVCache, (L, B, S, KV, HD) each, or for MLA a LatentCache; the batch
     over ``(pod, data)``, the sequence over ``model``. The other families'
-    trees come with their mesh halves (ROADMAP A16.3)."""
+    trees come with their mesh halves (ROADMAP A16.3b)."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"the {cfg.family} family's decode cache on a mesh comes with "
-                         "ROADMAP A16.3")
+                         "ROADMAP A16.3b")
     L, B, S = cfg.n_layers, shape.global_batch, shape.seq_len
     lead = (None, _entry(_batch_axes(sizes, B)), "model" if "model" in sizes else None)
 
@@ -316,9 +321,11 @@ def cache_tree(cfg: ModelConfig, shape: ShapeConfig, sizes: dict,
 def _serve_ctx(cfg: ModelConfig, mesh) -> AxisCtx:
     """The serve steps' ctx: the mesh's, without the vocab axis for a
     spatial arch (its embeddings stay whole, as in the JAX package); a
-    model axis refused where A16.2 does not shard the arch."""
+    model axis refused where the port does not shard the family yet, and
+    a subgrid-EP arch on a mesh its experts cannot tile."""
     ctx = mesh_ctx(mesh)
     refuse_model_axis(cfg, ctx)
+    moe_mod.check_mesh(cfg, dict(_axis_sizes(mesh)))
     if sspecs.placement_for(cfg) == "spatial":
         ctx = dataclasses.replace(ctx, vocab=None)
     return ctx

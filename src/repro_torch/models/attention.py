@@ -15,10 +15,16 @@ identity) or on a rank of the temporal placement's mesh
   log-sum-exp combined over ``model``. With ``tp`` the projections are
   column/row tensor-parallel (``col_matmul``, ``row_matmul``).
 
+MLA (minicpm3-4b) runs the same way with its latent cache: in training
+and prefill (``mla_seqsharded``) the rank's latent rows and rope keys are
+all-gathered along the sequence and B3 runs at ``q_offset`` the rank's
+offset, in either of its two forms; at decode (``mla_decode``) the new
+latent row goes to the owning shard, latent attention runs over the shard
+and the shards' ``(o_lat, m, l)`` are log-sum-exp combined over ``model``
+(the MLA weights replicated under ``tp``, ``sharding/specs``).
+
 GQA carries QKV bias (qwen2.5-32b, qwen1.5-32b) and qk-norm (chameleon-34b,
-qwen3-moe-30b-a3b); MLA (minicpm3-4b) keeps a latent cache and runs B3 in
-either of its two forms, on one device only: its sharded half is ROADMAP
-A16.3.
+qwen3-moe-30b-a3b).
 """
 from __future__ import annotations
 
@@ -108,12 +114,6 @@ def row_matmul(ctx: AxisCtx, h, w_loc, tp: bool = False):
     return h @ w_loc
 
 
-def _refuse_mla_shards(ctx: AxisCtx):
-    if ctx.model is not None:
-        raise ValueError("MLA on a mesh with a model axis (its sequence-sharded "
-                         "latent cache and attention) comes with ROADMAP A16.3")
-
-
 def _qkv(w, cfg: ModelConfig, h):
     """h (B, S, D) -> q (B,S,H,HD), k and v (B,S,KV,HD): the projections,
     their biases added before the heads are split, then qk-norm (an RMSNorm
@@ -194,8 +194,18 @@ def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig, *,
 
     local_len = torch.clamp(length + 1 - start, 0, S_loc).to(torch.int32)
     o, m, l = ops.decode_attention(q[:, 0], cache.k, cache.v, local_len, combine=False)
+    o = _lse_combine(ctx, o, m, l)
+    out = row_matmul(ctx, o.to(h.dtype).reshape(B, 1, -1), w["wo"], tp)
+    return out, cache
+
+
+def _lse_combine(ctx: AxisCtx, o, m, l):
+    """Normalise unnormalised f32 attention ``(o (B, H, Dv), m (B, H),
+    l (B, H))``: on a model axis the shards' triples all-gathered and
+    log-sum-exp combined first (a shard with no key: m = -1e30, l = 0,
+    o = 0, weight 0)."""
     if ctx.model is not None:
-        Dv = o.shape[-1]
+        B, H, Dv = o.shape
         stats = torch.cat([o.reshape(B, -1), m, l], dim=-1)
         g = ctx.all_gather(stats[None], ctx.model, axis=0)          # (M, B, ...)
         o_all = g[..., :H * Dv].reshape(-1, B, H, Dv)
@@ -204,9 +214,7 @@ def gqa_decode(w: dict, h, cache: KVCache, length, cfg: ModelConfig, *,
         wgt = torch.exp(m_all - m_g[None])
         l = (l_all * wgt).sum(dim=0)
         o = (o_all * wgt[..., None]).sum(dim=0)
-    o = o / torch.clamp(l, min=1e-30)[..., None]
-    out = row_matmul(ctx, o.to(h.dtype).reshape(B, 1, -1), w["wo"], tp)
-    return out, cache
+    return o / torch.clamp(l, min=1e-30)[..., None]
 
 
 def _mla_q(w, cfg: ModelConfig, h, positions):
@@ -244,40 +252,44 @@ def _mla_expand_kv(w, cfg: ModelConfig, ckv):
 
 def mla_seqsharded(w: dict, h, cfg: ModelConfig, *, return_cache: bool = False,
                    absorbed: bool = True, ctx: AxisCtx = SINGLE):
-    """Causal MLA train or prefill attention over the whole sequence. h:
-    (B, S, D). Returns (B, S, D) [+ the LatentCache of these rows].
+    """Causal MLA train or prefill attention. h: (B, S_loc, D), this
+    rank's rows of the sequence (all of it off the mesh) at offset
+    ``index(model) * S_loc``; the latent rows and rope keys all-gathered
+    along the sequence over ``model``, B3 at ``q_offset`` the offset.
+    Returns (B, S_loc, D) [+ the LatentCache of these rows].
 
     Two forms of one function (the JAX package's, chosen there by
     ``REPRO_MLA_ABSORBED``, here by ``absorbed``):
     - absorbed (the default): W^UK folded into the queries, B3 attends in
       the latent space as MQA, H query heads on one kv head of Dk = R +
       rope (288 at minicpm3-4b) and Dv = R (256); W^UV applied after;
-    - expanded: per-head keys and values from the latent, B3 as MHA at
-      Dk = nope + rope (96) and Dv = v (64).
-    Both scale the scores by 1/sqrt(nope + rope). A ``ctx`` with a model
-    axis raises (ROADMAP A16.3)."""
-    _refuse_mla_shards(ctx)
+    - expanded: per-head keys and values from the gathered latent, B3 as
+      MHA at Dk = nope + rope (96) and Dv = v (64).
+    Both scale the scores by 1/sqrt(nope + rope)."""
     m, H = cfg.mla, cfg.n_heads
-    B, S = h.shape[0], h.shape[1]
-    pos = torch.arange(S, device=h.device)
+    B, S_loc = h.shape[0], h.shape[1]
+    off = ctx.index(ctx.model) * S_loc
+    pos = off + torch.arange(S_loc, device=h.device)
     q_nope, q_rope = _mla_q(w, cfg, h, pos)
     ckv, krope = _mla_kv_latent(w, cfg, h, pos)
+    ckv_g = ctx.all_gather(ckv, ctx.model, axis=1)
+    krope_g = ctx.all_gather(krope, ctx.model, axis=1)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     R, nope = m.kv_lora_rank, m.qk_nope_head_dim
     if absorbed:
         wukv = w["wukv"].reshape(R, H, nope + m.v_head_dim)
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wukv[..., :nope])
         q_cat = torch.cat([q_lat, q_rope], dim=-1)             # (B,S,H,R+rope)
-        kv_cat = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
-        o_lat = ops.flash_attention(q_cat, kv_cat, ckv[:, :, None, :], 0, True, scale)
+        kv_cat = torch.cat([ckv_g, krope_g], dim=-1)[:, :, None, :]
+        o_lat = ops.flash_attention(q_cat, kv_cat, ckv_g[:, :, None, :], off, True, scale)
         o = torch.einsum("bshr,rhv->bshv", o_lat, wukv[..., nope:])
     else:
-        k_nope, v = _mla_expand_kv(w, cfg, ckv)
+        k_nope, v = _mla_expand_kv(w, cfg, ckv_g)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        k = torch.cat([k_nope, krope_g[:, :, None, :].expand(
             *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
-        o = ops.flash_attention(q, k, v, 0, True, scale)
-    out = o.reshape(B, S, -1) @ w["wo"]
+        o = ops.flash_attention(q, k, v, off, True, scale)
+    out = o.reshape(B, S_loc, -1) @ w["wo"]
     return (out, LatentCache(ckv, krope)) if return_cache else out
 
 
@@ -286,18 +298,23 @@ def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig, *,
     """One-token MLA decode in the absorbed form: attention runs in the
     latent space as einsums (no kernel, as in the JAX package), so a
     step's work scales with R + rope (288), not H * (Dk + Dv). h: (B, 1,
-    D); cache.ckv (B, S, R), cache.krope (B, S, rope); length: (B,) int32
-    context length (the new token goes to position ``length``). Returns
-    (out (B, 1, D), cache).
+    D), the same on every model rank; cache.ckv (B, S_loc, R),
+    cache.krope (B, S_loc, rope), this rank's shard of the cache, global
+    positions ``[index(model) * S_loc, ...)`` (the whole cache off the
+    mesh); length: (B,) int32 context length (the new token goes to
+    position ``length``). Returns (out (B, 1, D), cache). The MLA weights
+    are whole on every rank (``tp`` changes nothing here: the absorbed
+    einsums do not shard by head, ``sharding/specs._TP_MLA_OVERRIDE``).
 
-    The new latent row is written into the cache IN PLACE, and the same
-    cache is returned. The JAX package adds a one-hot row, ``cache + onehot
-    * row``, which rewrites the whole cache; the values are the same, because
-    slot ``length`` is zero (``pad_caches`` grows the cache with zeros and
-    each slot is written once) and every other slot gets +0. As there, a
-    position past the cache's end writes nothing. A ``ctx`` with a model
-    axis raises (ROADMAP A16.3); ``tp`` changes nothing off the mesh."""
-    _refuse_mla_shards(ctx)
+    The new latent row is written IN PLACE into the shard that owns
+    position ``length``, and the same cache is returned. The JAX package
+    adds a one-hot row, ``cache + onehot * row``, which rewrites the whole
+    cache; the values are the same, because slot ``length`` is zero
+    (``pad_caches`` grows the cache with zeros and each slot is written
+    once) and every other slot gets +0. As there, a position past the
+    cache's end writes nothing. Latent attention runs over the shard's
+    ``clip(length + 1 - start, 0, S_loc)`` keys, and the shards' ``(o_lat,
+    m, l)`` are log-sum-exp combined over ``model``."""
     m, H = cfg.mla, cfg.n_heads
     B = h.shape[0]
     R, nope = m.kv_lora_rank, m.qk_nope_head_dim
@@ -305,10 +322,11 @@ def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig, *,
     q_nope, q_rope = _mla_q(w, cfg, h, pos)                   # (B,1,H,*)
     ckv_new, krope_new = _mla_kv_latent(w, cfg, h, pos)       # (B,1,R), (B,1,rope)
 
-    S = cache.ckv.shape[1]
+    S_loc = cache.ckv.shape[1]
+    start = ctx.index(ctx.model) * S_loc
     rows = torch.arange(B, device=h.device)
-    slot = torch.clamp(length, 0, S - 1).long()
-    mine = (length < S)[:, None]
+    slot = torch.clamp(length - start, 0, S_loc - 1).long()
+    mine = ((length >= start) & (length < start + S_loc))[:, None]
     cache.ckv[rows, slot] = torch.where(mine, ckv_new[:, 0], cache.ckv[rows, slot])
     cache.krope[rows, slot] = torch.where(mine, krope_new[:, 0], cache.krope[rows, slot])
 
@@ -319,13 +337,14 @@ def mla_decode(w: dict, h, cache: LatentCache, length, cfg: ModelConfig, *,
     s = (torch.einsum("bhr,bsr->bhs", q_lat, cache.ckv)
          + torch.einsum("bhd,bsd->bhs", q_rope[:, 0], cache.krope)).to(torch.float32)
     s = s * scale
-    valid = torch.arange(S, device=h.device)[None] < torch.clamp(length + 1, 0, S)[:, None]
+    local_len = torch.clamp(length + 1 - start, 0, S_loc)
+    valid = torch.arange(S_loc, device=h.device)[None] < local_len[:, None]
     s = torch.where(valid[:, None], s, -1e30)
     m_ = s.amax(dim=-1)
     p = torch.exp(s - m_[..., None])
     l = p.sum(dim=-1)
     o_lat = torch.einsum("bhs,bsr->bhr", p.to(cache.ckv.dtype), cache.ckv)
-    o_lat = o_lat.to(torch.float32) / torch.clamp(l, min=1e-30)[..., None]
+    o_lat = _lse_combine(ctx, o_lat.to(torch.float32), m_, l)
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(h.dtype), wukv[..., nope:])
     return o.reshape(B, 1, -1) @ w["wo"], cache
 

@@ -1,5 +1,6 @@
-"""Mixture-of-experts FFN with capacity buckets, on one device (port of the
-single-device half of ``repro/models/moe.py``).
+"""Mixture-of-experts FFN with capacity buckets (port of
+``repro/models/moe.py``), on one device or on a rank of the temporal
+placement's mesh.
 
 Routing in f32 (softmax, top-k, gates renormalised), GShard's aux losses,
 then capacity bucketing: each (token, choice) pair takes the next slot of
@@ -11,11 +12,36 @@ taken (``ep_mode`` "model", "grid" and "subgrid", whose expert FFN slices
 are packed on the expert dim); on one device "model" and "grid" compute
 the same, and "subgrid" reassembles (E, D, F) first.
 
-The collectives that shard the experts over devices (the all-to-alls, the
-ring of ``REPRO_QUANT_RING`` and the subgrid butterfly) come with the
-sharded halves of the multi-device port, ROADMAP A16.3: expert weights
-holding fewer experts than the config (a device's shard) raise a
-``ValueError`` naming it.
+On a mesh (``ctx`` with the axes) the experts are resident, never
+gathered (``sharding/specs._moe_expert_spec``), and each rank routes and
+buckets its own ``T_loc`` tokens, as the JAX package does: ``C`` comes
+from the rank's token count, so pairs drop per rank, and the aux losses
+are the rank's (``Model.loss`` averages them over the grid). Then:
+
+- "model": the (E, C, D) buckets all-to-all over ``model`` to the ranks
+  holding their E / M experts, which run ``(E/M, M*C, D)``; the reverse
+  all-to-all brings each slot home;
+- "grid": the same over ``data`` (E / R experts a data row), the expert
+  FFN dim sharded over ``model``: in training and prefill each rank's
+  buckets circulate M hops round the ``model`` ring by ``ppermute``, the
+  accumulator travelling with them, each hop adding the holder's F slice;
+  at decode (``tokens_replicated``: the same tokens on every model rank)
+  the slices' partial outputs are summed by a ``psum`` instead.
+  ``quant_ring`` (the JAX package's ``REPRO_QUANT_RING=1``) sends the
+  ring's payloads as int8 with a scale a row: the visit quantized once,
+  the accumulator requantized each hop;
+- "subgrid": the data all-to-all, then an ``f_sub``-fold duplicating
+  all-to-all over ``model`` to the ranks holding the expert's F slices
+  (rank (r, m) holds slice ``m % f_sub`` of expert ``r * M/f_sub + m //
+  f_sub``), the local slice's SwiGLU, an XOR butterfly of ``log2 f_sub``
+  ``ppermute`` + add steps summing the slices, and the reverse
+  all-to-alls taking every ``f_sub``-th row; at decode the rank's own
+  slice written into zeros and a ``psum`` over ``model``. It needs ``E /
+  data * f_sub == model`` (``check_mesh``).
+
+Every collective is differentiable (``sharding/axes``): the gradients
+come back through the all-to-alls, the ring and the butterfly by their
+transposes.
 
 Two choices differ from the JAX package's code, not its values:
 - the bucket scatter writes dropped pairs into a swallow slot past each
@@ -29,6 +55,7 @@ Two choices differ from the JAX package's code, not its values:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -37,6 +64,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.axes import SINGLE, AxisCtx
 
 
 class MoEAux(NamedTuple):
@@ -76,14 +104,36 @@ def capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def _check_local(w: dict, cfg: ModelConfig) -> None:
+def check_mesh(cfg: ModelConfig, sizes: dict) -> None:
+    """Raise a ``ValueError`` where a mesh of axis ``sizes`` (name ->
+    size) cannot hold the subgrid layout: it needs ``E / data * f_sub ==
+    model`` (the JAX package asserts it, ``moe.py:236``)."""
     m = cfg.moe
-    want = m.n_experts * (m.f_sub if m.ep_mode == "subgrid" else 1)
+    if m is None or m.ep_mode != "subgrid" or not sizes.get("model"):
+        return
+    R, M = sizes.get("data", 1), sizes["model"]
+    if (m.n_experts // R) * m.f_sub != M:
+        raise ValueError(
+            f"{cfg.name}: subgrid EP needs E/data*f_sub == model "
+            f"({m.n_experts}/{R}*{m.f_sub} != {M})")
+
+
+def _local_slices(cfg: ModelConfig, ctx: AxisCtx) -> int:
+    """Expert slices a rank holds on the leading dim of w1/w3/w2."""
+    m = cfg.moe
+    if m.ep_mode == "subgrid":
+        return 1 if ctx.model is not None else m.n_experts * m.f_sub
+    ep_axis = ctx.model if m.ep_mode == "model" else ctx.data
+    return m.n_experts // ctx.size(ep_axis)
+
+
+def _check_local(w: dict, cfg: ModelConfig, ctx: AxisCtx) -> None:
+    want = _local_slices(cfg, ctx)
     if w["w1"].shape[-3] != want:
         raise ValueError(
-            f"moe_ffn got {w['w1'].shape[-3]} expert slices, the config has {want}: "
-            "expert weights sharded over devices come with the sharded MoE FFN of the "
-            "multi-device port, ROADMAP A16.3")
+            f"moe_ffn got {w['w1'].shape[-3]} expert slices, this rank holds {want}: "
+            "expert weights sharded over devices take the mesh's ctx (moe_ffn(..., ctx=), "
+            "the temporal placement on a mesh, ROADMAP A16.3a)")
 
 
 def _route(xf, router, cfg: ModelConfig):
@@ -147,11 +197,116 @@ def _full(t, E: int, fs: int, transpose: bool = False):
     return t.reshape(E, fs, D, -1).movedim(1, 2).reshape(E, D, -1)
 
 
-def moe_ffn(w: dict, x, cfg: ModelConfig):
-    """x: (B, T, D) -> (out (B, T, D), MoEAux). ``w``: the router and all
-    of the config's expert weights, in any of the three layouts."""
+def _swiglu(toks, w1, w3, w2):
+    """One expert slice's SwiGLU over (N, D) rows."""
+    return (F.silu(toks @ w1) * (toks @ w3)) @ w2
+
+
+def _q8(t):
+    """Symmetric int8 with one f32 scale a row (last dim): ``amax / 127``
+    (as a multiply by the f32 reciprocal, as XLA computes the JAX
+    package's), 1 for a zero row."""
+    tf = t.to(torch.float32)
+    amax = tf.abs().amax(dim=-1, keepdim=True)
+    sc = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    return torch.clamp(torch.round(tf / sc), -127, 127).to(torch.int8), sc
+
+
+def _dq(q, sc, dtype):
+    return (q.to(torch.float32) * sc).to(dtype)
+
+
+def _ring(ctx: AxisCtx, buckets, w, quant_ring: bool):
+    """The grid ring over ``model``: M hops, each adding the holder's F
+    slice of the experts to the travelling accumulator, then passing
+    payload and accumulator on to rank ``i + 1``."""
+    M = ctx.size(ctx.model)
+    perm = [(i, (i + 1) % M) for i in range(M)]
+    step = functools.partial(_experts, w1=w["w1"], w3=w["w3"], w2=w["w2"])
+    if not quant_ring:
+        visit, acc = buckets, None
+        for _ in range(M):
+            y = step(visit)
+            acc = y if acc is None else acc + y
+            visit = ctx.ppermute(visit, ctx.model, perm)
+            acc = ctx.ppermute(acc, ctx.model, perm)
+        return acc
+    vq, vs = _q8(buckets)
+    aq, asc = _q8(torch.zeros_like(buckets))
+    for _ in range(M):
+        acc = _dq(aq, asc, torch.float32) + step(_dq(vq, vs, buckets.dtype)).to(torch.float32)
+        aq, asc = _q8(acc)
+        vq, vs, aq, asc = (ctx.ppermute(t, ctx.model, perm) for t in (vq, vs, aq, asc))
+    return _dq(aq, asc, buckets.dtype)
+
+
+def _ep(ctx: AxisCtx, buckets, w, cfg: ModelConfig, tokens_replicated: bool,
+        quant_ring: bool):
+    """"model" and "grid" EP: (E, C, D) buckets -> (E, C, D) outputs."""
     m = cfg.moe
-    _check_local(w, cfg)
+    E, C, D = buckets.shape
+    ep_axis = ctx.model if m.ep_mode == "model" else ctx.data
+    R = ctx.size(ep_axis)
+    E_row = E // R
+    if ep_axis is not None:
+        b = ctx.all_to_all(buckets.reshape(R, E_row, C, D), ep_axis, 0, 0)
+        buckets = b.movedim(0, 1).reshape(E_row, R * C, D)
+    grid = m.ep_mode == "grid" and ctx.model is not None
+    if grid and not tokens_replicated:
+        part = _ring(ctx, buckets, w, quant_ring)
+    else:
+        part = _experts(buckets, w["w1"], w["w3"], w["w2"])
+        if grid:                          # decode: tokens replicated over model
+            part = ctx.psum(part, ctx.model)
+    if ep_axis is None:
+        return part
+    p = ctx.all_to_all(part.reshape(E_row, R, C, D).movedim(1, 0), ep_axis, 0, 0)
+    return p.reshape(E, C, D)
+
+
+def _subgrid(ctx: AxisCtx, buckets, w, cfg: ModelConfig, tokens_replicated: bool):
+    """Subgrid EP on a mesh: (E, C, D) buckets -> (E, C, D) outputs."""
+    m = cfg.moe
+    E, C, D = buckets.shape
+    fs = m.f_sub
+    R, M = ctx.size(ctx.data), ctx.size(ctx.model)
+    E_row = E // R
+    check_mesh(cfg, {"data": R, "model": M})
+    w1, w3, w2 = w["w1"][0], w["w3"][0], w["w2"][0]
+    b = ctx.all_to_all(buckets.reshape(R, E_row, C, D), ctx.data, 0, 0)
+    buckets = b.movedim(0, 1).reshape(E_row, R * C, D)
+    if tokens_replicated:
+        # decode: the same buckets on every model rank; each runs its own
+        # (expert, slice), and the psum sums the slices and fills the rows
+        mine = ctx.index(ctx.model) // fs
+        own = _swiglu(buckets[mine], w1, w3, w2)
+        rows = [own if e == mine else torch.zeros_like(own) for e in range(E_row)]
+        part = ctx.psum(torch.stack(rows), ctx.model)
+    else:
+        # each expert's bucket to its f_sub slice holders
+        visit = ctx.all_to_all(buckets.repeat_interleave(fs, dim=0), ctx.model, 0, 0)
+        partial = _swiglu(visit.reshape(M * R * C, D), w1, w3, w2)
+        k = 1
+        while k < fs:                    # the XOR butterfly within each group
+            partial = partial + ctx.ppermute(partial, ctx.model,
+                                             [(i, i ^ k) for i in range(M)])
+            k *= 2
+        back = ctx.all_to_all(partial.reshape(M, R * C, D), ctx.model, 0, 0)
+        part = back[::fs]                 # a group's ranks hold the same sums
+    p = ctx.all_to_all(part.reshape(E_row, R, C, D).movedim(1, 0), ctx.data, 0, 0)
+    return p.reshape(E, C, D)
+
+
+def moe_ffn(w: dict, x, cfg: ModelConfig, *, ctx: AxisCtx = SINGLE,
+            tokens_replicated: bool = False, quant_ring: bool = False):
+    """x: (B, T_loc, D), this rank's tokens -> (out (B, T_loc, D), MoEAux
+    of these tokens). ``w``: the router whole and this rank's expert
+    slices (all of them off the mesh), in the config's layout.
+    ``tokens_replicated``: decode, where the tokens are the same on every
+    model rank (the grid ring and the subgrid exchange become a ``psum``);
+    ``quant_ring``: int8 ring payloads (grid EP on a model axis)."""
+    m = cfg.moe
+    _check_local(w, cfg, ctx)
     B, T_, D = x.shape
     E = m.n_experts
     xf = x.reshape(B * T_, D)
@@ -160,12 +315,14 @@ def moe_ffn(w: dict, x, cfg: ModelConfig):
     C = capacity(T, m.top_k, E, m.capacity_factor)
     buckets, flat_e, pos, keep = _dispatch(xf, eids, hits, C, E)
     drop_fraction = 1.0 - keep.to(torch.float32).mean()
-    if m.ep_mode == "subgrid":
+    if m.ep_mode == "subgrid" and ctx.model is not None:
+        out_buf = _subgrid(ctx, buckets, w, cfg, tokens_replicated)
+    elif m.ep_mode == "subgrid":
         fs = m.f_sub
         out_buf = _experts(buckets, _full(w["w1"], E, fs), _full(w["w3"], E, fs),
                            _full(w["w2"], E, fs, transpose=True))
     else:
-        out_buf = _experts(buckets, w["w1"], w["w3"], w["w2"])
+        out_buf = _ep(ctx, buckets, w, cfg, tokens_replicated, quant_ring)
     out = _combine(out_buf, flat_e, pos, keep, gates, T).reshape(B, T_, D)
     return out, MoEAux(load_balance, z_loss, drop_fraction)
 

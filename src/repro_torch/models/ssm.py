@@ -16,7 +16,7 @@ one step of small ops a token, as in the xLSTM paper.
 No kernel: the JAX package computes all of this in jnp. The JAX functions'
 sequence-sharded branch (the cross-shard state handoff of ``mamba_forward``)
 and its tensor-parallel decode come with the sharded halves of the
-multi-device port, ROADMAP A16.3: weights holding fewer channels than the
+multi-device port, ROADMAP A16.3b: weights holding fewer channels than the
 config (a device's shard) raise a ``ValueError`` naming it.
 """
 from __future__ import annotations
@@ -110,7 +110,7 @@ def _check_local(w: dict, cfg: ModelConfig) -> None:
             f"mamba_forward got {w['in_proj_x'].shape[-1]} inner channels, the config has "
             f"{d_inner}: a mixer sharded over devices (sequence-sharded scans with the "
             "cross-shard handoff, tensor-parallel decode) comes with the sharded halves "
-            "of the multi-device port, ROADMAP A16.3")
+            "of the multi-device port, ROADMAP A16.3b")
 
 
 def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None):

@@ -10,8 +10,9 @@ is a copy of each leaf. The JAX ``lax.scan`` over the stack is a Python
 loop over that dim.
 
 Every entry point takes ``ctx`` (``sharding/axes.AxisCtx``, default
-``SINGLE``: one device, every collective the identity). Dense GQA also
-runs on a rank of the temporal placement's ``(data, model[, pod])`` mesh,
+``SINGLE``: one device, every collective the identity). The dense and MoE
+decoders (GQA or MLA) also run on a rank of the temporal placement's
+``(data, model[, pod])`` mesh,
 as the JAX package's ``shard_map`` step does: weights ZeRO-3-sharded over
 ``model`` and gathered per layer (``gather_fn``, inside the layer's
 checkpoint, so the backward's recompute gathers again), the batch over
@@ -19,15 +20,21 @@ checkpoint, so the backward's recompute gathers again), the batch over
 the batch over ``model`` too, whole sequences, the JAX package's
 ``REPRO_TRAIN_LAYOUT=dp2d``), the embedding D-sharded and the head
 vocab-sharded over ``model``; at decode the weights are tensor-parallel
-(``tp``) and the cache sequence-sharded. The embedding, the loss and the
+(``tp``) and the cache sequence-sharded; the MoE experts stay resident
+(``moe.moe_ffn(ctx=)``); tied embeddings (minicpm3-4b) are vocab-sharded,
+all-gathered whole in training and prefill and looked up masked and summed
+at decode. The embedding, the loss and the
 prefill logits compute the meshless function exactly (ROADMAP C10: the JAX
 package's mesh step does not): the embedding gathers the rank's token rows
 over the vocab axis, looks them all up in its D slice and all-to-alls the
 slices back; the loss gathers the final hidden rows over the vocab axis,
 so each rank holds every row's logits over its vocab slice; prefill
 broadcasts the last position's row before the head and gathers the
-vocab. The other families (MoE, MLA, hybrid, ssm, encdec) refuse a model
-axis: their sharded halves are ROADMAP A16.3.
+vocab. The MoE aux losses are each rank's, averaged over ``(pod, data,
+model)`` as the JAX package averages them, their gradient scaled so that
+the synced gradient is the averaged aux's (ROADMAP C11). The hybrid, ssm
+and encdec families refuse a model axis: their sharded halves are ROADMAP
+A16.3b.
 
 Rematerialization: the training forward is ``layers.checkpointed`` where
 the JAX package's is ``jax.checkpoint``ed: each stack entry of
@@ -375,9 +382,11 @@ def _dense_block(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     h = _apply_norm(w["ln2"], x, cfg)
     if "moe" not in w:
         return x + mlp_forward(w["mlp"], h, cfg, ctx=ctx, tp=tp), new_cache, 0.0
-    mo, maux = moe_mod.moe_ffn(w["moe"], h, cfg)
+    mo, maux = moe_mod.moe_ffn(w["moe"], h, cfg, ctx=ctx,
+                               tokens_replicated=phase == "decode")
     if "dense_mlp" in w:
-        mo = mo + mlp_forward(w["dense_mlp"], _apply_norm(w["ln3"], x, cfg), cfg)
+        mo = mo + mlp_forward(w["dense_mlp"], _apply_norm(w["ln3"], x, cfg), cfg,
+                              ctx=ctx, tp=tp)
     return x + mo, new_cache, maux.load_balance + maux.z_loss
 
 
@@ -410,7 +419,7 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     package nests them: without them the period's recompute would hold all
     its mixers' and MoE layers' activations at once. One device only
     (``ctx`` without a model axis, ``tp`` unused): the sharded half is
-    ROADMAP A16.3."""
+    ROADMAP A16.3b."""
     refuse_model_axis(cfg, ctx)
     P, eps = cfg.hybrid.period, cfg.norm_eps
     ckpt = checkpointed if phase == "train" else _call
@@ -461,14 +470,15 @@ def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
 
 
 def refuse_model_axis(cfg: ModelConfig, ctx: AxisCtx) -> None:
-    """A16.2 shards dense GQA; the other families' sharded halves (MoE's
-    all-to-alls, MLA's latent cache, the Mamba handoff, the encdec cross
-    decode) are ROADMAP A16.3."""
-    if ctx.model is not None and (cfg.family != "dense" or cfg.attn_type != "gqa"):
+    """The dense and MoE decoders, GQA or MLA, shard over ``model``
+    (A16.2, A16.3a); the hybrid, ssm and encdec families' sharded halves
+    (the Mamba handoff, xLSTM serving, the encdec cross decode) are ROADMAP
+    A16.3b."""
+    if ctx.model is not None and cfg.family in ("hybrid", "ssm", "encdec"):
         raise ValueError(
-            f"{cfg.name} ({cfg.family}, {cfg.attn_type}) on a mesh with a model axis comes "
-            "with ROADMAP A16.3 (the sharded MLA, MoE, Mamba and encdec halves); the "
-            "temporal placement on a mesh runs dense GQA (A16.2)")
+            f"{cfg.name} ({cfg.family}) on a mesh with a model axis comes with ROADMAP "
+            "A16.3b (the sharded Mamba, xLSTM and encdec halves); the temporal placement "
+            "on a mesh runs the dense and MoE decoders (A16.2, A16.3a)")
 
 
 LAYOUTS = ("sp", "dp2d")
@@ -592,7 +602,8 @@ def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length, *,
 @dataclasses.dataclass(frozen=True)
 class Model:
     """An LM over a param dict: the training loss, prefill and greedy
-    decode, on one device or (dense GQA) a rank of a mesh (``ctx``).
+    decode, on one device or (the dense and MoE decoders) a rank of a mesh
+    (``ctx``).
     ``layout``: the training layout on a mesh (``seq_sharded_in``)."""
     cfg: ModelConfig
     layout: str = "sp"
@@ -638,7 +649,13 @@ class Model:
             x = ctx.all_gather(x.reshape(-1, x.shape[-1]), ctx.vaxis, axis=0)
             labels = ctx.all_gather(labels.reshape(-1), ctx.vaxis, axis=0)
         loss = softmax_xent_vshard(self._head(params, x), labels, ctx=ctx)
-        if isinstance(aux, torch.Tensor):
+        if isinstance(aux, torch.Tensor) and ctx.grid_axes:
+            # each rank's aux, averaged over the grid (the JAX package's);
+            # pmean's backward gives every rank's aux the cotangent 1, and
+            # the sync sums a leaf's gradient over model: 1 / M here makes
+            # it the averaged aux's gradient (ROADMAP C11)
+            if ctx.model is not None:
+                aux = _ScaleGrad.apply(aux, 1.0 / ctx.size(ctx.model))
             aux = ctx.pmean(aux, ctx.grid_axes)
         return loss + aux
 

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.sharding.axes import divisor
 
 # Archs small enough for spatial (per-chip replica) placement.
 SPATIAL_ARCHS = ("whisper-base", "xlstm-125m", "flsim-cnn", "flsim-mlp",
@@ -258,13 +259,27 @@ def grad_sync_axes(cfg: ModelConfig, ctx) -> dict:
     return out
 
 
+def grad_split_axes(cfg: ModelConfig, ctx) -> dict:
+    """flat param key -> the batch axes ``(pod, data)`` the leaf is
+    sharded over (grid- and subgrid-EP experts: ``data``). Such a leaf's
+    gradient already sums every batch shard's loss gradient (its tokens
+    came from every data row through the all-to-all, each with its row's
+    whole cotangent), so the sync divides it by their size, the mean the
+    other leaves take by ``pmean``. The JAX package's ``make_grad_sync``
+    leaves it the sum (ROADMAP C11)."""
+    return {key: tuple(a for a in (ctx.pod, ctx.data) if a is not None and _has(spec, a))
+            for key, spec in transformer.flatten_params(param_specs(cfg, "fsdp")).items()}
+
+
 def make_grad_sync(cfg: ModelConfig, ctx):
     """The temporal round's gradient sync over a flat gradient dict (its
     leaves may carry a leading client dim): ``grad_sync_axes``'s mean and
-    sum per leaf. The identity off the mesh."""
+    sum per leaf, and ``grad_split_axes``'s division. The identity off the
+    mesh."""
     if ctx.pod is None and ctx.data is None and ctx.model is None:
         return lambda g: g
     axes = grad_sync_axes(cfg, ctx)
+    split = grad_split_axes(cfg, ctx)
 
     def sync(grads):
         out = {}
@@ -272,6 +287,8 @@ def make_grad_sync(cfg: ModelConfig, ctx):
             mean, total = axes[key]
             if total:
                 g = ctx.psum(g, total[0])
+            if split[key]:
+                g = g / divisor(ctx.size(split[key]), g.device)
             out[key] = ctx.pmean(g, mean) if mean else g
         return out
 

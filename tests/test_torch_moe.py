@@ -165,7 +165,7 @@ def test_moe_shapes_capacity_and_init_match_the_jax_package():
 
 def test_moe_refuses_expert_shards():
     """Weights holding a device's share of the experts ask for the
-    multi-device layouts, which wait for ROADMAP A16."""
+    mesh's ctx (``moe_ffn(..., ctx=)``, ROADMAP A16.3a)."""
     _, cfg = _cfgs()
     w = moe.init_moe_params(torch.Generator().manual_seed(0), cfg)
     half = {k: (v if k == "router" else v[:4]) for k, v in w.items()}

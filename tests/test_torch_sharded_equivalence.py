@@ -24,8 +24,9 @@ draws them from {0, 1}, where any row's logits give nearly the same loss).
 - Prefill on (2, 2): the (B, V) logits and the caches against meshless.
 - ROADMAP C10 on the JAX side (strict xfails): the JAX mesh step's loss
   and prefill logits depart from its meshless ones at these inputs.
-- Refusals: ``make_*_step`` names A16.3 for MoE, MLA, hybrid (and, at
-  serve, ssm and encdec) on a mesh with a model axis.
+- Refusals: ``make_*_step`` names A16.3b for hybrid (and, at serve, ssm
+  and encdec) on a mesh with a model axis (MLA and MoE run there since
+  A16.3a: ``tests/test_torch_sharded_mla_moe.py``).
 - The input trees: ``batch_struct`` (train with lead (1, 1), sequence- or
   batch-sharded, prefill, decode), ``param_structs`` (fsdp, tp) and
   ``cache_tree`` give the JAX package's shapes and specs on both meshes;
@@ -48,11 +49,9 @@ MESHES = {"dm": ((2, 2), ("data", "model")),
 TRAIN_CELLS = (("dm", "sp"), ("pdm", "sp"), ("dm", "dp2d"))
 S, B = 32, 8                         # sharded_eq_impl's check_train / check_decode
 LENGTHS = np.array([0, 3, 14, 15, 16, 20, 30, 31], np.int32)   # decode: rows' context
-REFUSED = {"train": ("qwen3-moe-30b-a3b", "minicpm3-4b", "jamba-1.5-large-398b"),
-           "prefill": ("qwen3-moe-30b-a3b", "minicpm3-4b", "jamba-1.5-large-398b",
-                       "xlstm-125m", "whisper-base"),
-           "decode": ("qwen3-moe-30b-a3b", "minicpm3-4b", "jamba-1.5-large-398b",
-                      "xlstm-125m", "whisper-base")}
+REFUSED = {"train": ("jamba-1.5-large-398b",),
+           "prefill": ("jamba-1.5-large-398b", "xlstm-125m", "whisper-base"),
+           "decode": ("jamba-1.5-large-398b", "xlstm-125m", "whisper-base")}
 
 
 def _cfg(arch=ARCH):
@@ -516,7 +515,7 @@ def test_make_step_builds_each_kind(runs):
 @pytest.mark.parametrize("kind,arch", [(k, a) for k, archs in REFUSED.items() for a in archs])
 def test_other_families_refuse_a_model_axis(runs, kind, arch):
     msg = runs[0][0]["refusals"][(kind, arch)]
-    assert msg is not None and "A16.3" in msg, msg
+    assert msg is not None and "A16.3b" in msg, msg
 
 
 if __name__ == "__main__":

@@ -2,26 +2,34 @@
 against their meshless twins on rank 0's card.
 
     python3 tools/mesh_ranks.py [--ranks 4] [--device cuda|cpu] [--reduced]
+                                [--arch yi-34b|minicpm3-4b|qwen3-moe-30b-a3b]
 
 ``chip_smoke.py`` runs the mesh steps at world 1 (bitwise meshless); this
-runs them where the collectives really cross ranks:
+runs them where the collectives really cross ranks, for ``--arch`` (dense
+GQA yi-34b by default; minicpm3-4b's MLA with tied embeddings; the MoE
+qwen3-moe-30b-a3b, whose experts' all-to-alls cross the cards):
 
-1. exact: reduced yi-34b in f32 on a ``(ranks // 2, 2)`` ``("data",
+1. exact: the reduced arch in f32 on a ``(ranks // 2, 2)`` ``("data",
    "model")`` mesh (sequence over ``model``): the temporal train step (one
    FedAvg round, one local step of 8 x 32 tokens over the whole vocab), a
    prefill, and a decode step over a 32-slot cache at per-row lengths that
    leave shards empty. Every rank runs the meshless steps on its own card
    too and holds its shards to their blocks: loss rtol 1e-5, params and
    logits atol 1e-5 / rtol 1e-4 (``tests/test_torch_sharded_equivalence.py``'s).
-2. at width: yi-34b at published width in bf16 (``--reduced``: the reduced
-   config, for a rehearsal on CPU ranks) on a ``(1, ranks)`` mesh (the
-   sequence over every rank): the temporal step at 4 layers, 2 x 2,048
-   tokens, and a prefill (8 layers, 8 x 2,048) with 16 decode steps; step
+   An MoE arch runs at capacity factor 4.0 with its aux weights at 0, where
+   no rank drops a pair and the mesh step is the meshless function (each
+   rank buckets its own tokens and keeps its own aux losses, as the JAX
+   package's mesh step does).
+2. at width: the arch at published width in bf16 (``--reduced``: the
+   reduced config, for a rehearsal on CPU ranks) on a ``(1, ranks)`` mesh
+   (the sequence over every rank; qwen3-moe's 128 experts 128 / ranks a
+   card): the temporal step (``LAYERS``' train depth, 2 x 2,048 tokens)
+   and a prefill (its serve depth, 8 x 2,048) with 16 decode steps; step
    and prefill seconds, decode ms a step and peak memory beside the
    meshless twin's (each rank's card runs it too); the loss, the largest
    param difference and the share of param entries that differ, and the
-   share of greedy tokens that agree (bf16 sums in another order: not
-   bitwise).
+   share of greedy tokens that agree (bf16 sums in another order, and for
+   MoE each rank's capacity and aux losses: not bitwise).
 
 Prints one JSON line per phase and exits non-zero if a check fails.
 """
@@ -37,8 +45,39 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
 EXACT = {"seq": 32, "batch": 8, "lengths": [0, 3, 14, 15, 16, 20, 30, 31]}
-WIDTH = {"train_layers": 4, "train_batch": 2, "seq": 2048, "serve_layers": 8,
-         "serve_batch": 8, "new": 16}
+WIDTH = {"train_batch": 2, "seq": 2048, "serve_batch": 8, "new": 16}
+ARCHS = ("yi-34b", "minicpm3-4b", "qwen3-moe-30b-a3b")
+LAYERS = {"yi-34b": (4, 8), "minicpm3-4b": (8, 16),    # arch: (train, serve) depth,
+          "qwen3-moe-30b-a3b": (2, 4)}                  # as chip_smoke.py's phases
+
+
+def _exact_cfg(arch):
+    """The reduced arch; an MoE one at capacity factor 4.0, aux weights 0."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.reduce import reduced_config
+    cfg = reduced_config(get_config(arch))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0,
+                                                  load_balance_loss=0.0, router_z_loss=0.0))
+    return cfg
+
+
+def _cache(torch, cfg, rng, S, B, length):
+    """A decode cache of ``S`` slots (a KVCache, or MLA's LatentCache),
+    rows zero from their length on."""
+    import numpy as np
+    from repro_torch.models.attention import KVCache, LatentCache
+    live = (torch.arange(S)[None, :] < length[:, None])
+    if cfg.attn_type == "mla":
+        dims = (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)
+        return LatentCache(*(torch.from_numpy(rng.randn(cfg.n_layers, B, S, d)
+                                              .astype(np.float32)) * live[None, :, :, None]
+                             for d in dims))
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    live = live[None, :, :, None, None]
+    return KVCache(torch.from_numpy(rng.randn(*shape).astype(np.float32)) * live,
+                   torch.from_numpy(rng.randn(*shape).astype(np.float32)) * live)
 
 
 def _sync(torch, dev):
@@ -70,19 +109,17 @@ def _worst(dist, value, combine=max):
     return combine(every)
 
 
-def _exact(torch, dist, dev, mesh):
+def _exact(torch, dist, dev, mesh, arch):
     """Phase 1 on this rank; rank 0 returns its checks."""
     import numpy as np
-    from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
-    from repro_torch.configs.reduce import reduced_config
+    from repro_torch.configs.base import FLConfig, ShapeConfig
     from repro_torch.core.rounds import build_temporal_round
     from repro_torch.core.strategies import get_strategy
     from repro_torch.launch import steps
     from repro_torch.models import model_zoo
-    from repro_torch.models.attention import KVCache
     from repro_torch.models.transformer import FlatModel, unflatten_params
 
-    cfg = reduced_config(get_config("yi-34b"))
+    cfg = _exact_cfg(arch)
     model = model_zoo.build(cfg)
     S, B = EXACT["seq"], EXACT["batch"]
     fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
@@ -97,10 +134,7 @@ def _exact(torch, dist, dev, mesh):
     # decode over a cache zero from each row's length on, and a prefill
     rng = np.random.RandomState(7)
     length = torch.tensor(EXACT["lengths"], dtype=torch.int32)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-    live = (torch.arange(S)[None, :] < length[:, None])[None, :, :, None, None]
-    cache = KVCache(torch.from_numpy(rng.randn(*shape).astype(np.float32)) * live,
-                    torch.from_numpy(rng.randn(*shape).astype(np.float32)) * live)
+    cache = _cache(torch, cfg, rng, S, B, length)
     step_tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B,)))
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S)))
     dec = steps.make_decode_step(cfg, ShapeConfig("d", S, B, "decode"), mesh, dtype=torch.float32)
@@ -118,7 +152,7 @@ def _exact(torch, dist, dev, mesh):
     nested = unflatten_params(params)
     with torch.inference_mode():
         w_logits, _ = model.decode_step(nested, step_tokens.to(dev),
-                                        KVCache(cache.k.to(dev), cache.v.to(dev)),
+                                        type(cache)(*(t.to(dev) for t in cache)),
                                         length.to(dev))
         _, w_plog, _ = model.prefill(nested, {"tokens": prompt.to(dev)})
     ctx = dec.ctx
@@ -141,7 +175,7 @@ def _exact(torch, dist, dev, mesh):
     return res if dist.get_rank() == 0 else None
 
 
-def _width(torch, dist, dev, mesh, reduced):
+def _width(torch, dist, dev, mesh, reduced, arch):
     """Phase 2 on this rank; rank 0 returns the timings and differences."""
     from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
     from repro_torch.configs.reduce import reduced_config
@@ -151,15 +185,16 @@ def _width(torch, dist, dev, mesh, reduced):
     from repro_torch.models import model_zoo
     from repro_torch.models.transformer import FlatModel, pad_caches, unflatten_params
 
-    base = get_config("yi-34b")
+    base = get_config(arch)
     if reduced:
         base = reduced_config(base)
     W = WIDTH if not reduced else dict(WIDTH, seq=32, new=4)
     S, new = W["seq"], W["new"]
+    train_layers, serve_layers = LAYERS[arch]
     fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
     res = {}
     # the temporal train step
-    cfg = base.replace(n_layers=W["train_layers"])
+    cfg = base.replace(n_layers=train_layers)
     model = model_zoo.build(cfg)
     params, g = _global_params(torch, cfg, model, dev, torch.bfloat16, 150)
     B = W["train_batch"]
@@ -202,7 +237,7 @@ def _width(torch, dist, dev, mesh, reduced):
                     "params_max_abs_diff": worst, "params_share_differing": differing}
     del params, state, got, want, diff, built, shards
     # the serve steps
-    cfg = base.replace(n_layers=W["serve_layers"])
+    cfg = base.replace(n_layers=serve_layers)
     model = model_zoo.build(cfg)
     params, g = _global_params(torch, cfg, model, dev, torch.bfloat16, 151)
     B = W["serve_batch"]
@@ -260,7 +295,7 @@ def _width(torch, dist, dev, mesh, reduced):
     return res if dist.get_rank() == 0 else None
 
 
-def rank_main(rank, world, device, reduced):
+def rank_main(rank, world, device, reduced, arch="yi-34b"):
     """One rank: both phases on the ``(world // 2, 2)`` and ``(1, world)``
     meshes; rank 0 returns the results."""
     import torch
@@ -278,8 +313,8 @@ def rank_main(rank, world, device, reduced):
     line = make_test_mesh((1, world), ("data", "model"), device=device)
     for m in (square, line):
         mesh_ctx(m)                       # every rank builds every group
-    out = {"exact": _exact(torch, dist, dev, square)}
-    out.update(_width(torch, dist, dev, line, reduced) or {})
+    out = {"exact": _exact(torch, dist, dev, square, arch)}
+    out.update(_width(torch, dist, dev, line, reduced, arch) or {})
     return out
 
 
@@ -289,6 +324,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (one card a rank) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="phase 2 at the reduced config (a rehearsal on CPU ranks)")
+    ap.add_argument("--arch", default="yi-34b", choices=ARCHS)
     args = ap.parse_args(argv)
     import torch
     from repro_torch.launch.mesh import spawn
@@ -297,9 +333,9 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    res = spawn(rank_main, args.ranks, args.device, args.device, args.reduced)[0]
-    res["ranks"], res["device"], res["seconds"] = args.ranks, args.device, \
-        time.perf_counter() - t0
+    res = spawn(rank_main, args.ranks, args.device, args.device, args.reduced, args.arch)[0]
+    res["arch"], res["ranks"], res["device"], res["seconds"] = \
+        args.arch, args.ranks, args.device, time.perf_counter() - t0
     if args.device == "cuda":
         res["cards"] = [torch.cuda.get_device_name(i) for i in range(args.ranks)]
     for phase in ("exact", "train", "serve"):
