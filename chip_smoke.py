@@ -247,6 +247,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    (288, 256) over 512 of 2,048 rows at q_offset 0 and 1,536 (B 8) and B4
    at qwen3-moe's heads over a 512-key shard with rows of length 0, against
    their plain versions, timed.
+15c. The hybrid, ssm and encdec families on a mesh (slice 17) — the
+   world-1 NCCL rank on the (1, 1) mesh, bf16 at published width, weights
+   drawn on the card: whisper-base at full depth (the encoder and decoder
+   sequence-sharded, the cross decode's B4 over the encoder cache shard and
+   the shards' combine), a prefill of 8 x 1,500 frames (decoder prompt 187)
+   and 16 decode steps; xlstm-125m at full depth, a prefill of 8 x 2,048
+   and 8 decode steps; each through ``make_prefill_step`` /
+   ``make_decode_step`` bitwise its meshless twin, B2-B4 counted.
+   jamba-1.5-large-398b's period parts at published width over 8 x 2,048
+   (a whole period's four MoE layers exceed the card; the grid ring runs in
+   15b): one Mamba mixer through ``mamba_forward``'s sequence-sharded branch
+   and its tensor-parallel decode, the attention sublayer through the mesh
+   prefill and a tp decode step, each bitwise meshless. Then B2, B3 and B4
+   at every shape those runs launched, and, kernel-level, at one rank's
+   shapes on a 4-rank model axis (B3 at jamba's heads over 512 of 2,048
+   rows at q_offset 0 and 1,536, whisper's encoder over 375 of 1,500
+   frames; B4 over whisper's 375-key cross shard and jamba's 512-key shard
+   with rows of length 0), against their plain versions, timed.
 16. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
@@ -4696,13 +4714,14 @@ def _mesh_train_check(torch, kernels, mesh, dev, arch, L, B, S, seed, want_launc
 
 
 def _mesh_serve_check(torch, kernels, mesh, dev, arch, L, B, S, new_tok, seed,
-                      want_launches, label):
+                      want_launches, label, frames=0):
     """``make_prefill_step`` then ``new_tok`` ``make_decode_step`` steps
     with ``greedy_token`` for ``arch`` at published width, ``L`` layers,
-    batch ``B``, prompt ``S``: every logits tensor, the tokens and the
-    final caches bitwise meshless ``Model.prefill`` / ``decode_step``
-    (which run first); the kernels counted in the mesh run only and held
-    to ``want_launches(cfg)``. Returns the run's record, with
+    batch ``B``, prompt ``S`` (an encoder-decoder's over ``frames`` frame
+    embeddings, drawn too): every logits tensor, the tokens and the final
+    caches bitwise meshless ``Model.prefill`` / ``decode_step`` (which run
+    first); the kernels counted in the mesh run only and held to
+    ``want_launches(cfg)``. Returns the run's record, with
     ``by_shape_raw``."""
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -4716,12 +4735,18 @@ def _mesh_serve_check(torch, kernels, mesh, dev, arch, L, B, S, new_tok, seed,
     params = model.init(g, dtype=torch.bfloat16)
     flat = flatten_params(params)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
-    pre = make_prefill_step(cfg, ShapeConfig(f"{label}_prefill", S, B, "prefill"), mesh)
-    dec = make_decode_step(cfg, ShapeConfig(f"{label}_decode", S + new_tok, B, "decode"), mesh)
-    pflat, pbatch = pre.shard((flat, {"tokens": prompts, "labels": prompts}), dev)
+    batch = {"tokens": prompts}
+    if frames:
+        batch["frames"] = torch.randn((B, frames, cfg.d_model), generator=g,
+                                      device=dev).to(torch.bfloat16)
+    seq = frames or S
+    pre = make_prefill_step(cfg, ShapeConfig(f"{label}_prefill", seq, B, "prefill"), mesh)
+    dec = make_decode_step(cfg, ShapeConfig(f"{label}_decode", frames or S + new_tok, B,
+                                            "decode"), mesh)
+    pflat, pbatch = pre.shard((flat, dict(batch, labels=prompts)), dev)
     dflat = flat                  # the tp shards at world 1: every leaf whole
     plain = _serve_run(
-        torch, lambda: model.prefill(params, {"tokens": prompts})[:2],
+        torch, lambda: model.prefill(params, batch)[:2],
         lambda t, c, ln: model.decode_step(params, t, c, ln), model.greedy_token,
         model.greedy_token, B, S, new_tok)
     torch.cuda.reset_peak_memory_stats()
@@ -4733,7 +4758,7 @@ def _mesh_serve_check(torch, kernels, mesh, dev, arch, L, B, S, new_tok, seed,
     by_shape = {k: dict(fn.launches_by_shape) for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     same_logits = all(torch.equal(a, b) for a, b in zip(mesh_run[0], plain[0]))
-    same_caches = _same(torch, list(mesh_run[2]), list(plain[2]))
+    same_caches = _same(torch, mesh_run[2], plain[2])
     if not (same_logits and torch.equal(mesh_run[1], plain[1]) and same_caches):
         raise AssertionError(f"{label} mesh serve: logits bitwise {same_logits}, tokens "
                              f"{torch.equal(mesh_run[1], plain[1])}, caches {same_caches}")
@@ -4745,6 +4770,7 @@ def _mesh_serve_check(torch, kernels, mesh, dev, arch, L, B, S, new_tok, seed,
     if launches != want_n:
         raise AssertionError(f"{label} mesh serve launches {launches}, want {want_n}")
     out = {"arch": cfg.name, "n_layers": L, "batch": B, "prompt_len": S,
+           **({"frames": frames} if frames else {}),
            "decode_steps": new_tok, "cache_len": S + new_tok,
            "prefill_s": mesh_run[3], "meshless_prefill_s": plain[3],
            "decode_step_ms": sorted(mesh_run[4])[new_tok // 2],
@@ -5181,6 +5207,239 @@ def phase_mesh_mla_moe(torch):
     return out
 
 
+# phase 15c (slice 17): jamba's period parts, whisper-base and xlstm-125m on
+# the (1, 1) NCCL mesh at published width, each bitwise its meshless twin
+MESH_SERVE_SPATIAL = {  # arch: (prompt or decoder length, frames, decode steps, seed)
+    "whisper-base": {"prompt_len": 1500 // 8, "frames": 1500, "max_new": 16, "seed": 170},
+    "xlstm-125m": {"prompt_len": 2048, "frames": 0, "max_new": 8, "seed": 171}}
+MESH_SERVE_SPATIAL_BATCH = 8
+MESH_JAMBA_PARTS = {"arch": "jamba-1.5-large-398b", "batch": 8, "prompt_len": 2048,
+                    "seed": 172}
+# one rank of a 4-rank model axis, kernel-level: B3 at jamba's heads over its
+# 512 of 2,048 rows at ranks 0 and 3, and whisper's encoder over its 375 of
+# 1,500 frames (full); B4 over whisper's 375-key cross shard and jamba's
+# 512-key cache shard with empty rows
+MESH_JAMBA_SHARD_FLASH = {"rank0": 0, "rank3": 1536}
+MESH_WHISPER_SHARD = 1500 // 4
+MESH_JAMBA_SHARD_DECODE = {"S_loc": 512, "lengths": (0, 1, 300, 512)}
+
+
+def _jamba_parts_check(torch, kernels, mesh, dev):
+    """jamba-1.5-large-398b's period parts at published width (d_model
+    8,192; d_inner 16,384; 64 heads on 8 of 128), bf16 drawn on the card,
+    each after its RMSNorm, over 8 x 2,048: one Mamba mixer through
+    ``ssm.mamba_forward``'s sequence-sharded branch (the conv boundary's
+    ``ppermute``, the handoff's all-gather and fold, the correction scan)
+    then its tensor-parallel decode step (``x_proj``'s and ``out_proj``'s
+    ``psum``), and the attention sublayer through the mesh prefill
+    (``gqa_seqsharded(ctx=)``) and a tp decode step over one more slot
+    (``gqa_decode(ctx=, tp=True)``), each bitwise the meshless twin (which
+    runs first); the kernels counted in the mesh runs only. Returns the
+    record, with ``by_shape_raw`` by part."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import mesh_ctx
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import init_tree
+    from repro_torch.sharding.axes import SINGLE
+    J = MESH_JAMBA_PARTS
+    cfg = get_config(J["arch"])
+    B, S, D, eps = J["batch"], J["prompt_len"], cfg.d_model, cfg.norm_eps
+    g = torch.Generator(device=dev)
+    g.manual_seed(J["seed"])
+    w = init_tree(g, {"ln": {"w": (D,)}, "attn": attn.attn_param_shapes(cfg),
+                      "mamba": ssm.mamba_param_shapes(cfg)}, torch.bfloat16)
+    ln = w["ln"]["w"]
+    x = torch.randn((B, S, D), generator=g, device=dev).to(torch.bfloat16)
+    xd = torch.randn((B, 1, D), generator=g, device=dev).to(torch.bfloat16)
+    length = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ctx = mesh_ctx(mesh)
+
+    def mamba(c, tp):
+        y, st = ssm.mamba_forward(w["mamba"], rms_norm(x, ln, eps), cfg, ctx=c)
+        yd, std = ssm.mamba_decode(w["mamba"], rms_norm(xd, ln, eps), cfg, st, ctx=c, tp=tp)
+        return [y, st, yd, std]
+
+    def attention(c, tp):
+        o, cache = attn.gqa_seqsharded(w["attn"], rms_norm(x, ln, eps), cfg, ctx=c,
+                                       return_cache=True)
+        cache = attn.KVCache(*(F.pad(t, (0, 0, 0, 0, 0, 1)) for t in cache))
+        od, cache = attn.gqa_decode(w["attn"], rms_norm(xd, ln, eps), cache, length, cfg,
+                                    ctx=c, tp=tp)
+        return [o, od, cache]
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    out = {"arch": cfg.name, "shape": [B, S, D], "mamba_dims": list(ssm.mamba_dims(cfg)),
+           "mamba_chunk": ssm.mamba_chunk_len(cfg, B, S), "by_shape_raw": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for name, fn, want in (
+                ("mamba", mamba, {"quant_aggregate": 0, "rmsnorm": 2, "flash_attention": 0,
+                                  "decode_attention": 0}),
+                ("attention", attention, {"quant_aggregate": 0, "rmsnorm": 2,
+                                          "flash_attention": 1, "decode_attention": 1})):
+            plain, plain_s = timed(fn, SINGLE, False)
+            _zero_counts(kernels)
+            got, mesh_s = timed(fn, ctx, True)
+            launches = {k: f.launches for k, f in kernels.items()}
+            by_shape = {k: dict(f.launches_by_shape) for k, f in kernels.items()}
+            flash = dict(kernels["flash_attention"].launches_by_kernel)
+            if not _same(torch, got, plain):
+                diffs = [(a.float() - b.float()).abs().max().item()
+                         for a, b in zip(_flat(got), _flat(plain))]
+                raise AssertionError(f"jamba {name} on the mesh: not bitwise meshless {diffs}")
+            if not all(torch.isfinite(t.float()).all() for t in _flat(got)):
+                raise AssertionError(f"jamba {name} on the mesh: non-finite output")
+            if launches != want or flash.get("tf32x3"):
+                raise AssertionError(f"jamba {name} on the mesh: launches {launches}, "
+                                     f"flash {flash}; want {want}")
+            warm = sorted(timed(fn, ctx, True)[1] for _ in range(3))[1]
+            plain_warm = sorted(timed(fn, SINGLE, False)[1] for _ in range(3))[1]
+            out[name] = {"first_s": mesh_s, "meshless_first_s": plain_s,
+                         "prefill_and_decode_s": warm, "meshless_prefill_and_decode_s":
+                         plain_warm, "bitwise_meshless": True, "launches": launches,
+                         "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
+            out["by_shape_raw"][name] = by_shape
+            del got, plain
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("jamba parts mesh", json.dumps({k: v for k, v in out.items() if k != "by_shape_raw"}))
+    del w, x, xd
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_hybrid_encdec_rank(rank, world):
+    """Phase 15c's world-1 rank: on a (1, 1) ``("data", "model")`` NCCL
+    mesh, in bf16 at published width, weights drawn on the card from a
+    seed: whisper-base at full depth (6 + 6 layers; the spatial serve steps:
+    the encoder and the decoder sequence-sharded over ``model``, the cross
+    decode's B4 over the encoder cache shard and the shards' combine), a
+    prefill of 8 x 1,500 frames (decoder length 187) then 16 decode steps;
+    xlstm-125m at full depth (12 layers, whole sequences on every rank), a
+    prefill of 8 x 2,048 then 8 decode steps; each bitwise its meshless
+    twin, B2-B4 counted in the mesh runs; then jamba's period parts
+    (``_jamba_parts_check``). Returns the results (raises on a failed
+    check)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    dev, kernels, mesh, out = _mesh_setup(torch)
+    B = MESH_SERVE_SPATIAL_BATCH
+    for arch, A in MESH_SERVE_SPATIAL.items():
+        new = A["max_new"]
+
+        def want(cfg, new=new):
+            L = cfg.n_layers
+            if cfg.family == "encdec":
+                return {"quant_aggregate": 0, "rmsnorm": 0,
+                        "flash_attention": cfg.n_enc_layers + 2 * L,
+                        "decode_attention": 2 * L * new}
+            return {"quant_aggregate": 0, "rmsnorm": (L + 1) * (1 + new),
+                    "flash_attention": 0, "decode_attention": 0}
+        out[arch] = _mesh_serve_check(torch, kernels, mesh, dev, arch,
+                                      get_config(arch).n_layers, B, A["prompt_len"], new,
+                                      A["seed"], want, arch, frames=A["frames"])
+    out["jamba"] = _jamba_parts_check(torch, kernels, mesh, dev)
+    return out
+
+
+def time_mesh_hybrid_encdec_kernels(torch, flush, by_path):
+    """B2, B3 and B4 at every shape phase 15c's counted runs launched
+    (``by_path``: {path: {kernel: {shape: launches}}}; a decode shape timed
+    at its run's lengths half way: whisper's self cache at prompt + 8, its
+    encoder cache and jamba's whole), and, kernel-level, at one rank's
+    shapes on a 4-rank model axis (MESH_JAMBA_SHARD_FLASH,
+    MESH_WHISPER_SHARD, MESH_JAMBA_SHARD_DECODE). Returns {(kernel, tag):
+    row}."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    rows, seed, label = {}, 1700, "mesh hybrid/encdec"
+    shapes = {}
+    for counts in by_path.values():
+        for fn, c in counts.items():
+            shapes.setdefault(fn, set()).update(c)
+    for key in sorted(shapes.get("flash_attention", ())):
+        rows[("flash_attention", shape_name(key))] = _time_flash_row(
+            torch, F, fa, flush, key, key[2] - key[1] if key[-1] else 0, seed, label)
+        seed += 10
+    for key in sorted(shapes.get("rmsnorm", ())):
+        rows[("rmsnorm", shape_name(key))] = _time_rms_row(torch, F, rms, flush, key, seed,
+                                                           label)
+        seed += 10
+    Wh = MESH_SERVE_SPATIAL["whisper-base"]
+    self_len = Wh["prompt_len"] + Wh["max_new"]
+    for key in sorted(shapes.get("decode_attention", ())):
+        n = Wh["prompt_len"] + Wh["max_new"] // 2 if key[1] == self_len else key[1]
+        rows[("decode_attention", shape_name(key))] = _time_decode_row(
+            torch, F, da, flush, key, (n,) * key[0], seed)
+        seed += 10
+    jc, wc = get_config(MESH_JAMBA_PARTS["arch"]), get_config("whisper-base")
+    B, S = MESH_JAMBA_PARTS["batch"], MESH_JAMBA_PARTS["prompt_len"]
+    jhd, whd = jc.resolved_head_dim, wc.resolved_head_dim
+    for tag, off in MESH_JAMBA_SHARD_FLASH.items():
+        key = (B, S // 4, S, jc.n_heads, jc.n_kv_heads, jhd, jhd, True)
+        rows[("flash_attention", f"jamba_shard_{tag}")] = _time_flash_row(
+            torch, F, fa, flush, key, off, seed, label)
+        seed += 10
+    Fr, Ws = Wh["frames"], MESH_WHISPER_SHARD
+    key = (B, Ws, Fr, wc.n_heads, wc.n_kv_heads, whd, whd, False)
+    rows[("flash_attention", "whisper_encoder_shard")] = _time_flash_row(
+        torch, F, fa, flush, key, 0, seed, label)
+    seed += 10
+    key = (B, Ws, wc.n_heads, wc.n_kv_heads, whd, whd)
+    rows[("decode_attention", "whisper_cross_shard")] = _time_decode_row(
+        torch, F, da, flush, key, (Ws,) * B, seed)
+    seed += 10
+    lengths = MESH_JAMBA_SHARD_DECODE["lengths"] * (B // len(MESH_JAMBA_SHARD_DECODE["lengths"]))
+    key = (B, MESH_JAMBA_SHARD_DECODE["S_loc"], jc.n_heads, jc.n_kv_heads, jhd, jhd)
+    rows[("decode_attention", "jamba_shard")] = _time_decode_row(torch, F, da, flush, key,
+                                                                 lengths, seed)
+    for (fn, tag), r in rows.items():
+        log(f"kernel {fn} {label} {tag}", json.dumps(r))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_hybrid_encdec(torch):
+    """Slice 17: the hybrid, ssm and encdec families on the card's mesh. A
+    world-1 NCCL rank (``mesh_hybrid_encdec_rank``) drives whisper-base's
+    and xlstm-125m's prefill and decode steps at full depth and jamba's
+    period parts at published width, each bitwise its meshless twin; then
+    B2, B3 and B4 at every shape those runs launched and at one rank's
+    shapes on a 4-rank model axis, against their plain versions, timed.
+    Returns the phase's summary."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w1 = spawn(mesh_hybrid_encdec_rank, 1, "cuda")[0]
+    rank_s = time.perf_counter() - t0
+    by_path = {f"{arch}_serve": {fn: c for fn, c in w1[arch]["by_shape_raw"].items() if c}
+               for arch in MESH_SERVE_SPATIAL}
+    by_path.update({f"jamba_{part}": {fn: c for fn, c in counts.items() if c}
+                    for part, counts in w1["jamba"]["by_shape_raw"].items()})
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    rows = time_mesh_hybrid_encdec_kernels(torch, flush, by_path)
+    del flush
+    out = {"phase_s": time.perf_counter() - t0, "rank_s": rank_s,
+           **{arch: {k: v for k, v in w1[arch].items() if k != "by_shape_raw"}
+              for arch in (*MESH_SERVE_SPATIAL, "jamba")},
+           "nccl_first_use_s": w1["nccl_first_use_s"], "by_path": by_path,
+           "kernel_rows": rows}
+    log(f"mesh hybrid/encdec phase: {out['phase_s']:.1f}s (world-1 rank {rank_s:.1f}s)")
+    return out
+
+
 def attention_layers(cfg) -> int:
     """B3 launches of one prefill: every attention layer (the encoder's and
     the decoder's self and cross attention for encdec, one a period for
@@ -5416,6 +5675,15 @@ def main() -> int:
     # ring; counts zeroed just before each mesh run, read just after (in the
     # rank)
     mesh_mla_moe = phase_mesh_mla_moe(torch)
+
+    # 15c. the hybrid, ssm and encdec families on a mesh (slice 17): the
+    # world-1 NCCL rank's prefill and decode steps of whisper-base and
+    # xlstm-125m at full depth and jamba's period parts at published width
+    # (a Mamba mixer's sequence-sharded prefill and tp decode, the attention
+    # sublayer's mesh prefill and decode) against their meshless twins,
+    # bitwise; counts zeroed just before each mesh run, read just after (in
+    # the rank)
+    mesh_hybrid_encdec = phase_mesh_hybrid_encdec(torch)
 
     # 16. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
@@ -5841,6 +6109,55 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
             **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
+    # slice 17: B2, B3 and B4 at every shape the world-1 rank's whisper-base,
+    # xlstm-125m and jamba mesh runs launched, and kernel-level at one rank's
+    # shapes on a 4-rank model axis
+    mh = mesh_hybrid_encdec
+    paths17 = {f"{arch}_serve": (
+        f"the prefill step and {A['max_new']} decode steps on a (1, 1) NCCL mesh: {arch} "
+        f"at published width and depth, batch {MESH_SERVE_SPATIAL_BATCH}, "
+        + (f"{A['frames']} frames, decoder prompt {A['prompt_len']}" if A["frames"]
+           else f"prompt {A['prompt_len']}")) for arch, A in MESH_SERVE_SPATIAL.items()}
+    J17 = MESH_JAMBA_PARTS
+    paths17.update({f"jamba_{part}": (
+        f"{MESH_JAMBA_PARTS['arch']}'s {what} at published width on a (1, 1) NCCL mesh, "
+        f"{J17['batch']} x {J17['prompt_len']}, after its RMSNorm")
+        for part, what in (("mamba", "Mamba mixer: the sequence-sharded prefill and a "
+                                     "tensor-parallel decode step"),
+                           ("attention", "attention sublayer: the mesh prefill and a "
+                                         "tensor-parallel decode step"))})
+    rows17 = [(path, fn, shape_name(key), n, paths17[path])
+              for path, counts in mh["by_path"].items()
+              for fn in sorted(counts) for key, n in sorted(counts[fn].items())]
+    rows17 += [(None, "flash_attention", f"jamba_shard_{tag}", 0,
+                f"kernel-level only: rank {tag[-1]} of a 4-rank model axis, its "
+                f"{J17['prompt_len'] // 4} rows of jamba's attention prefill at q_offset {off}")
+               for tag, off in MESH_JAMBA_SHARD_FLASH.items()]
+    rows17.append((None, "flash_attention", "whisper_encoder_shard", 0,
+                   f"kernel-level only: one rank's {MESH_WHISPER_SHARD} of whisper-base's "
+                   "1500 encoder frames over all of them (full), a 4-rank model axis"))
+    rows17.append((None, "decode_attention", "whisper_cross_shard", 0,
+                   f"kernel-level only: whisper-base's cross decode, combine=False over one "
+                   f"rank's {MESH_WHISPER_SHARD}-key encoder cache shard (G = 1)"))
+    rows17.append((None, "decode_attention", "jamba_shard", 0,
+                   f"kernel-level only: jamba's heads, combine=False over one rank's "
+                   f"{MESH_JAMBA_SHARD_DECODE['S_loc']}-key cache shard of a 4-rank model "
+                   f"axis, row lengths {list(MESH_JAMBA_SHARD_DECODE['lengths'])}"))
+    for path, fn, tag, launches, where in rows17:
+        r = mh["kernel_rows"][(fn, tag)]
+        flash = fn == "flash_attention"
+        source, replaces = ((("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                              if r["kernel"] == "wgmma" else
+                              "src/repro_torch/csrc/flash_attention.cu"), flash_src)
+                            if flash else sources[fn])
+        entries.append({
+            "name": f"{fn}_{r['kernel'] + '_' if flash else ''}mesh_hybrid_encdec_"
+                    f"{path + '_' if path else ''}{tag.replace(' ', '_')}",
+            "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_path": where, "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
+            **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -6045,6 +6362,18 @@ def main() -> int:
                         f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
                         for (fn, tag), r in mesh_mla_moe["kernel_rows"].items()}}))
+    log(json.dumps({"slice": "17: jamba's period (the Mamba cross-shard handoff and its "
+                    "tensor-parallel decode), whisper-base's sequence-sharded encoder and "
+                    "cross decode, and xlstm-125m's serve steps on a device mesh: each at "
+                    "published width on a (1, 1) NCCL mesh bitwise its meshless twin",
+                    "card": smi, **{k: v for k, v in mesh_hybrid_encdec.items()
+                                    if k not in ("kernel_rows", "by_path")},
+                    "launches_by_shape": {p: {fn: named(v) for fn, v in c.items()}
+                                          for p, c in mesh_hybrid_encdec["by_path"].items()},
+                    "kernel_rows": {f"{fn} {tag}": {
+                        f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                        for (fn, tag), r in mesh_hybrid_encdec["kernel_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -19,17 +19,22 @@ numpy draw of the global arrays.
   data)`` and the sequence over ``model`` (``layout="dp2d"``: the batch
   over ``model`` too, whole sequences); ``core/rounds.build_temporal_round``
   bound to the mesh.
-- ``make_prefill_step``: ``fsdp`` params gathered per layer, the caches
-  out sequence-sharded, the last position's logits over the whole vocab.
-- ``make_decode_step``: tensor-parallel (``tp``) params, a
-  sequence-sharded cache, the logits ``(B, V_loc)`` of the rank's vocab
-  slice (``Model.greedy_token(..., ctx=)`` takes the global argmax).
+- ``make_prefill_step``: ``fsdp`` params gathered per layer (a spatial
+  arch's replicated), the caches out in ``cache_tree``'s layout, the last
+  position's logits over the whole vocab.
+- ``make_decode_step``: tensor-parallel (``tp``) params (a spatial arch's
+  replicated), the caches ``cache_tree``'s, the logits ``(B, V_loc)`` of
+  the rank's vocab slice (``Model.greedy_token(..., ctx=)`` takes the
+  global argmax).
 
-On a mesh with a model axis the temporal steps run the dense and MoE
-decoders, GQA or MLA (their expert leaves resident, each rank's shard
-materialized from the global draw like any other leaf); hybrid, ssm and
-encdec raise (ROADMAP A16.3b), and so does a subgrid-EP arch on a mesh
-whose ``E / data * f_sub`` is not ``model`` (``moe.check_mesh``).
+Every family runs there: the dense and MoE decoders (GQA or MLA, their
+expert leaves resident, each rank's shard materialized from the global draw
+like any other leaf), jamba (hybrid: its training batch over ``(data,
+model, pod)``, its prefill sequence-sharded, its decode tensor-parallel),
+and the spatial whisper-base and xlstm-125m. A subgrid-EP arch on a mesh
+whose ``E / data * f_sub`` is not ``model`` raises (``moe.check_mesh``), and
+so does an input whose sharded dim an axis does not divide (whisper's
+decoder length ``S // 8`` over ``model``, say).
 """
 from __future__ import annotations
 
@@ -45,9 +50,10 @@ from repro_torch.core.strategies import get_strategy
 from repro_torch.models import model_zoo
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, LatentCache
-from repro_torch.models.transformer import (FlatModel, flatten_params, param_shapes,
-                                            refuse_model_axis, seq_sharded_in,
-                                            unflatten_params)
+from repro_torch.models.ssm import MambaState, MLSTMState, SLSTMState, mamba_dims, xlstm_dims
+from repro_torch.models.transformer import (EncDecCaches, FlatModel, flatten_params,
+                                            n_stacks, pad_caches, param_shapes,
+                                            seq_sharded_in, unflatten_params)
 from repro_torch.sharding import specs as sspecs
 from repro_torch.sharding.axes import AxisCtx
 
@@ -104,6 +110,34 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k]) for k in sorted(tree)}
     return _rebuild(tree, (_map(fn, v) for v in tree))
+
+
+def _leaves(tree):
+    """The ``InputSpec``s of a tree, in ``_map``'s order."""
+    if _is_spec(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def check_divisible(inputs, sizes: dict, what: str) -> None:
+    """Raise a ``ValueError`` naming the sizes where an axis (or the
+    product of a tuple of axes) of a mesh of axis ``sizes`` does not divide
+    the dim an ``InputSpec`` of ``inputs`` shards over it (a JAX
+    ``shard_map`` fails there too)."""
+    for sp in _leaves(inputs):
+        for dim, entry in enumerate(sp.spec):
+            if entry is None:
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n = int(np.prod([sizes[a] for a in names]))
+            if sp.shape[dim] % n:
+                raise ValueError(f"{what}: dim {dim} of an input of shape {sp.shape} has "
+                                 f"{sp.shape[dim]} rows, which {entry!r} (size {n}) does "
+                                 "not divide")
 
 
 def _map2(fn, a, b):
@@ -184,11 +218,12 @@ def _server_specs(strategy, shapes: dict, dtype, specs: Optional[dict] = None) -
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                     fl: Optional[FLConfig] = None, dtype=torch.bfloat16,
-                    layout: str = "sp") -> BuiltStep:
+                    layout: str = "sp", quant_ring: bool = False) -> BuiltStep:
     """The FL train step of ``cfg`` on ``mesh`` (one round with one local
     step per client): the spatial round for a spatial arch, else the
     temporal one (``layout``: its training layout, ``"sp"`` or ``"dp2d"``,
-    ``transformer.seq_sharded_in``). ``dtype``: the params' and frames'."""
+    ``transformer.seq_sharded_in``; ``quant_ring``: ``Model.quant_ring``).
+    ``dtype``: the params' and frames'."""
     fl = fl or FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
     strategy = get_strategy(fl)
     ctx = mesh_ctx(mesh)
@@ -198,11 +233,12 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         round_fn = build_spatial_round(model, strategy, fl, ctx=ctx)
         inputs = train_inputs(cfg, shape, sizes, strategy, dtype)
     else:
-        refuse_model_axis(cfg, ctx)
         moe_mod.check_mesh(cfg, sizes)
-        model = FlatModel(dataclasses.replace(model_zoo.build(cfg), layout=layout))
+        model = FlatModel(dataclasses.replace(model_zoo.build(cfg), layout=layout,
+                                              quant_ring=quant_ring))
         round_fn = build_temporal_round(model, strategy, fl, ctx=ctx)
         inputs = temporal_train_inputs(cfg, shape, sizes, strategy, dtype, layout)
+    check_divisible(inputs, sizes, f"{cfg.name}'s train step")
 
     def fn(state, batch, weights, rng):
         return round_fn(state, batch, weights, int(rng))
@@ -222,7 +258,7 @@ def temporal_train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, str
     specs = {k: sp.spec for k, sp in params.items()}
     state = {"params": params, "server": _server_specs(strategy, shapes, dtype, specs),
              "clients": ()}
-    batch = batch_struct(cfg, shape, sizes, lead=(1, 1), layout=layout)
+    batch = batch_struct(cfg, shape, sizes, lead=(1, 1), layout=layout, dtype=dtype)
     return (state, batch, InputSpec((1,), torch.float32, (None,)),
             InputSpec((), torch.int64, ()))
 
@@ -257,12 +293,13 @@ def train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
 
 
 def batch_struct(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, lead: tuple = (),
-                 layout: str = "sp") -> dict:
-    """The token and label (and, for encdec, frame) ``InputSpec``s of one
-    step on a mesh of axis ``sizes``, ``lead`` dims prepended whole. The
-    batch dim over ``(pod, data)`` where they divide it; the sequence over
-    ``model`` where ``transformer.seq_sharded_in`` says so, else (training
-    without it, but for ssm) the batch over ``(data, model, pod)``."""
+                 layout: str = "sp", dtype=torch.bfloat16) -> dict:
+    """The token and label (and, for encdec, frame, in ``dtype``)
+    ``InputSpec``s of one step on a mesh of axis ``sizes``, ``lead`` dims
+    prepended whole. The batch dim over ``(pod, data)`` where they divide
+    it; the sequence over ``model`` where ``transformer.seq_sharded_in``
+    says so, else (training without it, but for ssm) the batch over
+    ``(data, model, pod)``."""
     B, S = shape.global_batch, shape.seq_len
     sharded_seq = seq_sharded_in(cfg, shape.kind, layout)
     order = (("data", "model", "pod") if shape.kind == "train" and not sharded_seq
@@ -275,7 +312,7 @@ def batch_struct(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, lead: tuple 
         return InputSpec(lead + shp, dt, pad + spec)
     if cfg.family == "encdec":
         S_dec = S // cfg.dec_len_ratio
-        return {"frames": tok((B, S, cfg.d_model), (_entry(baxes), seq, None), torch.bfloat16),
+        return {"frames": tok((B, S, cfg.d_model), (_entry(baxes), seq, None), dtype),
                 "tokens": tok((B, S_dec), (_entry(baxes), seq)),
                 "labels": tok((B, S_dec), (_entry(baxes), seq))}
     return {"tokens": tok((B, S), (_entry(baxes), seq)),
@@ -299,59 +336,160 @@ def param_structs(cfg: ModelConfig, sizes: dict, phase: str, dtype=torch.bfloat1
 def cache_tree(cfg: ModelConfig, shape: ShapeConfig, sizes: dict,
                dtype=torch.bfloat16):
     """The decode cache's ``InputSpec`` tree at context length
-    ``shape.seq_len`` for the dense and MoE decoders (the JAX package's
-    ``cache_tree``, which reads the tree off the prefill): a stacked
-    KVCache, (L, B, S, KV, HD) each, or for MLA a LatentCache; the batch
-    over ``(pod, data)``, the sequence over ``model``. The other families'
-    trees come with their mesh halves (ROADMAP A16.3b)."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the {cfg.family} family's decode cache on a mesh comes with "
-                         "ROADMAP A16.3b")
-    L, B, S = cfg.n_layers, shape.global_batch, shape.seq_len
-    lead = (None, _entry(_batch_axes(sizes, B)), "model" if "model" in sizes else None)
+    ``shape.seq_len`` (the JAX package's ``cache_tree``, which reads the
+    tree off the prefill), stacked over the entries (layers, or periods):
 
-    def leaf(*rest):
-        return InputSpec((L, B, S) + rest, dtype, lead + (None,) * len(rest))
-    if cfg.attn_type == "mla":
-        return LatentCache(ckv=leaf(cfg.mla.kv_lora_rank), krope=leaf(cfg.mla.qk_rope_head_dim))
-    HD = cfg.resolved_head_dim
-    return KVCache(k=leaf(cfg.n_kv_heads, HD), v=leaf(cfg.n_kv_heads, HD))
+    - dense and MoE: a KVCache, (L, B, S, KV, HD) each, or for MLA a
+      LatentCache;
+    - hybrid: ``{"attn": KVCache, "mamba": [MambaState] * (period - 1)}``,
+      ``h`` (L, B, d_inner, N) f32 and ``conv`` (L, B, d_conv - 1,
+      d_inner);
+    - ssm: ``{"mlstm": [MLSTMState] * (slstm_every - 1), "slstm":
+      SLSTMState}``, f32;
+    - encdec: ``EncDecCaches``, the self KVCache at the decoder's length
+      ``S // dec_len_ratio`` and the cross K/V at the encoder's ``S``.
+
+    The batch over ``(pod, data)``; KV and latent rows over ``model`` on
+    the sequence dim; a Mamba state's channels over ``model`` in a
+    temporal (tensor-parallel) decode where ``d_inner`` divides by 16, as
+    its weights are (the JAX package's rule); the xLSTM states replicated
+    over it. The cross K/V are sequence-sharded too, the layout the decode's
+    combine over ``model`` reads (the JAX package's ``cache_tree``
+    replicates them while its prefill returns each rank's slice: ROADMAP
+    C12)."""
+    L, B, S = n_stacks(cfg), shape.global_batch, shape.seq_len
+    batch = _entry(_batch_axes(sizes, B))
+    seq = "model" if "model" in sizes else None
+    f32 = torch.float32
+
+    def leaf(shp, spec, dt=dtype):
+        return InputSpec((L, B) + shp, dt, (None, batch) + spec)
+
+    def kv(s_len):
+        if cfg.attn_type == "mla":
+            return LatentCache(ckv=leaf((s_len, cfg.mla.kv_lora_rank), (seq, None)),
+                               krope=leaf((s_len, cfg.mla.qk_rope_head_dim), (seq, None)))
+        rest = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        return KVCache(k=leaf((s_len,) + rest, (seq, None, None)),
+                       v=leaf((s_len,) + rest, (seq, None, None)))
+    if cfg.family == "encdec":
+        cross = leaf((S, cfg.n_kv_heads, cfg.resolved_head_dim), (seq, None, None))
+        return EncDecCaches(kv(S // cfg.dec_len_ratio), cross, cross)
+    if cfg.family == "ssm":
+        _, H, dh = xlstm_dims(cfg)
+        D = cfg.d_model
+        mlstm = MLSTMState(C=leaf((H, dh, dh), (None,) * 3, f32),
+                           n=leaf((H, dh), (None, None), f32), m=leaf((H,), (None,), f32))
+        return {"mlstm": [mlstm] * (cfg.ssm.slstm_every - 1),
+                "slstm": SLSTMState(*[leaf((D,), (None,), f32)] * 4)}
+    if cfg.family != "hybrid":
+        return kv(S)
+    d_inner, _, N, d_conv = mamba_dims(cfg)
+    ch = None
+    if sspecs.placement_for(cfg) == "temporal" and d_inner % 16 == 0 and seq is not None:
+        if d_inner % sizes["model"]:
+            raise ValueError(f"{cfg.name}: its Mamba weights shard d_inner {d_inner} over "
+                             f"model, whose {sizes['model']} ranks do not divide it, so the "
+                             "decode state cannot shard with them")
+        ch = "model"
+    state = MambaState(h=leaf((d_inner, N), (ch, None), f32),
+                       conv=leaf((d_conv - 1, d_inner), (None, ch)))
+    return {"attn": kv(S), "mamba": [state] * (cfg.hybrid.period - 1)}
 
 
 def _serve_ctx(cfg: ModelConfig, mesh) -> AxisCtx:
     """The serve steps' ctx: the mesh's, without the vocab axis for a
     spatial arch (its embeddings stay whole, as in the JAX package); a
-    model axis refused where the port does not shard the family yet, and
-    a subgrid-EP arch on a mesh its experts cannot tile."""
+    subgrid-EP arch on a mesh its experts cannot tile raises."""
     ctx = mesh_ctx(mesh)
-    refuse_model_axis(cfg, ctx)
     moe_mod.check_mesh(cfg, dict(_axis_sizes(mesh)))
     if sspecs.placement_for(cfg) == "spatial":
         ctx = dataclasses.replace(ctx, vocab=None)
     return ctx
 
 
+def to_cache_layout(caches, tree, ctx: AxisCtx):
+    """A prefill's caches on this rank -> ``cache_tree``'s layout (``tree``,
+    its ``InputSpec``s). Only a Mamba state needs it: its ``conv`` rows
+    become the last sequence shard's on every rank (a masked sum over
+    ``model``), then ``h`` (already the global final state) and ``conv``
+    are cut to the rank's block of the dims the tree shards over
+    ``model`` (the channels, in a tensor-parallel decode)."""
+    M = ctx.size(ctx.model)
+    if M == 1:
+        return caches
+
+    def cut(t, sp):
+        for dim, entry in enumerate(sp.spec):
+            if entry == "model":
+                n = t.shape[dim] // M
+                t = t.narrow(dim, ctx.index(ctx.model) * n, n).contiguous()
+        return t
+
+    def walk(c, sp):
+        if isinstance(c, MambaState):
+            is_last = float(ctx.index(ctx.model) == M - 1)
+            return MambaState(cut(c.h, sp.h), cut(ctx.psum(c.conv * is_last, ctx.model), sp.conv))
+        if isinstance(c, dict):
+            return {k: walk(c[k], sp[k]) for k in c}
+        if isinstance(c, list):
+            return [walk(a, b) for a, b in zip(c, sp)]
+        return c
+    return walk(caches, tree)
+
+
+def grow_caches(caches, ctx: AxisCtx, extra: int):
+    """Grow the sequence-sharded attention caches of a tree by ``extra``
+    slots (``transformer.pad_caches`` on a mesh): a shard holds a contiguous
+    block of positions, so each cache is all-gathered over ``model``,
+    padded and cut again (``extra`` chosen so that the model axis divides
+    the new length). The recurrent states and the cross K/V pass through."""
+    M = ctx.size(ctx.model)
+
+    def relayout(c):
+        whole = type(c)(*(ctx.all_gather(t, ctx.model, axis=2) for t in c))
+        whole = pad_caches(whole, extra)
+        n = whole[0].shape[2] // M
+        return type(c)(*(t.narrow(2, ctx.index(ctx.model) * n, n).contiguous() for t in whole))
+
+    def walk(c):
+        if isinstance(c, (KVCache, LatentCache)):
+            return relayout(c) if M > 1 else pad_caches(c, extra)
+        if isinstance(c, EncDecCaches):
+            return c._replace(self_caches=walk(c.self_caches))
+        if isinstance(c, dict):
+            return {k: walk(v) for k, v in c.items()}
+        if isinstance(c, list):
+            return [walk(v) for v in c]
+        return c
+    return walk(caches)
+
+
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       dtype=torch.bfloat16) -> BuiltStep:
     """The prefill step on ``mesh``: ``fn(params, batch) -> (caches,
     logits)``, under ``torch.inference_mode``. Params ``fsdp``, gathered
-    per layer; the batch as ``batch_struct`` shards it; the caches this
-    rank's shard (``cache_tree``'s specs); the logits (B_loc, Vp), the last
-    position's over the whole vocab on every rank."""
+    per layer (a spatial arch's replicated); the batch as ``batch_struct``
+    shards it; the caches this rank's shard in exactly ``cache_tree``'s
+    layout (``to_cache_layout``), so the decode step on the same mesh takes
+    them; the logits (B_loc, Vp), the last position's over the whole vocab
+    on every rank."""
     ctx = _serve_ctx(cfg, mesh)
     sizes = dict(_axis_sizes(mesh))
     model = model_zoo.build(cfg)
     spatial = sspecs.placement_for(cfg) == "spatial"
     gather = sspecs.make_gather_fn(cfg, ctx)
+    tree = cache_tree(cfg, shape, sizes, dtype)
 
     def fn(params, batch):
         with torch.inference_mode():
             caches, logits, _ = model.prefill(unflatten_params(params), batch, ctx=ctx,
                                               gather_fn=gather)
-        return caches, logits
+            return to_cache_layout(caches, tree, ctx), logits
 
     inputs = (param_structs(cfg, sizes, "spatial" if spatial else "fsdp", dtype),
-              batch_struct(cfg, shape, sizes))
+              batch_struct(cfg, shape, sizes, dtype=dtype))
+    check_divisible(inputs + (tree,), sizes, f"{cfg.name}'s prefill step")
     return BuiltStep(fn, inputs, "prefill", ctx)
 
 
@@ -359,10 +497,11 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      dtype=torch.bfloat16) -> BuiltStep:
     """The decode step on ``mesh``: ``fn(params, tokens, caches, length)
     -> (logits, caches)``, under ``torch.inference_mode``, the caches
-    written in place. Params ``tp`` (tensor-parallel, resident); tokens
-    and lengths (B,) over ``(pod, data)``; the caches ``cache_tree`` at
-    capacity ``shape.seq_len``, sequence-sharded; the logits (B_loc, V_loc)
-    of the rank's vocab slice."""
+    written in place. Params ``tp`` (tensor-parallel, resident; a spatial
+    arch's replicated); tokens and lengths (B,) over ``(pod, data)``; the
+    caches ``cache_tree`` at capacity ``shape.seq_len``; the logits (B_loc,
+    V_loc) of the rank's vocab slice (the whole vocab for a spatial
+    arch)."""
     ctx = _serve_ctx(cfg, mesh)
     sizes = dict(_axis_sizes(mesh))
     model = model_zoo.build(cfg)
@@ -378,6 +517,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     inputs = (param_structs(cfg, sizes, "tp" if tp else "spatial", dtype),
               InputSpec((B,), torch.int64, bspec), cache_tree(cfg, shape, sizes, dtype),
               InputSpec((B,), torch.int32, bspec))
+    check_divisible(inputs, sizes, f"{cfg.name}'s decode step")
     return BuiltStep(fn, inputs, "decode", ctx)
 
 

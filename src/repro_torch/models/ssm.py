@@ -13,11 +13,16 @@ overflows. The mLSTM runs chunkwise (masked attention within a chunk, the
 decayed matrix memory across chunks); the sLSTM is sequential over time,
 one step of small ops a token, as in the xLSTM paper.
 
-No kernel: the JAX package computes all of this in jnp. The JAX functions'
-sequence-sharded branch (the cross-shard state handoff of ``mamba_forward``)
-and its tensor-parallel decode come with the sharded halves of the
-multi-device port, ROADMAP A16.3b: weights holding fewer channels than the
-config (a device's shard) raise a ``ValueError`` naming it.
+No kernel: the JAX package computes all of this in jnp. On a mesh
+(``ctx`` with a ``model`` axis) ``mamba_forward`` runs the JAX function's
+two sharded branches: the sequence-sharded scan of a prefill (the conv's
+boundary rows from the left neighbour, the local scan from zero, the
+shards' ``(h_last, sum dt A)`` all-gathered and folded left into each
+shard's true start state, and a correction scan with zero inputs that
+adds ``C_t e^{cum} h0``), and the tensor-parallel decode (``tp``: the
+rank's block of ``d_inner``, ``x_proj``'s and ``out_proj``'s products
+summed over ``model``). The mLSTM and sLSTM take no ctx: xlstm-125m runs
+whole sequences on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import checkpointed
+from repro_torch.sharding.axes import SINGLE, AxisCtx
 
 # ---------------------------------------------------------------------------
 # Mamba (S6)
@@ -103,17 +109,47 @@ def _mamba_chunk(h0, xc, dtc, Bc, Cc, A):
     return h_all[:, -1], y
 
 
-def _check_local(w: dict, cfg: ModelConfig) -> None:
-    d_inner = mamba_dims(cfg)[0]
-    if w["in_proj_x"].shape[-1] != d_inner:
+def _check_local(w: dict, cfg: ModelConfig, ctx: AxisCtx, tp: bool) -> None:
+    """The mixer's inner width: the config's, or under ``tp`` on a model
+    axis the rank's block of it."""
+    d_inner, got = mamba_dims(cfg)[0], w["in_proj_x"].shape[-1]
+    sharded = tp and ctx.model is not None
+    want = d_inner // ctx.size(ctx.model) if sharded else d_inner
+    if got != want or (sharded and d_inner % ctx.size(ctx.model)):
         raise ValueError(
-            f"mamba_forward got {w['in_proj_x'].shape[-1]} inner channels, the config has "
-            f"{d_inner}: a mixer sharded over devices (sequence-sharded scans with the "
-            "cross-shard handoff, tensor-parallel decode) comes with the sharded halves "
-            "of the multi-device port, ROADMAP A16.3b")
+            f"mamba_forward got {got} inner channels, want {want} of the config's "
+            f"{d_inner}: a rank's block of the channels runs only in the tensor-parallel "
+            "decode on a mesh (ctx with a model axis and tp=True; ROADMAP A16.3b), and a "
+            "model axis must divide them")
 
 
-def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None):
+def _scan(h, xif, dt, Bmat, Cmat, A, Q: int):
+    """The chunked scan from ``h`` -> (the final h, y (B, S, d))."""
+    ys = []
+    for lo in range(0, xif.shape[1], Q):
+        h, y = checkpointed(_mamba_chunk, h, xif[:, lo:lo + Q], dt[:, lo:lo + Q],
+                            Bmat[:, lo:lo + Q], Cmat[:, lo:lo + Q], A)
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+def _handoff(ctx: AxisCtx, h_last, dt, A):
+    """The cross-shard state handoff: every shard's ``(h_last, sum_t dt_t
+    A)`` all-gathered over ``model`` and folded left, ``h <- exp(sum dt A)
+    h + h_last`` (the decay is in [0, 1], so an underflow to 0 leaves the
+    fold finite) -> (this shard's true start state, the global final
+    state)."""
+    summ = torch.stack([h_last, dt.sum(dim=1)[..., None] * A[None]])       # (2, B, d, N)
+    every = ctx.all_gather(summ[None], ctx.model, axis=0)                    # (M, 2, B, d, N)
+    h_run, starts = torch.zeros_like(h_last), []
+    for j in range(every.shape[0]):
+        starts.append(h_run)
+        h_run = torch.exp(every[j, 1]) * h_run + every[j, 0]
+    return starts[ctx.index(ctx.model)], h_run
+
+
+def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None, *,
+                  ctx: AxisCtx = SINGLE, tp: bool = False):
     """x: (B, S, D) -> (y (B, S, D), the final MambaState). The scan in f32.
 
     The causal depthwise conv is a sum of ``d_conv`` shifted products over
@@ -122,24 +158,44 @@ def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None)
     then ``y = C h + D_skip x``, gated by silu(z). Each chunk step is
     ``checkpointed``, as the JAX package remats it: under plain autograd the
     backward keeps each chunk's (B, d_inner, N) carry and not the doubling's
-    (B, Q, d_inner, N) intermediates."""
-    _check_local(w, cfg)
+    (B, Q, d_inner, N) intermediates.
+
+    On a mesh (``ctx.model`` set):
+    - sequence-sharded (no ``state``, not ``tp``): x is the rank's rows at
+      offset ``index(model) * S``; the conv's ``d_conv - 1`` boundary rows
+      come from the left neighbour (zeros on rank 0), each shard scans from
+      zero, ``_handoff`` gives it its true start state and a scan with zero
+      inputs from that state adds its contribution. The returned ``h`` is
+      the global final state (every rank's the same), ``conv`` the rank's
+      own last rows (the last rank's are the sequence's);
+    - ``tp`` (decode): the weights and the state hold the rank's block of
+      ``d_inner``; ``x_proj``'s and ``out_proj``'s products are summed over
+      ``model``."""
+    _check_local(w, cfg, ctx, tp)
     B, S, D = x.shape
-    d_inner, dt_rank, N, d_conv = mamba_dims(cfg)
+    _, dt_rank, N, d_conv = mamba_dims(cfg)
     Q = mamba_chunk_len(cfg, B, S)
+    split = ctx.model is not None and not tp and state is None
+    psum = tp and ctx.model is not None
 
     xi = x @ w["in_proj_x"]
     z = x @ w["in_proj_z"]
+    d_loc = xi.shape[-1]
     if state is not None:
         prev = state.conv.to(xi.dtype)
+    elif split:
+        M = ctx.size(ctx.model)
+        prev = ctx.ppermute(xi[:, -(d_conv - 1):], ctx.model, [(i, i + 1) for i in range(M - 1)])
     else:
-        prev = xi.new_zeros((B, d_conv - 1, d_inner))
+        prev = xi.new_zeros((B, d_conv - 1, d_loc))
     xpad = torch.cat([prev, xi], dim=1)
     conv = sum(xpad[:, i:i + S] * w["conv_w"][i][None, None] for i in range(d_conv))
     xi = F.silu(conv + w["conv_b"])
     new_conv = xpad[:, -(d_conv - 1):]
 
     proj = (xi @ w["x_proj"]).to(torch.float32)
+    if psum:
+        proj = ctx.psum(proj, ctx.model)
     dt = F.softplus(proj[..., :dt_rank] @ w["dt_proj"].to(torch.float32)
                     + w["dt_bias"].to(torch.float32))        # (B, S, d)
     Bmat = proj[..., dt_rank:dt_rank + N]
@@ -147,21 +203,25 @@ def mamba_forward(w: dict, x, cfg: ModelConfig, state: MambaState | None = None)
     A = -torch.exp(w["A_log"].to(torch.float32))
 
     xif = xi.to(torch.float32)
-    h = (xif.new_zeros((B, d_inner, N)) if state is None
+    h = (xif.new_zeros((B, d_loc, N)) if state is None
          else state.h.to(torch.float32))
-    ys = []
-    for lo in range(0, S, Q):
-        h, y = checkpointed(_mamba_chunk, h, xif[:, lo:lo + Q], dt[:, lo:lo + Q],
-                            Bmat[:, lo:lo + Q], Cmat[:, lo:lo + Q], A)
-        ys.append(y)
-    y = torch.cat(ys, dim=1) + xif * w["D_skip"].to(torch.float32)
+    h, y = _scan(h, xif, dt, Bmat, Cmat, A, Q)
+    if split:
+        h0, h = _handoff(ctx, h, dt, A)
+        y = y + _scan(h0, torch.zeros_like(xif), dt, Bmat, Cmat, A, Q)[1]
+    y = y + xif * w["D_skip"].to(torch.float32)
     y = y.to(x.dtype) * F.silu(z)
-    return y @ w["out_proj"], MambaState(h.to(torch.float32), new_conv.to(x.dtype))
+    out = y @ w["out_proj"]
+    if psum:
+        out = ctx.psum(out, ctx.model)
+    return out, MambaState(h.to(torch.float32), new_conv.to(x.dtype))
 
 
-def mamba_decode(w: dict, x, cfg: ModelConfig, state: MambaState):
-    """One token. x: (B, 1, D) -> (y, the next MambaState)."""
-    return mamba_forward(w, x, cfg, state=state)
+def mamba_decode(w: dict, x, cfg: ModelConfig, state: MambaState, *,
+                 ctx: AxisCtx = SINGLE, tp: bool = False):
+    """One token. x: (B, 1, D) -> (y, the next MambaState); under ``tp``
+    on a model axis the state holds the rank's channels."""
+    return mamba_forward(w, x, cfg, state=state, ctx=ctx, tp=tp)
 
 
 # ---------------------------------------------------------------------------

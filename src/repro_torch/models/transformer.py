@@ -32,9 +32,19 @@ so each rank holds every row's logits over its vocab slice; prefill
 broadcasts the last position's row before the head and gathers the
 vocab. The MoE aux losses are each rank's, averaged over ``(pod, data,
 model)`` as the JAX package averages them, their gradient scaled so that
-the synced gradient is the averaged aux's (ROADMAP C11). The hybrid, ssm
-and encdec families refuse a model axis: their sharded halves are ROADMAP
-A16.3b.
+the synced gradient is the averaged aux's (ROADMAP C11).
+
+The other families run there too. A jamba period (hybrid) trains with the
+batch over ``(data, model, pod)`` and whole sequences, its mixers meshless
+and its MoE FFNs on the grid ring; its prefill shards the sequence (the
+Mamba mixers through ``ssm.mamba_forward``'s cross-shard handoff) and its
+decode is tensor-parallel (the Mamba channels over ``model``). xlstm-125m
+runs whole sequences on every rank (its recurrences take no ctx).
+whisper-base (``EncDecModel``) shards the encoder's and the decoder's
+sequences over ``model``: the encoder's K/V gathered along the sequence,
+the cross-attention from the rank's decoder rows over the gathered encoder
+output, and at decode B4 over the rank's shard of the encoder cache, the
+shards' ``(o, m, l)`` combined over ``model``.
 
 Rematerialization: the training forward is ``layers.checkpointed`` where
 the JAX package's is ``jax.checkpoint``ed: each stack entry of
@@ -409,7 +419,8 @@ def _call(fn, *args):
 
 
 def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
-                   length=None, ctx: AxisCtx = SINGLE, tp: bool = False):
+                   length=None, ctx: AxisCtx = SINGLE, tp: bool = False,
+                   mix: AxisCtx | None = None, quant_ring: bool = False):
     """One jamba period -> (x, {"attn": cache, "mamba": [MambaState, ...]},
     aux). Sublayer i mixes with the attention at ``attn_index`` and with the
     next Mamba mixer elsewhere; its FFN is MoE ``i // moe_every`` where ``i %
@@ -417,11 +428,16 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     indices, as written). At phase 'train' each Mamba mixer and each MoE FFN
     is ``checkpointed`` on its own, nested in the period's, as the JAX
     package nests them: without them the period's recompute would hold all
-    its mixers' and MoE layers' activations at once. One device only
-    (``ctx`` without a model axis, ``tp`` unused): the sharded half is
-    ROADMAP A16.3b."""
-    refuse_model_axis(cfg, ctx)
+    its mixers' and MoE layers' activations at once.
+
+    On a mesh, as the JAX period: the attention runs with the mixers' ctx
+    ``mix`` (``mixer_ctx``; ``ctx`` when None) and ``tp``; each Mamba mixer
+    with ``mix`` in training and prefill and with ``ctx, tp`` at decode;
+    each MoE FFN with the full ``ctx`` (its tokens replicated at decode;
+    ``quant_ring``: int8 ring payloads); each MLP with ``ctx, tp``."""
     P, eps = cfg.hybrid.period, cfg.norm_eps
+    mix = ctx if mix is None else mix
+    decode = phase == "decode"
     ckpt = checkpointed if phase == "train" else _call
     new = {"attn": None, "mamba": []}
     aux, mi = 0.0, 0
@@ -430,10 +446,11 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
         if i == cfg.hybrid.attn_index:
             o, new["attn"] = _attn(cfg, w["attn"], h, phase=phase,
                                    cache=None if caches is None else caches["attn"],
-                                   length=length)
+                                   length=length, ctx=mix, tp=tp)
         else:
             st = None if caches is None else caches["mamba"][mi]
-            mixer = functools.partial(ssm_mod.mamba_forward, cfg=cfg, state=st)
+            mixer = functools.partial(ssm_mod.mamba_forward, cfg=cfg, state=st,
+                                      ctx=ctx if decode else mix, tp=tp and decode)
             o, st = ckpt(mixer, _take(w["mamba"], mi), h)
             new["mamba"].append(st)
             mi += 1
@@ -441,20 +458,22 @@ def _hybrid_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
         h = rms_norm(x, w["ln_ffn"]["w"][i], eps)
         if i % cfg.moe.moe_every == cfg.moe.moe_offset:
             wmoe = _take(w["moe"], i // cfg.moe.moe_every)
-            mo, maux = ckpt(moe_mod.moe_ffn, wmoe, h, cfg)
+            ffn = functools.partial(moe_mod.moe_ffn, cfg=cfg, ctx=ctx,
+                                    tokens_replicated=decode, quant_ring=quant_ring)
+            mo, maux = ckpt(ffn, wmoe, h)
             aux = aux + maux.load_balance + maux.z_loss
             x = x + mo
         else:
-            x = x + mlp_forward(_take(w["mlp"], i // 2), h, cfg)
+            x = x + mlp_forward(_take(w["mlp"], i // 2), h, cfg, ctx=ctx, tp=tp)
     return x, new, aux
 
 
 def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
                   length=None, ctx: AxisCtx = SINGLE, tp: bool = False):
     """One xLSTM period (residual mLSTM blocks, then the sLSTM) -> (x,
-    {"mlstm": [MLSTMState, ...], "slstm": SLSTMState}, 0.0). One device
-    only, as ``_hybrid_period``."""
-    refuse_model_axis(cfg, ctx)
+    {"mlstm": [MLSTMState, ...], "slstm": SLSTMState}, 0.0). Its mixers
+    take no ctx (the JAX package's): on a mesh every rank runs whole
+    sequences, and the states are replicated over ``model``."""
     n_m, eps = cfg.ssm.slstm_every - 1, cfg.norm_eps
     new = {"mlstm": [], "slstm": None}
     for i in range(n_m):
@@ -467,18 +486,6 @@ def _xlstm_period(cfg: ModelConfig, w: dict, x, *, phase: str, caches=None,
     o, new["slstm"] = ssm_mod.slstm_forward(
         w["slstm"], h, cfg, state=None if caches is None else caches["slstm"])
     return x + o, new, 0.0
-
-
-def refuse_model_axis(cfg: ModelConfig, ctx: AxisCtx) -> None:
-    """The dense and MoE decoders, GQA or MLA, shard over ``model``
-    (A16.2, A16.3a); the hybrid, ssm and encdec families' sharded halves
-    (the Mamba handoff, xLSTM serving, the encdec cross decode) are ROADMAP
-    A16.3b."""
-    if ctx.model is not None and cfg.family in ("hybrid", "ssm", "encdec"):
-        raise ValueError(
-            f"{cfg.name} ({cfg.family}) on a mesh with a model axis comes with ROADMAP "
-            "A16.3b (the sharded Mamba, xLSTM and encdec halves); the temporal placement "
-            "on a mesh runs the dense and MoE decoders (A16.2, A16.3a)")
 
 
 LAYOUTS = ("sp", "dp2d")
@@ -513,6 +520,17 @@ def _block_fn(cfg: ModelConfig):
     if cfg.family == "ssm":
         return _xlstm_period
     return _dense_block
+
+
+def _block_ctx(cfg: ModelConfig, ctx: AxisCtx, phase: str, layout: str,
+               quant_ring: bool) -> dict:
+    """An entry's ctx keywords: a jamba period takes the mesh's ctx, its
+    mixers' (``mix``) and ``quant_ring``; a dense block and an xLSTM period
+    the mixers' ctx."""
+    mix = mixer_ctx(ctx, cfg, phase, layout)
+    if cfg.family == "hybrid":
+        return {"ctx": ctx, "mix": mix, "quant_ring": quant_ring}
+    return {"ctx": mix}
 
 
 def _stack_trees(trees: list):
@@ -554,7 +572,8 @@ def _write_back(tree, i, new) -> None:
 
 
 def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train",
-                ctx: AxisCtx = SINGLE, gather_fn=None, layout: str = "sp"):
+                ctx: AxisCtx = SINGLE, gather_fn=None, layout: str = "sp",
+                quant_ring: bool = False):
     """Forward through the stacked entries (layers, or periods for hybrid
     and ssm). Returns (x, aux, caches): aux sums the MoE layers' aux losses
     (0.0 without MoE); caches are None for phase 'train' and for 'prefill'
@@ -569,7 +588,7 @@ def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train",
     if phase not in ("train", "prefill"):
         raise ValueError(f"stack_train runs phase 'train' or 'prefill', not {phase!r}")
     block = functools.partial(_block_fn(cfg), cfg, phase=phase,
-                              ctx=mixer_ctx(ctx, cfg, phase, layout))
+                              **_block_ctx(cfg, ctx, phase, layout, quant_ring))
 
     def entry(w, x):
         return block(w if gather_fn is None else gather_fn(w), x)
@@ -588,13 +607,13 @@ def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length, *,
     """One decode token through the stacked entries; each writes its slot
     of ``caches`` (the tree ``stack_train`` gives; on a mesh this rank's
     sequence shard of it) in place. Returns (x, caches)."""
-    fn = _block_fn(cfg)
+    fn = functools.partial(_block_fn(cfg), cfg, phase="decode", length=length, tp=tp,
+                           **_block_ctx(cfg, ctx, "decode", "sp", False))
     for i in range(n_stacks(cfg)):
         blk = _take(blocks, i)
         if gather_fn is not None:
             blk = gather_fn(blk)
-        x, new, _ = fn(cfg, blk, x, phase="decode", caches=_index(caches, i),
-                       length=length, ctx=ctx, tp=tp)
+        x, new, _ = fn(blk, x, caches=_index(caches, i))
         _write_back(caches, i, new)
     return x, caches
 
@@ -602,11 +621,13 @@ def stack_decode(cfg: ModelConfig, blocks: dict, x, caches, length, *,
 @dataclasses.dataclass(frozen=True)
 class Model:
     """An LM over a param dict: the training loss, prefill and greedy
-    decode, on one device or (the dense and MoE decoders) a rank of a mesh
-    (``ctx``).
-    ``layout``: the training layout on a mesh (``seq_sharded_in``)."""
+    decode, on one device or a rank of a mesh (``ctx``).
+    ``layout``: the training layout on a mesh (``seq_sharded_in``);
+    ``quant_ring``: int8 payloads on a jamba period's grid ring (the JAX
+    package's ``REPRO_QUANT_RING=1``)."""
     cfg: ModelConfig
     layout: str = "sp"
+    quant_ring: bool = False
 
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return init_params(generator, self.cfg, dtype)
@@ -638,10 +659,10 @@ class Model:
         under plain autograd (see the module docstring). On a mesh: the
         mean over every row of the ``(pod, data)`` batch, the same on every
         rank."""
-        refuse_model_axis(self.cfg, ctx)
         x = self._embed(params, batch["tokens"], ctx)
         x, aux, _ = stack_train(self.cfg, params["blocks"], x, phase="train", ctx=ctx,
-                                gather_fn=gather_fn, layout=self.layout)
+                                gather_fn=gather_fn, layout=self.layout,
+                                quant_ring=self.quant_ring)
         x = _apply_norm(params["final_norm"], x, self.cfg)
         labels = batch["labels"]
         if ctx.vaxis is not None:
@@ -661,24 +682,32 @@ class Model:
 
     def prefill(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
         """batch["tokens"]: (B, S) -> (caches, last-position logits (B, Vp)
-        f32, None). On a mesh the caches are this rank's sequence shard and
+        f32, None). On a mesh the caches are this rank's shard (its sequence
+        shard of the KV rows; a jamba Mamba state's ``h`` the global final
+        state and ``conv`` the rank's last rows, which
+        ``launch/steps.make_prefill_step`` puts in the decode's layout) and
         the logits the whole vocab's on every rank: the last position's row
-        (on the last rank of ``model``) summed over ``model`` before the
-        head, the vocab slices gathered after it (the JAX package sums each
-        rank's vocab slice of the logits and keeps one slice: ROADMAP
-        C10)."""
-        refuse_model_axis(self.cfg, ctx)
+        (on the last rank of ``model``, where the sequence is sharded)
+        summed over ``model`` before the head, the vocab slices gathered
+        after it (the JAX package sums each rank's vocab slice of the logits
+        and keeps one slice: ROADMAP C10)."""
         x = self._embed(params, batch["tokens"], ctx)
         x, _, caches = stack_train(self.cfg, params["blocks"], x, phase="prefill", ctx=ctx,
-                                   gather_fn=gather_fn)
-        last = _apply_norm(params["final_norm"], x, self.cfg)[:, -1:]
-        if ctx.model is not None:
-            is_last = float(ctx.index(ctx.model) == ctx.size(ctx.model) - 1)
-            last = ctx.psum(last * is_last, ctx.model)
+                                   gather_fn=gather_fn, quant_ring=self.quant_ring)
+        last = self._last_row(_apply_norm(params["final_norm"], x, self.cfg), ctx)
         logits = self._head(params, last)
         if ctx.vaxis is not None:
             logits = ctx.all_gather(logits, ctx.vaxis, axis=logits.dim() - 1)
         return caches, logits[:, 0], None
+
+    def _last_row(self, x, ctx: AxisCtx):
+        """x[:, -1:], on a mesh whose sequence is sharded the last rank of
+        ``model``'s, summed over ``model`` to every rank."""
+        last = x[:, -1:]
+        if ctx.model is not None and seq_sharded_in(self.cfg, "prefill"):
+            is_last = float(ctx.index(ctx.model) == ctx.size(ctx.model) - 1)
+            last = ctx.psum(last * is_last, ctx.model)
+        return last
 
     def decode_step(self, params: dict, tokens, caches, length, *, ctx: AxisCtx = SINGLE,
                     gather_fn=None, tp: bool = True):
@@ -686,7 +715,6 @@ class Model:
         length. Returns (logits (B, Vp) f32, caches written in place). On a
         mesh: tensor-parallel weights (``tp``), this rank's shard of the
         caches, and this rank's vocab slice of the logits (B, V_loc)."""
-        refuse_model_axis(self.cfg, ctx)
         x = self._embed(params, tokens[:, None], ctx, replicated=True)
         x, caches = stack_decode(self.cfg, params["blocks"], x, caches, length, ctx=ctx,
                                  gather_fn=gather_fn, tp=tp)
@@ -741,66 +769,71 @@ def _cross_q(cfg: ModelConfig, w: dict, x_dec):
 
 def _cross_attn(cfg: ModelConfig, w: dict, x_dec, enc_k, enc_v):
     """Cross-attention: queries from the decoder's rows over the encoder's
-    K/V, B3 non-causal (Sq = S_dec over Sk = S_enc), no rope."""
+    K/V, B3 non-causal (Sq = S_dec over Sk = S_enc), no rope. On a mesh the
+    rank's decoder rows over the whole (gathered) encoder."""
     B, S = x_dec.shape[0], x_dec.shape[1]
     o = ops.flash_attention(_cross_q(cfg, w, x_dec), enc_k, enc_v, 0, False)
     return o.reshape(B, S, -1) @ w["wo"]
 
 
-def _enc_block(cfg: ModelConfig, blk: dict, x):
-    """One encoder block: full self-attention and the MLP, pre-norm."""
+def _mesh_kw(ctx: AxisCtx) -> dict:
+    """``{"ctx": ctx}`` on a model axis, else nothing: the encdec blocks
+    are called as before off the mesh."""
+    return {} if ctx.model is None else {"ctx": ctx}
+
+
+def _enc_block(cfg: ModelConfig, blk: dict, x, ctx: AxisCtx = SINGLE):
+    """One encoder block: full self-attention and the MLP, pre-norm; on a
+    mesh over the rank's rows, K/V gathered along the sequence."""
     x = x + attn.gqa_seqsharded(blk["attn"], _apply_norm(blk["ln1"], x, cfg), cfg,
-                                causal=False)
+                                ctx=ctx, causal=False)
     return x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
 
 
-def encoder_forward(cfg: ModelConfig, enc_blocks: dict, frames):
-    """frames: (B, S_enc, D) frame embeddings (the conv frontend's stub) ->
-    the encoder's output before its final norm: sinusoidal positions, then
-    pre-norm blocks of full (non-causal) self-attention and the MLP, each
-    block ``checkpointed`` (as the JAX package's, at every phase)."""
-    pos = torch.arange(frames.shape[1], device=frames.device)
+def encoder_forward(cfg: ModelConfig, enc_blocks: dict, frames, *, ctx: AxisCtx = SINGLE):
+    """frames: (B, S_enc, D) frame embeddings (the conv frontend's stub; on
+    a mesh the rank's ``S_enc / M`` rows) -> the encoder's output before
+    its final norm: sinusoidal positions (from ``index(model) * S_loc``),
+    then pre-norm blocks of full (non-causal) self-attention and the MLP,
+    each block ``checkpointed`` (as the JAX package's, at every phase)."""
+    S_loc = frames.shape[1]
+    pos = ctx.index(ctx.model) * S_loc + torch.arange(S_loc, device=frames.device)
     x = frames + _sinusoid(pos, cfg.d_model)[None].to(frames.dtype)
+    block = functools.partial(_enc_block, **_mesh_kw(ctx))
     for blk in _unstack(enc_blocks):
-        x = checkpointed(_enc_block, cfg, blk, x)
+        x = checkpointed(block, cfg, blk, x)
     return x
 
 
-def _dec_block(cfg: ModelConfig, blk: dict, x, enc, prefill: bool = False):
+def _dec_block(cfg: ModelConfig, blk: dict, x, enc, prefill: bool = False,
+               ctx: AxisCtx = SINGLE):
     """One decoder block -> (x, its EncDecCaches at prefill, else None):
     causal self-attention, cross-attention over ``enc`` (its K/V computed
-    here), the MLP."""
+    here), the MLP. On a mesh ``x`` is the rank's decoder rows and ``enc``
+    the whole (gathered) encoder output; the prefill caches the rank's own
+    slice of the cross K/V (the JAX package's layout)."""
     h = _apply_norm(blk["ln1"], x, cfg)
     if prefill:
-        o, cache = attn.gqa_seqsharded(blk["attn"], h, cfg, return_cache=True)
+        o, cache = attn.gqa_seqsharded(blk["attn"], h, cfg, ctx=ctx, return_cache=True)
     else:
-        o = attn.gqa_seqsharded(blk["attn"], h, cfg)
+        o = attn.gqa_seqsharded(blk["attn"], h, cfg, ctx=ctx)
     x = x + o
     ek, ev = _enc_kv(cfg, blk["xattn"], enc)
     x = x + _cross_attn(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg), ek, ev)
     x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
-    return x, (EncDecCaches(cache, ek, ev) if prefill else None)
-
-
-def _decoder(cfg: ModelConfig, params: dict, batch: dict, *, prefill: bool):
-    """The encoder, its final norm and the decoder's blocks over
-    ``batch["tokens"]`` -> (x, EncDecCaches or None); each decoder block
-    ``checkpointed`` when not prefilling."""
-    enc = encoder_forward(cfg, params["enc_blocks"], batch["frames"])
-    enc = _apply_norm(params["enc_final_norm"], enc, cfg)
-    x = embed_lookup(params["embed"], batch["tokens"]).to(enc.dtype)
-    caches = []
-    for blk in _unstack(params["blocks"]):
-        x, cache = (_dec_block(cfg, blk, x, enc, prefill) if prefill
-                    else checkpointed(_dec_block, cfg, blk, x, enc))
-        caches.append(cache)
-    return x, (_stack_trees(caches) if prefill else None)
+    if not prefill:
+        return x, None
+    if ctx.model is not None:
+        n = ek.shape[1] // ctx.size(ctx.model)
+        ek, ev = (t.narrow(1, ctx.index(ctx.model) * n, n) for t in (ek, ev))
+    return x, EncDecCaches(cache, ek, ev)
 
 
 class EncDecCaches(NamedTuple):
     """The decoder's caches: its self-attention KVCache (L, B, S_dec, KV,
     HD) and the cross-attention K and V of the encoder's output (L, B,
-    S_enc, KV, HD) each."""
+    S_enc, KV, HD) each; on a mesh each rank's sequence shard of all
+    three."""
     self_caches: Any
     cross_k: Any
     cross_v: Any
@@ -809,44 +842,74 @@ class EncDecCaches(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class EncDecModel(Model):
     """whisper: batches carry ``frames`` (B, S_enc, D) beside the decoder's
-    ``tokens`` (and ``labels`` for the loss)."""
+    ``tokens`` (and ``labels`` for the loss). On a mesh both sequences are
+    sharded over ``model`` (``S_enc`` and ``S_dec`` must divide by it)."""
+
+    def _decoder(self, params: dict, batch: dict, ctx: AxisCtx, *, prefill: bool):
+        """The encoder, its final norm and the decoder's blocks over
+        ``batch["tokens"]`` -> (x, EncDecCaches or None); each decoder
+        block ``checkpointed`` when not prefilling. On a mesh the encoder's
+        output is all-gathered along the sequence for the cross K/V."""
+        cfg = self.cfg
+        enc = encoder_forward(cfg, params["enc_blocks"], batch["frames"], ctx=ctx)
+        enc = _apply_norm(params["enc_final_norm"], enc, cfg)
+        enc = ctx.all_gather(enc, ctx.model, axis=1)
+        x = self._embed(params, batch["tokens"], ctx).to(enc.dtype)
+        block = functools.partial(_dec_block, **_mesh_kw(ctx))
+        caches = []
+        for blk in _unstack(params["blocks"]):
+            x, cache = (block(cfg, blk, x, enc, prefill) if prefill
+                        else checkpointed(block, cfg, blk, x, enc))
+            caches.append(cache)
+        return x, (_stack_trees(caches) if prefill else None)
 
     def loss(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
-        """Next-token cross-entropy of the decoder's tokens (no aux); on a
-        mesh without a model axis, averaged over ``(pod, data)``."""
-        refuse_model_axis(self.cfg, ctx)
-        x, _ = _decoder(self.cfg, params, batch, prefill=False)
-        return softmax_xent_vshard(self._logits(params, x), batch["labels"], ctx=ctx)
+        """Next-token cross-entropy of the decoder's tokens (no aux),
+        averaged over ``(pod, data)``; on a model axis (the sequences
+        sharded) each rank's mean averaged over it too."""
+        x, _ = self._decoder(params, batch, ctx, prefill=False)
+        loss = softmax_xent_vshard(self._logits(params, x), batch["labels"],
+                                   ctx=dataclasses.replace(ctx, vocab=None))
+        return ctx.pmean(loss, ctx.model)
 
     def prefill(self, params: dict, batch: dict, *, ctx: AxisCtx = SINGLE, gather_fn=None):
         """The encoder over the frames and the decoder's prefill over the
-        prompt tokens -> (EncDecCaches, last-position logits, None)."""
-        refuse_model_axis(self.cfg, ctx)
-        x, caches = _decoder(self.cfg, params, batch, prefill=True)
-        return caches, self._logits(params, x, last=True)[:, 0], None
+        prompt tokens -> (EncDecCaches, last-position logits, None); on a
+        mesh the caches are the rank's sequence shards (the cross K/V too),
+        the logits the last decoder row's on every rank."""
+        x, caches = self._decoder(params, batch, ctx, prefill=True)
+        last = self._last_row(_apply_norm(params["final_norm"], x, self.cfg), ctx)
+        logits = self._head(params, last)
+        if ctx.vaxis is not None:
+            logits = ctx.all_gather(logits, ctx.vaxis, axis=logits.dim() - 1)
+        return caches, logits[:, 0], None
 
     def decode_step(self, params: dict, tokens, caches, length, *, ctx: AxisCtx = SINGLE,
                     gather_fn=None, tp: bool = True):
         """One token: self-attention over the decoder's cache (written in
-        place), cross-attention by B4 over the whole encoder cache
-        (``combine=False``, normalised here by ``max(l, 1e-30)``)."""
-        refuse_model_axis(self.cfg, ctx)
+        place; ``attention.gqa_decode``), cross-attention by B4 over the
+        encoder cache (``combine=False``) normalised by
+        ``attention._lse_combine``; on a mesh each rank's shard of both
+        caches, the shards' ``(o, m, l)`` combined over ``model``, and with
+        ``tp`` the projections tensor-parallel."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens[:, None])
-        B = x.shape[0]
+        x = self._embed(params, tokens[:, None], ctx, replicated=True)
+        B, H, HD = x.shape[0], cfg.n_heads, cfg.resolved_head_dim
         enc_len = torch.full((B,), caches.cross_k.shape[2], dtype=torch.int32,
                              device=x.device)
         for i in range(cfg.n_layers):
             blk = _take(params["blocks"], i)
             o, _ = attn.gqa_decode(blk["attn"], _apply_norm(blk["ln1"], x, cfg),
-                                   _index(caches.self_caches, i), length, cfg)
+                                   _index(caches.self_caches, i), length, cfg, ctx=ctx, tp=tp)
             x = x + o
-            q = _cross_q(cfg, blk["xattn"], _apply_norm(blk["ln_x"], x, cfg))[:, 0]
-            o2, _, l2 = ops.decode_attention(q, caches.cross_k[i], caches.cross_v[i], enc_len,
-                                             combine=False)
-            o2 = o2 / torch.clamp(l2, min=1e-30)[..., None]
-            x = x + o2.to(x.dtype).reshape(B, 1, -1) @ blk["xattn"]["wo"]
-            x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg)
+            w = blk["xattn"]
+            q = attn.col_matmul(ctx, _apply_norm(blk["ln_x"], x, cfg), w["wq"], w.get("bq"), tp)
+            o2, m2, l2 = ops.decode_attention(q.reshape(B, H, HD), caches.cross_k[i],
+                                              caches.cross_v[i], enc_len, combine=False)
+            o2 = attn._lse_combine(ctx, o2, m2, l2)
+            x = x + attn.row_matmul(ctx, o2.to(x.dtype).reshape(B, 1, -1), w["wo"], tp)
+            x = x + mlp_forward(blk["mlp"], _apply_norm(blk["ln2"], x, cfg), cfg,
+                                ctx=ctx, tp=tp)
         return self._logits(params, x)[:, 0], caches
 
 

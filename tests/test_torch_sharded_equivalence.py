@@ -24,9 +24,9 @@ draws them from {0, 1}, where any row's logits give nearly the same loss).
 - Prefill on (2, 2): the (B, V) logits and the caches against meshless.
 - ROADMAP C10 on the JAX side (strict xfails): the JAX mesh step's loss
   and prefill logits depart from its meshless ones at these inputs.
-- Refusals: ``make_*_step`` names A16.3b for hybrid (and, at serve, ssm
-  and encdec) on a mesh with a model axis (MLA and MoE run there since
-  A16.3a: ``tests/test_torch_sharded_mla_moe.py``).
+- The other families run on a mesh too: MLA and MoE since A16.3a
+  (``tests/test_torch_sharded_mla_moe.py``), jamba, whisper-base and
+  xlstm-125m since A16.3b (``tests/test_torch_sharded_hybrid_encdec.py``).
 - The input trees: ``batch_struct`` (train with lead (1, 1), sequence- or
   batch-sharded, prefill, decode), ``param_structs`` (fsdp, tp) and
   ``cache_tree`` give the JAX package's shapes and specs on both meshes;
@@ -49,9 +49,6 @@ MESHES = {"dm": ((2, 2), ("data", "model")),
 TRAIN_CELLS = (("dm", "sp"), ("pdm", "sp"), ("dm", "dp2d"))
 S, B = 32, 8                         # sharded_eq_impl's check_train / check_decode
 LENGTHS = np.array([0, 3, 14, 15, 16, 20, 30, 31], np.int32)   # decode: rows' context
-REFUSED = {"train": ("jamba-1.5-large-398b",),
-           "prefill": ("jamba-1.5-large-398b", "xlstm-125m", "whisper-base"),
-           "decode": ("jamba-1.5-large-398b", "xlstm-125m", "whisper-base")}
 
 
 def _cfg(arch=ARCH):
@@ -126,8 +123,7 @@ def _np_tree(t):
 
 
 def rank_body(rank, world):
-    """One rank: the train cells, the decode and prefill steps on (2, 2),
-    the refusals."""
+    """One rank: the train cells, the decode and prefill steps on (2, 2)."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import model_zoo
@@ -161,17 +157,6 @@ def rank_body(rank, world):
                                {"tokens": _t(d["prompt"]), "labels": _t(d["prompt"])}), "cpu")
     caches, logits = pre.fn(params, batch)
     out["prefill"] = (logits.numpy(), _np_tree(caches))
-    refusals = {}
-    makers = {"train": steps.make_train_step, "prefill": steps.make_prefill_step,
-              "decode": steps.make_decode_step}
-    for kind, archs in REFUSED.items():
-        for arch in archs:
-            try:
-                makers[kind](_cfg(arch), shapes[kind], mesh)
-                refusals[(kind, arch)] = None
-            except ValueError as e:
-                refusals[(kind, arch)] = str(e)
-    out["refusals"] = refusals
     out["make_step"] = {kind: steps.make_step(ARCH, shapes[kind], mesh).kind
                         for kind in ("train", "prefill", "decode")}
     return out
@@ -510,12 +495,6 @@ def test_input_structs_match_jax(runs, mesh, name):
 def test_make_step_builds_each_kind(runs):
     assert runs[0][0]["make_step"] == {"train": "train", "prefill": "prefill",
                                        "decode": "decode"}
-
-
-@pytest.mark.parametrize("kind,arch", [(k, a) for k, archs in REFUSED.items() for a in archs])
-def test_other_families_refuse_a_model_axis(runs, kind, arch):
-    msg = runs[0][0]["refusals"][(kind, arch)]
-    assert msg is not None and "A16.3b" in msg, msg
 
 
 if __name__ == "__main__":
