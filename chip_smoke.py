@@ -265,7 +265,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    rows at q_offset 0 and 1,536, whisper's encoder over 375 of 1,500
    frames; B4 over whisper's 375-key cross shard and jamba's 512-key shard
    with rows of length 0), against their plain versions, timed.
-16. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+16. The dry run of production-mesh cells (slice 18) — ``python -m
+   repro_torch.launch.dryrun --device cuda`` in a subprocess a cell (its
+   fake process group must not meet the NCCL ranks of phases 14-15c), rank 0
+   of the production mesh, bf16 at published width: yi-34b train_4k on
+   16x16 at all 60 layers, yi-34b decode_32k on 2x16x16, jamba-1.5-large-398b
+   long_500k on 2x16x16 at one period (8 layers). Each cell runs on the meta
+   device (the prediction), on the card counted under ``op_cost.cost_scope``,
+   and on the card timed and measured without a scope (compute only: the fake
+   group moves no bytes); the meta and counted card records must give equal
+   FLOPs, bytes, collective counts and bytes and kernel launches by shape, and
+   the card's ``max_memory_allocated`` must be within 10% of the meta peak.
+   Then B2, B3 and B4 at every shape those card runs launched, and B3
+   kernel-level at the train cell's last model rank (q_offset 3,840), against
+   their plain versions, timed, their bounds from the kernel modules'
+   ``cost``.
+17. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -277,7 +292,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-17. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+18. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -289,6 +304,7 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -5440,6 +5456,173 @@ def phase_mesh_hybrid_encdec(torch):
     return out
 
 
+# phase 16 (slice 18): the dry run of production-mesh cells, rank 0, on the
+# meta device and on the card: (arch, shape, 2x16x16, layers; 0: all)
+DRY_RUN_CELLS = (("yi-34b", "train_4k", False, 0),
+                 ("yi-34b", "decode_32k", True, 0),
+                 ("jamba-1.5-large-398b", "long_500k", True, 8))
+DRY_RUN_PEAK_TOL = 0.10           # the card's peak against the meta prediction
+DRY_RUN_COUNTED = ("cost", "collectives", "kernels")
+# B3 kernel-level at the train cell's last model rank: its 256 of 4,096 rows
+DRY_RUN_SHARD_FLASH = {"rank15": 15 * 4096 // 16}
+
+
+def _dry_run_cell(arch, shape, multi_pod, layers) -> dict:
+    """One cell through ``python -m repro_torch.launch.dryrun --device
+    cuda`` -> its record (the card's, the meta prediction under ``meta``);
+    raises unless the meta and counted card records agree exactly and the
+    card's peak is within DRY_RUN_PEAK_TOL of the meta one."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+           shape, "--device", "cuda", "--tag", "smoke"]
+    cmd += ["--multi-pod"] if multi_pod else []
+    cmd += ["--layers", str(layers)] if layers else []
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run {arch} {shape}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    key = f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}"
+    key += f"__L{layers}" if layers else ""
+    rec = json.loads((ROOT / "results" / "dryrun_torch" / f"{key}__cuda__smoke.json").read_text())
+    rec["subprocess_s"] = time.perf_counter() - t0
+    meta = rec["meta"]
+    for f in DRY_RUN_COUNTED:
+        if rec[f] != meta[f]:
+            raise AssertionError(f"dry run {key}: the card's counted {f} differ from the meta "
+                                 f"run's:\n{json.dumps(rec[f])}\n{json.dumps(meta[f])}")
+    card, pred = rec["memory"]["peak_GiB"], meta["memory"]["peak_GiB"]
+    rec["peak_rel_diff"] = (card - pred) / pred
+    if abs(rec["peak_rel_diff"]) > DRY_RUN_PEAK_TOL:
+        raise AssertionError(f"dry run {key}: card peak {card:.3f} GiB, meta prediction "
+                             f"{pred:.3f} GiB: beyond {DRY_RUN_PEAK_TOL:.0%}")
+    log(f"dry run {key}: card {rec['run_s']:.3f}s peak {card:.3f} GiB (meta {pred:.3f} GiB, "
+        f"{rec['peak_rel_diff']:+.2%}); meta run {meta['run_s']:.1f}s; "
+        f"flops {rec['cost']['flops']:.4e}, bytes {rec['cost']['bytes_accessed']:.4e}; "
+        f"collectives {json.dumps({k: v for k, v in rec['collectives']['counts'].items() if v})};"
+        f" launches {json.dumps(rec['launches_by_shape'])}; {rec['subprocess_s']:.1f}s")
+    return rec
+
+
+def _key(text):
+    """An ``op_cost`` shape key back to the wrappers' tuple (B3's causal
+    flag a bool)."""
+    k = tuple(int(x) for x in text.split(","))
+    return k[:-1] + (bool(k[-1]),) if len(k) == 8 else k
+
+
+def time_dry_run_kernels(torch, flush, by_cell):
+    """B2, B3 and B4 at every shape phase 16's card runs launched
+    (``by_cell``: {cell: {kernel: {shape: launches}}}; a decode at the
+    cache's full length, as the dry run's lengths put it; B3 at rank 0's
+    q_offset 0), and B3 kernel-level at DRY_RUN_SHARD_FLASH, each against
+    its plain version and timed, its bound from its module's ``cost``.
+    Returns {(kernel, tag): row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    rows, seed, label = {}, 1900, "dry run"
+    shapes = {}
+    for counts in by_cell.values():
+        for fn, c in counts.items():
+            shapes.setdefault(fn, set()).update(_key(k) for k in c)
+
+    def with_bound(r, cost, rate=BF16_FLOPS_PER_S):
+        r["flops"], r["bytes"] = cost
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], rate)
+        return r
+    for key in sorted(shapes.get("flash_attention", ())):
+        offs = {"rank0": 0, **DRY_RUN_SHARD_FLASH} if key[-1] else {"rank0": 0}
+        for tag, off in offs.items():
+            rows[("flash_attention", f"{shape_name(key)} {tag}")] = with_bound(
+                _time_flash_row(torch, F, fa, flush, key, off, seed, label),
+                fa.cost(*key[:-1], off, key[-1], 2))
+            seed += 10
+    for key in sorted(shapes.get("rmsnorm", ())):
+        rows[("rmsnorm", shape_name(key))] = with_bound(
+            _time_rms_row(torch, F, rms, flush, key, seed, label), rms.cost(*key, 2, 2),
+            F32_FLOPS_PER_S)
+        seed += 10
+    for key in sorted(shapes.get("decode_attention", ())):
+        rows[("decode_attention", shape_name(key))] = with_bound(
+            _time_decode_row(torch, F, da, flush, key, (key[1],) * key[0], seed),
+            da.cost(*key, 2, keys=key[0] * key[1]))
+        seed += 10
+    for (fn, tag), r in rows.items():
+        log(f"kernel {fn} {label} {tag}", json.dumps(r))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dry_run_entries(dr, sources, flash_src) -> list:
+    """The ``kernels`` entries of phase 16's rows (``phase_dry_run``'s
+    summary ``dr``): each shape a card run launched, with its launches
+    there, and B3's kernel-level rows with none."""
+    paths = {name: (f"the dry run's timed card run of rank 0 of {name}: "
+                    f"{dr['cells'][name]['layers']} layers, bf16 at published width, "
+                    "the other ranks a fake process group") for name in dr["by_cell"]}
+    entries = []
+    for cell, counts in dr["by_cell"].items():
+        for fn in sorted(counts):
+            for k, launches in sorted(counts[fn].items()):
+                key = _key(k)
+                flash = fn == "flash_attention"
+                tags = ([f"{shape_name(key)} rank0"] +
+                        [f"{shape_name(key)} {t}" for t in DRY_RUN_SHARD_FLASH if key[-1]]
+                        if flash else [shape_name(key)])
+                for tag in tags:
+                    r = dr["kernel_rows"][(fn, tag)]
+                    on_path = not flash or tag.endswith("rank0")
+                    source, replaces = ((("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                                          if r["kernel"] == "wgmma" else
+                                          "src/repro_torch/csrc/flash_attention.cu"), flash_src)
+                                        if flash else sources[fn])
+                    entries.append({
+                        "name": f"{fn}_{r['kernel'] + '_' if flash else ''}dry_run_"
+                                f"{cell.replace(' ', '_')}_{tag.replace(' ', '_')}",
+                        "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches if on_path else 0,
+                        "launches_path": paths[cell] if on_path else (
+                            f"kernel-level only: the last rank of {cell}'s model axis, its "
+                            f"rows at q_offset {r['q_offset']}"),
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "bitwise": False, "shape": r["shape"],
+                        **{f: r[f] for f in ("q_offset", "lengths") if f in r}})
+    return entries
+
+
+def phase_dry_run(torch):
+    """Slice 18: each DRY_RUN_CELLS cell's dry run (``_dry_run_cell``),
+    then its kernels' rows (``time_dry_run_kernels``). Returns the phase's
+    summary."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cells = {}
+    for arch, shape, mp, layers in DRY_RUN_CELLS:
+        cells[f"{arch} {shape} {'2x16x16' if mp else '16x16'}"] = _dry_run_cell(
+            arch, shape, mp, layers)
+    by_cell = {name: rec["launches_by_shape"] for name, rec in cells.items()}
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    rows = time_dry_run_kernels(torch, flush, by_cell)
+    del flush
+    out = {"phase_s": time.perf_counter() - t0, "by_cell": by_cell, "kernel_rows": rows,
+           "cells": {name: {
+               "layers": rec["layers"], "card_run_s": rec["run_s"],
+               "meta_run_s": rec["meta"]["run_s"], "subprocess_s": rec["subprocess_s"],
+               "card_peak_GiB": rec["memory"]["peak_GiB"],
+               "meta_peak_GiB": rec["meta"]["memory"]["peak_GiB"],
+               "peak_rel_diff": rec["peak_rel_diff"], "args_GiB": rec["memory"]["args_GiB"],
+               "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes_accessed"],
+               "collectives": rec["collectives"]["counts"],
+               "collective_traffic": rec["collectives"]["traffic_bytes"],
+               "kernels": rec["kernels"]} for name, rec in cells.items()}}
+    log(f"dry run phase: {out['phase_s']:.1f}s")
+    return out
+
+
 def attention_layers(cfg) -> int:
     """B3 launches of one prefill: every attention layer (the encoder's and
     the decoder's self and cross attention for encdec, one a period for
@@ -5685,11 +5868,17 @@ def main() -> int:
     # the rank)
     mesh_hybrid_encdec = phase_mesh_hybrid_encdec(torch)
 
-    # 16. serve path; counts zeroed just before it, read just after
+    # 16. the dry run of production-mesh cells (slice 18): rank 0 of each
+    # cell's mesh on the meta device and on the card, in a subprocess a cell;
+    # the card's counts zeroed just before its timed run, read just after (in
+    # the subprocess)
+    dry_run = phase_dry_run(torch)
+
+    # 17. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 17. summary
+    # 18. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -6158,6 +6347,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"],
             **{k: r[k] for k in ("q_offset", "lengths") if k in r}})
+    # slice 18: B2, B3 and B4 at every shape phase 16's card runs launched,
+    # and B3 kernel-level at the train cell's last model rank
+    entries += dry_run_entries(dry_run, sources, flash_src)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -6374,6 +6566,16 @@ def main() -> int:
                         f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
                         for (fn, tag), r in mesh_hybrid_encdec["kernel_rows"].items()}}))
+    log(json.dumps({"slice": "18: the dry run of production-mesh cells as one rank (the meta "
+                    "device's prediction, the card's counted and timed runs, the other ranks "
+                    "a fake process group): yi-34b train_4k on 16x16 at all 60 layers, "
+                    "yi-34b decode_32k and jamba-1.5-large-398b long_500k (one period) on "
+                    "2x16x16",
+                    "card": smi, "phase_s": dry_run["phase_s"], "cells": dry_run["cells"],
+                    "kernel_rows": {f"{fn} {tag}": {
+                        f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                        for (fn, tag), r in dry_run["kernel_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from repro_torch.launch import op_cost
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 227 * 1024    # dynamic shared memory one block may use on Hopper
@@ -116,6 +118,18 @@ def _check(q, k, v, length):
         raise ValueError("decode_attention inputs on several devices")
 
 
+def cost(B: int, S: int, H: int, KV: int, Dk: int, Dv: int, esize: int,
+         keys: int | None = None) -> tuple:
+    """(operations, bytes) of one call over ``keys`` cached keys in all
+    (the rows' lengths summed, each clipped to S; None: every row's whole
+    cache of S, what a dry run counts, whose lengths are data): 2 (Dk + Dv)
+    operations a key and query head; the K/V rows read once in elements of
+    ``esize`` bytes, q read, and the f32 (o, m, l) and the int32 lengths."""
+    keys = B * S if keys is None else keys
+    nbytes = keys * KV * (Dk + Dv) * esize + B * H * Dk * esize + (B * H * (Dv + 2) + B) * 4
+    return 2 * keys * H * (Dk + Dv), nbytes
+
+
 def decode_attention_fwd(q, k, v, length, scale=None):
     """q (B,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv), length (B,) int32 ->
     unnormalised (o, m, l), all f32.
@@ -124,13 +138,18 @@ def decode_attention_fwd(q, k, v, length, scale=None):
     stream (no synchronisation) or raise. Each call on the card (the split
     kernel and its combine) adds one to ``decode_attention_fwd.launches``
     and to its shape's, ``(B, S, H, KV, Dk, Dv)``, in
-    ``decode_attention_fwd.launches_by_shape``."""
+    ``decode_attention_fwd.launches_by_shape``. Meta tensors (a dry run,
+    ``launch/dryrun.py``) pass the same checks and get the outputs and the
+    split's scratch the kernel would allocate, and no launch. On either, a
+    call records ``cost`` over the whole cache in an open
+    ``launch/op_cost.cost_scope``."""
     _check(q, k, v, length)
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k, v, length, scale)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cpu or cuda (or meta, for a dry run), "
+                         f"not {dev}")
     B, H, Dk = q.shape
     _, S, KV, Dv = v.shape
     if Dk > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
@@ -144,29 +163,33 @@ def decode_attention_fwd(q, k, v, length, scale=None):
         raise ValueError("decode_attention wants contiguous inputs")
     if H // KV > MAX_GROUP:
         raise ValueError(f"decode_attention takes GQA groups up to {MAX_GROUP}, got {H // KV}")
-    lib = _lib()
-    smem = lib.decode_attention_smem_bytes(H // KV, Dk, Dv, DTYPE_CODES[q.dtype])
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: a GQA group of {H // KV} needs {smem} B of "
-                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    if dev.type == "cuda":
+        lib = _lib()
+        smem = lib.decode_attention_smem_bytes(H // KV, Dk, Dv, DTYPE_CODES[q.dtype])
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"decode_attention: a GQA group of {H // KV} needs {smem} B of "
+                             f"shared memory, more than {MAX_SMEM_BYTES}")
     scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
     o = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
     n_split = -(-S // CHUNK)
     part = torch.empty((B * H * n_split * (Dv + 2),), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), part.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, H, KV, Dk, Dv, CHUNK, n_split,
-            scale, DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
-    decode_attention_fwd.launches += 1
     key = (B, S, H, KV, Dk, Dv)
-    decode_attention_fwd.launches_by_shape[key] = \
-        decode_attention_fwd.launches_by_shape.get(key, 0) + 1
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.decode_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), part.data_ptr(),
+                o.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, H, KV, Dk, Dv, CHUNK, n_split,
+                scale, DTYPE_CODES[q.dtype], stream)
+        if rc != 0:
+            raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
+        decode_attention_fwd.launches += 1
+        decode_attention_fwd.launches_by_shape[key] = \
+            decode_attention_fwd.launches_by_shape.get(key, 0) + 1
+    if op_cost.active():
+        op_cost.record_kernel("decode_attention", key, *cost(*key, q.element_size()))
     return o, m, l
 
 

@@ -47,6 +47,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch import op_cost
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CUDA_ERROR_INVALID_VALUE = 1    # cudaErrorInvalidValue: what the entry points refuse with
 SOURCES = {"wgmma": "flash_attention_wgmma", "tf32x3": "flash_attention"}
@@ -259,6 +261,23 @@ def _check(q, k, v, q_offset):
         raise ValueError(f"flash_attention wants q_offset >= 0, got {q_offset}")
 
 
+def cost(B: int, Sq: int, Sk: int, H: int, KV: int, Dk: int, Dv: int, q_offset: int,
+         causal: bool, esize: int) -> tuple:
+    """(operations, bytes) of one forward: 2 (Dk + Dv) operations for each
+    (query, key) pair the mask lets through (under a causal mask, q row i at
+    ``q_offset + i`` sees keys 0 .. q_offset + i), for every batch row and
+    head; q, out, the K/V rows the mask reaches read or written once in
+    elements of ``esize`` bytes, and the f32 lse."""
+    if causal:
+        full = min(max(Sk - q_offset, 0), Sq)        # rows whose keys end inside Sk
+        pairs = full * q_offset + full * (full + 1) // 2 + (Sq - full) * Sk
+        keys = min(Sk, q_offset + Sq)
+    else:
+        pairs, keys = Sq * Sk, Sk
+    nbytes = (B * Sq * H * (Dk + Dv) + B * keys * KV * (Dk + Dv)) * esize + B * H * Sq * 4
+    return 2 * B * H * pairs * (Dk + Dv), nbytes
+
+
 def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
                         scale=None):
     """q (B,Sq,H,Dk), k (B,Sk,KV,Dk), v (B,Sk,KV,Dv) -> (out, lse).
@@ -269,21 +288,29 @@ def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
     raise. Each launch adds one to ``flash_attention_fwd.launches``, to its
     kernel's entry in ``flash_attention_fwd.launches_by_kernel`` and to its
     shape's, ``(B, Sq, Sk, H, KV, Dk, Dv, causal)``, in
-    ``flash_attention_fwd.launches_by_shape``."""
+    ``flash_attention_fwd.launches_by_shape``. Meta tensors (a dry run,
+    ``launch/dryrun.py``) pass the same checks and get the outputs the
+    kernel would write, and no launch. On either, a launch records ``cost``
+    in an open ``launch/op_cost.cost_scope``."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k, v, int(q_offset), causal, scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu or cuda (or meta, for a dry run), "
+                         f"not {dev}")
     kernel = launch_plan(q.dtype, q.shape[-1], v.shape[-1]).kernel
     out, lse = _launch(kernel, q, k, v, q_offset, causal, scale)
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_kernel[kernel] += 1
     key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3],
            bool(causal))
-    flash_attention_fwd.launches_by_shape[key] = \
-        flash_attention_fwd.launches_by_shape.get(key, 0) + 1
+    if dev.type == "cuda":
+        flash_attention_fwd.launches += 1
+        flash_attention_fwd.launches_by_kernel[kernel] += 1
+        flash_attention_fwd.launches_by_shape[key] = \
+            flash_attention_fwd.launches_by_shape.get(key, 0) + 1
+    if op_cost.active():
+        op_cost.record_kernel("flash_attention", key,
+                              *cost(*key[:-1], int(q_offset), causal, q.element_size()))
     return out, lse
 
 
@@ -296,7 +323,9 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
     """Launch ``kernel`` ("wgmma" or "tf32x3") on checked CUDA tensors with
     its ``launch_plan``; counts nothing (the public wrapper does). The
     tf32x3 kernel also takes bf16 at the wgmma kernel's dims, for timing
-    the two side by side."""
+    the two side by side. Meta tensors pass the same checks and get the
+    outputs, unlaunched (a meta tensor's data pointer is its byte offset,
+    so the alignment checks hold as on the card)."""
     dev = q.device
     B, Sq, H, Dk = q.shape
     _, Sk, KV, Dv = v.shape
@@ -318,6 +347,8 @@ def _launch(kernel, q, k, v, q_offset, causal, scale):
     scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out, lse
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry(SOURCES[kernel])(

@@ -107,6 +107,8 @@ def _quant_agg_op(qdeltas: torch.Tensor, scales: torch.Tensor,
 
 @_quant_agg_op.register_fake
 def _(qdeltas, scales, weights):
+    if qdeltas.device.type == "meta":       # a dry run: the wrapper's meta branch records
+        return _qa.quant_aggregate(qdeltas, scales, weights)
     return qdeltas.new_empty(qdeltas.shape[:-2] + qdeltas.shape[-1:],
                              dtype=torch.float32)
 
@@ -144,9 +146,11 @@ def quantize_blockwise(x, block: int = 256):
 
 def _dense(t):
     """``t`` contiguous and, on the card, 16-byte aligned (the kernels load
-    16-byte vectors; a view into a larger tensor may start anywhere)."""
+    16-byte vectors; a view into a larger tensor may start anywhere). A meta
+    tensor's data pointer is its byte offset, so a dry run copies where the
+    card would."""
     t = t.contiguous()
-    if t.is_cuda and t.data_ptr() % 16:
+    if t.device.type in ("cuda", "meta") and t.data_ptr() % 16:
         t = t.clone()
     return t
 

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch import op_cost
+
 VEC = 16                 # qblock is a multiple of this (16-byte copies of q rows)
 OUT_PER_THREAD = 8       # outputs per consumer thread of the kernel
 TILES = (256, 512, 768, 1024)   # outputs per CTA the kernel takes
@@ -147,6 +149,14 @@ def _check(qdeltas, scales, weights):
     return S, C, N, qblock
 
 
+def cost(S: int, C: int, N: int, qblock: int) -> tuple:
+    """(operations, bytes) of one launch over S lanes of C clients' N int8
+    values: 3 operations a value (dequantize, weigh, add); the int8 rows,
+    the f32 scales and weights read once, the f32 (N,) result written once
+    a lane."""
+    return 3 * S * C * N, S * (C * N + 4 * C * (N // qblock) + 4 * C + 4 * N)
+
+
 def quant_aggregate(qdeltas, scales, weights):
     """-> (N,) f32: ``sum_c weights[c] * dequant(qdeltas[c])``; with a lane
     dim, ``(S, C, N)`` -> ``(S, N)``, every lane in one launch.
@@ -154,7 +164,9 @@ def quant_aggregate(qdeltas, scales, weights):
     CPU tensors take ``plain``; CUDA tensors launch the kernel on the current
     stream (no synchronisation) or raise. Each launch adds one to
     ``quant_aggregate.launches`` and to its shape's, ``(S, C, N, qblock)``,
-    in ``quant_aggregate.launches_by_shape``."""
+    in ``quant_aggregate.launches_by_shape``. Meta tensors (a dry run) get
+    the output, and no launch. On either, a launch records ``cost`` in an
+    open ``launch/op_cost.cost_scope``."""
     S, C, N, qblock = _check(qdeltas, scales, weights)
     devices = {t.device for t in (qdeltas, scales, weights)}
     if len(devices) != 1:
@@ -162,19 +174,25 @@ def quant_aggregate(qdeltas, scales, weights):
     dev = devices.pop()
     if dev.type == "cpu":
         return plain(qdeltas, scales, weights)
-    if dev.type != "cuda":
-        raise ValueError(f"quant_aggregate runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"quant_aggregate runs on cpu or cuda (or meta, for a dry run), "
+                         f"not {dev}")
     if not (qdeltas.is_contiguous() and scales.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError("quant_aggregate wants contiguous inputs")
     if qdeltas.data_ptr() % 16:
         raise ValueError("quant_aggregate wants q aligned to 16 bytes")
-    plan = launch_plan(C, N, qblock, _sm_count(dev.index if dev.index is not None
-                                              else torch.cuda.current_device()), S=S)
-    out = _launch(qdeltas, scales, weights, qblock, plan)
-    quant_aggregate.launches += 1
     key = (S, C, N, qblock)
-    quant_aggregate.launches_by_shape[key] = quant_aggregate.launches_by_shape.get(key, 0) + 1
+    if dev.type == "meta":
+        out = torch.empty(qdeltas.shape[:-2] + (N,), dtype=torch.float32, device=dev)
+    else:
+        plan = launch_plan(C, N, qblock, _sm_count(dev.index if dev.index is not None
+                                                  else torch.cuda.current_device()), S=S)
+        out = _launch(qdeltas, scales, weights, qblock, plan)
+        quant_aggregate.launches += 1
+        quant_aggregate.launches_by_shape[key] = quant_aggregate.launches_by_shape.get(key, 0) + 1
+    if op_cost.active():
+        op_cost.record_kernel("quant_aggregate", key, *cost(*key))
     return out
 
 

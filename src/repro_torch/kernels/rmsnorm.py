@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.launch import op_cost
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VPTS = (1, 2, 4, 8)       # vectors per thread the kernel is built for
@@ -172,6 +173,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def cost(R: int, D: int, esize: int, w_esize: int) -> tuple:
+    """(operations, bytes) of one launch over R rows of D elements of
+    ``esize`` bytes, w of ``w_esize``: 4 operations an element (square,
+    add, scale, weight), each row read and written once and w read once."""
+    return 4 * R * D, 2 * R * D * esize + D * w_esize
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
     """x: (..., D); w: (D,) -> x's shape and dtype.
 
@@ -179,13 +187,16 @@ def rmsnorm(x, w, eps: float = 1e-6):
     stream (no synchronisation) with ``launch_plan``'s geometry, or raise.
     Each launch adds one to ``rmsnorm.launches``, to its layout's count in
     ``rmsnorm.launches_by_layout`` and to its shape's, ``(rows, D)``, in
-    ``rmsnorm.launches_by_shape``."""
+    ``rmsnorm.launches_by_shape``. Meta tensors (a dry run,
+    ``launch/dryrun.py``) get the output the kernel would write, and no
+    launch. On either, a launch records ``cost`` in an open
+    ``launch/op_cost.cost_scope``."""
     _check(x, w)
     dev = x.device
     if dev.type == "cpu":
         return plain(x, w, eps)
-    if dev.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cpu or cuda (or meta, for a dry run), not {dev}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm wants contiguous inputs")
     D = x.shape[-1]
@@ -195,13 +206,16 @@ def rmsnorm(x, w, eps: float = 1e-6):
     out = torch.empty_like(x)
     if R == 0:
         return out
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
-    plan = launch_plan(R, D, x.dtype, _sm_count(dev.index if dev.index is not None
-                                                else torch.cuda.current_device()), aligned)
-    _launch(x, w, out, eps, plan)
-    rmsnorm.launches += 1
-    rmsnorm.launches_by_layout[plan.layout] += 1
-    rmsnorm.launches_by_shape[R, D] = rmsnorm.launches_by_shape.get((R, D), 0) + 1
+    if dev.type == "cuda":
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+        plan = launch_plan(R, D, x.dtype, _sm_count(dev.index if dev.index is not None
+                                                    else torch.cuda.current_device()), aligned)
+        _launch(x, w, out, eps, plan)
+        rmsnorm.launches += 1
+        rmsnorm.launches_by_layout[plan.layout] += 1
+        rmsnorm.launches_by_shape[R, D] = rmsnorm.launches_by_shape.get((R, D), 0) + 1
+    if op_cost.active():
+        op_cost.record_kernel("rmsnorm", (R, D), *cost(R, D, x.element_size(), w.element_size()))
     return out
 
 

@@ -17,6 +17,8 @@ function below runs inside them, after ``torch.distributed`` is set up.
   boundaries, and several ranks may share one card.
 - ``shard_lanes``: the rank's contiguous block of ``S_pad // n`` lanes of
   every leaf mapped over the sweep axis; unmapped leaves stay whole.
+- ``fake_world``: one process as one rank of a world whose other ranks do
+  not exist (the fake backend), for the dry run of a production mesh.
 
 Nothing here touches ``torch.distributed`` at import.
 """
@@ -48,20 +50,24 @@ def _device_mesh(device: str, shape, axes):
         raise ValueError(
             f"a {tuple(shape)} mesh wants {n} ranks but only {_visible()} are visible; "
             f"start them with repro_torch.launch.mesh.spawn(fn, {n}, device)")
-    if device == "cuda" and dist.get_backend() != "nccl" and \
-            "cuda:nccl" not in str(dist.get_backend_config()):
+    config = str(dist.get_backend_config())
+    if device == "cuda" and dist.get_backend() != "nccl" and "cuda:nccl" not in config \
+            and "cuda:fake" not in config:
         raise RuntimeError(
             "a cuda mesh needs NCCL behind the process group "
             f"(backend {dist.get_backend_config()!r}); start the ranks with "
             "spawn(fn, world, 'cuda')")
-    return DeviceMesh(device, torch.arange(n).reshape(tuple(shape)),
-                      mesh_dim_names=tuple(axes))
+    # a dry run's meta tensors take the CPU's groups (fake_world gives them a
+    # backend); DeviceMesh itself knows no meta device
+    return DeviceMesh("cpu" if device == "meta" else device,
+                      torch.arange(n).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     """The JAX package's production meshes: ``(16, 16)`` ``("data",
     "model")``, or ``(2, 16, 16)`` with a leading ``"pod"`` axis; refuses
-    to build with fewer ranks than the shape."""
+    to build with fewer ranks than the shape (``fake_world`` gives one
+    process all of them)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _device_mesh(device, shape, axes)
@@ -188,6 +194,38 @@ def _rank_main(rank, fn, world, device, backend, store, out_dir, args):
             pickle.dump(result, f)
     finally:
         dist.destroy_process_group()
+
+
+def fake_world(world: int, rank: int = 0, device: str = "meta") -> None:
+    """Make this process rank ``rank`` of a ``world``-rank world whose other
+    ranks do not exist (a dry run, ``launch/dryrun.py``): ``torch.
+    distributed`` on PyTorch's fake backend for the CPU's, the meta
+    device's and, for ``device="cuda"``, the card's tensors. Its
+    collectives move no bytes and leave their outputs as they found them.
+    A world already up is torn down first (``end_world``), so one process
+    can take the 256-rank mesh, then the 512-rank one. The backend comes from
+    ``torch.testing._internal.distributed.fake_pg``; a torch without that
+    module raises, naming it."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("a dry run needs PyTorch's fake process group, "
+                           "torch.testing._internal.distributed.fake_pg, which this "
+                           f"torch ({torch.__version__}) lacks") from e
+    if device not in ("meta", "cuda"):
+        raise ValueError(f"a fake world runs on meta or cuda, not {device}")
+    end_world()
+    backend = "cpu:fake,meta:fake" + (",cuda:fake" if device == "cuda" else "")
+    dist.init_process_group(backend, store=FakeStore(), rank=rank, world_size=world)
+
+
+def end_world() -> None:
+    """Tear down this process's ``torch.distributed`` world, if any, and
+    every mesh's cached groups (``sharding/axes.forget_groups``)."""
+    from repro_torch.sharding.axes import forget_groups
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    forget_groups()
 
 
 def default_backend(device: str) -> str:

@@ -5,7 +5,8 @@ per-rank function of an SPMD program (``launch/mesh.spawn``), over the
 rank's shards. There is no ``ShapeDtypeStruct``: a ``BuiltStep`` carries the
 per-rank function and its inputs' global shapes, dtypes and specs
 (``InputSpec``), and ``materialize`` builds each rank's shards from one
-numpy draw of the global arrays.
+numpy draw of the global arrays (``empty``: straight on the device, as a
+dry run of a production mesh needs, ``launch/dryrun.py``).
 
 - The spatial train step (``make_train_step`` for a spatial arch,
   ``sharding/specs.SPATIAL_ARCHS``): each point of the ``(data, model)``
@@ -88,10 +89,13 @@ def _entry(axes: tuple):
 
 class InputSpec(NamedTuple):
     """A step input's global shape, dtype and spec (one entry per dim:
-    None, an axis name or a tuple of names)."""
+    None, an axis name or a tuple of names); ``host``: it lives on the CPU
+    whatever the step's device (the train step's rng key, read as a Python
+    int)."""
     shape: tuple
     dtype: torch.dtype
     spec: tuple = ()
+    host: bool = False
 
 
 def _is_spec(x) -> bool:
@@ -175,12 +179,34 @@ class BuiltStep:
                 n, i = ctx.size(entry), ctx.index(entry)
                 per = t.shape[dim] // n
                 t = t.narrow(dim, i * per, per)
-            return t.contiguous().to(device)
+            return t.contiguous().to("cpu" if sp.host else device)
         return _map2(cut, self.inputs, arrays)
 
     def materialize(self, seed: int = 0, device="cuda") -> tuple:
         """This rank's shards of ``global_arrays(seed)``."""
         return self.shard(self.global_arrays(seed), device)
+
+    def local_shape(self, sp: InputSpec) -> tuple:
+        """The shape of this rank's shard of input ``sp``."""
+        return tuple(d // self.ctx.size(e) if e is not None else d
+                     for d, e in zip(sp.shape, sp.spec + (None,) * len(sp.shape)))
+
+    def empty(self, device, seed: int = 0) -> tuple:
+        """This rank's shards built straight on ``device`` from the
+        ``InputSpec``s, with no global draw (yi-34b's would be 34 B values):
+        floats N(0, 0.02²) drawn on the device from ``seed``, integers zero
+        (token ids in range), nothing drawn on the meta device. Not the
+        shards of ``materialize``: the rank draws its own."""
+        gen = None if torch.device(device).type == "meta" else \
+            torch.Generator(device=device).manual_seed(seed)
+
+        def make(sp):
+            dev = "cpu" if sp.host else device
+            if not sp.dtype.is_floating_point:
+                return torch.zeros(self.local_shape(sp), dtype=sp.dtype, device=dev)
+            t = torch.empty(self.local_shape(sp), dtype=sp.dtype, device=dev)
+            return t if gen is None else t.normal_(0.0, 0.02, generator=gen)
+        return _map(make, self.inputs)
 
 
 def global_arrays(inputs, seed: int = 0):
@@ -223,7 +249,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     step per client): the spatial round for a spatial arch, else the
     temporal one (``layout``: its training layout, ``"sp"`` or ``"dp2d"``,
     ``transformer.seq_sharded_in``; ``quant_ring``: ``Model.quant_ring``).
-    ``dtype``: the params' and frames'."""
+    ``dtype``: the params' and frames'. ``fn``'s ``rng`` is a Python int or
+    a host tensor, never read from a device."""
     fl = fl or FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
     strategy = get_strategy(fl)
     ctx = mesh_ctx(mesh)
@@ -252,7 +279,8 @@ def temporal_train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, str
     ``InputSpec`` trees on a mesh of axis ``sizes``: params ``fsdp``
     (``param_structs``) and server state shaped like them sharded as they
     are, the batch ``batch_struct`` with lead ``(1, 1)``, one client
-    weight and the key replicated."""
+    weight and the key replicated (the key on the host: the step reads it
+    as a Python int)."""
     params = param_structs(cfg, sizes, "fsdp", dtype)
     shapes = {k: sp.shape for k, sp in params.items()}
     specs = {k: sp.spec for k, sp in params.items()}
@@ -260,7 +288,7 @@ def temporal_train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, str
              "clients": ()}
     batch = batch_struct(cfg, shape, sizes, lead=(1, 1), layout=layout, dtype=dtype)
     return (state, batch, InputSpec((1,), torch.float32, (None,)),
-            InputSpec((), torch.int64, ()))
+            InputSpec((), torch.int64, (), host=True))
 
 
 def train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
@@ -288,7 +316,7 @@ def train_inputs(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, strategy,
     state = {"params": params, "server": _server_specs(strategy, shapes, dtype),
              "clients": ()}
     weights = InputSpec((n_clients,), torch.float32, (cspec,))
-    rng = InputSpec((), torch.int64, ())
+    rng = InputSpec((), torch.int64, (), host=True)
     return state, batch, weights, rng
 
 

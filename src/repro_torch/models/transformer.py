@@ -567,8 +567,15 @@ def _write_back(tree, i, new) -> None:
     elif isinstance(tree, (tuple, list)):
         for v, n in zip(tree, new):
             _write_back(v, i, n)
-    elif tree[i].data_ptr() != new.data_ptr():
+    elif not _same_place(tree[i], new):
         tree[i].copy_(new)
+
+
+def _same_place(a, b) -> bool:
+    """Whether two tensors start at one byte of one storage (a meta
+    tensor's data pointer is its offset, so pointers cannot tell)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() * a.element_size() == b.storage_offset() * b.element_size())
 
 
 def stack_train(cfg: ModelConfig, blocks: dict, x, *, phase: str = "train",

@@ -27,6 +27,11 @@ with ``check_rep=False``: ``psum``'s is ``psum`` (so ``pmean``'s is
 reverse, ``all_to_all``'s swaps split and concat, ``ppermute``'s is the
 inverse permutation. A backward is a collective too, so every rank must run
 the same backwards in the same order, as every rank runs the same forwards.
+
+Each c10d call, a backward's and ``pmax``'s too, records its kind, its
+result's bytes and its group's size in an open ``launch/op_cost.cost_scope``
+(the dry run's counter). A permute records the bytes this rank sends, so a
+rank at the edge of a permutation sends nothing and ranks can differ.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from repro_torch.launch import op_cost
 
 _FOLLOW_MODEL = "__follow_model__"
 _GROUPS: dict = {}       # id(mesh) -> (mesh, {axes tuple: (group, index, size, row)})
@@ -96,6 +103,13 @@ def _mesh_groups(mesh) -> dict:
                     out[axes] = (_BY_SET[members], row.index(me), len(row), row)
     _GROUPS[key] = (mesh, out)        # the mesh held, so its id stays its own
     return out
+
+
+def forget_groups() -> None:
+    """Drop every mesh's cached groups: after the world they belong to is
+    torn down (``launch/mesh.fake_world`` building another)."""
+    _GROUPS.clear()
+    _BY_SET.clear()
 
 
 def _to_row_order(parts: list, row: list) -> list:
@@ -206,21 +220,34 @@ class AxisCtx:
 
 
 # The c10d calls; ``entry`` is a ``_mesh_groups`` value (group, index, size,
-# row).
+# row). Each records what it moves in an open ``launch/op_cost.cost_scope``:
+# its kind, its result's bytes (a permute: the bytes this rank sends) and
+# its group's size.
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
 
 def _all_reduce(x, entry, op: str = "sum"):
     import torch.distributed as dist
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                     group=entry[0])
+    if op_cost.active():
+        op_cost.record_collective("all-reduce", _nbytes(out), entry[2])
     return out
 
 
 def _all_gather(x, entry, axis: int):
     import torch.distributed as dist
     g, _, n, row = entry
-    parts = [torch.empty_like(x) for _ in range(n)]
+    # integers (token ids) start from zeros: a group that moves no bytes (a
+    # dry run's fake one) then leaves ids in range, not whatever the memory held
+    new = torch.empty_like if x.is_floating_point() else torch.zeros_like
+    parts = [new(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=g)
+    if op_cost.active():
+        op_cost.record_collective("all-gather", n * _nbytes(x), n)
     return torch.cat(_to_row_order(parts, row), dim=axis)
 
 
@@ -230,6 +257,8 @@ def _reduce_scatter(x, entry, axis: int):
     moved = torch.cat(_to_group_order(list(x.movedim(axis, 0).chunk(n)), row))
     out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
     dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=g)
+    if op_cost.active():
+        op_cost.record_collective("reduce-scatter", _nbytes(out), n)
     return out.movedim(0, axis)
 
 
@@ -239,26 +268,31 @@ def _all_to_all(x, entry, split_axis: int, concat_axis: int):
     moved = torch.cat(_to_group_order(list(x.movedim(split_axis, 0).chunk(n)), row))
     out = torch.empty_like(moved)
     dist.all_to_all_single(out, moved, group=g)
+    if op_cost.active():
+        op_cost.record_collective("all-to-all", _nbytes(out), n)
     parts = _to_row_order(list(out.chunk(n)), row)
     return torch.cat([p.movedim(0, split_axis) for p in parts], dim=concat_axis)
 
 
 def _permute(x, entry, perm):
     import torch.distributed as dist
-    g, me, _, row = entry
+    g, me, n, row = entry
     out = torch.zeros_like(x)
     x = x.contiguous()
-    ops = []
+    ops, sends = [], 0
     for src, dst in perm:
         if src == me and dst == me:
             out = x.clone()
         elif src == me:
             ops.append(dist.P2POp(dist.isend, x, row[dst], g))
+            sends += 1
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out, row[src], g))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if op_cost.active():
+        op_cost.record_collective("collective-permute", sends * _nbytes(x), n)
     return out
 
 

@@ -146,8 +146,9 @@ def test_decode_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="disagree"):
         da.decode_attention_fwd(q, torch.zeros(2, 32, 3, 16), torch.zeros(2, 32, 3, 16),
                                 torch.zeros(2, dtype=torch.int32))
-    mq, mk = q.to("meta"), k.to("meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    # meta is a dry run's device: its branch refuses what the card's does
+    mq, mk = q.to("meta"), k.to("meta").transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
         da.decode_attention_fwd(mq, mk, mk, torch.zeros(2, dtype=torch.int32,
                                                         device="meta"))
 

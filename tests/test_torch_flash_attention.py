@@ -334,8 +334,9 @@ def test_flash_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="q_offset"):
         fa.flash_attention_fwd(q, q, q, -1)
-    m = torch.zeros(1, 8, 4, 16, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    # meta is a dry run's device: its branch refuses what the card's does
+    m = torch.zeros(1, 4, 8, 16, device="meta").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(m, m, m)
 
 

@@ -1,8 +1,8 @@
 """``repro_torch.launch.train`` (port of ``repro/launch/train.py``, ROADMAP
 A15.7) on the CPU: the JAX launcher's default job through the executor
 path, bitwise the port's ``Executor`` run of the same job dict; a ``--job``
-file and a ``--ckpt-dir`` resume; ``--dry-run`` refused, naming A16; an LM
-``--arch`` refused by the executor, naming ``train_fl_lm``.
+file and a ``--ckpt-dir`` resume; an LM ``--arch`` refused by the executor,
+naming ``train_fl_lm``. ``--dry-run`` is held in ``tests/test_torch_dryrun.py``.
 
 The default job runs its default 5 rounds: at 2 its loss rises, in the port
 (2.44 -> 3.51 on the CPU) as in the JAX launcher, whose 5 rounds on the CPU
@@ -58,11 +58,6 @@ def test_a_job_file_resumes_from_its_checkpoint(tmp_path):
     assert log_b.series("loss") == log_a.series("loss")[2:]
     for k, v in whole["params"].items():
         assert torch.equal(resumed["params"][k], v), k
-
-
-def test_dry_run_waits_for_the_multi_device_port():
-    with pytest.raises(ValueError, match="A16"):
-        train.main(["--dry-run", "--arch", "yi-34b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("argv", [["--arch", "yi-34b"], ["--arch", "minicpm3-4b", "--reduced"]])
