@@ -170,9 +170,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    1,500 frames, batch 8, a 187-token prompt and 64 greedy tokens (B3 18,
    B4 768, counted by shape; tokens bitwise repeatable) and its loss
    gradient at batch 8 under ``torch.func.grad_and_value`` (with the
-   gradient memory lines of phase 10); xlstm-125m at
-   full width and depth served (batch 8, prompt 2,048, 64 new; B2 845 by
-   rows), the sLSTM's launches a token (one layer profiled), one temporal
+   gradient memory lines of phase 10); xlstm-125m at full width and one
+   sLSTM period (4 of 12 layers since slice 19) served (batch 8, prompt
+   2,048, 64 new; B2 5 x 65 by rows), the sLSTM's launches a token (one
+   layer profiled), one temporal
    FedAvgM round of ``train_fl_lm`` (4 local steps of 2 x 512, losses
    finite; B2 twice a period's norm, the recompute's); jamba-1.5-large-398b's
    attention sublayer and one Mamba mixer
@@ -180,13 +181,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    a full-width period's ~77 GB of bf16 MoE weights exceed the card); the
    three reduced archs in f32 on the card against the CPU.
 13. the rematerialized LM step and int8 LM sends (slice 13) — B1 at the
-   int8 LM round's shape, (2, 4,073,937,408) (minicpm3-4b's packed delta,
-   past 2**31), bitwise its plain version over every column slice of 2**27
+   int8 LM round's shape, (2, 2,193,689,088) (minicpm3-4b's packed delta at
+   32 layers, past 2**31), bitwise its plain version over every column slice of 2**27
    and timed beside its bound; qwen3-moe-30b-a3b's MoE FFN at full width
    twice on one batch, outputs and routing bitwise (the backward's
    recompute routes as the forward did); B2 at minicpm3-4b's train rows
    (2 x 2048 of 2560, 768 and 256 sliced from 288); then minicpm3-4b at its
-   published width and full depth (62 layers, 4.07 B params, bf16) through
+   published width and 32 of its 62 layers (2.19 B params, bf16; all 62
+   until slice 19, cut for the script's time) through
    ``train_fl_lm.setup`` and ``run_rounds``, phase 10's temporal FedAvgM
    round (4 clients, cohort 2, 2 local steps of 2 x 2048, 3 rounds, fixed
    data), then with int8 sends (``strategy: compressed``) from the same
@@ -202,10 +204,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``build_spatial_round`` (losses, params, B1 once a round), round_s of
    both printed; ``Decentralized.mix`` on the card's mesh bitwise a (1, 1)
    CPU ``gloo`` mesh's; the round's NCCL ``all_reduce`` timed; the spatial
-   train step (``launch.steps.make_train_step``) of xlstm-125m (8 x 2,048)
-   and whisper-base (8 x 1,500 frames, 187 decoder tokens) at published
-   width and full depth, bf16, bitwise the meshless round on the same
-   inputs (step seconds, tokens/s, peak memory, B2/B3 by shape). Then two
+   train step (``launch.steps.make_train_step``) of xlstm-125m (8 x 2,048,
+   one sLSTM period: 4 of 12 layers) and whisper-base (8 x 1,500 frames,
+   187 decoder tokens, full depth) at published width, bf16, bitwise the
+   meshless round on the same inputs (step seconds, tokens/s, peak memory, B2/B3 by shape). Then two
    lane ranks sharing the card (``gloo`` for host objects): phase 8's int8
    sweep at ``lane_devices = 2``, each rank's block bitwise a one-process
    campaign of its two lanes and within LANE_LOSS_RTOL of phase 8's S = 4
@@ -269,8 +271,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    repro_torch.launch.dryrun --device cuda`` in a subprocess a cell (its
    fake process group must not meet the NCCL ranks of phases 14-15c), rank 0
    of the production mesh, bf16 at published width: yi-34b train_4k on
-   16x16 at all 60 layers, yi-34b decode_32k on 2x16x16, jamba-1.5-large-398b
-   long_500k on 2x16x16 at one period (8 layers). Each cell runs on the meta
+   16x16 and yi-34b decode_32k on 2x16x16 at 30 of 60 layers,
+   jamba-1.5-large-398b long_500k on 2x16x16 at one period (8 layers). Each cell runs on the meta
    device (the prediction), on the card counted under ``op_cost.cost_scope``,
    and on the card timed and measured without a scope (compute only: the fake
    group moves no bytes); the meta and counted card records must give equal
@@ -280,7 +282,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel-level at the train cell's last model rank (q_offset 3,840), against
    their plain versions, timed, their bounds from the kernel modules'
    ``cost``.
-17. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
+17. Every strategy of the temporal round on a mesh (slice 19) — in phase
+   15's world-1 NCCL rank (its process has paid the card's first uses), on
+   the (1, 1) mesh, yi-34b at published width in bf16 (MESH_TRAIN's 4 of
+   60 layers, weights drawn on the card):
+   ``make_train_step``'s round with int8 sends (the rank's shards packed
+   into one (1, N) row, one B1 launch), DP-FedAvg with noise (the whole
+   delta's clip, noise at global flat indices), FedProx over two local steps
+   (the whole model's term), and multi-worker consensus (majority digest
+   and median, W = 3 with one byzantine worker), each bitwise the meshless
+   ``build_temporal_round`` (loss and every new param; B1, B2 and B3
+   counted). Then B1 at the int8 round's (1, N), past 2**31, and,
+   kernel-level, at rank 0's packed shards of yi-34b train_4k on 16x16,
+   each bitwise its plain version over column slices and timed beside its
+   bound; B2 and B3 take phase 15's rows of the same shapes.
+18. serve path (slice 2) — ``repro_torch.launch.serve.generate`` on yi-34b
    at full width (d_model 7168, 56 heads, 8 KV heads, d_ff 20480, vocab
    64000) with its depth cut from 60 to 8 layers, bf16 weights drawn on the
    card from a seed: batch 8, prompt 2048, 64 new tokens (cache 2112, not a
@@ -292,7 +308,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU: one prefill and 4 greedy decode steps, logits within 1e-4,
    tokens equal, every B3 launch on the tf32x3 kernel (the f32 card-vs-CPU
    train rounds of phases 10 and 11 count theirs too).
-18. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
+19. summary — a ``kernels`` JSON line, one ``slice`` line per slice, the
    whole script's seconds, the card's ``name, power.limit`` line, and last
    the ``ok`` JSON line.
 
@@ -302,6 +318,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2962,7 +2979,7 @@ MLA_KERNEL_SHAPES = {  # name: (B, S, absorbed): one minicpm3-4b prefill layer's
     "mla_train": (2, 2048, True),
     "mla_expanded": (8, 2048, False)}  # mla_seqsharded(absorbed=False): 40/40 heads, 96/64
 # depth 62 -> 16: the serve's host-bound decode took ~24 s at 62 layers, and
-# phase 13 runs the full depth in training
+# phase 13 trains the deep model
 SERVE_MLA = {"arch": "minicpm3-4b", "n_layers": 16, "batch": 8, "prompt_len": 2048,
              "max_new": 64, "seed": 4,
              "norms_per_layer": 4,     # B2 a layer a forward: ln1, q_norm, kv_norm, ln2
@@ -3436,14 +3453,16 @@ def phase_serve_slice10(torch, kernels, S_):
 
 
 # phase 12 (slice 12): the last three LM families. whisper-base (the
-# encoder-decoder) and xlstm-125m served at full width and depth (whisper's
-# loss gradient, an xlstm temporal round); jamba-1.5-large-398b, whose one
+# encoder-decoder, full depth) and xlstm-125m (one sLSTM period) served at full
+# width (whisper's loss gradient, an xlstm temporal round); jamba-1.5-large-398b, whose one
 # full-width period holds ~77 GB of MoE weights in bf16, as its attention
 # sublayer and one Mamba mixer at full width; reduced card vs CPU for all
 # three; C7's two halves of determinism.normal over every input
 WHISPER = {"arch": "whisper-base", "batch": 8, "frames": 1500, "max_new": 64, "seed": 6}
-XLSTM = {"arch": "xlstm-125m", "batch": 8, "prompt_len": 2048, "max_new": 64, "seed": 7,
-         "slstm_profile_len": 256}
+# xlstm-125m at one period of its sLSTM (4 of 12 layers) since slice 19: its
+# per-token sLSTM loop made the full depth's serve and round ~35 s of the script
+XLSTM = {"arch": "xlstm-125m", "n_layers": 4, "batch": 8, "prompt_len": 2048, "max_new": 64,
+         "seed": 7, "slstm_profile_len": 256}
 XLSTM_TRAIN = {"clients": 4, "cohort": 2, "local_epochs": 1, "local_steps": 2, "batch": 2,
                "seq": 512, "client_lr": 0.05, "server_momentum": 0.9}
 JAMBA = {"arch": "jamba-1.5-large-398b", "batch": 8, "prompt_len": 2048, "seed": 8}
@@ -3785,8 +3804,9 @@ def _paths(tree, prefix=""):
 
 
 def phase_xlstm(torch, kernels):
-    """xlstm-125m at full width and depth (12 layers, 768), bf16 drawn on
-    the card: served (batch 8, prompt 2,048, 64 new), B2 counted by rows;
+    """xlstm-125m at full width (768) and XLSTM's depth (one sLSTM period,
+    4 of 12 layers), bf16 drawn on the card: served (batch 8, prompt 2,048,
+    64 new), B2 counted by rows;
     the sLSTM's launches a token of the prompt (profiled on one layer); one
     temporal FedAvgM round of ``repro_torch.launch.train_fl_lm``."""
     from repro_torch.configs.base import FLConfig, get_config
@@ -3795,7 +3815,7 @@ def phase_xlstm(torch, kernels):
     from repro_torch.launch.serve import generate
     from repro_torch.models import model_zoo, ssm
     X, dev = XLSTM, torch.device("cuda")
-    cfg = get_config(X["arch"])
+    cfg = get_config(X["arch"]).replace(n_layers=X["n_layers"])
     model = model_zoo.build(cfg)
     g = torch.Generator(device=dev)
     g.manual_seed(X["seed"])
@@ -3829,7 +3849,7 @@ def phase_xlstm(torch, kernels):
     out["slstm_profile"] = prof
     del params, x
     torch.cuda.empty_cache()
-    # one temporal round at full width and depth
+    # one temporal round at full width, XLSTM's depth
     T = XLSTM_TRAIN
     fl = FLConfig(strategy="fedavgm", n_clients=T["clients"], local_epochs=T["local_epochs"],
                   client_lr=T["client_lr"], server_momentum=T["server_momentum"], seed=0)
@@ -3951,13 +3971,15 @@ def phase_jamba_sublayers(torch, kernels):
 
 
 # phase 13 (slice 13): the rematerialized LM training step and int8 LM
-# sends. minicpm3-4b (hf:openbmb/MiniCPM3-4B) trained at its full published
-# depth, 62 layers, bf16, through train_fl_lm's temporal FedAvgM round and
+# sends. minicpm3-4b (hf:openbmb/MiniCPM3-4B) trained at published width and
+# TRAIN_FULL's depth, bf16, through train_fl_lm's temporal FedAvgM round and
 # through the same round with int8 sends (strategy compressed): B1 at the
-# packed N of 4.07e9 (past 2**31), checked bitwise over column slices first;
+# packed N (past 2**31), checked bitwise over column slices first;
 # qwen3-moe-30b-a3b's MoE FFN repeats its forward bitwise (the recompute's
 # routing must pick the forward's experts); B2 at minicpm3-4b's train rows
-TRAIN_FULL = dict(TRAIN, arch="minicpm3-4b", n_layers=62, norms_per_layer=4)
+# at 32 of its 62 layers since slice 19 (the script's time): still the
+# smallest depth whose packed int8 delta passes 2**31 values
+TRAIN_FULL = dict(TRAIN, arch="minicpm3-4b", n_layers=32, norms_per_layer=4)
 B1_LM = {"C": 2, "qblock": 256, "slice": 1 << 27, "seed": 90}   # N from TRAIN_FULL's arch
 MOE_REPEAT = {"arch": "qwen3-moe-30b-a3b", "batch": 2, "seq": 2048, "seed": 91}
 # B2 at the training rows of minicpm3-4b (2 x 2048): (width, a column slice of
@@ -3977,15 +3999,14 @@ def packed_n(cfg) -> int:
                (math.prod(s) for s in flatten_params(param_shapes(cfg)).values()))
 
 
-def phase_b1_lm(torch, qa, N):
-    """B1 at the int8 LM round's shape, (2, N) with N past 2**31, on random
-    sends: bitwise its plain version over every column slice of
-    ``B1_LM["slice"]`` (the plain version of the whole row would need (C,
-    N) f32 temporaries), then timed beside its bound and the plain version
-    run slice by slice."""
+def time_b1_sliced(torch, qa, C, N, seed, label):
+    """B1 at (C, N) on random sends: bitwise its plain version over every
+    column slice of ``B1_LM["slice"]`` (the plain version of a whole row
+    past 2**31 values would need (C, N) f32 temporaries), then timed beside
+    its bound and the plain version run slice by slice."""
     dev = torch.device("cuda")
-    C, qblock, step = B1_LM["C"], B1_LM["qblock"], B1_LM["slice"]
-    q, s, w = agg_inputs(C, N, qblock, seed=B1_LM["seed"], device=dev)
+    qblock, step = B1_LM["qblock"], B1_LM["slice"]
+    q, s, w = agg_inputs(C, N, qblock, seed=seed, device=dev)
     got = qa.quant_aggregate(q, s, w)
 
     def plain_by_slices(q, s, w, check=None):
@@ -4010,7 +4031,7 @@ def phase_b1_lm(torch, qa, N):
          "kernel_call_ms": time_call(qa.quant_aggregate, (q, s, w), 10, None),
          "plain_ms": time_device(plain_by_slices, (q, s, w), 2, None, batch=1),
          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
-    log("kernel quant_aggregate lm_int8", json.dumps(r))
+    log(f"kernel quant_aggregate {label}", json.dumps(r))
     del q, s, w
     torch.cuda.empty_cache()
     return r
@@ -4086,8 +4107,9 @@ def time_train_norms_mla(torch, flush):
 
 
 def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
-    """minicpm3-4b at its published width and full depth (62 layers, 4.07 B
-    params in bf16): ``train_fl_lm.setup`` and ``run_rounds`` on fixed client
+    """minicpm3-4b at its published width and ``T["n_layers"]`` of its 62
+    layers (32: 2.19 B params in bf16, a packed delta past 2**31; all 62
+    until slice 19): ``train_fl_lm.setup`` and ``run_rounds`` on fixed client
     data, TRAIN's temporal FedAvgM round (4 clients, cohort 2, 2 local steps
     of 2 x 2048 tokens, 3 rounds), then the same round with int8 sends
     (``strategy: compressed``) from the same initial params; each run counted
@@ -4100,9 +4122,8 @@ def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
     from repro_torch.launch import train_fl_lm
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
-    cfg = get_config(T["arch"])
-    if cfg.n_layers != T["n_layers"]:
-        raise AssertionError(f"{cfg.name} has {cfg.n_layers} layers, not {T['n_layers']}")
+    full = get_config(T["arch"]).n_layers
+    cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
     kw_fl = dict(n_clients=T["clients"], local_epochs=T["local_epochs"],
                  client_lr=T["client_lr"], seed=0)
     t0 = time.perf_counter()
@@ -4113,7 +4134,7 @@ def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
     init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in state["params"].values())
     N = packed_n(cfg)
-    log(f"train full depth: {cfg.name}, {cfg.n_layers} of {cfg.n_layers} layers, bf16: "
+    log(f"train full depth: {cfg.name}, {cfg.n_layers} of {full} layers, bf16: "
         f"{n_params} params ({n_params * 2 / 1e9:.2f} GB) drawn in {init_s:.1f}s; packed "
         f"N {N} ({N / 2**31:.3f} x 2**31)")
     initial = {k: v.cpu() for k, v in state["params"].items()}
@@ -4185,9 +4206,11 @@ def phase_train_full_depth(torch, kernels, T=TRAIN_FULL):
 # 14. the mesh runtime (slice 14)
 # ---------------------------------------------------------------------------
 
-# the spatial LM train steps on a (1, 1) mesh: (seq_len, global batch);
-# whisper-base's decoder runs seq_len // 8 = 187 tokens over 1,500 frames
-MESH_LM = {"xlstm-125m": (2048, 8), "whisper-base": (1500, 8)}
+# the spatial LM train steps on a (1, 1) mesh: (seq_len, global batch, layers
+# or None for all); whisper-base's decoder runs seq_len // 8 = 187 tokens over
+# 1,500 frames, at full depth; xlstm-125m at one period of its sLSTM (4 of 12
+# layers: the per-token sLSTM loop made the full depth's two steps ~50 s)
+MESH_LM = {"xlstm-125m": (2048, 8, 4), "whisper-base": (1500, 8, None)}
 MESH_ROUNDS = 3
 MESH_LANES = 2                      # lane ranks sharing the one card
 LANE_BLOCK_SHAPE = (2, 100, 189_952, 256)   # each lane rank's B1 launch
@@ -4320,10 +4343,11 @@ def mesh_world1_rank(rank, world):
     out["gossip_card_eq_cpu"] = True
     log("mesh gossip: Decentralized.mix on the card's NCCL mesh == the CPU's gloo mesh, "
         "bitwise")
-    # the spatial LM train steps at published width and full depth
+    # the spatial LM train steps at published width (MESH_LM's depths)
     fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
-    for arch, (S, B) in MESH_LM.items():
+    for arch, (S, B, L) in MESH_LM.items():
         cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=L) if L else cfg
         built = make_train_step(cfg, ShapeConfig(arch, S, B, "train"), ctx.mesh)
         t0 = time.perf_counter()
         state, batch, w, rng = built.materialize(seed=14, device=dev)
@@ -4463,8 +4487,9 @@ def phase_mesh(torch, qa, load_job, sweep):
     """Slice 14: the mesh runtime on the card.
 
     - A world-1 rank over NCCL (``mesh_world1_rank``): the int8 FL round
-      (client-server, hierarchical) and the spatial LM steps (xlstm-125m,
-      whisper-base at published width and full depth) bound to a (1, 1)
+      (client-server, hierarchical) and the spatial LM steps at published
+      width (xlstm-125m at one sLSTM period, whisper-base at full depth;
+      MESH_LM) bound to a (1, 1)
       mesh == their meshless rounds, bitwise; gossip card == CPU mesh.
     - Two lane ranks on the one card (``mesh_lanes_rank``, ``gloo`` for
       host objects only): phase 8's int8 sweep at ``lane_devices = 2``;
@@ -4645,16 +4670,17 @@ def _mesh_setup(torch):
 
 
 def _mesh_train_check(torch, kernels, mesh, dev, arch, L, B, S, seed, want_launches,
-                      label):
+                      label, fl=None, warm=True):
     """``make_train_step``'s temporal step of ``arch`` at published width,
-    ``L`` layers, bf16 weights drawn on the card from ``seed``: one FedAvg
-    round of one local step of ``B`` x ``S`` tokens over the whole vocab,
-    its loss and every new param bitwise the meshless
-    ``build_temporal_round`` on the same inputs (which runs first and pays
-    the process's first uses); the kernels counted in the mesh run only
-    (zeroed just before it, read just after) and held to
-    ``want_launches(cfg)`` ({kernel: launches}, with B3 all on wgmma).
-    Returns the run's record, with ``by_shape_raw``."""
+    ``L`` layers, bf16 weights drawn on the card from ``seed``: one round
+    (FedAvg of one local step, or ``fl``'s fields over those) of ``B`` x
+    ``S`` tokens over the whole vocab, its loss and every new param bitwise
+    the meshless ``build_temporal_round`` on the same inputs (which runs
+    first and pays the process's first uses); the kernels counted in the
+    mesh run only (zeroed just before it, read just after) and held to
+    ``want_launches(cfg)`` ({kernel: launches}, with B3 all on wgmma);
+    ``warm``: both once more, uncounted, timed. Returns the run's record,
+    with ``by_shape_raw``."""
     from repro_torch.configs.base import FLConfig, ShapeConfig, get_config
     from repro_torch.core.rounds import build_temporal_round
     from repro_torch.core.strategies import get_strategy
@@ -4663,7 +4689,7 @@ def _mesh_train_check(torch, kernels, mesh, dev, arch, L, B, S, seed, want_launc
     from repro_torch.models.transformer import FlatModel, flatten_params
 
     cfg = get_config(arch).replace(n_layers=L)
-    fl = FLConfig(strategy="fedavg", local_epochs=1, client_lr=1e-2)
+    fl = FLConfig(**{"strategy": "fedavg", "local_epochs": 1, "client_lr": 1e-2, **(fl or {})})
     built = make_train_step(cfg, ShapeConfig(f"{label}_train", S, B, "train"), mesh, fl)
     model = model_zoo.build(cfg)
     g = torch.Generator(device=dev)
@@ -4708,17 +4734,20 @@ def _mesh_train_check(torch, kernels, mesh, dev, arch, L, B, S, seed, want_launc
     moved = sum(not torch.equal(new["params"][k], state["params"][k]) for k in state["params"])
     del new, want
     # both once more, warm, uncounted
-    warm = {}
+    warm_s = {}
     for name, fn, args in (("meshless", plain_fn, (state, batch, weights, 0)),
-                           ("mesh", built.fn, shards)):
+                           ("mesh", built.fn, shards)) if warm else ():
         t0 = time.perf_counter()
         res, m = fn(*args)
         m["loss"].item()
-        warm[name] = time.perf_counter() - t0
+        warm_s[name] = time.perf_counter() - t0
         del res, m
     out = {"arch": cfg.name, "n_layers": L, "batch": B, "seq": S, "params": n_params,
+           "fl": {k: v for k, v in dataclasses.asdict(fl).items() if k in (
+               "strategy", "compression", "dp_clip", "dp_noise", "prox_mu", "local_epochs",
+               "n_workers", "byzantine_workers", "consensus")},
            "init_s": init_s, "loss": loss, "step_s": step_s, "meshless_step_s": meshless_s,
-           "warm_step_s": warm["mesh"], "meshless_warm_step_s": warm["meshless"],
+           "warm_step_s": warm_s.get("mesh"), "meshless_warm_step_s": warm_s.get("meshless"),
            "tokens_per_s": B * S / step_s, "peak_mem_gb": peak, "bitwise_meshless": True,
            "leaves_moved": moved, "leaves": len(state["params"]), "launches": launches,
            "launches_by_shape": {k: named(v) for k, v in by_shape.items() if v}}
@@ -4816,9 +4845,10 @@ def mesh_temporal_rank(rank, world):
       cache 2,064): every logits tensor, the tokens and the final caches
       bitwise meshless ``Model.prefill`` / ``decode_step``; B2-B4 counted.
 
-    Counts zeroed just before each mesh run, read just after; the meshless
-    twins run first (they pay the process's first uses). Returns the
-    results (raises on a failed check)."""
+    Then phase 17's rounds (``mesh_strategies_checks``). Counts zeroed just
+    before each mesh run, read just after; the meshless twins run first (they
+    pay the process's first uses). Returns the results (raises on a failed
+    check)."""
     import torch
     dev, kernels, mesh, out = _mesh_setup(torch)
     T, V = MESH_TRAIN, MESH_SERVE
@@ -4832,6 +4862,8 @@ def mesh_temporal_rank(rank, world):
         V["seed"], lambda cfg: {"quant_aggregate": 0, "rmsnorm": (2 * L + 1) * (1 + new_tok),
                                 "flash_attention": L, "decode_attention": L * new_tok},
         "yi-34b")
+    # phase 17's rounds, here where the process has paid its first uses
+    out["strategies"] = mesh_strategies_checks(torch, kernels, mesh, dev)
     return out
 
 
@@ -4998,7 +5030,8 @@ def phase_mesh_temporal(torch):
     """Slice 15: the temporal placement on the card. A world-1 NCCL rank
     (``mesh_temporal_rank``) drives the temporal train step and the
     prefill and decode steps of yi-34b at published width, each bitwise
-    its meshless twin; then B2, B3 and B4 at every shape those runs
+    its meshless twin (and phase 17's rounds, whose results go under
+    ``strategies``); then B2, B3 and B4 at every shape those runs
     launched and at one rank's shapes on a 4-rank model axis, against their
     plain versions, timed. Returns the phase's summary."""
     from repro_torch.launch.mesh import spawn
@@ -5014,7 +5047,7 @@ def phase_mesh_temporal(torch):
     out = {"phase_s": time.perf_counter() - t0, "rank_s": rank_s,
            "train": {k: v for k, v in w1["train"].items() if k != "by_shape_raw"},
            "serve": {k: v for k, v in w1["serve"].items() if k != "by_shape_raw"},
-           "by_path": by_path, "kernel_rows": rows}
+           "by_path": by_path, "kernel_rows": rows, "strategies": w1["strategies"]}
     log(f"mesh temporal phase: {out['phase_s']:.1f}s (world-1 rank {rank_s:.1f}s)")
     return out
 
@@ -5457,9 +5490,11 @@ def phase_mesh_hybrid_encdec(torch):
 
 
 # phase 16 (slice 18): the dry run of production-mesh cells, rank 0, on the
-# meta device and on the card: (arch, shape, 2x16x16, layers; 0: all)
-DRY_RUN_CELLS = (("yi-34b", "train_4k", False, 0),
-                 ("yi-34b", "decode_32k", True, 0),
+# meta device and on the card: (arch, shape, 2x16x16, layers; 0: all); yi-34b
+# at 30 of 60 layers since slice 19 (its two cells took 67 s at 60, the meta
+# runs most of it: time for phase 17)
+DRY_RUN_CELLS = (("yi-34b", "train_4k", False, 30),
+                 ("yi-34b", "decode_32k", True, 30),
                  ("jamba-1.5-large-398b", "long_500k", True, 8))
 DRY_RUN_PEAK_TOL = 0.10           # the card's peak against the meta prediction
 DRY_RUN_COUNTED = ("cost", "collectives", "kernels")
@@ -5621,6 +5656,141 @@ def phase_dry_run(torch):
                "kernels": rec["kernels"]} for name, rec in cells.items()}}
     log(f"dry run phase: {out['phase_s']:.1f}s")
     return out
+
+
+# phase 17 (slice 19): every strategy of the temporal round on the (1, 1) NCCL
+# mesh, yi-34b at published width (MESH_TRAIN's 4 of 60 layers, bf16), each
+# round bitwise its meshless twin; B1 at the int8 round's (1, N) and,
+# kernel-level, at the packed shards of rank 0 of yi-34b train_4k on 16x16
+MESH_STRATEGIES = {  # label: the FLConfig fields over one FedAvg local step
+    "int8": {"strategy": "compressed", "compression": "int8"},
+    "dp_fedavg": {"strategy": "dp_fedavg", "dp_clip": 1e-3, "dp_noise": 1.0},
+    "fedprox": {"strategy": "fedprox", "prox_mu": 0.1, "local_epochs": 2},
+    "majority_digest": {"n_workers": 3, "byzantine_workers": 1},
+    "median": {"n_workers": 3, "byzantine_workers": 1, "consensus": "median"},
+}
+MESH_RANK_B1 = {"arch": "yi-34b", "sizes": {"data": 16, "model": 16}, "seed": 170}
+
+
+def rank_packed_n(cfg, sizes) -> int:
+    """The packed int8 length of one rank's shards of ``cfg``'s params on a
+    mesh of axis ``sizes`` (``steps.param_structs``' global shapes and fsdp
+    specs: each sharded dim divided by its axes' size; every leaf padded to
+    whole 256-value blocks), from the shapes alone."""
+    from repro_torch.core.packing import QBLOCK
+    from repro_torch.launch.steps import param_structs
+
+    def share(e):
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        return math.prod(sizes[a] for a in names)
+    n = 0
+    for sp in param_structs(cfg, sizes, "fsdp").values():
+        local = math.prod(d // share(e) for d, e in zip(sp.shape, sp.spec))
+        n += local + (-local) % QBLOCK
+    return n
+
+
+def mesh_strategies_checks(torch, kernels, mesh, dev) -> dict:
+    """Phase 17's rounds, run in phase 15's world-1 rank (``mesh_temporal_rank``,
+    on its (1, 1) ``("data", "model")`` NCCL mesh, after the process's first
+    uses of the card are paid): ``make_train_step``'s temporal round of
+    yi-34b at published width (MESH_TRAIN) under each of MESH_STRATEGIES,
+    its loss and new params bitwise the meshless ``build_temporal_round``'s
+    (at world 1 the rank holds every leaf whole: its int8 row is the
+    meshless row, its DP noise and poison the meshless draws, its digest
+    the meshless digest); B1 counted once an int8 round, B2 and B3 as in
+    phase 15 (a local step's forward and recompute), each run's counts
+    zeroed just before it, read just after. Returns {label: record} and
+    ``rounds_s`` (raises on a failed check)."""
+    T = MESH_TRAIN
+    t0 = time.perf_counter()
+
+    def want(label, steps):
+        return lambda cfg: dict(train_launches({"norms_per_layer": 2}, cfg.n_layers, steps),
+                                quant_aggregate=int(label == "int8"))
+    out = {label: _mesh_train_check(
+        torch, kernels, mesh, dev, T["arch"], T["n_layers"], T["batch"], T["seq"], T["seed"],
+        want(label, fields.get("local_epochs", 1)), f"yi-34b {label}", fl=fields, warm=False)
+        for label, fields in MESH_STRATEGIES.items()}
+    out["rounds_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_strategies(torch, qa, rounds):
+    """Slice 19: every strategy of the temporal round on the card. The
+    rounds (``rounds``: ``mesh_strategies_checks``' results, run in phase
+    15's world-1 NCCL rank) drove int8 sends, DP-FedAvg with noise, FedProx
+    of two local steps and the consensus (majority digest and median, W = 3
+    with one byzantine worker) through ``make_train_step``, each bitwise its
+    meshless twin; here B1 at the int8 round's (1, N) and, kernel-level, at
+    rank 0's packed shards of yi-34b train_4k on 16x16, bitwise its plain
+    version and timed beside its bound. Returns the phase's summary."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_run = {label: {fn: c for fn, c in rounds[label]["by_shape_raw"].items() if c}
+              for label in MESH_STRATEGIES}
+    [(S, C, N, qblock)] = by_run["int8"]["quant_aggregate"]
+    R = MESH_RANK_B1
+    n_loc = rank_packed_n(get_config(R["arch"]), R["sizes"])
+    rows = {"round": time_b1_sliced(torch, qa, C, N, R["seed"], "mesh strategies int8 round"),
+            "rank": time_b1_sliced(torch, qa, 1, n_loc, R["seed"] + 1,
+                                   "mesh strategies train_4k rank")}
+    out = {"phase_s": time.perf_counter() - t0, "rounds_s": rounds["rounds_s"],
+           "by_run": by_run, "b1_rows": rows,
+           "runs": {label: {k: v for k, v in rounds[label].items() if k != "by_shape_raw"}
+                    for label in MESH_STRATEGIES}}
+    log(f"mesh strategies phase: {out['phase_s']:.1f}s (and the rounds {out['rounds_s']:.1f}s "
+        "in phase 15's rank)")
+    return out
+
+
+def mesh_strategies_entries(ms, mesh_temporal, sources, flash_src) -> list:
+    """The ``kernels`` entries of phase 17: B1 at the int8 round's (1, N)
+    (its launches the round's count) and at a production rank's (1, N_loc)
+    (kernel-level); B2 and B3 with the five rounds' launches at phase 15's
+    rows of the same shapes (the same step, its kernels timed there)."""
+    entries = []
+    for tag, launches, where in (
+            ("round", ms["by_run"]["int8"]["quant_aggregate"],
+             "yi-34b's temporal round with int8 sends on a (1, 1) NCCL mesh"),
+            ("rank", {}, "kernel-level only: rank 0's packed shards of yi-34b train_4k on "
+                         "16x16 (fsdp specs)")):
+        r = ms["b1_rows"][tag]
+        entries.append({
+            "name": f"quant_aggregate_mesh_strategies_{tag}", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_aggregate.cu",
+            "replaces": "src/repro/kernels/quant_aggregate.py:22",
+            "launches": sum(launches.values()), "launches_path": where,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "call_ms": r["kernel_call_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "bitwise": True,
+            "shape": [r["C"], r["N"], r["qblock"]]})
+    counts: dict = {}
+    for run in ms["by_run"].values():
+        for fn in ("rmsnorm", "flash_attention"):
+            for key, n in run.get(fn, {}).items():
+                counts[(fn, key)] = counts.get((fn, key), 0) + n
+    for (fn, key), launches in sorted(counts.items()):
+        r = mesh_temporal["kernel_rows"].get((fn, shape_name(key)))
+        if r is None:
+            raise AssertionError(f"phase 17 launched {fn} at {shape_name(key)}, which phase "
+                                 "15 did not time")
+        flash = fn == "flash_attention"
+        source, replaces = ((("src/repro_torch/csrc/flash_attention_wgmma.cu"
+                              if r["kernel"] == "wgmma" else
+                              "src/repro_torch/csrc/flash_attention.cu"), flash_src)
+                            if flash else sources[fn])
+        entries.append({
+            "name": f"{fn}_{r['kernel'] + '_' if flash else ''}mesh_strategies_"
+                    f"{shape_name(key).replace(' ', '_')}",
+            "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_path": "yi-34b's temporal round on a (1, 1) NCCL mesh under "
+                             f"{', '.join(MESH_STRATEGIES)} (timed in phase 15)",
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
+    return entries
 
 
 def attention_layers(cfg) -> int:
@@ -5823,13 +5993,14 @@ def main() -> int:
     log(f"slice 12 phase: {slice12_s:.1f}s")
 
     # 13. the rematerialized LM training step and int8 LM sends (slice 13):
-    # B1 at the int8 LM round's (2, 4.07e9) bitwise over column slices, the
-    # MoE forward's repeat, B2 at minicpm3-4b's train rows, minicpm3-4b at its
-    # full 62 layers trained plain and with int8 sends, then at 8 layers
+    # B1 at the int8 LM round's (2, N > 2**31) bitwise over column slices, the
+    # MoE forward's repeat, B2 at minicpm3-4b's train rows, minicpm3-4b at 32
+    # of its 62 layers trained plain and with int8 sends, then at 8 layers
     # twice, bitwise (the cut depth); counts zeroed just before each counted
     # path, read just after
     t0 = time.perf_counter()
-    b1_lm = phase_b1_lm(torch, qa, packed_n(get_config(TRAIN_FULL["arch"])))
+    b1_lm = time_b1_sliced(torch, qa, B1_LM["C"], packed_n(get_config(
+        TRAIN_FULL["arch"]).replace(n_layers=TRAIN_FULL["n_layers"])), B1_LM["seed"], "lm_int8")
     moe_repeat = check_moe_repeat(torch)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     mla_train_norms = time_train_norms_mla(torch, flush)
@@ -5874,11 +6045,18 @@ def main() -> int:
     # the subprocess)
     dry_run = phase_dry_run(torch)
 
-    # 17. serve path; counts zeroed just before it, read just after
+    # 17. every strategy of the temporal round on a mesh (slice 19): phase
+    # 15's world-1 NCCL rank ran the int8, DP, FedProx and consensus rounds of
+    # yi-34b at published width against their meshless twins, bitwise, counts
+    # zeroed just before each mesh run, read just after; here B1 at their
+    # shapes
+    mesh_strategies = phase_mesh_strategies(torch, qa, mesh_temporal.pop("strategies"))
+
+    # 18. serve path; counts zeroed just before it, read just after
     serve = phase_serve(torch, kernels)
     serve_cpu = phase_serve_card_vs_cpu(torch)
 
-    # 18. summary
+    # 19. summary
     main = rows[0]
     entries = [{
         "name": "quant_aggregate", "route": "cuda",
@@ -6036,8 +6214,8 @@ def main() -> int:
              f"minicpm3-4b serve, {SERVE_MLA['n_layers']} layers"),
             ("flash_attention_wgmma_mla_train", "mla_train",
              sum(full[t]["flash_by_kernel"]["wgmma"] for t in ("plain", "int8")),
-             "minicpm3-4b train at 62 layers, 3 rounds plain and 3 with int8 sends (a layer's "
-             "forward and its recompute)"),
+             f"minicpm3-4b train at {TRAIN_FULL['n_layers']} of 62 layers, 3 rounds plain and 3 "
+             "with int8 sends (a layer's forward and its recompute)"),
             ("flash_attention_wgmma_mla_expanded", "mla_expanded",
              serve_mla["expanded_flash_by_kernel"]["wgmma"],
              "minicpm3-4b layer 0, mla_seqsharded(absorbed=False)")):
@@ -6149,7 +6327,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/quant_aggregate.cu",
         "replaces": "src/repro/kernels/quant_aggregate.py:22",
         "launches": full["int8"]["launches"]["quant_aggregate"],
-        "launches_path": "minicpm3-4b at 62 layers, 3 temporal rounds with int8 sends",
+        "launches_path": f"minicpm3-4b at {TRAIN_FULL['n_layers']} of 62 layers, 3 temporal "
+                         "rounds with int8 sends",
         "max_abs_err": b1_lm["max_abs_err"], "ms": b1_lm["kernel_ms"],
         "plain_ms": b1_lm["plain_ms"], "call_ms": b1_lm["kernel_call_ms"],
         "bound_ms": b1_lm["bound_ms"], "bound_by": b1_lm["bound_by"], "library_ms": None,
@@ -6163,8 +6342,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/rmsnorm.py:11",
             "launches": sum(full[t]["by_shape"]["rmsnorm"].get(key, 0)
                             for t in ("plain", "int8")),
-            "launches_path": "minicpm3-4b train at 62 layers, plain and int8 (forward and "
-                             "recompute)",
+            "launches_path": f"minicpm3-4b train at {TRAIN_FULL['n_layers']} of 62 layers, "
+                             "plain and int8 (forward and recompute)",
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
@@ -6214,7 +6393,9 @@ def main() -> int:
                 "replaces": flash_src if flash else "src/repro/kernels/rmsnorm.py:11",
                 "launches": launches,
                 "launches_path": f"the spatial train step on a (1, 1) NCCL mesh: {arch} at "
-                                 "published width and full depth (forward and recompute)",
+                                 "published width, "
+                                 + (f"{MESH_LM[arch][2]} layers" if MESH_LM[arch][2]
+                                    else "full depth") + " (forward and recompute)",
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "bitwise": False, "shape": r["shape"]})
@@ -6350,6 +6531,9 @@ def main() -> int:
     # slice 18: B2, B3 and B4 at every shape phase 16's card runs launched,
     # and B3 kernel-level at the train cell's last model rank
     entries += dry_run_entries(dry_run, sources, flash_src)
+    # slice 19: B1 at the int8 mesh round's (1, N) and at a production rank's
+    # (1, N_loc); B2 and B3 with phase 17's launches at phase 15's rows
+    entries += mesh_strategies_entries(mesh_strategies, mesh_temporal, sources, flash_src)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"slice": "1: FL round loop (fedavg + int8 compressed) on "
                     "flsim-cnn, quant_aggregate on CUDA",
@@ -6481,8 +6665,8 @@ def main() -> int:
                                               (*train_cpu.items(), *train_cpu10.items())}},
                     "worst": {k: v for k, v in lm_worst.items() if k.startswith("flash")}}))
     log(json.dumps({"slice": "12: the last three LM families: whisper-base (encoder-decoder) "
-                    "and xlstm-125m (mLSTM/sLSTM) served and trained at full width and "
-                    "depth, jamba-1.5-large-398b's attention sublayer and Mamba mixer at full "
+                    "at full depth and xlstm-125m (mLSTM/sLSTM, one sLSTM period) served and "
+                    "trained at full width, jamba-1.5-large-398b's attention sublayer and Mamba mixer at full "
                     "width, reduced card vs CPU; determinism.normal from correctly rounded "
                     "operations (C7)",
                     "card": smi, "phase_s": slice12_s, "c7": c7, "kernels": slice12_rows,
@@ -6498,7 +6682,8 @@ def main() -> int:
     log(json.dumps({"slice": "13: the rematerialized LM training step (a checkpoint per "
                     "layer, block, period, Mamba mixer, MoE FFN and scan chunk, under plain "
                     "autograd for an LM client) and int8 LM sends quantized leaf by leaf: "
-                    "minicpm3-4b trained at its full 62 layers, plain and int8",
+                    f"minicpm3-4b trained at {TRAIN_FULL['n_layers']} of its 62 layers, plain and "
+                    "int8",
                     "card": smi, "phase_s": slice13_s, "b1_lm": b1_lm,
                     "moe_repeat": moe_repeat, "rmsnorm_mla_train": mla_train_norms,
                     "full_depth": {k: full[k] if k not in ("plain", "int8") else {
@@ -6517,8 +6702,8 @@ def main() -> int:
                         "losses", "round_s", "peak_mem_gb", "bitwise_repeat")}}))
     log(json.dumps({"slice": "14: the mesh runtime: AxisCtx on a (1, 1) NCCL mesh (the int8 "
                     "FL round client-server and hierarchical, the spatial LM train step of "
-                    "xlstm-125m and whisper-base at published width and full depth, each "
-                    "bitwise its meshless twin; gossip card == CPU mesh), and a lane-sharded "
+                    "xlstm-125m (one sLSTM period) and whisper-base (full depth) at published "
+                    "width, each bitwise its meshless twin; gossip card == CPU mesh), and a lane-sharded "
                     "int8 campaign over two ranks sharing the card",
                     "card": smi, **{k: v for k, v in mesh.items()
                                     if k not in ("kernel_rows", "lm_by_shape")},
@@ -6568,14 +6753,27 @@ def main() -> int:
                         for (fn, tag), r in mesh_hybrid_encdec["kernel_rows"].items()}}))
     log(json.dumps({"slice": "18: the dry run of production-mesh cells as one rank (the meta "
                     "device's prediction, the card's counted and timed runs, the other ranks "
-                    "a fake process group): yi-34b train_4k on 16x16 at all 60 layers, "
-                    "yi-34b decode_32k and jamba-1.5-large-398b long_500k (one period) on "
-                    "2x16x16",
+                    "a fake process group): yi-34b train_4k on 16x16 and yi-34b decode_32k on "
+                    "2x16x16 at 30 of 60 layers, jamba-1.5-large-398b long_500k (one period) "
+                    "on 2x16x16",
                     "card": smi, "phase_s": dry_run["phase_s"], "cells": dry_run["cells"],
                     "kernel_rows": {f"{fn} {tag}": {
                         f: r[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
                         for (fn, tag), r in dry_run["kernel_rows"].items()}}))
+    ms = mesh_strategies
+    log(json.dumps({"slice": "19: every strategy of the temporal round on a device mesh "
+                    "(int8 sends over a rank's shards through B1, DP-FedAvg's clip and noise "
+                    "and FedProx's term over the whole model, multi-worker consensus): "
+                    "yi-34b at published width on a (1, 1) NCCL mesh, each round bitwise its "
+                    "meshless twin",
+                    "card": smi, "phase_s": ms["phase_s"], "rounds_s": ms["rounds_s"],
+                    "runs": {label: {k: r[k] for k in (
+                        "fl", "loss", "step_s", "meshless_step_s", "peak_mem_gb", "launches",
+                        "bitwise_meshless", "leaves_moved")} for label, r in ms["runs"].items()},
+                    "b1_rows": {tag: {k: r[k] for k in (
+                        "C", "N", "kernel_ms", "kernel_call_ms", "plain_ms", "bound_ms",
+                        "bound_by", "plan")} for tag, r in ms["b1_rows"].items()}}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

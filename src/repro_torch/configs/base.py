@@ -103,6 +103,18 @@ class ModelConfig:
         """A copy with the given fields changed."""
         return dataclasses.replace(self, **kw)
 
+    # parameter counts (the N of a 6·N·D FLOP estimate)
+    def param_count(self, padded: bool = False) -> int:
+        """``models/model_zoo.count_params``: every parameter."""
+        from repro_torch.models.model_zoo import count_params
+        return count_params(self, padded=padded)
+
+    def active_param_count(self, padded: bool = False) -> int:
+        """``count_params(active_only=True)``: top_k of each MoE layer's
+        experts."""
+        from repro_torch.models.model_zoo import count_params
+        return count_params(self, padded=padded, active_only=True)
+
 
 @dataclass(frozen=True)
 class FLConfig:
@@ -269,3 +281,8 @@ def get_config(name: str) -> ModelConfig:
             f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
         return mod.CONFIG
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS + _SMALL)}")
+
+
+def list_archs() -> Sequence[str]:
+    """The LM architectures of the assignment (``ARCHS``)."""
+    return ARCHS

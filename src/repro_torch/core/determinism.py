@@ -266,3 +266,26 @@ def normal(keys, counters):
     radius = torch.sqrt(_log_u1(_srl(bits, 40)) * -2.0)
     z = radius * _cos_2pi_u2((bits >> 16) & 0xFFFFFF)
     return z.to(torch.float32)
+
+
+NORMAL_CHUNK = 1 << 24   # counters ``normal_at`` draws at once
+
+
+def normal_at(keys, n: int, counters):
+    """``normal(keys, c)`` at the ``n`` counters ``counters(lo, hi)`` gives
+    for positions ``lo .. hi - 1`` (int64; a ``core/treeview`` view's
+    ``flat_index`` of a leaf), into one (..., n) f32 tensor, drawn
+    ``NORMAL_CHUNK`` counters at a time, so the draw's int64 and f64
+    temporaries never exceed a chunk's (an LM leaf runs to hundreds of
+    millions of values). Each value is a function of its key and counter
+    alone, so this is bitwise the one draw."""
+    first = normal(keys, counters(0, min(n, NORMAL_CHUNK)))
+    if n <= NORMAL_CHUNK:
+        return first
+    out = first.new_empty((*first.shape[:-1], n))
+    out[..., :NORMAL_CHUNK] = first
+    del first
+    for lo in range(NORMAL_CHUNK, n, NORMAL_CHUNK):
+        hi = min(n, lo + NORMAL_CHUNK)
+        out[..., lo:hi] = normal(keys, counters(lo, hi))
+    return out

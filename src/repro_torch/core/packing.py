@@ -47,6 +47,16 @@ def packed_size(template: dict, qblock: int = QBLOCK) -> tuple[int, int]:
     return n, n // qblock
 
 
+def leaf_spans(template: dict, qblock: int = QBLOCK) -> dict:
+    """key -> (start, stop) of its zero-padded slice of the packed layout."""
+    out, off = {}, 0
+    for k in sorted(template):
+        stop = off + _padded_size(template[k].numel(), qblock)
+        out[k] = (off, stop)
+        off = stop
+    return out
+
+
 def packed_nbytes(template: dict, qblock: int = QBLOCK) -> int:
     """Wire bytes of one packed delta: 1 byte per int8 value + 4 bytes per
     f32 block scale."""

@@ -25,6 +25,12 @@ Probes only add consumers of values the round already computes, so a run
 with them is bitwise the run without (``tests/test_torch_probes.py``); a
 dead campaign lane emits zeros. ``on_divergence: freeze`` holds a lane at
 its last finite state through ``rounds.freeze_unless``.
+
+The whole-model helpers compute through the round's view of the model
+(``shards``, ``core/treeview``): on the temporal placement's mesh every
+tree is a rank's shards and its ``sharding/specs.TreeShards`` gives the
+whole model's norm or fraction, each element counted once and the same on
+every rank (the JAX package ``pmean``s the ranks' shard norms: ROADMAP C13).
 """
 from __future__ import annotations
 
@@ -35,6 +41,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import packing
+from repro_torch.core.treeview import WHOLE, WholeTree
 
 # the fixed catalogue: the P axis of a launch's (R, P) / (S, R, P) probe
 # plane; probes.csv columns and counter names follow this order
@@ -99,18 +108,16 @@ def _leaves(tree):
         yield tree
 
 
-def tree_sq_norm(tree):
-    """Sum of squares over every leaf, accumulated in f32."""
-    total = None
-    for leaf in _leaves(tree):
-        sq = torch.square(leaf.to(torch.float32)).sum()
-        total = sq if total is None else total + sq
-    return torch.zeros((), dtype=torch.float32) if total is None else total
+def tree_sq_norm(tree: dict, shards: WholeTree = WHOLE):
+    """Sum of squares over every leaf of a flat dict, accumulated in f32,
+    of the whole tree ``shards`` views."""
+    return shards.sq_norm(tree)
 
 
-def tree_norm(tree):
-    """Global L2 norm over a tree's leaves."""
-    return torch.sqrt(tree_sq_norm(tree))
+def tree_norm(tree: dict, shards: WholeTree = WHOLE):
+    """Global L2 norm over a flat dict's leaves (``shards`` as
+    ``tree_sq_norm``)."""
+    return torch.sqrt(tree_sq_norm(tree, shards))
 
 
 def tree_nonfinite(tree):
@@ -143,13 +150,24 @@ def per_client_sq_norms(deltas):
     return total
 
 
-def packed_sq_norms(q, scale):
+def _packed_leaves(template, q) -> dict:
+    """The leaves packed into ``q``'s rows (``packing``'s layout; None: the
+    rows are one leaf)."""
+    return {"": torch.empty(q.shape[-1], device="meta")} if template is None else template
+
+
+def packed_sq_norms(q, scale, template: dict | None = None, shards: WholeTree = WHOLE):
     """(C,) sum of squares of dequantized ``(C, N) int8`` sends, blockwise
-    from the scales (no (C, N) f32 dequant)."""
+    from the scales (no (C, N) f32 dequant), over the whole tree that
+    ``shards`` views: each row packs ``template``'s leaves (on a mesh a
+    rank's shards), each leaf's blocks summed, then the leaves."""
     c, n = q.shape
     nb = scale.shape[-1]
-    qsq = torch.square(q.to(torch.float32)).reshape(c, nb, n // nb).sum(-1)
-    return (qsq * torch.square(scale)).sum(-1)
+    qb = n // nb
+    blocks = torch.square(q.to(torch.float32)).reshape(c, nb, qb).sum(-1) \
+        * torch.square(scale)
+    spans = packing.leaf_spans(_packed_leaves(template, q), qb)
+    return shards.total({k: blocks[:, a // qb:b // qb].sum(-1) for k, (a, b) in spans.items()})
 
 
 def packed_sq_norm(q, scale):
@@ -159,9 +177,20 @@ def packed_sq_norm(q, scale):
     return (qsq * torch.square(scale)).sum()
 
 
-def sat_frac(q):
-    """Fraction of int8 values saturated at the +-127 clip points."""
-    return (torch.abs(q.to(torch.int32)) >= 127).to(torch.float32).mean()
+def sat_frac(q, template: dict | None = None, shards: WholeTree = WHOLE):
+    """Fraction of int8 values saturated at the +-127 clip points, over the
+    sends of the whole tree that ``shards`` views: the rows of ``q`` pack
+    ``template``'s leaves (``packed_sq_norms``); the saturated count over
+    the rows times the whole tree's packed size (pads are zero, never
+    saturated)."""
+    leaves = _packed_leaves(template, q)
+    sat = (torch.abs(q.to(torch.int32)) >= 127).to(torch.float32)
+    count = shards.total({k: sat[..., a:b].sum()
+                          for k, (a, b) in packing.leaf_spans(leaves).items()})
+    whole = {k: torch.empty(shards.whole_shape(k, t.shape), device="meta")
+             for k, t in leaves.items()}
+    n = sat[..., 0].numel() * packing.packed_size(whole)[0]
+    return count / torch.full((), float(n), device=q.device)
 
 
 def drift_from_moments(weights, per_client_sq, agg_sq, psum=lambda x: x):

@@ -60,11 +60,17 @@ grid (``_grid_below``), trains them as above and reduces by the
 topology's plan over the mesh (``topo.reduce``; in ``packed_aggregate``
 only B1's (N,) numerator and the weight sum cross it); the loss and the probe moments
 are summed or averaged over the grid. The temporal round on a mesh
-(``build_temporal_round(..., ctx=)``, dense GQA LMs): each rank holds its
+(``build_temporal_round(..., ctx=)``, the LMs): each rank holds its
 ZeRO-3 shard of every param and its shard of each client's batch; the
 client's loss runs with the per-layer gather (``sharding/specs.
 make_gather_fn``) and its gradient goes through ``make_grad_sync`` before
 the strategy's transform, as in the JAX package's ``shard_map`` round.
+Every strategy the JAX round runs runs there: int8 sends pack each rank's
+own shards (one B1 launch a round a rank), top-k keeps the top of each
+shard, consensus runs on the rank's shards; what is defined on the whole
+model (DP's clip and noise, FedProx's term, the probes, the consensus
+digest and poison) is computed on the whole model through the rank's
+``sharding/specs.TreeShards``, the meshless function.
 The ragged plane and campaign lanes stay meshless (a campaign shards its
 lanes instead: ``runtime/campaign.py``).
 
@@ -90,6 +96,7 @@ from repro_torch.core.consensus import build_aggregator
 from repro_torch.core.strategy import Strategy, client_sgd_step, tree_add, \
     tree_sub, tree_zeros_like
 from repro_torch.core.topology import Decentralized, get_topology
+from repro_torch.core.treeview import WHOLE
 from repro_torch.data.pipeline import DEDUP_STAGED_AXES
 from repro_torch.kernels import ops
 from repro_torch.runtime.device import resolve_device
@@ -384,20 +391,25 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
     the ZeRO-3 shard of every param (``state``) and its shard of each
     client's batch; ``local_train`` gathers per layer and syncs the
     gradient (``sharding/specs.make_gather_fn``, ``make_grad_sync``); the
-    aggregate is averaged over ``pod`` (the cross-pod tier), and the loss
-    (and each probe) over the whole grid, as in the JAX package. The int8
-    sends and the multi-worker consensus stay meshless."""
+    aggregate is averaged over ``pod`` (the cross-pod tier), then passes
+    the consensus, and the loss is averaged over the whole grid, as in the
+    JAX package. An int8 send packs the rank's own shards (the JAX
+    package's per-rank layout: a ``(C_t, N_loc)`` matrix, one B1 launch).
+    The strategy, the consensus and the probes compute through the round's
+    view of the model (``core/treeview``; on a mesh the rank's
+    ``specs.TreeShards``): each probe is the whole model's norm or
+    fraction, the same on every rank."""
     packed = strategy.packs_deltas
-    mw = build_aggregator(fl)
     axes = ctx.grid_axes
     gather_fn = grad_sync = None
+    shards = WHOLE
     if axes:
         from repro_torch.sharding import specs
-        if packed or mw is not None:
-            raise ValueError("the temporal round on a mesh sends f32 deltas to one "
-                             "server: int8 sends and multi-worker consensus run meshless")
         gather_fn = specs.make_gather_fn(model.cfg, ctx)
         grad_sync = specs.make_grad_sync(model.cfg, ctx)
+        shards = specs.TreeShards(model.cfg, ctx)
+    strategy = dataclasses.replace(strategy, shards=shards)
+    mw = build_aggregator(fl, shards)
 
     def round_fn(state, batch, weights, rng, hyper=None):
         fl_h, strategy_h = bind_hyper(fl, strategy, hyper)
@@ -435,10 +447,10 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
                 w = weights / torch.clamp(weights.sum(), min=1e-12)
             agg_flat = ops.quant_aggregate(q, scale, w)
             if probes:
-                pr["sat_frac"] = probelib.sat_frac(q)
+                pr["sat_frac"] = probelib.sat_frac(q, params, shards)
                 pr["drift_norm"] = probelib.drift_from_moments(
-                    w, probelib.packed_sq_norms(q, scale),
-                    torch.square(agg_flat).sum())
+                    w, probelib.packed_sq_norms(q, scale, params, shards),
+                    shards.sq_norm(packing.unpack_tree(agg_flat, params)))
             del q, scale
             # views of the (N,) f32 aggregate, cast one leaf at a time
             agg = {k: a.to(params[k].dtype) for k, a in
@@ -465,11 +477,11 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
                 loss = loss + closs / C_t
                 if probes:
                     # the weighted second moment of the deltas, for drift
-                    msq = msq + weights[i] / wsum * probelib.tree_sq_norm(d_i)
+                    msq = msq + weights[i] / wsum * probelib.tree_sq_norm(d_i, shards)
                 del delta, d_i      # not held while the next client trains
             if probes:
                 pr["drift_norm"] = torch.sqrt(torch.clamp(
-                    msq - probelib.tree_sq_norm(agg), min=0.0))
+                    msq - probelib.tree_sq_norm(agg, shards), min=0.0))
         if ctx.pod is not None:
             # the cross-pod tier: the pods' aggregates averaged
             agg = ctx.pmean(agg, ctx.pod)
@@ -482,10 +494,9 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
                                                           server_state)
         metrics = {"loss": ctx.pmean(loss, axes) if axes else loss}
         if probes:
-            pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params))
+            # whole-model values on a mesh (``shards``): the same on every rank
+            pr["update_norm"] = probelib.tree_norm(tree_sub(new_params, params), shards)
             pr["nonfinite"] = probelib.norm_nonfinite(pr["update_norm"])
-            if axes:
-                pr = {k: ctx.pmean(v, axes) for k, v in pr.items()}
             metrics["probes"] = pr
         return ({"params": new_params, "server": new_server,
                  "clients": state.get("clients", ())}, metrics)

@@ -11,6 +11,13 @@ client under ``torch.func.vmap`` and sees one client's key.
   postprocess      — transform the client delta before aggregation (DP, int8)
   server_update    — turn the aggregated delta + server state into new params
   *_state_init     — per-client / server state (momenta, control variates)
+
+A hook defined on the whole model (DP's clip and noise, FedProx's prox
+term) computes through the ``shards`` field, the round's view of the model
+(``core/treeview``): ``WHOLE`` off a mesh, a ``sharding/specs.TreeShards``
+where every param and delta is the rank's ZeRO-3 shard (the temporal
+placement on a mesh), so the hook computes the meshless function on both;
+hooks that act element by element ignore it.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.treeview import WHOLE, WholeTree
 
 PyTree = Any
 
@@ -44,13 +52,12 @@ def tree_scale(a: dict, s) -> dict:
     return {k: v * s for k, v in a.items()}
 
 
-def global_norm(t: dict, lead: int = 0):
+def global_norm(t: dict, lead: int = 0, shards: WholeTree = WHOLE):
     """L2 norm over a dict's leaves, in f32, reducing every dim past the
-    first ``lead`` (``lead=1``: one norm per client). The 1e-24, as in the
-    JAX package, keeps the sqrt differentiable at an all-zero tree."""
-    total = sum(torch.square(t[k].to(torch.float32)).sum(
-        dim=tuple(range(lead, t[k].dim()))) for k in sorted(t))
-    return torch.sqrt(1e-24 + total)
+    first ``lead`` (``lead=1``: one norm per client), of the whole tree
+    that ``shards`` views (``core/treeview``). The 1e-24, as in the JAX
+    package, keeps the sqrt differentiable at an all-zero tree."""
+    return torch.sqrt(1e-24 + shards.sq_norm(t, lead))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +65,9 @@ class Strategy:
     """FedAvg — weighted parameter averaging (McMahan et al.). Base class."""
     fl: FLConfig
     name: str = "fedavg"
+    # the round's view of the model (``core/treeview``): a rank's shards on
+    # a mesh
+    shards: WholeTree = dataclasses.field(default=WHOLE, compare=False, repr=False)
     # hooks that index the per-client state: such a strategy cannot run
     # where the round passes none (temporal placement, async)
     reads_client_state = False

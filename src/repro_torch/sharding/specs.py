@@ -14,15 +14,19 @@ each None (whole), an axis name or a tuple of names. Phases:
 
 The tables are the JAX package's, keyed by parameter leaf name. Built from
 them for the temporal placement on a mesh: the per-layer ZeRO-3 gather
-(``make_gather_fn``) and the gradient sync (``make_grad_sync``).
+(``make_gather_fn``), the gradient sync (``make_grad_sync``), and a rank's
+view of the whole model (``TreeShards``: sums that count each element once,
+each element's global flat index), through which the strategies, the probes
+and the consensus compute the meshless function on a rank's shards.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.treeview import WholeTree
 from repro_torch.models import transformer
-from repro_torch.sharding.axes import divisor
+from repro_torch.sharding.axes import AxisCtx, divisor
 
 # Archs small enough for spatial (per-chip replica) placement.
 SPATIAL_ARCHS = ("whisper-base", "xlstm-125m", "flsim-cnn", "flsim-mlp",
@@ -312,3 +316,86 @@ def batch_specs(cfg: ModelConfig, shape_kind: str, global_batch: int, mesh_axes)
     if not axes:
         return (None,)
     return (axes[0] if len(axes) == 1 else tuple(axes),)   # a 1-tuple is its name
+
+
+def _entry_axes(entry) -> tuple:
+    """A spec entry's axis names: () for None."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class TreeShards(WholeTree):
+    """This rank's view (``core/treeview``) of a flat param tree
+    (``transformer.flatten_params`` keys) laid out by ``param_specs(cfg,
+    "fsdp")`` on ``ctx`` (spec entries naming an axis the mesh lacks are
+    whole), as the temporal placement holds its params, server state and
+    every delta.
+
+    - ``total`` / ``sq_norm``: a sum over the whole model, each element
+      counted once: a leaf's partial sum ``psum``med over the axes its spec
+      shards it on only (a leaf replicated over an axis is counted once,
+      not once a rank). The same value on every rank.
+    - ``flat_index``: the global row-major index, in its leaf, of each of
+      the rank's elements (counter-based draws at these counters are the
+      meshless draws).
+    - ``loss_term``: a term every rank adds to its loss whole, its gradient
+      scaled by 1 / the model axis's size: ``make_grad_sync`` sums a leaf's
+      gradient over ``model`` (where the spec leaves it whole) or takes it
+      whole from the gather's ``psum_scatter``, so this makes the term's
+      gradient the meshless one."""
+
+    def __init__(self, cfg: ModelConfig, ctx: AxisCtx):
+        present = {a for a in (ctx.pod, ctx.data, ctx.model) if a is not None}
+        self.ctx = ctx
+        self.shapes = {k: tuple(s) for k, s in
+                       transformer.flatten_params(transformer.param_shapes(cfg)).items()}
+        self.specs = {}
+        for k, spec in transformer.flatten_params(param_specs(cfg, "fsdp")).items():
+            keep = [e if e is not None and set(_entry_axes(e)) <= present else None
+                    for e in spec]
+            self.specs[k] = tuple(keep) + (None,) * (len(self.shapes[k]) - len(keep))
+        self.axes = {k: tuple(a for e in spec for a in _entry_axes(e))
+                     for k, spec in self.specs.items()}
+        self.local_shapes = {k: tuple(g // ctx.size(e) if e is not None else g
+                                      for g, e in zip(self.shapes[k], self.specs[k]))
+                             for k in self.shapes}
+
+    def total(self, parts: dict):
+        """Each leaf's partial sum ``psum``med over the axes the leaf is
+        sharded on (one ``psum`` per distinct set of axes), then summed as
+        off the mesh. Differentiable (the ``psum``'s backward)."""
+        groups: dict = {}
+        for k in sorted(parts):
+            groups.setdefault(self.axes[k], []).append(k)
+        summed = {}
+        for axes, keys in groups.items():
+            stacked = torch.stack([parts[k] for k in keys])
+            if axes:
+                stacked = self.ctx.psum(stacked, axes if len(axes) > 1 else axes[0])
+            summed.update(zip(keys, stacked.unbind(0)))
+        return super().total(summed)
+
+    def flat_index(self, key: str, device, lo: int, hi: int):
+        """The global flat indices of the rank's elements (a rank's block
+        keeps the leaf's row-major order)."""
+        local = self.local_shapes[key]
+        pos = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        out = torch.zeros_like(pos)
+        stride = 1
+        for d in range(len(local) - 1, -1, -1):
+            e = self.specs[key][d]
+            start = self.ctx.index(e) * local[d] if e is not None else 0
+            out += (pos % local[d] + start) * stride
+            pos = pos // local[d]
+            stride *= self.shapes[key][d]
+        return out
+
+    def whole_shape(self, key: str, shape) -> tuple:
+        return self.shapes[key]
+
+    def loss_term(self, x):
+        """``x`` (the same on every rank), its gradient scaled by 1 / the
+        model axis's size (see the class docstring)."""
+        m = self.ctx.size(self.ctx.model)
+        return x if m == 1 else transformer._ScaleGrad.apply(x, 1.0 / m)

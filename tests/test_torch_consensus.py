@@ -105,6 +105,20 @@ def test_robust_means_match_jax(name, W):
                                    atol=1e-7, err_msg=k)
 
 
+@pytest.mark.parametrize("W", [3, 4, 5])
+@pytest.mark.parametrize("name", ["median", "trimmed_mean"])
+def test_robust_means_by_column_chunks_are_the_whole_leaf(name, W, monkeypatch):
+    """The coordinate-wise functions take a leaf's columns a chunk at a
+    time (``consensus.COLUMNS``; a sort's indices of a whole LM leaf would
+    not fit a card): bitwise the whole leaf at once, ragged last chunk too."""
+    x = params_from_numpy(_stacked(W, W + 10))
+    whole = consensus.CONSENSUS_REGISTRY[name](x, {})
+    monkeypatch.setattr(consensus, "COLUMNS", 4)
+    chunked = consensus.CONSENSUS_REGISTRY[name](x, {})
+    for k in x:
+        assert torch.equal(chunked[k], whole[k]), k
+
+
 @pytest.mark.parametrize("rows", [
     [0, 1, 1],            # W = 3: a pair outvotes a singleton
     [0, 1, 0, 1],         # W = 4: a tie goes to the first worker

@@ -131,6 +131,32 @@ def test_normal_has_the_moments_of_a_standard_normal():
     assert abs(z.mean().item()) < 3e-3 and abs(z.var().item() - 1) < 1e-2
 
 
+@pytest.mark.parametrize("counters", ["positions", "rank_block"])
+@pytest.mark.parametrize("keys", ["int", "per_client"])
+def test_normal_at_by_chunks_is_the_one_draw(keys, counters, monkeypatch):
+    """``normal_at`` draws ``NORMAL_CHUNK`` counters at a time (an LM
+    leaf's draw at once would not fit a card): bitwise one ``normal`` draw,
+    at a ragged count, at the positions themselves (the whole-tree view's
+    ``flat_index``) and at a mesh rank's global flat indices (the column
+    block 5..9 of a (6, 10) leaf, as ``TreeShards`` gives them)."""
+    import functools
+
+    from repro_torch.core.treeview import WHOLE
+
+    k = d.root_key(5) if keys == "int" else d.fold_in_tensor(
+        d.root_key(5), torch.arange(3))[:, None]
+    if counters == "positions":
+        ctr = functools.partial(WHOLE.flat_index, "w", "cpu")
+        idx = torch.arange(30)
+    else:
+        idx = (torch.arange(6)[:, None] * 10 + 5 + torch.arange(5)[None]).reshape(-1)
+        ctr = lambda lo, hi: idx[lo:hi]                              # noqa: E731
+    want = d.normal(k, idx)
+    assert torch.equal(d.normal_at(k, 30, ctr), want)               # one chunk
+    monkeypatch.setattr(d, "NORMAL_CHUNK", 7)                       # 4 chunks + 2
+    assert torch.equal(d.normal_at(k, 30, ctr), want)
+
+
 @pytest.mark.parametrize("n_clients,steps,batch", [(4, 2, 8), (7, 3, 5)])
 def test_one_client_gather_is_lane_c_of_the_batched_gather(n_clients, steps, batch):
     x, y, parts = SyntheticVision(n_items=160, seed=0).distribute_into_chunks(
