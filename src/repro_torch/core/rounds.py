@@ -101,6 +101,7 @@ from repro_torch.data.pipeline import DEDUP_STAGED_AXES
 from repro_torch.kernels import ops
 from repro_torch.runtime.device import resolve_device
 from repro_torch.sharding.axes import SINGLE, AxisCtx
+from repro_torch.telemetry.recorder import layer_count, layer_span, layers_on
 
 
 def tree_map(fn, *trees):
@@ -180,11 +181,12 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
     autograd path runs there (collectives do not run under ``vmap``)."""
     post = (functools.partial(strategy.postprocess_packed, out=pack_out) if pack_deltas
             else strategy.postprocess)
-    n_steps = next(iter(batches.values())).shape[1]
+    lead = next(iter(batches.values()))
+    n_steps = lead.shape[1]
     use_mom = fl.client_optimizer == "sgdm" and fl.client_momentum > 0
     g_dim = 0 if per_client_params else None
     autograd = (getattr(model, "autograd_remat", False) and not per_client_params
-                and next(iter(batches.values())).shape[0] == 1)
+                and lead.shape[0] == 1)
     loss_fn = model.loss
     if ctx.grid_axes:
         if not autograd:
@@ -221,31 +223,38 @@ def local_train(model, strategy: Strategy, fl: FLConfig, global_params,
             grads = grad_sync(grads)
         return strategy.grad_transform(grads, client_state, server_state), loss
 
-    if fl.local_epochs * n_steps == 1 and not use_mom:
-        # one local SGD step: delta == -lr * grad, no params copy
-        grads, losses = step_grads(global_params, per_client_params, 0)
-        delta = {k: (grads[k] * -fl.client_lr).to(p.dtype)
-                 for k, p in global_params.items()}
-        delta, client_state = post(delta, client_state, rng)
-        client_state = strategy.client_state_update(
-            client_state, server_state, delta, 1, fl.client_lr)
-        return delta, client_state, losses
+    def send(delta, client_state):
+        if not pack_deltas:
+            return post(delta, client_state, rng)
+        with layer_span("send.pack", lead.device):
+            return post(delta, client_state, rng)
 
-    total = fl.local_epochs * n_steps
-    params = global_params
-    mom = tree_zeros_like(global_params) if use_mom else None
-    losses = []
-    for i in range(total):
-        grads, loss = step_grads(params, i > 0 or per_client_params, i)
-        params, mom = client_sgd_step(params, grads, fl.client_lr, mom,
-                                      fl.client_momentum)
-        del grads           # not held while the next step runs
-        losses.append(loss)
-    delta = tree_sub(params, global_params)
-    delta, client_state = post(delta, client_state, rng)
-    client_state = strategy.client_state_update(
-        client_state, server_state, delta, total, fl.client_lr)
-    return delta, client_state, torch.stack(losses).mean(0)
+    with layer_span("local_train", lead.device):
+        if fl.local_epochs * n_steps == 1 and not use_mom:
+            # one local SGD step: delta == -lr * grad, no params copy
+            grads, losses = step_grads(global_params, per_client_params, 0)
+            delta = {k: (grads[k] * -fl.client_lr).to(p.dtype)
+                     for k, p in global_params.items()}
+            delta, client_state = send(delta, client_state)
+            client_state = strategy.client_state_update(
+                client_state, server_state, delta, 1, fl.client_lr)
+            return delta, client_state, losses
+
+        total = fl.local_epochs * n_steps
+        params = global_params
+        mom = tree_zeros_like(global_params) if use_mom else None
+        losses = []
+        for i in range(total):
+            grads, loss = step_grads(params, i > 0 or per_client_params, i)
+            params, mom = client_sgd_step(params, grads, fl.client_lr, mom,
+                                          fl.client_momentum)
+            del grads           # not held while the next step runs
+            losses.append(loss)
+        delta = tree_sub(params, global_params)
+        delta, client_state = send(delta, client_state)
+        client_state = strategy.client_state_update(
+            client_state, server_state, delta, total, fl.client_lr)
+        return delta, client_state, torch.stack(losses).mean(0)
 
 
 def packed_aggregate(topo, pd: packing.PackedDelta, weights):
@@ -342,22 +351,24 @@ def build_spatial_round(model, strategy: Strategy, fl: FLConfig,
                         pr["ef_residual_norm"] = torch.sqrt(rsq.sum() / max(C, 1))
                 else:
                     pr["ef_residual_norm"] = _zero(dev)
-            if packed:
-                agg = packing.unpack_tree(
-                    packed_aggregate(topo, deltas, weights), params)
-            else:
-                agg = topo.aggregate(deltas, weights)
-            if mw is not None:
-                agg = mw.run(agg, rng)
-            agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
-            new_params, new_server = strategy_h.server_update(params, agg,
-                                                              server_state)
-            # SCAFFOLD: the server control variate is the cohort-weighted
-            # mean of the client variates
-            if isinstance(new_server, dict) and "c" in new_server \
-                    and isinstance(cstates, dict) and "c_i" in cstates:
-                new_server = dict(new_server,
-                                  c=topo.aggregate(cstates["c_i"], weights))
+            with layer_span("server.aggregate", dev):
+                if packed:
+                    agg = packing.unpack_tree(
+                        packed_aggregate(topo, deltas, weights), params)
+                else:
+                    agg = topo.aggregate(deltas, weights)
+                if mw is not None:
+                    agg = mw.run(agg, rng)
+                agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
+            with layer_span("server.update", dev):
+                new_params, new_server = strategy_h.server_update(params, agg,
+                                                                  server_state)
+                # SCAFFOLD: the server control variate is the cohort-weighted
+                # mean of the client variates
+                if isinstance(new_server, dict) and "c" in new_server \
+                        and isinstance(cstates, dict) and "c_i" in cstates:
+                    new_server = dict(new_server,
+                                      c=topo.aggregate(cstates["c_i"], weights))
             if probes:
                 pr["drift_norm"] = probelib.drift_from_moments(
                     weights, sq, probelib.tree_sq_norm(agg), psum_)
@@ -445,17 +456,6 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             else:
                 loss = torch.stack(losses).sum() / C_t
                 w = weights / torch.clamp(weights.sum(), min=1e-12)
-            agg_flat = ops.quant_aggregate(q, scale, w)
-            if probes:
-                pr["sat_frac"] = probelib.sat_frac(q, params, shards)
-                pr["drift_norm"] = probelib.drift_from_moments(
-                    w, probelib.packed_sq_norms(q, scale, params, shards),
-                    shards.sq_norm(packing.unpack_tree(agg_flat, params)))
-            del q, scale
-            # views of the (N,) f32 aggregate, cast one leaf at a time
-            agg = {k: a.to(params[k].dtype) for k, a in
-                   packing.unpack_tree(agg_flat, params).items()}
-            del agg_flat
         elif C_t == 1:
             delta, loss = client(0)
             agg = {k: d[0] for k, d in delta.items()}
@@ -482,16 +482,30 @@ def build_temporal_round(model, strategy: Strategy, fl: FLConfig,
             if probes:
                 pr["drift_norm"] = torch.sqrt(torch.clamp(
                     msq - probelib.tree_sq_norm(agg, shards), min=0.0))
-        if ctx.pod is not None:
-            # the cross-pod tier: the pods' aggregates averaged
-            agg = ctx.pmean(agg, ctx.pod)
-        if mw is not None:
-            agg = mw.run(agg, rng)
-        # the f32 accumulator in the params' dtype (bf16 LM params stay bf16),
-        # as the spatial round casts its mean
-        agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
-        new_params, new_server = strategy_h.server_update(params, agg,
-                                                          server_state)
+        with layer_span("server.aggregate", dev):
+            if packed:
+                agg_flat = ops.quant_aggregate(q, scale, w)
+                if probes:
+                    pr["sat_frac"] = probelib.sat_frac(q, params, shards)
+                    pr["drift_norm"] = probelib.drift_from_moments(
+                        w, probelib.packed_sq_norms(q, scale, params, shards),
+                        shards.sq_norm(packing.unpack_tree(agg_flat, params)))
+                del q, scale
+                # views of the (N,) f32 aggregate, cast one leaf at a time
+                agg = {k: a.to(params[k].dtype) for k, a in
+                       packing.unpack_tree(agg_flat, params).items()}
+                del agg_flat
+            if ctx.pod is not None:
+                # the cross-pod tier: the pods' aggregates averaged
+                agg = ctx.pmean(agg, ctx.pod)
+            if mw is not None:
+                agg = mw.run(agg, rng)
+            # the f32 accumulator in the params' dtype (bf16 LM params stay
+            # bf16), as the spatial round casts its mean
+            agg = {k: a.to(params[k].dtype) for k, a in agg.items()}
+        with layer_span("server.update", dev):
+            new_params, new_server = strategy_h.server_update(params, agg,
+                                                              server_state)
         metrics = {"loss": ctx.pmean(loss, axes) if axes else loss}
         if probes:
             # whole-model values on a mesh (``shards``): the same on every rank
@@ -552,8 +566,11 @@ def build_multi_round(model, strategy: Strategy, fl: FLConfig,
     steps = max(fl.local_steps, 1)
     target = int(fl.cohort or fl.n_clients)
 
-    def one_round(st, staged, rkey, eff_w, hyper, alive):
+    def one_round(st, staged, rkey, eff_w, hyper, alive, n_lanes=1):
         batch = gather_client_batches(staged, rkey, batch_size, steps)
+        # the client rows this round trains, in every lane (under the lanes'
+        # vmap the batch's lead dim is one lane's)
+        layer_count("clients_trained", next(iter(batch.values())).shape[0] * n_lanes)
         new_st, metrics = single(st, batch, eff_w, rkey, hyper)
         if probes:
             # engine probes: the cohort mask and the staged weight mass
@@ -571,11 +588,18 @@ def build_multi_round(model, strategy: Strategy, fl: FLConfig,
             metrics["probes"] = probelib.stack_probes(pr)
         return new_st, metrics
 
-    def masks_for(faults, rounds):
-        return torch.as_tensor(np.stack([
+    def masks_for(faults, rounds, alive):
+        """The (S, n, C) cohort masks on the device, drawn on the host. Each
+        kept row of a live lane counts in ``clients_weighted`` (on the
+        device: ``alive`` stays there)."""
+        masks = torch.as_tensor(np.stack([
             np.stack([cohort_mask(f, r, fl.n_clients, target,
                                   fl.straggler_overprovision) for r in rounds])
             for f in faults]), device=device)
+        if layers_on():
+            live = masks if alive is None else masks * (alive > 0).view(-1, 1, 1)
+            layer_count("clients_weighted", torch.count_nonzero(live))
+        return masks
 
     def stacked(per_round, dim):
         return {k: torch.stack([m[k] for m in per_round], dim)
@@ -585,7 +609,7 @@ def build_multi_round(model, strategy: Strategy, fl: FLConfig,
                  hyper=None):
         alive, hyper = pop_alive(hyper)
         rounds = range(start_round, start_round + n_rounds)
-        masks = masks_for([fault], rounds)[0]
+        masks = masks_for([fault], rounds, alive)[0]
         base_w = staged["len"].to(torch.float32)
         out = []
         for i, r in enumerate(rounds):
@@ -598,13 +622,14 @@ def build_multi_round(model, strategy: Strategy, fl: FLConfig,
                  hyper, faults):
         alive, hyper = pop_alive(hyper)
         rounds = range(start_round, start_round + n_rounds)
-        masks = masks_for(faults, rounds)                  # (S, n, C)
+        masks = masks_for(faults, rounds, alive)           # (S, n, C)
         base_w = staged["len"].to(torch.float32)           # (S, C)
+        S = base_w.shape[0]
         if alive is None:
-            lane = vmap(lambda st, sg, rk, w, hp: one_round(st, sg, rk, w, hp, None),
+            lane = vmap(lambda st, sg, rk, w, hp: one_round(st, sg, rk, w, hp, None, S),
                         in_dims=(0, DEDUP_STAGED_AXES, 0, 0, 0))
         else:
-            lane = vmap(lambda st, sg, rk, w, hp, al: one_round(st, sg, rk, w, hp, al),
+            lane = vmap(lambda st, sg, rk, w, hp, al: one_round(st, sg, rk, w, hp, al, S),
                         in_dims=(0, DEDUP_STAGED_AXES, 0, 0, 0, 0))
         out = []
         for i, r in enumerate(rounds):

@@ -14,7 +14,8 @@ the lanes) into ONE ``(S, C, N)`` launch of the kernel.
 ``torch.autograd.Function`` whose forward launches the kernel (or, on the
 CPU, takes its plain version), whose backward is the gradient in torch ops
 (``rmsnorm.backward``, ``flash_attention.plain_bwd``; the JAX package has
-no backward kernel), and whose vmap rule folds the vmapped dim into the
+no backward kernel; each under a layer span, ``rmsnorm.bwd`` and
+``attn.bwd``, with its shape after the vmap fold), and whose vmap rule folds the vmapped dim into the
 kernel's rows or batch, so they run under the FL rounds'
 ``vmap(grad_and_value(...))``. (A ``torch.library.custom_op``'s autograd
 rule is refused under ``torch.func`` transforms: it does not override
@@ -39,6 +40,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_aggregate as _qa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.telemetry.recorder import layer_span
 
 # The fused path is the kernel's plain version: one accumulation pass in
 # client order with no (C, N) f32 intermediate.
@@ -171,7 +173,11 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = _rms.backward(x, w, g, ctx.eps)
+        with layer_span("rmsnorm.bwd", x.device) as sp:
+            if sp is not None:
+                D = x.shape[-1]
+                sp.attrs["shape"] = (x.numel() // D, D, x.element_size(), w.element_size())
+            dx, dw = _rms.backward(x, w, g, ctx.eps)
         return dx, dw, None
 
     @staticmethod
@@ -214,7 +220,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _fa.plain_bwd(q, k, v, out, lse, dout, *ctx.args)
+        with layer_span("attn.bwd", q.device) as sp:
+            if sp is not None:
+                (B, Sq, H, Dk), (_, Sk, KV, Dv) = q.shape, v.shape
+                q_offset, causal, _ = ctx.args
+                sp.attrs["shape"] = (B, Sq, Sk, H, KV, Dk, Dv, causal, q_offset,
+                                     q.element_size())
+            dq, dk, dv = _fa.plain_bwd(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None
 
     @staticmethod

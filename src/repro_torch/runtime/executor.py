@@ -30,7 +30,8 @@ or off): the flight recorder (a ``telemetry:`` section,
 ``telemetry/recorder.py``) spans the scaffold hooks, every chunk, launch
 and boundary step, and records per-launch counters: ``staged_bytes``,
 ``host``, ``program_cost`` (FlopCounterMode's flops of each launch key's
-first launch), the ``probe:*`` and ``comms:*`` tracks, and at the end
+first launch), ``layers`` (the launch's layer spans, ``telemetry/recorder.
+layer_span``), the ``probe:*`` and ``comms:*`` tracks, and at the end
 ``quant_agg`` (B1 calls), ``programs`` (distinct launch keys) and
 ``comms_total``. The round probes (a ``probes:`` section,
 ``core/probes.py``) land in ``probes.csv``; the comms plane (a ``comms:``
@@ -378,7 +379,8 @@ class Executor:
         """One launch under a ``launch`` span (closed after the launch's
         ``torch.cuda.synchronize()``) carrying ``compile_delta`` (kernel
         libraries built or loaded during it), ``quant_agg_traces`` (its B1
-        calls) and the executor's own attrs; then the ``host``, lane,
+        calls) and the executor's own attrs, with the layer spans on and
+        drained into its ``layers`` counter; then the ``host``, lane,
         ``program_cost``, probe and comms counters."""
         key = self._launch_key(n)
         rec = self.recorder
@@ -394,7 +396,8 @@ class Executor:
         counting = first and self._cost_enabled and key not in self._cost_seen
         with rec.profile(ordinal), \
                 rec.span("launch", track=self.telemetry_track, mode=self.mode,
-                         start=start, n=n, ordinal=ordinal) as sp:
+                         start=start, n=n, ordinal=ordinal) as sp, \
+                rec.layers(self.telemetry_track):
             if counting:
                 from torch.utils.flop_counter import FlopCounterMode
                 with FlopCounterMode(display=False, custom_mapping={

@@ -5,7 +5,9 @@ event schema, so either package's ``trace.report`` reads either's file.
 Event model (one JSON object per ``telemetry.jsonl`` line):
 
 - ``{"kind": "meta", "schema": 1, "run": ..., "pid": ..., "unit": "us",
-   "clock": "perf_counter_ns"}`` — first line of every file.
+   "clock": "perf_counter_ns", "origin_ns": ..., "origin_wall_ns": ...}`` —
+  first line of every file; the origins are the instant the events' times
+  count from, on the monotonic clock and on the wall clock.
 - ``{"kind": "span", "id": n, "parent": m|null, "depth": d, "name": ...,
    "track": ..., "t0_us": ..., "dur_us": ..., "attrs": {...}}`` — a closed
   span. IDs are assigned in *open* order and events are written in *close*
@@ -23,17 +25,36 @@ which is exactly how Perfetto draws flame stacks.
 A disabled recorder is a no-op: ``span()`` hands back a shared null context
 and ``counter()`` returns immediately — the instrumented round loops pay a
 dict-lookup per chunk boundary, nothing per round. Timing uses
-``time.perf_counter_ns`` (monotonic); nothing here touches device code, so
-telemetry cannot perturb the runs' numbers. The executor closes its
+``time.perf_counter_ns`` (monotonic); the recorder's spans touch no device
+code, so telemetry cannot perturb the runs' numbers. The executor closes its
 ``launch`` span after ``torch.cuda.synchronize()``, so the span times the
 device work, not the host's queueing of it.
+
+Layer spans (``layer_span``, ``layer_count``, ``layer_times``) time the
+layers inside a launch: the clients' local training, the int8 send, the
+attention and norm backwards, the server's aggregate and update. They are
+on only while a ``torch.profiler`` capture runs or an enabled recorder runs
+a launch; off, a span site costs one call and two flag reads. An open span
+is a ``record_function("repro_torch.<name>")`` range in the profiler's
+timeline, a host interval on this clock, a device interval between two
+CUDA events on the current stream (on the CPU the host interval stands for
+it) and its parent, the innermost span open in the process: a backward that
+autograd runs on its own device thread nests under the ``local_train`` that
+waits for it. ``layer_times()`` resolves the events once and sums them by
+name; an enabled recorder drains it into one ``layers`` counter per launch.
+Recording a CUDA event is asynchronous, so spans leave the device's work
+as it was.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
 import time
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class Span:
@@ -90,6 +111,7 @@ class _NullCtx:
 
 _NULL_SPAN = _NullSpan()
 _NULL_CTX = _NullCtx()
+_NULL_LAYER = contextlib.nullcontext()
 
 
 class FlightRecorder:
@@ -114,6 +136,7 @@ class FlightRecorder:
         self._pending: list = []       # emitted, not yet serialized
         self._next_id = 0
         self._t0_ns = time.perf_counter_ns()
+        self._t0_wall_ns = time.time_ns()      # the same instant on the wall clock
         self._fh = None
         self.profile_paths: list = []
 
@@ -165,6 +188,14 @@ class FlightRecorder:
             return _NULL_CTX
         return _Profile(self, ordinal)
 
+    def layers(self, track: str = "run"):
+        """Layer spans on for the ``with`` body (a launch, which ends
+        synchronized); on exit ``layer_times()`` is drained into one
+        ``layers`` counter (a no-op context when disabled)."""
+        if not self.enabled:
+            return _NULL_CTX
+        return _LaunchLayers(self, track)
+
     # -- persistence ------------------------------------------------------
     def _emit(self, event: dict):
         """Record an event; serialization is deferred to ``flush()`` (the
@@ -186,7 +217,8 @@ class FlightRecorder:
             self._fh.write(json.dumps(
                 {"kind": "meta", "schema": 1, "run": self.run_name,
                  "pid": os.getpid(), "unit": "us",
-                 "clock": "perf_counter_ns"}) + "\n")
+                 "clock": "perf_counter_ns", "origin_ns": self._t0_ns,
+                 "origin_wall_ns": self._t0_wall_ns}) + "\n")
         self._fh.write("".join(
             json.dumps(e, separators=(",", ":")) + "\n"
             for e in self._pending))
@@ -232,6 +264,164 @@ class _Profile:
         self.prof.export_chrome_trace(str(path))
         self.rec.profile_paths.append(path)
         return False
+
+
+class _LaunchLayers:
+    """Layer spans on around one launch, then drained into a ``layers``
+    counter: by span name its count, host, device and self device seconds,
+    shapes and parents; by counter name its total."""
+
+    def __init__(self, rec: FlightRecorder, track: str):
+        self.rec, self.track = rec, track
+        self.prev = False
+
+    def __enter__(self):
+        self.prev = _LOG.recording
+        _LOG.recording = True
+        return _NULL_SPAN
+
+    def __exit__(self, *exc):
+        _LOG.recording = self.prev
+        times = layer_times()
+        reset_layer_times()
+        if times["spans"] or times["counters"]:
+            spans = {name: dict(t, by_shape={str(k): n for k, n in t["by_shape"].items()},
+                                parents={str(k): n for k, n in t["parents"].items()})
+                     for name, t in times["spans"].items()}
+            self.rec.counter("layers", track=self.track, spans=spans,
+                             counters=times["counters"])
+        return False
+
+
+# -- layer spans -------------------------------------------------------------
+class _LayerLog:
+    """The process's layer spans: the open ones (one stack: a span opened on
+    autograd's device thread nests under the span whose thread waits for
+    it), the closed ones and the counters, kept in memory until
+    ``reset_layer_times``. ``recording``: an enabled recorder is running a
+    launch."""
+
+    def __init__(self):
+        self.recording = False
+        self.stack: list = []
+        self.closed: list = []
+        self.counts: dict = {}
+
+
+_LOG = _LayerLog()
+
+
+class _LayerSpan:
+    __slots__ = ("name", "attrs", "parent", "device", "_rf", "t0", "t1", "ev0", "ev1",
+                 "dev_s")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.name, self.attrs, self.device = name, attrs, device
+        self.parent = self._rf = self.ev0 = self.ev1 = self.dev_s = None
+        self.t0 = self.t1 = 0
+
+    def __enter__(self):
+        stack = _LOG.stack
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self._rf = _autograd_profiler.record_function("repro_torch." + self.name)
+        self._rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        if self.device is not None and self.device.type == "cuda":
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev0.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self.ev0 is not None:
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+            self.ev1.record(torch.cuda.current_stream(self.device))
+        self.t1 = time.perf_counter_ns()
+        self._rf.__exit__(*exc)
+        self._rf = None
+        stack = _LOG.stack
+        if not stack or stack[-1] is not self:
+            raise RuntimeError(f"layer span {self.name!r} closed while "
+                               f"{stack[-1].name if stack else 'no span'!r} is innermost")
+        stack.pop()
+        _LOG.closed.append(self)
+        return False
+
+    def device_s(self) -> float:
+        """Seconds between its two events (resolved once; the events are then
+        released), or its host seconds off CUDA."""
+        if self.dev_s is None:
+            if self.ev0 is None:
+                self.dev_s = (self.t1 - self.t0) * 1e-9
+            else:
+                self.dev_s = self.ev0.elapsed_time(self.ev1) * 1e-3
+                self.ev0 = self.ev1 = None
+        return self.dev_s
+
+
+def layers_on() -> bool:
+    """Whether layer spans and counts record now: a ``torch.profiler``
+    capture is active (the flag the profiler sets on start and clears on
+    stop), or an enabled recorder is running a launch."""
+    return _autograd_profiler._is_profiler_enabled or _LOG.recording
+
+
+def layer_span(name: str, device=None, **attrs):
+    """A span over one layer's work on ``device`` (a context manager); off
+    (``layers_on()`` false) a shared null context that yields None, with no
+    range, clock read or event. ``attrs``: what the work was; a ``shape``
+    attr is counted by ``layer_times``. The yielded span's ``attrs`` may be
+    updated until the ``with`` exits (a site that builds them only when on
+    tests the yielded span for None)."""
+    if not layers_on():
+        return _NULL_LAYER
+    return _LayerSpan(name, device, attrs)
+
+
+def layer_count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` while layer spans are on. ``n`` is
+    an int or a device tensor, summed on the device and read by
+    ``layer_times`` (a count taken from device values waits for nothing)."""
+    if layers_on():
+        _LOG.counts[name] = _LOG.counts.get(name, 0) + n
+
+
+def layer_times() -> dict:
+    """The closed layer spans and the counters since the last
+    ``reset_layer_times``: ``{"spans": {name: {"count", "host_s",
+    "device_s", "self_device_s", "by_shape": {shape: count}, "parents":
+    {parent name or None: count}}}, "counters": {name: total}}``. Self
+    device seconds are a span's device seconds minus its direct children's.
+    Waits once for the devices the spans ran on; a counter summed on the
+    device is read then."""
+    closed = list(_LOG.closed)
+    for dev in {sp.device for sp in closed if sp.ev0 is not None}:
+        torch.cuda.synchronize(dev)
+    self_s = {id(sp): sp.device_s() for sp in closed}
+    for sp in closed:
+        if sp.parent is not None and id(sp.parent) in self_s:
+            self_s[id(sp.parent)] -= sp.device_s()
+    spans: dict = {}
+    for sp in closed:
+        t = spans.setdefault(sp.name, {"count": 0, "host_s": 0.0, "device_s": 0.0,
+                                       "self_device_s": 0.0, "by_shape": {},
+                                       "parents": {}})
+        t["count"] += 1
+        t["host_s"] += (sp.t1 - sp.t0) * 1e-9
+        t["device_s"] += sp.device_s()
+        t["self_device_s"] += self_s[id(sp)]
+        if "shape" in sp.attrs:
+            shape = sp.attrs["shape"]
+            t["by_shape"][shape] = t["by_shape"].get(shape, 0) + 1
+        parent = sp.parent.name if sp.parent is not None else None
+        t["parents"][parent] = t["parents"].get(parent, 0) + 1
+    return {"spans": spans, "counters": {k: int(n) for k, n in _LOG.counts.items()}}
+
+
+def reset_layer_times() -> None:
+    """Forget the closed layer spans and the counters (open spans stay)."""
+    _LOG.closed.clear()
+    _LOG.counts.clear()
 
 
 def read_events(path) -> list:

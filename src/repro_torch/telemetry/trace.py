@@ -15,6 +15,15 @@ spans — same-tid time containment renders the nesting as a flame stack —
 and counter ("C") tracks for staged bytes, lane occupancy (with per-shard
 series under a lane mesh), host RSS/CPU, and quant-agg routing.
 
+``export`` also merges each ``torch_profile/launch<k>.json`` capture of the
+run dir (the recorder's ``profile_chunks``) into ``trace.json``, shifted
+onto the recorder's axis: the meta line records the recorder's origin on
+the monotonic clock and on the wall clock, and a capture's events (its
+``baseTimeNanoseconds`` plus ``ts``) are measured from whichever of the
+two its clock is; each of its processes becomes a ``launch<k>`` track, so
+the card's kernels and the ``repro_torch.*`` layer ranges line up under the
+recorder's ``launch`` spans.
+
 ``report`` collates span *self time* (duration minus enclosed children, so
 nothing double-counts) into the compile/execute/stage/io breakdown the
 paper's dashboard shows, plus a per-track program table. "compile" is the
@@ -23,7 +32,10 @@ includes the first execution — attribution, not a profiler). In the port a
 launch's ``compile_delta`` counts the kernel libraries built or loaded
 during it (``kernels/build.py``), and ``program_cost`` carries the flops
 ``torch.utils.flop_counter.FlopCounterMode`` counted on the first launch of
-each key and no ``bytes_accessed`` (its GB column reads 0).
+each key and no ``bytes_accessed`` (its GB column reads 0). Where the run
+recorded layer spans (a ``layers`` counter per launch), ``report`` ends
+with a per-layer table: by track and span, the count, device seconds, self
+device seconds and share of the track's launch seconds, and the counters.
 """
 from __future__ import annotations
 
@@ -94,15 +106,91 @@ def to_chrome_trace(events) -> dict:
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 
 
+def profile_events(path, meta: dict, first_pid: int) -> list:
+    """A ``torch.profiler`` Chrome trace's events on the recorder's axis
+    (us from its origin), each of its processes renumbered from
+    ``first_pid`` and named ``<file stem> <its name>``. The capture's clock
+    is the one of the meta line's two origins nearest its first event;
+    without them (an older file) nothing is merged."""
+    if "origin_ns" not in meta or "origin_wall_ns" not in meta:
+        return []
+    raw = json.loads(pathlib.Path(path).read_text())
+    base_ns = int(raw.get("baseTimeNanoseconds", 0))
+    events = [e for e in raw.get("traceEvents", []) if "pid" in e]
+    stamped = [e for e in events if e.get("ph") != "M" and "ts" in e]
+    if not stamped:
+        return []
+    first_ns = float(stamped[0]["ts"]) * 1e3 + base_ns
+    origin = min((meta["origin_ns"], meta["origin_wall_ns"]),
+                 key=lambda o: abs(first_ns - o))
+    shift_us = (base_ns - origin) / 1e3
+    stem = pathlib.Path(path).stem
+    pids: dict = {}
+    out = []
+    for e in events:
+        e = dict(e, pid=pids.setdefault(e["pid"], first_pid + len(pids)))
+        if e.get("ph") == "M":
+            if e.get("name") == "process_name":
+                name = e.get("args", {}).get("name", "")
+                e["args"] = dict(e.get("args", {}), name=f"{stem} {name}".strip())
+        elif "ts" in e:
+            e["ts"] = float(e["ts"]) + shift_us
+        out.append(e)
+    return out
+
+
 def export(run_dir, out_path=None) -> pathlib.Path:
-    """``telemetry.jsonl`` under ``run_dir`` -> ``run_dir/trace.json``."""
+    """``telemetry.jsonl`` under ``run_dir`` -> ``run_dir/trace.json``,
+    with the run's ``torch_profile/launch<k>.json`` captures merged on the
+    recorder's axis (``profile_events``)."""
     run_dir = pathlib.Path(run_dir)
     events = read_events(run_dir)
-    out_path = pathlib.Path(out_path) if out_path \
-        else (run_dir if run_dir.is_dir() else run_dir.parent) / "trace.json"
+    base = run_dir if run_dir.is_dir() else run_dir.parent
+    out_path = pathlib.Path(out_path) if out_path else base / "trace.json"
+    doc = to_chrome_trace(events)
+    meta = next((e for e in events if e.get("kind") == "meta"), {})
+    first_pid = 1 + max((e["pid"] for e in doc["traceEvents"]), default=0)
+    for path in sorted((base / "torch_profile").glob("launch*.json")):
+        merged = profile_events(path, meta, first_pid)
+        doc["traceEvents"] += merged
+        first_pid += len({e["pid"] for e in merged})
     with open(out_path, "w") as f:
-        json.dump(to_chrome_trace(events), f)
+        json.dump(doc, f)
     return out_path
+
+
+def layer_table(events) -> list:
+    """The report's per-layer lines from the run's ``layers`` counters:
+    by track and span, summed over launches, the count, device seconds,
+    self device seconds and share of the track's launch seconds; then each
+    counter's total."""
+    launch_us: dict = {}
+    for e in events:
+        if e.get("kind") == "span" and e["name"] == "launch":
+            launch_us[e["track"]] = launch_us.get(e["track"], 0) + e["dur_us"]
+    rows: dict = {}
+    totals: dict = {}
+    for e in events:
+        if e.get("kind") != "counter" or e["name"] != "layers":
+            continue
+        for name, t in e["values"].get("spans", {}).items():
+            r = rows.setdefault((e["track"], name), [0, 0.0, 0.0])
+            r[0] += t["count"]
+            r[1] += t["device_s"]
+            r[2] += t["self_device_s"]
+        for name, n in e["values"].get("counters", {}).items():
+            totals[name] = totals.get(name, 0) + n
+    if not rows and not totals:
+        return []
+    lines = [f"  {'layer':>18} {'track':>8} {'count':>7} {'device_s':>9} "
+             f"{'self_dev_s':>10} {'launch%':>8}"]
+    for (track, name), (n, dev, self_dev) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        launch_s = launch_us.get(track, 0) / 1e6
+        share = f"{100 * dev / launch_s:7.1f}%" if launch_s > 0 else f"{'-':>8}"
+        lines.append(f"  {name:>18} {track:>8} {n:7d} {dev:9.3f} {self_dev:10.3f} {share}")
+    for name, n in sorted(totals.items()):
+        lines.append(f"  {'counter':>18} {name}: {n}")
+    return lines
 
 
 def report(run_dir_or_events) -> str:
@@ -200,7 +288,7 @@ def report(run_dir_or_events) -> str:
                 f"{float(v.get('overlay_bytes', 0.0)) / 1e6:10.2f} "
                 f"{ratio} "
                 f"{float(v.get('sim_time_s', 0.0)):9.3f}")
-    return "\n".join(lines)
+    return "\n".join(lines + layer_table(events))
 
 
 def main(argv=None) -> int:
