@@ -19,8 +19,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (all at once, with an empty kernel for the launch floor and the baseline's
    kernels) into ``build/repro_torch/``; prints the build seconds, the
    compiler's register/spill report, and the count of tensor-core
-   instructions in the two flash kernels' machine code (``HGMMA`` in the
-   wgmma kernel, TF32 ``HMMA`` in the tf32x3 one: neither may be missing).
+   instructions in the flash kernels' machine code (``HGMMA`` in the wgmma
+   forward and in the backward, TF32 ``HMMA`` in the tf32x3 forward: none
+   may be missing).
 3. kernels — each kernel against its plain PyTorch version on the card:
    quant_aggregate bitwise at the shapes the FL path and the aggregation
    benchmark use, plus a ragged tail and a single client, with its launch
@@ -118,7 +119,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ragged shape; f32; B2 at rows of 5120 and qk-norm rows of 128), and
    under ``vmap(grad)`` over a dim of 1 and 2 against the loop (one launch
    each per call); their times beside SDPA and F.rms_norm forward and
-   forward + backward; then ``repro_torch.launch.train_fl_lm``'s temporal
+   forward + backward; B3's backward kernel at yi-34b's round shape (B 2,
+   S 4,096, 56/8 heads of 128) and the training shape (B 2, S 2,048, 40/8):
+   two calls bitwise, within GRAD_TOL of ``plain_bwd``, timed beside its
+   five-product bound, ``plain_bwd`` and SDPA forward + backward; then
+   ``repro_torch.launch.train_fl_lm``'s temporal
    FedAvgM rounds on qwen2.5-32b at its published width (d_model 5120,
    40/8 heads, d_ff 27648, vocab 152064, QKV bias), depth cut 64 -> 2,
    bf16: 4 clients, cohort 2, 2 local steps of 2 x 2048 tokens, 3 rounds on
@@ -1651,15 +1656,18 @@ def _leaves(tree):
 
 
 def _zero_counts(kernels):
-    """Every kernel's launch count and its counts by shape to 0, and B2's by
-    layout and B3's by kernel."""
-    for fn in kernels.values():
+    """Every kernel's launch count and its counts by shape to 0, B2's by
+    layout and B3's by kernel, and B3's backward's (``flash_attention_bwd``,
+    counted apart from ``kernels``: the paths that read its counts read them
+    by name)."""
+    from repro_torch.kernels import flash_attention as fa
+    for fn in (*kernels.values(), fa.flash_attention_bwd):
         fn.launches = 0
         fn.launches_by_shape = {}
     kernels["rmsnorm"].launches_by_layout = {k: 0 for k in
                                              kernels["rmsnorm"].launches_by_layout}
-    kernels["flash_attention"].launches_by_kernel = {
-        k: 0 for k in kernels["flash_attention"].launches_by_kernel}
+    for fn in (kernels["flash_attention"], fa.flash_attention_bwd):
+        fn.launches_by_kernel = {k: 0 for k in fn.launches_by_kernel}
 
 
 def shape_name(key) -> str:
@@ -2689,6 +2697,66 @@ def time_train_kernels(torch, flush):
     return rows
 
 
+# B3's backward kernel: yi-34b's int8 round (the benchmark's yi34b_l4_int8) and
+# the training phase's shape; B, S, H, KV, head dim, all causal at q_offset 0
+B3_BWD_SHAPES = {"yi34b_round": (2, 4096, 56, 8, 128), "train": (2, 2048, 40, 8, 128)}
+
+
+def time_b3_bwd(torch, flush):
+    """B3's backward kernel (``flash_attention_bwd``, bf16, causal) at
+    ``B3_BWD_SHAPES``: two calls bitwise equal, within GRAD_TOL of
+    ``plain_bwd``; its device ms beside the five-product bound
+    (``flash_attention.bwd_cost``), ``plain_bwd``'s ms and SDPA's forward +
+    backward (the library yardstick); both from the forward kernel's out
+    and lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rows = {}
+    for tag, (B, S, H, KV, D) in B3_BWD_SHAPES.items():
+        q, k, v, dout = (_randn(torch, s, bf16, 170 + i, dev) for i, s in enumerate(
+            [(B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)]))
+        out, lse = fa.flash_attention_fwd(q, k, v, 0, True)
+        args = (q, k, v, out, lse, dout)
+        before = fa.flash_attention_bwd.launches_by_kernel["wgmma"]
+        got = fa.flash_attention_bwd(*args, 0, True)
+        again = fa.flash_attention_bwd(*args, 0, True)
+        torch.cuda.synchronize()
+        if fa.flash_attention_bwd.launches_by_kernel["wgmma"] != before + 2:
+            raise AssertionError(f"b3 bwd {tag}: the kernel did not take both calls")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"b3 bwd {tag}: two calls differ")
+        plain = fa.plain_bwd(*args, 0, True)
+        errs = {f"d{n}": grad_close(torch, f"b3 bwd {tag} d{n}", g, p, GRAD_TOL["bfloat16"])
+                for n, g, p in zip("qkv", got, plain)}
+        del got, again, plain
+        sdout = dout.transpose(1, 2)
+
+        def lib_fb(*xs):   # as time_train_kernels' sdpa_fb: PyTorch picks the backend
+            xs = [x.detach().transpose(1, 2).requires_grad_() for x in xs]
+            o = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, xs, sdout)
+        flops, nbytes = fa.bwd_cost(B, S, S, H, KV, D, D, 0, True, 2)
+        r = {"shape": [B, S, S, H, KV, D, D], "causal": True, "bitwise_repeat": True,
+             "max_abs_err_vs_plain": errs,
+             "kernel_ms": time_device(lambda *a: fa.flash_attention_bwd(*a, 0, True), args,
+                                      20, flush, batch=5),
+             "kernel_call_ms": time_call(lambda *a: fa.flash_attention_bwd(*a, 0, True), args,
+                                         20, flush),
+             "plain_ms": time_device(lambda *a: fa.plain_bwd(*a, 0, True), args, 4, flush,
+                                     batch=2),
+             "library_fwd_bwd_ms": time_device(lib_fb, (q, k, v), 10, flush, batch=5),
+             "flops": flops, "bytes": nbytes}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        r["x_bound"] = r["kernel_ms"] / r["bound_ms"]
+        r["tflops_7_products"] = flops * 7 / 5 / (r["kernel_ms"] * 1e9)
+        log(f"kernel flash_attention bwd {tag}", json.dumps(r))
+        rows[tag] = r
+        del q, k, v, dout, out, lse, args, sdout
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_launches(T, n_layers: int, steps: int) -> dict:
     """B2 and B3 launches of ``steps`` local steps of a dense LM: a
     client's gradient recomputes each layer in the backward (a checkpoint
@@ -2709,9 +2777,11 @@ def phase_train_lm(torch, kernels, T=TRAIN):
     again, bitwise; then one warm round profiled."""
     from repro_torch.configs.base import FLConfig, get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train_fl_lm
     from repro_torch.metrics.logger import PerformanceLogger
     dev = torch.device("cuda")
+    bwd = fa.flash_attention_bwd
     torch.cuda.empty_cache()     # the earlier phases' cached blocks back to the card
     cfg = get_config(T["arch"]).replace(n_layers=T["n_layers"])
     fl = FLConfig(strategy=T["strategy"], n_clients=T["clients"],
@@ -2740,6 +2810,7 @@ def phase_train_lm(torch, kernels, T=TRAIN):
             before = {n: fn.launches for n, fn in kernels.items()}
             layouts = dict(kernels["rmsnorm"].launches_by_layout)
             flash = dict(kernels["flash_attention"].launches_by_kernel)
+            flash_bwd = dict(bwd.launches_by_kernel)
             state, logger = train_fl_lm.run_rounds(round_fn, state, lm, r, r + 1,
                                                    logger=logger, **kw)
             per_round.append({
@@ -2747,7 +2818,9 @@ def phase_train_lm(torch, kernels, T=TRAIN):
                 "rmsnorm_by_layout": {k: v - layouts[k] for k, v in
                                       kernels["rmsnorm"].launches_by_layout.items()},
                 "flash_by_kernel": {k: v - flash[k] for k, v in
-                                    kernels["flash_attention"].launches_by_kernel.items()}})
+                                    kernels["flash_attention"].launches_by_kernel.items()},
+                "flash_bwd_by_kernel": {k: v - flash_bwd[k] for k, v in
+                                        bwd.launches_by_kernel.items()}})
         return state, logger, per_round
 
     # the counted run; counts zeroed just before it and read just after. The
@@ -2761,17 +2834,31 @@ def phase_train_lm(torch, kernels, T=TRAIN):
     state, logger, per_round = run(handover.pop())
     launches = {n: fn.launches for n, fn in kernels.items()}
     flash_by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    bwd_by_kernel = dict(bwd.launches_by_kernel)
+    bwd_by_shape = named(bwd.launches_by_shape)
     norm_by_layout = dict(kernels["rmsnorm"].launches_by_layout)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses, round_s = logger.series("loss"), logger.series("round_s")
     L, steps = cfg.n_layers, T["cohort"] * T["local_steps"] * T["local_epochs"]
     want = {"quant_aggregate": 0, **train_launches(T, L, steps * T["rounds"])}
+    # the backward once a layer a local step (the recompute's forward is
+    # the second of that layer's forward launches), all on the route
+    # ``bwd_plan`` gives bf16 at the head dims launched: the kernel at
+    # 128/128, plain_bwd at MLA's absorbed 288/256
+    dims = {k[5:7] for k in bwd.launches_by_shape}
+    route = fa.bwd_plan(torch.bfloat16, *dims.pop()) if len(dims) == 1 else None
+    want_bwd = {"wgmma": 0, "plain": 0, route: L * steps * T["rounds"]}
     log(f"train launches {json.dumps(launches)} (want {json.dumps(want)}); flash by kernel "
-        f"{json.dumps(flash_by_kernel)}; rmsnorm by layout {json.dumps(norm_by_layout)}; "
-        f"per round {json.dumps(per_round[0])}")
+        f"{json.dumps(flash_by_kernel)}; flash bwd by kernel {json.dumps(bwd_by_kernel)} "
+        f"(want {json.dumps(want_bwd)}) by shape {json.dumps(bwd_by_shape)}; rmsnorm by "
+        f"layout {json.dumps(norm_by_layout)}; per round {json.dumps(per_round[0])}")
     if launches != want or flash_by_kernel["tf32x3"] != 0:
         raise AssertionError(f"train launches {launches} by kernel {flash_by_kernel}, "
                              f"want {want}, all flash on wgmma")
+    if bwd_by_kernel != want_bwd or bwd.launches != want_bwd.get(route):
+        raise AssertionError(f"train flash bwd launches {bwd.launches} by kernel "
+                             f"{bwd_by_kernel} at {bwd_by_shape}, want {want_bwd}, all on "
+                             f"bwd_plan's route")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train: non-finite losses {losses}")
     final = {k: v.cpu() for k, v in state["params"].items()}
@@ -2809,7 +2896,8 @@ def phase_train_lm(torch, kernels, T=TRAIN):
            "tokens_per_round": tokens,
            "tokens_per_s": [tokens / s for s in round_s], "peak_mem_gb": peak_gb,
            "launches": launches, "launches_per_round": per_round,
-           "flash_by_kernel": flash_by_kernel, "rmsnorm_by_layout": norm_by_layout,
+           "flash_by_kernel": flash_by_kernel, "flash_bwd_by_kernel": bwd_by_kernel,
+           "flash_bwd_by_shape": bwd_by_shape, "rmsnorm_by_layout": norm_by_layout,
            "bitwise_repeat": True, "profile": prof, "grad_memory": grad_mem}
     log(f"train {cfg.name}", json.dumps(out))
     if not out["loss_fell"]:
@@ -2903,19 +2991,24 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
             # B3's counts zeroed just before the round, read just after
             fa.flash_attention_fwd.launches_by_kernel = {k: 0 for k in fa.SOURCES}
             fa.flash_attention_fwd.launches_by_shape = {}
+            fa.flash_attention_bwd.launches_by_kernel = {"wgmma": 0, "plain": 0}
             state, logger = train_fl_lm.run_rounds(
                 round_fn, state, lm, 0, 1, clients=4, cohort=2, batch=2, seq=64,
                 local_steps=2, device=dev)
             out[tag] = (logger.series("loss")[0],
                         {k: v.cpu() for k, v in state["params"].items()},
                         dict(fa.flash_attention_fwd.launches_by_kernel),
-                        named(fa.flash_attention_fwd.launches_by_shape))
+                        named(fa.flash_attention_fwd.launches_by_shape),
+                        dict(fa.flash_attention_bwd.launches_by_kernel))
         # f32 on the card: two tf32x3 launches a layer per local step (cohort 2
-        # x 2), in the forward and in the backward's recompute of the layer
+        # x 2), in the forward and in the backward's recompute of the layer;
+        # the backward once a layer a local step, all on plain_bwd (f32)
         want_by_kernel = {"wgmma": 0, "tf32x3": 2 * cfg.n_layers * 4}
-        if out["card"][2] != want_by_kernel:
+        want_bwd = {"wgmma": 0, "plain": cfg.n_layers * 4}
+        if out["card"][2] != want_by_kernel or out["card"][4] != want_bwd:
             raise AssertionError(f"train card vs cpu {arch}: flash launches "
-                                 f"{out['card'][2]}, want {want_by_kernel}")
+                                 f"{out['card'][2]}, bwd {out['card'][4]}, want "
+                                 f"{want_by_kernel}, bwd {want_bwd}")
         loss_err = abs(out["card"][0] - out["cpu"][0])
         if loss_err > TRAIN_CARD_CPU_TOL * abs(out["cpu"][0]):
             raise AssertionError(f"train card vs cpu {arch}: losses {out['card'][0]} vs "
@@ -2924,6 +3017,7 @@ def phase_train_card_vs_cpu(torch, archs=("qwen2.5-32b", "chameleon-34b")):
                         TRAIN_CARD_CPU_TOL) for k, v in out["cpu"][1].items())
         res[arch] = {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
                      "max_abs_param_diff": err, "flash_by_kernel": out["card"][2],
+                     "flash_bwd_by_kernel": out["card"][4],
                      "flash_by_shape": out["card"][3],
                      "mla": cfg.attn_type == "mla"}
     log(f"train card vs cpu (reduced {', '.join(archs)}, f32, one temporal fedavgm round)",
@@ -5876,6 +5970,13 @@ def main() -> int:
     log(f"cuobjdump flash_attention: {hmma_tf32} TF32 HMMA (mma.sync) instructions")
     if hmma_tf32 == 0:
         raise AssertionError("the tf32x3 flash kernel holds no TF32 mma.sync instruction")
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(libs[fa.BWD_SOURCE])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"cuobjdump {fa.BWD_SOURCE}: {hgmma} HGMMA (wgmma) instructions")
+    if hgmma == 0:
+        raise AssertionError("the flash backward kernel holds no wgmma instruction")
 
     # 3. kernels vs plain versions
     rows = phase_kernels(torch, qa, extras)
@@ -5952,6 +6053,7 @@ def main() -> int:
     train_worst = check_train_kernels(torch)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     train_rows = time_train_kernels(torch, flush)
+    b3_bwd_rows = time_b3_bwd(torch, flush)
     del flush
     train = phase_train_lm(torch, kernels)
     train_cpu = phase_train_card_vs_cpu(torch)
@@ -6192,6 +6294,29 @@ def main() -> int:
         "worst_grad_err_checks": train_worst["flash_grads"],
         **{k: fl_row[k] for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
                                   "fwd_bwd_bound_ms", "library_fwd_bwd_ms")}})
+    # B3's backward kernel: its launches in the counted qwen2.5-32b train
+    # run (at the train shape), timed kernel-level there and at yi-34b's int8
+    # round's shape, which no path here launches
+    for tag, path in (("train", f"{train['arch']} train at {train['n_layers']} layers, "
+                                f"{TRAIN['rounds']} rounds"),
+                      ("yi34b_round", "kernel-level only: yi-34b's int8 FL round (the "
+                                      "benchmark's yi34b_l4_int8) at 2 x 4096")):
+        r = b3_bwd_rows[tag]
+        launches = train["flash_bwd_by_shape"].get(
+            shape_name(tuple(r["shape"]) + (True,)), 0)
+        if (launches == 0) != path.startswith("kernel-level only") or \
+                (tag == "train" and launches != train["flash_bwd_by_kernel"]["wgmma"]):
+            raise AssertionError(f"flash_attention_bwd {tag}: {launches} launches at "
+                                 f"{r['shape']} of {train['flash_bwd_by_shape']} ({path})")
+        entries.append({
+            "name": f"flash_attention_bwd_wgmma_{tag}", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.BWD_SOURCE}.cu",
+            "replaces": "src/repro/kernels/ops.py:108", "launches": launches,
+            "launches_path": path, "max_abs_err": max(r["max_abs_err_vs_plain"].values()),
+            "ms": r["kernel_ms"], "call_ms": r["kernel_call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_fwd_bwd_ms"], "bitwise": True, "shape": r["shape"],
+            "causal": True})
     for name, key, launches in (
             ("rmsnorm_train", "rmsnorm_train", train["launches"]["rmsnorm"]),
             # the qk-norm launches of the counted chameleon-34b serve run
@@ -6774,6 +6899,10 @@ def main() -> int:
                     "b1_rows": {tag: {k: r[k] for k in (
                         "C", "N", "kernel_ms", "kernel_call_ms", "plain_ms", "bound_ms",
                         "bound_by", "plan")} for tag, r in ms["b1_rows"].items()}}))
+    log(json.dumps({"slice": "20: B3's backward as a hand-written wgmma kernel (dK/dV and "
+                    "dQ each by its own kernel, no atomics): bitwise across calls, against "
+                    "plain_bwd, timed beside its bound, plain_bwd and SDPA forward + backward",
+                    "card": smi, "rows": b3_bwd_rows}))
     log(f"whole script: {time.perf_counter() - T_START:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -32,11 +32,17 @@ keeps scores in f32 and rounds P to bf16 before P V; the plain version,
 like ``_blockwise_fwd``, rounds the products of bf16 inputs to bf16 and P
 to bf16. Tolerances: 2e-5 in f32, 2e-2 in bf16 (``tests/test_kernels.py``).
 
-``plain_bwd`` is the gradient, a port of the JAX package's flash backward
-(``ops._blockwise_bwd``, jnp under ``jax.custom_vjp``: there is no Pallas
-backward kernel) in torch ops on either device. ``ops.flash_attention``
-puts the two together for autograd and ``torch.func``, handing the backward
-the forward's own ``lse``.
+``flash_attention_bwd`` is the gradient. ``plain_bwd``, a port of the JAX
+package's flash backward (``ops._blockwise_bwd``, jnp under
+``jax.custom_vjp``: there is no Pallas backward kernel) in torch ops, takes
+CPU tensors and the CUDA calls that ``bwd_plan`` leaves to it (f32, and
+head dims other than 64 and 128: MLA's); bf16 with Dk, Dv in ``BWD_DIMS``
+launches the hand-written ``csrc/flash_attention_bwd.cu`` (``"wgmma"``):
+scores, probabilities and their gradients kept in registers, dK/dV and dQ
+each by its own kernel so that no sum needs a float atomic and every run
+gives the same bits. ``ops.flash_attention`` puts forward and backward
+together for autograd and ``torch.func``, handing the backward the
+forward's own ``lse``.
 """
 from __future__ import annotations
 
@@ -61,6 +67,11 @@ WGMMA_TILES = ((1, 1), (2, 1), (4, 1), (4, 2), (6, 1), (8, 1), (8, 2), (18, 4))
 # m-tiles of 16 rows a warp, keys a block), in the order launch_plan tries them
 TF32X3_TILES = ((32, 32, 2, 64), (64, 64, 2, 64), (128, 64, 2, 32), (128, 128, 2, 32),
                 (288, 128, 2, 16), (288, 256, 1, 32), (288, 288, 1, 32))
+BWD_SOURCE = "flash_attention_bwd"
+# csrc/flash_attention_bwd.cu's FA_BWD_DIMS: the (Dk, Dv) its kernels are
+# built for, the ones its entry point launches
+BWD_DIMS = ((64, 64), (64, 128), (128, 64), (128, 128))
+BWD_PAD = 128                   # the kernel's per-row workspaces: Sq rounded up to this
 
 
 class Plan(NamedTuple):
@@ -132,6 +143,14 @@ def launch_plan(dtype: torch.dtype, Dk: int, Dv: int, kernel: str | None = None)
         f"{f' as {kernel!r} asks' if kernel else ''}: the tf32x3 kernel takes each up to "
         f"{MAX_HEAD_DIM}, the wgmma kernel bf16 multiples of 8 within {WGMMA_TILES} "
         f"(k-steps of 16, panels of 64)")
+
+
+def bwd_plan(dtype: torch.dtype, Dk: int, Dv: int) -> str:
+    """The route of a CUDA backward, from dtype and head dims alone: bf16
+    with (Dk, Dv) in ``BWD_DIMS`` takes the kernel, "wgmma"
+    (``BWD_SOURCE``); everything else (f32, MLA's 288/256 and 96/64, the
+    reduced configs' dims) "plain" (``plain_bwd``)."""
+    return "wgmma" if dtype == torch.bfloat16 and (Dk, Dv) in BWD_DIMS else "plain"
 
 
 def plain(q, k, v, q_offset: int = 0, causal: bool = True, scale=None,
@@ -261,21 +280,38 @@ def _check(q, k, v, q_offset):
         raise ValueError(f"flash_attention wants q_offset >= 0, got {q_offset}")
 
 
+def _pairs(Sq: int, Sk: int, q_offset: int, causal: bool) -> tuple:
+    """(query, key) pairs the mask lets through (under a causal mask, q row
+    i at ``q_offset + i`` sees keys 0 .. q_offset + i) and the keys any row
+    reaches."""
+    if not causal:
+        return Sq * Sk, Sk
+    full = min(max(Sk - q_offset, 0), Sq)        # rows whose keys end inside Sk
+    return full * q_offset + full * (full + 1) // 2 + (Sq - full) * Sk, min(Sk, q_offset + Sq)
+
+
 def cost(B: int, Sq: int, Sk: int, H: int, KV: int, Dk: int, Dv: int, q_offset: int,
          causal: bool, esize: int) -> tuple:
     """(operations, bytes) of one forward: 2 (Dk + Dv) operations for each
-    (query, key) pair the mask lets through (under a causal mask, q row i at
-    ``q_offset + i`` sees keys 0 .. q_offset + i), for every batch row and
-    head; q, out, the K/V rows the mask reaches read or written once in
-    elements of ``esize`` bytes, and the f32 lse."""
-    if causal:
-        full = min(max(Sk - q_offset, 0), Sq)        # rows whose keys end inside Sk
-        pairs = full * q_offset + full * (full + 1) // 2 + (Sq - full) * Sk
-        keys = min(Sk, q_offset + Sq)
-    else:
-        pairs, keys = Sq * Sk, Sk
+    (query, key) pair the mask lets through, for every batch row and head;
+    q, out, the K/V rows the mask reaches read or written once in elements
+    of ``esize`` bytes, and the f32 lse."""
+    pairs, keys = _pairs(Sq, Sk, q_offset, causal)
     nbytes = (B * Sq * H * (Dk + Dv) + B * keys * KV * (Dk + Dv)) * esize + B * H * Sq * 4
     return 2 * B * H * pairs * (Dk + Dv), nbytes
+
+
+def bwd_cost(B: int, Sq: int, Sk: int, H: int, KV: int, Dk: int, Dv: int, q_offset: int,
+             causal: bool, esize: int) -> tuple:
+    """(operations, bytes) of one backward: the five products a pair the
+    gradient needs (the scores again, dP, dV, dQ, dK: 2 (3 Dk + 2 Dv)
+    operations; the kernel recomputes two of them, 7 in all, so that no sum
+    needs an atomic); q, dq, out, dout and the K/V rows the mask reaches
+    with dk and dv moved once, and the f32 lse read once."""
+    pairs, keys = _pairs(Sq, Sk, q_offset, causal)
+    nbytes = (2 * B * Sq * H * (Dk + Dv) + 2 * B * keys * KV * (Dk + Dv)) * esize \
+        + B * H * Sq * 4
+    return 2 * B * H * pairs * (3 * Dk + 2 * Dv), nbytes
 
 
 def flash_attention_fwd(q, k, v, q_offset: int = 0, causal: bool = True,
@@ -371,5 +407,100 @@ def _entry(name):
     fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: int = 0, causal: bool = True,
+                        scale=None):
+    """Gradients (dq, dk, dv), in q's, k's and v's dtypes, of the attention
+    whose forward gave ``out`` and ``lse`` (B,H,Sq), against ``dout``.
+
+    CPU tensors take ``plain_bwd``; CUDA tensors take the route ``bwd_plan``
+    names: the kernel, launched on the current stream (no synchronisation)
+    or raising, or ``plain_bwd``. Each CUDA call adds one to
+    ``flash_attention_bwd.launches``, to its route's entry in
+    ``launches_by_kernel`` and to its shape's, ``(B, Sq, Sk, H, KV, Dk, Dv,
+    causal)``, in ``launches_by_shape``. Meta tensors (a dry run) pass the
+    same checks and get the outputs, counted nowhere; on either, the kernel
+    route records ``bwd_cost`` in an open ``launch/op_cost.cost_scope``
+    (``plain_bwd``'s torch ops count themselves)."""
+    _check(q, k, v, q_offset)
+    dev = q.device
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu or cuda (or meta, for a dry run), "
+                         f"not {dev}")
+    kernel = "plain" if dev.type == "cpu" else bwd_plan(q.dtype, q.shape[-1], v.shape[-1])
+    if kernel == "plain":
+        grads = plain_bwd(q, k, v, out, lse, dout, int(q_offset), causal, scale)
+    else:
+        grads = _launch_bwd(q, k, v, out, lse, dout, q_offset, causal, scale)
+    key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+           bool(causal))
+    if dev.type == "cuda":
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.launches_by_kernel[kernel] += 1
+        flash_attention_bwd.launches_by_shape[key] = \
+            flash_attention_bwd.launches_by_shape.get(key, 0) + 1
+    if kernel == "wgmma" and op_cost.active():
+        op_cost.record_kernel("flash_attention_bwd", key,
+                              *bwd_cost(*key[:-1], int(q_offset), causal, q.element_size()))
+    return grads
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kernel = {"wgmma": 0, "plain": 0}
+flash_attention_bwd.launches_by_shape = {}
+
+
+def _launch_bwd(q, k, v, out, lse, dout, q_offset, causal, scale):
+    """Launch the backward kernel on checked CUDA tensors that ``bwd_plan``
+    gives it; counts nothing (the public wrapper does). Meta tensors get
+    the outputs, unlaunched."""
+    dev = q.device
+    B, Sq, H, Dk = q.shape
+    _, Sk, KV, Dv = v.shape
+    if out.shape != (B, Sq, H, Dv) or dout.shape != out.shape or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward wants out and dout {(B, Sq, H, Dv)} in "
+                         f"{q.dtype}; got {tuple(out.shape)} {out.dtype}, "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward wants the forward's f32 lse "
+                         f"{(B, H, Sq)}; got {tuple(lse.shape)} {lse.dtype}")
+    tensors = (q, k, v, out, dout, lse)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention backward wants contiguous q, k, v, out, dout, lse")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the flash-attention backward kernel loads its tiles by TMA and "
+                         "wants 16-byte aligned q, k, v, out, dout, lse")
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(Dk))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dev.type == "meta":
+        return dq, dk, dv
+    if 0 in (B, Sq, Sk, H):        # nothing to sum over: zero gradients
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    ws = torch.empty((2, B, H, -(-Sq // BWD_PAD) * BWD_PAD), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws[0].data_ptr(),
+            ws[1].data_ptr(), B, Sq, Sk, H, KV, Dk, Dv, int(q_offset), int(bool(causal)),
+            scale, stream)
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(f"the flash-attention backward kernel refused Dk={Dk}, Dv={Dv}: "
+                           f"BWD_DIMS differs from the source's FA_BWD_DIMS")
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {rc}")
+    return dq, dk, dv
+
+
+def _bwd_entry():
+    """The C entry point ``flash_attention_bwd_launch`` of ``csrc/<BWD_SOURCE>.cu``."""
+    from repro_torch.kernels import build
+    fn = build.load(BWD_SOURCE).flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

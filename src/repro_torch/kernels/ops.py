@@ -12,15 +12,18 @@ the lanes) into ONE ``(S, C, N)`` launch of the kernel.
 
 ``rmsnorm`` and ``flash_attention`` are differentiable: each is a
 ``torch.autograd.Function`` whose forward launches the kernel (or, on the
-CPU, takes its plain version), whose backward is the gradient in torch ops
-(``rmsnorm.backward``, ``flash_attention.plain_bwd``; the JAX package has
-no backward kernel; each under a layer span, ``rmsnorm.bwd`` and
-``attn.bwd``, with its shape after the vmap fold), and whose vmap rule folds the vmapped dim into the
-kernel's rows or batch, so they run under the FL rounds'
-``vmap(grad_and_value(...))``. (A ``torch.library.custom_op``'s autograd
-rule is refused under ``torch.func`` transforms: it does not override
-``setup_context``.) Under ``torch.utils.checkpoint`` (an LM client's
-rematerialized step) their forward runs again in the backward's recompute:
+CPU, takes its plain version), whose backward is the gradient (the JAX
+package has no backward kernel): B2's in torch ops (``rmsnorm.backward``),
+B3's a hand-written kernel where ``flash_attention.bwd_plan`` routes it
+(bf16 at head dims 64 and 128), else torch ops (``plain_bwd``; f32, MLA's
+dims, every CPU call). Each backward runs under a layer span,
+``rmsnorm.bwd`` and ``attn.bwd``, with its shape after the vmap fold. The
+vmap rule folds the vmapped dim into the kernel's rows or batch, so they
+run under the FL rounds' ``vmap(grad_and_value(...))``. (A
+``torch.library.custom_op``'s autograd rule is refused under
+``torch.func`` transforms: it does not override ``setup_context``.)
+Under ``torch.utils.checkpoint`` (an LM client's rematerialized step)
+their forward runs again in the backward's recompute:
 ``setup_context`` keeps only the saved tensors and Python scalars, so the
 second forward is the first at the same shapes, gives its bits, and its
 launch is counted as the first's is.
@@ -226,7 +229,7 @@ class _FlashAttention(torch.autograd.Function):
                 q_offset, causal, _ = ctx.args
                 sp.attrs["shape"] = (B, Sq, Sk, H, KV, Dk, Dv, causal, q_offset,
                                      q.element_size())
-            dq, dk, dv = _fa.plain_bwd(q, k, v, out, lse, dout, *ctx.args)
+            dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None
 
     @staticmethod
@@ -241,6 +244,34 @@ class _FlashAttention(torch.autograd.Function):
                                          fold(v, in_dims[2]), q_offset, causal, scale)
         return ((out.reshape(n, -1, *out.shape[1:]), lse.reshape(n, -1, *lse.shape[1:])),
                 (0, 0))
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """B3's backward as a function of its own: under ``vmap(grad(...))``
+    autograd calls ``_FlashAttention.backward`` on batched tensors, and
+    this vmap rule folds the vmapped dim into B (one launch), as the
+    forward's does. It has no backward of its own: B3 is differentiated
+    once."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, q_offset, causal, scale):
+        return _fa.flash_attention_bwd(*map(_dense, (q, k, v, out, lse, dout)), q_offset,
+                                       causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, q_offset, causal, scale):
+        n = info.batch_size
+
+        def fold(t, d):
+            t = _lead(t, d, n)
+            return t.reshape(n * t.shape[1], *t.shape[2:])
+        grads = _FlashAttentionBwd.apply(*map(fold, (q, k, v, out, lse, dout), in_dims[:6]),
+                                         q_offset, causal, scale)
+        return tuple(g.reshape(n, -1, *g.shape[1:]) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True,

@@ -69,13 +69,20 @@ def _block(nbytes: int) -> int:
     return 0 if nbytes == 0 else ALLOC_ROUND * math.ceil(nbytes / ALLOC_ROUND)
 
 
+def _is_cost_counter_dispatch(frame) -> bool:
+    return frame.f_code.co_name == "__torch_dispatch__" and \
+        isinstance(frame.f_locals.get("self"), op_cost._OpCounter)
+
+
 def _issued_by_autograd_engine() -> bool:
     """Whether the op being dispatched comes from the autograd engine
     itself (a gradient accumulation, a built-in derivative), not from a
     Python function: the Python frames between the dispatch and the
-    engine's entry are all PyTorch's own."""
+    engine's entry are all PyTorch's own or ``op_cost``'s counter's
+    dispatch (it runs above ``LiveBytes`` in ``measure``)."""
     f = sys._getframe(2)
-    while f is not None and f.f_code.co_filename.startswith(_TORCH_DIR):
+    while f is not None and (f.f_code.co_filename.startswith(_TORCH_DIR) or
+                             _is_cost_counter_dispatch(f)):
         if f.f_code.co_name == "_engine_run_backward":
             return True
         f = f.f_back

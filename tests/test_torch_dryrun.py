@@ -503,6 +503,44 @@ def test_live_bytes_counts_an_engine_sum_in_place():
     assert mem.peak <= 3 * 4096 + 4 * 512
 
 
+def test_live_bytes_counts_engine_writes_in_place_under_the_cost_counter():
+    """As ``measure`` runs a meta step: ``op_cost``'s counter dispatches
+    above ``LiveBytes``. The engine's sum and ``gather``'s backward (a
+    ``scatter_add`` into zeros, as the loss's vocab gather takes it) still
+    count as done in place, as the card does them."""
+    from repro_torch.launch import dryrun, op_cost
+    x = torch.empty(1024, device="meta", requires_grad=True)
+    with dryrun.LiveBytes("meta") as mem, op_cost.cost_scope():
+        y = x * 2
+        z = (y * 3).sum() + (y * 4).sum()
+        (g,) = torch.autograd.grad(z, x)
+    assert mem.peak <= 3 * 4096 + 4 * 512
+    x = torch.empty(4096, 40, device="meta", requires_grad=True)
+    idx = torch.zeros(4096, 1, dtype=torch.long, device="meta")
+    with dryrun.LiveBytes("meta") as mem, op_cost.cost_scope():
+        mem.track(x)
+        (g,) = torch.autograd.grad(x.gather(1, idx).sum(), x)
+    # x and its gradient, not a third buffer of x's size
+    assert mem.peak < 3 * x.numel() * 4
+
+
+def test_live_bytes_walks_through_no_other_mode_to_the_engine():
+    """Only ``op_cost``'s counter stands between ``LiveBytes`` and the
+    engine: under any other mode the op was issued by that mode's Python
+    code, so the engine's sum counts out of place."""
+    from repro_torch.launch import dryrun
+
+    class Passthrough(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+    x = torch.empty(1024, device="meta", requires_grad=True)
+    with dryrun.LiveBytes("meta") as mem, Passthrough():
+        y = x * 2
+        z = (y * 3).sum() + (y * 4).sum()
+        (g,) = torch.autograd.grad(z, x)
+    assert mem.peak > 3 * 4096 + 4 * 512
+
+
 def test_fake_world_names_the_module_it_needs(monkeypatch):
     from repro_torch.launch import mesh as mesh_mod
     monkeypatch.setitem(sys.modules, "torch.testing._internal.distributed.fake_pg", None)

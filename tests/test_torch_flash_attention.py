@@ -413,3 +413,104 @@ def test_flash_backward_under_vmap_matches_the_loop(n):
         want = grad(f, argnums=(0, 1, 2))(q[i], k[i], v[i], dout[i])
         for g, w in zip(got, want):
             torch.testing.assert_close(g[i], w, atol=1e-6, rtol=1e-6)
+
+
+# -- the backward's route: the kernel for bf16 at head dims 64 and 128 -------
+
+@pytest.mark.parametrize("dtype,Dk,Dv,kernel", [
+    (torch.bfloat16, 128, 128, "wgmma"),     # yi-34b, qwen2.5, chameleon, qwen3-moe, jamba
+    (torch.bfloat16, 64, 64, "wgmma"),       # whisper-base
+    (torch.bfloat16, 128, 64, "wgmma"),
+    (torch.bfloat16, 64, 128, "wgmma"),
+    (torch.float32, 128, 128, "plain"),      # the tf32x3 configs
+    (torch.float32, 64, 64, "plain"),
+    (torch.bfloat16, 288, 256, "plain"),     # MLA absorbed
+    (torch.bfloat16, 96, 64, "plain"),       # MLA expanded
+    (torch.bfloat16, 16, 16, "plain"),       # the reduced configs
+    (torch.bfloat16, 24, 16, "plain"),
+])
+def test_bwd_plan_routes_by_dtype_and_head_dims(dtype, Dk, Dv, kernel):
+    assert fa.bwd_plan(dtype, Dk, Dv) == kernel
+    assert (kernel == "wgmma") == ((Dk, Dv) in fa.BWD_DIMS and dtype == torch.bfloat16)
+
+
+def test_bwd_dims_are_the_sources_own():
+    """``BWD_DIMS`` is the list the C entry point launches, and
+    ``BWD_PAD`` the padding of the workspaces the kernels read."""
+    import pathlib
+    import re
+    text = (pathlib.Path(fa.__file__).resolve().parents[1] / "csrc" /
+            f"{fa.BWD_SOURCE}.cu").read_text()
+    body = re.search(r"#define FA_BWD_DIMS\(X\)([^\n]*)", text).group(1)
+    assert tuple(tuple(int(x) for x in m.split(",")) for m in
+                 re.findall(r"X\(([\d, ]+)\)", body)) == fa.BWD_DIMS
+    assert int(re.search(r"constexpr int kPad = (\d+);", text).group(1)) == fa.BWD_PAD
+    assert set(fa.flash_attention_bwd.launches_by_kernel) == {"wgmma", "plain"}
+
+
+def _bwd_args(B, Sq, Sk, H, KV, Dk, Dv, dtype, device):
+    q, k, v = (torch.zeros(s, dtype=dtype, device=device) for s in
+               ((B, Sq, H, Dk), (B, Sk, KV, Dk), (B, Sk, KV, Dv)))
+    out = torch.zeros((B, Sq, H, Dv), dtype=dtype, device=device)
+    lse = torch.zeros((B, H, Sq), dtype=torch.float32, device=device)
+    return q, k, v, out, lse, out.clone()
+
+
+@pytest.mark.parametrize("Dk,Dv,dtype", [(128, 128, torch.bfloat16), (64, 128, torch.bfloat16),
+                                         (288, 256, torch.bfloat16), (64, 64, torch.float32)])
+def test_backward_on_meta_gives_the_shapes_and_counts_no_launch(Dk, Dv, dtype):
+    """A dry run's backward: the gradients' shapes and dtypes, no launch
+    counted; the kernel's route records ``bwd_cost``, the plain route its
+    torch ops."""
+    from repro_torch.launch import op_cost
+    B, Sq, Sk, H, KV = 2, 40, 100, 8, 2
+    args = _bwd_args(B, Sq, Sk, H, KV, Dk, Dv, dtype, "meta")
+    before = (fa.flash_attention_bwd.launches, dict(fa.flash_attention_bwd.launches_by_kernel))
+    with op_cost.cost_scope() as c:
+        dq, dk, dv = fa.flash_attention_bwd(*args, Sk - Sq, True)
+    for g, t in zip((dq, dk, dv), args[:3]):
+        assert g.device.type == "meta" and g.shape == t.shape and g.dtype == t.dtype
+    assert (fa.flash_attention_bwd.launches,
+            fa.flash_attention_bwd.launches_by_kernel) == before
+    if fa.bwd_plan(dtype, Dk, Dv) == "wgmma":
+        e = c.by_kernel["flash_attention_bwd"]
+        assert e["launches"] == 1 and (e["flops"], e["bytes"]) == fa.bwd_cost(
+            B, Sq, Sk, H, KV, Dk, Dv, Sk - Sq, True, 2)
+    else:
+        assert "flash_attention_bwd" not in c.by_kernel and c.flops > 0
+
+
+def test_backward_through_autograd_on_meta_counts_no_launch():
+    """``ops.flash_attention`` differentiated on the meta device (a dry
+    run's train step) at yi-34b's head dims: shapes, and nothing counted."""
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16, device="meta", requires_grad=True)
+               for s in ((1, 64, 8, 128), (1, 64, 2, 128), (1, 64, 2, 128)))
+    before = fa.flash_attention_bwd.launches
+    grads = torch.autograd.grad(ops.flash_attention(q, k, v).float().sum(), (q, k, v))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert fa.flash_attention_bwd.launches == before
+
+
+def test_backward_kernel_refuses_what_it_does_not_take():
+    args = _bwd_args(1, 16, 16, 4, 2, 128, 128, torch.bfloat16, "meta")
+    with pytest.raises(ValueError, match="lse"):
+        fa._launch_bwd(*args[:4], args[4][..., :8], args[5], 0, True, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._launch_bwd(*args[:5], args[5].transpose(1, 2).contiguous().transpose(1, 2),
+                       0, True, None)
+    with pytest.raises(ValueError, match="out and dout"):
+        fa._launch_bwd(*args[:3], args[3].float(), *args[4:], 0, True, None)
+
+
+def test_cpu_backward_takes_plain_and_counts_nothing():
+    """CPU tensors never reach the kernel, whatever their head dims."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(1, 32, 32, 4, 2, 128, 128, seed=11))
+    out, lse = fa.plain(q, k, v)
+    dout = torch.from_numpy(np.random.RandomState(12).randn(1, 32, 4, 128)).to(torch.bfloat16)
+    before = (fa.flash_attention_bwd.launches, dict(fa.flash_attention_bwd.launches_by_kernel))
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = fa.plain_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fa.flash_attention_bwd.launches,
+            fa.flash_attention_bwd.launches_by_kernel) == before

@@ -782,6 +782,61 @@ def test_flash_forward_and_backward_match_autograd_of_plain(cuda, B, Sq, Sk, H, 
         _grad_close(got, want, GRAD_TOL[dtype])
 
 
+def _dense_attention_grads(q, k, v, dout, q_offset, causal, scale):
+    """(dq, dk, dv) by f32 autograd of a dense attention on the card: the
+    yardstick both backwards' errors are measured against."""
+    B, Sq, H, Dk = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    x = [t.float().requires_grad_() for t in (q, k, v)]
+    qh = x[0].transpose(1, 2)
+    kh, vh = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1) for t in x[1:])
+    s = qh @ kh.transpose(-1, -2) * scale
+    if causal:
+        pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        s = s.masked_fill(pos < torch.arange(Sk, device=q.device)[None], float("-inf"))
+    o = (torch.softmax(s, dim=-1) @ vh).transpose(1, 2)
+    return torch.autograd.grad(o, x, dout.float())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dk,Dv,causal", [
+    (2, 512, 512, 56, 8, 128, 128, True),       # yi-34b's heads
+    (1, 1024, 1024, 56, 8, 128, 128, True),     # G = 7 over several q and key tiles
+    (1, 300, 300, 8, 2, 64, 64, True),          # ragged Sq = Sk
+    (1, 512, 2048, 56, 8, 128, 128, True),      # one rank's 512 of 2,048 rows at 1,536
+    (2, 187, 1500, 8, 8, 64, 64, False),        # whisper's cross-attention
+    (1, 256, 256, 8, 2, 128, 64, True),         # Dk != Dv
+    (1, 192, 192, 8, 2, 64, 128, True),
+])
+def test_flash_backward_kernel_beats_plain_against_f32_and_repeats_bitwise(
+        cuda, B, Sq, Sk, H, KV, Dk, Dv, causal):
+    """The backward kernel against f32 autograd of a dense attention, from
+    the forward kernel's out and lse: its error at most ``plain_bwd``'s
+    (which also rounds the scores and products to bf16), within GRAD_TOL of
+    the plain version, two calls bitwise equal (no atomics), one launch a
+    call."""
+    dtype, off = torch.bfloat16, Sk - Sq
+    q, k, v = (_randn(s, dtype, cuda, i) for i, s in enumerate(
+        [(B, Sq, H, Dk), (B, Sk, KV, Dk), (B, Sk, KV, Dv)]))
+    dout = _randn((B, Sq, H, Dv), dtype, cuda, 9)
+    out, lse = fa.flash_attention_fwd(q, k, v, off, causal)
+    want = _dense_attention_grads(q, k, v, dout, off, causal, Dk ** -0.5)
+    key = (B, Sq, Sk, H, KV, Dk, Dv, causal)
+    before = (fa.flash_attention_bwd.launches_by_kernel["wgmma"],
+              fa.flash_attention_bwd.launches_by_shape.get(key, 0))
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, off, causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, off, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.launches_by_kernel["wgmma"],
+            fa.flash_attention_bwd.launches_by_shape[key]) == (before[0] + 2, before[1] + 2)
+    plain = fa.plain_bwd(q, k, v, out, lse, dout, off, causal)
+    for g, a, p, w in zip(got, again, plain, want):
+        assert g.dtype == dtype and g.shape == p.shape
+        assert torch.equal(g, a)
+        err, plain_err = ((t.float() - w).abs().max().item() for t in (g, p))
+        assert err <= 1.1 * plain_err + 1e-3 * w.abs().max().item(), (err, plain_err)
+        _grad_close(g, p, GRAD_TOL[dtype])
+
+
 @pytest.mark.parametrize("rows,D", [((2, 64, 5120), 5120), ((2, 64, 40, 128), 128),
                                     ((3, 64), 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
